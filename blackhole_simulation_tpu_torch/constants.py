@@ -1,0 +1,9 @@
+"""Physical constants the port needs (CODATA 2018, SI).
+
+The port's own copy of the values in ``blackhole_simulation_tpu.constants``:
+the port imports nothing of the JAX package.
+"""
+
+C_SI = 299_792_458.0                 # speed of light, m/s
+K_B = 1.380_649e-23                  # Boltzmann, J/K
+H_PLANCK = 6.626_070_15e-34          # Planck, J s

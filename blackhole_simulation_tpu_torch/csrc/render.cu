@@ -1,0 +1,697 @@
+// Fused render kernel for Hopper (sm_90a): ray birth -> null projection ->
+// Chebyshev shadow precull -> geodesic march -> disk / starfield /
+// photon-ring composite, one thread per pixel.
+//
+// Replaces blackhole_simulation_tpu/ops/pallas_render.py::_render_kernel
+// (the Pallas TPU megakernel, with the march loop of
+// ops/pallas_march.py::march_tile). The plain PyTorch version of the same
+// function is ops/render.py::render_planes; every expression below is
+// written in its order, so the two round alike. Built by ops/build.py with
+// nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false (no
+// --use_fast_math: divides, sqrtf, expf and logf stay IEEE/full precision;
+// FMA contraction stays off so each operation rounds as the plain version's
+// does) and loaded through ctypes.
+//
+// What bounds it on the H100: FP32 arithmetic. Its only memory traffic is a
+// 4 KB parameter row (every thread reads the same words, served by the L1)
+// and three float32 output planes, 12 bytes per pixel. Each march step costs
+// a few hundred FP32 operations per ray (two right-hand sides of the
+// Kerr-Schild Hamiltonian with midpoint_iters = 1, the adaptive step size and
+// the crossing record), so the least time is (operations per step) x (sum of
+// steps over all rays) / (the card's FP32 rate); chip_smoke.py computes it
+// from the step counts of the run.
+//
+// Design for the card:
+// * One thread per pixel. The ray state (7 values), hit, steps, the crossing
+//   count, r_min and the K <= 4 crossing slots live in registers; the slot
+//   loops are unrolled so their indices are compile-time.
+// * Each warp covers an 8 x 4 pixel patch (a block of 4 warps covers 16 x 8
+//   pixels). A warp retires when its slowest ray does, so compact patches
+//   keep sky and shadow-interior warps short: the GPU form of the Pallas
+//   kernel's per-tile early exit. Each thread runs
+//   while (i < max_steps && hit == NONE), so no overshoot steps exist.
+// * The periodic null renormalization runs after step i when
+//   (i + 1) % renormalize_every == 0 and the ray is still live, the cadence
+//   of the Pallas kernel's block-boundary hoist.
+// * The parameter row stays in device memory; the static configuration
+//   comes by value in RenderStatic. Ragged frame edges are masked here;
+//   nothing is padded in memory.
+// * approx_recip: 1/S, 1/w and the step's two divides use rcp.approx.ftz.f32,
+//   as the Pallas kernel uses the TPU's approximate reciprocal. Every other
+//   division is exact.
+// * sqrtf is IEEE (correctly rounded); sin and cos go through double and
+//   round once. The plain version computes these three the same way, so
+//   that a last-bit difference cannot grow along a chaotic orbit or move a
+//   sub-pixel star spot.
+// * Every division is a division (IEEE), constants included: each JAX
+//   operation on its own rounds so (XLA's whole-program rewrites aside).
+// * NaN handling follows jnp: maximum/minimum/clip propagate NaN (fmaxf and
+//   fminf would drop it, and the march's sanity freeze relies on NaN reaching
+//   isfinite). The floored modulo is jnp.mod's own: fmodf, then shifted by
+//   the divisor where the signs differ.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+// Constants are written as (float)(double literal): rounded to float32 from
+// the double value, as PyTorch and JAX round a Python float.
+#define F(x) ((float)(x))
+
+// Parameter-row layout (ops/render.py, pallas_render.py:62-110).
+#define P_M 0
+#define P_A 1
+#define P_RH 2
+#define P_RPH 3
+#define P_ISCO 4
+#define P_STOPR 5
+#define P_HORTHR 6
+#define P_R0 7
+#define P_U0 8
+#define P_S0 9
+#define P_PH0 10
+#define P_K1 11
+#define P_K2 12
+#define P_ROLLC 13
+#define P_ROLLS 14
+#define P_JX 15
+#define P_JY 16
+#define P_C0 17
+#define P_CR 21
+#define P_CTH 25
+#define P_CPH 29
+#define P_CHEB_MID 33
+#define P_CHEB_HALF 34
+#define P_LAM_LO 35
+#define P_LAM_HI 36
+#define P_FLIP 37
+#define P_INV_LOGR 39
+#define P_ETA 40
+#define CHEB_K 32
+#define P_TSHAPE (P_ETA + CHEB_K)
+#define SPEC_K 16
+#define P_RGB (P_TSHAPE + SPEC_K)
+#define CHEB_ERR 0.03
+
+#define HIT_NONE 0
+#define HIT_HORIZON 1
+#define HIT_ESCAPE 2
+#define KMAX 4
+
+#define PATCH_W 8
+#define PATCH_H 4
+#define BLOCK_W 16
+#define BLOCK_H 8
+#define THREADS 128
+
+// Must match ops/render.py::_CRenderStatic field for field.
+struct RenderStatic {
+  int width, height, max_steps, renormalize_every, max_crossings,
+      midpoint_iters, approx_recip, precull, disk_on, spectral, starfield,
+      glow, artistic, far_cap_on, beam_k, beam_n, beam_neg, outer_k,
+      outer_n, outer_neg;
+  float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
+      escape_radius, escape_sanity_r, record_r_min, record_r_max,
+      disk_outer_radius, disk_density, disk_t_peak, disk_beaming, disk_turb,
+      disk_one_minus_turb, disk_softness, disk_outer_pow, disk_edge_width,
+      nt_peak, art_r, art_g, art_b, star_brightness, star_nebula, star_freq0,
+      star_freq1, star_thr0, star_thr1;
+};
+
+// ---------------------------------------------------------------------------
+// jnp semantics
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+  return jmin(jmax(x, lo), hi);
+}
+__device__ __forceinline__ float fmod_floor(float x, float y) {
+  float md = fmodf(x, y);
+  if (md != 0.0f && ((md < 0.0f) != (y < 0.0f))) md += y;
+  return md;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float recip(float x, bool approx) {
+  return approx ? rcp_approx(x) : 1.0f / x;
+}
+__device__ __forceinline__ float divr(float num, float den, bool approx) {
+  return approx ? num * rcp_approx(den) : num / den;
+}
+
+// ---------------------------------------------------------------------------
+// Step math (ops/ks_kernel.py), p_t = -1
+// ---------------------------------------------------------------------------
+
+__device__ void ks_rhs(float m, float a, float r, float u, float pr, float pu,
+                       float pph, bool approx, float d[6]) {
+  const float pt = -1.0f;
+  float w = jmax(1.0f - u * u, F(1e-6));
+  float S = r * r + a * a * u * u;
+  float D = r * r - 2.0f * m * r + a * a;
+  float inv_S = recip(S, approx);
+  float h = 2.0f * m * r * inv_S;
+  float inv_S2 = inv_S * inv_S;
+  float inv_w = recip(w, approx);
+
+  d[0] = -(1.0f + h) * pt + h * pr;
+  d[1] = h * pt + D * inv_S * pr + a * inv_S * pph;
+  d[2] = w * inv_S * pu;
+  d[3] = a * inv_S * pr + pph * inv_S * inv_w;
+
+  float S_r = 2.0f * r;
+  float D_r = 2.0f * r - 2.0f * m;
+  float h_r = 2.0f * m * (S - 2.0f * r * r) * inv_S2;
+  float DS_r = (D_r * S - D * S_r) * inv_S2;
+  float invS_r = -S_r * inv_S2;
+  float wS_r = -w * S_r * inv_S2;
+  float invSw_r = -S_r * inv_S2 * inv_w;
+  float dH_dr = 0.5f * (-h_r * pt * pt + 2.0f * h_r * pt * pr +
+                        DS_r * pr * pr + 2.0f * a * invS_r * pr * pph +
+                        wS_r * pu * pu + invSw_r * pph * pph);
+
+  float S_u = 2.0f * a * a * u;
+  float w_u = -2.0f * u;
+  float h_u = -2.0f * m * r * S_u * inv_S2;
+  float DS_u = -D * S_u * inv_S2;
+  float invS_u = -S_u * inv_S2;
+  float wS_u = (w_u * S - w * S_u) * inv_S2;
+  float invSw_u = -(S_u * w + S * w_u) * inv_S2 * inv_w * inv_w;
+  float dH_du = 0.5f * (-h_u * pt * pt + 2.0f * h_u * pt * pr +
+                        DS_u * pr * pr + 2.0f * a * invS_u * pr * pph +
+                        wS_u * pu * pu + invSw_u * pph * pph);
+  d[4] = -dH_dr;
+  d[5] = -dH_du;
+}
+
+// Null projection of p_r (exact divides always).
+__device__ float ks_renormalize_pr(float m, float a, float r, float u,
+                                   float pr, float pu, float pph) {
+  const float pt = -1.0f;
+  float w = jmax(1.0f - u * u, F(1e-6));
+  float S = r * r + a * a * u * u;
+  float D = r * r - 2.0f * m * r + a * a;
+  float inv_S = 1.0f / S;
+  float h = 2.0f * m * r * inv_S;
+  float A = D * inv_S;
+  float B = 2.0f * (h * pt + a * inv_S * pph);
+  float C = -(1.0f + h) * pt * pt + w * inv_S * pu * pu + pph * pph * inv_S / w;
+  float disc = B * B - 4.0f * A * C;
+  bool valid = (disc >= 0.0f) && (fabsf(A) > F(1e-12));
+  float sqrt_d = sqrtf(valid ? jmax(disc, F(1e-30)) : 1.0f);
+  float denom = valid ? 2.0f * A : 1.0f;
+  float sol1 = (-B + sqrt_d) / denom;
+  float sol2 = (-B - sqrt_d) / denom;
+  float nearest = fabsf(sol1 - pr) < fabsf(sol2 - pr) ? sol1 : sol2;
+  return valid ? nearest : pr;
+}
+
+// ---------------------------------------------------------------------------
+// Shading (render/shading.py)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float fract(float x) { return x - floorf(x); }
+
+__device__ float hash21(float x, float y) {
+  x = x + 0.5f;
+  y = y + 0.5f;
+  float px = fract(x * F(0.1031));
+  float py = fract(y * F(0.1030));
+  float pz = fract((x + y) * F(0.0973));
+  float d = px * (py + F(33.33)) + py * (pz + F(33.33)) + pz * (px + F(33.33));
+  return fract((px + py + 2.0f * d) * (pz + d));
+}
+
+__device__ __forceinline__ float smooth(float t) {
+  return t * t * (3.0f - 2.0f * t);
+}
+
+__device__ float value_noise2(float x, float y) {
+  float xf = floorf(x), yf = floorf(y);
+  float tx = smooth(x - xf), ty = smooth(y - yf);
+  float c00 = hash21(xf, yf);
+  float c10 = hash21(xf + 1.0f, yf);
+  float c01 = hash21(xf, yf + 1.0f);
+  float c11 = hash21(xf + 1.0f, yf + 1.0f);
+  return c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty) +
+         c01 * (1.0f - tx) * ty + c11 * tx * ty;
+}
+
+__device__ float fbm2(float x, float y, int octaves) {
+  float total = 0.0f, amp = 0.5f, freq = 1.0f;
+  for (int o = 0; o < octaves; ++o) {
+    total = total + amp * value_noise2(x * freq, y * freq);
+    amp *= 0.5f;
+    freq *= 2.0f;
+  }
+  return total;
+}
+
+__device__ float atan2_approx(float y, float x) {
+  float ax = fabsf(x), ay = fabsf(y);
+  float hi = jmax(ax, ay), lo = jmin(ax, ay);
+  float z = lo / jmax(hi, F(1e-30));
+  float z2 = z * z;
+  float p = F(-0.0117212) * z2 + F(0.0526477);
+  p = p * z2 + F(-0.1172626);
+  p = p * z2 + F(0.1936999);
+  p = p * z2 + F(-0.3326231);
+  p = p * z2 + F(0.9999798);
+  float t = p * z;
+  t = ay > ax ? F(1.5707963267948966) - t : t;
+  t = x < 0.0f ? F(3.141592653589793) - t : t;
+  return y < 0.0f ? -t : t;
+}
+
+// x**p by the host's plan (shading._powi_plan): k square roots, then
+// ^n by binary powers, reciprocal if negative; k < 0 means a plain powf.
+__device__ float powi_plan(float x, int k, int n, int neg, float p) {
+  if (k < 0) return powf(x, p);
+  float base = x;
+  for (int i = 0; i < k; ++i) base = sqrtf(base);
+  float acc = 1.0f, bit = base;
+  bool have = false;
+  while (n) {
+    if (n & 1) {
+      acc = have ? acc * bit : bit;
+      have = true;
+    }
+    bit = bit * bit;
+    n >>= 1;
+  }
+  return neg ? 1.0f / acc : acc;
+}
+
+__device__ __forceinline__ float pow4(float x) {
+  float x2 = x * x;
+  return x2 * x2;
+}
+
+__device__ void blackbody_ramp(float t_kelvin, float c[3]) {
+  float t = jclip(t_kelvin, 1000.0f, 40000.0f) / 100.0f;
+  float red = t <= 66.0f
+                  ? 255.0f
+                  : F(329.698727446) * powf(jmax(t - 60.0f, F(1e-6)),
+                                            F(-0.1332047592));
+  float g_lo = F(99.4708025861) * logf(jmax(t, F(1e-6))) - F(161.1195681661);
+  float g_hi = F(288.1221695283) * powf(jmax(t - 60.0f, F(1e-6)),
+                                        F(-0.0755148492));
+  float green = t <= 66.0f ? g_lo : g_hi;
+  float b_lo = F(138.5177312231) * logf(jmax(t - 10.0f, F(1e-6))) -
+               F(305.0447927307);
+  float blue = t >= 66.0f ? 255.0f : (t <= 19.0f ? 0.0f : b_lo);
+  float ch[3] = {red, green, blue};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float v = jclip(ch[i] / 255.0f, 0.0f, 1.0f);
+    c[i] = v * v;
+  }
+}
+
+__device__ float equatorial_g_factor(float m, float a, float r, float lam) {
+  r = jmax(r, F(1.05));
+  float two_mr = 2.0f * m * r;
+  float sig = r * r;
+  float g_tt = -(1.0f - two_mr / sig);
+  float g_tph = -two_mr * a / sig;
+  float g_phph = r * r + a * a + two_mr * a * a / sig;
+  float sqrt_m = sqrtf(m);
+  float omega = sqrt_m / (r * sqrtf(r) + a * sqrt_m);
+  float ut_inv_sq = -(g_tt + 2.0f * omega * g_tph + omega * omega * g_phph);
+  float u_t = 1.0f / sqrtf(jmax(ut_inv_sq, F(1e-6)));
+  float doppler = 1.0f - lam * omega;
+  doppler = fabsf(doppler) < F(1e-4) ? F(1e-4) : doppler;
+  return 1.0f / (u_t * doppler);
+}
+
+__device__ float clenshaw(const float* __restrict__ c, int K, float t) {
+  float b1 = 0.0f, b2 = 0.0f;
+  for (int j = K - 1; j > 0; --j) {
+    float nb1 = 2.0f * t * b1 - b2 + __ldg(c + j);
+    b2 = b1;
+    b1 = nb1;
+  }
+  return t * b1 - b2 + __ldg(c);
+}
+
+// One recorded disk crossing: colour * intensity into rgb, alpha, valid.
+__device__ void disk_slot(const RenderStatic& st, const float* __restrict__ P,
+                          float m, float a, float r_in, float r_c,
+                          float phi_c, float t_c, float lam, int octaves,
+                          float rgb[3], float* alpha, bool* valid_out) {
+  bool valid = (r_c > r_in) && (r_c < st.disk_outer_radius);
+  r_c = valid ? r_c : r_in * 2.0f;
+  phi_c = valid ? phi_c : 0.0f;
+  t_c = valid ? t_c : 0.0f;
+  float g = equatorial_g_factor(m, a, jmax(r_c, r_in), lam);
+  g = jclip(g, F(0.05), 5.0f);
+  float rk = jmax(r_c, r_in);
+  float omega_k = sqrtf(m) / (rk * sqrtf(rk) + a * sqrtf(m));
+  float phase = phi_c - omega_k * t_c;
+  phase = fmod_floor(phase, F(6.283185307179586));
+  float noise = fbm2(r_c * F(1.7), phase * 3.0f, octaves);
+  float turb = st.disk_one_minus_turb + st.disk_turb * (F(0.4) + F(1.2) * noise);
+  float inner = jclip((r_c - r_in) / (st.disk_softness * r_in + F(1e-6)),
+                      0.0f, 1.0f);
+  float edge = smooth(inner) *
+               jclip((st.disk_outer_radius - r_c) / st.disk_edge_width, 0.0f,
+                     1.0f);
+  float color[3];
+  float intensity;
+  if (st.spectral) {
+    float x01 = logf(jmax(r_c / r_in, F(1e-6))) * __ldg(P + P_INV_LOGR);
+    float xs = sqrtf(jclip(x01, 0.0f, 1.0f));
+    float tx = jclip(2.0f * xs - 1.0f, -1.0f, 1.0f);
+    float t_shape = jclip(clenshaw(P + P_TSHAPE, SPEC_K, tx), 0.0f, 1.0f);
+    float t_obs = jclip(g * t_shape * st.disk_t_peak, 900.0f, 40000.0f);
+    float y01 = powf((t_obs - 900.0f) / 39100.0f, F(0.4));
+    float ty = jclip(2.0f * y01 - 1.0f, -1.0f, 1.0f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      color[c] = jmax(clenshaw(P + P_RGB + c * SPEC_K, SPEC_K, ty), 0.0f);
+    intensity = pow4(g) * pow4(t_shape);
+  } else {
+    // nt_temperature_profile: _powi(q, 0.25) * _powi(x, -0.75) / peak
+    float x = jmax(jmax(r_c, r_in * F(1 + 1e-4)) / r_in, F(1.0 + 1e-6));
+    float q = 1.0f - sqrtf(1.0f / x);
+    float bq = sqrtf(sqrtf(q));
+    float bx = sqrtf(sqrtf(x));
+    float t_shape = bq * (1.0f / (bx * (bx * bx))) / st.nt_peak;
+    if (st.artistic) {
+      color[0] = st.art_r;
+      color[1] = st.art_g;
+      color[2] = st.art_b;
+    } else {
+      blackbody_ramp(jclip(g * t_shape * st.disk_t_peak, 1000.0f, 40000.0f),
+                     color);
+    }
+    float outer = powi_plan(jmax(r_in, r_c) / r_in, st.outer_k, st.outer_n,
+                            st.outer_neg, st.disk_outer_pow);
+    intensity = powi_plan(g, st.beam_k, st.beam_n, st.beam_neg,
+                          st.disk_beaming) *
+                pow4(t_shape) * outer;
+  }
+  float al = jclip(st.disk_density * edge * turb, 0.0f, 1.0f);
+  *alpha = valid ? al : 0.0f;
+  float masked = valid ? intensity : 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[c] = color[c] * masked;
+  *valid_out = valid;
+}
+
+__device__ void escape_direction(float m, float a, float r, float u, float ph,
+                                 float pr, float pu, float pph, float dir[3]) {
+  const float pt = -1.0f;
+  u = jclip(u, -1.0f, 1.0f);
+  float w = jmax(1.0f - u * u, F(1e-12));
+  float s = sqrtf(w);
+  float sig = r * r + a * a * u * u;
+  float delta = r * r - 2.0f * m * r + a * a;
+  float inv_sig = 1.0f / sig;
+  float h = 2.0f * m * r * inv_sig;
+  float v_r = h * pt + delta * inv_sig * pr + a * inv_sig * pph;
+  float v_th = -r * pu * s * inv_sig;
+  float v_ph = r * s * (a * inv_sig * pr + pph * inv_sig / w);
+  float st = s, ct = u;
+  // sin/cos by way of double, rounded once, as the plain version.
+  float sp = (float)sin((double)ph), cp = (float)cos((double)ph);
+  float dx = v_r * st * cp + v_th * ct * cp - v_ph * sp;
+  float dy = v_r * st * sp + v_th * ct * sp + v_ph * cp;
+  float dz = v_r * ct - v_th * st;
+  float inv_n = 1.0f / sqrtf(jmax(dx * dx + dy * dy + dz * dz, F(1e-30)));
+  dir[0] = dx * inv_n;
+  dir[1] = dy * inv_n;
+  dir[2] = dz * inv_n;
+}
+
+__device__ void starfield(const RenderStatic& st, float dx, float dy, float dz,
+                          float out[3]) {
+  float u = atan2_approx(dy, dx);
+  float v = jclip(dz, -1.0f, 1.0f);
+  out[0] = out[1] = out[2] = 0.0f;
+  const float freqs[2] = {st.star_freq0, st.star_freq1};
+  const float thrs[2] = {st.star_thr0, st.star_thr1};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float freq = freqs[s];
+    float cu = floorf(u * freq);
+    float cv = floorf(v * freq);
+    float hh = hash21(cu, cv);
+    float star = hh < thrs[s] ? 1.0f : 0.0f;
+    float fu = u * freq - cu - 0.5f;
+    float fv = v * freq - cv - 0.5f;
+    float spot = expf(-(fu * fu + fv * fv) * 40.0f);
+    float temp = 3000.0f + 12000.0f * hash21(cu + 7.0f, cv + 13.0f);
+    float color[3];
+    blackbody_ramp(temp, color);
+    float h_mag = hash21(cu + 31.0f, cv + 5.0f);
+    float w = star * spot * (h_mag * h_mag * h_mag);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[c] = out[c] + w * color[c];
+  }
+  float nebula = fbm2(u * 3.0f, v * 3.0f, 4);
+  float neb2 = nebula * nebula;
+  float neb[3] = {F(0.35) * neb2, F(0.2) * neb2,
+                  0.5f * nebula * sqrtf(nebula)};
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    out[c] = st.star_brightness * out[c] + st.star_nebula * neb[c];
+}
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+render_kernel(const float* __restrict__ P, float* __restrict__ out,
+              int* __restrict__ steps_out, const RenderStatic st) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int x = blockIdx.x * BLOCK_W + (warp & 1) * PATCH_W + (lane % PATCH_W);
+  const int y = blockIdx.y * BLOCK_H + (warp >> 1) * PATCH_H + (lane / PATCH_W);
+  if (x >= st.width || y >= st.height) return;
+  const bool approx = st.approx_recip != 0;
+
+  const float m = __ldg(P + P_M);
+  const float a = __ldg(P + P_A);
+  const float r_h = __ldg(P + P_RH);
+  const float r_ph = __ldg(P + P_RPH);
+  const float r_in = __ldg(P + P_ISCO);
+
+  // --- camera ray (camera_scalars from the row) ---
+  const float ix = (float)x, iy = (float)y;
+  float nx = (ix + 0.5f + __ldg(P + P_JX)) / (float)st.width * 2.0f - 1.0f;
+  float ny = 1.0f - (iy + 0.5f + __ldg(P + P_JY)) / (float)st.height * 2.0f;
+  float cx = nx * __ldg(P + P_K1);
+  float cy = ny * __ldg(P + P_K2);
+  const float rc = __ldg(P + P_ROLLC), rs = __ldg(P + P_ROLLS);
+  float cx2 = cx * rc - cy * rs;
+  float cy2 = cx * rs + cy * rc;
+  cx = cx2;
+  cy = cy2;
+  float inv_norm = 1.0f / sqrtf(1.0f + cx * cx + cy * cy);
+  float n_r = -inv_norm;
+  float n_th = -cy * inv_norm;
+  float n_ph = -cx * inv_norm;
+  float p[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    p[j] = __ldg(P + P_C0 + j) + n_r * __ldg(P + P_CR + j) +
+           n_th * __ldg(P + P_CTH + j) + n_ph * __ldg(P + P_CPH + j);
+  float inv = 1.0f / (-p[0]);
+  float pr = p[1] * inv;
+  float pu = -(p[2] * inv) / __ldg(P + P_S0);
+  const float pph = p[3] * inv;
+  float t = 0.0f;
+  float r = __ldg(P + P_R0);
+  float u = __ldg(P + P_U0);
+  float ph = __ldg(P + P_PH0);
+  pr = ks_renormalize_pr(m, a, r, u, pr, pu, pph);
+
+  // --- shadow precull ---
+  float thr = __ldg(P + P_HORTHR);
+  if (st.precull) {
+    const float pt = -1.0f;
+    float lam = __ldg(P + P_FLIP) * pph;
+    float w0 = 1.0f - u * u;
+    float s2 = jmax(w0, F(1e-12));
+    float c2 = u * u;
+    float eta = pu * pu * w0 + c2 * (pph * pph / s2 - a * a);
+    float t_dom = jclip((lam - __ldg(P + P_CHEB_MID)) / __ldg(P + P_CHEB_HALF),
+                        -1.0f, 1.0f);
+    float eta_crit = clenshaw(P + P_ETA, CHEB_K, t_dom) - F(CHEB_ERR) * m * m;
+    const float margin = F(0.04);
+    bool inside = eta < eta_crit * (1.0f - margin) - margin * m * m;
+    bool in_range = (lam > __ldg(P + P_LAM_LO)) && (lam < __ldg(P + P_LAM_HI));
+    float ssq = r * r + a * a * c2;
+    float delta = r * r - 2.0f * m * r + a * a;
+    float dr_dlam = (2.0f * m * r * pt + delta * pr + a * pph) / ssq;
+    bool dead = in_range && inside && (eta >= 0.0f) && (dr_dlam < 0.0f);
+    if (dead) thr = __ldg(P + P_STOPR);
+  }
+
+  // --- march (ops/march.py::march_tile, one ray) ---
+  const int K = st.max_crossings;
+  const float inv_rph = 1.0f / jmax(r_ph, F(1e-3));
+  int hit = r < thr ? HIT_HORIZON : HIT_NONE;
+  int nc = 0;
+  float cr[KMAX], cp[KMAX], ct[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) cr[k] = cp[k] = ct[k] = 0.0f;
+  float rmin = fabsf(r - r_ph);
+  int steps = 0;
+  for (int i = 0; i < st.max_steps && hit == HIT_NONE; ++i) {
+    // diff_step_values
+    float base = (r - r_h) * st.step_rate;
+    float far = jmax(r / st.far_boost_radius, 1.0f);
+    float prox = jclip(fabsf(r - r_ph) * inv_rph, F(0.25), 1.0f);
+    float cap = st.far_cap_on ? jmax(st.far_step_cap_rate * r, st.max_step)
+                              : st.max_step;
+    float dlam = jclip(base * far * prox, st.min_step, cap);
+    float w = jmax(1.0f - u * u, F(1e-6));
+    float sig = r * r + a * a * u * u;
+    float du_rate = fabsf(w * pu / sig) + F(1e-12);
+    float margin = 1.0f - fabsf(u) + F(1e-6);
+    dlam = jmin(dlam, jmax(divr(0.5f * margin, du_rate, approx), st.min_step));
+
+    float d[6];
+    ks_rhs(m, a, r, u, pr, pu, pph, approx, d);
+    float nt = t + dlam * d[0];
+    float nr = r + dlam * d[1];
+    float nu = u + dlam * d[2];
+    float nph = ph + dlam * d[3];
+    float npr = pr + dlam * d[4];
+    float npu = pu + dlam * d[5];
+    for (int it = 0; it < st.midpoint_iters; ++it) {
+      ks_rhs(m, a, 0.5f * (r + nr), 0.5f * (u + nu), 0.5f * (pr + npr),
+             0.5f * (pu + npu), pph, approx, d);
+      nt = t + dlam * d[0];
+      nr = r + dlam * d[1];
+      nu = u + dlam * d[2];
+      nph = ph + dlam * d[3];
+      npr = pr + dlam * d[4];
+      npu = pu + dlam * d[5];
+    }
+    nu = jclip(nu, F(-1.0 + 1e-7), F(1.0 - 1e-7));
+    float frac = jclip(
+        divr(u, fabsf(u - nu) < F(1e-12) ? F(1e-12) : u - nu, approx), 0.0f,
+        1.0f);
+    float r_c = r + frac * (nr - r);
+    float phi_c = ph + frac * (nph - ph);
+    float t_c = t + frac * (nt - t);
+
+    // crossing record
+    bool crossed = ((u * nu) < 0.0f) && (nc < K) && (r_c > st.record_r_min) &&
+                   (r_c < st.record_r_max);
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (crossed && nc == k) {
+        cr[k] = r_c;
+        cp[k] = phi_c;
+        ct[k] = t_c;
+      }
+    }
+    nc += crossed ? 1 : 0;
+
+    // sanity freeze, advance, termination
+    bool sane = isfinite(nr) && isfinite(nph) && isfinite(npr) &&
+                isfinite(npu) && (fabsf(npr) < F(1e7)) &&
+                (fabsf(npu) < F(1e7)) && (nr < st.escape_sanity_r);
+    if (sane) {
+      t = nt;
+      r = nr;
+      u = nu;
+      ph = nph;
+      pr = npr;
+      pu = npu;
+      ++steps;
+      rmin = jmin(rmin, fabsf(r - r_ph));
+    } else {
+      hit = HIT_HORIZON;
+    }
+    if (r < thr) hit = HIT_HORIZON;
+    if (r > st.escape_radius) hit = HIT_ESCAPE;
+    if ((i + 1) % st.renormalize_every == 0 && hit == HIT_NONE)
+      pr = ks_renormalize_pr(m, a, r, u, pr, pu, pph);
+  }
+  if (hit == HIT_NONE) hit = HIT_HORIZON;
+
+  // --- composite ---
+  const bool escaped = hit == HIT_ESCAPE;
+  float rgb[3] = {0.0f, 0.0f, 0.0f};
+  float trans = 1.0f;
+  if (st.disk_on) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      // Slots past the crossing count add nothing (the plain version
+      // evaluates and masks them).
+      if (k < K && k < nc) {
+        float c_rgb[3], c_alpha;
+        bool valid;
+        disk_slot(st, P, m, a, r_in, cr[k], cp[k], ct[k], pph, k == 0 ? 3 : 1,
+                  c_rgb, &c_alpha, &valid);
+        bool on = valid;
+        float wgt = on ? trans * c_alpha : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + wgt * c_rgb[c];
+        trans = on ? trans * (1.0f - c_alpha) : trans;
+      }
+    }
+  }
+  // The plain version adds 0 * (the starfield of a fixed finite dummy state)
+  // to captured rays; skipping them here gives the same values.
+  if (st.starfield && escaped) {
+    float dir[3];
+    escape_direction(m, a, r, u, ph, pr, pu, pph, dir);
+    float bg[3];
+    starfield(st, dir[0], dir[1], dir[2], bg);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + trans * bg[c];
+  }
+  if (st.glow) {
+    float near = expf(-14.0f * rmin / jmax(r_ph, F(1e-3)));
+    float glow = escaped ? F(0.6) * near : 0.0f;
+    float order = (float)min(max(nc, 0), 3) / 3.0f;
+    const float warm[3] = {1.0f, F(0.82), F(0.55)};
+    const float dwk[3] = {F(0.82 - 1.0), F(0.88 - 0.82), F(1.0 - 0.55)};
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      rgb[c] = rgb[c] + glow * (warm[c] + order * dwk[c]);
+  }
+  const size_t plane = (size_t)st.width * st.height;
+  const size_t idx = (size_t)y * st.width + x;
+  out[idx] = rgb[0];
+  out[plane + idx] = rgb[1];
+  out[2 * plane + idx] = rgb[2];
+  if (steps_out != nullptr) steps_out[idx] = steps;
+}
+
+extern "C" {
+
+// Launches the render kernel on ``stream``; returns cudaGetLastError().
+// ``steps`` (may be null) receives each ray's march step count.
+int bh_render_launch(const float* params, float* out, int* steps,
+                     const RenderStatic* st, void* stream) {
+  dim3 block(THREADS);
+  dim3 grid((st->width + BLOCK_W - 1) / BLOCK_W,
+            (st->height + BLOCK_H - 1) / BLOCK_H);
+  render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(params, out, steps,
+                                                          *st);
+  return (int)cudaGetLastError();
+}
+
+const char* bh_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int bh_render_static_size() { return (int)sizeof(RenderStatic); }
+
+}  // extern "C"

@@ -1,0 +1,70 @@
+"""Build the CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
+
+Each source compiles on its own into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -Xptxas -v -shared -Xcompiler -fPIC -o <lib> <source>
+
+The library lands in ``build/kernels/`` at the repository root, named by a
+hash of the source and the flags, so an edited source never loads a stale
+build. ptxas's report (registers, spills) is kept beside it. The first call
+of a kernel's wrapper builds it; nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+from pathlib import Path
+import subprocess
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                           "with the CUDA toolkit")
+    return nvcc
+
+
+def _paths(source: str) -> tuple[Path, Path]:
+    src = CSRC / source
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    stem = f"{src.stem}-{digest.hexdigest()[:12]}"
+    return BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless an identical build exists; return
+    the shared library's path. Raises RuntimeError with nvcc's output if the
+    compile fails."""
+    lib, report = _paths(source)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+    report.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def ptxas_report(source: str) -> str:
+    """ptxas's -v report of the current build of ``csrc/<source>``."""
+    return _paths(source)[1].read_text()

@@ -1,0 +1,136 @@
+"""Kerr-Schild geodesic step math in u = cos(theta) coordinates.
+
+Counterpart of ``blackhole_simulation_tpu/ops/ks_kernel.py`` (``w_floor``
+:253, ``_geom_u`` :287, ``ks_rhs_rows`` :382, ``ks_symplectic_step_rows``
+:433, ``ks_renormalize_pr`` :465). With u = cos(theta) the Hamiltonian
+
+    H = 1/2 [ -(1+h) p_t^2 + 2 h p_t p_r + (D/S) p_r^2 + (2a/S) p_r p_phi
+              + (w/S) p_u^2 + p_phi^2 / (S w) ],
+    S = r^2 + a^2 u^2,  w = 1 - u^2,  h = 2 M r / S,  D = r^2 - 2 M r + a^2,
+
+is rational, so the step has no trigonometry. The functions work on
+unpacked rows of any shape; scalars (m, a, p_t) are 0-dim tensors or
+numbers. The expressions and their order are the JAX twin's, and the render
+kernel's device functions (``csrc/render.cu``) repeat them line for line.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from blackhole_simulation_tpu_torch._elementwise import (
+    maximum,
+    sqrt,
+)
+
+
+def w_floor(dtype) -> float:
+    """Pole guard floor for w = 1 - u^2: 1e-6 in float32 (so the 1/w^2 polar
+    terms cannot overflow inside one implicit-midpoint step), 1e-12 in
+    float64."""
+    return 1e-12 if torch.finfo(dtype).bits >= 64 else 1e-6
+
+
+def _geom_u(m, a, r, u):
+    """(w, S, D, 1/S, h) at one evaluation point."""
+    w = maximum(1.0 - u * u, w_floor(u.dtype))
+    S = r * r + a * a * u * u
+    D = r * r - 2.0 * m * r + a * a
+    inv_S = 1.0 / S
+    h = 2.0 * m * r * inv_S
+    return w, S, D, inv_S, h
+
+
+def ks_rhs_rows(m, a, r, u, pt, pr, pu, pph):
+    """dy/dlambda on unpacked rows -> (dt, dr, du, dph, dpr, dpu); the
+    conserved p_t and p_phi have zero derivative and are not returned.
+    Divides exactly (the JAX twin's ``recip`` override, the approximate
+    reciprocal, exists only in the kernel)."""
+    w, S, D, inv_S, h = _geom_u(m, a, r, u)
+    inv_S2 = inv_S * inv_S
+    inv_w = 1.0 / w
+
+    dt = -(1.0 + h) * pt + h * pr
+    dr = h * pt + D * inv_S * pr + a * inv_S * pph
+    du = w * inv_S * pu
+    dph = a * inv_S * pr + pph * inv_S * inv_w
+
+    S_r = 2.0 * r
+    D_r = 2.0 * r - 2.0 * m
+    h_r = 2.0 * m * (S - 2.0 * r * r) * inv_S2
+    DS_r = (D_r * S - D * S_r) * inv_S2
+    invS_r = -S_r * inv_S2
+    wS_r = -w * S_r * inv_S2
+    invSw_r = -S_r * inv_S2 * inv_w
+    dH_dr = 0.5 * (
+        -h_r * pt * pt
+        + 2.0 * h_r * pt * pr
+        + DS_r * pr * pr
+        + 2.0 * a * invS_r * pr * pph
+        + wS_r * pu * pu
+        + invSw_r * pph * pph
+    )
+
+    S_u = 2.0 * a * a * u
+    w_u = -2.0 * u
+    h_u = -2.0 * m * r * S_u * inv_S2
+    DS_u = -D * S_u * inv_S2
+    invS_u = -S_u * inv_S2
+    wS_u = (w_u * S - w * S_u) * inv_S2
+    invSw_u = -(S_u * w + S * w_u) * inv_S2 * inv_w * inv_w
+    dH_du = 0.5 * (
+        -h_u * pt * pt
+        + 2.0 * h_u * pt * pr
+        + DS_u * pr * pr
+        + 2.0 * a * invS_u * pr * pph
+        + wS_u * pu * pu
+        + invSw_u * pph * pph
+    )
+    return dt, dr, du, dph, -dH_dr, -dH_du
+
+
+def ks_symplectic_step_rows(m, a, rows, dlam, iterations: int = 2):
+    """Implicit-midpoint step on unpacked rows (t, r, u, ph, pt, pr, pu, pph):
+    ``iterations`` fixed-point rounds from an explicit-Euler seed. Returns the
+    six evolving rows (t, r, u, ph, pr, pu)."""
+    t, r, u, ph, pt, pr, pu, pph = rows
+    d = ks_rhs_rows(m, a, r, u, pt, pr, pu, pph)
+    nt = t + dlam * d[0]
+    nr = r + dlam * d[1]
+    nu = u + dlam * d[2]
+    nph = ph + dlam * d[3]
+    npr = pr + dlam * d[4]
+    npu = pu + dlam * d[5]
+    for _ in range(iterations):
+        d = ks_rhs_rows(
+            m, a,
+            0.5 * (r + nr), 0.5 * (u + nu),
+            pt, 0.5 * (pr + npr), 0.5 * (pu + npu), pph,
+        )
+        nt = t + dlam * d[0]
+        nr = r + dlam * d[1]
+        nu = u + dlam * d[2]
+        nph = ph + dlam * d[3]
+        npr = pr + dlam * d[4]
+        npu = pu + dlam * d[5]
+    return nt, nr, nu, nph, npr, npu
+
+
+def ks_renormalize_pr(m, a, r, u, pt, pr, pu, pph):
+    """Project p_r onto the null shell H = 0: the root of the quadratic
+    A p_r^2 + B p_r + C = 0 nearest the current p_r (unchanged where there
+    is no real root). Always divides exactly."""
+    w, S, D, inv_S, h = _geom_u(m, a, r, u)
+    A = D * inv_S
+    B = 2.0 * (h * pt + a * inv_S * pph)
+    C = -(1.0 + h) * pt * pt + w * inv_S * pu * pu + pph * pph * inv_S / w
+    disc = B * B - 4.0 * A * C
+    valid = (disc >= 0.0) & (torch.abs(A) > 1e-12)
+    sqrt_d = sqrt(torch.where(valid, maximum(disc, 1e-30), 1.0))
+    denom = torch.where(valid, 2.0 * A, 1.0)
+    sol1 = (-B + sqrt_d) / denom
+    sol2 = (-B - sqrt_d) / denom
+    nearest = torch.where(
+        torch.abs(sol1 - pr) < torch.abs(sol2 - pr), sol1, sol2
+    )
+    return torch.where(valid, nearest, pr)

@@ -1,0 +1,434 @@
+"""The fused render kernel's host side: the parameter row, the plain
+PyTorch version of the kernel, and the wrapper that launches the kernel.
+
+Counterpart of ``blackhole_simulation_tpu/ops/pallas_render.py``: the
+``_P_*`` parameter-row layout (:62-110), the row builder (the prologue of
+``pallas_render_sample``, :516-633) and ``_render_kernel`` (:140). The
+kernel itself is ``csrc/render.cu``; ``render_planes`` here is its plain
+version, written with the same expressions in the same order. The wrapper,
+``render_planes_kernel``, launches the kernel for a CUDA parameter row and
+runs the plain version for a CPU one; nothing else picks between them.
+
+Features outside this slice (jets, start jitter, the critical-band plane,
+the NRS far field, the shadow overlay, the AB3 march) are refused by
+``render/pipeline.render_sample`` before a row is built; their blocks of the
+row stay zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+
+from blackhole_simulation_tpu_torch._elementwise import (
+    clip,
+    const,
+    div_c,
+    maximum,
+    sqrt,
+)
+from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_pr
+from blackhole_simulation_tpu_torch.ops.march import march_tile
+from blackhole_simulation_tpu_torch.render.march import HIT_ESCAPE, MarchConfig
+from blackhole_simulation_tpu_torch.render.precull import _CHEB_ERR, _CHEB_K
+from blackhole_simulation_tpu_torch.render.shading import (
+    NT_PEAK,
+    SPECTRAL_CHEB_K,
+    DiskParams,
+    StarfieldParams,
+    _powi_plan,
+    cheb_clenshaw,
+    disk_emission_rows,
+    escape_direction_u_rows,
+    spectral_slot_core,
+    starfield_rows,
+)
+
+# Parameter-row layout (float32 scalars, coefficient blocks appended): the
+# JAX package's _P_* offsets, so a row from either side reads the same.
+_P_M = 0          # mass
+_P_A = 1          # signed spin
+_P_RH = 2         # event horizon r+
+_P_RPH = 3        # prograde photon sphere
+_P_ISCO = 4       # prograde ISCO (disk inner edge)
+_P_STOPR = 5      # precull stop radius
+_P_HORTHR = 6     # horizon_factor * r_h termination radius
+_P_R0 = 7         # camera r
+_P_U0 = 8         # camera u = cos(theta)
+_P_S0 = 9         # camera sin(theta)
+_P_PH0 = 10       # camera phi
+_P_K1 = 11        # tan(fov/2) * aspect
+_P_K2 = 12        # tan(fov/2)
+_P_ROLLC = 13
+_P_ROLLS = 14
+_P_JX = 15        # sub-pixel jitter
+_P_JY = 16
+_P_C0 = 17        # 4 KS-lowered tetrad coefficient 4-vectors: 17..32
+_P_CR = 21
+_P_CTH = 25
+_P_CPH = 29
+_P_CHEB_MID = 33  # precull critical-curve Chebyshev domain
+_P_CHEB_HALF = 34
+_P_LAM_LO = 35
+_P_LAM_HI = 36
+_P_FLIP = 37      # sign(a) isometry flip for the precull lam
+_P_ACHEB = 38     # |a| clamped to the Chebyshev fit's validated range
+_P_INV_LOGR = 39  # 1 / log(r_out / r_in) (spectral t-shape domain)
+_P_ETA = 40                            # precull eta_c coeffs, _CHEB_K wide
+_P_TSHAPE = _P_ETA + _CHEB_K           # spectral t-shape coeffs
+_P_RGB = _P_TSHAPE + SPECTRAL_CHEB_K   # 3 x SPECTRAL_CHEB_K rgb coeffs
+_OVERLAY_N = 32                        # shadow-overlay block (a later slice)
+_P_OVW = _P_RGB + 3 * SPECTRAL_CHEB_K
+_P_OAL = _P_OVW + 1
+_P_OBE = _P_OAL + 2 * _OVERLAY_N
+_P_OVA = _P_OBE + 2 * _OVERLAY_N
+_P_NRS_BMIN = _P_OVA + 2 * _OVERLAY_N  # NRS far-field block (a later slice)
+_P_NRS_TH = _P_NRS_BMIN + 1
+_P_NRS_W = _P_NRS_TH + 1
+_NRS_FLAT = (3 * 16 + 16) + 2 * (16 * 16 + 16) + (16 * 3 + 3)  # 659
+_P_TOTAL = _P_NRS_W + _NRS_FLAT
+_P_PAD = -(-_P_TOTAL // 128) * 128
+
+
+def build_param_row(scene, jitter=None) -> np.ndarray:
+    """The kernel's (_P_PAD,) float32 parameter row for one sample.
+
+    Built in float64 and cast once. Mass and spin are first rounded to
+    float32, as the JAX package casts them before it builds its row; the
+    camera values stay float64 until the cast. ``scene.march_cfg`` must
+    already carry render_sample's precull adjustments.
+    """
+    from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
+    from blackhole_simulation_tpu_torch.render.camera import camera_scalars
+    from blackhole_simulation_tpu_torch.render.precull import (
+        _eta_crit_cheb_coeffs,
+    )
+    from blackhole_simulation_tpu_torch.render.shading import (
+        spectral_kernel_tables,
+    )
+
+    cam = scene.camera
+    cfg = scene.march_cfg
+    m = float(np.float32(scene.bh.mass))
+    a = float(np.float32(scene.bh.spin))
+    bh = Kerr(mass=m, spin=a)
+    c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s = camera_scalars(cam, bh)
+    u0 = math.cos(cam.theta)
+    s0 = math.sqrt(max(1.0 - math.cos(cam.theta) ** 2, 1e-12))
+    jx, jy = (0.0, 0.0) if jitter is None else (float(jitter[0]), float(jitter[1]))
+
+    r_h = bh.event_horizon()
+    hor_thr = cfg.horizon_factor * r_h
+    isco = bh.isco()
+    if cfg.precull_keep_disk:
+        stop_r = max(isco, cfg.record_r_min, hor_thr)
+    else:
+        stop_r = 1e9
+    flip = -1.0 if a < 0.0 else 1.0
+    a_cheb = min(max(abs(a), 1e-3 * m), 0.999 * m)
+    eta_coeffs, cheb_mid, cheb_half, lam_lo, lam_hi = _eta_crit_cheb_coeffs(
+        m, a_cheb
+    )
+
+    if scene.features.spectral_lut and scene.features.disk:
+        tables = scene.spectral_coeffs
+        if tables is None:
+            tables = spectral_kernel_tables(
+                float(scene.bh.mass), float(scene.bh.spin), scene.disk
+            )
+        tc, rc, il = tables
+        t_coeffs = np.asarray(tc, np.float64)
+        rgb_coeffs = np.asarray(rc, np.float64).reshape(-1)
+        inv_logr = float(il)
+    else:
+        t_coeffs = np.zeros(SPECTRAL_CHEB_K)
+        rgb_coeffs = np.zeros(3 * SPECTRAL_CHEB_K)
+        inv_logr = 1.0
+
+    head = np.array([
+        m, a, r_h, bh.photon_sphere(), isco, stop_r, hor_thr,
+        cam.r, u0, s0, cam.phi, k1, k2, roll_c, roll_s, jx, jy,
+        *c0, *c_r, *c_th, *c_ph,
+        cheb_mid, cheb_half, lam_lo, lam_hi, flip, a_cheb, inv_logr,
+    ], np.float64)
+    row = np.zeros(_P_PAD, np.float64)
+    row[:_P_ETA] = head
+    row[_P_ETA:_P_TSHAPE] = eta_coeffs
+    row[_P_TSHAPE:_P_RGB] = t_coeffs
+    row[_P_RGB:_P_OVW] = rgb_coeffs
+    return row.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderStatic:
+    """What the kernel takes by value besides the row: the frame size and
+    the static configuration that selects its branches."""
+
+    cfg: MarchConfig
+    disk_on: bool
+    spectral: bool
+    starfield: bool
+    glow: bool
+    disk: DiskParams
+    stars: StarfieldParams
+    width: int
+    height: int
+
+
+def render_planes(row: torch.Tensor, st: RenderStatic,
+                  steps: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the render kernel: (3, H, W) float32 linear
+    radiance from one parameter row. Every pixel is one ray, in row order.
+    ``steps``, if given, is an int32 (H, W) tensor that receives each ray's
+    march step count.
+
+    Follows ``_render_kernel``: ray birth from the camera scalars, null
+    projection, Chebyshev shadow precull, the march, and the composite of up
+    to K disk-crossing slots, the starfield and the photon-ring glow.
+    """
+    cfg = st.cfg
+    dev = row.device
+    sp = lambda i: row[i]
+    m = sp(_P_M)
+    a = sp(_P_A)
+    r_h = sp(_P_RH)
+    r_ph = sp(_P_RPH)
+    r_in = sp(_P_ISCO)
+
+    h, w = st.height, st.width
+    iy = torch.arange(h, device=dev, dtype=torch.float32).repeat_interleave(w)
+    ix = torch.arange(w, device=dev, dtype=torch.float32).repeat(h)
+
+    # --- camera ray ---
+    nx = div_c(ix + 0.5 + sp(_P_JX), float(w)) * 2.0 - 1.0
+    ny = 1.0 - div_c(iy + 0.5 + sp(_P_JY), float(h)) * 2.0
+    cx = nx * sp(_P_K1)
+    cy = ny * sp(_P_K2)
+    cx, cy = (cx * sp(_P_ROLLC) - cy * sp(_P_ROLLS),
+              cx * sp(_P_ROLLS) + cy * sp(_P_ROLLC))
+    inv_norm = 1.0 / sqrt(1.0 + cx * cx + cy * cy)
+    n_r = -inv_norm
+    n_th = -cy * inv_norm
+    n_ph = -cx * inv_norm
+    p = [sp(_P_C0 + j) + n_r * sp(_P_CR + j) + n_th * sp(_P_CTH + j)
+         + n_ph * sp(_P_CPH + j) for j in range(4)]
+    inv = 1.0 / (-p[0])
+    pr = p[1] * inv
+    pu = -(p[2] * inv) / sp(_P_S0)
+    pph = p[3] * inv
+
+    zero = torch.zeros_like(ix)
+    r_row = zero + sp(_P_R0)
+    u_row = zero + sp(_P_U0)
+    ph_row = zero + sp(_P_PH0)
+    pt_ = const(ix, -1.0)
+    pr = ks_renormalize_pr(m, a, r_row, u_row, pt_, pr, pu, pph)
+
+    # --- shadow precull ---
+    hor_thr = sp(_P_HORTHR)
+    if cfg.shadow_precull:
+        lam = sp(_P_FLIP) * pph
+        w0 = 1.0 - u_row * u_row
+        s2 = maximum(w0, 1e-12)
+        c2 = u_row * u_row
+        eta = pu * pu * w0 + c2 * (pph * pph / s2 - a * a)
+        t_dom = clip((lam - sp(_P_CHEB_MID)) / sp(_P_CHEB_HALF), -1.0, 1.0)
+        coeffs = [row[_P_ETA + j] for j in range(_CHEB_K)]
+        eta_crit = cheb_clenshaw(coeffs, t_dom) - const(ix, _CHEB_ERR) * m * m
+        margin = const(ix, 0.04)
+        inside = eta < eta_crit * (1.0 - margin) - margin * m * m
+        in_range = (lam > sp(_P_LAM_LO)) & (lam < sp(_P_LAM_HI))
+        ssq = r_row * r_row + a * a * c2
+        delta = r_row * r_row - 2.0 * m * r_row + a * a
+        dr_dlam = (2.0 * m * r_row * pt_ + delta * pr + a * pph) / ssq
+        dead = in_range & inside & (eta >= 0.0) & (dr_dlam < 0.0)
+        thr = torch.where(dead, sp(_P_STOPR), hor_thr)
+    else:
+        thr = zero + hor_thr
+
+    # --- march ---
+    t, r, u, ph, pr_f, pu_f, hit, n_steps, cr, cp, ct, nc, rmin = march_tile(
+        m, a, r_h, r_ph, thr, (zero, r_row, u_row, ph_row, pr, pu, pph), cfg
+    )
+    if steps is not None:
+        steps.copy_(n_steps.reshape(h, w))
+
+    # --- composite ---
+    escaped = hit == HIT_ESCAPE
+    rgb = (zero, zero, zero)
+    trans = zero + 1.0
+    if st.disk_on:
+        if st.spectral:
+            t_coeffs = [row[_P_TSHAPE + j] for j in range(SPECTRAL_CHEB_K)]
+            rgb_coeffs = [
+                [row[_P_RGB + c * SPECTRAL_CHEB_K + j]
+                 for j in range(SPECTRAL_CHEB_K)]
+                for c in range(3)
+            ]
+        for k in range(cfg.max_crossings):
+            filled = k < nc
+            octaves = 3 if k == 0 else 1
+            if st.spectral:
+                c_rgb, c_alpha, valid = spectral_slot_core(
+                    st.disk, m, a, r_in, sp(_P_INV_LOGR), t_coeffs,
+                    rgb_coeffs, cr[k], cp[k], ct[k], pph, octaves,
+                )
+            else:
+                c_rgb, c_alpha, valid = disk_emission_rows(
+                    st.disk, m, a, r_in, cr[k], cp[k], ct[k], pph, octaves,
+                )
+            on = filled & valid
+            wgt = torch.where(on, trans * c_alpha, 0.0)
+            rgb = tuple(acc + wgt * c for acc, c in zip(rgb, c_rgb))
+            trans = torch.where(on, trans * (1.0 - c_alpha), trans)
+
+    if st.starfield:
+        dummy = (0.0, 100.0, 0.0, 0.0, -1.0, -1.0, 0.0, 0.0)
+        fin = (t, r, u, ph, zero + pt_, pr_f, pu_f, pph)
+        srows = tuple(torch.where(escaped, fin[i], dummy[i]) for i in range(8))
+        bg = starfield_rows(*escape_direction_u_rows(srows, m, a), params=st.stars)
+        w_bg = torch.where(escaped, trans, 0.0)
+        rgb = tuple(c + w_bg * b for c, b in zip(rgb, bg))
+
+    if st.glow:
+        near = torch.exp(-14.0 * rmin / maximum(r_ph, 1e-3))
+        glow = torch.where(escaped, 0.6 * near, 0.0)
+        order = div_c(torch.clamp(nc, 0, 3).to(torch.float32), 3.0)
+        warm = (1.0, 0.82, 0.55)
+        cool = (0.82, 0.88, 1.0)
+        rgb = tuple(
+            c + glow * (const(ix, wv) + order * const(ix, kv - wv))
+            for c, wv, kv in zip(rgb, warm, cool)
+        )
+    return torch.stack(rgb).reshape(3, h, w)
+
+
+class _CRenderStatic(ctypes.Structure):
+    """``RenderStatic`` as ``csrc/render.cu`` declares it (all 4-byte
+    fields; constants already rounded to float32 the way the JAX package
+    rounds them)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "width", "height", "max_steps", "renormalize_every", "max_crossings",
+        "midpoint_iters", "approx_recip", "precull", "disk_on", "spectral",
+        "starfield", "glow", "artistic", "far_cap_on",
+        "beam_k", "beam_n", "beam_neg", "outer_k", "outer_n", "outer_neg",
+    )] + [(name, ctypes.c_float) for name in (
+        "step_rate", "min_step", "max_step", "far_step_cap_rate",
+        "far_boost_radius", "escape_radius", "escape_sanity_r",
+        "record_r_min", "record_r_max",
+        "disk_outer_radius", "disk_density", "disk_t_peak", "disk_beaming",
+        "disk_turb", "disk_one_minus_turb", "disk_softness",
+        "disk_outer_pow", "disk_edge_width", "nt_peak",
+        "art_r", "art_g", "art_b",
+        "star_brightness", "star_nebula", "star_freq0", "star_freq1",
+        "star_thr0", "star_thr1",
+    )]
+
+
+def _c_static(st: RenderStatic) -> _CRenderStatic:
+    cfg, disk, stars = st.cfg, st.disk, st.stars
+    art = disk.artistic_rgb or (0.0, 0.0, 0.0)
+    outer_pow = -disk.outer_falloff * 0.5
+    # A plan of k = -1 means a plain powf.
+    beam_k, beam_n, beam_neg = _powi_plan(disk.beaming_exponent) or (-1, 0, 0)
+    outer_k, outer_n, outer_neg = _powi_plan(outer_pow) or (-1, 0, 0)
+    return _CRenderStatic(
+        width=st.width, height=st.height, max_steps=cfg.max_steps,
+        renormalize_every=cfg.renormalize_every,
+        max_crossings=cfg.max_crossings, midpoint_iters=cfg.midpoint_iters,
+        approx_recip=int(cfg.approx_recip), precull=int(cfg.shadow_precull),
+        disk_on=int(st.disk_on), spectral=int(st.spectral),
+        starfield=int(st.starfield), glow=int(st.glow),
+        artistic=int(disk.artistic_rgb is not None),
+        far_cap_on=int(cfg.far_step_cap_rate > 0.0),
+        beam_k=beam_k, beam_n=beam_n, beam_neg=int(beam_neg),
+        outer_k=outer_k, outer_n=outer_n, outer_neg=int(outer_neg),
+        step_rate=cfg.step_rate, min_step=cfg.min_step,
+        max_step=cfg.max_step, far_step_cap_rate=cfg.far_step_cap_rate,
+        far_boost_radius=cfg.far_boost_radius,
+        escape_radius=cfg.escape_radius,
+        escape_sanity_r=8.0 * cfg.escape_radius,
+        record_r_min=cfg.record_r_min, record_r_max=cfg.record_r_max,
+        disk_outer_radius=disk.outer_radius, disk_density=disk.density,
+        disk_t_peak=disk.t_peak, disk_beaming=disk.beaming_exponent,
+        disk_turb=disk.turbulence, disk_one_minus_turb=1.0 - disk.turbulence,
+        disk_softness=disk.inner_edge_softness,
+        disk_outer_pow=outer_pow,
+        disk_edge_width=0.15 * disk.outer_radius, nt_peak=NT_PEAK,
+        art_r=art[0], art_g=art[1], art_b=art[2],
+        star_brightness=stars.brightness, star_nebula=stars.nebula,
+        star_freq0=stars.cells, star_freq1=stars.cells * 0.35,
+        star_thr0=stars.density * 1.0 * 300.0,
+        star_thr1=stars.density * 2.2 * 300.0,
+    )
+
+
+def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
+                         steps: torch.Tensor | None = None) -> torch.Tensor:
+    """(3, H, W) float32 radiance from one parameter row; ``steps``, if
+    given, is an int32 (H, W) tensor on the row's device that receives each
+    ray's march step count.
+
+    A CUDA row launches the render kernel (``csrc/render.cu``) on the
+    current stream and counts the launch in ``render_planes_kernel.launches``;
+    a CPU row runs ``render_planes``. No other case is accepted.
+    """
+    if row.dtype != torch.float32 or row.shape != (_P_PAD,):
+        raise ValueError(f"parameter row must be float32 ({_P_PAD},), got "
+                         f"{row.dtype} {tuple(row.shape)}")
+    if steps is not None and (steps.dtype != torch.int32
+                              or steps.shape != (st.height, st.width)
+                              or steps.device != row.device
+                              or not steps.is_contiguous()):
+        raise ValueError("steps must be a contiguous int32 (H, W) tensor on "
+                         "the row's device")
+    if row.device.type == "cpu":
+        return render_planes(row, st, steps)
+    if row.device.type != "cuda":
+        raise ValueError(f"no render path for device {row.device}")
+    if not 1 <= st.cfg.max_crossings <= 4:
+        raise NotImplementedError("the render kernel records 1 to 4 crossings")
+    lib = _render_library()
+    row = row.contiguous()
+    out = torch.empty((3, st.height, st.width), dtype=torch.float32,
+                      device=row.device)
+    c_st = _c_static(st)
+    with torch.cuda.device(row.device):
+        stream = torch.cuda.current_stream(row.device).cuda_stream
+        err = lib.bh_render_launch(
+            ctypes.c_void_p(row.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(0 if steps is None else steps.data_ptr()),
+            ctypes.byref(c_st), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"render kernel launch failed: {lib.bh_error_string(err).decode()}"
+        )
+    render_planes_kernel.launches += 1
+    return out
+
+
+render_planes_kernel.launches = 0
+
+
+@functools.cache
+def _render_library() -> ctypes.CDLL:
+    """Build (at first use) and load csrc/render.cu."""
+    from blackhole_simulation_tpu_torch.ops.build import build
+
+    lib = ctypes.CDLL(str(build("render.cu")))
+    lib.bh_render_launch.argtypes = [ctypes.c_void_p] * 5
+    lib.bh_render_launch.restype = ctypes.c_int
+    lib.bh_error_string.argtypes = [ctypes.c_int]
+    lib.bh_error_string.restype = ctypes.c_char_p
+    lib.bh_render_static_size.restype = ctypes.c_int
+    if lib.bh_render_static_size() != ctypes.sizeof(_CRenderStatic):
+        raise RuntimeError("RenderStatic differs between csrc/render.cu and "
+                           "ops/render.py")
+    return lib

@@ -1,0 +1,467 @@
+"""Shading: thin-disk emission with GR redshift, blackbody colour, starfield.
+
+Counterpart of ``blackhole_simulation_tpu/render/shading.py``. These are the
+plain PyTorch versions of what the render kernel (``csrc/render.cu``)
+computes per pixel, written expression for expression like the JAX twins so
+that rounding matches: the same operation order, float32 throughout, scalar
+inputs (mass, spin, ISCO radius) as 0-dim float32 tensors, and constants
+rounded to float32 where the JAX code rounds them.
+
+The host-side float64 tables (``build_disk_luts``, ``spectral_cheb_coeffs``,
+``spectral_kernel_tables``) feed the spectral disk: 65 Chebyshev scalars per
+scene that the kernel reads from its parameter row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+
+from blackhole_simulation_tpu_torch._elementwise import (
+    clip,
+    const,
+    cos,
+    div_c,
+    maximum,
+    sin,
+    sqrt,
+)
+
+TWO_PI = 2.0 * math.pi
+# Analytic peak of the Novikov-Thorne shape, at r / r_in = 49/36.
+_XP = 49.0 / 36.0
+NT_PEAK = (1.0 - (1.0 / _XP) ** 0.5) ** 0.25 * _XP ** -0.75
+
+
+# ---------------------------------------------------------------------------
+# Static configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DiskParams:
+    """Static disk configuration."""
+
+    outer_radius: float = 18.0
+    density: float = 0.7
+    t_peak: float = 9000.0
+    beaming_exponent: float = 4.0
+    turbulence: float = 0.6
+    inner_edge_softness: float = 0.35
+    outer_falloff: float = 4.0
+    artistic_rgb: tuple | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class JetParams:
+    """Relativistic jet cones along the spin axis. The jets are not in this
+    slice of the port: the dataclass exists so ``Scene`` has the JAX fields."""
+
+    beta: float = 0.92
+    beaming_exponent: float = 3.5
+    core_radius: float = 0.6
+    opening_slope: float = 0.22
+    z_min: float = 1.2
+    z_max: float = 24.0
+    density: float = 0.012
+    turbulence: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class StarfieldParams:
+    density: float = 0.0015
+    brightness: float = 1.4
+    nebula: float = 0.12
+    cells: float = 160.0
+
+
+# ---------------------------------------------------------------------------
+# Lattice hash noise
+# ---------------------------------------------------------------------------
+
+def _fract(x):
+    return x - torch.floor(x)
+
+
+def hash21(x, y):
+    """2-D lattice hash -> float in [0, 1) (fractional-arithmetic hash).
+    A hash turns any rounding difference into a different value: every
+    operation here rounds on its own, in this order, in the kernel too."""
+    x = x + 0.5
+    y = y + 0.5
+    px = _fract(x * 0.1031)
+    py = _fract(y * 0.1030)
+    pz = _fract((x + y) * 0.0973)
+    d = px * (py + 33.33) + py * (pz + 33.33) + pz * (px + 33.33)
+    return _fract((px + py + 2.0 * d) * (pz + d))
+
+
+def _smooth(t):
+    return t * t * (3.0 - 2.0 * t)
+
+
+def atan2_approx(y, x):
+    """Polynomial atan2 (max error ~2e-7 rad), the JAX package's own form so
+    that star positions agree exactly."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    lo = torch.minimum(ax, ay)
+    z = lo / maximum(hi, 1e-30)
+    z2 = z * z
+    p = -0.0117212 * z2 + 0.0526477
+    p = p * z2 + -0.1172626
+    p = p * z2 + 0.1936999
+    p = p * z2 + -0.3326231
+    p = p * z2 + 0.9999798
+    t = p * z
+    t = torch.where(ay > ax, math.pi / 2 - t, t)
+    t = torch.where(x < 0.0, math.pi - t, t)
+    return torch.where(y < 0.0, -t, t)
+
+
+def _powi_plan(p: float):
+    """How _powi evaluates x**p: (k, n, negative) for p * 2**k = +-n, an
+    integer of at most 16 (k square roots, then n by binary powers), or None
+    for a plain pow. The render kernel takes the same plan from the host."""
+    for k in range(3):
+        pk = p * (1 << k)
+        if float(pk).is_integer() and abs(pk) <= 16:
+            return k, int(abs(pk)), p < 0
+    return None
+
+
+def _powi(x, p: float):
+    """x**p by square roots and products when p is a multiple of 0.25 (the
+    JAX twin's exact chain), else a plain pow. Requires x >= 0."""
+    plan = _powi_plan(p)
+    if plan is None:
+        return x**p
+    k, n, negative = plan
+    base = x
+    for _ in range(k):
+        base = sqrt(base)
+    acc, bit = None, base
+    while n:
+        if n & 1:
+            acc = bit if acc is None else acc * bit
+        bit = bit * bit
+        n >>= 1
+    if acc is None:
+        acc = torch.ones_like(x)
+    return 1.0 / acc if negative else acc
+
+
+def _pow4(x):
+    """x**4 as jax.lax.integer_pow computes it: (x*x)*(x*x)."""
+    x2 = x * x
+    return x2 * x2
+
+
+def value_noise2(x, y):
+    """Smoothed 2-D value noise in [0, 1)."""
+    xf, yf = torch.floor(x), torch.floor(y)
+    tx, ty = _smooth(x - xf), _smooth(y - yf)
+    c00 = hash21(xf, yf)
+    c10 = hash21(xf + 1, yf)
+    c01 = hash21(xf, yf + 1)
+    c11 = hash21(xf + 1, yf + 1)
+    return (
+        c00 * (1 - tx) * (1 - ty)
+        + c10 * tx * (1 - ty)
+        + c01 * (1 - tx) * ty
+        + c11 * tx * ty
+    )
+
+
+def fbm2(x, y, octaves: int = 4):
+    """Fractal value noise: ``octaves`` octaves of value_noise2."""
+    total = torch.zeros_like(x)
+    amp, freq = 0.5, 1.0
+    for _ in range(octaves):
+        total = total + amp * value_noise2(x * freq, y * freq)
+        amp *= 0.5
+        freq *= 2.0
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Blackbody colour ramp (analytic disk)
+# ---------------------------------------------------------------------------
+
+def blackbody_ramp_rows(t_kelvin):
+    """Analytic blackbody T -> linear RGB (r, g, b) rows (Tanner-Helland-style
+    fit on 1000-40000 K); chromaticity only."""
+    t = div_c(clip(t_kelvin, 1000.0, 40000.0), 100.0)
+    red = torch.where(
+        t <= 66.0, 255.0,
+        329.698727446 * maximum(t - 60.0, 1e-6) ** -0.1332047592,
+    )
+    g_lo = 99.4708025861 * torch.log(maximum(t, 1e-6)) - 161.1195681661
+    g_hi = 288.1221695283 * maximum(t - 60.0, 1e-6) ** -0.0755148492
+    green = torch.where(t <= 66.0, g_lo, g_hi)
+    b_lo = 138.5177312231 * torch.log(maximum(t - 10.0, 1e-6)) - 305.0447927307
+    blue = torch.where(t >= 66.0, 255.0, torch.where(t <= 19.0, 0.0, b_lo))
+    out = []
+    for c in (red, green, blue):
+        c = clip(div_c(c, 255.0), 0.0, 1.0)
+        out.append(c * c)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Thin accretion disk
+# ---------------------------------------------------------------------------
+
+def nt_temperature_profile(r, r_in):
+    """Zero-torque Novikov-Thorne temperature shape
+    (1 - sqrt(r_in/r))^{1/4} (r_in/r)^{3/4}, normalized to peak 1."""
+    x = maximum(r / r_in, 1.0 + 1e-6)
+    shape = _powi(1.0 - sqrt(1.0 / x), 0.25) * _powi(x, -0.75)
+    return div_c(shape, NT_PEAK)
+
+
+def equatorial_g_factor(m, a, r, lam):
+    """Cunningham g-factor for a prograde Keplerian emitter at equatorial r
+    seen by a photon with conserved lam = L_z/E."""
+    r = maximum(r, 1.05)
+    two_mr = 2.0 * m * r
+    sig = r * r
+    g_tt = -(1.0 - two_mr / sig)
+    g_tph = -two_mr * a / sig
+    g_phph = r * r + a * a + two_mr * a * a / sig
+    sqrt_m = sqrt(m)
+    omega = sqrt_m / (r * sqrt(r) + a * sqrt_m)
+    ut_inv_sq = -(g_tt + 2.0 * omega * g_tph + omega * omega * g_phph)
+    u_t = 1.0 / sqrt(maximum(ut_inv_sq, 1e-6))
+    doppler = 1.0 - lam * omega
+    doppler = torch.where(torch.abs(doppler) < 1e-4, 1e-4, doppler)
+    return 1.0 / (u_t * doppler)
+
+
+def _disk_geometry(disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves):
+    """The parts shared by both disk branches: sanitized crossing record,
+    clipped g-factor, noise turbulence and soft radial edges."""
+    valid = (r_c > r_in) & (r_c < disk.outer_radius)
+    r_c = torch.where(valid, r_c, r_in * 2.0)
+    phi_c = torch.where(valid, phi_c, 0.0)
+    t_c = torch.where(valid, t_c, 0.0)
+    g = equatorial_g_factor(m, a, torch.maximum(r_c, r_in), lam)
+    g = clip(g, 0.05, 5.0)
+    rk = torch.maximum(r_c, r_in)
+    omega_k = sqrt(m) / (rk * sqrt(rk) + a * sqrt(m))
+    phase = phi_c - omega_k * t_c
+    phase = torch.remainder(phase, const(phase, TWO_PI))
+    noise = fbm2(r_c * 1.7, phase * 3.0, octaves=octaves)
+    turb = 1.0 - disk.turbulence + disk.turbulence * (0.4 + 1.2 * noise)
+    inner = clip(
+        (r_c - r_in) / (disk.inner_edge_softness * r_in + 1e-6), 0.0, 1.0
+    )
+    edge = _smooth(inner) * clip(
+        div_c(disk.outer_radius - r_c, 0.15 * disk.outer_radius), 0.0, 1.0
+    )
+    return valid, r_c, g, turb, edge
+
+
+def disk_emission_rows(disk: DiskParams, m, a, r_in, r_c, phi_c, t_c, lam,
+                       octaves: int = 3):
+    """Shade one recorded disk crossing, analytic branch:
+    ((r, g, b) rows, alpha, valid). Novikov-Thorne temperature shape and the
+    Tanner-Helland ramp; g^beaming intensity. ``m``, ``a``, ``r_in`` are 0-dim
+    tensors (the JAX twin takes a Kerr and an optional r_in)."""
+    valid, r_c, g, turb, edge = _disk_geometry(
+        disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves
+    )
+    t_shape = nt_temperature_profile(
+        torch.maximum(r_c, r_in * (1 + 1e-4)), r_in
+    )
+    if disk.artistic_rgb is not None:
+        color = tuple(torch.full_like(r_c, c) for c in disk.artistic_rgb)
+    else:
+        t_obs = clip(g * t_shape * disk.t_peak, 1000.0, 40000.0)
+        color = blackbody_ramp_rows(t_obs)
+    outer = _powi(torch.maximum(r_in, r_c) / r_in, -disk.outer_falloff * 0.5)
+    alpha = clip(disk.density * edge * turb, 0.0, 1.0)
+    alpha = torch.where(valid, alpha, 0.0)
+    intensity = _powi(g, disk.beaming_exponent) * _pow4(t_shape) * outer
+    masked = torch.where(valid, intensity, 0.0)
+    return tuple(c * masked for c in color), alpha, valid
+
+
+SPECTRAL_CHEB_K = 16
+SPECTRAL_T_LO = 900.0
+SPECTRAL_T_HI = 4e4
+
+
+def cheb_clenshaw(coeffs, t):
+    """Chebyshev series at t in [-1, 1] by Clenshaw's recurrence;
+    ``coeffs`` is a sequence of 0-dim tensors (or numbers)."""
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for j in range(len(coeffs) - 1, 0, -1):
+        b1, b2 = 2.0 * t * b1 - b2 + coeffs[j], b1
+    return t * b1 - b2 + coeffs[0]
+
+
+def spectral_slot_core(disk: DiskParams, m, a, r_in, inv_logr, t_coeffs,
+                       rgb_coeffs, r_c, phi_c, t_c, lam, octaves: int):
+    """Shade one recorded crossing, spectral branch: Page-Thorne temperature
+    shape and Planck/CIE chromaticity as Chebyshev series (``t_coeffs``: K
+    scalars; ``rgb_coeffs``: 3 lists of K scalars); exact g^4 intensity."""
+    valid, r_c, g, turb, edge = _disk_geometry(
+        disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves
+    )
+    x01 = torch.log(maximum(r_c / r_in, 1e-6)) * inv_logr
+    xs = sqrt(clip(x01, 0.0, 1.0))
+    tx = clip(2.0 * xs - 1.0, -1.0, 1.0)
+    t_shape = clip(cheb_clenshaw(t_coeffs, tx), 0.0, 1.0)
+    t_obs = clip(g * t_shape * disk.t_peak, SPECTRAL_T_LO, SPECTRAL_T_HI)
+    y01 = div_c(t_obs - SPECTRAL_T_LO, SPECTRAL_T_HI - SPECTRAL_T_LO) ** 0.4
+    ty = clip(2.0 * y01 - 1.0, -1.0, 1.0)
+    color = tuple(
+        maximum(cheb_clenshaw(rgb_coeffs[c], ty), 0.0) for c in range(3)
+    )
+    alpha = clip(disk.density * edge * turb, 0.0, 1.0)
+    alpha = torch.where(valid, alpha, 0.0)
+    intensity = _pow4(g) * _pow4(t_shape)
+    masked = torch.where(valid, intensity, 0.0)
+    return tuple(c * masked for c in color), alpha, valid
+
+
+# ---------------------------------------------------------------------------
+# Background starfield
+# ---------------------------------------------------------------------------
+
+def escape_direction_u_rows(rows_u, m, a):
+    """Unit Cartesian direction (dx, dy, dz) of an escaped ray from its
+    u-chart rows (t, r, u, ph, p_t, p_r, p_u, p_phi)."""
+    _, r, u, ph, pt, pr, pu, pph = rows_u
+    u = clip(u, -1.0, 1.0)
+    w = maximum(1.0 - u * u, 1e-12)
+    s = sqrt(w)
+    sig = r * r + a * a * u * u
+    delta = r * r - 2.0 * m * r + a * a
+    inv_sig = 1.0 / sig
+    h = 2.0 * m * r * inv_sig
+    v_r = h * pt + delta * inv_sig * pr + a * inv_sig * pph
+    v_th = -r * pu * s * inv_sig
+    v_ph = r * s * (a * inv_sig * pr + pph * inv_sig / w)
+    st, ct = s, u
+    sp, cp = sin(ph), cos(ph)
+    dx = v_r * st * cp + v_th * ct * cp - v_ph * sp
+    dy = v_r * st * sp + v_th * ct * sp + v_ph * cp
+    dz = v_r * ct - v_th * st
+    inv_n = 1.0 / sqrt(maximum(dx * dx + dy * dy + dz * dz, 1e-30))
+    return dx * inv_n, dy * inv_n, dz * inv_n
+
+
+def starfield_rows(dx, dy, dz, params: StarfieldParams = StarfieldParams()):
+    """Two-scale hashed starfield plus fbm nebula: direction rows in,
+    (r, g, b) rows out."""
+    u = atan2_approx(dy, dx)
+    v = clip(dz, -1.0, 1.0)
+    out = [torch.zeros_like(u) for _ in range(3)]
+    for freq, scale in ((params.cells, 1.0), (params.cells * 0.35, 2.2)):
+        cu = torch.floor(u * freq)
+        cv = torch.floor(v * freq)
+        h = hash21(cu, cv)
+        star = (h < params.density * scale * 300.0).to(u.dtype)
+        fu = u * freq - cu - 0.5
+        fv = v * freq - cv - 0.5
+        spot = torch.exp(-(fu * fu + fv * fv) * 40.0)
+        temp = 3000.0 + 12000.0 * hash21(cu + 7, cv + 13)
+        color = blackbody_ramp_rows(temp)
+        h_mag = hash21(cu + 31, cv + 5)
+        w = star * spot * (h_mag * h_mag * h_mag)
+        out = [acc + w * c for acc, c in zip(out, color)]
+    nebula = fbm2(u * 3.0, v * 3.0, octaves=4)
+    neb2 = nebula * nebula
+    neb_rows = (0.35 * neb2, 0.2 * neb2, 0.5 * nebula * sqrt(nebula))
+    return tuple(
+        params.brightness * acc + params.nebula * nc
+        for acc, nc in zip(out, neb_rows)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Host-side spectral tables (float64 build, float32 Chebyshev projection)
+# ---------------------------------------------------------------------------
+
+def build_disk_luts(mass: float, spin: float, disk: DiskParams,
+                    n_r: int = 256, n_t: int = 128):
+    """The Page-Thorne temperature-shape LUT on a log-r grid from the ISCO to
+    the disk edge, and the Planck/CIE chromaticity LUT over observed
+    temperature (^2.5-warped axis). Built in float64, returned as float32
+    numpy arrays (r_grid, t_shape, t_axis, rgb_table (n_t, 3))."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
+    from blackhole_simulation_tpu_torch.physics.disk import page_thorne_flux
+    from blackhole_simulation_tpu_torch.physics.spectrum import blackbody_rgb
+
+    r_in = Kerr(mass=float(mass), spin=float(spin)).isco()
+    r_grid = r_in * (disk.outer_radius / r_in) ** np.linspace(0.0, 1.0, n_r)
+    flux = page_thorne_flux(r_grid, mass, spin, n_grid=n_r)
+    t_raw = np.maximum(flux, 0.0) ** 0.25
+    t_shape = t_raw / max(t_raw.max(), 1e-30)
+    t_axis = 900.0 + (4e4 - 900.0) * np.linspace(0.0, 1.0, n_t) ** 2.5
+    rgb_table = blackbody_rgb(t_axis)
+    f32 = lambda x: np.asarray(x, np.float32)
+    return f32(r_grid), f32(t_shape), f32(t_axis), f32(rgb_table)
+
+
+def _interp(x, xp, fp):
+    """jnp.interp (constant extrapolation) on 1-D tensors, same arithmetic."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def spectral_cheb_coeffs(luts):
+    """Chebyshev projections of the two spectral LUTs, in float32 as the JAX
+    twin computes them: t_shape on x' = sqrt(log(r/r_in)/log(r_out/r_in))
+    and rgb on y = ((T - 900)/(4e4 - 900))^(1/2.5). Returns float32 tensors
+    (t_coeffs (K,), rgb_coeffs (3, K))."""
+    r_grid, t_shape_tab, t_axis, rgb_table = (
+        torch.as_tensor(np.asarray(x, np.float32)) for x in luts
+    )
+    K = SPECTRAL_CHEB_K
+    k = torch.arange(K, dtype=torch.float32)
+    nodes = cos(div_c(math.pi * (k + 0.5), K))
+    x01 = 0.5 * (nodes + 1.0)
+    r_in, r_out = r_grid[0], r_grid[-1]
+    r_nodes = r_in * (r_out / r_in) ** (x01 * x01)
+    t_vals = _interp(r_nodes, r_grid, t_shape_tab)
+    t_nodes = SPECTRAL_T_LO + (SPECTRAL_T_HI - SPECTRAL_T_LO) * x01**2.5
+    rgb_vals = torch.stack(
+        [_interp(t_nodes, t_axis, rgb_table[:, c].contiguous()) for c in range(3)]
+    )
+    dct = cos(div_c(math.pi * k[:, None] * (k[None, :] + 0.5), K))
+
+    def proj(v):
+        c = (2.0 / K) * (v[None, :] * dct).sum(dim=1)
+        c[0] = c[0] * 0.5
+        return c
+
+    return proj(t_vals), torch.stack([proj(rgb_vals[c]) for c in range(3)])
+
+
+@functools.lru_cache(maxsize=64)
+def spectral_kernel_tables(mass: float, spin: float, disk: DiskParams):
+    """Host spectral Chebyshev tables for the render kernel: (t_coeffs (K,),
+    rgb_coeffs (3, K), inv_logr ()) as float32 numpy arrays. Cached on
+    (mass, spin, disk); the 65 scalars ship in the kernel's parameter row."""
+    luts = build_disk_luts(mass, spin, disk)
+    t_coeffs, rgb_coeffs = spectral_cheb_coeffs(luts)
+    r_grid = torch.as_tensor(luts[0])
+    inv_logr = 1.0 / torch.log(r_grid[-1] / r_grid[0])
+    return (t_coeffs.numpy(), rgb_coeffs.numpy(),
+            np.asarray(inv_logr.numpy(), np.float32))

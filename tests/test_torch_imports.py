@@ -1,0 +1,61 @@
+"""The port and chip_smoke.py import neither JAX nor the JAX package.
+
+Checked in a fresh interpreter (this test process has both loaded), and
+statically over the port's sources.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "blackhole_simulation_tpu_torch"
+MODULES = [
+    "blackhole_simulation_tpu_torch",
+    "blackhole_simulation_tpu_torch.render.pipeline",
+    "blackhole_simulation_tpu_torch.ops.render",
+    "blackhole_simulation_tpu_torch.ops.build",
+    "blackhole_simulation_tpu_torch.physics.disk",
+    "blackhole_simulation_tpu_torch.physics.spectrum",
+    "chip_smoke",
+]
+
+_PROBE = """
+import importlib, json, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "blackhole_simulation_tpu")
+    or m.startswith(("jax.", "jaxlib.", "blackhole_simulation_tpu."))
+)
+print(json.dumps(bad))
+"""
+
+
+def test_no_jax_in_fresh_interpreter():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, *MODULES],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py"],
+)
+def test_source_imports_no_jax(path):
+    text = (ROOT / path).read_text()
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            mod = s.split()[1]
+            assert mod.split(".")[0] not in ("jax", "jaxlib"), line
+            assert mod != "blackhole_simulation_tpu" and not mod.startswith(
+                "blackhole_simulation_tpu."
+            ), line

@@ -1,0 +1,163 @@
+"""The port's render against the JAX package's, end to end, on the CPU.
+
+The port runs its plain PyTorch version of the render kernel
+(``device="cpu"``). The reference is JAX ``render_radiance`` / ``render`` on
+the staged jnp path (``use_pallas=False``), executed op by op
+(``jax.disable_jit``): each operation then rounds once, as in the port's
+plain version and in its CUDA kernel. (Compiled as one program, XLA
+contracts multiply-adds and rewrites divisions, and those last-bit
+differences grow without bound along the chaotic photon-ring orbits.)
+For the spectral disk the JAX scene carries ``spectral_kernel_tables`` so it
+shades with the Chebyshev twin (shading.py:726-740), as the fused kernel
+does. Bars are tests/test_fused.py's: p99 |d| < 1e-4 and mean |d| < 1e-5.
+"""
+
+import dataclasses as dc
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blackhole_simulation_tpu.render import (
+    Camera as JCamera,
+    MarchConfig as JMarchConfig,
+    Scene as JScene,
+    render as j_render,
+    render_radiance as j_render_radiance,
+)
+from blackhole_simulation_tpu.render.pipeline import Features as JFeatures
+from blackhole_simulation_tpu.render.shading import spectral_kernel_tables
+from blackhole_simulation_tpu_torch.ops.render import (
+    render_planes,
+    render_planes_kernel,
+)
+from blackhole_simulation_tpu_torch.render.pipeline import (
+    kernel_inputs,
+    render,
+    render_radiance,
+    scene_from_numpy,
+)
+
+torch.set_num_threads(1)
+
+THETA = float(jnp.pi / 2 - 0.25)
+# test_fused.py's short-horizon config; remat_every=0 runs the JAX march as
+# one loop (its forward values do not depend on it).
+BASE = dict(max_steps=48, shadow_precull=True, far_step_cap_rate=0.4,
+            far_boost_radius=20.0, midpoint_iters=1, remat_every=0)
+
+
+def _scenes(width, height, spin, features, **cfg_over):
+    cfg = JMarchConfig(**{**BASE, **cfg_over})
+    cam = JCamera.create(r=30.0, theta=THETA, fov=0.5, width=width,
+                         height=height)
+    js = JScene.create(mass=1.0, spin=spin, camera=cam, march_cfg=cfg,
+                       features=features)
+    if features.spectral_lut:
+        js = dc.replace(js, spectral_coeffs=spectral_kernel_tables(
+            1.0, spin, js.disk))
+    ts = scene_from_numpy(
+        mass=1.0, spin=spin,
+        camera=dict(r=30.0, theta=THETA, phi=0.0, fov=0.5, roll=0.0,
+                    width=width, height=height),
+        march_cfg=dc.asdict(dc.replace(cfg, use_pallas=True, fused=True)),
+        features=dc.asdict(features), disk=dc.asdict(js.disk),
+        stars=dc.asdict(js.stars), post=dc.asdict(js.post),
+        spectral_coeffs=js.spectral_coeffs,
+    )
+    return js, ts
+
+
+CASES = {
+    "analytic-a0.9-96x54": (96, 54, 0.9, JFeatures()),
+    "spectral-a0.9-96x54": (96, 54, 0.9, JFeatures(spectral_lut=True)),
+    "analytic-a0.999-96x54": (96, 54, 0.999, JFeatures()),
+    "spectral-a0.999-96x54": (96, 54, 0.999, JFeatures(spectral_lut=True)),
+    "spectral-a0.9-50x21": (50, 21, 0.9, JFeatures(spectral_lut=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_render_radiance_matches_jax(case):
+    width, height, spin, feats = CASES[case]
+    js, ts = _scenes(width, height, spin, feats)
+    with jax.disable_jit():
+        ref = np.asarray(j_render_radiance(js, dtype=jnp.float32))
+    out = render_radiance(ts, device="cpu")
+    assert out.shape == (height, width, 3) and out.dtype == torch.float32
+    d = np.abs(out.numpy() - ref)
+    assert np.isfinite(out.numpy()).all()
+    assert np.percentile(d, 99) < 1e-4, np.percentile(d, 99)
+    assert d.mean() < 1e-5, d.mean()
+
+
+def test_render_supersampled_tonemapped_matches_jax():
+    js, ts = _scenes(64, 32, 0.9, JFeatures())
+    with jax.disable_jit():
+        ref = np.asarray(j_render(js, n_samples=2, dtype=jnp.float32))
+    out = render(ts, n_samples=2, device="cpu").numpy()
+    assert out.shape == (32, 64, 3)
+    assert np.isfinite(out).all() and 0.0 <= out.min() and out.max() <= 1.0
+    assert np.abs(out - ref).mean() < 1e-4
+
+
+OUT_OF_SLICE = {
+    "staged": (dict(), dict(use_pallas=False)),
+    "jets": (dict(jets=True), dict()),
+    "start_jitter": (dict(), dict(start_jitter=0.5)),
+    "refine_band": (dict(), dict(refine_band=0.6)),
+    "shadow_overlay": (dict(shadow_overlay=True), dict()),
+    "multistep": (dict(), dict(multistep=True)),
+}
+
+
+def _port_scene(features=None, nrs_params=None, **cfg_over):
+    cfg = {**BASE, "use_pallas": True, "fused": True, **cfg_over}
+    ts = scene_from_numpy(
+        mass=1.0, spin=0.9,
+        camera=dict(r=30.0, theta=THETA, phi=0.0, fov=0.5, roll=0.0,
+                    width=16, height=8),
+        march_cfg=cfg, features=features,
+    )
+    return dc.replace(ts, nrs_params=nrs_params)
+
+
+@pytest.mark.parametrize("what", sorted(OUT_OF_SLICE))
+def test_out_of_slice_features_raise(what):
+    feats, cfg = OUT_OF_SLICE[what]
+    with pytest.raises(NotImplementedError):
+        render_radiance(_port_scene(feats, **cfg), device="cpu")
+
+
+def test_nrs_far_field_raises_only_with_weights():
+    with pytest.raises(NotImplementedError):
+        render_radiance(_port_scene(dict(nrs_far_field=True),
+                                    nrs_params=((0.0,),)), device="cpu")
+    # Without trained weights the JAX package renders as if it were off.
+    img = render_radiance(_port_scene(dict(nrs_far_field=True)), device="cpu")
+    assert img.shape == (8, 16, 3)
+
+
+@pytest.mark.parametrize("entry", ["render", "render_radiance"])
+def test_no_silent_cpu_fallback(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = render if entry == "render" else render_radiance
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(_port_scene())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(_port_scene(), device="cuda")
+
+
+def test_wrapper_takes_plain_version_only_for_cpu_rows():
+    row, st = kernel_inputs(_port_scene(), None, "cpu")
+    before = render_planes_kernel.launches
+    out = render_planes_kernel(row, st)
+    assert render_planes_kernel.launches == before  # no kernel launch on CPU
+    assert torch.equal(out, render_planes(row, st))
+    steps = torch.empty((st.height, st.width), dtype=torch.int32)
+    render_planes_kernel(row, st, steps)
+    assert int(steps.max()) <= st.cfg.max_steps and int(steps.min()) >= 0
+    with pytest.raises(ValueError):
+        render_planes_kernel(row.double(), st)
