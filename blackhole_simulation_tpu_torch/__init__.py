@@ -2,25 +2,36 @@
 CUDA, a port of ``blackhole_simulation_tpu`` (JAX/Pallas), which stays
 beside it as the reference.
 
-This slice runs the flagship fused render:
-``blackhole_simulation_tpu_torch.render.render(scene, n_samples, device)``
-and ``render_radiance(scene, device)`` build each pixel's ray,
-precull the shadow interior, march the Kerr-Schild geodesic and composite
-disk, starfield and photon-ring glow in one hand-written CUDA kernel
-(``csrc/render.cu``), then tone-map on the device. They run on ``cuda``
-unless the caller passes ``device="cpu"``, which runs the kernel's plain
-PyTorch version. The package imports torch and numpy, never JAX.
+What runs:
+
+- the flagship fused render:
+  ``blackhole_simulation_tpu_torch.render.render(scene, n_samples, device)``
+  and ``render_radiance(scene, device)`` build each pixel's ray, precull the
+  shadow interior, march the Kerr-Schild geodesic and composite disk,
+  starfield and photon-ring glow in one hand-written CUDA kernel
+  (``csrc/render.cu``), then tone-map on the device;
+- the staged render (``MarchConfig.fused`` off): camera rays, the march
+  kernel (``csrc/march.cu``) and the composite in PyTorch;
+- inverse rendering (``parallel``): ``make_inverse_step``,
+  ``make_ad_inverse_step``, ``ad_inverse_render`` and ``inverse_render``
+  differentiate the staged render, with the march kernel forward and the
+  gradient kernel (``csrc/march_grad.cu``) backward (``march_rows_ad``).
+
+The entry points run on ``cuda`` unless the caller passes
+``device="cpu"``, which runs the kernels' plain PyTorch versions. The
+package imports torch and numpy, never JAX.
 
 Layout (each module names its JAX counterpart):
 
-- ``geometry`` -- Kerr scalars on the host (float64).
+- ``geometry`` -- Kerr scalars: host float64, and differentiable radii.
 - ``physics``  -- Page-Thorne flux and Planck/CIE colour for the spectral
                   disk tables (host float64).
-- ``render``   -- camera, config dataclasses, shading, precull, post, and
-                  the pipeline entry points.
-- ``ops``      -- the step math, the plain march, the render kernel's
-                  parameter row, plain version and wrapper, and the nvcc
-                  build.
+- ``render``   -- camera and rays, config dataclasses, the differentiable
+                  march, shading, precull, post, and the pipeline entry
+                  points.
+- ``ops``      -- the step math, the plain march and its gradient, the
+                  kernels' wrappers and parameter rows, and the nvcc build.
+- ``parallel`` -- inverse rendering on one device.
 - ``csrc``     -- CUDA sources.
 """
 

@@ -11,8 +11,11 @@ the kernel's and the JAX package's.
   direction's sin/cos pick sub-pixel star spots, which turn a last-bit
   difference into a visible one. The kernel uses sqrtf (IEEE) and
   float64 sin/cos.
-* ``clip``: ``jnp.clip`` semantics (max, then min; NaN propagates) for any
-  mix of Python numbers and tensors as bounds.
+* ``clip``, ``maximum``: ``jnp.clip`` / ``jnp.maximum`` semantics (NaN
+  propagates) for any mix of Python numbers and tensors as bounds. Under
+  autograd they go through ``torch.maximum`` / ``torch.minimum``, whose
+  gradient splits half and half at ties as JAX's does (``torch.clamp``
+  passes the whole gradient to ``x``); the values are the same either way.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def cos(x: torch.Tensor) -> torch.Tensor:
 
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """minimum(maximum(x, lo), hi), as jnp.clip computes it."""
-    if not isinstance(lo, torch.Tensor) and not isinstance(hi, torch.Tensor):
+    if (not isinstance(lo, torch.Tensor) and not isinstance(hi, torch.Tensor)
+            and not x.requires_grad):
         return torch.clamp(x, lo, hi)
     lo = lo if isinstance(lo, torch.Tensor) else const(x, lo)
     hi = hi if isinstance(hi, torch.Tensor) else const(x, hi)
@@ -55,4 +59,6 @@ def maximum(x: torch.Tensor, y) -> torch.Tensor:
     """jnp.maximum (NaN propagates) against a tensor or a Python number."""
     if isinstance(y, torch.Tensor):
         return torch.maximum(x, y)
+    if x.requires_grad:
+        return torch.maximum(x, const(x, y))
     return torch.clamp(x, min=y)

@@ -1,0 +1,446 @@
+// The geodesic march step, shared by every kernel of the port: the render
+// kernel (render.cu), the march kernel (march.cu) and the gradient kernel
+// (march_grad.cu). One source for the step is what keeps the three in step
+// with each other: the gradient kernel's replay lands its masks, crossing
+// slots and freeze points on the same steps as the forward march, and the
+// render kernel's march is the march kernel's.
+//
+// Counterpart of blackhole_simulation_tpu/ops/ks_kernel.py (ks_rhs_rows,
+// ks_symplectic_step_rows, ks_renormalize_pr), ops/pallas_march.py
+// (diff_step_values, march_tile) and ops/pallas_grad.py (make_composite).
+// The plain PyTorch versions are ops/ks_kernel.py and ops/march.py; every
+// expression here is written in their order, so the two round alike.
+//
+// The step math is templated on its scalar type: float for the forward
+// march, Dual<N> (a value and N forward-mode tangents) for the gradient
+// kernel's per-step Jacobian. A Dual's value is computed by the same float
+// operations in the same order as the float instantiation, so a dual pass
+// reproduces the forward's values bit for bit.
+//
+// jnp semantics: maximum/minimum/clip propagate NaN (the march's sanity
+// freeze relies on NaN reaching isfinite) and, for tangents, split the
+// derivative half and half at ties, as JAX's rules do. The floored modulo
+// is jnp.mod's own.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+// Constants are written as (float)(double literal): rounded to float32 from
+// the double value, as PyTorch and JAX round a Python float.
+#define F(x) ((float)(x))
+
+#define HIT_NONE 0
+#define HIT_HORIZON 1
+#define HIT_ESCAPE 2
+#define KMAX 4
+
+// The static march configuration. Must match ops/pallas_march.py::
+// _CMarchParams field for field.
+struct MarchParams {
+  int max_steps, renormalize_every, max_crossings, midpoint_iters,
+      approx_recip, far_cap_on;
+  float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
+      escape_radius, escape_sanity_r, record_r_min, record_r_max;
+};
+
+// ---------------------------------------------------------------------------
+// Forward-mode dual numbers
+// ---------------------------------------------------------------------------
+
+template <int N>
+struct Dual {
+  float v;
+  float d[N];
+  __device__ __forceinline__ Dual() {}
+  __device__ __forceinline__ Dual(float x) : v(x) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = 0.0f;
+  }
+};
+
+#define DUAL_LOOP _Pragma("unroll") for (int i = 0; i < N; ++i)
+
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a) {
+  Dual<N> o;
+  o.v = -a.v;
+  DUAL_LOOP o.d[i] = -a.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a.v + b.v;
+  DUAL_LOOP o.d[i] = a.d[i] + b.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(const Dual<N>& a, float b) {
+  Dual<N> o;
+  o.v = a.v + b;
+  DUAL_LOOP o.d[i] = a.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator+(float a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a + b.v;
+  DUAL_LOOP o.d[i] = b.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a.v - b.v;
+  DUAL_LOOP o.d[i] = a.d[i] - b.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(const Dual<N>& a, float b) {
+  Dual<N> o;
+  o.v = a.v - b;
+  DUAL_LOOP o.d[i] = a.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator-(float a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a - b.v;
+  DUAL_LOOP o.d[i] = -b.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a.v * b.v;
+  DUAL_LOOP o.d[i] = a.d[i] * b.v + a.v * b.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(const Dual<N>& a, float b) {
+  Dual<N> o;
+  o.v = a.v * b;
+  DUAL_LOOP o.d[i] = a.d[i] * b;
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator*(float a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a * b.v;
+  DUAL_LOOP o.d[i] = a * b.d[i];
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a.v / b.v;
+  DUAL_LOOP o.d[i] = (a.d[i] - o.v * b.d[i]) / b.v;
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(const Dual<N>& a, float b) {
+  Dual<N> o;
+  o.v = a.v / b;
+  DUAL_LOOP o.d[i] = a.d[i] / b;
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> operator/(float a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a / b.v;
+  DUAL_LOOP o.d[i] = -(o.v * b.d[i]) / b.v;
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// jnp semantics, for float and for Dual
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float val(float x) { return x; }
+template <int N>
+__device__ __forceinline__ float val(const Dual<N>& x) { return x.v; }
+
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+  return jmin(jmax(x, lo), hi);
+}
+// Ties split the tangent half and half (JAX's rule for max and min).
+template <int N>
+__device__ __forceinline__ Dual<N> jtie(const Dual<N>& a, const Dual<N>& b) {
+  Dual<N> o;
+  o.v = a.v;
+  DUAL_LOOP o.d[i] = 0.5f * (a.d[i] + b.d[i]);
+  return o;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> jmax(const Dual<N>& a, const Dual<N>& b) {
+  if (a.v == b.v) return jtie(a, b);
+  return (a.v > b.v || a.v != a.v) ? a : b;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> jmin(const Dual<N>& a, const Dual<N>& b) {
+  if (a.v == b.v) return jtie(a, b);
+  return (a.v < b.v || a.v != a.v) ? a : b;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> jclip(const Dual<N>& x, const Dual<N>& lo,
+                                         const Dual<N>& hi) {
+  return jmin(jmax(x, lo), hi);
+}
+
+__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
+template <int N>
+__device__ __forceinline__ Dual<N> dabs(const Dual<N>& x) {
+  // d|x| = sign(x) dx, with sign(0) = 0 (jnp.sign)
+  const float s = x.v > 0.0f ? 1.0f : (x.v < 0.0f ? -1.0f : 0.0f);
+  Dual<N> o;
+  o.v = fabsf(x.v);
+  DUAL_LOOP o.d[i] = s * x.d[i];
+  return o;
+}
+
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+template <int N>
+__device__ __forceinline__ Dual<N> dsqrt(const Dual<N>& x) {
+  Dual<N> o;
+  o.v = sqrtf(x.v);
+  DUAL_LOOP o.d[i] = x.d[i] * 0.5f / o.v;
+  return o;
+}
+
+__device__ __forceinline__ float fmod_floor(float x, float y) {
+  float md = fmodf(x, y);
+  if (md != 0.0f && ((md < 0.0f) != (y < 0.0f))) md += y;
+  return md;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// d(1/x) = -y^2 dx with the approximate y itself (pallas_march.py:127-133).
+template <int N>
+__device__ __forceinline__ Dual<N> rcp_approx(const Dual<N>& x) {
+  Dual<N> o;
+  o.v = rcp_approx(x.v);
+  const float g = -o.v * o.v;
+  DUAL_LOOP o.d[i] = g * x.d[i];
+  return o;
+}
+template <class T>
+__device__ __forceinline__ T recip(const T& x, bool approx) {
+  return approx ? rcp_approx(x) : 1.0f / x;
+}
+template <class T>
+__device__ __forceinline__ T divr(const T& num, const T& den, bool approx) {
+  return approx ? num * rcp_approx(den) : num / den;
+}
+
+// ---------------------------------------------------------------------------
+// Step math (ops/ks_kernel.py), p_t = -1
+// ---------------------------------------------------------------------------
+
+template <class T>
+__device__ __forceinline__ void ks_rhs(const T& m, const T& a, const T& r,
+                                       const T& u, const T& pr, const T& pu,
+                                       const T& pph, bool approx, T d[6]) {
+  const float pt = -1.0f;
+  T w = jmax(1.0f - u * u, T(F(1e-6)));
+  T S = r * r + a * a * u * u;
+  T D = r * r - 2.0f * m * r + a * a;
+  T inv_S = recip(S, approx);
+  T h = 2.0f * m * r * inv_S;
+  T inv_S2 = inv_S * inv_S;
+  T inv_w = recip(w, approx);
+
+  d[0] = -(1.0f + h) * pt + h * pr;
+  d[1] = h * pt + D * inv_S * pr + a * inv_S * pph;
+  d[2] = w * inv_S * pu;
+  d[3] = a * inv_S * pr + pph * inv_S * inv_w;
+
+  T S_r = 2.0f * r;
+  T D_r = 2.0f * r - 2.0f * m;
+  T h_r = 2.0f * m * (S - 2.0f * r * r) * inv_S2;
+  T DS_r = (D_r * S - D * S_r) * inv_S2;
+  T invS_r = -S_r * inv_S2;
+  T wS_r = -w * S_r * inv_S2;
+  T invSw_r = -S_r * inv_S2 * inv_w;
+  T dH_dr = 0.5f * (-h_r * pt * pt + 2.0f * h_r * pt * pr +
+                    DS_r * pr * pr + 2.0f * a * invS_r * pr * pph +
+                    wS_r * pu * pu + invSw_r * pph * pph);
+
+  T S_u = 2.0f * a * a * u;
+  T w_u = -2.0f * u;
+  T h_u = -2.0f * m * r * S_u * inv_S2;
+  T DS_u = -D * S_u * inv_S2;
+  T invS_u = -S_u * inv_S2;
+  T wS_u = (w_u * S - w * S_u) * inv_S2;
+  T invSw_u = -(S_u * w + S * w_u) * inv_S2 * inv_w * inv_w;
+  T dH_du = 0.5f * (-h_u * pt * pt + 2.0f * h_u * pt * pr +
+                    DS_u * pr * pr + 2.0f * a * invS_u * pr * pph +
+                    wS_u * pu * pu + invSw_u * pph * pph);
+  d[4] = -dH_dr;
+  d[5] = -dH_du;
+}
+
+// Null projection of p_r (exact divides always).
+template <class T>
+__device__ __forceinline__ T ks_renormalize_pr(const T& m, const T& a,
+                                               const T& r, const T& u,
+                                               const T& pr, const T& pu,
+                                               const T& pph) {
+  const float pt = -1.0f;
+  T w = jmax(1.0f - u * u, T(F(1e-6)));
+  T S = r * r + a * a * u * u;
+  T D = r * r - 2.0f * m * r + a * a;
+  T inv_S = 1.0f / S;
+  T h = 2.0f * m * r * inv_S;
+  T A = D * inv_S;
+  T B = 2.0f * (h * pt + a * inv_S * pph);
+  T C = -(1.0f + h) * pt * pt + w * inv_S * pu * pu + pph * pph * inv_S / w;
+  T disc = B * B - 4.0f * A * C;
+  bool valid = (val(disc) >= 0.0f) && (fabsf(val(A)) > F(1e-12));
+  T sqrt_d = dsqrt(valid ? jmax(disc, T(F(1e-30))) : T(1.0f));
+  T denom = valid ? 2.0f * A : T(1.0f);
+  T sol1 = (-B + sqrt_d) / denom;
+  T sol2 = (-B - sqrt_d) / denom;
+  T nearest = fabsf(val(sol1) - val(pr)) < fabsf(val(sol2) - val(pr)) ? sol1
+                                                                      : sol2;
+  return valid ? nearest : pr;
+}
+
+// ---------------------------------------------------------------------------
+// One march step (pallas_march.py::diff_step_values and the body of
+// march_tile / pallas_grad.py::make_composite)
+// ---------------------------------------------------------------------------
+
+// The stepped state and the interpolated equator-crossing record.
+template <class T>
+__device__ __forceinline__ void step_values(
+    const MarchParams& mp, bool approx, const T& m, const T& a, const T& r_h,
+    const T& r_ph, const T& t, const T& r, const T& u, const T& ph,
+    const T& pr, const T& pu, const T& pph, T y[6], T& r_c, T& phi_c,
+    T& t_c) {
+  T inv_rph = 1.0f / jmax(r_ph, T(F(1e-3)));
+  T base = (r - r_h) * mp.step_rate;
+  T far = jmax(r / mp.far_boost_radius, T(1.0f));
+  T prox = jclip(dabs(r - r_ph) * inv_rph, T(F(0.25)), T(1.0f));
+  T cap = mp.far_cap_on ? jmax(mp.far_step_cap_rate * r, T(mp.max_step))
+                        : T(mp.max_step);
+  T dlam = jclip(base * far * prox, T(mp.min_step), cap);
+  T w = jmax(1.0f - u * u, T(F(1e-6)));
+  T sig = r * r + a * a * u * u;
+  T du_rate = dabs(w * pu / sig) + F(1e-12);
+  T margin = 1.0f - dabs(u) + F(1e-6);
+  dlam = jmin(dlam, jmax(divr(0.5f * margin, du_rate, approx), T(mp.min_step)));
+
+  T d[6];
+  ks_rhs(m, a, r, u, pr, pu, pph, approx, d);
+  T nt = t + dlam * d[0];
+  T nr = r + dlam * d[1];
+  T nu = u + dlam * d[2];
+  T nph = ph + dlam * d[3];
+  T npr = pr + dlam * d[4];
+  T npu = pu + dlam * d[5];
+  for (int it = 0; it < mp.midpoint_iters; ++it) {
+    ks_rhs(m, a, 0.5f * (r + nr), 0.5f * (u + nu), 0.5f * (pr + npr),
+           0.5f * (pu + npu), pph, approx, d);
+    nt = t + dlam * d[0];
+    nr = r + dlam * d[1];
+    nu = u + dlam * d[2];
+    nph = ph + dlam * d[3];
+    npr = pr + dlam * d[4];
+    npu = pu + dlam * d[5];
+  }
+  nu = jclip(nu, T(F(-1.0 + 1e-7)), T(F(1.0 - 1e-7)));
+  T frac = jclip(
+      divr(u, fabsf(val(u - nu)) < F(1e-12) ? T(F(1e-12)) : u - nu, approx),
+      T(0.0f), T(1.0f));
+  r_c = r + frac * (nr - r);
+  phi_c = ph + frac * (nph - ph);
+  t_c = t + frac * (nt - t);
+  y[0] = nt;
+  y[1] = nr;
+  y[2] = nu;
+  y[3] = nph;
+  y[4] = npr;
+  y[5] = npu;
+}
+
+// One step of a live ray (hit == HIT_NONE on entry), step index i: the
+// step values, the crossing test against the pre-step crossing count nc,
+// the sanity freeze, the advance, the termination tests and the periodic
+// null renormalization after step i when (i + 1) % renormalize_every == 0
+// on a ray still live. s = (t, r, u, ph, pr, pu) is updated in place.
+template <class T>
+__device__ __forceinline__ void march_step(
+    const MarchParams& mp, bool approx, const T& m, const T& a, const T& r_h,
+    const T& r_ph, const T& pph, float thr, int i, T s[6], int& hit, int nc,
+    bool& crossed, bool& advance, T& r_c, T& phi_c, T& t_c) {
+  T y[6];
+  step_values(mp, approx, m, a, r_h, r_ph, s[0], s[1], s[2], s[3], s[4], s[5],
+              pph, y, r_c, phi_c, t_c);
+  crossed = ((val(s[2]) * val(y[2])) < 0.0f) && (nc < mp.max_crossings) &&
+            (val(r_c) > mp.record_r_min) && (val(r_c) < mp.record_r_max);
+  advance = isfinite(val(y[1])) && isfinite(val(y[3])) &&
+            isfinite(val(y[4])) && isfinite(val(y[5])) &&
+            (fabsf(val(y[4])) < F(1e7)) && (fabsf(val(y[5])) < F(1e7)) &&
+            (val(y[1]) < mp.escape_sanity_r);
+  if (advance) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s[k] = y[k];
+  } else {
+    hit = HIT_HORIZON;
+  }
+  if (val(s[1]) < thr) hit = HIT_HORIZON;
+  if (val(s[1]) > mp.escape_radius) hit = HIT_ESCAPE;
+  if ((i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE)
+    s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+}
+
+// March one ray to horizon or escape (ops/march.py::march_tile, one ray):
+// s = (t, r, u, ph, pr, pu) in, final state out; records up to
+// mp.max_crossings equator crossings and the photon-ring proximity
+// min |r - r_ph| over the marched path.
+__device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
+                                          float m, float a, float r_h,
+                                          float r_ph, float pph, float thr,
+                                          float s[6], int& hit, int& steps,
+                                          int& nc, float cr[KMAX],
+                                          float cp[KMAX], float ct[KMAX],
+                                          float& rmin) {
+  hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
+  nc = 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) cr[k] = cp[k] = ct[k] = 0.0f;
+  rmin = fabsf(s[1] - r_ph);
+  steps = 0;
+  for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i) {
+    bool crossed, advance;
+    float r_c, phi_c, t_c;
+    march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc, crossed,
+               advance, r_c, phi_c, t_c);
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (crossed && nc == k) {
+        cr[k] = r_c;
+        cp[k] = phi_c;
+        ct[k] = t_c;
+      }
+    }
+    nc += crossed ? 1 : 0;
+    if (advance) {
+      ++steps;
+      rmin = jmin(rmin, fabsf(s[1] - r_ph));
+    }
+  }
+  if (hit == HIT_NONE) hit = HIT_HORIZON;
+}

@@ -33,6 +33,8 @@
 // * The periodic null renormalization runs after step i when
 //   (i + 1) % renormalize_every == 0 and the ray is still live, the cadence
 //   of the Pallas kernel's block-boundary hoist.
+// * The march loop and its step are march_step.cuh's, the same source as
+//   the march kernel (march.cu) and the gradient kernel's replay.
 // * The parameter row stays in device memory; the static configuration
 //   comes by value in RenderStatic. Ragged frame edges are masked here;
 //   nothing is padded in memory.
@@ -50,12 +52,7 @@
 //   isfinite). The floored modulo is jnp.mod's own: fmodf, then shifted by
 //   the divisor where the signs differ.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-// Constants are written as (float)(double literal): rounded to float32 from
-// the double value, as PyTorch and JAX round a Python float.
-#define F(x) ((float)(x))
+#include "march_step.cuh"
 
 // Parameter-row layout (ops/render.py, pallas_render.py:62-110).
 #define P_M 0
@@ -92,11 +89,6 @@
 #define P_RGB (P_TSHAPE + SPEC_K)
 #define CHEB_ERR 0.03
 
-#define HIT_NONE 0
-#define HIT_HORIZON 1
-#define HIT_ESCAPE 2
-#define KMAX 4
-
 #define PATCH_W 8
 #define PATCH_H 4
 #define BLOCK_W 16
@@ -116,103 +108,6 @@ struct RenderStatic {
       nt_peak, art_r, art_g, art_b, star_brightness, star_nebula, star_freq0,
       star_freq1, star_thr0, star_thr1;
 };
-
-// ---------------------------------------------------------------------------
-// jnp semantics
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float jclip(float x, float lo, float hi) {
-  return jmin(jmax(x, lo), hi);
-}
-__device__ __forceinline__ float fmod_floor(float x, float y) {
-  float md = fmodf(x, y);
-  if (md != 0.0f && ((md < 0.0f) != (y < 0.0f))) md += y;
-  return md;
-}
-__device__ __forceinline__ float rcp_approx(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float recip(float x, bool approx) {
-  return approx ? rcp_approx(x) : 1.0f / x;
-}
-__device__ __forceinline__ float divr(float num, float den, bool approx) {
-  return approx ? num * rcp_approx(den) : num / den;
-}
-
-// ---------------------------------------------------------------------------
-// Step math (ops/ks_kernel.py), p_t = -1
-// ---------------------------------------------------------------------------
-
-__device__ void ks_rhs(float m, float a, float r, float u, float pr, float pu,
-                       float pph, bool approx, float d[6]) {
-  const float pt = -1.0f;
-  float w = jmax(1.0f - u * u, F(1e-6));
-  float S = r * r + a * a * u * u;
-  float D = r * r - 2.0f * m * r + a * a;
-  float inv_S = recip(S, approx);
-  float h = 2.0f * m * r * inv_S;
-  float inv_S2 = inv_S * inv_S;
-  float inv_w = recip(w, approx);
-
-  d[0] = -(1.0f + h) * pt + h * pr;
-  d[1] = h * pt + D * inv_S * pr + a * inv_S * pph;
-  d[2] = w * inv_S * pu;
-  d[3] = a * inv_S * pr + pph * inv_S * inv_w;
-
-  float S_r = 2.0f * r;
-  float D_r = 2.0f * r - 2.0f * m;
-  float h_r = 2.0f * m * (S - 2.0f * r * r) * inv_S2;
-  float DS_r = (D_r * S - D * S_r) * inv_S2;
-  float invS_r = -S_r * inv_S2;
-  float wS_r = -w * S_r * inv_S2;
-  float invSw_r = -S_r * inv_S2 * inv_w;
-  float dH_dr = 0.5f * (-h_r * pt * pt + 2.0f * h_r * pt * pr +
-                        DS_r * pr * pr + 2.0f * a * invS_r * pr * pph +
-                        wS_r * pu * pu + invSw_r * pph * pph);
-
-  float S_u = 2.0f * a * a * u;
-  float w_u = -2.0f * u;
-  float h_u = -2.0f * m * r * S_u * inv_S2;
-  float DS_u = -D * S_u * inv_S2;
-  float invS_u = -S_u * inv_S2;
-  float wS_u = (w_u * S - w * S_u) * inv_S2;
-  float invSw_u = -(S_u * w + S * w_u) * inv_S2 * inv_w * inv_w;
-  float dH_du = 0.5f * (-h_u * pt * pt + 2.0f * h_u * pt * pr +
-                        DS_u * pr * pr + 2.0f * a * invS_u * pr * pph +
-                        wS_u * pu * pu + invSw_u * pph * pph);
-  d[4] = -dH_dr;
-  d[5] = -dH_du;
-}
-
-// Null projection of p_r (exact divides always).
-__device__ float ks_renormalize_pr(float m, float a, float r, float u,
-                                   float pr, float pu, float pph) {
-  const float pt = -1.0f;
-  float w = jmax(1.0f - u * u, F(1e-6));
-  float S = r * r + a * a * u * u;
-  float D = r * r - 2.0f * m * r + a * a;
-  float inv_S = 1.0f / S;
-  float h = 2.0f * m * r * inv_S;
-  float A = D * inv_S;
-  float B = 2.0f * (h * pt + a * inv_S * pph);
-  float C = -(1.0f + h) * pt * pt + w * inv_S * pu * pu + pph * pph * inv_S / w;
-  float disc = B * B - 4.0f * A * C;
-  bool valid = (disc >= 0.0f) && (fabsf(A) > F(1e-12));
-  float sqrt_d = sqrtf(valid ? jmax(disc, F(1e-30)) : 1.0f);
-  float denom = valid ? 2.0f * A : 1.0f;
-  float sol1 = (-B + sqrt_d) / denom;
-  float sol2 = (-B - sqrt_d) / denom;
-  float nearest = fabsf(sol1 - pr) < fabsf(sol2 - pr) ? sol1 : sol2;
-  return valid ? nearest : pr;
-}
 
 // ---------------------------------------------------------------------------
 // Shading (render/shading.py)
@@ -538,91 +433,26 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
     if (dead) thr = __ldg(P + P_STOPR);
   }
 
-  // --- march (ops/march.py::march_tile, one ray) ---
+  // --- march (march_step.cuh, the march kernel's own loop) ---
+  const MarchParams mp = {st.max_steps, st.renormalize_every,
+                          st.max_crossings, st.midpoint_iters,
+                          st.approx_recip, st.far_cap_on, st.step_rate,
+                          st.min_step, st.max_step, st.far_step_cap_rate,
+                          st.far_boost_radius, st.escape_radius,
+                          st.escape_sanity_r, st.record_r_min,
+                          st.record_r_max};
   const int K = st.max_crossings;
-  const float inv_rph = 1.0f / jmax(r_ph, F(1e-3));
-  int hit = r < thr ? HIT_HORIZON : HIT_NONE;
-  int nc = 0;
-  float cr[KMAX], cp[KMAX], ct[KMAX];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) cr[k] = cp[k] = ct[k] = 0.0f;
-  float rmin = fabsf(r - r_ph);
-  int steps = 0;
-  for (int i = 0; i < st.max_steps && hit == HIT_NONE; ++i) {
-    // diff_step_values
-    float base = (r - r_h) * st.step_rate;
-    float far = jmax(r / st.far_boost_radius, 1.0f);
-    float prox = jclip(fabsf(r - r_ph) * inv_rph, F(0.25), 1.0f);
-    float cap = st.far_cap_on ? jmax(st.far_step_cap_rate * r, st.max_step)
-                              : st.max_step;
-    float dlam = jclip(base * far * prox, st.min_step, cap);
-    float w = jmax(1.0f - u * u, F(1e-6));
-    float sig = r * r + a * a * u * u;
-    float du_rate = fabsf(w * pu / sig) + F(1e-12);
-    float margin = 1.0f - fabsf(u) + F(1e-6);
-    dlam = jmin(dlam, jmax(divr(0.5f * margin, du_rate, approx), st.min_step));
-
-    float d[6];
-    ks_rhs(m, a, r, u, pr, pu, pph, approx, d);
-    float nt = t + dlam * d[0];
-    float nr = r + dlam * d[1];
-    float nu = u + dlam * d[2];
-    float nph = ph + dlam * d[3];
-    float npr = pr + dlam * d[4];
-    float npu = pu + dlam * d[5];
-    for (int it = 0; it < st.midpoint_iters; ++it) {
-      ks_rhs(m, a, 0.5f * (r + nr), 0.5f * (u + nu), 0.5f * (pr + npr),
-             0.5f * (pu + npu), pph, approx, d);
-      nt = t + dlam * d[0];
-      nr = r + dlam * d[1];
-      nu = u + dlam * d[2];
-      nph = ph + dlam * d[3];
-      npr = pr + dlam * d[4];
-      npu = pu + dlam * d[5];
-    }
-    nu = jclip(nu, F(-1.0 + 1e-7), F(1.0 - 1e-7));
-    float frac = jclip(
-        divr(u, fabsf(u - nu) < F(1e-12) ? F(1e-12) : u - nu, approx), 0.0f,
-        1.0f);
-    float r_c = r + frac * (nr - r);
-    float phi_c = ph + frac * (nph - ph);
-    float t_c = t + frac * (nt - t);
-
-    // crossing record
-    bool crossed = ((u * nu) < 0.0f) && (nc < K) && (r_c > st.record_r_min) &&
-                   (r_c < st.record_r_max);
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (crossed && nc == k) {
-        cr[k] = r_c;
-        cp[k] = phi_c;
-        ct[k] = t_c;
-      }
-    }
-    nc += crossed ? 1 : 0;
-
-    // sanity freeze, advance, termination
-    bool sane = isfinite(nr) && isfinite(nph) && isfinite(npr) &&
-                isfinite(npu) && (fabsf(npr) < F(1e7)) &&
-                (fabsf(npu) < F(1e7)) && (nr < st.escape_sanity_r);
-    if (sane) {
-      t = nt;
-      r = nr;
-      u = nu;
-      ph = nph;
-      pr = npr;
-      pu = npu;
-      ++steps;
-      rmin = jmin(rmin, fabsf(r - r_ph));
-    } else {
-      hit = HIT_HORIZON;
-    }
-    if (r < thr) hit = HIT_HORIZON;
-    if (r > st.escape_radius) hit = HIT_ESCAPE;
-    if ((i + 1) % st.renormalize_every == 0 && hit == HIT_NONE)
-      pr = ks_renormalize_pr(m, a, r, u, pr, pu, pph);
-  }
-  if (hit == HIT_NONE) hit = HIT_HORIZON;
+  float s[6] = {t, r, u, ph, pr, pu};
+  int hit, steps, nc;
+  float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
+  march_ray(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc, cr, cp,
+            ct, rmin);
+  t = s[0];
+  r = s[1];
+  u = s[2];
+  ph = s[3];
+  pr = s[4];
+  pu = s[5];
 
   // --- composite ---
   const bool escaped = hit == HIT_ESCAPE;

@@ -1,10 +1,16 @@
-"""Kerr metric pieces the render prologue needs, as host float64 scalars.
+"""Kerr metric pieces the render prologue needs.
 
 Counterpart of ``blackhole_simulation_tpu/geometry/metrics.py``: the
 Boyer-Lindquist covariant metric at one point (``kerr_cov_bl``) and the
-derived radii of ``Kerr`` (event horizon, prograde photon sphere, ISCO).
-Everything here runs once per frame on the host in float64 with numpy; the
-per-pixel work lives in the render kernel.
+derived radii of ``Kerr`` (event horizon, prograde photon sphere, ISCO,
+:235-265). ``Kerr`` holds host floats and computes the radii in float64 with
+numpy, once per frame. ``event_horizon_t``, ``photon_sphere_t`` and
+``isco_t`` compute the same radii from 0-d tensors, differentiably in mass
+and spin, for the staged and training paths: in the inputs' dtype,
+operation by operation as the JAX package computes them from float32 mass
+and spin, with each square root, arccos, cos and cube root evaluated in
+float64 and rounded once (the cube root as ``x ** (1/3)`` on x >= 0, since
+torch has no cbrt).
 """
 
 from __future__ import annotations
@@ -12,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
 
 def kerr_sigma(a, r, theta):
     """Sigma = r^2 + a^2 cos^2(theta)."""
@@ -76,3 +84,50 @@ class Kerr:
         z2 = np.sqrt(3.0 * a_star**2 + z1 * z1)
         root = np.sqrt(max((3.0 - z1) * (3.0 + z1 + 2.0 * z2), 0.0))
         return float(self.mass * (3.0 + z2 - root))
+
+
+def _radii_args(mass, spin):
+    m = torch.as_tensor(mass)
+    a = torch.as_tensor(spin)
+    dt = torch.promote_types(m.dtype, a.dtype)
+    return m.to(dt), a.to(dt)
+
+
+def _round(fn, x):
+    """fn(x) computed in float64 and rounded once to x's dtype."""
+    return fn(x.double()).to(x.dtype)
+
+
+def _cbrt(x):
+    """Cube root of x >= 0 (torch has no cbrt)."""
+    return _round(lambda v: torch.clamp(v, min=0.0) ** (1.0 / 3.0), x)
+
+
+def event_horizon_t(mass, spin) -> torch.Tensor:
+    """r+ = M + sqrt(M^2 - a^2) from 0-d tensors (differentiable)."""
+    m, a = _radii_args(mass, spin)
+    return m + _round(torch.sqrt, torch.clamp(m * m - a * a, min=0.0))
+
+
+def _abs_spin_ratio(m, a):
+    return torch.abs(torch.clamp(a / m, -1.0, 1.0))
+
+
+def photon_sphere_t(mass, spin) -> torch.Tensor:
+    """Prograde equatorial photon orbit 2M{1 + cos[(2/3) acos(-|a*|)]}."""
+    m, a = _radii_args(mass, spin)
+    a_star = _abs_spin_ratio(m, a)
+    angle = (2.0 / 3.0) * _round(torch.arccos, -a_star)
+    return 2.0 * m * (1.0 + _round(torch.cos, angle))
+
+
+def isco_t(mass, spin) -> torch.Tensor:
+    """Prograde Bardeen-Press-Teukolsky ISCO from 0-d tensors."""
+    m, a = _radii_args(mass, spin)
+    a_star = _abs_spin_ratio(m, a)
+    z1 = 1.0 + _cbrt(1.0 - a_star * a_star) * (
+        _cbrt(1.0 + a_star) + _cbrt(1.0 - a_star))
+    z2 = _round(torch.sqrt, 3.0 * (a_star * a_star) + z1 * z1)
+    root = _round(torch.sqrt, torch.clamp(
+        (3.0 - z1) * (3.0 + z1 + 2.0 * z2), min=0.0))
+    return m * (3.0 + z2 - root)

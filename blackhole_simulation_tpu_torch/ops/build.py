@@ -7,9 +7,10 @@ interface (no PyTorch headers, so a build takes seconds):
          -Xptxas -v -shared -Xcompiler -fPIC -o <lib> <source>
 
 The library lands in ``build/kernels/`` at the repository root, named by a
-hash of the source and the flags, so an edited source never loads a stale
-build. ptxas's report (registers, spills) is kept beside it. The first call
-of a kernel's wrapper builds it; nothing is built at import time.
+hash of the source, every header of ``csrc/`` and the flags, so an edited
+source or shared header never loads a stale build. ptxas's report
+(registers, spills) is kept beside it. The first call of a kernel's wrapper
+builds it; nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -40,7 +41,10 @@ def _nvcc() -> str:
 
 def _paths(source: str) -> tuple[Path, Path]:
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = f"{src.stem}-{digest.hexdigest()[:12]}"
     return BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``blackhole_simulation_tpu/ops/ks_kernel.py`` (``w_floor``
 :253, ``_geom_u`` :287, ``ks_rhs_rows`` :382, ``ks_symplectic_step_rows``
-:433, ``ks_renormalize_pr`` :465). With u = cos(theta) the Hamiltonian
+:433, ``ks_renormalize_pr`` :465, ``ks_renormalize_u`` :369). With u = cos(theta) the Hamiltonian
 
     H = 1/2 [ -(1+h) p_t^2 + 2 h p_t p_r + (D/S) p_r^2 + (2a/S) p_r p_phi
               + (w/S) p_u^2 + p_phi^2 / (S w) ],
@@ -134,3 +134,10 @@ def ks_renormalize_pr(m, a, r, u, pt, pr, pu, pph):
         torch.abs(sol1 - pr) < torch.abs(sol2 - pr), sol1, sol2
     )
     return torch.where(valid, nearest, pr)
+
+
+def ks_renormalize_u(m, a, yt):
+    """ks_renormalize_pr on (8, N) u-chart rows: the rows with p_r (row 5)
+    projected onto the null shell; differentiable (autograd)."""
+    new_pr = ks_renormalize_pr(m, a, yt[1], yt[2], yt[4], yt[5], yt[6], yt[7])
+    return torch.cat([yt[:5], new_pr[None], yt[6:]], dim=0)

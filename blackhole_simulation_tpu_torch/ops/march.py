@@ -2,7 +2,8 @@
 as masked row updates in PyTorch.
 
 Counterpart of ``blackhole_simulation_tpu/ops/pallas_march.py``
-(``diff_step_values`` :148, ``march_tile`` :237).
+(``diff_step_values`` :148, ``march_tile`` :237) and
+``blackhole_simulation_tpu/ops/pallas_grad.py`` (``make_composite`` :71).
 The CUDA kernel (``csrc/render.cu``) runs one thread per ray with a
 ``while (i < max_steps && hit == NONE)`` loop; here all rays advance
 together under masks and the loop stops once every ray has terminated,
@@ -10,9 +11,14 @@ which gives the same result ray by ray. The periodic null renormalization
 runs after step i when (i + 1) % renormalize_every == 0 on rays still live,
 the cadence the Pallas kernel's block-boundary hoist implements.
 
+The step of every ray is ``march_step_rows``, the counterpart of the
+gradient kernel's per-step composite: the same function runs the forward
+march here and the replay and per-step VJP of the plain gradient
+(``ops/march_grad.py``).
+
 The plain version always divides exactly, as the JAX package's interpret
 mode does; ``make_div_recip``'s approximate reciprocal (``approx_recip``)
-exists only in the kernel.
+exists only in the kernels.
 """
 
 from __future__ import annotations
@@ -78,6 +84,69 @@ def diff_step_values(m, a, r_h, r_ph, cfg, rows):
     return nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, dlam
 
 
+# Benign far-field state that a stopped ray's lanes step instead of their
+# own (the "double-where" rule of render/march.py:514-520 and
+# ops/pallas_grad.py:82-91): the step's outputs there are discarded, but a
+# frozen state can overflow, and a zero cotangent times an infinite partial
+# is NaN under reverse-mode differentiation.
+_SAFE = (0.0, 10.0, 0.0, 0.0, 0.0, 0.0)
+
+
+def march_step_rows(m, a, r_h, r_ph, thr, cfg, i: int, y6, pph, hit, nc):
+    """One masked march step of every ray: ``pallas_grad.make_composite``
+    (:75-144), the step the march kernel, its replay and its VJP share.
+
+    ``y6`` = (t, r, u, ph, pr, pu); ``hit``, ``nc``: the pre-step codes and
+    crossing counts; ``i``: the step index. Stopped rays (and every ray once
+    i >= max_steps) pass through unchanged. Returns
+    ((y6', r_c, phi_c, t_c, dmin), (hit', nc', crossed, advance)) with
+    dmin = |r' - r_ph|.
+    """
+    t, r, u, ph, pr, pu = y6
+    active = hit == HIT_NONE
+    if i >= cfg.max_steps:
+        active = torch.zeros_like(active)
+    rows_in = tuple(torch.where(active, x, v) for x, v in zip(y6, _SAFE))
+    nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, _ = diff_step_values(
+        m, a, r_h, r_ph, cfg, rows_in + (pph,)
+    )
+    crossed = (
+        active & ((u * nu) < 0.0) & (nc < cfg.max_crossings)
+        & (r_c > cfg.record_r_min) & (r_c < cfg.record_r_max)
+    )
+    nc2 = nc + crossed.to(torch.int32)
+    sane = (
+        torch.isfinite(nr) & torch.isfinite(nph)
+        & torch.isfinite(npr) & torch.isfinite(npu)
+        & (torch.abs(npr) < 1e7) & (torch.abs(npu) < 1e7)
+        & (nr < 8.0 * cfg.escape_radius)
+    )
+    advance = active & sane
+    t2 = torch.where(advance, nt, t)
+    r2 = torch.where(advance, nr, r)
+    u2 = torch.where(advance, nu, u)
+    ph2 = torch.where(advance, nph, ph)
+    pr2 = torch.where(advance, npr, pr)
+    pu2 = torch.where(advance, npu, pu)
+    hit2 = torch.where(active & ~sane, HIT_HORIZON, hit)
+    hit2 = torch.where(active & (r2 < thr), HIT_HORIZON, hit2)
+    hit2 = torch.where(active & (r2 > cfg.escape_radius), HIT_ESCAPE, hit2)
+    hit2 = hit2.to(torch.int32)
+    if (i + 1) % cfg.renormalize_every == 0:
+        # Post-advance renormalization of the rays still live, with the
+        # same benign state on the others.
+        live = hit2 == HIT_NONE
+        pt_ = const(r, -1.0)
+        rr, ru, rpr, rpu = (torch.where(live, x, v) for x, v in
+                            ((r2, 10.0), (u2, 0.0), (pr2, 0.0), (pu2, 0.0)))
+        pr2 = torch.where(
+            live, ks_renormalize_pr(m, a, rr, ru, pt_, rpr, rpu, pph), pr2
+        )
+    dmin = torch.abs(r2 - r_ph)
+    return ((t2, r2, u2, ph2, pr2, pu2), r_c, phi_c, t_c, dmin), (
+        hit2, nc2, crossed, advance)
+
+
 def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
     """March a batch of rays to horizon or escape, recording up to
     ``cfg.max_crossings`` equator crossings per ray.
@@ -85,63 +154,42 @@ def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
     ``rows0``: 7 rows (t, r, u, ph, p_r, p_u, p_phi) of one shape, p_t = -1
     implicit; ``thr``: per-ray termination radius. Returns
     (t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin) with cr/cp/ct
-    of shape (K,) + row shape.
+    of shape (K,) + row shape. Differentiable by autograd, as the JAX
+    package's jnp march is by jax.grad: with ``cfg.cotangent_clip`` > 0 the
+    carry's cotangent is clipped once per step (``clip_cotangent``).
     """
+    from blackhole_simulation_tpu_torch.render.march import clip_cotangent
+
     t, r, u, ph, pr, pu, pph = rows0
+    y6 = (t, r, u, ph, pr, pu)
     k_slots = cfg.max_crossings
-    pt_ = const(r, -1.0)
     hit = torch.where(r < thr, HIT_HORIZON, HIT_NONE).to(torch.int32)
     steps = torch.zeros_like(hit)
     nc = torch.zeros_like(hit)
-    cr = r.new_zeros((k_slots,) + r.shape)
-    cp = torch.zeros_like(cr)
-    ct = torch.zeros_like(cr)
+    cr = [torch.zeros_like(r) for _ in range(k_slots)]
+    cp = [torch.zeros_like(r) for _ in range(k_slots)]
+    ct = [torch.zeros_like(r) for _ in range(k_slots)]
     rmin = torch.abs(r - r_ph)
 
     for i in range(cfg.max_steps):
-        active = hit == HIT_NONE
-        if not bool(active.any()):
+        if not bool((hit == HIT_NONE).any()):
+            # The remaining steps are the identity; their clips, one.
+            if cfg.cotangent_clip > 0.0:
+                y6 = tuple(clip_cotangent(torch.stack(y6), cfg.cotangent_clip))
             break
-        nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, _ = diff_step_values(
-            m, a, r_h, r_ph, cfg, (t, r, u, ph, pr, pu, pph)
-        )
-        crossed = (
-            active & ((u * nu) < 0.0) & (nc < k_slots)
-            & (r_c > cfg.record_r_min) & (r_c < cfg.record_r_max)
-        )
+        (y6, r_c, phi_c, t_c, dmin), (hit2, nc2, crossed, advance) = (
+            march_step_rows(m, a, r_h, r_ph, thr, cfg, i, y6, pph, hit, nc))
         for k in range(k_slots):
             mask = crossed & (nc == k)
             cr[k] = torch.where(mask, r_c, cr[k])
             cp[k] = torch.where(mask, phi_c, cp[k])
             ct[k] = torch.where(mask, t_c, ct[k])
-        nc = nc + crossed.to(torch.int32)
-
-        sane = (
-            torch.isfinite(nr) & torch.isfinite(nph)
-            & torch.isfinite(npr) & torch.isfinite(npu)
-            & (torch.abs(npr) < 1e7) & (torch.abs(npu) < 1e7)
-            & (nr < 8.0 * cfg.escape_radius)
-        )
-        advance = active & sane
-        t = torch.where(advance, nt, t)
-        r = torch.where(advance, nr, r)
-        u = torch.where(advance, nu, u)
-        ph = torch.where(advance, nph, ph)
-        pr = torch.where(advance, npr, pr)
-        pu = torch.where(advance, npu, pu)
         steps = steps + advance.to(torch.int32)
-        rmin = torch.where(
-            advance, torch.minimum(rmin, torch.abs(r - r_ph)), rmin
-        )
-        hit = torch.where(active & ~sane, HIT_HORIZON, hit)
-        hit = torch.where(active & (r < thr), HIT_HORIZON, hit)
-        hit = torch.where(active & (r > cfg.escape_radius), HIT_ESCAPE, hit)
-        hit = hit.to(torch.int32)
-        if (i + 1) % cfg.renormalize_every == 0:
-            pr = torch.where(
-                hit == HIT_NONE,
-                ks_renormalize_pr(m, a, r, u, pt_, pr, pu, pph),
-                pr,
-            )
+        rmin = torch.where(advance, torch.minimum(rmin, dmin), rmin)
+        hit, nc = hit2, nc2
+        if cfg.cotangent_clip > 0.0:
+            y6 = tuple(clip_cotangent(torch.stack(y6), cfg.cotangent_clip))
     hit = torch.where(hit == HIT_NONE, HIT_HORIZON, hit).to(torch.int32)
-    return t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin
+    t, r, u, ph, pr, pu = y6
+    return (t, r, u, ph, pr, pu, hit, steps, torch.stack(cr),
+            torch.stack(cp), torch.stack(ct), nc, rmin)

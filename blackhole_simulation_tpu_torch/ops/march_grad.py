@@ -1,0 +1,217 @@
+"""The gradient kernel's host side: the plain PyTorch version of the
+march's reverse-mode derivative and the wrapper that launches the kernel.
+
+Counterpart of ``blackhole_simulation_tpu/ops/pallas_grad.py``: ``CKPT``
+(:68; its ``BH_PALLAS_CKPT`` override is a TPU tuning knob and is not
+ported), ``make_composite`` (:71, here ``ops/march.py::march_step_rows``),
+``_grad_kernel`` (:149) and ``pallas_march_grad`` (:358). The kernel is
+``csrc/march_grad.cu``. ``march_grad`` is its plain version with the same
+structure: a checkpointed replay of the march, then, block by block in
+reverse, a re-forward into a step stack and a per-step VJP (here
+``torch.autograd.grad`` of the step) with the crossing and r_min cotangents
+injected at the steps that recorded them and the optional per-step
+cotangent clip. ``march_grad_kernel`` launches the kernel for CUDA tensors
+and runs ``march_grad`` for CPU tensors; nothing else picks between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from blackhole_simulation_tpu_torch.ops.march import march_step_rows
+from blackhole_simulation_tpu_torch.ops.pallas_march import (
+    c_march_params,
+    load_library,
+    scalar_params,
+)
+from blackhole_simulation_tpu_torch.render.march import (
+    HIT_HORIZON,
+    HIT_NONE,
+    clip_rows,
+)
+
+CKPT = 32  # steps per checkpoint block
+
+
+def _blocks(cfg) -> int:
+    return -(-cfg.max_steps // CKPT)
+
+
+def scratch_words(cfg) -> int:
+    """Scratch words per ray of the kernel: the block checkpoints and the
+    re-forward stack, 8 words each (6 state rows, hit, crossing count)."""
+    return (_blocks(cfg) + CKPT) * 8
+
+
+def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
+               ct_rmin, rmin_fin):
+    """Plain version of the march VJP (``pallas_march_grad``'s contract).
+
+    ``yt0``: (8, N) rows normalized to p_t = -1 (the march's input);
+    ``ct_fin``: (8, N) cotangent of the final rows (the p_t row is ignored);
+    ``ct_cr/cp/ct``: (K, N) crossing cotangents; ``ct_rmin``, ``rmin_fin``:
+    (N,). Returns (ct_yt0 (8, N) with a zero p_t row, ct_m, ct_a, ct_rh,
+    ct_rph), the scalars summed over rays. Always divides exactly.
+    """
+    k_slots = cfg.max_crossings
+    n = yt0.shape[1]
+    y0 = yt0.detach()
+    pph = y0[7]
+    m, a, r_h, r_ph = (torch.as_tensor(x).detach() for x in (m, a, r_h, r_ph))
+    thr = thr.detach()
+    n_blocks = _blocks(cfg)
+
+    # ---- phase 1: replay, checkpoint at the start of every block ----
+    with torch.no_grad():
+        y6 = tuple(y0[j] for j in (0, 1, 2, 3, 5, 6))
+        hit = torch.where(y0[1] < thr, HIT_HORIZON, HIT_NONE).to(torch.int32)
+        nc = torch.zeros_like(hit)
+        ckpts = []
+        for b in range(n_blocks):
+            ckpts.append((y6, hit, nc))
+            for i in range(b * CKPT, min((b + 1) * CKPT, cfg.max_steps)):
+                if not bool((hit == HIT_NONE).any()):
+                    break
+                (y6, *_), (hit, nc, _, _) = march_step_rows(
+                    m, a, r_h, r_ph, thr, cfg, i, y6, pph, hit, nc)
+
+    # ---- phase 2: reverse sweep over blocks ----
+    ct6 = torch.stack([ct_fin[j] for j in (0, 1, 2, 3, 5, 6)]).detach()
+    ct_pph = ct_fin[7].detach().clone()
+    ct_par = torch.zeros((4, n), dtype=y0.dtype, device=y0.device)
+    injected = torch.zeros(n, dtype=torch.bool, device=y0.device)
+    clip = cfg.cotangent_clip
+    if clip > 0.0:
+        ct6 = clip_rows(ct6, clip)   # the stopped steps' clips, one
+    zero = torch.zeros_like(pph)
+    for b in reversed(range(n_blocks)):
+        y6, hit, nc = ckpts[b]
+        if not bool((hit == HIT_NONE).any()):
+            continue
+        stack = []
+        with torch.no_grad():
+            for i in range(b * CKPT, min((b + 1) * CKPT, cfg.max_steps)):
+                if not bool((hit == HIT_NONE).any()):
+                    break
+                stack.append((i, y6, hit, nc))
+                (y6, *_), (hit, nc, _, _) = march_step_rows(
+                    m, a, r_h, r_ph, thr, cfg, i, y6, pph, hit, nc)
+        for i, y6s, hits, ncs in reversed(stack):
+            if clip > 0.0:
+                ct6 = clip_rows(ct6, clip)
+            ins = [x.clone().requires_grad_() for x in y6s]
+            ins += [x.expand(n).clone().requires_grad_()
+                    for x in (pph, m, a, r_h, r_ph)]
+            with torch.enable_grad():
+                (y2, r_c, phi_c, t_c, dmin), (_, _, crossed, advance) = (
+                    march_step_rows(ins[7], ins[8], ins[9], ins[10], thr,
+                                    cfg, i, tuple(ins[:6]), ins[6], hits,
+                                    ncs))
+                ct_rc, ct_rp, ct_rt = zero, zero, zero
+                for k in range(k_slots):
+                    sel = crossed & (ncs == k)
+                    ct_rc = torch.where(sel, ct_cr[k], ct_rc)
+                    ct_rp = torch.where(sel, ct_cp[k], ct_rp)
+                    ct_rt = torch.where(sel, ct_ct[k], ct_rt)
+                hitmin = advance & (dmin == rmin_fin) & ~injected
+                injected = injected | hitmin
+                ct_dmin = torch.where(hitmin, ct_rmin, zero)
+                grads = torch.autograd.grad(
+                    [*y2, r_c, phi_c, t_c, dmin], ins,
+                    [*ct6, ct_rc, ct_rp, ct_rt, ct_dmin], allow_unused=True)
+            grads = [torch.zeros_like(pph) if g is None else g for g in grads]
+            ct6 = torch.stack(grads[:6])
+            ct_pph = ct_pph + grads[6]
+            ct_par = ct_par + torch.stack(grads[7:11])   # m, a, r_h, r_ph
+
+    # r_min's initial-value case: no step came closer than |r0 - r_ph|.
+    d0 = y0[1] - r_ph
+    init_min = ~injected & (torch.abs(d0) == rmin_fin)
+    extra = torch.where(init_min, ct_rmin * torch.sign(d0), zero)
+    ct6 = ct6.clone()
+    ct6[1] = ct6[1] + extra
+    ct_par[3] = ct_par[3] - extra
+    ct_yt0 = torch.stack([ct6[0], ct6[1], ct6[2], ct6[3], zero, ct6[4],
+                          ct6[5], ct_pph])
+    return (ct_yt0, ct_par[0].sum(), ct_par[1].sum(), ct_par[2].sum(),
+            ct_par[3].sum())
+
+
+def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
+                      ct_ct, ct_rmin, rmin_fin):
+    """The march VJP, as ``march_grad``. CUDA tensors launch the gradient
+    kernel (``csrc/march_grad.cu``) on the current stream, with a scratch
+    buffer of ``scratch_words(cfg)`` float32 words per ray (its size in bytes
+    is kept in ``march_grad_kernel.scratch_bytes``), and count the launch in
+    ``march_grad_kernel.launches``; CPU tensors run ``march_grad``. While
+    ``march_grad_kernel.record`` is a list, each call appends its arguments
+    to it."""
+    if march_grad_kernel.record is not None:
+        march_grad_kernel.record.append(
+            (yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
+             ct_rmin, rmin_fin))
+    n = yt0.shape[1]
+    k_slots = cfg.max_crossings
+    if yt0.dtype != torch.float32 or yt0.shape != (8, n):
+        raise ValueError("rays must be float32 (8, N)")
+    if not 1 <= k_slots <= 4:
+        raise NotImplementedError("the march kernels record 1 to 4 crossings")
+    if yt0.device.type == "cpu":
+        return march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr,
+                          ct_cp, ct_ct, ct_rmin, rmin_fin)
+    if yt0.device.type != "cuda":
+        raise ValueError(f"no gradient path for device {yt0.device}")
+    lib = _grad_library()
+    dev = yt0.device
+    rows7 = lambda x: torch.cat([x[:4], x[5:8]]).detach().float().contiguous()
+    flat = lambda x: x.detach().float().contiguous()
+    y7 = rows7(yt0)
+    ctf = rows7(ct_fin)
+    ctc = torch.cat([ct_cr, ct_cp, ct_ct]).detach().float().contiguous()
+    thr, ct_rmin, rmin_fin = flat(thr), flat(ct_rmin), flat(rmin_fin)
+    params = scalar_params(m, a, r_h, r_ph, dev)
+    cty0 = torch.empty((7, n), dtype=torch.float32, device=dev)
+    ctp = torch.empty((4, n), dtype=torch.float32, device=dev)
+    words = lib.bh_march_grad_scratch(cfg.max_steps)
+    if words != scratch_words(cfg):
+        raise RuntimeError("scratch layout differs between csrc/march_grad.cu "
+                           "and ops/march_grad.py")
+    scratch = torch.empty(words * n, dtype=torch.float32, device=dev)
+    c_mp = c_march_params(cfg)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bh_march_grad_launch(
+            ptr(params), ptr(y7), ptr(thr), ptr(ctf), ptr(ctc), ptr(ct_rmin),
+            ptr(rmin_fin), ptr(cty0), ptr(ctp), ptr(scratch),
+            ctypes.c_int(n), ctypes.byref(c_mp),
+            ctypes.c_float(cfg.cotangent_clip), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"gradient kernel launch failed: {lib.bh_error_string(err).decode()}")
+    march_grad_kernel.launches += 1
+    march_grad_kernel.scratch_bytes = scratch.numel() * 4
+    zero = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    ct_yt0 = torch.cat([cty0[:4], zero, cty0[4:]])
+    return ct_yt0, ctp[0].sum(), ctp[1].sum(), ctp[2].sum(), ctp[3].sum()
+
+
+march_grad_kernel.launches = 0
+march_grad_kernel.scratch_bytes = 0
+march_grad_kernel.record = None
+
+
+@functools.cache
+def _grad_library() -> ctypes.CDLL:
+    lib = load_library("march_grad.cu", "bh_march_params_size")
+    lib.bh_march_grad_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_float, ctypes.c_void_p])
+    lib.bh_march_grad_launch.restype = ctypes.c_int
+    lib.bh_march_grad_scratch.argtypes = [ctypes.c_int]
+    lib.bh_march_grad_scratch.restype = ctypes.c_int
+    return lib

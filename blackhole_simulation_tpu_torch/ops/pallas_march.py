@@ -1,0 +1,235 @@
+"""The march kernel's host side: pixel-block ray order, the static
+parameters, and the wrapper that launches the kernel.
+
+Counterpart of ``blackhole_simulation_tpu/ops/pallas_march.py``:
+``_block_dims`` / ``_padded_dims`` / ``to_block_order`` /
+``from_block_order`` (:56-115) and the ``pallas_march_u`` wrapper (:677-775)
+around ``_march_kernel`` (:646). The kernel is ``csrc/march.cu``; its plain
+version is ``ops/march.py::march_tile``. ``march_u`` launches the kernel for
+CUDA tensors and runs the plain version for CPU tensors; nothing else picks
+between them.
+
+The CUDA kernel needs no tiles: it runs one thread per ray and masks the
+tail, so nothing is padded in memory (the Pallas wrapper pads to whole
+tiles with rays born dead). The block order is kept because it groups a
+warp's 32 rays into a compact strip of one pixel block, and because the
+training loss is defined over the block-ordered, edge-padded pixel ids.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from blackhole_simulation_tpu_torch._elementwise import const
+from blackhole_simulation_tpu_torch.ops.march import march_tile
+
+# The Pallas kernel's tile: SUB x LANE rays (its BH_PALLAS_SUB override, a
+# TPU tuning knob, is not ported).
+SUB = 32
+LANE = 128
+TILE = SUB * LANE
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _block_dims(height: int, width: int):
+    """The BLOCK_H x BLOCK_W = TILE pixel block that pads this frame least;
+    ties prefer the squarest block."""
+    best = None
+    bh = 8
+    while bh * 8 <= TILE:
+        bw = TILE // bh
+        area = _cdiv(height, bh) * bh * _cdiv(width, bw) * bw
+        squareness = abs(bh - bw)
+        if best is None or (area, squareness) < best[:2]:
+            best = (area, squareness, bh, bw)
+        bh *= 2
+    return best[2], best[3]
+
+
+def _padded_dims(height: int, width: int):
+    bh, bw = _block_dims(height, width)
+    return _cdiv(height, bh) * bh, _cdiv(width, bw) * bw
+
+
+def to_block_order(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Row-major (H*W, ...) -> pixel-block-major (Hp*Wp, ...): the frame is
+    padded to whole blocks with edge-replicated entries, then regrouped so
+    each BLOCK_H x BLOCK_W block is contiguous."""
+    bh, bw = _block_dims(height, width)
+    hp, wp = _padded_dims(height, width)
+    tail = x.shape[1:]
+    x = x.reshape(height, width, *tail)
+    rows = torch.clamp(torch.arange(hp, device=x.device), max=height - 1)
+    cols = torch.clamp(torch.arange(wp, device=x.device), max=width - 1)
+    x = x[rows][:, cols]
+    x = x.reshape(hp // bh, bh, wp // bw, bw, *tail).transpose(1, 2)
+    return x.reshape(hp * wp, *tail)
+
+
+def from_block_order(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Inverse of to_block_order: (Hp*Wp, ...) -> row-major (H*W, ...)."""
+    bh, bw = _block_dims(height, width)
+    hp, wp = _padded_dims(height, width)
+    tail = x.shape[1:]
+    x = x.reshape(hp // bh, wp // bw, bh, bw, *tail).transpose(1, 2)
+    x = x.reshape(hp, wp, *tail)
+    return x[:height, :width].reshape(height * width, *tail)
+
+
+class _CMarchParams(ctypes.Structure):
+    """``MarchParams`` as ``csrc/march_step.cuh`` declares it."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "max_steps", "renormalize_every", "max_crossings", "midpoint_iters",
+        "approx_recip", "far_cap_on",
+    )] + [(name, ctypes.c_float) for name in (
+        "step_rate", "min_step", "max_step", "far_step_cap_rate",
+        "far_boost_radius", "escape_radius", "escape_sanity_r",
+        "record_r_min", "record_r_max",
+    )]
+
+
+def c_march_params(cfg) -> _CMarchParams:
+    """The kernels' static march configuration from a MarchConfig."""
+    return _CMarchParams(
+        max_steps=cfg.max_steps, renormalize_every=cfg.renormalize_every,
+        max_crossings=cfg.max_crossings, midpoint_iters=cfg.midpoint_iters,
+        approx_recip=int(cfg.approx_recip),
+        far_cap_on=int(cfg.far_step_cap_rate > 0.0),
+        step_rate=cfg.step_rate, min_step=cfg.min_step,
+        max_step=cfg.max_step, far_step_cap_rate=cfg.far_step_cap_rate,
+        far_boost_radius=cfg.far_boost_radius,
+        escape_radius=cfg.escape_radius,
+        escape_sanity_r=8.0 * cfg.escape_radius,
+        record_r_min=cfg.record_r_min, record_r_max=cfg.record_r_max,
+    )
+
+
+def normalize_pt(yt0: torch.Tensor) -> torch.Tensor:
+    """Affine-normalize (8, N) rows to p_t = -1 (an exact multiply by one
+    for camera rays, which are born normalized)."""
+    pt = yt0[4]
+    inv_e = const(pt, -1.0) / torch.where(torch.abs(pt) < 1e-12, -1.0, pt)
+    return torch.cat([yt0[:4], -torch.ones_like(yt0[4:5]),
+                      yt0[5:8] * inv_e[None, :]], dim=0)
+
+
+def scalar_params(m, a, r_h, r_ph, device) -> torch.Tensor:
+    """The kernels' (4,) float32 [m, a, r_h, r_ph] on the device."""
+    return torch.stack([torch.as_tensor(x).detach().to(device, torch.float32)
+                        for x in (m, a, r_h, r_ph)]).contiguous()
+
+
+def _check_rows(yt0, thr, cfg):
+    if yt0.dtype != torch.float32 or yt0.dim() != 2 or yt0.shape[0] != 8:
+        raise ValueError(f"rays must be float32 (8, N), got {yt0.dtype} "
+                         f"{tuple(yt0.shape)}")
+    if thr.shape != (yt0.shape[1],) or thr.device != yt0.device:
+        raise ValueError("thr must be (N,) on the rays' device")
+    if not 1 <= cfg.max_crossings <= 4:
+        raise NotImplementedError("the march kernels record 1 to 4 crossings")
+    if cfg.multistep:
+        raise NotImplementedError("the AB3 march (multistep) is not ported")
+
+
+def march_u_plain(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
+    """The plain version of ``march_u`` on any device (``march_tile``, exact
+    divides): the same outputs, differentiable by autograd."""
+    _check_rows(yt0, thr, cfg)
+    yt0 = normalize_pt(yt0)
+    t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin = march_tile(
+        m, a, r_h, r_ph, thr,
+        (yt0[0], yt0[1], yt0[2], yt0[3], yt0[5], yt0[6], yt0[7]), cfg,
+    )
+    yt = torch.stack([t, r, u, ph, yt0[4], pr, pu, yt0[7]])
+    return yt, hit, steps, cr, cp, ct, nc, rmin
+
+
+def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
+    """March (8, N) u-chart rays (p_t normalized here) with per-ray
+    termination radii ``thr``. Returns (yt (8, N), hit, steps, cross_r,
+    cross_phi, cross_t (K, N), n_crossings, r_min_ph), as the JAX package's
+    ``pallas_march_u``; the integer outputs are int32.
+
+    CUDA tensors launch the march kernel (``csrc/march.cu``) on the current
+    stream and count the launch in ``march_u.launches``; CPU tensors run the
+    plain version (``march_u_plain``). The kernel applies
+    ``cfg.approx_recip``; the plain version always divides exactly. While
+    ``march_u.record`` is a list, each call appends its arguments to it, so
+    a caller can replay the kernel on a real step's own inputs.
+    """
+    if march_u.record is not None:
+        march_u.record.append((yt0, thr, m, a, r_h, r_ph, cfg))
+    if yt0.device.type == "cpu":
+        return march_u_plain(yt0, thr, m, a, r_h, r_ph, cfg)
+    _check_rows(yt0, thr, cfg)
+    yt0 = normalize_pt(yt0)
+    n = yt0.shape[1]
+    k_slots = cfg.max_crossings
+    if yt0.device.type != "cuda":
+        raise ValueError(f"no march path for device {yt0.device}")
+    lib = _march_library()
+    dev = yt0.device
+    y = yt0.detach().contiguous()
+    thr = thr.detach().to(torch.float32).contiguous()
+    params = scalar_params(m, a, r_h, r_ph, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    yo = torch.empty((8, n), **f32)
+    hit = torch.empty(n, **i32)
+    steps = torch.empty(n, **i32)
+    nc = torch.empty(n, **i32)
+    cr = torch.empty((k_slots, n), **f32)
+    cp = torch.empty((k_slots, n), **f32)
+    ct = torch.empty((k_slots, n), **f32)
+    rmin = torch.empty(n, **f32)
+    c_mp = c_march_params(cfg)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bh_march_launch(
+            ptr(params), ptr(y), ptr(thr), ptr(yo), ptr(hit), ptr(steps),
+            ptr(cr), ptr(cp), ptr(ct), ptr(nc), ptr(rmin), ctypes.c_int(n),
+            ctypes.byref(c_mp), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"march kernel launch failed: {lib.bh_error_string(err).decode()}")
+    march_u.launches += 1
+    return yo, hit, steps, cr, cp, ct, nc, rmin
+
+
+march_u.launches = 0
+march_u.record = None
+
+
+def load_library(source: str, params_size_fn: str) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<source>``; check that its
+    MarchParams matches ``_CMarchParams``."""
+    from blackhole_simulation_tpu_torch.ops.build import build
+
+    lib = ctypes.CDLL(str(build(source)))
+    lib.bh_error_string.argtypes = [ctypes.c_int]
+    lib.bh_error_string.restype = ctypes.c_char_p
+    size = getattr(lib, params_size_fn)
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(_CMarchParams):
+        raise RuntimeError(f"MarchParams differs between csrc/{source} and "
+                           "ops/pallas_march.py")
+    return lib
+
+
+@functools.cache
+def _march_library() -> ctypes.CDLL:
+    lib = load_library("march.cu", "bh_march_params_size")
+    lib.bh_march_launch.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p])
+    lib.bh_march_launch.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,15 @@
+"""Inverse rendering: recover scene parameters from a target image."""
+
+from blackhole_simulation_tpu_torch.parallel.train import (
+    InverseParams,
+    ad_inverse_render,
+    init_opt_state,
+    inverse_params_from_numpy,
+    inverse_render,
+    make_ad_inverse_step,
+    make_inverse_step,
+)
+
+__all__ = ["InverseParams", "ad_inverse_render", "init_opt_state",
+           "inverse_params_from_numpy", "inverse_render",
+           "make_ad_inverse_step", "make_inverse_step"]

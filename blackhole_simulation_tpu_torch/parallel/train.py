@@ -1,0 +1,285 @@
+"""Inverse rendering on one device: recover spin, camera inclination and
+disk parameters from a target image by pixel gradients through the march.
+
+Counterpart of ``blackhole_simulation_tpu/parallel/train.py``:
+``InverseParams`` (:33), ``_forward`` (:52), ``init_opt_state`` (:86),
+``make_inverse_step`` (:92-182, without a mesh), ``make_ad_inverse_step``
+(:388-438, without a mesh), ``_adam_update`` (:473), ``ad_inverse_render``
+(:500) and ``inverse_render`` (:527, methods ``"ad"`` and ``"ad-step"``).
+
+The forward renders the parameterized scene through ``march_rows_ad``: the
+march kernel (``csrc/march.cu``) forward and the gradient kernel
+(``csrc/march_grad.cu``) backward, with camera ray birth, the null
+renormalization and the shading differentiated by autograd around them.
+The steps run on ``cuda`` unless the caller passes ``device="cpu"`` (the
+kernels' plain versions); with no CUDA device and no explicit CPU request
+they raise. A mesh (the sharded steps) and ``method="fd"`` (the central-
+difference optimizer) are not ported and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from blackhole_simulation_tpu_torch._elementwise import const, div_c
+
+_AD_STAGES = ((64, 8), (96, 4), (128, 2))  # (march steps, pool k) per stage
+_FIELDS = ("spin", "theta_cam", "log_density", "log_t_peak")
+
+
+@dataclasses.dataclass(frozen=True)
+class InverseParams:
+    """The recoverable scene parameters: four 0-dim float32 tensors."""
+
+    spin: torch.Tensor
+    theta_cam: torch.Tensor
+    log_density: torch.Tensor
+    log_t_peak: torch.Tensor
+
+    @classmethod
+    def init(cls, spin=0.5, theta_cam=1.3, density=0.7, t_peak=9000.0,
+             device="cpu"):
+        f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        return cls(spin=f(spin), theta_cam=f(theta_cam),
+                   log_density=torch.log(f(density)),
+                   log_t_peak=torch.log(f(t_peak)))
+
+    def leaves(self):
+        return [getattr(self, k) for k in _FIELDS]
+
+    @classmethod
+    def from_leaves(cls, leaves):
+        return cls(**dict(zip(_FIELDS, leaves)))
+
+    def to(self, device):
+        return InverseParams.from_leaves([v.to(device) for v in self.leaves()])
+
+
+def inverse_params_from_numpy(spin, theta_cam, log_density, log_t_peak,
+                              device="cpu") -> InverseParams:
+    """InverseParams from plain numbers (a JAX InverseParams' leaves), so
+    both packages can step from the same state."""
+    return InverseParams.from_leaves([
+        torch.tensor(np.float32(v), device=device)
+        for v in (spin, theta_cam, log_density, log_t_peak)
+    ])
+
+
+def init_opt_state(params: InverseParams):
+    """Adam moments (m, v, step count) for the inverse optimizer."""
+    zeros = InverseParams.from_leaves(
+        [torch.zeros_like(v) for v in params.leaves()])
+    return (zeros, zeros, torch.zeros((), dtype=torch.int32,
+                                      device=params.spin.device))
+
+
+def _forward(params: InverseParams, scene, pix_ids):
+    """Radiance (len(pix_ids), 3) of the parameterized scene: rays for the
+    given row-major pixel ids, the differentiable march, the composite with
+    the density and peak-temperature scales."""
+    from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
+    from blackhole_simulation_tpu_torch.render.march import march_rows_ad
+    from blackhole_simulation_tpu_torch.render.pipeline import (
+        conserved_lam,
+        shade_march_rows,
+    )
+
+    dev = params.spin.device
+    m = torch.tensor(float(scene.bh.mass), dtype=torch.float32, device=dev)
+    a = params.spin
+    # Density and peak temperature enter as multiplicative scales on the
+    # static DiskParams.
+    dens_scale = div_c(torch.exp(params.log_density), scene.disk.density)
+    int_scale = torch.exp(params.log_t_peak - math.log(scene.disk.t_peak))
+    rays = camera_rays_u(scene.camera, m, a, pix_ids=pix_ids,
+                         theta=params.theta_cam)
+    rows = march_rows_ad(rays, m, a, scene.march_cfg)
+    rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
+                           density_scale=dens_scale,
+                           intensity_scale=int_scale)
+    return torch.stack(rgb, dim=-1)
+
+
+def _adam_update(params: InverseParams, opt_state, grads, n_norm, lr,
+                 total_steps, b1=0.9, b2=0.999, eps=1e-8):
+    """Adam with a global-norm clip of 10 and the spin clamp to
+    [-0.998, 0.998], as the JAX twin (its formula, not torch.optim's)."""
+    g = [v / n_norm for v in grads]
+    gnorm = torch.sqrt(sum(torch.sum(v * v) for v in g))
+    scale = torch.clamp(const(gnorm, 10.0) / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    g = [v * scale for v in g]
+    m, v, t = opt_state
+    t = t + 1
+    tf = t.to(torch.float32)
+    if total_steps is not None:
+        frac = torch.clamp(tf / total_steps, max=1.0)
+        lr_t = lr * (0.1 + 0.45 * (1.0 + torch.cos(math.pi * frac)))
+    else:
+        lr_t = lr
+    m = [b1 * mm + (1 - b1) * gg for mm, gg in zip(m.leaves(), g)]
+    v = [b2 * vv + (1 - b2) * gg * gg for vv, gg in zip(v.leaves(), g)]
+    mhat = [mm / (1 - torch.pow(b1, tf)) for mm in m]
+    vhat = [vv / (1 - torch.pow(b2, tf)) for vv in v]
+    upd = [p - lr_t * mm / (torch.sqrt(vv) + eps)
+           for p, mm, vv in zip(params.leaves(), mhat, vhat)]
+    upd[0] = torch.clamp(upd[0], -0.998, 0.998)
+    return InverseParams.from_leaves(upd), (
+        InverseParams.from_leaves(m), InverseParams.from_leaves(v), t)
+
+
+def _unpack(state, device):
+    if isinstance(state, InverseParams):
+        params = state.to(device)
+        return params, init_opt_state(params)
+    return state
+
+
+def _value_and_grad(loss_fn, params: InverseParams):
+    leaves = [v.detach().clone().requires_grad_() for v in params.leaves()]
+    loss = loss_fn(InverseParams.from_leaves(leaves))
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "not ported yet: the sharded inverse step (mesh)")
+
+
+def make_inverse_step(scene, mesh=None, lr=2e-2, b1=0.9, b2=0.999, eps=1e-8,
+                      total_steps: int | None = None, device=None):
+    """One Adam step on the per-pixel MSE at the scene's own march config:
+    ((params, opt_state), target) -> ((params', opt_state'), loss). Bare
+    InverseParams start a fresh optimizer state. With ``use_pallas`` the
+    pixels are in block order (``to_block_order``): the edge-padded frame,
+    with the loss divided by the padded pixel count, as the JAX twin."""
+    from blackhole_simulation_tpu_torch.ops.pallas_march import to_block_order
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    h, w = scene.camera.height, scene.camera.width
+    ids = torch.arange(h * w, device=device)
+    pix_order = to_block_order(ids, h, w) if scene.march_cfg.use_pallas else ids
+    n_eff = int(pix_order.shape[0])
+
+    def step(state, target):
+        params, opt_state = _unpack(state, device)
+        target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
+        target_flat = target_flat.to(torch.float32)[pix_order]
+
+        def loss_fn(p):
+            rgb = _forward(p, scene, pix_order)
+            return torch.sum((rgb - target_flat) ** 2)
+
+        loss, grads = _value_and_grad(loss_fn, params)
+        params, opt_state = _adam_update(params, opt_state, grads, n_eff, lr,
+                                         total_steps, b1, b2, eps)
+        return (params, opt_state), loss / n_eff
+
+    return step
+
+
+def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
+                         march_steps: int = 64, clip: float = 0.03,
+                         total_steps: int | None = None, device=None):
+    """One curriculum stage's Adam step on the pooled pixel loss, marched
+    at ``march_steps`` with the per-step cotangent clip ``clip``:
+    ((params, opt_state), target) -> ((params', opt_state'), loss)."""
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    h, w = scene.camera.height, scene.camera.width
+    while pool > 1 and (h % pool or w % pool):
+        pool //= 2
+    pool = max(pool, 1)
+    cfg = dataclasses.replace(
+        scene.march_cfg, max_steps=march_steps, cotangent_clip=clip,
+        fused=False, refine_band=0.0, start_jitter=0.0,
+    )
+    stage_scene = dataclasses.replace(scene, march_cfg=cfg)
+    pix = torch.arange(h * w, device=device)
+    n_pool = (h // pool) * (w // pool)
+
+    def pooled(x):
+        return x.reshape(h // pool, pool, w // pool, pool, 3).mean(dim=(1, 3))
+
+    def step(state, target):
+        params, opt_state = _unpack(state, device)
+        target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
+        target_p = pooled(target_flat.to(torch.float32))
+
+        def loss_fn(p):
+            return torch.sum((pooled(_forward(p, stage_scene, pix))
+                              - target_p) ** 2)
+
+        loss, grads = _value_and_grad(loss_fn, params)
+        params, opt_state = _adam_update(params, opt_state, grads, n_pool, lr,
+                                         total_steps)
+        return (params, opt_state), loss / n_pool
+
+    return step
+
+
+def ad_inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
+                      init: InverseParams | None = None, stages=_AD_STAGES,
+                      device=None):
+    """The short-horizon pooled-gradient curriculum: ``n_steps`` split over
+    the (march steps, pool) stages, fresh Adam moments per stage. Returns
+    (params, loss_history)."""
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    params = (init or InverseParams.init()).to(device)
+    target = torch.as_tensor(target, device=device)
+    per = max(n_steps // len(stages), 1)
+    lrs = [3e-2, 1.2e-2, 6e-3] if lr is None else [lr] * len(stages)
+    losses = []
+    for (march_steps, pool), lr_s in zip(stages, lrs):
+        step = make_ad_inverse_step(scene, None, lr_s, pool=pool,
+                                    march_steps=march_steps,
+                                    total_steps=per, device=device)
+        state = (params, init_opt_state(params))
+        for _ in range(per):
+            state, loss = step(state, target)
+            losses.append(float(loss))
+        params = state[0]
+    return params, losses
+
+
+def inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
+                   init: InverseParams | None = None, method: str = "ad",
+                   ad_stages=_AD_STAGES, device=None):
+    """Run the inverse optimization; returns (params, loss_history).
+    ``method``: "ad" (the curriculum, ad_inverse_render) or "ad-step" (the
+    raw step at the scene's own config); "fd" is not ported."""
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    _no_mesh(mesh)
+    if method == "fd":
+        raise NotImplementedError(
+            "not ported yet: the central-difference optimizer (method='fd')")
+    if method == "ad":
+        return ad_inverse_render(scene, target, n_steps, None, lr, init,
+                                 stages=ad_stages, device=device)
+    if method != "ad-step":
+        raise ValueError(f"unknown method {method!r}")
+    device = resolve_device(device)
+    step = make_inverse_step(scene, None, 2e-2 if lr is None else lr,
+                             total_steps=n_steps, device=device)
+    params = (init or InverseParams.init()).to(device)
+    state = (params, init_opt_state(params))
+    target = torch.as_tensor(target, device=device)
+    losses = []
+    for _ in range(n_steps):
+        state, loss = step(state, target)
+        losses.append(float(loss))
+    return state[0], losses

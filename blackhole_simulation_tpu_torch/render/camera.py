@@ -1,11 +1,18 @@
 """Pinhole camera and the scalar prologue of per-pixel ray construction.
 
 Counterpart of ``blackhole_simulation_tpu/render/camera.py``: ``Camera``
-(:41), ``zamo_tetrad`` (:64), ``bl_to_ks_momentum`` (:89) and
-``camera_scalars`` (:193). The camera sits at one point, so all of this is a
-handful of float64 scalars computed on the host; the render kernel builds
-each pixel's ray from them (``ops/render.py`` packs them into the parameter
-row).
+(:41), ``zamo_tetrad`` (:64), ``bl_to_ks_momentum`` (:89), ``pixel_grid``
+(:100), ``camera_rays_u`` (:134), ``camera_scalars`` (:193) and
+``_momenta_from_ndc`` (:215). The camera sits at one point, so its tetrad is
+a handful of scalars:
+
+* ``camera_scalars`` computes them on the host in float64 with numpy for the
+  render kernel's parameter row (``ops/render.py``);
+* ``camera_scalars_t`` computes them from 0-d tensors in float64 torch,
+  differentiably in spin, mass and the camera's theta, and casts them to
+  float32 once; ``camera_rays_u`` builds the staged path's and the training
+  path's (8, N) rays from them with float32 per-pixel arithmetic in the JAX
+  package's order.
 """
 
 from __future__ import annotations
@@ -14,6 +21,9 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
+
+from blackhole_simulation_tpu_torch._elementwise import const, div_c, sqrt
 
 from blackhole_simulation_tpu_torch.geometry.metrics import (
     Kerr,
@@ -93,3 +103,136 @@ def camera_scalars(camera: Camera, bh: Kerr):
     c0, c_r, c_th, c_ph = coeffs
     return (c0, c_r, c_th, c_ph, half * aspect, half,
             math.cos(camera.roll), math.sin(camera.roll))
+
+
+def _zamo_tetrad_t(m, a, r, theta):
+    """zamo_tetrad on float64 0-d tensors: (u, e_r, e_th, e_ph) as lists of
+    4 components (None for a structural zero)."""
+    s = torch.sin(theta)
+    s2 = torch.clamp(s * s, min=1e-12)
+    c = torch.cos(theta)
+    sig = r * r + a * a * c * c
+    delta = r * r - 2.0 * m * r + a * a
+    r2a2 = r * r + a * a
+    big_a = r2a2 * r2a2 - a * a * delta * s2
+    alpha = torch.sqrt(torch.clamp(delta * sig / big_a, min=1e-30))
+    omega = 2.0 * m * a * r / big_a
+    u = [1.0 / alpha, None, None, omega / alpha]
+    e_r = [None, torch.sqrt(torch.clamp(delta / sig, min=1e-30)), None, None]
+    e_th = [None, None, 1.0 / torch.sqrt(sig), None]
+    e_ph = [None, None, None,
+            torch.sqrt(torch.clamp(sig / big_a, min=1e-30)) / torch.sqrt(s2)]
+    return u, e_r, e_th, e_ph
+
+
+def _lower_to_ks(m, a, r, theta, v):
+    """g_BL v, then the BL -> KS covector shift of p_r, on float64 0-d
+    tensors; ``v`` as from _zamo_tetrad_t."""
+    s = torch.sin(theta)
+    s2 = s * s
+    c = torch.cos(theta)
+    sig = r * r + a * a * c * c
+    delta = r * r - 2.0 * m * r + a * a
+    two_mr = 2.0 * m * r
+    g_tt = -(1.0 - two_mr / sig)
+    g_tph = -two_mr * a * s2 / sig
+    g_rr = sig / delta
+    g_thth = sig
+    g_phph = (r * r + a * a + two_mr * a * a * s2 / sig) * s2
+    zero = torch.zeros((), dtype=torch.float64, device=m.device)
+    vt, vr, vth, vph = (zero if x is None else x for x in v)
+    p = [g_tt * vt + g_tph * vph, g_rr * vr, g_thth * vth,
+         g_tph * vt + g_phph * vph]
+    p[1] = p[1] + (-(2.0 * m * r / delta) * p[0] - (a / delta) * p[3])
+    return p
+
+
+def camera_scalars_t(camera: Camera, mass, spin, theta=None):
+    """(c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s) as float32 tensors on
+    ``mass``'s device: each c a (4,) tensor, the rest 0-d. ``theta``
+    overrides ``camera.theta`` (a differentiable 0-d tensor in training).
+    The tetrad scalars are computed in float64 and cast once; k1 is the
+    float32 product of tan(fov/2) and the aspect ratio, as the JAX package
+    forms it."""
+    dev = torch.as_tensor(mass).device
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    m = f64(mass) if not torch.is_tensor(mass) else mass.double()
+    a = f64(spin) if not torch.is_tensor(spin) else spin.double()
+    th = (f64(camera.theta) if theta is None
+          else (theta.double() if torch.is_tensor(theta) else f64(theta)))
+    r0 = f64(camera.r)
+    coeffs = [torch.stack(_lower_to_ks(m, a, r0, th, v)).float()
+              for v in _zamo_tetrad_t(m, a, r0, th)]
+    f32 = lambda x: torch.tensor(np.float32(x), device=dev)
+    half = f32(math.tan(camera.fov / 2.0))
+    k1 = half * f32(camera.width / camera.height)
+    return (*coeffs, k1, half, f32(math.cos(camera.roll)),
+            f32(math.sin(camera.roll)))
+
+
+def pixel_grid(width: int, height: int, jitter=None, device=None):
+    """Normalized pixel coordinates (ndc_x, ndc_y) in [-1, 1], y up, as
+    (H, W) float32 tensors; ``jitter`` is a (2,) sub-pixel offset."""
+    xs = div_c(torch.arange(width, dtype=torch.float32, device=device) + 0.5,
+               float(width))
+    ys = div_c(torch.arange(height, dtype=torch.float32, device=device) + 0.5,
+               float(height))
+    if jitter is not None:
+        xs = xs + div_c(const(xs, float(np.float32(jitter[0]))), float(width))
+        ys = ys + div_c(const(ys, float(np.float32(jitter[1]))), float(height))
+    ndc_x = xs * 2.0 - 1.0
+    ndc_y = 1.0 - ys * 2.0
+    return torch.meshgrid(ndc_x, ndc_y, indexing="xy")
+
+
+def _momenta_from_ndc(scalars, nx, ny):
+    """Covariant KS momentum rows [p_t, p_r, p_th, p_ph] for NDC pixels."""
+    c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s = scalars
+    cx = nx * k1
+    cy = ny * k2
+    cx, cy = cx * roll_c - cy * roll_s, cx * roll_s + cy * roll_c
+    inv_norm = 1.0 / sqrt(1.0 + cx * cx + cy * cy)
+    n_r = -inv_norm
+    n_th = -cy * inv_norm
+    n_ph = -cx * inv_norm
+    return [c0[j] + n_r * c_r[j] + n_th * c_th[j] + n_ph * c_ph[j]
+            for j in range(4)]
+
+
+def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
+                  theta=None) -> torch.Tensor:
+    """(8, N) float32 u-chart null-ray rows (t, r, u, phi, p_t, p_r, p_u,
+    p_phi) normalized to p_t = -1, on ``mass``'s device: the whole frame in
+    row-major order, or the flat row-major pixel ids ``pix_ids``.
+    Differentiable in ``mass``, ``spin`` and ``theta`` (which overrides
+    ``camera.theta``)."""
+    dev = torch.as_tensor(mass).device
+    scalars = camera_scalars_t(camera, mass, spin, theta)
+    if pix_ids is None:
+        nx, ny = pixel_grid(camera.width, camera.height, jitter, dev)
+        nx, ny = nx.reshape(-1), ny.reshape(-1)
+    else:
+        pix_ids = torch.as_tensor(pix_ids, device=dev)
+        ix = (pix_ids % camera.width).to(torch.float32)
+        iy = (pix_ids // camera.width).to(torch.float32)
+        jx = 0.0 if jitter is None else float(np.float32(jitter[0]))
+        jy = 0.0 if jitter is None else float(np.float32(jitter[1]))
+        nx = div_c(ix + 0.5 + jx, float(camera.width)) * 2.0 - 1.0
+        ny = 1.0 - div_c(iy + 0.5 + jy, float(camera.height)) * 2.0
+    p = _momenta_from_ndc(scalars, nx, ny)
+    inv = 1.0 / (-p[0])
+    th = (torch.as_tensor(camera.theta, dtype=torch.float64, device=dev)
+          if theta is None else torch.as_tensor(theta).double())
+    u0 = torch.cos(th).float()
+    s0 = torch.sqrt(torch.clamp(1.0 - torch.cos(th) ** 2, min=1e-12)).float()
+    zero = torch.zeros_like(nx)
+    return torch.stack([
+        zero,
+        zero + float(np.float32(camera.r)),
+        zero + u0,
+        zero + float(np.float32(camera.phi)),
+        zero - 1.0,
+        p[1] * inv,
+        -(p[2] * inv) / s0,
+        p[3] * inv,
+    ])

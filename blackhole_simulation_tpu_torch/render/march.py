@@ -1,14 +1,27 @@
-"""Static march configuration and ray termination codes.
+"""March configuration, termination codes, and the row-native march.
 
-Counterpart of ``blackhole_simulation_tpu/render/march.py:48-189``: the same
-``MarchConfig`` fields and defaults (a test holds them equal), so a JAX
-scene's config carries over field by field. The batched march itself lives
-in ``ops/march.py`` (plain version) and ``csrc/render.cu`` (kernel).
+Counterpart of ``blackhole_simulation_tpu/render/march.py``: the same
+``MarchConfig`` fields and defaults (:48-189; a test holds them equal), so a
+JAX scene's config carries over field by field; ``clip_cotangent``
+(:192-214), ``MarchRows`` (:249), ``precull_threshold`` (:286),
+``march_rows`` (:427) and the differentiable ``march_rows_ad`` (:381) with
+its custom VJP ``_march_kernel_diff`` (:338-378), here a
+``torch.autograd.Function``.
+
+Both march entry points run the march kernel (``csrc/march.cu`` through
+``ops/pallas_march.march_u``) for CUDA rays and its plain version for CPU
+rays; ``march_rows_ad``'s backward runs the gradient kernel
+(``csrc/march_grad.cu`` through ``ops/march_grad.march_grad_kernel``) or its
+plain version likewise. ``approx_recip`` applies in the kernels when
+``use_pallas`` is set, as the JAX package applies it in its Pallas kernels
+only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 HIT_NONE = 0
 HIT_HORIZON = 1
@@ -19,11 +32,11 @@ HIT_ESCAPE = 2
 class MarchConfig:
     """Static march parameters. See the JAX twin for what each field does.
 
-    This slice runs the fused path only (``use_pallas`` and ``fused`` on);
-    ``approx_recip`` applies in the CUDA kernel and never in the plain
-    version, as the JAX package applies it on the TPU and never in interpret
-    mode. ``exit_check_every`` and ``remat_every`` have no effect here: the
-    kernel exits per thread, and the port has no differentiable march yet.
+    ``approx_recip`` applies in the CUDA kernels and never in the plain
+    versions, as the JAX package applies it on the TPU and never in
+    interpret mode. ``exit_check_every`` and ``remat_every`` have no effect
+    here: the kernels exit per thread, and the differentiable march
+    checkpoints every 32 steps in its gradient kernel.
     """
 
     max_steps: int = 256
@@ -55,3 +68,167 @@ class MarchConfig:
     refine_max_steps: int = 4096
     refine_max_step: float = 1.0
     refine_pole_w: float = 0.0
+
+
+class _ClipCotangent(torch.autograd.Function):
+    """Identity forward; the backward rescales each ray's cotangent over the
+    6 stacked evolving rows to norm <= limit."""
+
+    @staticmethod
+    def forward(ctx, x, limit):
+        ctx.limit = limit
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return clip_rows(g, ctx.limit), None
+
+
+def clip_rows(g: torch.Tensor, limit: float) -> torch.Tensor:
+    """Scale each column of ``g`` (rows x N) to norm <= limit."""
+    norm = torch.sqrt(torch.sum(g * g, dim=0, keepdim=True))
+    scale = torch.clamp(torch.full_like(norm, limit)
+                        / torch.clamp(norm, min=1e-30), max=1.0)
+    return g * scale
+
+
+def clip_cotangent(x: torch.Tensor, limit: float) -> torch.Tensor:
+    """``x``: (6, N) stacked evolving state rows; identity forward, per-ray
+    cotangent-norm clip backward (see MarchConfig.cotangent_clip in the JAX
+    package)."""
+    return _ClipCotangent.apply(x, limit)
+
+
+@dataclasses.dataclass
+class MarchRows:
+    """Row-native march result."""
+
+    state_u: torch.Tensor      # (8, N) final u-chart rows
+    hit: torch.Tensor          # (N,) int32
+    steps: torch.Tensor        # (N,) int32
+    cross_r: torch.Tensor      # (K, N)
+    cross_phi: torch.Tensor    # (K, N)
+    cross_t: torch.Tensor      # (K, N)
+    n_crossings: torch.Tensor  # (N,) int32
+    r_min_ph: torch.Tensor     # (N,)
+
+
+def _kernel_cfg(cfg: MarchConfig) -> MarchConfig:
+    """The approximate reciprocal belongs to the kernel path (use_pallas)."""
+    if cfg.approx_recip and not cfg.use_pallas:
+        return dataclasses.replace(cfg, approx_recip=False)
+    return cfg
+
+
+def _refuse(cfg: MarchConfig) -> None:
+    if cfg.start_jitter > 0.0:
+        raise NotImplementedError("not ported yet: start_jitter")
+
+
+def precull_threshold(yt0: torch.Tensor, m, a, cfg: MarchConfig):
+    """(N,) per-ray termination radius from the u-chart rows: the horizon
+    radius, or for pre-culled rays the ISCO (disk kept) or 1e9 (instant
+    death). ``m``, ``a``: 0-d float32 tensors. Not differentiable."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import (
+        event_horizon_t,
+        isco_t,
+    )
+    from blackhole_simulation_tpu_torch.render.precull import capture_mask_u
+
+    with torch.no_grad():
+        horizon_r = cfg.horizon_factor * event_horizon_t(m, a).to(yt0.dtype)
+        n = yt0.shape[1]
+        if not cfg.shadow_precull:
+            return horizon_r.expand(n).clone()
+        dead = capture_mask_u(m, a, yt0)
+        if cfg.precull_keep_disk:
+            stop_r = torch.maximum(
+                torch.clamp(isco_t(m, a).to(yt0.dtype), min=cfg.record_r_min),
+                horizon_r,
+            )
+        else:
+            stop_r = torch.full((), 1e9, dtype=yt0.dtype, device=yt0.device)
+        return torch.where(dead, stop_r, horizon_r)
+
+
+def _march_inputs(yt0, mass, spin, cfg, thr):
+    """Radii, termination radii and the normalized, null-renormalized rows
+    (their derivatives by autograd)."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import (
+        event_horizon_t,
+        photon_sphere_t,
+    )
+    from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_u
+    from blackhole_simulation_tpu_torch.ops.pallas_march import normalize_pt
+
+    _refuse(cfg)
+    dtype = yt0.dtype
+    m = torch.as_tensor(mass, device=yt0.device).to(dtype)
+    a = torch.as_tensor(spin, device=yt0.device).to(dtype)
+    r_h = event_horizon_t(m, a).to(dtype)
+    r_ph = photon_sphere_t(m, a).to(dtype)
+    if thr is None:
+        thr = precull_threshold(yt0, m, a, cfg)
+    yt0 = ks_renormalize_u(m, a, normalize_pt(yt0))
+    return yt0, thr.detach(), m, a, r_h, r_ph
+
+
+def march_rows(yt0: torch.Tensor, mass, spin, cfg: MarchConfig = MarchConfig(),
+               thr: torch.Tensor | None = None) -> MarchRows:
+    """Row-native march: (8, N) u-chart rows in (renormalized here),
+    MarchRows out. ``mass``, ``spin``: 0-d tensors or numbers; ``thr``
+    overrides the per-ray termination radius. Not differentiable (see
+    march_rows_ad)."""
+    from blackhole_simulation_tpu_torch.ops.pallas_march import march_u
+
+    with torch.no_grad():
+        yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
+        return MarchRows(*march_u(yt0, thr, m, a, r_h, r_ph, _kernel_cfg(cfg)))
+
+
+class _MarchKernelDiff(torch.autograd.Function):
+    """The march with its gradient kernel as the backward; differentiable in
+    the rows and (m, a, r_h, r_ph), not in thr."""
+
+    @staticmethod
+    def forward(ctx, yt0, thr, m, a, r_h, r_ph, cfg):
+        from blackhole_simulation_tpu_torch.ops.pallas_march import march_u
+
+        outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg)
+        ctx.cfg = cfg
+        ctx.save_for_backward(yt0, thr, m, a, r_h, r_ph, outs[7])
+        ctx.mark_non_differentiable(outs[1], outs[2], outs[6])
+        return outs
+
+    @staticmethod
+    def backward(ctx, ct_yt, _ct_hit, _ct_steps, ct_cr, ct_cp, ct_ct,
+                 _ct_nc, ct_rmin):
+        from blackhole_simulation_tpu_torch.ops.march_grad import (
+            march_grad_kernel,
+        )
+
+        yt0, thr, m, a, r_h, r_ph, rmin = ctx.saved_tensors
+        k = ctx.cfg.max_crossings
+        n = yt0.shape[1]
+        z = lambda g, shape: (g if g is not None else
+                              torch.zeros(shape, dtype=yt0.dtype,
+                                          device=yt0.device))
+        ct_yt0, ct_m, ct_a, ct_rh, ct_rph = march_grad_kernel(
+            yt0, thr, m, a, r_h, r_ph, ctx.cfg, z(ct_yt, (8, n)),
+            z(ct_cr, (k, n)), z(ct_cp, (k, n)), z(ct_ct, (k, n)),
+            z(ct_rmin, (n,)), rmin,
+        )
+        return (ct_yt0, None, ct_m.to(m.dtype), ct_a.to(a.dtype),
+                ct_rh.to(r_h.dtype), ct_rph.to(r_ph.dtype), None)
+
+
+def march_rows_ad(yt0: torch.Tensor, mass, spin,
+                  cfg: MarchConfig = MarchConfig(),
+                  thr: torch.Tensor | None = None) -> MarchRows:
+    """march_rows with a gradient: the march kernel forward, the gradient
+    kernel backward (checkpoint and replay). Gradients flow to the rows and,
+    through the radii, to mass and spin; the termination radii are
+    detached, as the JAX package's stop_gradient does."""
+    yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
+    return MarchRows(*_MarchKernelDiff.apply(yt0, thr, m, a, r_h, r_ph,
+                                             _kernel_cfg(cfg)))

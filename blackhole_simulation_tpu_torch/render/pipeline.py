@@ -2,20 +2,28 @@
 
 Counterpart of ``blackhole_simulation_tpu/render/pipeline.py``: ``Features``
 (:49), ``Scene`` (:87), ``ensure_spectral_coeffs`` (:131),
-``halton_jitters`` (:181), the fused branch of ``render_sample`` (:434-451),
+``halton_jitters`` (:181), ``shade_march_rows`` (:273), ``render_sample``
+(:406; its fused branch :434-451 and its staged branch :452-500),
 ``render`` (:581) and ``render_radiance`` (:600).
 
-Every sample goes through the fused render kernel (``ops/render.py``,
-``csrc/render.cu``): one launch per Halton-jittered sample, accumulated and
-tone-mapped on the device. The entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``, which selects the plain PyTorch version of
-the kernel. With no CUDA device and no explicit CPU request they raise; they
-never fall back to the CPU.
+A sample takes one of two branches, as in the JAX package:
 
-Not in this slice (``render_sample`` raises NotImplementedError): the
-staged path (``use_pallas`` or ``fused`` off), jets, ``start_jitter``, the
-critical-band refinement (``refine_band``), the NRS far field, the shadow
-overlay and the AB3 march (``multistep``).
+* fused (``use_pallas`` and ``fused``): one launch of the render kernel
+  (``ops/render.py``, ``csrc/render.cu``) per Halton-jittered sample;
+* staged (otherwise): rays from ``camera_rays_u`` (in pixel-block order when
+  ``use_pallas``, row-major otherwise), the march kernel (``march_rows`` ->
+  ``csrc/march.cu``) and the composite ``shade_march_rows`` in plain
+  PyTorch on the device.
+
+Samples are accumulated and tone-mapped on the device. The entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``, which selects the
+kernels' plain PyTorch versions. With no CUDA device and no explicit CPU
+request they raise; they never fall back to the CPU.
+
+Not ported yet (``render_sample`` raises NotImplementedError): jets,
+``start_jitter``, the critical-band refinement (``refine_band``), the NRS
+far field, the shadow overlay and the AB3 march (``multistep``) on the
+kernel paths.
 """
 
 from __future__ import annotations
@@ -169,11 +177,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_slice(scene: Scene, cfg: MarchConfig) -> None:
-    """Refuse what this slice of the port does not run."""
+    """Refuse what the port does not run yet."""
     feats = scene.features
     missing = []
-    if not (cfg.use_pallas and cfg.fused):
-        missing.append("the staged path (MarchConfig.use_pallas/fused off)")
     if feats.jets:
         missing.append("jets")
     if cfg.start_jitter > 0.0:
@@ -184,7 +190,7 @@ def _check_slice(scene: Scene, cfg: MarchConfig) -> None:
         missing.append("the NRS far field")
     if feats.shadow_overlay:
         missing.append("the shadow overlay")
-    if cfg.multistep:
+    if cfg.multistep and cfg.use_pallas:
         missing.append("the AB3 march (multistep)")
     if missing:
         raise NotImplementedError(
@@ -220,11 +226,98 @@ def kernel_inputs(scene: Scene, jitter, device):
     return row, st
 
 
+def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
+                     intensity_scale=1.0):
+    """The staged composite: disk crossings front to back, the starfield
+    behind escaped rays, and the photon-ring glow, as (r, g, b) rows.
+    ``rows``: MarchRows; ``m``, ``a``: 0-dim float32 tensors; ``lam``: the
+    (N,) conserved impact parameter L_z/E. Differentiable (autograd)."""
+    from blackhole_simulation_tpu_torch._elementwise import div_c, maximum
+    from blackhole_simulation_tpu_torch.geometry.metrics import (
+        isco_t,
+        photon_sphere_t,
+    )
+    from blackhole_simulation_tpu_torch.render.march import HIT_ESCAPE
+    from blackhole_simulation_tpu_torch.render.shading import (
+        escape_direction_u_rows,
+        shade_crossings_rows,
+        starfield_rows,
+    )
+
+    feats = scene.features
+    escaped = rows.hit == HIT_ESCAPE
+    zero = torch.zeros_like(lam)
+    if feats.disk:
+        rgb, trans = shade_crossings_rows(
+            m, a, isco_t(m, a), scene.disk, rows.cross_r, rows.cross_phi,
+            rows.cross_t, rows.n_crossings, lam, density_scale,
+            intensity_scale, spectral=feats.spectral_lut,
+            spectral_coeffs=scene.spectral_coeffs,
+        )
+    else:
+        rgb, trans = (zero, zero, zero), zero + 1.0
+    if feats.starfield:
+        dummy = (0.0, 100.0, 0.0, 0.0, -1.0, -1.0, 0.0, 0.0)
+        srows = tuple(torch.where(escaped, rows.state_u[i], dummy[i])
+                      for i in range(8))
+        bg = starfield_rows(*escape_direction_u_rows(srows, m, a),
+                            params=scene.stars)
+        w_bg = torch.where(escaped, trans, 0.0)
+        rgb = tuple(c + w_bg * b for c, b in zip(rgb, bg))
+    if feats.photon_ring_glow:
+        r_ph = photon_sphere_t(m, a)
+        near = torch.exp(-14.0 * rows.r_min_ph / maximum(r_ph, 1e-3))
+        glow = torch.where(escaped, 0.6 * near, 0.0)
+        order = div_c(torch.clamp(rows.n_crossings, 0, 3).to(lam.dtype), 3.0)
+        warm = (1.0, 0.82, 0.55)
+        cool = (0.82, 0.88, 1.0)
+        rgb = tuple(c + glow * (w + order * (k - w))
+                    for c, w, k in zip(rgb, warm, cool))
+    return rgb
+
+
+def conserved_lam(rays: torch.Tensor) -> torch.Tensor:
+    """lambda = L_z / E = -p_phi / p_t of (8, N) rows."""
+    return -rays[7] / torch.where(torch.abs(rays[4]) < 1e-12, -1.0, rays[4])
+
+
+def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
+    """The staged branch: (3, H, W) float32 radiance planes."""
+    from blackhole_simulation_tpu_torch.ops.pallas_march import (
+        from_block_order,
+        to_block_order,
+    )
+    from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
+    from blackhole_simulation_tpu_torch.render.march import march_rows
+
+    h, w = scene.camera.height, scene.camera.width
+    m = torch.tensor(float(scene.bh.mass), dtype=torch.float32, device=device)
+    a = torch.tensor(float(scene.bh.spin), dtype=torch.float32, device=device)
+    ids = None
+    if cfg.use_pallas:
+        ids = to_block_order(torch.arange(h * w, device=device), h, w)
+    rays = camera_rays_u(scene.camera, m, a, pix_ids=ids, jitter=jitter)
+    rows = march_rows(rays, m, a, cfg)
+    rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays))
+    if cfg.use_pallas:
+        rgb = tuple(from_block_order(c, h, w) for c in rgb)
+    return torch.stack(rgb).reshape(3, h, w)
+
+
 def render_sample(scene: Scene, jitter, device) -> torch.Tensor:
     """One jittered sub-sample: (3, H, W) float32 linear radiance planes."""
     from blackhole_simulation_tpu_torch.ops.render import render_planes_kernel
 
-    return render_planes_kernel(*kernel_inputs(scene, jitter, device))
+    cfg = scene.march_cfg
+    if cfg.use_pallas and cfg.fused:
+        return render_planes_kernel(*kernel_inputs(scene, jitter, device))
+    _check_slice(scene, cfg)
+    if cfg.shadow_precull:
+        cfg = dataclasses.replace(
+            cfg, shadow_precull=not scene.features.jets,
+            precull_keep_disk=scene.features.disk,
+        )
+    return _staged_sample(scene, cfg, jitter, device)
 
 
 def render(scene: Scene, n_samples: int = 1, device=None) -> torch.Tensor:

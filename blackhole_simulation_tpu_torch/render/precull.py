@@ -1,15 +1,24 @@
 """Shadow-interior precull: the critical curve as a Chebyshev series.
 
-Counterpart of ``blackhole_simulation_tpu/render/precull.py:49-116``. A ray
-whose conserved (lambda, eta) lies inside the Bardeen critical curve is
-provably captured; the render kernel tests that per pixel against a
-``_CHEB_K``-term Chebyshev fit of eta_c(lambda), built here once per frame
-on the host in float64.
+Counterpart of ``blackhole_simulation_tpu/render/precull.py:49-116``,
+``_cheb_eval`` (:109), ``capture_mask_u`` (:157) and ``_capture_core``
+(:261). A ray whose conserved (lambda, eta) lies inside the Bardeen critical
+curve is provably captured. The render kernel tests that per pixel against a
+``_CHEB_K``-term Chebyshev fit of eta_c(lambda), built once per frame on the
+host in float64 (``_eta_crit_cheb_coeffs``). The staged and training paths
+test it on their (8, N) rays with ``capture_mask_u``, whose fit is built in
+float32 as the JAX package builds it from float32 mass and spin
+(``_eta_crit_cheb_coeffs_f32``, on the host: 32 scalars per call).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+
+from blackhole_simulation_tpu_torch._elementwise import cos, div_c
 
 # Chebyshev fit of the critical curve eta_c(lam): terms, and the bound on
 # |fit - exact| over a in [0.1, 0.999] that the cull subtracts so it can only
@@ -67,3 +76,94 @@ def _eta_crit_cheb_coeffs(m, a):
     coeffs = (2.0 / _CHEB_K) * (eta_k[None, :] * dct).sum(axis=1)
     coeffs[0] *= 0.5
     return coeffs, mid, half, lam_lo, lam_hi
+
+
+def _acos_f32(x: torch.Tensor) -> torch.Tensor:
+    return torch.arccos(x.double()).to(x.dtype)
+
+
+def _eta_crit_cheb_coeffs_f32(m: torch.Tensor, a: torch.Tensor):
+    """``_eta_crit_cheb_coeffs`` in float32 on the host from 0-d float32
+    tensors, operation by operation as the JAX twin runs on float32 inputs
+    (transcendentals correctly rounded). Returns (coeffs (K,), mid, half,
+    lam_lo, lam_hi) as float32 CPU tensors."""
+    m = m.detach().float().cpu()
+    a = a.detach().float().cpu()
+    x = torch.clamp(a / m, -1.0, 1.0)
+    s_pro = 2.0 * m * (1.0 + cos(2.0 / 3.0 * _acos_f32(-x)))
+    s_retro = 2.0 * m * (1.0 + cos(2.0 / 3.0 * _acos_f32(x)))
+
+    def lam_c(s):
+        return (s * s * (3.0 * m - s) - a * a * (m + s)) / (a * (s - m))
+
+    def eta_c(s):
+        sm = s - m
+        return s ** 3 * (4.0 * a * a * m - s * (s - 3.0 * m) ** 2) / (
+            a * a * sm * sm)
+
+    lam_hi = lam_c(s_pro)
+    lam_lo = lam_c(s_retro)
+    mid = 0.5 * (lam_hi + lam_lo)
+    half = 0.5 * (lam_hi - lam_lo)
+    k = torch.arange(_CHEB_K, dtype=torch.float32)
+    xk = cos(div_c(math.pi * (k + 0.5), float(_CHEB_K)))
+    lam_k = mid + half * xk
+    lo = s_pro.expand(_CHEB_K).clone()
+    hi = s_retro.expand(_CHEB_K).clone()
+    for _ in range(40):
+        s_mid = 0.5 * (lo + hi)
+        go_right = lam_c(s_mid) > lam_k
+        lo = torch.where(go_right, s_mid, lo)
+        hi = torch.where(go_right, hi, s_mid)
+    eta_k = eta_c(0.5 * (lo + hi))
+    dct = cos(div_c(math.pi * k[:, None] * (k[None, :] + 0.5), float(_CHEB_K)))
+    coeffs = (2.0 / _CHEB_K) * (eta_k[None, :] * dct).sum(dim=1)
+    coeffs[0] = coeffs[0] * 0.5
+    return coeffs, mid, half, lam_lo, lam_hi
+
+
+def _cheb_eval(coeffs, mid, half, lam):
+    """Clenshaw evaluation of the Chebyshev series at lam (rows)."""
+    t = torch.clamp((lam - mid) / half, -1.0, 1.0)
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for j in range(_CHEB_K - 1, 0, -1):
+        b1, b2 = 2.0 * t * b1 - b2 + coeffs[j], b1
+    return t * b1 - b2 + coeffs[0]
+
+
+@torch.no_grad()
+def capture_mask_u(m, a, yt_u: torch.Tensor, margin: float = 0.04):
+    """(N,) bool: True where the ray of the (8, N) u-chart rows is provably
+    captured (with margin). ``m``, ``a``: 0-d float32 tensors (the signed
+    spin; the fit uses |a| clamped to [1e-3, 0.999] M)."""
+    m = m.detach().to(yt_u.dtype)
+    a_signed = a.detach().to(yt_u.dtype)
+    flip = torch.where(a_signed < 0.0, -1.0, 1.0).to(yt_u.dtype)
+    a_c = torch.minimum(torch.maximum(torch.abs(a_signed), 1e-3 * m), 0.999 * m)
+    u = yt_u[2]
+    pt, pu, pph = yt_u[4], yt_u[6], yt_u[7]
+    e = -pt
+    inv_e = 1.0 / torch.where(torch.abs(e) < 1e-12, 1.0, e)
+    lam = flip * pph * inv_e
+    w = 1.0 - u * u
+    s2 = torch.clamp(w, min=1e-12)
+    c2 = u * u
+    return _capture_core(m, a_c, a_signed, yt_u[1], s2, c2, pt, yt_u[5],
+                         pu * pu * w, pph, lam, inv_e, margin)
+
+
+def _capture_core(m, a, a_signed, r0, s2, c2, pt, pr, pth2, pph, lam, inv_e,
+                  margin):
+    q = pth2 + c2 * (pph * pph / s2 - a_signed * a_signed * pt * pt)
+    eta = q * inv_e * inv_e
+    dev = r0.device
+    coeffs, c_mid, c_half, lam_lo, lam_hi = (
+        x.to(dev) for x in _eta_crit_cheb_coeffs_f32(m, a))
+    in_range = (lam > lam_lo) & (lam < lam_hi)
+    eta_crit = _cheb_eval(coeffs, c_mid, c_half, lam) - _CHEB_ERR * m * m
+    inside = eta < eta_crit * (1.0 - margin) - margin * m * m
+    ssq = r0 * r0 + a_signed * a_signed * c2
+    delta = r0 * r0 - 2.0 * m * r0 + a_signed * a_signed
+    dr_dlam = (2.0 * m * r0 * pt + delta * pr + a_signed * pph) / ssq
+    return in_range & inside & (eta >= 0.0) & (dr_dlam < 0.0)

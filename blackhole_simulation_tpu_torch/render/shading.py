@@ -2,7 +2,8 @@
 
 Counterpart of ``blackhole_simulation_tpu/render/shading.py``. These are the
 plain PyTorch versions of what the render kernel (``csrc/render.cu``)
-computes per pixel, written expression for expression like the JAX twins so
+computes per pixel, and the staged path's composite (``shade_crossings_rows``
+:702, ``disk_emission_cheb_rows`` :562), written expression for expression like the JAX twins so
 that rounding matches: the same operation order, float32 throughout, scalar
 inputs (mass, spin, ISCO radius) as 0-dim float32 tensors, and constants
 rounded to float32 where the JAX code rounds them.
@@ -267,11 +268,15 @@ def _disk_geometry(disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves):
 
 
 def disk_emission_rows(disk: DiskParams, m, a, r_in, r_c, phi_c, t_c, lam,
-                       octaves: int = 3):
+                       octaves: int = 3, density_scale=1.0,
+                       intensity_scale=1.0):
     """Shade one recorded disk crossing, analytic branch:
     ((r, g, b) rows, alpha, valid). Novikov-Thorne temperature shape and the
     Tanner-Helland ramp; g^beaming intensity. ``m``, ``a``, ``r_in`` are 0-dim
-    tensors (the JAX twin takes a Kerr and an optional r_in)."""
+    tensors (the JAX twin takes a Kerr and an optional r_in).
+    ``density_scale`` / ``intensity_scale`` (0-dim tensors in training)
+    multiply the opacity and the intensity where the JAX twin does; at 1.0
+    they change nothing."""
     valid, r_c, g, turb, edge = _disk_geometry(
         disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves
     )
@@ -284,9 +289,10 @@ def disk_emission_rows(disk: DiskParams, m, a, r_in, r_c, phi_c, t_c, lam,
         t_obs = clip(g * t_shape * disk.t_peak, 1000.0, 40000.0)
         color = blackbody_ramp_rows(t_obs)
     outer = _powi(torch.maximum(r_in, r_c) / r_in, -disk.outer_falloff * 0.5)
-    alpha = clip(disk.density * edge * turb, 0.0, 1.0)
+    alpha = clip(disk.density * density_scale * edge * turb, 0.0, 1.0)
     alpha = torch.where(valid, alpha, 0.0)
-    intensity = _powi(g, disk.beaming_exponent) * _pow4(t_shape) * outer
+    intensity = (_powi(g, disk.beaming_exponent) * _pow4(t_shape) * outer
+                 * intensity_scale)
     masked = torch.where(valid, intensity, 0.0)
     return tuple(c * masked for c in color), alpha, valid
 
@@ -307,10 +313,12 @@ def cheb_clenshaw(coeffs, t):
 
 
 def spectral_slot_core(disk: DiskParams, m, a, r_in, inv_logr, t_coeffs,
-                       rgb_coeffs, r_c, phi_c, t_c, lam, octaves: int):
+                       rgb_coeffs, r_c, phi_c, t_c, lam, octaves: int,
+                       density_scale=1.0, intensity_scale=1.0):
     """Shade one recorded crossing, spectral branch: Page-Thorne temperature
     shape and Planck/CIE chromaticity as Chebyshev series (``t_coeffs``: K
-    scalars; ``rgb_coeffs``: 3 lists of K scalars); exact g^4 intensity."""
+    scalars; ``rgb_coeffs``: 3 lists of K scalars); exact g^4 intensity.
+    A scale of exactly 1.0 (a Python float) adds no operation."""
     valid, r_c, g, turb, edge = _disk_geometry(
         disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves
     )
@@ -324,11 +332,69 @@ def spectral_slot_core(disk: DiskParams, m, a, r_in, inv_logr, t_coeffs,
     color = tuple(
         maximum(cheb_clenshaw(rgb_coeffs[c], ty), 0.0) for c in range(3)
     )
-    alpha = clip(disk.density * edge * turb, 0.0, 1.0)
+    dens = disk.density
+    if not (isinstance(density_scale, float) and density_scale == 1.0):
+        dens = dens * density_scale
+    alpha = clip(dens * edge * turb, 0.0, 1.0)
     alpha = torch.where(valid, alpha, 0.0)
     intensity = _pow4(g) * _pow4(t_shape)
+    if not (isinstance(intensity_scale, float) and intensity_scale == 1.0):
+        intensity = intensity * intensity_scale
     masked = torch.where(valid, intensity, 0.0)
     return tuple(c * masked for c in color), alpha, valid
+
+
+def disk_emission_cheb_rows(disk: DiskParams, m, a, r_in, spectral_coeffs,
+                            r_c, phi_c, t_c, lam, density_scale=1.0,
+                            intensity_scale=1.0, octaves: int = 3):
+    """Spectral slot shading from the host Chebyshev tables
+    (t_coeffs (K,), rgb_coeffs (3, K), inv_logr), the staged path's twin of
+    the render kernel's spectral slot."""
+    tc, rc_tab, il = spectral_coeffs
+    tc = torch.as_tensor(np.asarray(tc, np.float32), device=r_c.device)
+    rc_tab = torch.as_tensor(np.asarray(rc_tab, np.float32), device=r_c.device)
+    inv_logr = torch.as_tensor(np.asarray(il, np.float32), device=r_c.device)
+    t_coeffs = [tc[j] for j in range(SPECTRAL_CHEB_K)]
+    rgb_coeffs = [[rc_tab[c, j] for j in range(SPECTRAL_CHEB_K)]
+                  for c in range(3)]
+    return spectral_slot_core(disk, m, a, r_in, inv_logr, t_coeffs,
+                              rgb_coeffs, r_c, phi_c, t_c, lam, octaves,
+                              density_scale, intensity_scale)
+
+
+def shade_crossings_rows(m, a, r_in, disk: DiskParams, cross_r, cross_phi,
+                         cross_t, n_crossings, lam, density_scale=1.0,
+                         intensity_scale=1.0, spectral: bool = False,
+                         spectral_coeffs=None):
+    """Composite the K recorded crossings front to back:
+    ((r, g, b) rows, transmittance). ``cross_*``: (K, N) rows; ``m``, ``a``,
+    ``r_in``: 0-dim tensors. The spectral disk shades from
+    ``spectral_coeffs``; the JAX twin's float64 LUT branch (spectral without
+    coefficients) is not ported."""
+    k_slots, n = cross_r.shape
+    if spectral and spectral_coeffs is None:
+        raise NotImplementedError(
+            "spectral shading without spectral_coeffs (the float64 LUT "
+            "branch) is not ported")
+    zero = torch.zeros(n, dtype=cross_r.dtype, device=cross_r.device)
+    rgb = (zero, zero, zero)
+    trans = zero + 1.0
+    for k in range(k_slots):
+        filled = k < n_crossings
+        octaves = 3 if k == 0 else 1
+        if spectral:
+            c_rgb, c_alpha, valid = disk_emission_cheb_rows(
+                disk, m, a, r_in, spectral_coeffs, cross_r[k], cross_phi[k],
+                cross_t[k], lam, density_scale, intensity_scale, octaves)
+        else:
+            c_rgb, c_alpha, valid = disk_emission_rows(
+                disk, m, a, r_in, cross_r[k], cross_phi[k], cross_t[k], lam,
+                octaves, density_scale, intensity_scale)
+        on = filled & valid
+        w = torch.where(on, trans * c_alpha, 0.0)
+        rgb = tuple(acc + w * c for acc, c in zip(rgb, c_rgb))
+        trans = torch.where(on, trans * (1.0 - c_alpha), trans)
+    return rgb, trans
 
 
 # ---------------------------------------------------------------------------

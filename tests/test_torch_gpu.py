@@ -1,5 +1,6 @@
-"""The render kernel on the card: against its plain PyTorch version, and
-through the port's entry points.
+"""The CUDA kernels on the card: the render, march and gradient kernels
+against their plain PyTorch versions, and through the port's entry points
+(render, the staged render, the training step).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -11,15 +12,31 @@ only PyTorch; there, skip tests/conftest.py (which configures JAX):
 import dataclasses as dc
 import math
 
+import numpy as np
 import pytest
 import torch
 
+from blackhole_simulation_tpu_torch.ops.march_grad import (
+    march_grad,
+    march_grad_kernel,
+)
+from blackhole_simulation_tpu_torch.ops.pallas_march import (
+    march_u,
+    march_u_plain,
+)
 from blackhole_simulation_tpu_torch.ops.render import (
     render_planes,
     render_planes_kernel,
 )
-from blackhole_simulation_tpu_torch.render.camera import Camera
-from blackhole_simulation_tpu_torch.render.march import MarchConfig
+from blackhole_simulation_tpu_torch.parallel import (
+    InverseParams,
+    make_inverse_step,
+)
+from blackhole_simulation_tpu_torch.render.camera import Camera, camera_rays_u
+from blackhole_simulation_tpu_torch.render.march import (
+    MarchConfig,
+    _march_inputs,
+)
 from blackhole_simulation_tpu_torch.render.pipeline import (
     Features,
     Scene,
@@ -100,3 +117,74 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(NotImplementedError):
         render_planes_kernel(row, dc.replace(st, cfg=dc.replace(
             st.cfg, max_crossings=5)))
+
+
+def _march_args(cuda, cfg, width=250, height=141, spin=0.9):
+    m = torch.tensor(1.0, device=cuda)
+    a = torch.tensor(spin, device=cuda)
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5,
+                        width=width, height=height)
+    with torch.no_grad():
+        return _march_inputs(camera_rays_u(cam, m, a), m, a, cfg, None)
+
+
+def test_march_kernel_matches_plain_version(cuda):
+    cfg = dc.replace(CFG, fused=False)
+    args = _march_args(cuda, cfg)
+    before = march_u.launches
+    with torch.no_grad():
+        k = march_u(*args, cfg)
+        p = march_u_plain(*args, cfg)
+    assert march_u.launches == before + 1
+    for i in (1, 2, 6):   # hit, steps, crossing count
+        assert torch.equal(k[i], p[i]), i
+    for i in (0, 3, 4, 5, 7):   # state, crossing records, r_min
+        assert float((k[i] - p[i]).abs().max()) < 1e-4, i
+
+
+def test_staged_render_matches_fused(cuda):
+    fused = _scene(96, 54)
+    staged = dc.replace(fused, march_cfg=dc.replace(CFG, fused=False))
+    before = march_u.launches
+    a = render_radiance(staged)
+    torch.cuda.synchronize()
+    assert march_u.launches == before + 1
+    d = (a - render_radiance(fused)).abs()
+    assert float(torch.quantile(d.flatten(), 0.99)) < 1e-4
+    assert float(d.mean()) < 1e-5
+
+
+def test_grad_kernel_matches_plain_version(cuda):
+    cfg = MarchConfig(max_steps=48, shadow_precull=False, remat_every=0)
+    args = _march_args(cuda, cfg, 48, 32)
+    n, k_slots = args[0].shape[1], cfg.max_crossings
+    with torch.no_grad():
+        rmin = march_u(*args, cfg)[7]
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(cuda)
+    cts = (f(8, n), f(k_slots, n), f(k_slots, n), f(k_slots, n), f(n))
+    before = march_grad_kernel.launches
+    k = march_grad_kernel(*args, cfg, *cts, rmin)
+    p = march_grad(*args, cfg, *cts, rmin)
+    assert march_grad_kernel.launches == before + 1
+    rows = [0, 1, 2, 3, 5, 6, 7]
+    rel = (k[0][rows] - p[0][rows]).abs() / (p[0][rows].abs() + 1e-6)
+    assert bool(torch.isfinite(k[0]).all())
+    assert float(torch.quantile(rel.flatten(), 0.95)) < 1e-2
+    for x, y in zip(k[1:], p[1:]):
+        assert float(x) == pytest.approx(float(y), rel=5e-3)
+
+
+def test_training_step_runs_both_kernels(cuda):
+    scene = _scene(64, 32, spin=0.999, fused=False)
+    params = InverseParams.init(spin=0.9, theta_cam=scene.camera.theta)
+    before = (march_u.launches, march_grad_kernel.launches)
+    (p1, _), loss = make_inverse_step(scene)(
+        params, torch.zeros(32, 64, 3, device=cuda))
+    torch.cuda.synchronize()
+    assert (march_u.launches, march_grad_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert p1.spin.device.type == "cuda"
+    assert math.isfinite(float(loss))
+    assert all(math.isfinite(float(v)) for v in p1.leaves())

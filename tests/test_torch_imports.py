@@ -18,6 +18,14 @@ MODULES = [
     "blackhole_simulation_tpu_torch.render.pipeline",
     "blackhole_simulation_tpu_torch.ops.render",
     "blackhole_simulation_tpu_torch.ops.build",
+    "blackhole_simulation_tpu_torch.ops.pallas_march",
+    "blackhole_simulation_tpu_torch.ops.march_grad",
+    "blackhole_simulation_tpu_torch.render.march",
+    "blackhole_simulation_tpu_torch.render.camera",
+    "blackhole_simulation_tpu_torch.render.precull",
+    "blackhole_simulation_tpu_torch.parallel",
+    "blackhole_simulation_tpu_torch.parallel.train",
+    "blackhole_simulation_tpu_torch.geometry.metrics",
     "blackhole_simulation_tpu_torch.physics.disk",
     "blackhole_simulation_tpu_torch.physics.spectrum",
     "chip_smoke",

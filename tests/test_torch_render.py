@@ -104,7 +104,8 @@ def test_render_supersampled_tonemapped_matches_jax():
 
 
 OUT_OF_SLICE = {
-    "staged": (dict(), dict(use_pallas=False)),
+    # The staged branch is ported; what it does not run yet still raises.
+    "staged": (dict(jets=True), dict(use_pallas=False)),
     "jets": (dict(jets=True), dict()),
     "start_jitter": (dict(), dict(start_jitter=0.5)),
     "refine_band": (dict(), dict(refine_band=0.6)),
