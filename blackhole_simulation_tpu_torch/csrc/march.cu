@@ -4,9 +4,11 @@
 // and the photon-ring proximity min |r - r_ph|.
 //
 // Replaces blackhole_simulation_tpu/ops/pallas_march.py::_march_kernel (the
-// Pallas TPU march-only kernel launched by pallas_march_u). The plain
-// PyTorch version of the same function is ops/march.py::march_tile; the
-// wrapper is ops/pallas_march.py::march_u. Built by ops/build.py with nvcc
+// Pallas TPU march-only kernel launched by pallas_march_u) with both of its
+// bodies, march_tile and, when MarchConfig.multistep is set, the AB3 march
+// march_tile_ab3. The plain PyTorch versions of the same functions are
+// ops/march.py::march_tile and march_tile_ab3; the wrapper is
+// ops/pallas_march.py::march_u. Built by ops/build.py with nvcc
 // -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false (no
 // --use_fast_math) and loaded through ctypes.
 //
@@ -30,13 +32,18 @@
 // * The loop is march_step.cuh's march_ray, the render kernel's own loop:
 //   while (i < max_steps && hit == NONE), renormalization after step i when
 //   (i + 1) % renormalize_every == 0 on live rays.
-// * approx_recip: rcp.approx.ftz.f32 for 1/S, 1/w and the step's two
-//   divides, IEEE divides otherwise.
+// * The AB3 march (march_step.cuh's march_ray_ab3) is the kernel's other
+//   instantiation, chosen at launch: the midpoint instantiation carries none
+//   of its registers (two 6-word right-hand-side histories and two step
+//   sizes). It evaluates one right-hand side per step instead of two.
+// * approx_recip: rcp.approx.ftz.f32 for 1/S, 1/w and the step's divides,
+//   IEEE divides otherwise.
 
 #include "march_step.cuh"
 
 #define THREADS 128
 
+template <bool AB3>
 __global__ void __launch_bounds__(THREADS)
 march_kernel(const float* __restrict__ P, const float* __restrict__ y,
              const float* __restrict__ thr, float* __restrict__ yo,
@@ -56,8 +63,12 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
   const float pph = y[7 * N + j];
   int hit, steps, nc;
   float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
-  march_ray(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph, thr[j], s, hit,
-            steps, nc, cr, cp, ct, rmin);
+  if (AB3)
+    march_ray_ab3(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph, thr[j], s,
+                  hit, steps, nc, cr, cp, ct, rmin);
+  else
+    march_ray(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph, thr[j], s, hit,
+              steps, nc, cr, cp, ct, rmin);
   yo[j] = s[0];
   yo[N + j] = s[1];
   yo[2 * N + j] = s[2];
@@ -89,9 +100,9 @@ int bh_march_launch(const float* P, const float* y, const float* thr,
                     float* ct, int* nc, float* rmin, int n,
                     const MarchParams* mp, void* stream) {
   if (n > 0) {
-    march_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                   (cudaStream_t)stream>>>(P, y, thr, yo, hit, steps, cr, cp,
-                                           ct, nc, rmin, n, *mp);
+    auto kernel = mp->multistep ? march_kernel<true> : march_kernel<false>;
+    kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+        P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, n, *mp);
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@
 //
 // Counterpart of blackhole_simulation_tpu/ops/ks_kernel.py (ks_rhs_rows,
 // ks_symplectic_step_rows, ks_renormalize_pr), ops/pallas_march.py
-// (diff_step_values, march_tile) and ops/pallas_grad.py (make_composite).
+// (diff_step_values, march_tile, march_tile_ab3) and ops/pallas_grad.py
+// (make_composite).
 // The plain PyTorch versions are ops/ks_kernel.py and ops/march.py; every
 // expression here is written in their order, so the two round alike.
 //
@@ -37,10 +38,12 @@
 #define KMAX 4
 
 // The static march configuration. Must match ops/pallas_march.py::
-// _CMarchParams field for field.
+// _CMarchParams field for field. multistep selects the AB3 march;
+// ab3_renorm_every and ab3_tail_renorm are its renormalization cadence
+// (ops/march.py::ab3_renorm_plan).
 struct MarchParams {
   int max_steps, renormalize_every, max_crossings, midpoint_iters,
-      approx_recip, far_cap_on;
+      approx_recip, far_cap_on, multistep, ab3_renorm_every, ab3_tail_renorm;
   float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
       escape_radius, escape_sanity_r, record_r_min, record_r_max;
 };
@@ -322,13 +325,12 @@ __device__ __forceinline__ T ks_renormalize_pr(const T& m, const T& a,
 // march_tile / pallas_grad.py::make_composite)
 // ---------------------------------------------------------------------------
 
-// The stepped state and the interpolated equator-crossing record.
+// The curvature-adaptive, pole-throttled step size.
 template <class T>
-__device__ __forceinline__ void step_values(
-    const MarchParams& mp, bool approx, const T& m, const T& a, const T& r_h,
-    const T& r_ph, const T& t, const T& r, const T& u, const T& ph,
-    const T& pr, const T& pu, const T& pph, T y[6], T& r_c, T& phi_c,
-    T& t_c) {
+__device__ __forceinline__ T step_size(const MarchParams& mp, bool approx,
+                                       const T& a, const T& r_h,
+                                       const T& r_ph, const T& r, const T& u,
+                                       const T& pu) {
   T inv_rph = 1.0f / jmax(r_ph, T(F(1e-3)));
   T base = (r - r_h) * mp.step_rate;
   T far = jmax(r / mp.far_boost_radius, T(1.0f));
@@ -340,8 +342,15 @@ __device__ __forceinline__ void step_values(
   T sig = r * r + a * a * u * u;
   T du_rate = dabs(w * pu / sig) + F(1e-12);
   T margin = 1.0f - dabs(u) + F(1e-6);
-  dlam = jmin(dlam, jmax(divr(0.5f * margin, du_rate, approx), T(mp.min_step)));
+  return jmin(dlam, jmax(divr(0.5f * margin, du_rate, approx), T(mp.min_step)));
+}
 
+// The implicit-midpoint step of size dlam, u clipped off the poles.
+template <class T>
+__device__ __forceinline__ void midpoint_step(
+    const MarchParams& mp, bool approx, const T& m, const T& a,
+    const T& dlam, const T& t, const T& r, const T& u, const T& ph,
+    const T& pr, const T& pu, const T& pph, T y[6]) {
   T d[6];
   ks_rhs(m, a, r, u, pr, pu, pph, approx, d);
   T nt = t + dlam * d[0];
@@ -360,19 +369,64 @@ __device__ __forceinline__ void step_values(
     npr = pr + dlam * d[4];
     npu = pu + dlam * d[5];
   }
-  nu = jclip(nu, T(F(-1.0 + 1e-7)), T(F(1.0 - 1e-7)));
-  T frac = jclip(
-      divr(u, fabsf(val(u - nu)) < F(1e-12) ? T(F(1e-12)) : u - nu, approx),
-      T(0.0f), T(1.0f));
-  r_c = r + frac * (nr - r);
-  phi_c = ph + frac * (nph - ph);
-  t_c = t + frac * (nt - t);
   y[0] = nt;
   y[1] = nr;
-  y[2] = nu;
+  y[2] = jclip(nu, T(F(-1.0 + 1e-7)), T(F(1.0 - 1e-7)));
   y[3] = nph;
   y[4] = npr;
   y[5] = npu;
+}
+
+// The equator-crossing record interpolated between (t, r, u, ph) and the
+// stepped y.
+template <class T>
+__device__ __forceinline__ void crossing_record(bool approx, const T& t,
+                                                const T& r, const T& u,
+                                                const T& ph, const T y[6],
+                                                T& r_c, T& phi_c, T& t_c) {
+  const T& nu = y[2];
+  T frac = jclip(
+      divr(u, fabsf(val(u - nu)) < F(1e-12) ? T(F(1e-12)) : u - nu, approx),
+      T(0.0f), T(1.0f));
+  r_c = r + frac * (y[1] - r);
+  phi_c = ph + frac * (y[3] - ph);
+  t_c = t + frac * (y[0] - t);
+}
+
+// The stepped state and the interpolated equator-crossing record.
+template <class T>
+__device__ __forceinline__ void step_values(
+    const MarchParams& mp, bool approx, const T& m, const T& a, const T& r_h,
+    const T& r_ph, const T& t, const T& r, const T& u, const T& ph,
+    const T& pr, const T& pu, const T& pph, T y[6], T& r_c, T& phi_c,
+    T& t_c) {
+  T dlam = step_size(mp, approx, a, r_h, r_ph, r, u, pu);
+  midpoint_step(mp, approx, m, a, dlam, t, r, u, ph, pr, pu, pph, y);
+  crossing_record(approx, t, r, u, ph, y, r_c, phi_c, t_c);
+}
+
+// The step's epilogue on a live ray: the crossing test against the pre-step
+// crossing count nc, the sanity freeze, the advance of s to y and the
+// termination tests.
+template <class T>
+__device__ __forceinline__ void advance_step(const MarchParams& mp, float thr,
+                                             T s[6], const T y[6],
+                                             const T& r_c, int& hit, int nc,
+                                             bool& crossed, bool& advance) {
+  crossed = ((val(s[2]) * val(y[2])) < 0.0f) && (nc < mp.max_crossings) &&
+            (val(r_c) > mp.record_r_min) && (val(r_c) < mp.record_r_max);
+  advance = isfinite(val(y[1])) && isfinite(val(y[3])) &&
+            isfinite(val(y[4])) && isfinite(val(y[5])) &&
+            (fabsf(val(y[4])) < F(1e7)) && (fabsf(val(y[5])) < F(1e7)) &&
+            (val(y[1]) < mp.escape_sanity_r);
+  if (advance) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s[k] = y[k];
+  } else {
+    hit = HIT_HORIZON;
+  }
+  if (val(s[1]) < thr) hit = HIT_HORIZON;
+  if (val(s[1]) > mp.escape_radius) hit = HIT_ESCAPE;
 }
 
 // One step of a live ray (hit == HIT_NONE on entry), step index i: the
@@ -388,22 +442,32 @@ __device__ __forceinline__ void march_step(
   T y[6];
   step_values(mp, approx, m, a, r_h, r_ph, s[0], s[1], s[2], s[3], s[4], s[5],
               pph, y, r_c, phi_c, t_c);
-  crossed = ((val(s[2]) * val(y[2])) < 0.0f) && (nc < mp.max_crossings) &&
-            (val(r_c) > mp.record_r_min) && (val(r_c) < mp.record_r_max);
-  advance = isfinite(val(y[1])) && isfinite(val(y[3])) &&
-            isfinite(val(y[4])) && isfinite(val(y[5])) &&
-            (fabsf(val(y[4])) < F(1e7)) && (fabsf(val(y[5])) < F(1e7)) &&
-            (val(y[1]) < mp.escape_sanity_r);
-  if (advance) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) s[k] = y[k];
-  } else {
-    hit = HIT_HORIZON;
-  }
-  if (val(s[1]) < thr) hit = HIT_HORIZON;
-  if (val(s[1]) > mp.escape_radius) hit = HIT_ESCAPE;
+  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
   if ((i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE)
     s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+}
+
+// A finished step's records: the crossing slot nc (then the count), the
+// step count and the photon-ring proximity, from the advanced radius r.
+__device__ __forceinline__ void record_step(bool crossed, bool advance,
+                                            float r_c, float phi_c, float t_c,
+                                            float r, float r_ph, int& nc,
+                                            float cr[KMAX], float cp[KMAX],
+                                            float ct[KMAX], int& steps,
+                                            float& rmin) {
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (crossed && nc == k) {
+      cr[k] = r_c;
+      cp[k] = phi_c;
+      ct[k] = t_c;
+    }
+  }
+  nc += crossed ? 1 : 0;
+  if (advance) {
+    ++steps;
+    rmin = jmin(rmin, fabsf(r - r_ph));
+  }
 }
 
 // March one ray to horizon or escape (ops/march.py::march_tile, one ray):
@@ -428,19 +492,81 @@ __device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
     float r_c, phi_c, t_c;
     march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc, crossed,
                advance, r_c, phi_c, t_c);
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (crossed && nc == k) {
-        cr[k] = r_c;
-        cp[k] = phi_c;
-        ct[k] = t_c;
-      }
-    }
-    nc += crossed ? 1 : 0;
-    if (advance) {
-      ++steps;
-      rmin = jmin(rmin, fabsf(s[1] - r_ph));
-    }
+    record_step(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr, cp, ct,
+                steps, rmin);
   }
+  if (hit == HIT_NONE) hit = HIT_HORIZON;
+}
+
+// The AB3 march of one ray (ops/march.py::march_tile_ab3; the JAX package's
+// pallas_march.py::march_tile_ab3), march_ray's inputs and outputs. One
+// right-hand side per step: y_{n+1} = y_n + c0 f_n + c1 f_{n-1} + c2 f_{n-2}
+// with the variable-step Lagrange-integral coefficients of the step history
+// (h = dlam, h1, h2), the step growth bounded by dlam <= 2 h1, two midpoint
+// bootstrap steps that seed the history, and the history shifted only when
+// the ray advances. The Pallas tile loop shares its step counter across a
+// tile, but every ray's steps depend on that ray alone, so one thread per
+// ray reproduces it; its renormalization at tile-exit block boundaries
+// becomes the per-ray cadence mp.ab3_renorm_every / mp.ab3_tail_renorm.
+// Float only: the AB3 march has no gradient path.
+__device__ __forceinline__ void march_ray_ab3(
+    const MarchParams& mp, bool approx, float m, float a, float r_h,
+    float r_ph, float pph, float thr, float s[6], int& hit, int& steps,
+    int& nc, float cr[KMAX], float cp[KMAX], float ct[KMAX], float& rmin) {
+  hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
+  nc = 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) cr[k] = cp[k] = ct[k] = 0.0f;
+  rmin = fabsf(s[1] - r_ph);
+  steps = 0;
+  float f1[6], f2[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) f1[k] = f2[k] = 0.0f;
+  float h1 = mp.min_step, h2 = mp.min_step;
+  const float third = F(1.0 / 3.0);
+  for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i) {
+    float f0[6], y[6], dlam;
+    ks_rhs(m, a, s[1], s[2], s[4], s[5], pph, approx, f0);
+    if (i < 2) {
+      dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
+      midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4],
+                    s[5], pph, y);
+    } else {
+      dlam = jmin(step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]),
+                  2.0f * h1);
+      const float h12 = h1 + h2;
+      const float hh2 = dlam * dlam;
+      const float hh3 = hh2 * dlam;
+      const float c0 = divr(hh3 * third + (2.0f * h1 + h2) * hh2 * 0.5f +
+                                h1 * h12 * dlam,
+                            h1 * h12, approx);
+      const float c1 = -divr(hh3 * third + h12 * hh2 * 0.5f, h1 * h2, approx);
+      const float c2 = divr(hh3 * third + h1 * hh2 * 0.5f, h2 * h12, approx);
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        y[k] = s[k] + c0 * f0[k] + c1 * f1[k] + c2 * f2[k];
+      y[2] = jclip(y[2], F(-1.0 + 1e-7), F(1.0 - 1e-7));
+    }
+    float r_c, phi_c, t_c;
+    crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
+    bool crossed, advance;
+    advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
+    record_step(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr, cp, ct,
+                steps, rmin);
+    if (advance) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        f2[k] = f1[k];
+        f1[k] = f0[k];
+      }
+      h2 = h1;
+      h1 = dlam;
+    }
+    if (i >= 2 && mp.ab3_renorm_every > 0 &&
+        (i + 1) % mp.ab3_renorm_every == 0 && hit == HIT_NONE)
+      s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+  }
+  if (mp.ab3_tail_renorm && hit == HIT_NONE)
+    s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
   if (hit == HIT_NONE) hit = HIT_HORIZON;
 }

@@ -1,6 +1,6 @@
 // Fused render kernel for Hopper (sm_90a): ray birth -> null projection ->
-// Chebyshev shadow precull -> geodesic march -> disk / starfield /
-// photon-ring composite, one thread per pixel.
+// Chebyshev shadow precull and critical-band metric -> geodesic march ->
+// disk / starfield / photon-ring composite, one thread per pixel.
 //
 // Replaces blackhole_simulation_tpu/ops/pallas_render.py::_render_kernel
 // (the Pallas TPU megakernel, with the march loop of
@@ -14,12 +14,13 @@
 //
 // What bounds it on the H100: FP32 arithmetic. Its only memory traffic is a
 // 4 KB parameter row (every thread reads the same words, served by the L1)
-// and three float32 output planes, 12 bytes per pixel. Each march step costs
-// a few hundred FP32 operations per ray (two right-hand sides of the
-// Kerr-Schild Hamiltonian with midpoint_iters = 1, the adaptive step size and
-// the crossing record), so the least time is (operations per step) x (sum of
-// steps over all rays) / (the card's FP32 rate); chip_smoke.py computes it
-// from the step counts of the run.
+// and three float32 output planes, 12 bytes per pixel (16 with the band
+// plane). Each march step costs a few hundred FP32 operations per ray (two
+// right-hand sides of the Kerr-Schild Hamiltonian with midpoint_iters = 1,
+// one with AB3, the adaptive step size and the crossing record), so the
+// least time is (operations per step) x (sum of steps over all rays) / (the
+// card's FP32 rate); chip_smoke.py computes it from the step counts of the
+// run and the rate measured by tools/vpu_peak.py.
 //
 // Design for the card:
 // * One thread per pixel. The ray state (7 values), hit, steps, the crossing
@@ -38,7 +39,14 @@
 // * The parameter row stays in device memory; the static configuration
 //   comes by value in RenderStatic. Ragged frame edges are masked here;
 //   nothing is padded in memory.
-// * approx_recip: 1/S, 1/w and the step's two divides use rcp.approx.ftz.f32,
+// * With MarchConfig.refine_band > 0 a fourth plane holds each pixel's
+//   critical-band metric (precull.band_metric_values on the birth row's
+//   eta = q, E = 1, and the Chebyshev curve without the cull's shift; the
+//   pole criterion folded in when refine_pole_w > 0), which the refinement
+//   pass (render/pipeline.py::refine_critical_band) selects from.
+// * With MarchConfig.multistep the march is march_step.cuh's AB3 march
+//   (march_ray_ab3), the kernel's other instantiation, chosen at launch.
+// * approx_recip: 1/S, 1/w and the step's divides use rcp.approx.ftz.f32,
 //   as the Pallas kernel uses the TPU's approximate reciprocal. Every other
 //   division is exact.
 // * sqrtf is IEEE (correctly rounded); sin and cos go through double and
@@ -100,13 +108,14 @@ struct RenderStatic {
   int width, height, max_steps, renormalize_every, max_crossings,
       midpoint_iters, approx_recip, precull, disk_on, spectral, starfield,
       glow, artistic, far_cap_on, beam_k, beam_n, beam_neg, outer_k,
-      outer_n, outer_neg;
+      outer_n, outer_neg, multistep, ab3_renorm_every, ab3_tail_renorm;
   float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
       escape_radius, escape_sanity_r, record_r_min, record_r_max,
       disk_outer_radius, disk_density, disk_t_peak, disk_beaming, disk_turb,
       disk_one_minus_turb, disk_softness, disk_outer_pow, disk_edge_width,
       nt_peak, art_r, art_g, art_b, star_brightness, star_nebula, star_freq0,
-      star_freq1, star_thr0, star_thr1;
+      star_freq1, star_thr0, star_thr1, refine_band, refine_pole_w,
+      pole_scale;
 };
 
 // ---------------------------------------------------------------------------
@@ -365,6 +374,7 @@ __device__ void starfield(const RenderStatic& st, float dx, float dy, float dz,
 // The kernel
 // ---------------------------------------------------------------------------
 
+template <bool AB3>
 __global__ void __launch_bounds__(THREADS)
 render_kernel(const float* __restrict__ P, float* __restrict__ out,
               int* __restrict__ steps_out, const RenderStatic st) {
@@ -410,10 +420,13 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   float u = __ldg(P + P_U0);
   float ph = __ldg(P + P_PH0);
   pr = ks_renormalize_pr(m, a, r, u, pr, pu, pph);
+  const size_t plane = (size_t)st.width * st.height;
+  const size_t idx = (size_t)y * st.width + x;
 
-  // --- shadow precull ---
+  // --- shadow precull and the critical-band metric ---
   float thr = __ldg(P + P_HORTHR);
-  if (st.precull) {
+  const bool band_on = st.refine_band > 0.0f;
+  if (st.precull || band_on) {
     const float pt = -1.0f;
     float lam = __ldg(P + P_FLIP) * pph;
     float w0 = 1.0f - u * u;
@@ -422,21 +435,42 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
     float eta = pu * pu * w0 + c2 * (pph * pph / s2 - a * a);
     float t_dom = jclip((lam - __ldg(P + P_CHEB_MID)) / __ldg(P + P_CHEB_HALF),
                         -1.0f, 1.0f);
-    float eta_crit = clenshaw(P + P_ETA, CHEB_K, t_dom) - F(CHEB_ERR) * m * m;
-    const float margin = F(0.04);
-    bool inside = eta < eta_crit * (1.0f - margin) - margin * m * m;
-    bool in_range = (lam > __ldg(P + P_LAM_LO)) && (lam < __ldg(P + P_LAM_HI));
-    float ssq = r * r + a * a * c2;
-    float delta = r * r - 2.0f * m * r + a * a;
-    float dr_dlam = (2.0f * m * r * pt + delta * pr + a * pph) / ssq;
-    bool dead = in_range && inside && (eta >= 0.0f) && (dr_dlam < 0.0f);
-    if (dead) thr = __ldg(P + P_STOPR);
+    float cheb_raw = clenshaw(P + P_ETA, CHEB_K, t_dom);
+    const float lam_lo = __ldg(P + P_LAM_LO), lam_hi = __ldg(P + P_LAM_HI);
+    if (band_on) {
+      // precull.band_metric_values, fold_pole_metric, pole_w_min_values
+      float m2 = m * m;
+      float d_eta = fabsf(eta - cheb_raw) / m2;
+      float excess = jmax(lam - lam_hi, lam_lo - lam);
+      float d_band = d_eta + jmax(excess, 0.0f) * (4.0f / m);
+      if (st.refine_pole_w > 0.0f) {
+        float a2 = jmax(a * a, F(1e-12));
+        float b2 = a2 - eta - lam * lam;
+        float disc = sqrtf(jmax(b2 * b2 + 4.0f * a2 * eta, 0.0f));
+        float umax2 = jclip((b2 + disc) / (2.0f * a2), 0.0f, 1.0f);
+        d_band = jmin(d_band, (1.0f - umax2) * st.pole_scale);
+      }
+      out[3 * plane + idx] = d_band;
+    }
+    if (st.precull) {
+      float eta_crit = cheb_raw - F(CHEB_ERR) * m * m;
+      const float margin = F(0.04);
+      bool inside = eta < eta_crit * (1.0f - margin) - margin * m * m;
+      bool in_range = (lam > lam_lo) && (lam < lam_hi);
+      float ssq = r * r + a * a * c2;
+      float delta = r * r - 2.0f * m * r + a * a;
+      float dr_dlam = (2.0f * m * r * pt + delta * pr + a * pph) / ssq;
+      bool dead = in_range && inside && (eta >= 0.0f) && (dr_dlam < 0.0f);
+      if (dead) thr = __ldg(P + P_STOPR);
+    }
   }
 
   // --- march (march_step.cuh, the march kernel's own loop) ---
   const MarchParams mp = {st.max_steps, st.renormalize_every,
                           st.max_crossings, st.midpoint_iters,
-                          st.approx_recip, st.far_cap_on, st.step_rate,
+                          st.approx_recip, st.far_cap_on, st.multistep,
+                          st.ab3_renorm_every, st.ab3_tail_renorm,
+                          st.step_rate,
                           st.min_step, st.max_step, st.far_step_cap_rate,
                           st.far_boost_radius, st.escape_radius,
                           st.escape_sanity_r, st.record_r_min,
@@ -445,8 +479,12 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   float s[6] = {t, r, u, ph, pr, pu};
   int hit, steps, nc;
   float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
-  march_ray(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc, cr, cp,
-            ct, rmin);
+  if (AB3)
+    march_ray_ab3(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc,
+                  cr, cp, ct, rmin);
+  else
+    march_ray(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc, cr,
+              cp, ct, rmin);
   t = s[0];
   r = s[1];
   u = s[2];
@@ -496,8 +534,6 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
     for (int c = 0; c < 3; ++c)
       rgb[c] = rgb[c] + glow * (warm[c] + order * dwk[c]);
   }
-  const size_t plane = (size_t)st.width * st.height;
-  const size_t idx = (size_t)y * st.width + x;
   out[idx] = rgb[0];
   out[plane + idx] = rgb[1];
   out[2 * plane + idx] = rgb[2];
@@ -507,14 +543,15 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
 extern "C" {
 
 // Launches the render kernel on ``stream``; returns cudaGetLastError().
-// ``steps`` (may be null) receives each ray's march step count.
+// ``out`` holds 3 planes, 4 with the band plane; ``steps`` (may be null)
+// receives each ray's march step count.
 int bh_render_launch(const float* params, float* out, int* steps,
                      const RenderStatic* st, void* stream) {
   dim3 block(THREADS);
   dim3 grid((st->width + BLOCK_W - 1) / BLOCK_W,
             (st->height + BLOCK_H - 1) / BLOCK_H);
-  render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(params, out, steps,
-                                                          *st);
+  auto kernel = st->multistep ? render_kernel<true> : render_kernel<false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(params, out, steps, *st);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 from pathlib import Path
 import subprocess
@@ -72,3 +73,19 @@ def build(source: str) -> Path:
 def ptxas_report(source: str) -> str:
     """ptxas's -v report of the current build of ``csrc/<source>``."""
     return _paths(source)[1].read_text()
+
+
+def ptxas_usage(source: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill bytes stored + loaded) of each kernel
+    entry in the current build of ``csrc/<source>``."""
+    usage, entry, spill = [], None, 0
+    for line in ptxas_report(source).splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                            line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            usage.append((entry, int(m.group(1)), spill))
+            entry = None
+    return usage

@@ -2,8 +2,9 @@
 as masked row updates in PyTorch.
 
 Counterpart of ``blackhole_simulation_tpu/ops/pallas_march.py``
-(``diff_step_values`` :148, ``march_tile`` :237) and
-``blackhole_simulation_tpu/ops/pallas_grad.py`` (``make_composite`` :71).
+(``diff_step_values`` :148, ``march_tile`` :237, ``march_tile_ab3`` :428)
+and ``blackhole_simulation_tpu/ops/pallas_grad.py`` (``make_composite``
+:71).
 The CUDA kernel (``csrc/render.cu``) runs one thread per ray with a
 ``while (i < max_steps && hit == NONE)`` loop; here all rays advance
 together under masks and the loop stops once every ray has terminated,
@@ -43,13 +44,8 @@ from blackhole_simulation_tpu_torch.render.march import (
 )
 
 
-def diff_step_values(m, a, r_h, r_ph, cfg, rows):
-    """One march step's values: the curvature-adaptive, pole-throttled step
-    size, the implicit-midpoint step, and the interpolated equator-crossing
-    record. ``rows`` = (t, r, u, ph, pr, pu, pph) with p_t = -1 implicit.
-    Returns (nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, dlam)."""
-    t, r, u, ph, pr, pu, pph = rows
-    pt_ = const(r, -1.0)
+def step_size(a, r_h, r_ph, cfg, r, u, pu):
+    """The curvature-adaptive, pole-throttled step size dlam."""
     inv_rph = 1.0 / maximum(r_ph, 1e-3)
 
     base = (r - r_h) * cfg.step_rate
@@ -65,15 +61,15 @@ def diff_step_values(m, a, r_h, r_ph, cfg, rows):
     sig = r * r + a * a * u * u
     du_rate = torch.abs(w * pu / sig) + 1e-12
     margin = 1.0 - torch.abs(u) + 1e-6
-    dlam = torch.minimum(
+    return torch.minimum(
         dlam, maximum(0.5 * margin / du_rate, cfg.min_step)
     )
 
-    nt, nr, nu, nph, npr, npu = ks_symplectic_step_rows(
-        m, a, (t, r, u, ph, pt_, pr, pu, pph), dlam, cfg.midpoint_iters,
-    )
-    nu = clip(nu, -1.0 + 1e-7, 1.0 - 1e-7)
 
+def crossing_values(t, r, u, ph, nt, nr, nu, nph):
+    """The clipped stepped u and the equator-crossing record interpolated
+    between the two states: (nu, r_c, phi_c, t_c)."""
+    nu = clip(nu, -1.0 + 1e-7, 1.0 - 1e-7)
     frac = clip(
         u / torch.where(torch.abs(u - nu) < 1e-12, 1e-12, u - nu),
         0.0, 1.0,
@@ -81,6 +77,21 @@ def diff_step_values(m, a, r_h, r_ph, cfg, rows):
     r_c = r + frac * (nr - r)
     phi_c = ph + frac * (nph - ph)
     t_c = t + frac * (nt - t)
+    return nu, r_c, phi_c, t_c
+
+
+def diff_step_values(m, a, r_h, r_ph, cfg, rows):
+    """One march step's values: the step size, the implicit-midpoint step,
+    and the interpolated equator-crossing record. ``rows`` = (t, r, u, ph,
+    pr, pu, pph) with p_t = -1 implicit. Returns (nt, nr, nu, nph, npr,
+    npu, r_c, phi_c, t_c, dlam)."""
+    t, r, u, ph, pr, pu, pph = rows
+    pt_ = const(r, -1.0)
+    dlam = step_size(a, r_h, r_ph, cfg, r, u, pu)
+    nt, nr, nu, nph, npr, npu = ks_symplectic_step_rows(
+        m, a, (t, r, u, ph, pt_, pr, pu, pph), dlam, cfg.midpoint_iters,
+    )
+    nu, r_c, phi_c, t_c = crossing_values(t, r, u, ph, nt, nr, nu, nph)
     return nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, dlam
 
 
@@ -110,6 +121,21 @@ def march_step_rows(m, a, r_h, r_ph, thr, cfg, i: int, y6, pph, hit, nc):
     nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, _ = diff_step_values(
         m, a, r_h, r_ph, cfg, rows_in + (pph,)
     )
+    (t2, r2, u2, ph2, pr2, pu2), hit2, nc2, crossed, advance = finish_rows(
+        cfg, thr, active, y6, (nt, nr, nu, nph, npr, npu), r_c, hit, nc)
+    if (i + 1) % cfg.renormalize_every == 0:
+        pr2 = renormalize_live(m, a, hit2, r2, u2, pr2, pu2, pph)
+    dmin = torch.abs(r2 - r_ph)
+    return ((t2, r2, u2, ph2, pr2, pu2), r_c, phi_c, t_c, dmin), (
+        hit2, nc2, crossed, advance)
+
+
+def finish_rows(cfg, thr, active, y6, ny6, r_c, hit, nc):
+    """The step's epilogue on the active rays: the crossing test against the
+    pre-step count ``nc``, the sanity freeze, the advance and the
+    termination tests. Returns (y6', hit', nc', crossed, advance)."""
+    t, r, u, ph, pr, pu = y6
+    nt, nr, nu, nph, npr, npu = ny6
     crossed = (
         active & ((u * nu) < 0.0) & (nc < cfg.max_crossings)
         & (r_c > cfg.record_r_min) & (r_c < cfg.record_r_max)
@@ -122,29 +148,24 @@ def march_step_rows(m, a, r_h, r_ph, thr, cfg, i: int, y6, pph, hit, nc):
         & (nr < 8.0 * cfg.escape_radius)
     )
     advance = active & sane
-    t2 = torch.where(advance, nt, t)
-    r2 = torch.where(advance, nr, r)
-    u2 = torch.where(advance, nu, u)
-    ph2 = torch.where(advance, nph, ph)
-    pr2 = torch.where(advance, npr, pr)
-    pu2 = torch.where(advance, npu, pu)
+    y6 = tuple(torch.where(advance, n, o) for n, o in zip(ny6, y6))
+    r2 = y6[1]
     hit2 = torch.where(active & ~sane, HIT_HORIZON, hit)
     hit2 = torch.where(active & (r2 < thr), HIT_HORIZON, hit2)
     hit2 = torch.where(active & (r2 > cfg.escape_radius), HIT_ESCAPE, hit2)
-    hit2 = hit2.to(torch.int32)
-    if (i + 1) % cfg.renormalize_every == 0:
-        # Post-advance renormalization of the rays still live, with the
-        # same benign state on the others.
-        live = hit2 == HIT_NONE
-        pt_ = const(r, -1.0)
-        rr, ru, rpr, rpu = (torch.where(live, x, v) for x, v in
-                            ((r2, 10.0), (u2, 0.0), (pr2, 0.0), (pu2, 0.0)))
-        pr2 = torch.where(
-            live, ks_renormalize_pr(m, a, rr, ru, pt_, rpr, rpu, pph), pr2
-        )
-    dmin = torch.abs(r2 - r_ph)
-    return ((t2, r2, u2, ph2, pr2, pu2), r_c, phi_c, t_c, dmin), (
-        hit2, nc2, crossed, advance)
+    return y6, hit2.to(torch.int32), nc2, crossed, advance
+
+
+def renormalize_live(m, a, hit, r, u, pr, pu, pph):
+    """Post-advance null renormalization of p_r on the rays still live,
+    with a benign state stepped on the others."""
+    live = hit == HIT_NONE
+    pt_ = const(r, -1.0)
+    rr, ru, rpr, rpu = (torch.where(live, x, v) for x, v in
+                        ((r, 10.0), (u, 0.0), (pr, 0.0), (pu, 0.0)))
+    return torch.where(
+        live, ks_renormalize_pr(m, a, rr, ru, pt_, rpr, rpu, pph), pr
+    )
 
 
 def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
@@ -189,6 +210,108 @@ def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
         hit, nc = hit2, nc2
         if cfg.cotangent_clip > 0.0:
             y6 = tuple(clip_cotangent(torch.stack(y6), cfg.cotangent_clip))
+    hit = torch.where(hit == HIT_NONE, HIT_HORIZON, hit).to(torch.int32)
+    t, r, u, ph, pr, pu = y6
+    return (t, r, u, ph, pr, pu, hit, steps, torch.stack(cr),
+            torch.stack(cp), torch.stack(ct), nc, rmin)
+
+
+def ab3_renorm_plan(cfg):
+    """When the AB3 march renormalizes, per ray: (every, tail).
+
+    The JAX package's ``march_tile_ab3`` renormalizes at tile-exit block
+    boundaries only (pallas_march.py:474-475, 616-628): the multiples B > 2
+    of exit_every = min(exit_check_every, max_steps) that its loop reaches,
+    when renormalize_every is a multiple of exit_every (else never), and
+    there when B is a multiple of renormalize_every, on the rays still live.
+    The loop reaches a boundary while the previous one lies below
+    max_steps, so the last can lie past the last step. Per ray: after step
+    i >= 2 when ``every`` > 0 and (i + 1) % every == 0, and once more after
+    the march when ``tail``.
+    """
+    exit_every = min(cfg.exit_check_every, cfg.max_steps)
+    every = cfg.renormalize_every
+    if every % exit_every != 0:
+        return 0, False
+    last = -(-cfg.max_steps // exit_every) * exit_every
+    return every, cfg.max_steps > 2 and last > cfg.max_steps and last % every == 0
+
+
+def march_tile_ab3(m, a, r_h, r_ph, thr, rows0, cfg):
+    """The variable-step Adams-Bashforth-3 march (``march_tile``'s inputs
+    and outputs, plain, exact divides): one right-hand side per step,
+
+        y_{n+1} = y_n + c0 f_n + c1 f_{n-1} + c2 f_{n-2},
+
+    with the variable-step Lagrange-integral coefficients of the step
+    history (h = dlam_n, h1 = dlam_{n-1}, h2 = dlam_{n-2}), the step growth
+    bounded by dlam <= 2 h1, two midpoint bootstrap steps that seed the
+    history, the history shifted only on rays that advance, and the
+    renormalization cadence of ``ab3_renorm_plan``. Forward only.
+    """
+    from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_rhs_rows
+
+    t, r, u, ph, pr, pu, pph = rows0
+    y6 = (t, r, u, ph, pr, pu)
+    pt_ = const(r, -1.0)
+    k_slots = cfg.max_crossings
+    hit = torch.where(r < thr, HIT_HORIZON, HIT_NONE).to(torch.int32)
+    steps = torch.zeros_like(hit)
+    nc = torch.zeros_like(hit)
+    cr = [torch.zeros_like(r) for _ in range(k_slots)]
+    cp = [torch.zeros_like(r) for _ in range(k_slots)]
+    ct = [torch.zeros_like(r) for _ in range(k_slots)]
+    rmin = torch.abs(r - r_ph)
+    f1 = f2 = (torch.zeros_like(r),) * 6
+    h1 = h2 = torch.full_like(r, cfg.min_step)
+    every, tail = ab3_renorm_plan(cfg)
+    third = 1.0 / 3.0
+
+    for i in range(cfg.max_steps):
+        active = hit == HIT_NONE
+        if not bool(active.any()):
+            break
+        t, r, u, ph, pr, pu = y6
+        f0 = ks_rhs_rows(m, a, r, u, pt_, pr, pu, pph)
+        if i < 2:
+            nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, dlam = (
+                diff_step_values(m, a, r_h, r_ph, cfg, y6 + (pph,)))
+        else:
+            dlam = torch.minimum(step_size(a, r_h, r_ph, cfg, r, u, pu),
+                                 2.0 * h1)
+            h12 = h1 + h2
+            hh2 = dlam * dlam
+            hh3 = hh2 * dlam
+            c0 = ((hh3 * third + (2.0 * h1 + h2) * hh2 * 0.5
+                   + h1 * h12 * dlam) / (h1 * h12))
+            c1 = -((hh3 * third + h12 * hh2 * 0.5) / (h1 * h2))
+            c2 = (hh3 * third + h1 * hh2 * 0.5) / (h2 * h12)
+            nt, nr, nu, nph, npr, npu = (
+                y + c0 * a0 + c1 * a1 + c2 * a2
+                for y, a0, a1, a2 in zip(y6, f0, f1, f2))
+            nu, r_c, phi_c, t_c = crossing_values(t, r, u, ph, nt, nr, nu,
+                                                  nph)
+        y6, hit2, nc2, crossed, advance = finish_rows(
+            cfg, thr, active, y6, (nt, nr, nu, nph, npr, npu), r_c, hit, nc)
+        for k in range(k_slots):
+            mask = crossed & (nc == k)
+            cr[k] = torch.where(mask, r_c, cr[k])
+            cp[k] = torch.where(mask, phi_c, cp[k])
+            ct[k] = torch.where(mask, t_c, ct[k])
+        steps = steps + advance.to(torch.int32)
+        rmin = torch.where(advance, torch.minimum(rmin, torch.abs(y6[1] - r_ph)),
+                           rmin)
+        hit, nc = hit2, nc2
+        f2 = tuple(torch.where(advance, x, o) for x, o in zip(f1, f2))
+        f1 = tuple(torch.where(advance, x, o) for x, o in zip(f0, f1))
+        h2 = torch.where(advance, h1, h2)
+        h1 = torch.where(advance, dlam, h1)
+        if i >= 2 and every and (i + 1) % every == 0:
+            y6 = y6[:4] + (renormalize_live(m, a, hit, y6[1], y6[2], y6[4],
+                                            y6[5], pph), y6[5])
+    if tail:
+        y6 = y6[:4] + (renormalize_live(m, a, hit, y6[1], y6[2], y6[4],
+                                        y6[5], pph), y6[5])
     hit = torch.where(hit == HIT_NONE, HIT_HORIZON, hit).to(torch.int32)
     t, r, u, ph, pr, pu = y6
     return (t, r, u, ph, pr, pu, hit, steps, torch.stack(cr),

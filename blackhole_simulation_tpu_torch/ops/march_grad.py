@@ -159,6 +159,9 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
         raise ValueError("rays must be float32 (8, N)")
     if not 1 <= k_slots <= 4:
         raise NotImplementedError("the march kernels record 1 to 4 crossings")
+    if cfg.multistep:
+        raise NotImplementedError("the gradient kernel replays the midpoint "
+                                  "march; the AB3 march has no gradient")
     if yt0.device.type == "cpu":
         return march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr,
                           ct_cp, ct_ct, ct_rmin, rmin_fin)

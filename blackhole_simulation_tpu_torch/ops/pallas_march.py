@@ -4,10 +4,11 @@ parameters, and the wrapper that launches the kernel.
 Counterpart of ``blackhole_simulation_tpu/ops/pallas_march.py``:
 ``_block_dims`` / ``_padded_dims`` / ``to_block_order`` /
 ``from_block_order`` (:56-115) and the ``pallas_march_u`` wrapper (:677-775)
-around ``_march_kernel`` (:646). The kernel is ``csrc/march.cu``; its plain
-version is ``ops/march.py::march_tile``. ``march_u`` launches the kernel for
-CUDA tensors and runs the plain version for CPU tensors; nothing else picks
-between them.
+around ``_march_kernel`` (:646), whose body is ``march_tile`` or, with
+``MarchConfig.multistep``, ``march_tile_ab3`` (:660). The kernel is
+``csrc/march.cu``; its plain version is ``ops/march.py::march_tile`` /
+``march_tile_ab3``. ``march_u`` launches the kernel for CUDA tensors and
+runs the plain version for CPU tensors; nothing else picks between them.
 
 The CUDA kernel needs no tiles: it runs one thread per ray and masks the
 tail, so nothing is padded in memory (the Pallas wrapper pads to whole
@@ -24,7 +25,11 @@ import functools
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import const
-from blackhole_simulation_tpu_torch.ops.march import march_tile
+from blackhole_simulation_tpu_torch.ops.march import (
+    ab3_renorm_plan,
+    march_tile,
+    march_tile_ab3,
+)
 
 # The Pallas kernel's tile: SUB x LANE rays (its BH_PALLAS_SUB override, a
 # TPU tuning knob, is not ported).
@@ -87,7 +92,8 @@ class _CMarchParams(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "max_steps", "renormalize_every", "max_crossings", "midpoint_iters",
-        "approx_recip", "far_cap_on",
+        "approx_recip", "far_cap_on", "multistep", "ab3_renorm_every",
+        "ab3_tail_renorm",
     )] + [(name, ctypes.c_float) for name in (
         "step_rate", "min_step", "max_step", "far_step_cap_rate",
         "far_boost_radius", "escape_radius", "escape_sanity_r",
@@ -97,11 +103,14 @@ class _CMarchParams(ctypes.Structure):
 
 def c_march_params(cfg) -> _CMarchParams:
     """The kernels' static march configuration from a MarchConfig."""
+    ab3_every, ab3_tail = ab3_renorm_plan(cfg)
     return _CMarchParams(
         max_steps=cfg.max_steps, renormalize_every=cfg.renormalize_every,
         max_crossings=cfg.max_crossings, midpoint_iters=cfg.midpoint_iters,
         approx_recip=int(cfg.approx_recip),
         far_cap_on=int(cfg.far_step_cap_rate > 0.0),
+        multistep=int(cfg.multistep), ab3_renorm_every=ab3_every,
+        ab3_tail_renorm=int(ab3_tail),
         step_rate=cfg.step_rate, min_step=cfg.min_step,
         max_step=cfg.max_step, far_step_cap_rate=cfg.far_step_cap_rate,
         far_boost_radius=cfg.far_boost_radius,
@@ -134,16 +143,16 @@ def _check_rows(yt0, thr, cfg):
         raise ValueError("thr must be (N,) on the rays' device")
     if not 1 <= cfg.max_crossings <= 4:
         raise NotImplementedError("the march kernels record 1 to 4 crossings")
-    if cfg.multistep:
-        raise NotImplementedError("the AB3 march (multistep) is not ported")
 
 
 def march_u_plain(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
-    """The plain version of ``march_u`` on any device (``march_tile``, exact
-    divides): the same outputs, differentiable by autograd."""
+    """The plain version of ``march_u`` on any device (``march_tile``, or
+    ``march_tile_ab3`` with ``cfg.multistep``; exact divides): the same
+    outputs, differentiable by autograd (the midpoint march)."""
     _check_rows(yt0, thr, cfg)
     yt0 = normalize_pt(yt0)
-    t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin = march_tile(
+    tile = march_tile_ab3 if cfg.multistep else march_tile
+    t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin = tile(
         m, a, r_h, r_ph, thr,
         (yt0[0], yt0[1], yt0[2], yt0[3], yt0[5], yt0[6], yt0[7]), cfg,
     )
@@ -155,7 +164,8 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
     """March (8, N) u-chart rays (p_t normalized here) with per-ray
     termination radii ``thr``. Returns (yt (8, N), hit, steps, cross_r,
     cross_phi, cross_t (K, N), n_crossings, r_min_ph), as the JAX package's
-    ``pallas_march_u``; the integer outputs are int32.
+    ``pallas_march_u``; the integer outputs are int32. ``cfg.multistep``
+    selects the AB3 march.
 
     CUDA tensors launch the march kernel (``csrc/march.cu``) on the current
     stream and count the launch in ``march_u.launches``; CPU tensors run the

@@ -3,16 +3,16 @@ PyTorch version of the kernel, and the wrapper that launches the kernel.
 
 Counterpart of ``blackhole_simulation_tpu/ops/pallas_render.py``: the
 ``_P_*`` parameter-row layout (:62-110), the row builder (the prologue of
-``pallas_render_sample``, :516-633) and ``_render_kernel`` (:140). The
+``pallas_render_sample``, :516-633) and ``_render_kernel`` (:140), with
+its critical-band plane (:143-145, :209-241) and its AB3 march (:266). The
 kernel itself is ``csrc/render.cu``; ``render_planes`` here is its plain
 version, written with the same expressions in the same order. The wrapper,
 ``render_planes_kernel``, launches the kernel for a CUDA parameter row and
 runs the plain version for a CPU one; nothing else picks between them.
 
-Features outside this slice (jets, start jitter, the critical-band plane,
-the NRS far field, the shadow overlay, the AB3 march) are refused by
-``render/pipeline.render_sample`` before a row is built; their blocks of the
-row stay zero.
+Features outside this slice (jets, start jitter, the NRS far field, the
+shadow overlay) are refused by ``render/pipeline.render_sample`` before a
+row is built; their blocks of the row stay zero.
 """
 
 from __future__ import annotations
@@ -33,9 +33,19 @@ from blackhole_simulation_tpu_torch._elementwise import (
     sqrt,
 )
 from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_pr
-from blackhole_simulation_tpu_torch.ops.march import march_tile
+from blackhole_simulation_tpu_torch.ops.march import (
+    ab3_renorm_plan,
+    march_tile,
+    march_tile_ab3,
+)
 from blackhole_simulation_tpu_torch.render.march import HIT_ESCAPE, MarchConfig
-from blackhole_simulation_tpu_torch.render.precull import _CHEB_ERR, _CHEB_K
+from blackhole_simulation_tpu_torch.render.precull import (
+    _CHEB_ERR,
+    _CHEB_K,
+    band_metric_values,
+    fold_pole_metric,
+    pole_w_min_values,
+)
 from blackhole_simulation_tpu_torch.render.shading import (
     NT_PEAK,
     SPECTRAL_CHEB_K,
@@ -167,7 +177,9 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class RenderStatic:
     """What the kernel takes by value besides the row: the frame size and
-    the static configuration that selects its branches."""
+    the static configuration that selects its branches (``cfg.multistep``:
+    the AB3 march; ``cfg.refine_band`` > 0: the band plane, with the pole
+    criterion when ``cfg.refine_pole_w`` > 0)."""
 
     cfg: MarchConfig
     disk_on: bool
@@ -183,13 +195,15 @@ class RenderStatic:
 def render_planes(row: torch.Tensor, st: RenderStatic,
                   steps: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the render kernel: (3, H, W) float32 linear
-    radiance from one parameter row. Every pixel is one ray, in row order.
-    ``steps``, if given, is an int32 (H, W) tensor that receives each ray's
-    march step count.
+    radiance from one parameter row, and a fourth plane, the critical-band
+    metric, when ``cfg.refine_band`` > 0. Every pixel is one ray, in row
+    order. ``steps``, if given, is an int32 (H, W) tensor that receives each
+    ray's march step count.
 
     Follows ``_render_kernel``: ray birth from the camera scalars, null
-    projection, Chebyshev shadow precull, the march, and the composite of up
-    to K disk-crossing slots, the starfield and the photon-ring glow.
+    projection, Chebyshev shadow precull and band metric, the march (AB3
+    with ``cfg.multistep``), and the composite of up to K disk-crossing
+    slots, the starfield and the photon-ring glow.
     """
     cfg = st.cfg
     dev = row.device
@@ -229,9 +243,11 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
     pt_ = const(ix, -1.0)
     pr = ks_renormalize_pr(m, a, r_row, u_row, pt_, pr, pu, pph)
 
-    # --- shadow precull ---
+    # --- shadow precull and the critical-band metric ---
     hor_thr = sp(_P_HORTHR)
-    if cfg.shadow_precull:
+    band_on = cfg.refine_band > 0.0
+    band = None
+    if cfg.shadow_precull or band_on:
         lam = sp(_P_FLIP) * pph
         w0 = 1.0 - u_row * u_row
         s2 = maximum(w0, 1e-12)
@@ -239,7 +255,15 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
         eta = pu * pu * w0 + c2 * (pph * pph / s2 - a * a)
         t_dom = clip((lam - sp(_P_CHEB_MID)) / sp(_P_CHEB_HALF), -1.0, 1.0)
         coeffs = [row[_P_ETA + j] for j in range(_CHEB_K)]
-        eta_crit = cheb_clenshaw(coeffs, t_dom) - const(ix, _CHEB_ERR) * m * m
+        cheb_raw = cheb_clenshaw(coeffs, t_dom)
+    if band_on:
+        band = band_metric_values(m, eta, cheb_raw, lam, sp(_P_LAM_LO),
+                                  sp(_P_LAM_HI))
+        if cfg.refine_pole_w > 0.0:
+            band = fold_pole_metric(band, pole_w_min_values(m, a, lam, eta),
+                                    cfg.refine_band, cfg.refine_pole_w)
+    if cfg.shadow_precull:
+        eta_crit = cheb_raw - const(ix, _CHEB_ERR) * m * m
         margin = const(ix, 0.04)
         inside = eta < eta_crit * (1.0 - margin) - margin * m * m
         in_range = (lam > sp(_P_LAM_LO)) & (lam < sp(_P_LAM_HI))
@@ -252,7 +276,8 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
         thr = zero + hor_thr
 
     # --- march ---
-    t, r, u, ph, pr_f, pu_f, hit, n_steps, cr, cp, ct, nc, rmin = march_tile(
+    tile = march_tile_ab3 if cfg.multistep else march_tile
+    t, r, u, ph, pr_f, pu_f, hit, n_steps, cr, cp, ct, nc, rmin = tile(
         m, a, r_h, r_ph, thr, (zero, r_row, u_row, ph_row, pr, pu, pph), cfg
     )
     if steps is not None:
@@ -305,7 +330,9 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
             c + glow * (const(ix, wv) + order * const(ix, kv - wv))
             for c, wv, kv in zip(rgb, warm, cool)
         )
-    return torch.stack(rgb).reshape(3, h, w)
+    if band is not None:
+        rgb = (*rgb, band)
+    return torch.stack(rgb).reshape(len(rgb), h, w)
 
 
 class _CRenderStatic(ctypes.Structure):
@@ -318,6 +345,7 @@ class _CRenderStatic(ctypes.Structure):
         "midpoint_iters", "approx_recip", "precull", "disk_on", "spectral",
         "starfield", "glow", "artistic", "far_cap_on",
         "beam_k", "beam_n", "beam_neg", "outer_k", "outer_n", "outer_neg",
+        "multistep", "ab3_renorm_every", "ab3_tail_renorm",
     )] + [(name, ctypes.c_float) for name in (
         "step_rate", "min_step", "max_step", "far_step_cap_rate",
         "far_boost_radius", "escape_radius", "escape_sanity_r",
@@ -327,7 +355,8 @@ class _CRenderStatic(ctypes.Structure):
         "disk_outer_pow", "disk_edge_width", "nt_peak",
         "art_r", "art_g", "art_b",
         "star_brightness", "star_nebula", "star_freq0", "star_freq1",
-        "star_thr0", "star_thr1",
+        "star_thr0", "star_thr1", "refine_band", "refine_pole_w",
+        "pole_scale",
     )]
 
 
@@ -338,6 +367,7 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
     # A plan of k = -1 means a plain powf.
     beam_k, beam_n, beam_neg = _powi_plan(disk.beaming_exponent) or (-1, 0, 0)
     outer_k, outer_n, outer_neg = _powi_plan(outer_pow) or (-1, 0, 0)
+    ab3_every, ab3_tail = ab3_renorm_plan(cfg)
     return _CRenderStatic(
         width=st.width, height=st.height, max_steps=cfg.max_steps,
         renormalize_every=cfg.renormalize_every,
@@ -349,6 +379,13 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
         far_cap_on=int(cfg.far_step_cap_rate > 0.0),
         beam_k=beam_k, beam_n=beam_n, beam_neg=int(beam_neg),
         outer_k=outer_k, outer_n=outer_n, outer_neg=int(outer_neg),
+        multistep=int(cfg.multistep), ab3_renorm_every=ab3_every,
+        ab3_tail_renorm=int(ab3_tail), refine_band=cfg.refine_band,
+        refine_pole_w=cfg.refine_pole_w,
+        # fold_pole_metric's scale, in float64 then rounded once, as JAX
+        # rounds the Python float.
+        pole_scale=(cfg.refine_band / cfg.refine_pole_w
+                    if cfg.refine_pole_w > 0.0 else 0.0),
         step_rate=cfg.step_rate, min_step=cfg.min_step,
         max_step=cfg.max_step, far_step_cap_rate=cfg.far_step_cap_rate,
         far_boost_radius=cfg.far_boost_radius,
@@ -371,9 +408,10 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
 
 def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
                          steps: torch.Tensor | None = None) -> torch.Tensor:
-    """(3, H, W) float32 radiance from one parameter row; ``steps``, if
-    given, is an int32 (H, W) tensor on the row's device that receives each
-    ray's march step count.
+    """(3, H, W) float32 radiance from one parameter row, plus the band
+    plane as a fourth when ``st.cfg.refine_band`` > 0; ``steps``, if given,
+    is an int32 (H, W) tensor on the row's device that receives each ray's
+    march step count.
 
     A CUDA row launches the render kernel (``csrc/render.cu``) on the
     current stream and counts the launch in ``render_planes_kernel.launches``;
@@ -396,7 +434,8 @@ def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
         raise NotImplementedError("the render kernel records 1 to 4 crossings")
     lib = _render_library()
     row = row.contiguous()
-    out = torch.empty((3, st.height, st.width), dtype=torch.float32,
+    n_planes = 4 if st.cfg.refine_band > 0.0 else 3
+    out = torch.empty((n_planes, st.height, st.width), dtype=torch.float32,
                       device=row.device)
     c_st = _c_static(st)
     with torch.cuda.device(row.device):

@@ -2,7 +2,8 @@
 
 Counterpart of ``blackhole_simulation_tpu/render/march.py``: the same
 ``MarchConfig`` fields and defaults (:48-189; a test holds them equal), so a
-JAX scene's config carries over field by field; ``clip_cotangent``
+JAX scene's config carries over field by field; ``refinement_config``
+(:167-183); ``clip_cotangent``
 (:192-214), ``MarchRows`` (:249), ``precull_threshold`` (:286),
 ``march_rows`` (:427) and the differentiable ``march_rows_ad`` (:381) with
 its custom VJP ``_march_kernel_diff`` (:338-378), here a
@@ -34,9 +35,14 @@ class MarchConfig:
 
     ``approx_recip`` applies in the CUDA kernels and never in the plain
     versions, as the JAX package applies it on the TPU and never in
-    interpret mode. ``exit_check_every`` and ``remat_every`` have no effect
-    here: the kernels exit per thread, and the differentiable march
-    checkpoints every 32 steps in its gradient kernel.
+    interpret mode. ``multistep`` (the AB3 march) applies with
+    ``use_pallas`` only, as in the JAX package, whose jnp march ignores it.
+    ``exit_check_every`` sets the AB3 march's renormalization cadence (a
+    live ray is renormalized at the multiples of it that are multiples of
+    ``renormalize_every``, and never when ``renormalize_every`` is not a
+    multiple of it); the kernels exit per thread, so it has no other
+    effect. ``remat_every`` has none: the differentiable march checkpoints
+    every 32 steps in its gradient kernel.
     """
 
     max_steps: int = 256
@@ -113,10 +119,29 @@ class MarchRows:
     r_min_ph: torch.Tensor     # (N,)
 
 
+def refinement_config(cfg: MarchConfig) -> MarchConfig:
+    """The march configuration of the critical-band refinement pass: the
+    validation-grade reference march (exact divides, the refine_* step
+    rate, budget and cap, no precull, midpoint steps)."""
+    return dataclasses.replace(
+        cfg,
+        step_rate=cfg.refine_step_rate,
+        max_steps=cfg.refine_max_steps,
+        max_step=cfg.refine_max_step,
+        approx_recip=False,
+        refine_band=0.0,
+        fused=False,
+        multistep=False,
+        shadow_precull=False,
+    )
+
+
 def _kernel_cfg(cfg: MarchConfig) -> MarchConfig:
-    """The approximate reciprocal belongs to the kernel path (use_pallas)."""
-    if cfg.approx_recip and not cfg.use_pallas:
-        return dataclasses.replace(cfg, approx_recip=False)
+    """The approximate reciprocal and the AB3 march belong to the kernel
+    path (use_pallas); without it the march is the midpoint one with exact
+    divides, as the JAX package's jnp march is."""
+    if (cfg.approx_recip or cfg.multistep) and not cfg.use_pallas:
+        return dataclasses.replace(cfg, approx_recip=False, multistep=False)
     return cfg
 
 
@@ -228,7 +253,14 @@ def march_rows_ad(yt0: torch.Tensor, mass, spin,
     """march_rows with a gradient: the march kernel forward, the gradient
     kernel backward (checkpoint and replay). Gradients flow to the rows and,
     through the radii, to mass and spin; the termination radii are
-    detached, as the JAX package's stop_gradient does."""
+    detached, as the JAX package's stop_gradient does.
+
+    The AB3 march (``multistep`` with ``use_pallas``) is refused: the
+    gradient kernel replays the midpoint march, so its gradient would be of
+    another march than the forward's."""
+    cfg = _kernel_cfg(cfg)
+    if cfg.multistep:
+        raise NotImplementedError(
+            "march_rows_ad: the AB3 march (multistep) has no gradient path")
     yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
-    return MarchRows(*_MarchKernelDiff.apply(yt0, thr, m, a, r_h, r_ph,
-                                             _kernel_cfg(cfg)))
+    return MarchRows(*_MarchKernelDiff.apply(yt0, thr, m, a, r_h, r_ph, cfg))

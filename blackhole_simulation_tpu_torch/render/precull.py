@@ -1,9 +1,15 @@
-"""Shadow-interior precull: the critical curve as a Chebyshev series.
+"""Shadow-interior precull and the critical-band metric: the critical curve
+as a Chebyshev series.
 
 Counterpart of ``blackhole_simulation_tpu/render/precull.py:49-116``,
-``_cheb_eval`` (:109), ``capture_mask_u`` (:157) and ``_capture_core``
-(:261). A ray whose conserved (lambda, eta) lies inside the Bardeen critical
-curve is provably captured. The render kernel tests that per pixel against a
+``_cheb_eval`` (:109), ``capture_mask_u`` (:157), ``band_metric_values``
+(:180), ``pole_w_min_values`` (:199), ``fold_pole_metric`` (:216),
+``critical_band_metric_u`` (:227) and ``_capture_core`` (:261).
+
+A ray whose conserved (lambda, eta) lies inside the Bardeen critical curve
+is provably captured; one close to it is in the chaotic capture/escape band
+that the refinement pass (``render/pipeline.py::refine_critical_band``)
+re-marches. The render kernel tests that per pixel against a
 ``_CHEB_K``-term Chebyshev fit of eta_c(lambda), built once per frame on the
 host in float64 (``_eta_crit_cheb_coeffs``). The staged and training paths
 test it on their (8, N) rays with ``capture_mask_u``, whose fit is built in
@@ -18,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from blackhole_simulation_tpu_torch._elementwise import cos, div_c
+from blackhole_simulation_tpu_torch._elementwise import const, cos, div_c, sqrt
 
 # Chebyshev fit of the critical curve eta_c(lam): terms, and the bound on
 # |fit - exact| over a in [0.1, 0.999] that the cull subtracts so it can only
@@ -151,6 +157,71 @@ def capture_mask_u(m, a, yt_u: torch.Tensor, margin: float = 0.04):
     c2 = u * u
     return _capture_core(m, a_c, a_signed, yt_u[1], s2, c2, pt, yt_u[5],
                          pu * pu * w, pph, lam, inv_e, margin)
+
+
+def band_metric_values(m, eta, eta_crit_raw, lam, lam_lo, lam_hi):
+    """Distance of (lam, eta) to the critical curve in M^2 units: |eta -
+    eta_c(lam)| / M^2, plus a steep penalty for lam outside [lam_lo,
+    lam_hi]. ``eta_crit_raw`` is the Chebyshev curve without the cull's
+    _CHEB_ERR shift. Small values mark the chaotic capture/escape band.
+    Shared by ``critical_band_metric_u`` and the render kernel's band
+    plane (``ops/render.py::render_planes``)."""
+    m2 = m * m
+    d_eta = torch.abs(eta - eta_crit_raw) / m2
+    excess = torch.maximum(lam - lam_hi, lam_lo - lam)
+    d_lam = torch.clamp(excess, min=0.0) * (const(m, 4.0) / m)
+    return d_eta + d_lam
+
+
+def pole_w_min_values(m, a, lam, eta):
+    """The least w = sin^2(theta) a ray of conserved (lam, eta) reaches, in
+    closed form from the zero of the theta potential (E = 1)."""
+    a2 = torch.clamp(a * a, min=1e-12)
+    b2 = a2 - eta - lam * lam
+    disc = sqrt(torch.clamp(b2 * b2 + 4.0 * a2 * eta, min=0.0))
+    umax2 = torch.clamp((b2 + disc) / (2.0 * a2), 0.0, 1.0)
+    return 1.0 - umax2
+
+
+def fold_pole_metric(d_band, w_min, refine_band: float, refine_pole_w: float):
+    """Fold the pole criterion into the band metric so that one threshold
+    (``refine_band``) selects both families: w_min < refine_pole_w maps
+    below it."""
+    if refine_pole_w <= 0.0:
+        return d_band
+    scale = refine_band / refine_pole_w
+    return torch.minimum(d_band, w_min * scale)
+
+
+@torch.no_grad()
+def critical_band_metric_u(m, a, yt_u: torch.Tensor, refine_band: float = 0.0,
+                           refine_pole_w: float = 0.0) -> torch.Tensor:
+    """(N,) band metric of the (8, N) u-chart rows (``band_metric_values``),
+    with the pole criterion folded in when ``refine_pole_w`` > 0. The same
+    conserved quantities as ``capture_mask_u``: q with the signed spin and
+    eta = q / E^2 (the render kernel's plane takes eta = q, E = 1)."""
+    m = m.detach().to(yt_u.dtype)
+    a_signed = a.detach().to(yt_u.dtype)
+    flip = torch.where(a_signed < 0.0, -1.0, 1.0).to(yt_u.dtype)
+    a_c = torch.minimum(torch.maximum(torch.abs(a_signed), 1e-3 * m), 0.999 * m)
+    u = yt_u[2]
+    pt, pu, pph = yt_u[4], yt_u[6], yt_u[7]
+    e = -pt
+    inv_e = 1.0 / torch.where(torch.abs(e) < 1e-12, 1.0, e)
+    lam = flip * pph * inv_e
+    w = 1.0 - u * u
+    s2 = torch.clamp(w, min=1e-12)
+    c2 = u * u
+    q = pu * pu * w + c2 * (pph * pph / s2 - a_signed * a_signed * pt * pt)
+    eta = q * inv_e * inv_e
+    coeffs, c_mid, c_half, lam_lo, lam_hi = (
+        x.to(yt_u.device) for x in _eta_crit_cheb_coeffs_f32(m, a_c))
+    eta_crit_raw = _cheb_eval(coeffs, c_mid, c_half, lam)
+    d = band_metric_values(m, eta, eta_crit_raw, lam, lam_lo, lam_hi)
+    if refine_pole_w > 0.0:
+        d = fold_pole_metric(d, pole_w_min_values(m, a_c, lam, eta),
+                             refine_band, refine_pole_w)
+    return d
 
 
 def _capture_core(m, a, a_signed, r0, s2, c2, pt, pr, pth2, pph, lam, inv_e,

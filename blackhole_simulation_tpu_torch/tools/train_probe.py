@@ -1,20 +1,25 @@
-"""Where the training step's time goes on the card.
+"""Where the training step's, or the certified frame's, time goes on the
+card.
 
     python -m blackhole_simulation_tpu_torch.tools.train_probe \
-        [--width 1920] [--height 1080]
+        [--width 1920] [--height 1080] [--certified]
 
 The step is ``make_inverse_step`` in bench.py's configuration (the
 flagship camera and MarchConfig with ``fused=False``, the analytic disk,
 spin 0.9, zero target); counterpart of the repo's tools/probe_stages.py.
-It prints one JSON line, ``profile``: one step under ``torch.profiler``:
-the step's wall ms, the device time summed over its kernels and grouped
-(march kernel, gradient kernel, everything else), the device's idle share
-of the step, and the 20 operations with the most device time.
+With ``--certified`` it is one ``render()`` frame of the certified
+flagship scene instead (bench.py:188-217: the flagship with
+``refine_band=0.6, refine_budget=16384``). It prints one JSON line,
+``profile``: one call under ``torch.profiler``: its wall ms, the device
+time summed over its kernels and grouped (render, march and gradient
+kernels, everything else), the device's idle share, the kernel launches,
+and the 20 operations with the most device time.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 
@@ -26,7 +31,11 @@ from blackhole_simulation_tpu_torch.parallel import (
 )
 from blackhole_simulation_tpu_torch.render.camera import Camera
 from blackhole_simulation_tpu_torch.render.march import MarchConfig
-from blackhole_simulation_tpu_torch.render.pipeline import Features, Scene
+from blackhole_simulation_tpu_torch.render.pipeline import (
+    Features,
+    Scene,
+    render,
+)
 
 # bench.py's flagship MarchConfig, on the staged path.
 TRAIN_CFG = MarchConfig(
@@ -36,13 +45,25 @@ TRAIN_CFG = MarchConfig(
 )
 
 
+def _flagship(width, height, cfg, features):
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5,
+                        width=width, height=height)
+    return Scene.create(mass=1.0, spin=0.999, camera=cam, march_cfg=cfg,
+                        features=features)
+
+
 def train_scene(width, height):
     """bench.py's training-step scene: the flagship camera (Kerr a = 0.999)
     and MarchConfig with fused=False, the analytic disk."""
-    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5,
-                        width=width, height=height)
-    return Scene.create(mass=1.0, spin=0.999, camera=cam,
-                        march_cfg=TRAIN_CFG, features=Features())
+    return _flagship(width, height, TRAIN_CFG, Features())
+
+
+def certified_scene(width, height):
+    """bench.py's certified scene: the flagship render (spectral disk) with
+    the critical-band refinement pass."""
+    cfg = dataclasses.replace(TRAIN_CFG, fused=True, refine_band=0.6,
+                              refine_budget=16384)
+    return _flagship(width, height, cfg, Features(spectral_lut=True))
 
 
 def _device_us(evt) -> float:
@@ -52,26 +73,28 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_step(step, params, target):
+def profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler``, after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
-    step(params, target)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        step(params, target)
+        fn()
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end)
     kernels = [e for e in prof.key_averages()
                if _device_us(e) > 0 and e.device_type.name == "CUDA"]
-    groups = {"march": 0.0, "march_grad": 0.0, "other": 0.0}
+    groups = {"render": 0.0, "march": 0.0, "march_grad": 0.0, "other": 0.0}
     for e in kernels:
         key = ("march_grad" if "march_grad_kernel" in e.key else
-               "march" if "march_kernel" in e.key else "other")
+               "march" if "march_kernel" in e.key else
+               "render" if "render_kernel" in e.key else "other")
         groups[key] += _device_us(e) / 1e3
     busy = sum(groups.values())
     top = sorted(kernels, key=_device_us, reverse=True)[:20]
@@ -88,14 +111,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--certified", action="store_true",
+                    help="profile a certified render() frame instead")
     args = ap.parse_args(argv)
-    scene = train_scene(args.width, args.height)
-    params = InverseParams.init(spin=0.9, theta_cam=float(scene.camera.theta),
-                                device="cuda")
-    target = torch.zeros((args.height, args.width, 3), device="cuda")
-    step = make_inverse_step(scene, device="cuda")
-    step(params, target)
-    prof = profile_step(step, params, target)
+    if args.certified:
+        scene = certified_scene(args.width, args.height)
+        prof = profile_call(lambda: render(scene))
+    else:
+        scene = train_scene(args.width, args.height)
+        params = InverseParams.init(spin=0.9,
+                                    theta_cam=float(scene.camera.theta),
+                                    device="cuda")
+        target = torch.zeros((args.height, args.width, 3), device="cuda")
+        step = make_inverse_step(scene, device="cuda")
+        prof = profile_call(lambda: step(params, target))
     print(json.dumps({"profile": prof}))
     return 0
 

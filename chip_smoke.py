@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it: the flagship render,
-the staged render and the inverse-rendering (training) step.
+the staged render, the inverse-rendering (training) step, the AB3 march and
+the certified (critical-band refined) render.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,18 @@ Phases, in order; any failure raises and the script exits non-zero without
 printing a result line:
 
 1. Build: compile every CUDA source (``render.cu``, ``march.cu``,
-   ``march_grad.cu``) with nvcc (one process per source, started together)
-   and print the build seconds and ptxas's register and spill report.
+   ``march_grad.cu``, ``vpu_peak.cu``) with nvcc (one process per source,
+   started together) and print the build seconds and ptxas's registers and
+   spills of each kernel. Then the FP32 peak: the probe
+   (``tools/vpu_peak.py``) at its measuring size, whose output is held
+   against its plain version on the same starts (which rounds each step once
+   as the kernel's FMA does: rel < 1e-6, where one missing loop iteration
+   moves a chain by ~1.4e-6), and its measured lane-FMA rate, beside the
+   published 67 TFLOP/s. Every ``bound_ms`` below is the larger of the
+   hand-counted operations over the larger of the measured rate and the
+   published one in lane FMAs (33.5e12/s; each counted add or multiply is
+   one lane instruction under ``--fmad=false``, so the bound never
+   flatters a kernel) and the bytes over 3.35 TB/s.
 2. Short-horizon parity: the render kernel against its plain PyTorch version
    (``ops/render.py::render_planes``) on the card, exact divides, 48 steps,
    a = 0.9, 250x141 (neither side a multiple of the kernel's block), for the
@@ -55,9 +66,35 @@ printing a result line:
    ``ad_inverse_render`` at 256x256 (target at a = 0.85, start at 0.5,
    stages ((64, 8), (96, 4)), 36 steps): the final loss below 0.1x the
    first and |spin - 0.85| < 1e-2.
+8. The AB3 march (``multistep``): the march kernel against
+   ``march_u_plain`` at 250x141, 48 steps, exact divides, a = 0.9 (integers
+   identical, |d| < 1e-4); the render kernel against ``render_planes`` there,
+   analytic and spectral (p99 < 1e-4, mean < 1e-5); tests/test_ab3.py's
+   structural bars against the midpoint render at 480x270, 96 steps
+   (median |d| < 5e-3, more than 95% of pixels with |d| < 0.3); the
+   flagship ``render()`` at 1920x1080 with ``multistep`` (median of 30
+   CUDA-event frames, the kernel alone, steps per ray, beside phase 4's
+   midpoint numbers) and the staged AB3 render there, whose march kernel is
+   timed alone on its recorded arguments.
+9. The certified render (``refine_band=0.6, refine_budget=16384``, as
+   ``bench.py:195-196``): the band plane against ``render_planes`` and
+   against ``critical_band_metric_u`` on the same rays at 250x141, a = 0.999
+   (max |d| < 1e-3, 0 < share below 0.6 < 0.05); ``render()`` at 1920x1080
+   on the flagship scene (median of 30 CUDA-event frames, the render and
+   march kernels once per frame, the band's pixel count and overflow, the
+   refinement pass alone and its re-march kernel alone with its steps);
+   band agreement, the port's twin of ``tools/band_agreement.py:64-79``
+   (hit classes of the production, refined and fine-reference marches over
+   the band, ``agree_band_refined`` >= 0.99, ``bench.py:226-228``), whose
+   refined pixels are the ones ``select_band`` picks from the 1080p render
+   kernel's band plane, as the certified render picks them; and
+   the staged-refined against the fused-refined render at 480x270
+   (test_fused.py:188-196's config, p99 |d| < 1e-3).
 
-It prints the card's name and power limit (nvidia-smi), then a JSON line
-describing each kernel, then the last line
+A kernel "alone" is timed over a run of back-to-back launches between two
+CUDA events (ms per launch); frames, steps and the refinement pass are
+timed per call. It prints the card's name and power limit (nvidia-smi),
+then a JSON line describing each kernel, then the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
@@ -104,22 +141,35 @@ from blackhole_simulation_tpu_torch.render.march import (  # noqa: E402
     MarchConfig,
     MarchRows,
     _march_inputs,
+    march_rows,
     march_rows_ad,
+    refinement_config,
 )
 from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
     Features,
     Scene,
     kernel_inputs,
+    refine_critical_band,
+    select_band,
     render,
     render_radiance,
 )
 from blackhole_simulation_tpu_torch.render.post import tonemap  # noqa: E402
+from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
+    critical_band_metric_u,
+)
+from blackhole_simulation_tpu_torch.tools import vpu_peak  # noqa: E402
 
-SOURCES = ("render.cu", "march.cu", "march_grad.cu")
-# Published float32 peak of one H100 SXM outside the tensor cores (FLOP/s)
-# and its memory rate (bytes/s).
+SOURCES = ("render.cu", "march.cu", "march_grad.cu", "vpu_peak.cu")
+# Published float32 peak of one H100 SXM outside the tensor cores (FLOP/s,
+# an FMA counted as two), the same in lane FMA instructions per second, and
+# the memory rate (bytes/s).
 FP32_PEAK = 67e12
+LANE_PEAK = FP32_PEAK / 2
 HBM_RATE = 3.35e12
+# The measured lane-FMA rate of phase 1 (instructions/s). Every operation
+# bound divides by the larger of it and LANE_PEAK.
+LANE_RATE = None
 # Operations of the kernel, counted by hand from csrc/render.cu with every
 # add, multiply, divide, square root and compare as one: one march step with
 # midpoint_iters = 1 (two Kerr-Schild right-hand sides of ~121 each, the
@@ -130,6 +180,14 @@ HBM_RATE = 3.35e12
 # ray's crossings and fate and is not counted, so the bound is a lower one.
 OPS_PER_STEP = 340
 OPS_PER_PIXEL = 260
+# One AB3 step counted the same way: one right-hand side (~121), the step
+# size and its growth bound, the three Lagrange coefficients (~28), the
+# three-term updates of the six rows (36), the crossing record and the
+# sanity test.
+OPS_PER_STEP_AB3 = 245
+# The band plane's metric (and the pole fold, when on) per pixel, beside
+# the precull's Chebyshev sum already in OPS_PER_PIXEL.
+OPS_PER_PIXEL_BAND = 12
 # The gradient kernel's least work per live march step, in march steps: the
 # checkpointing replay, the block's re-forward, and one reverse-mode VJP of
 # the step at about three times the step's operations (a transposed
@@ -170,6 +228,16 @@ def plain_twin(st):
         st, cfg=dataclasses.replace(st.cfg, approx_recip=False))
 
 
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the counted operations over the
+    lane rate (the larger of the measured and the published one) and the
+    bytes over the memory rate."""
+    ops_ms = ops / max(LANE_RATE, LANE_PEAK) * 1e3
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
 def diff_stats(a, b):
     d = (a - b).abs()
     return {
@@ -178,6 +246,21 @@ def diff_stats(a, b):
         "p99_abs": float(torch.quantile(d.flatten().double(), 0.99)),
         "frac_gt_1e-2": float((d.amax(dim=0) > 1e-2).float().mean()),
     }
+
+
+def kernel_time(fn, n):
+    """(ms per launch, the last call's result) of ``fn`` (one kernel's
+    wrapper): one warm-up call, then n calls back to back between two CUDA
+    events, so that no host gap between launches is timed."""
+    out = fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, out
 
 
 def timed(fn, n):
@@ -201,10 +284,58 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel source(s) in {secs:.1f} s")
     for src in SOURCES:
-        for line in kbuild.ptxas_report(src).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {src}: {line.strip()}")
+        for entry, regs, spill in kbuild.ptxas_usage(src):
+            print(f"ptxas {src}: {entry}: {regs} registers, {spill} bytes "
+                  "spilled")
     return secs
+
+
+def registers(src, marker=""):
+    """(registers, spill bytes) of the kernel of ``src`` whose mangled name
+    holds ``marker``."""
+    return next((r, s) for e, r, s in kbuild.ptxas_usage(src) if marker in e)
+
+
+def phase_peak():
+    """The measured FP32 rate, and the probe's measuring launch against its
+    plain version on the same starts."""
+    global LANE_RATE
+    vpu_peak.fma_chains.launches = 0
+    peak, k = vpu_peak.measure()
+    launches = vpu_peak.fma_chains.launches
+    LANE_RATE = peak["lane_fma_per_s"]
+    n = peak["grid"] * peak["threads"]
+    x = vpu_peak.starts(peak["chains"], n, DEV)
+    t0 = time.perf_counter()
+    p = vpu_peak.fma_chains_plain(x, peak["iters"], peak["unroll"])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rel = float(((k - p).abs() / p.abs()).max())
+    equal = bool(torch.equal(k, p))
+    if not rel < 1e-6:
+        raise AssertionError(f"FP32 probe vs plain: rel {rel}")
+    ms = peak["seconds_per_call"] * 1e3
+    fmas = n * peak["chains"] * peak["iters"] * peak["unroll"]
+    bound_ms, bound_by = bound(fmas, 4 * (peak["chains"] + 1) * n)
+    print(f"FP32 peak: {LANE_RATE:.6e} lane FMA/s, {peak['flop_per_s']:.6e} "
+          f"FLOP/s; published {FP32_PEAK:.3e} FLOP/s ({LANE_PEAK:.3e} lane "
+          f"FMA/s); measured/published {peak['flop_per_s'] / FP32_PEAK:.4f};"
+          f" bounds divide by {max(LANE_RATE, LANE_PEAK):.6e} lane FMA/s; "
+          f"probe vs plain ({n} threads, "
+          f"{peak['iters'] * peak['unroll']} steps per chain) rel {rel:.3e}, "
+          f"bit-equal {equal}; {json.dumps(peak)}")
+    return {
+        "name": "vpu_peak", "route": "cuda",
+        "source": "blackhole_simulation_tpu_torch/csrc/vpu_peak.cu",
+        "replaces": "tools/vpu_peak.py:65", "launches": launches,
+        "max_abs_err": float((k - p).abs().max()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "lane_fma_per_s": LANE_RATE,
+        "flop_per_s": peak["flop_per_s"], "published_flop_per_s": FP32_PEAK,
+        "published_lane_fma_per_s": LANE_PEAK,
+        "measured_over_published": peak["flop_per_s"] / FP32_PEAK,
+        "probe_rel": rel, "probe_bit_equal": equal,
+    }
 
 
 def phase_short_parity():
@@ -238,84 +369,96 @@ def phase_flagship_parity():
     return s
 
 
-def phase_main_path(frames=30, warmup=3):
-    width, height = 1920, 1080
-    scene = flagship_scene(width, height)
+def render_frames(scene, frames=30, warmup=3):
+    """``render(scene)``: ``warmup`` frames, then ``frames`` timed by CUDA
+    events with the render and march kernels' launch counters reset just
+    before and read just after, then one more frame checked to be a finite
+    tone-mapped (H, W, 3) image. Returns ((median, min, max) ms, launches)."""
     for _ in range(warmup):
         render(scene)
     torch.cuda.synchronize()
-
     render_planes_kernel.launches = 0
-    frame_ms, frame_min, frame_max = timed(lambda: render(scene), frames)
-    launches = render_planes_kernel.launches
+    march_u.launches = 0
+    times = timed(lambda: render(scene), frames)
+    launches = {"render": render_planes_kernel.launches,
+                "march": march_u.launches}
     img = render(scene)
     torch.cuda.synchronize()
-    if launches < frames:
-        raise AssertionError(f"render kernel launched {launches} times in "
-                             f"{frames} frames")
-    if img.shape != (height, width, 3) or not torch.isfinite(img).all():
+    if launches["render"] < frames:
+        raise AssertionError(f"render kernel launches in {frames} frames: "
+                             f"{launches}")
+    shape = (scene.camera.height, scene.camera.width, 3)
+    if img.shape != shape or not bool(torch.isfinite(img).all()):
         raise AssertionError("render() output is not a finite (H, W, 3) image")
     if not (0.0 <= float(img.min()) and float(img.max()) <= 1.0):
         raise AssertionError("tone-mapped image outside [0, 1]")
+    return times, launches
 
-    # The kernel alone, then the plain version, on the same inputs.
-    row, st = kernel_inputs(scene, None, "cuda")
-    steps = torch.empty((height, width), dtype=torch.int32, device="cuda")
+
+def render_kernel_entry(scene, launches, ops_per_step, ops_per_pixel,
+                        bytes_per_pixel, replaces, **extra):
+    """The render kernel alone on the scene's row (CUDA events), its plain
+    version once at exact divides, the comparison (mean |d| < 1e-3, under
+    1% of pixels above 1e-2) and the bound from this run's steps: a
+    kernels-line entry. Also returns the comparison, the kernel's planes
+    and its static configuration."""
+    row, st = kernel_inputs(scene, None, DEV)
+    height, width = st.height, st.width
+    steps = torch.empty((height, width), dtype=torch.int32, device=DEV)
     k = render_planes_kernel(row, st, steps)
-    kernel_ms, kernel_min, kernel_max = timed(
-        lambda: render_planes_kernel(row, st), 10)
+    kernel_ms, _ = kernel_time(lambda: render_planes_kernel(row, st), 20)
     t0 = time.perf_counter()
     p = render_planes(row, plain_twin(st))
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     s = diff_stats(k, p)
+    if not (bool(torch.isfinite(k).all()) and s["mean_abs"] < 1e-3
+            and s["frac_gt_1e-2"] < 0.01):
+        raise AssertionError(f"{width}x{height} kernel vs plain failed: {s}")
+    n_pix = width * height
+    total_steps = int(steps.long().sum())
+    bound_ms, bound_by = bound(ops_per_step * total_steps
+                               + ops_per_pixel * n_pix,
+                               bytes_per_pixel * n_pix + 4 * row.numel())
+    entry = {
+        "name": "render", "route": "cuda",
+        "source": "blackhole_simulation_tpu_torch/csrc/render.cu",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": s["max_abs"], "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "p99_abs": s["p99_abs"], "mean_abs": s["mean_abs"],
+        "steps_per_ray": total_steps / n_pix, **extra,
+    }
+    return entry, s, k, st
+
+
+def phase_main_path(frames=30):
+    width, height = 1920, 1080
+    n_pix = width * height
+    scene = flagship_scene(width, height)
+    (frame_ms, frame_min, frame_max), launches = render_frames(scene, frames)
+    entry, s, k, _ = render_kernel_entry(
+        scene, launches["render"], OPS_PER_STEP, OPS_PER_PIXEL, 12,
+        "blackhole_simulation_tpu/ops/pallas_render.py:140")
     print(f"1080p kernel vs plain: {s}")
-    if not (s["mean_abs"] < 1e-3 and s["frac_gt_1e-2"] < 0.01):
-        raise AssertionError(f"1080p kernel vs plain failed: {s}")
 
     # Where the frame's time goes besides the kernel.
     t0 = time.perf_counter()
     for _ in range(10):
-        kernel_inputs(scene, None, "cuda")
+        kernel_inputs(scene, None, DEV)
     torch.cuda.synchronize()
     row_ms = (time.perf_counter() - t0) * 1e2
     planes = k.permute(1, 2, 0)
     tonemap_ms, _, _ = timed(lambda: tonemap(planes, scene.post), 10)
-
-    total_steps = int(steps.long().sum())
-    n_pix = width * height
-    ops = OPS_PER_STEP * total_steps + OPS_PER_PIXEL * n_pix
-    nbytes = 12 * n_pix + 4 * row.numel()
-    ops_ms = ops / FP32_PEAK * 1e3
-    bytes_ms = nbytes / HBM_RATE * 1e3
     print(f"main path: render() 1920x1080 flagship: {frame_ms:.3f} ms/frame "
           f"median of {frames}, {n_pix / frame_ms / 1e3:.1f} Mrays/s; kernel "
-          f"{kernel_ms:.3f} ms; host row build + copy {row_ms:.3f} ms; "
-          f"tonemap {tonemap_ms:.3f} ms; plain {plain_ms:.1f} ms; steps/ray "
-          f"{total_steps / n_pix:.1f}; launches {launches}")
-    return {
-        "name": "render",
-        "route": "cuda",
-        "source": "blackhole_simulation_tpu_torch/csrc/render.cu",
-        "replaces": "blackhole_simulation_tpu/ops/pallas_render.py:140",
-        "launches": launches,
-        "max_abs_err": s["max_abs"],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-        "p99_abs": s["p99_abs"],
-        "mean_abs": s["mean_abs"],
-        "frame_ms": frame_ms,
-        "frame_ms_min_max": [frame_min, frame_max],
-        "kernel_ms_min_max": [kernel_min, kernel_max],
-        "mrays_per_s": n_pix / frame_ms / 1e3,
-        "steps_per_ray": total_steps / n_pix,
-        "host_row_ms": row_ms,
-        "tonemap_ms": tonemap_ms,
-        "frames": frames,
-    }
+          f"{entry['ms']:.3f} ms; host row build + copy {row_ms:.3f} ms; "
+          f"tonemap {tonemap_ms:.3f} ms; plain {entry['plain_ms']:.1f} ms; "
+          f"steps/ray {entry['steps_per_ray']:.1f}; launches {launches}")
+    entry.update(frame_ms=frame_ms, frame_ms_min_max=[frame_min, frame_max],
+                 mrays_per_s=n_pix / frame_ms / 1e3, host_row_ms=row_ms,
+                 tonemap_ms=tonemap_ms, frames=frames)
+    return entry
 
 
 def _rel(x, ref):
@@ -513,9 +656,8 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
 
     # Each kernel alone on the recorded step's own arguments, then against
     # its plain version there at exact divides.
-    outs = march_u(*m_args)
-    march_ms, _, _ = timed(lambda: march_u(*m_args), 5)
-    grad_ms, _, _ = timed(lambda: march_grad_kernel(*g_args), 3)
+    march_ms, outs = kernel_time(lambda: march_u(*m_args), 20)
+    grad_ms, _ = kernel_time(lambda: march_grad_kernel(*g_args), 3)
     n_rays = int(outs[0].shape[1])
     total_steps = int(outs[2].long().sum())
     n_blocks = -(-cfg.max_steps // 32)
@@ -563,9 +705,6 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     curriculum = phase_ad_curriculum()
     common = dict(route="cuda", library_ms=None, steps_per_ray=(
         total_steps / n_rays), rays=n_rays)
-    bound = lambda ops, nbytes: (max(ops / FP32_PEAK, nbytes / HBM_RATE) * 1e3,
-                                 "operations" if ops / FP32_PEAK
-                                 >= nbytes / HBM_RATE else "bytes")
     march_bound, march_by = bound(march_ops, march_bytes)
     grad_bound, grad_by = bound(grad_ops, grad_bytes)
     train = {
@@ -623,14 +762,306 @@ def phase_ad_curriculum():
     return out
 
 
+def march_entry(name_note, launches, args, plain_args, ops_per_step, **extra):
+    """A kernels-line entry for a march-kernel launch: the kernel alone on
+    ``args`` (CUDA events), its plain version once on ``plain_args``, the
+    comparison, and the bound from this run's steps."""
+    with torch.no_grad():
+        ms, out = kernel_time(lambda: march_u(*args), 20)
+        k = out if plain_args is args else march_u(*plain_args)
+        t0 = time.perf_counter()
+        p = march_u_plain(*plain_args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    cmp = march_compare(k, p)
+    n_rays = int(out[0].shape[1])
+    steps = out[2].long()
+    k_slots = args[-1].max_crossings
+    bound_ms, bound_by = bound(ops_per_step * int(steps.sum()),
+                               4 * n_rays * (9 + 8 + 3 + 3 * k_slots + 1))
+    return cmp, dict(
+        name="march", route="cuda",
+        source="blackhole_simulation_tpu_torch/csrc/march.cu",
+        replaces="blackhole_simulation_tpu/ops/pallas_march.py:646",
+        path=name_note, launches=launches, max_abs_err=cmp["max_abs"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, rays=n_rays,
+        steps_sum=int(steps.sum()), steps_max=int(steps.max()),
+        steps_per_ray=float(steps.float().mean()),
+        frac_int_differ=cmp["frac_int_differ"], **extra)
+
+
+def phase_ab3(flagship):
+    """Phase 8: the AB3 march in both forward kernels."""
+    ab3 = dataclasses.replace(FLAGSHIP_CFG, multistep=True)
+    # The march kernel against its plain version.
+    cfg = dataclasses.replace(ab3, max_steps=48, approx_recip=False,
+                              fused=False)
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.9)
+    with torch.no_grad():
+        args = _march_inputs(camera_rays_u(_camera(250, 141), m, a), m, a,
+                             cfg, None)
+        s = march_compare(march_u(*args, cfg), march_u_plain(*args, cfg))
+    print(f"AB3 march kernel parity (250x141, 48 steps, a = 0.9): {s}")
+    if not (s["frac_int_differ"] == 0.0 and s["max_abs"] < 1e-4):
+        raise AssertionError(f"AB3 march kernel parity failed: {s}")
+    out = {"march_short": s}
+    # The render kernel against its plain version.
+    cfg = dataclasses.replace(ab3, max_steps=48, approx_recip=False)
+    for name, feats in (("analytic", Features()),
+                        ("spectral", Features(spectral_lut=True))):
+        row, st = kernel_inputs(flagship_scene(250, 141, spin=0.9, cfg=cfg,
+                                               features=feats), None, DEV)
+        d = diff_stats(render_planes_kernel(row, st), render_planes(row, st))
+        print(f"AB3 render kernel parity ({name}, 250x141, 48 steps): {d}")
+        if not (d["p99_abs"] < 1e-4 and d["mean_abs"] < 1e-5):
+            raise AssertionError(f"AB3 render kernel parity failed: {d}")
+        out[f"render_short_{name}"] = d
+    # tests/test_ab3.py's structural bars against the midpoint render.
+    cfg = MarchConfig(max_steps=96, use_pallas=True, fused=True,
+                      multistep=True)
+    sa = flagship_scene(480, 270, spin=0.9, cfg=cfg, features=Features())
+    sb = dataclasses.replace(sa, march_cfg=dataclasses.replace(
+        cfg, multistep=False))
+    ia, ib = render_radiance(sa, device=DEV), render_radiance(sb, device=DEV)
+    d = (ia - ib).abs()
+    st = {"median_abs": float(d.median()),
+          "frac_lt_0.3": float((d < 0.3).float().mean())}
+    print(f"AB3 vs midpoint render (480x270, 96 steps, a = 0.9): {st}")
+    if not (bool(torch.isfinite(ia).all()) and st["median_abs"] < 5e-3
+            and st["frac_lt_0.3"] > 0.95):
+        raise AssertionError(f"AB3 structural bars failed: {st}")
+    out["structural"] = st
+
+    # The flagship render() at 1080p with the AB3 march.
+    width, height = 1920, 1080
+    n_pix = width * height
+    scene = flagship_scene(width, height, cfg=ab3)
+    (frame_ms, frame_min, frame_max), launches = render_frames(scene)
+    regs = registers("render.cu", "ILb1E")
+    render_entry, d, _, _ = render_kernel_entry(
+        scene, launches["render"], OPS_PER_STEP_AB3, OPS_PER_PIXEL, 12,
+        "blackhole_simulation_tpu/ops/pallas_march.py:428",
+        path="flagship render() with multistep (AB3)", frame_ms=frame_ms,
+        frame_ms_min_max=[frame_min, frame_max],
+        mrays_per_s=n_pix / frame_ms / 1e3, registers_spill=list(regs),
+        midpoint_frame_ms=flagship["frame_ms"],
+        midpoint_kernel_ms=flagship["ms"],
+        midpoint_steps_per_ray=flagship["steps_per_ray"])
+    print(f"AB3 flagship render() 1920x1080: {frame_ms:.3f} ms/frame median of"
+          f" 30 (midpoint {flagship['frame_ms']:.3f}); kernel "
+          f"{render_entry['ms']:.3f} ms (midpoint {flagship['ms']:.3f}); "
+          f"steps/ray {render_entry['steps_per_ray']:.2f} (midpoint "
+          f"{flagship['steps_per_ray']:.2f}); registers/spill {regs} "
+          f"(midpoint {registers('render.cu', 'ILb0E')}); vs plain {d}")
+
+    # The staged AB3 render at 1080p: its march-kernel launches, and the
+    # kernel alone on the recorded arguments.
+    staged = dataclasses.replace(scene, march_cfg=dataclasses.replace(
+        ab3, fused=False))
+    march_u.launches = 0
+    march_u.record = []
+    frames = 3
+    for _ in range(frames):
+        img = render_radiance(staged, device=DEV)
+    torch.cuda.synchronize()
+    args, march_u.record = march_u.record[0], None
+    launches = march_u.launches
+    if launches < frames or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"staged AB3 render: {launches} march launches")
+    plain_args = (*args[:6], dataclasses.replace(args[6], approx_recip=False))
+    # The midpoint march kernel on the same rays, for comparison.
+    mid_args = (*args[:6], dataclasses.replace(args[6], multistep=False))
+    with torch.no_grad():
+        mid_ms, mid_out = kernel_time(lambda: march_u(*mid_args), 20)
+    mid_steps = mid_out[2].float().mean()
+    cmp, march_e = march_entry(
+        "staged render() with multistep (AB3)", launches, args, plain_args,
+        OPS_PER_STEP_AB3, registers_spill=list(registers("march.cu", "ILb1E")),
+        midpoint_ms=mid_ms, midpoint_steps_per_ray=float(mid_steps))
+    print(f"1080p AB3 march kernel {march_e['ms']:.3f} ms, "
+          f"{march_e['steps_per_ray']:.2f} steps/ray, registers/spill "
+          f"{march_e['registers_spill']}; the midpoint march kernel on the "
+          f"same rays {mid_ms:.3f} ms, {float(mid_steps):.2f} steps/ray, "
+          f"{registers('march.cu', 'ILb0E')}; vs plain at exact divides "
+          f"{cmp}")
+    if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
+        raise AssertionError(f"1080p AB3 march kernel vs plain failed: {cmp}")
+    return out, [render_entry, march_e]
+
+
+CERTIFIED_CFG = dataclasses.replace(FLAGSHIP_CFG, refine_band=0.6,
+                                    refine_budget=16384)
+
+
+def phase_band_plane():
+    cfg = dataclasses.replace(CERTIFIED_CFG, max_steps=48,
+                              approx_recip=False)
+    scene = flagship_scene(250, 141, cfg=cfg, features=Features())
+    row, st = kernel_inputs(scene, None, DEV)
+    k = render_planes_kernel(row, st)
+    p = render_planes(row, st)
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.999)
+    ref = critical_band_metric_u(m, a, camera_rays_u(scene.camera, m, a))
+    torch.cuda.synchronize()
+    out = {"planes": int(k.shape[0]),
+           "band_vs_plain_max": float((k[3] - p[3]).abs().max()),
+           "rgb_vs_plain_max": float((k[:3] - p[:3]).abs().max()),
+           "band_vs_metric_max": float((k[3].reshape(-1) - ref).abs().max()),
+           "share_below": float((k[3] < 0.6).float().mean())}
+    print(f"band plane (250x141, a = 0.999, refine_band = 0.6): {out}")
+    if not (out["planes"] == 4 and out["band_vs_plain_max"] < 1e-3
+            and out["rgb_vs_plain_max"] < 1e-3
+            and out["band_vs_metric_max"] < 1e-3
+            and 0.0 < out["share_below"] < 0.05):
+        raise AssertionError(f"band plane failed: {out}")
+    return out
+
+
+def phase_certified():
+    """Phase 9: the certified render on the ported kernels."""
+    band_plane = phase_band_plane()
+    width, height = 1920, 1080
+    n_pix = width * height
+    scene = flagship_scene(width, height, cfg=CERTIFIED_CFG)
+    (frame_ms, frame_min, frame_max), launches = render_frames(scene)
+    if launches != {"render": 30, "march": 30}:
+        raise AssertionError(f"certified frames' launches: {launches}")
+
+    # The kernel with its band plane, alone and against its plain version.
+    render_e, _, planes, st = render_kernel_entry(
+        scene, launches["render"], OPS_PER_STEP,
+        OPS_PER_PIXEL + OPS_PER_PIXEL_BAND, 16,
+        "blackhole_simulation_tpu/ops/pallas_render.py:140",
+        path="certified render() (band plane)", frame_ms=frame_ms)
+    rgb, band = planes[:3].reshape(3, -1), planes[3].reshape(-1)
+    band_px = int((band < CERTIFIED_CFG.refine_band).sum())
+
+    # The refinement pass alone, and its re-march kernel alone.
+    refine = lambda: refine_critical_band(scene, st.cfg, None, rgb, band)
+    refine()
+    pass_ms, pass_min, pass_max = timed(refine, 10)
+    march_u.record = []
+    refine()
+    args, march_u.record = march_u.record[0], None
+    cmp, march_e = march_entry(
+        "certified render(): the refinement re-march", launches["march"],
+        args, args, OPS_PER_STEP, refine_pass_ms=pass_ms,
+        refine_pass_ms_min_max=[pass_min, pass_max])
+    if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
+        raise AssertionError(f"refinement march kernel vs plain: {cmp}")
+    info = {"frame_ms": frame_ms, "frame_ms_min_max": [frame_min, frame_max],
+            "mrays_per_s": n_pix / frame_ms / 1e3, "launches": launches,
+            "band_px": band_px, "budget": CERTIFIED_CFG.refine_budget,
+            "overflow": band_px > CERTIFIED_CFG.refine_budget,
+            "refine_pass_ms": pass_ms, "refine_march_ms": march_e["ms"],
+            "refine_steps_sum": march_e["steps_sum"],
+            "refine_steps_max": march_e["steps_max"],
+            "band_plane": band_plane}
+    print(f"certified render() 1920x1080: {frame_ms:.3f} ms/frame median of 30"
+          f" (min {frame_min:.3f}, max {frame_max:.3f}), "
+          f"{info['mrays_per_s']:.1f} Mrays/s; launches {launches}; band "
+          f"{band_px} px (budget {CERTIFIED_CFG.refine_budget}); render kernel"
+          f" {render_e['ms']:.3f} ms; refinement pass {pass_ms:.3f} ms; its "
+          f"march kernel {march_e['ms']:.3f} ms, steps sum "
+          f"{march_e['steps_sum']} "
+          f"max {march_e['steps_max']}; march vs plain {cmp}")
+    info["band_agreement"] = phase_band_agreement()
+    info["staged_vs_fused"] = phase_refined_staged_vs_fused()
+    return info, [render_e, march_e]
+
+
+def phase_band_agreement(width=1920, height=1080, band_width=0.6,
+                         budget=16384):
+    """tools/band_agreement.py:64-79 on the port: the production march, the
+    fine reference march and the refinement splice, on the card. The band
+    is ``critical_band_metric_u`` of the camera rays, as in the tool; the
+    spliced pixels are those the certified render refines: ``select_band``
+    on the render kernel's band plane. The refinement march is the fine
+    reference march by construction (``refinement_config`` of the
+    production config is step 0.03, 4096 steps, ``max_step`` 1, exact
+    divides, no precull), so the agreement measures how far the selection
+    covers the band."""
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.999)
+    prod = MarchConfig(max_steps=256, step_rate=0.2, use_pallas=True,
+                       shadow_precull=True, far_step_cap_rate=0.4,
+                       far_boost_radius=20.0, approx_recip=True,
+                       midpoint_iters=1)
+    fine = dataclasses.replace(prod, step_rate=0.03, max_steps=4096,
+                               max_step=1.0, approx_recip=False,
+                               shadow_precull=False)
+    cam = _camera(width, height)
+    rays = camera_rays_u(cam, m, a)
+    bandm = critical_band_metric_u(m, a, rays)
+    hit_prod = march_rows(rays, m, a, prod).hit
+    hit_fine = march_rows(rays, m, a, fine).hit
+    in_band = bandm < band_width
+    # The certified render's own selection, from its kernel's band plane.
+    cert = dataclasses.replace(prod, fused=True, refine_band=band_width,
+                               refine_budget=budget)
+    row, st = kernel_inputs(flagship_scene(width, height, cfg=cert), None,
+                            DEV)
+    plane = render_planes_kernel(row, st)[3].reshape(-1)
+    n = plane.shape[0]
+    sel = select_band(plane, height, width, min(budget, n), band_width)
+    hit_ref = march_rows(camera_rays_u(cam, m, a,
+                                       pix_ids=torch.clamp(sel, max=n - 1)),
+                         m, a, refinement_config(prod)).hit
+    # Out-of-band entries (id n) land in a padding slot that is cut off.
+    hit_refined = torch.cat([hit_prod, hit_prod.new_zeros(1)])
+    hit_refined[sel] = hit_ref
+    hit_refined = hit_refined[:n]
+    refined = torch.zeros(n + 1, dtype=torch.bool, device=DEV)
+    refined[sel] = True
+    refined = refined[:n]
+    agree = lambda h, msk: float((h == hit_fine)[msk].float().mean())
+    everywhere = torch.ones_like(in_band)
+    out = {"size": f"{width}x{height}", "band_px": int(in_band.sum()),
+           "band_frac": float(in_band.float().mean()), "budget": budget,
+           "overflow": int(in_band.sum()) > budget,
+           "plane_band_px": int((plane < band_width).sum()),
+           "refined_px": int(refined.sum()),
+           "band_px_left_coarse": int((in_band & ~refined).sum()),
+           "agree_band_coarse": agree(hit_prod, in_band),
+           "agree_band_refined": agree(hit_refined, in_band),
+           "agree_all_coarse": agree(hit_prod, everywhere),
+           "agree_all_refined": agree(hit_refined, everywhere)}
+    print(f"band agreement (select_band on the kernel's band plane): {out}")
+    if not out["agree_band_refined"] >= 0.99:
+        raise AssertionError(f"band agreement below 0.99: {out}")
+    return out
+
+
+def phase_refined_staged_vs_fused():
+    cfg = MarchConfig(max_steps=48, use_pallas=True, fused=True,
+                      shadow_precull=True, far_step_cap_rate=0.4,
+                      far_boost_radius=20.0, midpoint_iters=1,
+                      step_rate=0.2, refine_band=0.5, refine_budget=256,
+                      refine_step_rate=0.08, refine_max_steps=192)
+    fused = flagship_scene(480, 270, spin=0.97, cfg=cfg, features=Features())
+    staged = dataclasses.replace(fused, march_cfg=dataclasses.replace(
+        cfg, use_pallas=False, fused=False))
+    ia = render_radiance(fused, device=DEV)
+    ib = render_radiance(staged, device=DEV)
+    d = (ia - ib).abs()
+    out = {"p99_abs": float(torch.quantile(d.flatten().double(), 0.99)),
+           "mean_abs": float(d.mean()), "max_abs": float(d.max())}
+    print(f"refined staged vs fused (480x270, a = 0.97): {out}")
+    if not (bool(torch.isfinite(ia).all()) and out["p99_abs"] < 1e-3):
+        raise AssertionError(f"refined staged vs fused failed: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
     t_start = time.perf_counter()
     phase_build()
+    peak = phase_peak()
     phase_short_parity()
     phase_flagship_parity()
     kernel = phase_main_path()
@@ -638,6 +1069,10 @@ def main() -> int:
     phase_grad_parity()
     train, kernels = phase_train()
     print(f"training: {json.dumps(train)}")
+    ab3, ab3_kernels = phase_ab3(kernel)
+    print(f"AB3: {json.dumps(ab3)}")
+    certified, certified_kernels = phase_certified()
+    print(f"certified: {json.dumps(certified)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -645,7 +1080,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s total")
     print(smi)
-    print(json.dumps({"kernels": [kernel, *kernels]}))
+    print(json.dumps({"kernels": [kernel, *kernels, *certified_kernels,
+                                  *ab3_kernels, peak]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: the render, march and gradient kernels
-against their plain PyTorch versions, and through the port's entry points
-(render, the staged render, the training step).
+(with the band plane and the AB3 march) and the FP32 peak probe against
+their plain PyTorch versions, and through the port's entry points (render,
+the staged and the certified render, the training step).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -44,6 +45,10 @@ from blackhole_simulation_tpu_torch.render.pipeline import (
     render,
     render_radiance,
 )
+from blackhole_simulation_tpu_torch.render.precull import (
+    critical_band_metric_u,
+)
+from blackhole_simulation_tpu_torch.tools import vpu_peak
 
 pytestmark = pytest.mark.gpu
 
@@ -188,3 +193,78 @@ def test_training_step_runs_both_kernels(cuda):
     assert p1.spin.device.type == "cuda"
     assert math.isfinite(float(loss))
     assert all(math.isfinite(float(v)) for v in p1.leaves())
+
+
+@pytest.mark.parametrize("spectral", [False, True])
+def test_ab3_render_kernel_matches_plain_version(cuda, spectral):
+    row, st = kernel_inputs(_scene(features=Features(spectral_lut=spectral),
+                                   multistep=True), None, cuda)
+    before = render_planes_kernel.launches
+    k = render_planes_kernel(row, st)
+    p = render_planes(row, st)
+    torch.cuda.synchronize()
+    assert render_planes_kernel.launches == before + 1
+    d = (k - p).abs()
+    assert float(torch.quantile(d.flatten(), 0.99)) < 1e-4
+    assert float(d.mean()) < 1e-5
+
+
+@pytest.mark.parametrize("max_steps", [48, 60])
+def test_ab3_march_kernel_matches_plain_version(cuda, max_steps):
+    cfg = dc.replace(CFG, fused=False, multistep=True, max_steps=max_steps)
+    args = _march_args(cuda, cfg)
+    with torch.no_grad():
+        k = march_u(*args, cfg)
+        p = march_u_plain(*args, cfg)
+    for i in (1, 2, 6):
+        assert torch.equal(k[i], p[i]), i
+    for i in (0, 3, 4, 5, 7):
+        assert float((k[i] - p[i]).abs().max()) < 1e-4, i
+
+
+@pytest.mark.parametrize("pole", [0.0, 0.05])
+def test_band_plane_matches_plain_version(cuda, pole):
+    scene = _scene(spin=0.999, refine_band=0.6, refine_pole_w=pole)
+    row, st = kernel_inputs(scene, None, cuda)
+    k = render_planes_kernel(row, st)
+    p = render_planes(row, st)
+    assert k.shape == p.shape == (4, 141, 250)
+    assert float((k - p).abs().max()) < 1e-3
+    if pole == 0.0:
+        m = torch.tensor(1.0, device=cuda)
+        a = torch.tensor(0.999, device=cuda)
+        ref = critical_band_metric_u(m, a, camera_rays_u(scene.camera, m, a))
+        assert float((k[3].reshape(-1) - ref).abs().max()) < 1e-3
+        assert 0.0 < float((k[3] < 0.6).float().mean()) < 0.05
+
+
+def test_certified_render_launches_render_and_march_once(cuda):
+    scene = _scene(96, 54, spin=0.999, refine_band=0.6, refine_budget=512)
+    before = (render_planes_kernel.launches, march_u.launches)
+    img = render_radiance(scene)
+    torch.cuda.synchronize()
+    assert (render_planes_kernel.launches, march_u.launches) == (
+        before[0] + 1, before[1] + 1)
+    staged = render_radiance(dc.replace(scene, march_cfg=dc.replace(
+        scene.march_cfg, use_pallas=False, fused=False)))
+    assert bool(torch.isfinite(img).all())
+    d = (img - staged).abs()
+    assert float(torch.quantile(d.flatten(), 0.99)) < 1e-3
+
+
+def test_probe_matches_plain_version(cuda):
+    # The plain version rounds each step once, as __fmaf_rn does: the two
+    # agree bit for bit. One step moves a chain by ~2e-7 relative, so the
+    # 1e-6 bar catches a missing loop iteration (8 or 16 steps).
+    x = vpu_peak.starts(16, 4096, cuda, seed=1)
+    before = vpu_peak.fma_chains.launches
+    k = vpu_peak.fma_chains(x, 64, 16)
+    assert vpu_peak.fma_chains.launches == before + 1
+    p = vpu_peak.fma_chains_plain(x, 64, 16)
+    assert float(((k - p).abs() / p.abs()).max()) < 1e-6
+    peak, out = vpu_peak.measure(iters=256, grid=264, reps=3)
+    assert vpu_peak.fma_chains.launches == before + 5
+    p = vpu_peak.fma_chains_plain(vpu_peak.starts(8, out.numel(), cuda), 256,
+                                  8)
+    assert float(((out - p).abs() / p.abs()).max()) < 1e-6
+    assert peak["lane_fma_per_s"] > 0.0

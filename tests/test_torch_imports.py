@@ -28,6 +28,8 @@ MODULES = [
     "blackhole_simulation_tpu_torch.geometry.metrics",
     "blackhole_simulation_tpu_torch.physics.disk",
     "blackhole_simulation_tpu_torch.physics.spectrum",
+    "blackhole_simulation_tpu_torch.tools.vpu_peak",
+    "blackhole_simulation_tpu_torch.tools.train_probe",
     "chip_smoke",
 ]
 

@@ -108,9 +108,7 @@ OUT_OF_SLICE = {
     "staged": (dict(jets=True), dict(use_pallas=False)),
     "jets": (dict(jets=True), dict()),
     "start_jitter": (dict(), dict(start_jitter=0.5)),
-    "refine_band": (dict(), dict(refine_band=0.6)),
     "shadow_overlay": (dict(shadow_overlay=True), dict()),
-    "multistep": (dict(), dict(multistep=True)),
 }
 
 
