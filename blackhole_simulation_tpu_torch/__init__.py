@@ -4,12 +4,14 @@ beside it as the reference.
 
 What runs:
 
-- the flagship fused render:
+- the fused render:
   ``blackhole_simulation_tpu_torch.render.render(scene, n_samples, device)``
   and ``render_radiance(scene, device)`` build each pixel's ray, precull the
   shadow interior, march the Kerr-Schild geodesic and composite disk,
   starfield and photon-ring glow in one hand-written CUDA kernel
-  (``csrc/render.cu``), then tone-map on the device;
+  (``csrc/render.cu``), then tone-map on the device; the jets, the start
+  jitter, the NRS far field and the shadow overlay are branches of the same
+  kernel, and ``configs.scene_from_params`` builds the CLI's scenes;
 - the staged render (``MarchConfig.fused`` off): camera rays, the march
   kernel (``csrc/march.cu``) and the composite in PyTorch;
 - inverse rendering (``parallel``): ``make_inverse_step``,
@@ -24,11 +26,14 @@ package imports torch and numpy, never JAX.
 Layout (each module names its JAX counterpart):
 
 - ``geometry`` -- Kerr scalars: host float64, and differentiable radii.
+- ``configs``  -- the simulation parameter schema, presets and
+                  ``scene_from_params``.
+- ``models``   -- the NRS far-field MLP.
 - ``physics``  -- Page-Thorne flux and Planck/CIE colour for the spectral
-                  disk tables (host float64).
+                  disk tables, the Bardeen shadow curve (host float64).
 - ``render``   -- camera and rays, config dataclasses, the differentiable
-                  march, shading, precull, post, and the pipeline entry
-                  points.
+                  march, shading, precull, the shadow overlay, post, and
+                  the pipeline entry points.
 - ``ops``      -- the step math, the plain march and its gradient, the
                   kernels' wrappers and parameter rows, and the nvcc build.
 - ``parallel`` -- inverse rendering on one device.

@@ -4,13 +4,15 @@ the kernel's and the JAX package's.
 * ``div_c``: divide by a constant exactly (IEEE), as each JAX operation
   does on its own. PyTorch's CUDA division by a Python number multiplies by
   the reciprocal instead, which rounds differently.
-* ``sqrt``, ``sin``, ``cos``: correctly rounded, by way of float64.
+* ``sqrt``, ``sin``, ``cos``, ``exp``, ``tanh``, ``arccos``, ``pow``:
+  correctly rounded (or nearly), by way of float64.
   PyTorch's vectorized CPU float32 sqrt is not always correctly rounded
   (IEEE sqrtf is, on the card and in XLA), and a last-bit difference in a
   ray grows without bound along a chaotic photon-ring orbit; the escape
   direction's sin/cos pick sub-pixel star spots, which turn a last-bit
   difference into a visible one. The kernel uses sqrtf (IEEE) and
-  float64 sin/cos.
+  float64 sin/cos; the jets', the NRS MLP's and the overlay's exp, tanh and
+  pow go through float64 in both as well.
 * ``clip``, ``maximum``: ``jnp.clip`` / ``jnp.maximum`` semantics (NaN
   propagates) for any mix of Python numbers and tensors as bounds. Under
   autograd they go through ``torch.maximum`` / ``torch.minimum``, whose
@@ -43,6 +45,23 @@ def sin(x: torch.Tensor) -> torch.Tensor:
 
 def cos(x: torch.Tensor) -> torch.Tensor:
     return torch.cos(x.double()).to(x.dtype)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(x.double()).to(x.dtype)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x.double()).to(x.dtype)
+
+
+def arccos(x: torch.Tensor) -> torch.Tensor:
+    return torch.arccos(x.double()).to(x.dtype)
+
+
+def pow_(x: torch.Tensor, p: float) -> torch.Tensor:
+    """x ** p for a Python float p."""
+    return (x.double() ** p).to(x.dtype)
 
 
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:

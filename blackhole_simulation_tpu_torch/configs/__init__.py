@@ -1,0 +1,21 @@
+"""Configuration: the simulation parameter schema, presets, and
+``scene_from_params``."""
+
+from blackhole_simulation_tpu_torch.configs.simulation import (
+    MAX_RAY_STEPS,
+    PARAMETER_SCHEMA,
+    PRESETS,
+    QUALITY_RAY_STEPS,
+    ParamSpec,
+    SimulationParams,
+    apply_preset,
+    clamp_params,
+    detect_preset,
+    scene_from_params,
+)
+
+__all__ = [
+    "MAX_RAY_STEPS", "PARAMETER_SCHEMA", "PRESETS", "QUALITY_RAY_STEPS",
+    "ParamSpec", "SimulationParams", "apply_preset", "clamp_params",
+    "detect_preset", "scene_from_params",
+]

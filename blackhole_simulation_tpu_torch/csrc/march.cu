@@ -38,19 +38,28 @@
 //   sizes). It evaluates one right-hand side per step instead of two.
 // * approx_recip: rcp.approx.ftz.f32 for 1/S, 1/w and the step's divides,
 //   IEEE divides otherwise.
+// * Jets (a third instantiation, chosen when the caller passes JetParams):
+//   the midpoint march with the jets' emission summed per live step into
+//   three more registers and written as three more rows. The JAX package
+//   runs this march in jnp (render/march.py:555-569, the same term as
+//   pallas_march.py::march_tile's jets); the port runs it here. With jets
+//   the wrapper's caller asks for exact divides and the midpoint march, as
+//   the jnp march has them.
 
 #include "march_step.cuh"
 
 #define THREADS 128
 
-template <bool AB3>
+// MARCH: 0 the midpoint march, 1 AB3, 2 the midpoint march with jets.
+template <int MARCH>
 __global__ void __launch_bounds__(THREADS)
 march_kernel(const float* __restrict__ P, const float* __restrict__ y,
              const float* __restrict__ thr, float* __restrict__ yo,
              int* __restrict__ hit_o, int* __restrict__ steps_o,
              float* __restrict__ cr_o, float* __restrict__ cp_o,
              float* __restrict__ ct_o, int* __restrict__ nc_o,
-             float* __restrict__ rmin_o, int n, const MarchParams mp) {
+             float* __restrict__ rmin_o, float* __restrict__ jet_o, int n,
+             const MarchParams mp, const JetParams jp) {
   const int j = blockIdx.x * THREADS + threadIdx.x;
   if (j >= n) return;
   const size_t N = (size_t)n;
@@ -62,13 +71,16 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
                 y[6 * N + j]};
   const float pph = y[7 * N + j];
   int hit, steps, nc;
-  float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
-  if (AB3)
+  float cr[KMAX], cp[KMAX], ct[KMAX], rmin, jet[3];
+  if (MARCH == 1)
     march_ray_ab3(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph, thr[j], s,
                   hit, steps, nc, cr, cp, ct, rmin);
-  else
-    march_ray(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph, thr[j], s, hit,
-              steps, nc, cr, cp, ct, rmin);
+  else {
+    const JetParams jets = jp;
+    march_ray<MARCH == 2>(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph,
+                          thr[j], s, hit, steps, nc, cr, cp, ct, rmin, &jets,
+                          jet);
+  }
   yo[j] = s[0];
   yo[N + j] = s[1];
   yo[2 * N + j] = s[2];
@@ -89,20 +101,31 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
       ct_o[k * N + j] = ct[k];
     }
   }
+  if (MARCH == 2) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) jet_o[c * N + j] = jet[c];
+  }
 }
 
 extern "C" {
 
 // Launches the march kernel on ``stream``; returns cudaGetLastError().
 // P: (4,) [m, a, r_h, r_ph]; y: (8, n) rows with p_t = -1; thr: (n,).
+// jp: the jets' configuration, or null for no jets; jet: (3, n) rows that
+// receive the jets' radiance (unused without jets).
 int bh_march_launch(const float* P, const float* y, const float* thr,
                     float* yo, int* hit, int* steps, float* cr, float* cp,
-                    float* ct, int* nc, float* rmin, int n,
-                    const MarchParams* mp, void* stream) {
+                    float* ct, int* nc, float* rmin, float* jet, int n,
+                    const MarchParams* mp, const JetParams* jp,
+                    void* stream) {
   if (n > 0) {
-    auto kernel = mp->multistep ? march_kernel<true> : march_kernel<false>;
+    auto kernel = jp != nullptr ? march_kernel<2>
+                  : mp->multistep ? march_kernel<1>
+                                  : march_kernel<0>;
+    const JetParams none = {};
     kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-        P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, n, *mp);
+        P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, *mp,
+        jp != nullptr ? *jp : none);
   }
   return (int)cudaGetLastError();
 }
@@ -112,5 +135,7 @@ const char* bh_error_string(int err) {
 }
 
 int bh_march_params_size() { return (int)sizeof(MarchParams); }
+
+int bh_jet_params_size() { return (int)sizeof(JetParams); }
 
 }  // extern "C"

@@ -7,8 +7,9 @@
 //
 // Counterpart of blackhole_simulation_tpu/ops/ks_kernel.py (ks_rhs_rows,
 // ks_symplectic_step_rows, ks_renormalize_pr), ops/pallas_march.py
-// (diff_step_values, march_tile, march_tile_ab3) and ops/pallas_grad.py
-// (make_composite).
+// (diff_step_values, start_offset_rows, march_tile with its jets,
+// march_tile_ab3), ops/pallas_grad.py (make_composite) and
+// render/shading.py (hash21, value_noise2, jet_emission_step).
 // The plain PyTorch versions are ops/ks_kernel.py and ops/march.py; every
 // expression here is written in their order, so the two round alike.
 //
@@ -46,6 +47,14 @@ struct MarchParams {
       approx_recip, far_cap_on, multistep, ab3_renorm_every, ab3_tail_renorm;
   float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
       escape_radius, escape_sanity_r, record_r_min, record_r_max;
+};
+
+// The jets' static configuration (shading.JetParams, each field rounded to
+// float32; gamma and one_minus_turb rounded from float64). Must match
+// ops/pallas_march.py::_CJetParams field for field.
+struct JetParams {
+  float core_radius, opening_slope, z_min, z_max, density, turbulence,
+      one_minus_turb, gamma, beta, beaming_exponent;
 };
 
 // ---------------------------------------------------------------------------
@@ -245,6 +254,38 @@ __device__ __forceinline__ T recip(const T& x, bool approx) {
 template <class T>
 __device__ __forceinline__ T divr(const T& num, const T& den, bool approx) {
   return approx ? num * rcp_approx(den) : num / den;
+}
+
+// ---------------------------------------------------------------------------
+// Lattice hash noise (render/shading.py): the starfield, the disk's
+// turbulence, the jets' noise and the start offset's hash
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float fract(float x) { return x - floorf(x); }
+
+__device__ float hash21(float x, float y) {
+  x = x + 0.5f;
+  y = y + 0.5f;
+  float px = fract(x * F(0.1031));
+  float py = fract(y * F(0.1030));
+  float pz = fract((x + y) * F(0.0973));
+  float d = px * (py + F(33.33)) + py * (pz + F(33.33)) + pz * (px + F(33.33));
+  return fract((px + py + 2.0f * d) * (pz + d));
+}
+
+__device__ __forceinline__ float smooth(float t) {
+  return t * t * (3.0f - 2.0f * t);
+}
+
+__device__ float value_noise2(float x, float y) {
+  float xf = floorf(x), yf = floorf(y);
+  float tx = smooth(x - xf), ty = smooth(y - yf);
+  float c00 = hash21(xf, yf);
+  float c10 = hash21(xf + 1.0f, yf);
+  float c01 = hash21(xf, yf + 1.0f);
+  float c11 = hash21(xf + 1.0f, yf + 1.0f);
+  return c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty) +
+         c01 * (1.0f - tx) * ty + c11 * tx * ty;
 }
 
 // ---------------------------------------------------------------------------
@@ -470,28 +511,103 @@ __device__ __forceinline__ void record_step(bool crossed, bool advance,
   }
 }
 
+// The start-jittered ray (ops/march.py::start_offset_rows): s advances by
+// one implicit-midpoint step of xi * jitter * dlam0, xi in [0, 1) hashed
+// from the conserved momenta, u clipped as the march clips it.
+__device__ __forceinline__ void start_offset(const MarchParams& mp,
+                                             bool approx, float m, float a,
+                                             float r_h, float r_ph,
+                                             float jitter, float pph,
+                                             float s[6]) {
+  const float xi = hash21(pph * F(977.0), s[4] * F(991.0)) * jitter;
+  const float dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
+  float y[6];
+  midpoint_step(mp, approx, m, a, dlam * xi, s[0], s[1], s[2], s[3], s[4],
+                s[5], pph, y);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) s[k] = y[k];
+}
+
+// One step's optically thin jet sample (shading.jet_emission_step): cone
+// test, Gaussian profile, one noise octave, Doppler beaming; exp and the
+// beaming power through double, as the plain version computes them.
+__device__ __forceinline__ void jet_emission(const JetParams& jp, float r,
+                                             float st, float ct, float ph,
+                                             float dr, float dth, float dph,
+                                             float dlam, float out[3]) {
+  const float z = r * ct;
+  const float rho = fabsf(r * st);
+  const float az = fabsf(z);
+  const float cone_r = jp.core_radius + jp.opening_slope * az;
+  const bool in_cone = (az > jp.z_min) && (az < jp.z_max) &&
+                       (rho < F(2.5) * cone_r);
+  const float q = rho / jmax(cone_r, F(1e-3));
+  const float profile = (float)exp((double)(-(q * q)));
+  const float v_z = dr * ct - r * st * dth;
+  const float v_rho = dr * st + r * ct * dth;
+  const float v_ph = r * st * dph;
+  const float v_mag = sqrtf(v_z * v_z + v_rho * v_rho + v_ph * v_ph +
+                            F(1e-12));
+  const float sgn = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+  const float cos_psi = -sgn * v_z / v_mag;
+  const float delta =
+      1.0f / (jp.gamma * (1.0f - jp.beta * jclip(cos_psi, -1.0f, 1.0f)));
+  const float beam = (float)pow((double)delta, (double)jp.beaming_exponent);
+  const float noise = value_noise2(
+      az * F(0.8), fmod_floor(ph, F(6.283185307179586)) * 2.0f + az);
+  const float turb = jp.one_minus_turb + jp.turbulence * (0.5f + noise);
+  const float mag =
+      in_cone ? jp.density * dlam * profile * turb * beam : 0.0f;
+  out[0] = F(0.62) * mag;
+  out[1] = F(0.74) * mag;
+  out[2] = mag;
+}
+
 // March one ray to horizon or escape (ops/march.py::march_tile, one ray):
 // s = (t, r, u, ph, pr, pu) in, final state out; records up to
 // mp.max_crossings equator crossings and the photon-ring proximity
-// min |r - r_ph| over the marched path.
+// min |r - r_ph| over the marched path. With JETS, jet (3 values) receives
+// the jets' emission summed over the live steps (jp: their configuration),
+// from the pre-step state, the stepped one and 1 / dlam, the march_tile
+// jet term; it is added even on a step the sanity test then rejects.
+template <bool JETS>
 __device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
                                           float m, float a, float r_h,
                                           float r_ph, float pph, float thr,
                                           float s[6], int& hit, int& steps,
                                           int& nc, float cr[KMAX],
                                           float cp[KMAX], float ct[KMAX],
-                                          float& rmin) {
+                                          float& rmin, const JetParams* jp,
+                                          float jet[3]) {
   hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
   nc = 0;
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) cr[k] = cp[k] = ct[k] = 0.0f;
   rmin = fabsf(s[1] - r_ph);
   steps = 0;
+  if (JETS) jet[0] = jet[1] = jet[2] = 0.0f;
   for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i) {
     bool crossed, advance;
     float r_c, phi_c, t_c;
-    march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc, crossed,
-               advance, r_c, phi_c, t_c);
+    if (JETS) {
+      float y[6], c[3];
+      const float dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
+      midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4],
+                    s[5], pph, y);
+      crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
+      const float inv = recip(dlam, approx);
+      const float st = sqrtf(jmax(1.0f - s[2] * s[2], F(1e-6)));
+      jet_emission(*jp, s[1], st, s[2], s[3], (y[1] - s[1]) * inv,
+                   -(y[2] - s[2]) * inv / st, (y[3] - s[3]) * inv, dlam, c);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) jet[k] = jet[k] + c[k];
+      advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
+      if ((i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE)
+        s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+    } else {
+      march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc,
+                 crossed, advance, r_c, phi_c, t_c);
+    }
     record_step(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr, cp, ct,
                 steps, rmin);
   }

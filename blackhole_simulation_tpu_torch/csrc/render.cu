@@ -95,6 +95,15 @@
 #define P_TSHAPE (P_ETA + CHEB_K)
 #define SPEC_K 16
 #define P_RGB (P_TSHAPE + SPEC_K)
+#define OVERLAY_N 32
+#define P_OVW (P_RGB + 3 * SPEC_K)
+#define P_OAL (P_OVW + 1)
+#define P_OBE (P_OAL + 2 * OVERLAY_N)
+#define P_OVA (P_OBE + 2 * OVERLAY_N)
+#define P_NRS_BMIN (P_OVA + 2 * OVERLAY_N)
+#define P_NRS_TH (P_NRS_BMIN + 1)
+#define P_NRS_W (P_NRS_TH + 1)
+#define NRS_H 16
 #define CHEB_ERR 0.03
 
 #define PATCH_W 8
@@ -108,46 +117,21 @@ struct RenderStatic {
   int width, height, max_steps, renormalize_every, max_crossings,
       midpoint_iters, approx_recip, precull, disk_on, spectral, starfield,
       glow, artistic, far_cap_on, beam_k, beam_n, beam_neg, outer_k,
-      outer_n, outer_neg, multistep, ab3_renorm_every, ab3_tail_renorm;
+      outer_n, outer_neg, multistep, ab3_renorm_every, ab3_tail_renorm,
+      jets, nrs_on, overlay;
   float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
       escape_radius, escape_sanity_r, record_r_min, record_r_max,
       disk_outer_radius, disk_density, disk_t_peak, disk_beaming, disk_turb,
       disk_one_minus_turb, disk_softness, disk_outer_pow, disk_edge_width,
       nt_peak, art_r, art_g, art_b, star_brightness, star_nebula, star_freq0,
       star_freq1, star_thr0, star_thr1, refine_band, refine_pole_w,
-      pole_scale;
+      pole_scale, start_jitter;
+  JetParams jet;
 };
 
 // ---------------------------------------------------------------------------
 // Shading (render/shading.py)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float fract(float x) { return x - floorf(x); }
-
-__device__ float hash21(float x, float y) {
-  x = x + 0.5f;
-  y = y + 0.5f;
-  float px = fract(x * F(0.1031));
-  float py = fract(y * F(0.1030));
-  float pz = fract((x + y) * F(0.0973));
-  float d = px * (py + F(33.33)) + py * (pz + F(33.33)) + pz * (px + F(33.33));
-  return fract((px + py + 2.0f * d) * (pz + d));
-}
-
-__device__ __forceinline__ float smooth(float t) {
-  return t * t * (3.0f - 2.0f * t);
-}
-
-__device__ float value_noise2(float x, float y) {
-  float xf = floorf(x), yf = floorf(y);
-  float tx = smooth(x - xf), ty = smooth(y - yf);
-  float c00 = hash21(xf, yf);
-  float c10 = hash21(xf + 1.0f, yf);
-  float c01 = hash21(xf, yf + 1.0f);
-  float c11 = hash21(xf + 1.0f, yf + 1.0f);
-  return c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty) +
-         c01 * (1.0f - tx) * ty + c11 * tx * ty;
-}
 
 __device__ float fbm2(float x, float y, int octaves) {
   float total = 0.0f, amp = 0.5f, freq = 1.0f;
@@ -374,7 +358,47 @@ __device__ void starfield(const RenderStatic& st, float dx, float dy, float dz,
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <bool AB3>
+// The NRS surrogate's deflection (models/nrs.py::nrs_apply, the
+// deflection output only): the 3 -> 16 -> 16 -> 16 tanh MLP on
+// (b / 40, theta_obs / pi, a), weights read from the row in the JAX
+// kernel's summation order (pallas_render.py:362-379), tanh through double.
+__device__ float nrs_deflection(const float* __restrict__ W, float bn,
+                                float thn, float a) {
+  float h[NRS_H];
+#pragma unroll
+  for (int j = 0; j < NRS_H; ++j) {
+    const float acc = bn * __ldg(W + j) +
+                      (thn * __ldg(W + NRS_H + j) +
+                       a * __ldg(W + 2 * NRS_H + j) + __ldg(W + 48 + j));
+    h[j] = (float)tanh((double)acc);
+  }
+  int off = 64;
+#pragma unroll
+  for (int layer = 0; layer < 2; ++layer) {
+    float h2[NRS_H];
+#pragma unroll
+    for (int j = 0; j < NRS_H; ++j) {
+      float acc = __ldg(W + off + 256 + j);
+#pragma unroll
+      for (int i = 0; i < NRS_H; ++i)
+        acc = acc + h[i] * __ldg(W + off + i * NRS_H + j);
+      h2[j] = (float)tanh((double)acc);
+    }
+#pragma unroll
+    for (int j = 0; j < NRS_H; ++j) h[j] = h2[j];
+    off += 272;
+  }
+  float alpha = __ldg(W + off + 48);
+#pragma unroll
+  for (int i = 0; i < NRS_H; ++i) alpha = alpha + h[i] * __ldg(W + off + i * 3);
+  return alpha;
+}
+
+// MARCH: 0 the midpoint march, 1 AB3, 2 the midpoint march with jets.
+// EXTRAS: the start offset, the NRS far field and the shadow overlay, each
+// then on as RenderStatic says; without EXTRAS none of their code is built,
+// so the flagship instantiation (0, false) carries none of it.
+template <int MARCH, bool EXTRAS>
 __global__ void __launch_bounds__(THREADS)
 render_kernel(const float* __restrict__ P, float* __restrict__ out,
               int* __restrict__ steps_out, const RenderStatic st) {
@@ -423,10 +447,34 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   const size_t plane = (size_t)st.width * st.height;
   const size_t idx = (size_t)y * st.width + x;
 
-  // --- shadow precull and the critical-band metric ---
+  const MarchParams mp = {st.max_steps, st.renormalize_every,
+                          st.max_crossings, st.midpoint_iters,
+                          st.approx_recip, st.far_cap_on, st.multistep,
+                          st.ab3_renorm_every, st.ab3_tail_renorm,
+                          st.step_rate,
+                          st.min_step, st.max_step, st.far_step_cap_rate,
+                          st.far_boost_radius, st.escape_radius,
+                          st.escape_sanity_r, st.record_r_min,
+                          st.record_r_max};
+  // --- start offset (ops/march.py::start_offset_rows) ---
+  if (EXTRAS && st.start_jitter > 0.0f) {
+    float s0[6] = {t, r, u, ph, pr, pu};
+    start_offset(mp, approx, m, a, r_h, r_ph, st.start_jitter, pph, s0);
+    t = s0[0];
+    r = s0[1];
+    u = s0[2];
+    ph = s0[3];
+    pr = s0[4];
+    pu = s0[5];
+  }
+
+  // --- shadow precull, the critical-band metric and the NRS skip ---
   float thr = __ldg(P + P_HORTHR);
   const bool band_on = st.refine_band > 0.0f;
-  if (st.precull || band_on) {
+  const bool nrs_on = EXTRAS && st.nrs_on;
+  float b_tot = 0.0f;
+  bool far = false;
+  if (st.precull || band_on || nrs_on) {
     const float pt = -1.0f;
     float lam = __ldg(P + P_FLIP) * pph;
     float w0 = 1.0f - u * u;
@@ -463,34 +511,27 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
       bool dead = in_range && inside && (eta >= 0.0f) && (dr_dlam < 0.0f);
       if (dead) thr = __ldg(P + P_STOPR);
     }
+    if (nrs_on) {
+      // models/nrs.nrs_far_field_rows' skip: b = sqrt(eta + lam^2).
+      b_tot = sqrtf(jmax(eta + lam * lam, F(1e-12)));
+      far = b_tot > __ldg(P + P_NRS_BMIN);
+      if (far) thr = F(1e9);
+    }
   }
 
   // --- march (march_step.cuh, the march kernel's own loop) ---
-  const MarchParams mp = {st.max_steps, st.renormalize_every,
-                          st.max_crossings, st.midpoint_iters,
-                          st.approx_recip, st.far_cap_on, st.multistep,
-                          st.ab3_renorm_every, st.ab3_tail_renorm,
-                          st.step_rate,
-                          st.min_step, st.max_step, st.far_step_cap_rate,
-                          st.far_boost_radius, st.escape_radius,
-                          st.escape_sanity_r, st.record_r_min,
-                          st.record_r_max};
   const int K = st.max_crossings;
   float s[6] = {t, r, u, ph, pr, pu};
   int hit, steps, nc;
-  float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
-  if (AB3)
+  float cr[KMAX], cp[KMAX], ct[KMAX], rmin, jet[3];
+  if (MARCH == 1) {
     march_ray_ab3(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc,
                   cr, cp, ct, rmin);
-  else
-    march_ray(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc, cr,
-              cp, ct, rmin);
-  t = s[0];
-  r = s[1];
-  u = s[2];
-  ph = s[3];
-  pr = s[4];
-  pu = s[5];
+  } else {
+    const JetParams jp = st.jet;
+    march_ray<MARCH == 2>(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit,
+                          steps, nc, cr, cp, ct, rmin, &jp, jet);
+  }
 
   // --- composite ---
   const bool escaped = hit == HIT_ESCAPE;
@@ -518,11 +559,15 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   // to captured rays; skipping them here gives the same values.
   if (st.starfield && escaped) {
     float dir[3];
-    escape_direction(m, a, r, u, ph, pr, pu, pph, dir);
+    escape_direction(m, a, s[1], s[2], s[3], s[4], s[5], pph, dir);
     float bg[3];
     starfield(st, dir[0], dir[1], dir[2], bg);
 #pragma unroll
     for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + trans * bg[c];
+  }
+  if (MARCH == 2) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + jet[c];
   }
   if (st.glow) {
     float near = expf(-14.0f * rmin / jmax(r_ph, F(1e-3)));
@@ -533,6 +578,79 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       rgb[c] = rgb[c] + glow * (warm[c] + order * dwk[c]);
+  }
+  // The NRS background of the far rays: the surrogate's deflection of the
+  // birth direction (born from the possibly offset u and phi but the
+  // camera's r, as in the JAX kernel), Rodrigues-rotated about the orbital
+  // plane's normal, then the starfield. Computed for far pixels only; the
+  // plain version computes it everywhere and selects.
+  if (EXTRAS && st.nrs_on && st.starfield && far) {
+    const float r0 = __ldg(P + P_R0), s0 = __ldg(P + P_S0),
+                u0 = __ldg(P + P_U0);
+    float v[3];
+    escape_direction(m, a, r0, u, ph, pr, pu, pph, v);
+    const float sph = (float)sin((double)ph), cph = (float)cos((double)ph);
+    const float px = r0 * s0 * cph;
+    const float py = r0 * s0 * sph;
+    const float pz = r0 * u0;
+    const float alpha_d = nrs_deflection(P + P_NRS_W, b_tot * F(1.0 / 40.0),
+                                         __ldg(P + P_NRS_TH), a);
+    float nxr = py * v[2] - pz * v[1];
+    float nyr = pz * v[0] - px * v[2];
+    float nzr = px * v[1] - py * v[0];
+    const float inv_n =
+        1.0f / sqrtf(jmax(nxr * nxr + nyr * nyr + nzr * nzr, F(1e-20)));
+    nxr = nxr * inv_n;
+    nyr = nyr * inv_n;
+    nzr = nzr * inv_n;
+    const float ca = (float)cos((double)alpha_d);
+    const float sa = (float)sin((double)alpha_d);
+    const float cxr = nyr * v[2] - nzr * v[1];
+    const float cyr = nzr * v[0] - nxr * v[2];
+    const float czr = nxr * v[1] - nyr * v[0];
+    starfield(st, v[0] * ca + cxr * sa, v[1] * ca + cyr * sa,
+              v[2] * ca + czr * sa, rgb);
+  }
+  // The Bardeen critical-curve overlay: the birth ray's conserved
+  // (lambda, eta) as celestial (alpha, beta), the squared distance to the
+  // row's 64-point polyline, a Gaussian line weight (pallas_render.py:
+  // 397-444).
+  if (EXTRAS && st.overlay) {
+    const float s0o = __ldg(P + P_S0), u0c = __ldg(P + P_U0);
+    const float w0o = 1.0f - u * u;
+    const float s2o = jmax(w0o, F(1e-12));
+    const float etao = pu * pu * w0o + u * u * (pph * pph / s2o - a * a);
+    const float alpha_p = -pph / s0o;
+    const float cot0 = u0c / s0o;
+    const float beta_sq = etao + a * a * u0c * u0c - pph * pph * cot0 * cot0;
+    const float sgn = pu > 0.0f ? 1.0f : (pu < 0.0f ? -1.0f : 0.0f);
+    const float beta_p = sgn * sqrtf(jmax(beta_sq, 0.0f));
+    const float deficit = jmax(-beta_sq, 0.0f);
+    const float big = F(1e30);
+    float dmin = big;
+    for (int i = 0; i < 2 * OVERLAY_N; ++i) {
+      const int j = i + 1 == 2 * OVERLAY_N ? 0 : i + 1;
+      const float ax = __ldg(P + P_OAL + i), ay = __ldg(P + P_OBE + i);
+      const float bx = __ldg(P + P_OAL + j), by = __ldg(P + P_OBE + j);
+      const bool ok =
+          __ldg(P + P_OVA + i) > 0.5f && __ldg(P + P_OVA + j) > 0.5f;
+      const float dx = bx - ax, dy = by - ay;
+      const float len_sq = dx * dx + dy * dy;
+      const float tt = jclip(((alpha_p - ax) * dx + (beta_p - ay) * dy) /
+                                 jmax(len_sq, F(1e-20)),
+                             0.0f, 1.0f);
+      const float ex = alpha_p - (ax + tt * dx);
+      const float ey = beta_p - (ay + tt * dy);
+      const float d = ex * ex + ey * ey;
+      dmin = jmin(dmin, ok ? d : big);
+    }
+    dmin = dmin + deficit;
+    const float wdt = __ldg(P + P_OVW);
+    const float wgt = F(1.2) * (float)exp((double)(-dmin / jmax(wdt * wdt,
+                                                               F(1e-12))));
+    const float line[3] = {F(0.15), 1.0f, F(0.35)};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + wgt * line[c];
   }
   out[idx] = rgb[0];
   out[plane + idx] = rgb[1];
@@ -550,7 +668,15 @@ int bh_render_launch(const float* params, float* out, int* steps,
   dim3 block(THREADS);
   dim3 grid((st->width + BLOCK_W - 1) / BLOCK_W,
             (st->height + BLOCK_H - 1) / BLOCK_H);
-  auto kernel = st->multistep ? render_kernel<true> : render_kernel<false>;
+  // Jets take the midpoint march, as in the JAX kernel
+  // (pallas_render.py:266).
+  const bool extras = st->start_jitter > 0.0f || st->nrs_on || st->overlay;
+  auto kernel = st->jets ? (extras ? render_kernel<2, true>
+                                   : render_kernel<2, false>)
+                : st->multistep ? (extras ? render_kernel<1, true>
+                                          : render_kernel<1, false>)
+                                : (extras ? render_kernel<0, true>
+                                          : render_kernel<0, false>);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(params, out, steps, *st);
   return (int)cudaGetLastError();
 }

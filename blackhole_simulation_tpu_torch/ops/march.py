@@ -2,9 +2,9 @@
 as masked row updates in PyTorch.
 
 Counterpart of ``blackhole_simulation_tpu/ops/pallas_march.py``
-(``diff_step_values`` :148, ``march_tile`` :237, ``march_tile_ab3`` :428)
-and ``blackhole_simulation_tpu/ops/pallas_grad.py`` (``make_composite``
-:71).
+(``diff_step_values`` :148, ``start_offset_rows`` :202, ``march_tile``
+:237 with its jets, ``march_tile_ab3`` :428) and
+``blackhole_simulation_tpu/ops/pallas_grad.py`` (``make_composite`` :71).
 The CUDA kernel (``csrc/render.cu``) runs one thread per ray with a
 ``while (i < max_steps && hit == NONE)`` loop; here all rays advance
 together under masks and the loop stops once every ray has terminated,
@@ -31,6 +31,7 @@ from blackhole_simulation_tpu_torch._elementwise import (
     const,
     div_c,
     maximum,
+    sqrt,
 )
 from blackhole_simulation_tpu_torch.ops.ks_kernel import (
     ks_renormalize_pr,
@@ -95,6 +96,45 @@ def diff_step_values(m, a, r_h, r_ph, cfg, rows):
     return nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, dlam
 
 
+def start_offset_rows(m, a, r_h, r_ph, cfg, rows):
+    """The start-jittered rays: each advances by xi * start_jitter * dlam0
+    before the march, xi in [0, 1) hashed from its conserved momenta, by one
+    implicit-midpoint step of that size on its geodesic, u clipped as the
+    march clips it. ``rows`` = (t, r, u, ph, pr, pu, pph); returns the
+    offset rows in the same order."""
+    from blackhole_simulation_tpu_torch.render.shading import hash21
+
+    t, r, u, ph, pr, pu, pph = rows
+    xi = hash21(pph * 977.0, pr * 991.0) * cfg.start_jitter
+    dlam = step_size(a, r_h, r_ph, cfg, r, u, pu)
+    ot, orr, ou, oph, opr, opu = ks_symplectic_step_rows(
+        m, a, (t, r, u, ph, const(r, -1.0), pr, pu, pph), dlam * xi,
+        cfg.midpoint_iters,
+    )
+    ou = clip(ou, -1.0 + 1e-7, 1.0 - 1e-7)
+    return ot, orr, ou, oph, opr, opu, pph
+
+
+def jet_step_rows(jets, active, rows, ny, dlam):
+    """One step's jet emission on the live rays (zero elsewhere), from the
+    pre-step state ``rows`` = (t, r, u, ph, ...), the stepped (nr, nu, nph)
+    ``ny`` and the step size: ``march_tile``'s jet term (pallas_march.py:
+    304-325), added even on a step that the sanity test then rejects."""
+    from blackhole_simulation_tpu_torch.render.shading import (
+        jet_emission_step,
+    )
+
+    _, r, u, ph = rows[:4]
+    nr, nu, nph = ny
+    inv = 1.0 / dlam
+    st = sqrt(maximum(1.0 - u * u, w_floor(r.dtype)))
+    rgb = jet_emission_step(
+        jets, r, st, u, ph, (nr - r) * inv, -(nu - u) * inv / st,
+        (nph - ph) * inv, dlam,
+    )
+    return torch.stack([torch.where(active, c, 0.0) for c in rgb])
+
+
 # Benign far-field state that a stopped ray's lanes step instead of their
 # own (the "double-where" rule of render/march.py:514-520 and
 # ops/pallas_grad.py:82-91): the step's outputs there are discarded, but a
@@ -103,30 +143,35 @@ def diff_step_values(m, a, r_h, r_ph, cfg, rows):
 _SAFE = (0.0, 10.0, 0.0, 0.0, 0.0, 0.0)
 
 
-def march_step_rows(m, a, r_h, r_ph, thr, cfg, i: int, y6, pph, hit, nc):
+def march_step_rows(m, a, r_h, r_ph, thr, cfg, i: int, y6, pph, hit, nc,
+                    jets=None):
     """One masked march step of every ray: ``pallas_grad.make_composite``
     (:75-144), the step the march kernel, its replay and its VJP share.
 
     ``y6`` = (t, r, u, ph, pr, pu); ``hit``, ``nc``: the pre-step codes and
     crossing counts; ``i``: the step index. Stopped rays (and every ray once
     i >= max_steps) pass through unchanged. Returns
-    ((y6', r_c, phi_c, t_c, dmin), (hit', nc', crossed, advance)) with
-    dmin = |r' - r_ph|.
+    ((y6', r_c, phi_c, t_c, dmin, jet), (hit', nc', crossed, advance)) with
+    dmin = |r' - r_ph| and ``jet`` the step's (3, N) jet emission
+    (``jet_step_rows``), or None without ``jets`` (a ``JetParams``).
     """
     t, r, u, ph, pr, pu = y6
     active = hit == HIT_NONE
     if i >= cfg.max_steps:
         active = torch.zeros_like(active)
     rows_in = tuple(torch.where(active, x, v) for x, v in zip(y6, _SAFE))
-    nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, _ = diff_step_values(
+    nt, nr, nu, nph, npr, npu, r_c, phi_c, t_c, dlam = diff_step_values(
         m, a, r_h, r_ph, cfg, rows_in + (pph,)
     )
+    jet = None
+    if jets is not None:
+        jet = jet_step_rows(jets, active, rows_in, (nr, nu, nph), dlam)
     (t2, r2, u2, ph2, pr2, pu2), hit2, nc2, crossed, advance = finish_rows(
         cfg, thr, active, y6, (nt, nr, nu, nph, npr, npu), r_c, hit, nc)
     if (i + 1) % cfg.renormalize_every == 0:
         pr2 = renormalize_live(m, a, hit2, r2, u2, pr2, pu2, pph)
     dmin = torch.abs(r2 - r_ph)
-    return ((t2, r2, u2, ph2, pr2, pu2), r_c, phi_c, t_c, dmin), (
+    return ((t2, r2, u2, ph2, pr2, pu2), r_c, phi_c, t_c, dmin, jet), (
         hit2, nc2, crossed, advance)
 
 
@@ -168,16 +213,19 @@ def renormalize_live(m, a, hit, r, u, pr, pu, pph):
     )
 
 
-def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
+def march_tile(m, a, r_h, r_ph, thr, rows0, cfg, jets=None):
     """March a batch of rays to horizon or escape, recording up to
     ``cfg.max_crossings`` equator crossings per ray.
 
     ``rows0``: 7 rows (t, r, u, ph, p_r, p_u, p_phi) of one shape, p_t = -1
-    implicit; ``thr``: per-ray termination radius. Returns
-    (t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin) with cr/cp/ct
-    of shape (K,) + row shape. Differentiable by autograd, as the JAX
-    package's jnp march is by jax.grad: with ``cfg.cotangent_clip`` > 0 the
-    carry's cotangent is clipped once per step (``clip_cotangent``).
+    implicit; ``thr``: per-ray termination radius; ``jets``: a
+    ``JetParams`` to accumulate the jets' emission per step, or None.
+    Returns (t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin, jet)
+    with cr/cp/ct of shape (K,) + row shape and ``jet`` the (3,) + row
+    shape jet radiance, or None without jets. Differentiable by autograd,
+    as the JAX package's jnp march is by jax.grad: with
+    ``cfg.cotangent_clip`` > 0 the carry's cotangent is clipped once per
+    step (``clip_cotangent``).
     """
     from blackhole_simulation_tpu_torch.render.march import clip_cotangent
 
@@ -191,6 +239,8 @@ def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
     cp = [torch.zeros_like(r) for _ in range(k_slots)]
     ct = [torch.zeros_like(r) for _ in range(k_slots)]
     rmin = torch.abs(r - r_ph)
+    jet = None if jets is None else torch.zeros((3,) + r.shape,
+                                                dtype=r.dtype, device=r.device)
 
     for i in range(cfg.max_steps):
         if not bool((hit == HIT_NONE).any()):
@@ -198,8 +248,11 @@ def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
             if cfg.cotangent_clip > 0.0:
                 y6 = tuple(clip_cotangent(torch.stack(y6), cfg.cotangent_clip))
             break
-        (y6, r_c, phi_c, t_c, dmin), (hit2, nc2, crossed, advance) = (
-            march_step_rows(m, a, r_h, r_ph, thr, cfg, i, y6, pph, hit, nc))
+        (y6, r_c, phi_c, t_c, dmin, dj), (hit2, nc2, crossed, advance) = (
+            march_step_rows(m, a, r_h, r_ph, thr, cfg, i, y6, pph, hit, nc,
+                            jets))
+        if jets is not None:
+            jet = jet + dj
         for k in range(k_slots):
             mask = crossed & (nc == k)
             cr[k] = torch.where(mask, r_c, cr[k])
@@ -213,7 +266,7 @@ def march_tile(m, a, r_h, r_ph, thr, rows0, cfg):
     hit = torch.where(hit == HIT_NONE, HIT_HORIZON, hit).to(torch.int32)
     t, r, u, ph, pr, pu = y6
     return (t, r, u, ph, pr, pu, hit, steps, torch.stack(cr),
-            torch.stack(cp), torch.stack(ct), nc, rmin)
+            torch.stack(cp), torch.stack(ct), nc, rmin, jet)
 
 
 def ab3_renorm_plan(cfg):
@@ -247,7 +300,8 @@ def march_tile_ab3(m, a, r_h, r_ph, thr, rows0, cfg):
     history (h = dlam_n, h1 = dlam_{n-1}, h2 = dlam_{n-2}), the step growth
     bounded by dlam <= 2 h1, two midpoint bootstrap steps that seed the
     history, the history shifted only on rays that advance, and the
-    renormalization cadence of ``ab3_renorm_plan``. Forward only.
+    renormalization cadence of ``ab3_renorm_plan``. Forward only, without
+    jets (the last output is None, as ``march_tile``'s without jets).
     """
     from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_rhs_rows
 
@@ -315,4 +369,4 @@ def march_tile_ab3(m, a, r_h, r_ph, thr, rows0, cfg):
     hit = torch.where(hit == HIT_NONE, HIT_HORIZON, hit).to(torch.int32)
     t, r, u, ph, pr, pu = y6
     return (t, r, u, ph, pr, pu, hit, steps, torch.stack(cr),
-            torch.stack(cp), torch.stack(ct), nc, rmin)
+            torch.stack(cp), torch.stack(ct), nc, rmin, None)

@@ -106,7 +106,7 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
             ins += [x.expand(n).clone().requires_grad_()
                     for x in (pph, m, a, r_h, r_ph)]
             with torch.enable_grad():
-                (y2, r_c, phi_c, t_c, dmin), (_, _, crossed, advance) = (
+                (y2, r_c, phi_c, t_c, dmin, _), (_, _, crossed, advance) = (
                     march_step_rows(ins[7], ins[8], ins[9], ins[10], thr,
                                     cfg, i, tuple(ins[:6]), ins[6], hits,
                                     ncs))

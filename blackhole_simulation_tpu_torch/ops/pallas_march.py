@@ -5,7 +5,9 @@ Counterpart of ``blackhole_simulation_tpu/ops/pallas_march.py``:
 ``_block_dims`` / ``_padded_dims`` / ``to_block_order`` /
 ``from_block_order`` (:56-115) and the ``pallas_march_u`` wrapper (:677-775)
 around ``_march_kernel`` (:646), whose body is ``march_tile`` or, with
-``MarchConfig.multistep``, ``march_tile_ab3`` (:660). The kernel is
+``MarchConfig.multistep``, ``march_tile_ab3`` (:660); and the jnp march's
+jets (render/march.py:555-569), which the port runs in the same kernel
+(``march_tile``'s jet term, pallas_march.py:290-325). The kernel is
 ``csrc/march.cu``; its plain version is ``ops/march.py::march_tile`` /
 ``march_tile_ab3``. ``march_u`` launches the kernel for CUDA tensors and
 runs the plain version for CPU tensors; nothing else picks between them.
@@ -101,6 +103,30 @@ class _CMarchParams(ctypes.Structure):
     )]
 
 
+class _CJetParams(ctypes.Structure):
+    """``JetParams`` as ``csrc/march_step.cuh`` declares it: the jets'
+    static configuration, each field rounded to float32 (``gamma`` and
+    ``one_minus_turb`` from float64, as the JAX twin rounds them)."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "core_radius", "opening_slope", "z_min", "z_max", "density",
+        "turbulence", "one_minus_turb", "gamma", "beta", "beaming_exponent",
+    )]
+
+
+def c_jet_params(jets) -> _CJetParams:
+    """The kernels' jet configuration from a JetParams (zeros for None)."""
+    if jets is None:
+        return _CJetParams()
+    return _CJetParams(
+        core_radius=jets.core_radius, opening_slope=jets.opening_slope,
+        z_min=jets.z_min, z_max=jets.z_max, density=jets.density,
+        turbulence=jets.turbulence, one_minus_turb=1.0 - jets.turbulence,
+        gamma=jets.gamma, beta=jets.beta,
+        beaming_exponent=jets.beaming_exponent,
+    )
+
+
 def c_march_params(cfg) -> _CMarchParams:
     """The kernels' static march configuration from a MarchConfig."""
     ab3_every, ab3_tail = ab3_renorm_plan(cfg)
@@ -145,27 +171,34 @@ def _check_rows(yt0, thr, cfg):
         raise NotImplementedError("the march kernels record 1 to 4 crossings")
 
 
-def march_u_plain(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
+def march_u_plain(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
+                  jets=None):
     """The plain version of ``march_u`` on any device (``march_tile``, or
-    ``march_tile_ab3`` with ``cfg.multistep``; exact divides): the same
-    outputs, differentiable by autograd (the midpoint march)."""
+    ``march_tile_ab3`` with ``cfg.multistep`` and no jets; exact divides):
+    the same outputs, differentiable by autograd (the midpoint march)."""
     _check_rows(yt0, thr, cfg)
     yt0 = normalize_pt(yt0)
-    tile = march_tile_ab3 if cfg.multistep else march_tile
-    t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin = tile(
+    tile = march_tile_ab3 if cfg.multistep and jets is None else march_tile
+    kw = {} if jets is None else {"jets": jets}
+    t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin, jet = tile(
         m, a, r_h, r_ph, thr,
-        (yt0[0], yt0[1], yt0[2], yt0[3], yt0[5], yt0[6], yt0[7]), cfg,
+        (yt0[0], yt0[1], yt0[2], yt0[3], yt0[5], yt0[6], yt0[7]), cfg, **kw,
     )
     yt = torch.stack([t, r, u, ph, yt0[4], pr, pu, yt0[7]])
-    return yt, hit, steps, cr, cp, ct, nc, rmin
+    if jet is None:
+        jet = torch.zeros((3,) + r.shape, dtype=r.dtype, device=r.device)
+    return yt, hit, steps, cr, cp, ct, nc, rmin, jet
 
 
-def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
+def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
+            jets=None):
     """March (8, N) u-chart rays (p_t normalized here) with per-ray
     termination radii ``thr``. Returns (yt (8, N), hit, steps, cross_r,
-    cross_phi, cross_t (K, N), n_crossings, r_min_ph), as the JAX package's
-    ``pallas_march_u``; the integer outputs are int32. ``cfg.multistep``
-    selects the AB3 march.
+    cross_phi, cross_t (K, N), n_crossings, r_min_ph, jet (3, N)), as the
+    JAX package's ``pallas_march_u`` plus the jet radiance of its jnp
+    march (zeros without ``jets``, a ``JetParams``); the integer outputs
+    are int32. ``cfg.multistep`` selects the AB3 march, which has no jets:
+    with jets the march is the midpoint one.
 
     CUDA tensors launch the march kernel (``csrc/march.cu``) on the current
     stream and count the launch in ``march_u.launches``; CPU tensors run the
@@ -175,9 +208,9 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
     a caller can replay the kernel on a real step's own inputs.
     """
     if march_u.record is not None:
-        march_u.record.append((yt0, thr, m, a, r_h, r_ph, cfg))
+        march_u.record.append((yt0, thr, m, a, r_h, r_ph, cfg, jets))
     if yt0.device.type == "cpu":
-        return march_u_plain(yt0, thr, m, a, r_h, r_ph, cfg)
+        return march_u_plain(yt0, thr, m, a, r_h, r_ph, cfg, jets)
     _check_rows(yt0, thr, cfg)
     yt0 = normalize_pt(yt0)
     n = yt0.shape[1]
@@ -199,20 +232,25 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg):
     cp = torch.empty((k_slots, n), **f32)
     ct = torch.empty((k_slots, n), **f32)
     rmin = torch.empty(n, **f32)
+    jet = (torch.zeros if jets is None else torch.empty)((3, n), **f32)
     c_mp = c_march_params(cfg)
+    c_jets = c_jet_params(jets)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bh_march_launch(
             ptr(params), ptr(y), ptr(thr), ptr(yo), ptr(hit), ptr(steps),
-            ptr(cr), ptr(cp), ptr(ct), ptr(nc), ptr(rmin), ctypes.c_int(n),
-            ctypes.byref(c_mp), ctypes.c_void_p(stream),
+            ptr(cr), ptr(cp), ptr(ct), ptr(nc), ptr(rmin),
+            ctypes.c_void_p(None if jets is None else jet.data_ptr()),
+            ctypes.c_int(n), ctypes.byref(c_mp),
+            None if jets is None else ctypes.byref(c_jets),
+            ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
             f"march kernel launch failed: {lib.bh_error_string(err).decode()}")
     march_u.launches += 1
-    return yo, hit, steps, cr, cp, ct, nc, rmin
+    return yo, hit, steps, cr, cp, ct, nc, rmin, jet
 
 
 march_u.launches = 0
@@ -232,6 +270,12 @@ def load_library(source: str, params_size_fn: str) -> ctypes.CDLL:
     if size() != ctypes.sizeof(_CMarchParams):
         raise RuntimeError(f"MarchParams differs between csrc/{source} and "
                            "ops/pallas_march.py")
+    jet_size = getattr(lib, "bh_jet_params_size", None)
+    if jet_size is not None:
+        jet_size.restype = ctypes.c_int
+        if jet_size() != ctypes.sizeof(_CJetParams):
+            raise RuntimeError(f"JetParams differs between csrc/{source} and "
+                               "ops/pallas_march.py")
     return lib
 
 
@@ -239,7 +283,7 @@ def load_library(source: str, params_size_fn: str) -> ctypes.CDLL:
 def _march_library() -> ctypes.CDLL:
     lib = load_library("march.cu", "bh_march_params_size")
     lib.bh_march_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_void_p])
+        [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p])
     lib.bh_march_launch.restype = ctypes.c_int
     return lib

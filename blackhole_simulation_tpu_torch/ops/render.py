@@ -3,16 +3,16 @@ PyTorch version of the kernel, and the wrapper that launches the kernel.
 
 Counterpart of ``blackhole_simulation_tpu/ops/pallas_render.py``: the
 ``_P_*`` parameter-row layout (:62-110), the row builder (the prologue of
-``pallas_render_sample``, :516-633) and ``_render_kernel`` (:140), with
-its critical-band plane (:143-145, :209-241) and its AB3 march (:266). The
-kernel itself is ``csrc/render.cu``; ``render_planes`` here is its plain
-version, written with the same expressions in the same order. The wrapper,
-``render_planes_kernel``, launches the kernel for a CUDA parameter row and
-runs the plain version for a CPU one; nothing else picks between them.
-
-Features outside this slice (jets, start jitter, the NRS far field, the
-shadow overlay) are refused by ``render/pipeline.render_sample`` before a
-row is built; their blocks of the row stay zero.
+``pallas_render_sample``, :516-633, with the overlay and NRS blocks
+:576-613) and ``_render_kernel`` (:140) with every branch: the critical-band
+plane (:143-145, :209-241), the start offset (:194-206), the NRS skip
+(:255-262), the AB3 march (:266), the jets in the march (:266-278,
+:322-325), the NRS background (:338-395) and the shadow overlay
+(:397-444). The kernel itself is ``csrc/render.cu``; ``render_planes`` here
+is its plain version, written with the same expressions in the same order.
+The wrapper, ``render_planes_kernel``, launches the kernel for a CUDA
+parameter row and runs the plain version for a CPU one; nothing else picks
+between them.
 """
 
 from __future__ import annotations
@@ -28,15 +28,24 @@ import torch
 from blackhole_simulation_tpu_torch._elementwise import (
     clip,
     const,
+    cos,
     div_c,
+    exp,
     maximum,
+    sin,
     sqrt,
+    tanh,
 )
 from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_pr
 from blackhole_simulation_tpu_torch.ops.march import (
     ab3_renorm_plan,
     march_tile,
     march_tile_ab3,
+    start_offset_rows,
+)
+from blackhole_simulation_tpu_torch.ops.pallas_march import (
+    _CJetParams,
+    c_jet_params,
 )
 from blackhole_simulation_tpu_torch.render.march import HIT_ESCAPE, MarchConfig
 from blackhole_simulation_tpu_torch.render.precull import (
@@ -50,6 +59,7 @@ from blackhole_simulation_tpu_torch.render.shading import (
     NT_PEAK,
     SPECTRAL_CHEB_K,
     DiskParams,
+    JetParams,
     StarfieldParams,
     _powi_plan,
     cheb_clenshaw,
@@ -92,12 +102,15 @@ _P_INV_LOGR = 39  # 1 / log(r_out / r_in) (spectral t-shape domain)
 _P_ETA = 40                            # precull eta_c coeffs, _CHEB_K wide
 _P_TSHAPE = _P_ETA + _CHEB_K           # spectral t-shape coeffs
 _P_RGB = _P_TSHAPE + SPECTRAL_CHEB_K   # 3 x SPECTRAL_CHEB_K rgb coeffs
-_OVERLAY_N = 32                        # shadow-overlay block (a later slice)
+_OVERLAY_N = 32                        # shadow-overlay block: width, then
+                                       # the 2N-point polyline (alpha, beta,
+                                       # valid)
 _P_OVW = _P_RGB + 3 * SPECTRAL_CHEB_K
 _P_OAL = _P_OVW + 1
 _P_OBE = _P_OAL + 2 * _OVERLAY_N
 _P_OVA = _P_OBE + 2 * _OVERLAY_N
-_P_NRS_BMIN = _P_OVA + 2 * _OVERLAY_N  # NRS far-field block (a later slice)
+_P_NRS_BMIN = _P_OVA + 2 * _OVERLAY_N  # NRS far-field block: b_min,
+                                       # theta_obs / pi, the flat weights
 _P_NRS_TH = _P_NRS_BMIN + 1
 _P_NRS_W = _P_NRS_TH + 1
 _NRS_FLAT = (3 * 16 + 16) + 2 * (16 * 16 + 16) + (16 * 3 + 3)  # 659
@@ -109,9 +122,14 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
     """The kernel's (_P_PAD,) float32 parameter row for one sample.
 
     Built in float64 and cast once. Mass and spin are first rounded to
-    float32, as the JAX package casts them before it builds its row; the
-    camera values stay float64 until the cast. ``scene.march_cfg`` must
-    already carry render_sample's precull adjustments.
+    float32, as the JAX package casts them before it builds its row, and
+    the radii come from them in float32 arithmetic, as the JAX package's
+    do; the camera values stay float64 until the cast.
+    ``scene.march_cfg`` must already carry render_sample's precull
+    adjustments. The overlay block
+    holds the line width (float32 arithmetic, as the JAX package forms it)
+    and ``bardeen_shadow``'s 64-point curve; the NRS block, when the scene
+    has weights and the feature on, b_min, theta / pi and the flat weights.
     """
     from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
     from blackhole_simulation_tpu_torch.render.camera import camera_scalars
@@ -132,11 +150,9 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
     s0 = math.sqrt(max(1.0 - math.cos(cam.theta) ** 2, 1e-12))
     jx, jy = (0.0, 0.0) if jitter is None else (float(jitter[0]), float(jitter[1]))
 
-    r_h = bh.event_horizon()
-    hor_thr = cfg.horizon_factor * r_h
-    isco = bh.isco()
+    r_h, r_ph, isco, hor_thr = _radii32(m, a, cfg.horizon_factor)
     if cfg.precull_keep_disk:
-        stop_r = max(isco, cfg.record_r_min, hor_thr)
+        stop_r = max(isco, float(np.float32(cfg.record_r_min)), hor_thr)
     else:
         stop_r = 1e9
     flip = -1.0 if a < 0.0 else 1.0
@@ -161,7 +177,7 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
         inv_logr = 1.0
 
     head = np.array([
-        m, a, r_h, bh.photon_sphere(), isco, stop_r, hor_thr,
+        m, a, r_h, r_ph, isco, stop_r, hor_thr,
         cam.r, u0, s0, cam.phi, k1, k2, roll_c, roll_s, jx, jy,
         *c0, *c_r, *c_th, *c_ph,
         cheb_mid, cheb_half, lam_lo, lam_hi, flip, a_cheb, inv_logr,
@@ -171,15 +187,68 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
     row[_P_ETA:_P_TSHAPE] = eta_coeffs
     row[_P_TSHAPE:_P_RGB] = t_coeffs
     row[_P_RGB:_P_OVW] = rgb_coeffs
+    if scene.features.shadow_overlay:
+        from blackhole_simulation_tpu_torch.physics.shadow import (
+            bardeen_shadow,
+        )
+
+        o_al, o_be, o_va = bardeen_shadow(m, a, cam.theta, n=_OVERLAY_N)
+        f32 = np.float32
+        pix_b = f32(cam.fov / cam.height * cam.r)
+        row[_P_OVW] = max(f32(0.06) * f32(m), f32(1.5) * pix_b)
+        row[_P_OAL:_P_OBE] = o_al
+        row[_P_OBE:_P_OVA] = o_be
+        row[_P_OVA:_P_NRS_BMIN] = o_va
+    if nrs_active(scene):
+        from blackhole_simulation_tpu_torch.models.nrs import nrs_flat_weights
+
+        row[_P_NRS_BMIN] = nrs_b_min(scene)
+        row[_P_NRS_TH] = cam.theta / math.pi
+        row[_P_NRS_W:_P_TOTAL] = nrs_flat_weights(scene.nrs_params)
     return row.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _radii32(m: float, a: float, horizon_factor: float):
+    """(r+, r_ph, ISCO, horizon_factor * r+) in float32 arithmetic from
+    float32 mass and spin, as the JAX package forms them for its row and
+    the staged path's event_horizon_t / photon_sphere_t / isco_t do: the
+    float64 values differ in the last bit, which moves every step size."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import (
+        event_horizon_t,
+        isco_t,
+        photon_sphere_t,
+    )
+
+    mt, at = torch.tensor(np.float32(m)), torch.tensor(np.float32(a))
+    r_h = event_horizon_t(mt, at)
+    return (float(r_h), float(photon_sphere_t(mt, at)), float(isco_t(mt, at)),
+            float(horizon_factor * r_h))
+
+
+def nrs_active(scene) -> bool:
+    """The NRS far field runs when the feature is on and the scene has
+    weights; without weights it is off, as in the JAX package."""
+    return scene.features.nrs_far_field and scene.nrs_params is not None
+
+
+def nrs_b_min(scene) -> float:
+    """The far-field threshold on the impact parameter: beyond any visible
+    disk crossing (pallas_render.py:597-600, pipeline.py:480-483)."""
+    return max(12.0, scene.disk.outer_radius * 1.2
+               if scene.features.disk else 12.0)
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderStatic:
     """What the kernel takes by value besides the row: the frame size and
     the static configuration that selects its branches (``cfg.multistep``:
-    the AB3 march; ``cfg.refine_band`` > 0: the band plane, with the pole
-    criterion when ``cfg.refine_pole_w`` > 0)."""
+    the AB3 march, unless ``jets``; ``cfg.refine_band`` > 0: the band
+    plane, with the pole criterion when ``cfg.refine_pole_w`` > 0;
+    ``cfg.start_jitter`` > 0: the start offset; ``jets``: the jets'
+    emission in the march, configured by ``jet_params``; ``overlay``: the
+    shadow overlay; ``nrs_on``: the NRS skip and background, whose weights
+    are in the row)."""
 
     cfg: MarchConfig
     disk_on: bool
@@ -190,6 +259,10 @@ class RenderStatic:
     stars: StarfieldParams
     width: int
     height: int
+    jets: bool = False
+    jet_params: JetParams = JetParams()
+    overlay: bool = False
+    nrs_on: bool = False
 
 
 def render_planes(row: torch.Tensor, st: RenderStatic,
@@ -201,9 +274,11 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
     ray's march step count.
 
     Follows ``_render_kernel``: ray birth from the camera scalars, null
-    projection, Chebyshev shadow precull and band metric, the march (AB3
-    with ``cfg.multistep``), and the composite of up to K disk-crossing
-    slots, the starfield and the photon-ring glow.
+    projection, the start offset, Chebyshev shadow precull, band metric and
+    NRS skip, the march (AB3 with ``cfg.multistep`` and no jets; the jets'
+    emission accumulated in it), and the composite of up to K disk-crossing
+    slots, the starfield, the jets, the photon-ring glow, the NRS
+    background and the shadow overlay, in that order.
     """
     cfg = st.cfg
     dev = row.device
@@ -243,11 +318,17 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
     pt_ = const(ix, -1.0)
     pr = ks_renormalize_pr(m, a, r_row, u_row, pt_, pr, pu, pph)
 
-    # --- shadow precull and the critical-band metric ---
+    # --- start offset ---
+    t_row = zero
+    if cfg.start_jitter > 0.0:
+        t_row, r_row, u_row, ph_row, pr, pu, _ = start_offset_rows(
+            m, a, r_h, r_ph, cfg, (zero, r_row, u_row, ph_row, pr, pu, pph))
+
+    # --- shadow precull, the critical-band metric and the NRS skip ---
     hor_thr = sp(_P_HORTHR)
     band_on = cfg.refine_band > 0.0
     band = None
-    if cfg.shadow_precull or band_on:
+    if cfg.shadow_precull or band_on or st.nrs_on:
         lam = sp(_P_FLIP) * pph
         w0 = 1.0 - u_row * u_row
         s2 = maximum(w0, 1e-12)
@@ -274,12 +355,20 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
         thr = torch.where(dead, sp(_P_STOPR), hor_thr)
     else:
         thr = zero + hor_thr
+    if st.nrs_on:
+        b_tot = sqrt(maximum(eta + lam * lam, 1e-12))
+        far = b_tot > sp(_P_NRS_BMIN)
+        thr = torch.where(far, 1e9, thr)
 
     # --- march ---
-    tile = march_tile_ab3 if cfg.multistep else march_tile
-    t, r, u, ph, pr_f, pu_f, hit, n_steps, cr, cp, ct, nc, rmin = tile(
-        m, a, r_h, r_ph, thr, (zero, r_row, u_row, ph_row, pr, pu, pph), cfg
-    )
+    rows0 = (t_row, r_row, u_row, ph_row, pr, pu, pph)
+    if st.jets:
+        out = march_tile(m, a, r_h, r_ph, thr, rows0, cfg, jets=st.jet_params)
+    elif cfg.multistep:
+        out = march_tile_ab3(m, a, r_h, r_ph, thr, rows0, cfg)
+    else:
+        out = march_tile(m, a, r_h, r_ph, thr, rows0, cfg)
+    t, r, u, ph, pr_f, pu_f, hit, n_steps, cr, cp, ct, nc, rmin, jet = out
     if steps is not None:
         steps.copy_(n_steps.reshape(h, w))
 
@@ -320,6 +409,9 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
         w_bg = torch.where(escaped, trans, 0.0)
         rgb = tuple(c + w_bg * b for c, b in zip(rgb, bg))
 
+    if jet is not None:
+        rgb = tuple(c + j for c, j in zip(rgb, jet))
+
     if st.glow:
         near = torch.exp(-14.0 * rmin / maximum(r_ph, 1e-3))
         glow = torch.where(escaped, 0.6 * near, 0.0)
@@ -330,9 +422,104 @@ def render_planes(row: torch.Tensor, st: RenderStatic,
             c + glow * (const(ix, wv) + order * const(ix, kv - wv))
             for c, wv, kv in zip(rgb, warm, cool)
         )
+
+    if st.nrs_on and st.starfield:
+        birth = (zero, zero + sp(_P_R0), u_row, ph_row, zero + pt_, pr, pu,
+                 pph)
+        bg_far = starfield_rows(*_nrs_directions(row, birth, b_tot, m, a),
+                                params=st.stars)
+        rgb = tuple(torch.where(far, b_, c) for c, b_ in zip(rgb, bg_far))
+
+    if st.overlay:
+        line = _overlay_weight(row, u_row, pu, pph, a)
+        rgb = tuple(c + line * col for c, col in zip(rgb, (0.15, 1.0, 0.35)))
+
     if band is not None:
         rgb = (*rgb, band)
     return torch.stack(rgb).reshape(len(rgb), h, w)
+
+
+def _nrs_directions(row, birth, b_tot, m, a):
+    """The NRS background's directions (pallas_render.py:338-395): the
+    birth ray's escape direction, Rodrigues-rotated by the MLP's deflection
+    at (b / 40, theta_obs / pi, a) about the orbital plane's normal. The
+    MLP is the kernel's: weights read from the row, its summation order,
+    tanh through float64."""
+    sp = lambda i: row[i]
+    zero = torch.zeros_like(b_tot)
+    _, _, u_row, ph_row = birth[:4]
+    vx, vy, vz = escape_direction_u_rows(birth, m, a)
+    r0s, s0r, u0r = sp(_P_R0), sp(_P_S0), sp(_P_U0)
+    px = r0s * s0r * cos(ph_row)
+    py = r0s * s0r * sin(ph_row)
+    pz = zero + r0s * u0r
+
+    wref = lambda i: row[_P_NRS_W + i]
+    bn = b_tot * const(b_tot, 1.0 / 40.0)
+    thn = sp(_P_NRS_TH)
+    hid = [tanh(bn * wref(j) + (thn * wref(16 + j) + a * wref(32 + j)
+                                + wref(48 + j))) for j in range(16)]
+    off = 64
+    for _ in range(2):
+        nxt = []
+        for j in range(16):
+            acc = zero + wref(off + 256 + j)
+            for i in range(16):
+                acc = acc + hid[i] * wref(off + i * 16 + j)
+            nxt.append(tanh(acc))
+        hid = nxt
+        off += 272
+    alpha_d = zero + wref(off + 48)
+    for i in range(16):
+        alpha_d = alpha_d + hid[i] * wref(off + i * 3)
+
+    nxr = py * vz - pz * vy
+    nyr = pz * vx - px * vz
+    nzr = px * vy - py * vx
+    inv_n = 1.0 / sqrt(maximum(nxr * nxr + nyr * nyr + nzr * nzr, 1e-20))
+    nxr, nyr, nzr = nxr * inv_n, nyr * inv_n, nzr * inv_n
+    ca = cos(alpha_d)
+    sa = sin(alpha_d)
+    cxr = nyr * vz - nzr * vy
+    cyr = nzr * vx - nxr * vz
+    czr = nxr * vy - nyr * vx
+    return vx * ca + cxr * sa, vy * ca + cyr * sa, vz * ca + czr * sa
+
+
+def _overlay_weight(row, u_row, pu, pph, a):
+    """The overlay line's weight per ray (pallas_render.py:397-444): the
+    birth rows' conserved (lambda, eta) as celestial (alpha, beta), the
+    squared distance to the row's polyline plus the beta^2 deficit, and a
+    Gaussian of the row's width."""
+    sp = lambda i: row[i]
+    s0o = sp(_P_S0)
+    u0c = sp(_P_U0)
+    w0o = 1.0 - u_row * u_row
+    s2o = maximum(w0o, 1e-12)
+    etao = pu * pu * w0o + u_row * u_row * (pph * pph / s2o - a * a)
+    alpha_p = -pph / s0o
+    cot0 = u0c / s0o
+    beta_sq = etao + a * a * u0c * u0c - pph * pph * cot0 * cot0
+    beta_p = torch.sign(pu) * sqrt(maximum(beta_sq, 0.0))
+    deficit = maximum(-beta_sq, 0.0)
+
+    n2 = 2 * _OVERLAY_N
+    dmin = torch.full_like(u_row, 1e30)
+    for i in range(n2):
+        j = 0 if i + 1 == n2 else i + 1
+        ax, ay = sp(_P_OAL + i), sp(_P_OBE + i)
+        bx, by = sp(_P_OAL + j), sp(_P_OBE + j)
+        ok = (sp(_P_OVA + i) > 0.5) & (sp(_P_OVA + j) > 0.5)
+        dx, dy = bx - ax, by - ay
+        len_sq = dx * dx + dy * dy
+        t = clip(((alpha_p - ax) * dx + (beta_p - ay) * dy)
+                 / maximum(len_sq, 1e-20), 0.0, 1.0)
+        ex = alpha_p - (ax + t * dx)
+        ey = beta_p - (ay + t * dy)
+        dmin = torch.minimum(dmin, torch.where(ok, ex * ex + ey * ey, 1e30))
+    dmin = dmin + deficit
+    wdt = sp(_P_OVW)
+    return 1.2 * exp(-dmin / maximum(wdt * wdt, 1e-12))
 
 
 class _CRenderStatic(ctypes.Structure):
@@ -345,7 +532,8 @@ class _CRenderStatic(ctypes.Structure):
         "midpoint_iters", "approx_recip", "precull", "disk_on", "spectral",
         "starfield", "glow", "artistic", "far_cap_on",
         "beam_k", "beam_n", "beam_neg", "outer_k", "outer_n", "outer_neg",
-        "multistep", "ab3_renorm_every", "ab3_tail_renorm",
+        "multistep", "ab3_renorm_every", "ab3_tail_renorm", "jets",
+        "nrs_on", "overlay",
     )] + [(name, ctypes.c_float) for name in (
         "step_rate", "min_step", "max_step", "far_step_cap_rate",
         "far_boost_radius", "escape_radius", "escape_sanity_r",
@@ -356,8 +544,8 @@ class _CRenderStatic(ctypes.Structure):
         "art_r", "art_g", "art_b",
         "star_brightness", "star_nebula", "star_freq0", "star_freq1",
         "star_thr0", "star_thr1", "refine_band", "refine_pole_w",
-        "pole_scale",
-    )]
+        "pole_scale", "start_jitter",
+    )] + [("jet", _CJetParams)]
 
 
 def _c_static(st: RenderStatic) -> _CRenderStatic:
@@ -380,7 +568,11 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
         beam_k=beam_k, beam_n=beam_n, beam_neg=int(beam_neg),
         outer_k=outer_k, outer_n=outer_n, outer_neg=int(outer_neg),
         multistep=int(cfg.multistep), ab3_renorm_every=ab3_every,
-        ab3_tail_renorm=int(ab3_tail), refine_band=cfg.refine_band,
+        ab3_tail_renorm=int(ab3_tail), jets=int(st.jets),
+        nrs_on=int(st.nrs_on), overlay=int(st.overlay),
+        start_jitter=cfg.start_jitter,
+        jet=c_jet_params(st.jet_params if st.jets else None),
+        refine_band=cfg.refine_band,
         refine_pole_w=cfg.refine_pole_w,
         # fold_pole_metric's scale, in float64 then rounded once, as JAX
         # rounds the Python float.
@@ -409,7 +601,8 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
 def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
                          steps: torch.Tensor | None = None) -> torch.Tensor:
     """(3, H, W) float32 radiance from one parameter row, plus the band
-    plane as a fourth when ``st.cfg.refine_band`` > 0; ``steps``, if given,
+    plane as a fourth when ``st.cfg.refine_band`` > 0 (every branch of
+    ``RenderStatic``); ``steps``, if given,
     is an int32 (H, W) tensor on the row's device that receives each ray's
     march step count.
 

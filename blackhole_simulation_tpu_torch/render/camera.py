@@ -2,7 +2,8 @@
 
 Counterpart of ``blackhole_simulation_tpu/render/camera.py``: ``Camera``
 (:41), ``zamo_tetrad`` (:64), ``bl_to_ks_momentum`` (:89), ``pixel_grid``
-(:100), ``camera_rays_u`` (:134), ``camera_scalars`` (:193) and
+(:100), ``camera_rays_u`` (:134), ``camera_rays`` (:181, the theta-form
+(N, 8) rows the staged shadow overlay reads), ``camera_scalars`` (:193) and
 ``_momenta_from_ndc`` (:215). The camera sits at one point, so its tetrad is
 a handful of scalars:
 
@@ -90,7 +91,10 @@ def camera_scalars(camera: Camera, bh: Kerr):
     """(c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s) in float64: the
     KS-lowered ZAMO tetrad coefficient 4-vectors and the NDC scale and
     rotation. A pixel's covariant momentum is
-    c0 + n_r c_r + n_th c_th + n_ph c_ph for its unit direction n."""
+    c0 + n_r c_r + n_th c_th + n_ph c_ph for its unit direction n. k1 is
+    the float32 product of float32 tan(fov/2) and the aspect ratio, as the
+    JAX package forms it (the float64 product can differ in the last bit,
+    which the start offset's hash would turn into another offset)."""
     m, a = float(bh.mass), float(bh.spin)
     r0, th0 = camera.r, camera.theta
     aspect = camera.width / camera.height
@@ -101,7 +105,8 @@ def camera_scalars(camera: Camera, bh: Kerr):
         for v in zamo_tetrad(m, a, r0, th0)
     ]
     c0, c_r, c_th, c_ph = coeffs
-    return (c0, c_r, c_th, c_ph, half * aspect, half,
+    k1 = float(np.float32(half) * np.float32(aspect))
+    return (c0, c_r, c_th, c_ph, k1, half,
             math.cos(camera.roll), math.sin(camera.roll))
 
 
@@ -236,3 +241,22 @@ def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
         -(p[2] * inv) / s0,
         p[3] * inv,
     ])
+
+
+def camera_rays(camera: Camera, mass, spin, jitter=None) -> torch.Tensor:
+    """(H*W, 8) float32 theta-chart null-ray states (t, r, theta, phi, p_t,
+    p_r, p_theta, p_phi) in row-major pixel order, momenta not normalized,
+    on ``mass``'s device: the JAX package's legacy layout, which the staged
+    shadow overlay reads its conserved quantities from."""
+    dev = torch.as_tensor(mass).device
+    scalars = camera_scalars_t(camera, mass, spin)
+    nx, ny = pixel_grid(camera.width, camera.height, jitter, dev)
+    p = _momenta_from_ndc(scalars, nx.reshape(-1), ny.reshape(-1))
+    zero = torch.zeros_like(p[0])
+    return torch.stack([
+        zero,
+        zero + float(np.float32(camera.r)),
+        zero + float(np.float32(camera.theta)),
+        zero + float(np.float32(camera.phi)),
+        p[0], p[1], p[2], p[3],
+    ], dim=-1)

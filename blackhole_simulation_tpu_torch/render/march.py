@@ -11,7 +11,9 @@ its custom VJP ``_march_kernel_diff`` (:338-378), here a
 
 Both march entry points run the march kernel (``csrc/march.cu`` through
 ``ops/pallas_march.march_u``) for CUDA rays and its plain version for CPU
-rays; ``march_rows_ad``'s backward runs the gradient kernel
+rays. ``march_rows`` also takes the jets (the kernel's jets instantiation,
+with exact divides and the midpoint march, as the JAX package's jnp march
+runs them) and applies ``start_jitter``; ``march_rows_ad``'s backward runs the gradient kernel
 (``csrc/march_grad.cu`` through ``ops/march_grad.march_grad_kernel``) or its
 plain version likewise. ``approx_recip`` applies in the kernels when
 ``use_pallas`` is set, as the JAX package applies it in its Pallas kernels
@@ -117,6 +119,7 @@ class MarchRows:
     cross_t: torch.Tensor      # (K, N)
     n_crossings: torch.Tensor  # (N,) int32
     r_min_ph: torch.Tensor     # (N,)
+    jet_radiance: torch.Tensor  # (3, N), zeros without jets
 
 
 def refinement_config(cfg: MarchConfig) -> MarchConfig:
@@ -136,18 +139,15 @@ def refinement_config(cfg: MarchConfig) -> MarchConfig:
     )
 
 
-def _kernel_cfg(cfg: MarchConfig) -> MarchConfig:
+def _kernel_cfg(cfg: MarchConfig, jets=None) -> MarchConfig:
     """The approximate reciprocal and the AB3 march belong to the kernel
-    path (use_pallas); without it the march is the midpoint one with exact
-    divides, as the JAX package's jnp march is."""
-    if (cfg.approx_recip or cfg.multistep) and not cfg.use_pallas:
+    path (use_pallas without jets); otherwise the march is the midpoint one
+    with exact divides, as the JAX package's jnp march is (it takes every
+    march with jets, render/march.py:482)."""
+    if (cfg.approx_recip or cfg.multistep) and (
+            not cfg.use_pallas or jets is not None):
         return dataclasses.replace(cfg, approx_recip=False, multistep=False)
     return cfg
-
-
-def _refuse(cfg: MarchConfig) -> None:
-    if cfg.start_jitter > 0.0:
-        raise NotImplementedError("not ported yet: start_jitter")
 
 
 def precull_threshold(yt0: torch.Tensor, m, a, cfg: MarchConfig):
@@ -186,7 +186,6 @@ def _march_inputs(yt0, mass, spin, cfg, thr):
     from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_u
     from blackhole_simulation_tpu_torch.ops.pallas_march import normalize_pt
 
-    _refuse(cfg)
     dtype = yt0.dtype
     m = torch.as_tensor(mass, device=yt0.device).to(dtype)
     a = torch.as_tensor(spin, device=yt0.device).to(dtype)
@@ -199,16 +198,27 @@ def _march_inputs(yt0, mass, spin, cfg, thr):
 
 
 def march_rows(yt0: torch.Tensor, mass, spin, cfg: MarchConfig = MarchConfig(),
-               thr: torch.Tensor | None = None) -> MarchRows:
+               thr: torch.Tensor | None = None, jets=None) -> MarchRows:
     """Row-native march: (8, N) u-chart rows in (renormalized here),
     MarchRows out. ``mass``, ``spin``: 0-d tensors or numbers; ``thr``
-    overrides the per-ray termination radius. Not differentiable (see
-    march_rows_ad)."""
+    overrides the per-ray termination radius; ``jets`` (a ``JetParams``)
+    accumulates the jets' emission per step. With ``cfg.start_jitter`` > 0
+    each ray first advances by its hashed start offset
+    (``ops/march.py::start_offset_rows``, exact divides), after the null
+    projection, as the JAX package's march_rows does (:469-480). Not
+    differentiable (see march_rows_ad)."""
+    from blackhole_simulation_tpu_torch.ops.march import start_offset_rows
     from blackhole_simulation_tpu_torch.ops.pallas_march import march_u
 
     with torch.no_grad():
         yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
-        return MarchRows(*march_u(yt0, thr, m, a, r_h, r_ph, _kernel_cfg(cfg)))
+        if cfg.start_jitter > 0.0:
+            ot, orr, ou, oph, opr, opu, _ = start_offset_rows(
+                m, a, r_h, r_ph, cfg,
+                tuple(yt0[i] for i in (0, 1, 2, 3, 5, 6, 7)))
+            yt0 = torch.stack([ot, orr, ou, oph, yt0[4], opr, opu, yt0[7]])
+        return MarchRows(*march_u(yt0, thr, m, a, r_h, r_ph,
+                                  _kernel_cfg(cfg, jets), jets))
 
 
 class _MarchKernelDiff(torch.autograd.Function):
@@ -219,7 +229,7 @@ class _MarchKernelDiff(torch.autograd.Function):
     def forward(ctx, yt0, thr, m, a, r_h, r_ph, cfg):
         from blackhole_simulation_tpu_torch.ops.pallas_march import march_u
 
-        outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg)
+        outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg)[:8]
         ctx.cfg = cfg
         ctx.save_for_backward(yt0, thr, m, a, r_h, r_ph, outs[7])
         ctx.mark_non_differentiable(outs[1], outs[2], outs[6])
@@ -253,7 +263,9 @@ def march_rows_ad(yt0: torch.Tensor, mass, spin,
     """march_rows with a gradient: the march kernel forward, the gradient
     kernel backward (checkpoint and replay). Gradients flow to the rows and,
     through the radii, to mass and spin; the termination radii are
-    detached, as the JAX package's stop_gradient does.
+    detached, as the JAX package's stop_gradient does. Like the JAX
+    package's, it has no jets and ignores ``start_jitter``; its
+    ``jet_radiance`` is zeros.
 
     The AB3 march (``multistep`` with ``use_pallas``) is refused: the
     gradient kernel replays the midpoint march, so its gradient would be of
@@ -263,4 +275,5 @@ def march_rows_ad(yt0: torch.Tensor, mass, spin,
         raise NotImplementedError(
             "march_rows_ad: the AB3 march (multistep) has no gradient path")
     yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
-    return MarchRows(*_MarchKernelDiff.apply(yt0, thr, m, a, r_h, r_ph, cfg))
+    outs = _MarchKernelDiff.apply(yt0, thr, m, a, r_h, r_ph, cfg)
+    return MarchRows(*outs, torch.zeros_like(yt0[:3]))

@@ -3,18 +3,28 @@
 Counterpart of ``blackhole_simulation_tpu/render/pipeline.py``: ``Features``
 (:49), ``Scene`` (:87), ``ensure_spectral_coeffs`` (:131),
 ``halton_jitters`` (:181), ``shade_march_rows`` (:273),
-``refine_critical_band`` (:333), ``render_sample`` (:406; its fused branch
-:434-451 and its staged branch :452-518), ``render`` (:581) and
-``render_radiance`` (:600).
+``fused_path_active`` (:164), ``refine_critical_band`` (:333),
+``render_sample`` (:406; its fused branch :434-451 and its staged branch
+:452-518), ``render`` (:581, with the staged overlay of ``_render_jit``
+:557-575) and ``render_radiance`` (:600).
 
 A sample takes one of two branches, as in the JAX package:
 
 * fused (``use_pallas`` and ``fused``): one launch of the render kernel
   (``ops/render.py``, ``csrc/render.cu``) per Halton-jittered sample;
 * staged (otherwise): rays from ``camera_rays_u`` (in pixel-block order when
-  ``use_pallas``, row-major otherwise), the march kernel (``march_rows`` ->
-  ``csrc/march.cu``) and the composite ``shade_march_rows`` in plain
-  PyTorch on the device.
+  ``use_pallas`` and no jets, row-major otherwise), the NRS far-field skip
+  (``models/nrs.nrs_far_field_rows``, without jets), the march kernel
+  (``march_rows`` -> ``csrc/march.cu``, with the jets' emission in its
+  loop) and the composite ``shade_march_rows`` in plain PyTorch on the
+  device, then the NRS background of the far rays.
+
+Every feature runs on both branches. Where the JAX package's two branches
+differ, the port differs the same way: the fused kernel runs the NRS skip
+with jets on too; with ``start_jitter`` its NRS background is born from the
+offset u and phi but the camera's r, and its overlay reads the offset rays;
+the overlay is in the fused ``render_radiance`` and only in the staged
+``render``; refined pixels lose the fused overlay (ROADMAP Queue 3).
 
 With ``MarchConfig.refine_band`` > 0 (the certified render), either branch
 ends with the critical-band refinement pass: the pixels whose band metric
@@ -26,9 +36,6 @@ Samples are accumulated and tone-mapped on the device. The entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``, which selects the
 kernels' plain PyTorch versions. With no CUDA device and no explicit CPU
 request they raise; they never fall back to the CPU.
-
-Not ported yet (``render_sample`` raises NotImplementedError): jets,
-``start_jitter``, the NRS far field and the shadow overlay.
 """
 
 from __future__ import annotations
@@ -95,13 +102,18 @@ def scene_from_numpy(*, mass, spin, camera: dict, march_cfg: dict | None = None,
                      features: dict | None = None, disk: dict | None = None,
                      stars: dict | None = None, post: dict | None = None,
                      jet_params: dict | None = None,
-                     spectral_coeffs=None) -> Scene:
+                     spectral_coeffs=None, nrs_params=None) -> Scene:
     """Build the port's Scene from a JAX Scene's leaves and static fields
     given as plain numbers and numpy arrays: ``mass`` and ``spin``; the
     camera's r/theta/phi/fov/roll/width/height; and each static dataclass
     (MarchConfig, Features, DiskParams, StarfieldParams, PostParams,
     JetParams) as a dict of its fields (``dataclasses.asdict``). The
-    ``spectral_coeffs`` tables, if given, are used as they are."""
+    ``spectral_coeffs`` tables, if given, are used as they are;
+    ``nrs_params``, the NRS weights as (w, b) arrays, go through
+    ``models/nrs.nrs_params_from_numpy``."""
+    from blackhole_simulation_tpu_torch.models.nrs import (
+        nrs_params_from_numpy,
+    )
 
     def make(cls, fields):
         if fields is None:
@@ -131,6 +143,8 @@ def scene_from_numpy(*, mass, spin, camera: dict, march_cfg: dict | None = None,
         march_cfg=make(MarchConfig, march_cfg),
         post=make(PostParams, post),
         spectral_coeffs=spectral_coeffs,
+        nrs_params=(None if nrs_params is None
+                    else nrs_params_from_numpy(nrs_params)),
     )
     return ensure_spectral_coeffs(scene)
 
@@ -181,40 +195,33 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _check_slice(scene: Scene, cfg: MarchConfig) -> None:
-    """Refuse what the port does not run yet."""
-    feats = scene.features
-    missing = []
-    if feats.jets:
-        missing.append("jets")
-    if cfg.start_jitter > 0.0:
-        missing.append("start_jitter")
-    if feats.nrs_far_field and scene.nrs_params is not None:
-        missing.append("the NRS far field")
-    if feats.shadow_overlay:
-        missing.append("the shadow overlay")
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(missing)
-        )
+def fused_path_active(scene: Scene) -> bool:
+    """True when ``render_sample`` takes the fused branch, whose kernel
+    draws the shadow overlay itself (so ``render`` does not draw it
+    again)."""
+    return scene.march_cfg.use_pallas and scene.march_cfg.fused
+
+
+def precull_config(scene: Scene, cfg: MarchConfig) -> MarchConfig:
+    """render_sample's precull adjustment: jets accumulate emission all the
+    way to the horizon, so they turn the precull off; the disk decides
+    whether culled rays keep marching to the ISCO."""
+    if not cfg.shadow_precull:
+        return cfg
+    return dataclasses.replace(cfg, shadow_precull=not scene.features.jets,
+                               precull_keep_disk=scene.features.disk)
 
 
 def kernel_inputs(scene: Scene, jitter, device):
     """The render kernel's inputs for one sample: the parameter row on
-    ``device`` and the static configuration. Raises NotImplementedError for
-    what this slice does not run."""
+    ``device`` and the static configuration."""
     from blackhole_simulation_tpu_torch.ops.render import (
         RenderStatic,
         build_param_row,
+        nrs_active,
     )
 
-    cfg = scene.march_cfg
-    _check_slice(scene, cfg)
-    if cfg.shadow_precull:
-        cfg = dataclasses.replace(
-            cfg, shadow_precull=not scene.features.jets,
-            precull_keep_disk=scene.features.disk,
-        )
+    cfg = precull_config(scene, scene.march_cfg)
     scene_f = dataclasses.replace(scene, march_cfg=cfg)
     row = torch.from_numpy(build_param_row(scene_f, jitter)).to(device)
     feats = scene.features
@@ -223,6 +230,8 @@ def kernel_inputs(scene: Scene, jitter, device):
         starfield=feats.starfield, glow=feats.photon_ring_glow,
         disk=scene.disk, stars=scene.stars,
         width=scene.camera.width, height=scene.camera.height,
+        jets=feats.jets, jet_params=scene.jet_params,
+        overlay=feats.shadow_overlay, nrs_on=nrs_active(scene),
     )
     return row, st
 
@@ -230,7 +239,8 @@ def kernel_inputs(scene: Scene, jitter, device):
 def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
                      intensity_scale=1.0):
     """The staged composite: disk crossings front to back, the starfield
-    behind escaped rays, and the photon-ring glow, as (r, g, b) rows.
+    behind escaped rays, the jets' radiance and the photon-ring glow, as
+    (r, g, b) rows.
     ``rows``: MarchRows; ``m``, ``a``: 0-dim float32 tensors; ``lam``: the
     (N,) conserved impact parameter L_z/E. Differentiable (autograd)."""
     from blackhole_simulation_tpu_torch._elementwise import div_c, maximum
@@ -265,6 +275,8 @@ def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
                             params=scene.stars)
         w_bg = torch.where(escaped, trans, 0.0)
         rgb = tuple(c + w_bg * b for c, b in zip(rgb, bg))
+    if feats.jets:
+        rgb = tuple(c + j for c, j in zip(rgb, rows.jet_radiance))
     if feats.photon_ring_glow:
         r_ph = photon_sphere_t(m, a)
         near = torch.exp(-14.0 * rows.r_min_ph / maximum(r_ph, 1e-3))
@@ -354,7 +366,8 @@ def refine_critical_band(scene: Scene, cfg: MarchConfig, jitter,
     m, a = _mass_spin(scene, band.device)
     rays = camera_rays_u(scene.camera, m, a, pix_ids=torch.clamp(sel, max=n - 1),
                          jitter=jitter)
-    rows = march_rows(rays, m, a, refinement_config(cfg))
+    jets = scene.jet_params if scene.features.jets else None
+    rows = march_rows(rays, m, a, refinement_config(cfg), jets=jets)
     rgb_f = shade_march_rows(rows, m, a, scene, conserved_lam(rays))
     # Column n catches the out-of-band entries and is cut off.
     out = torch.cat([rgb, rgb.new_zeros((3, 1))], dim=1)
@@ -364,32 +377,53 @@ def refine_critical_band(scene: Scene, cfg: MarchConfig, jitter,
 
 def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
     """The staged branch: (3, H, W) float32 radiance planes."""
+    from blackhole_simulation_tpu_torch.models.nrs import nrs_far_field_rows
     from blackhole_simulation_tpu_torch.ops.pallas_march import (
         from_block_order,
         to_block_order,
     )
+    from blackhole_simulation_tpu_torch.ops.render import (
+        nrs_active,
+        nrs_b_min,
+    )
     from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
-    from blackhole_simulation_tpu_torch.render.march import march_rows
+    from blackhole_simulation_tpu_torch.render.march import (
+        march_rows,
+        precull_threshold,
+    )
     from blackhole_simulation_tpu_torch.render.precull import (
         critical_band_metric_u,
     )
+    from blackhole_simulation_tpu_torch.render.shading import starfield_rows
 
     h, w = scene.camera.height, scene.camera.width
     m, a = _mass_spin(scene, device)
-    ids = None
-    if cfg.use_pallas:
-        ids = to_block_order(torch.arange(h * w, device=device), h, w)
+    jets = scene.jet_params if scene.features.jets else None
+    block = cfg.use_pallas and jets is None
+    ids = to_block_order(torch.arange(h * w, device=device), h, w) \
+        if block else None
     rays = camera_rays_u(scene.camera, m, a, pix_ids=ids, jitter=jitter)
-    rows = march_rows(rays, m, a, cfg)
+    # The NRS skip, without jets only (the fused kernel runs it with jets
+    # too, pipeline.py:467-471 against pallas_render.py:595).
+    nrs_on = nrs_active(scene) and jets is None
+    thr = None
+    if nrs_on:
+        far, far_dirs = nrs_far_field_rows(scene.nrs_params, rays, m, a,
+                                           b_min=nrs_b_min(scene))
+        thr = torch.where(far, 1e9, precull_threshold(rays, m, a, cfg))
+    rows = march_rows(rays, m, a, cfg, thr=thr, jets=jets)
     rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays))
-    if cfg.use_pallas:
+    if nrs_on and scene.features.starfield:
+        bg_far = starfield_rows(*far_dirs, params=scene.stars)
+        rgb = tuple(torch.where(far, b_, c) for c, b_ in zip(rgb, bg_far))
+    if block:
         rgb = tuple(from_block_order(c, h, w) for c in rgb)
     rgb = torch.stack(rgb)
     if cfg.refine_band > 0.0:
         # The band metric of the born rays, in row order.
         band = critical_band_metric_u(m, a, rays, cfg.refine_band,
                                       cfg.refine_pole_w)
-        if cfg.use_pallas:
+        if block:
             band = from_block_order(band, h, w)
         rgb = refine_critical_band(scene, cfg, jitter, rgb, band)
     return rgb.reshape(3, h, w)
@@ -399,29 +433,25 @@ def render_sample(scene: Scene, jitter, device) -> torch.Tensor:
     """One jittered sub-sample: (3, H, W) float32 linear radiance planes."""
     from blackhole_simulation_tpu_torch.ops.render import render_planes_kernel
 
-    cfg = scene.march_cfg
-    if cfg.use_pallas and cfg.fused:
+    if fused_path_active(scene):
         row, st = kernel_inputs(scene, jitter, device)
         planes = render_planes_kernel(row, st)
-        if cfg.refine_band <= 0.0:
+        if st.cfg.refine_band <= 0.0:
             return planes
         h, w = st.height, st.width
         rgb = refine_critical_band(scene, st.cfg, jitter,
                                    planes[:3].reshape(3, h * w),
                                    planes[3].reshape(h * w))
         return rgb.reshape(3, h, w)
-    _check_slice(scene, cfg)
-    if cfg.shadow_precull:
-        cfg = dataclasses.replace(
-            cfg, shadow_precull=not scene.features.jets,
-            precull_keep_disk=scene.features.disk,
-        )
-    return _staged_sample(scene, cfg, jitter, device)
+    return _staged_sample(scene, precull_config(scene, scene.march_cfg),
+                          jitter, device)
 
 
 def render(scene: Scene, n_samples: int = 1, device=None) -> torch.Tensor:
     """Render the scene to a tone-mapped (H, W, 3) float32 image: the mean
-    of ``n_samples`` Halton-jittered samples, then ``tonemap``."""
+    of ``n_samples`` Halton-jittered samples, the shadow overlay (on the
+    staged branch; the fused kernel draws it per sample), then
+    ``tonemap``."""
     device = resolve_device(device)
     scene = ensure_spectral_coeffs(scene)
     if n_samples == 1:
@@ -432,7 +462,26 @@ def render(scene: Scene, n_samples: int = 1, device=None) -> torch.Tensor:
             s = render_sample(scene, jit, device)
             acc = s if acc is None else acc + s
         acc = acc / n_samples
-    return tonemap(acc.permute(1, 2, 0), scene.post)
+    img = acc.permute(1, 2, 0)
+    if scene.features.shadow_overlay and not fused_path_active(scene):
+        img = _staged_overlay(scene, img, device)
+    return tonemap(img, scene.post)
+
+
+def _staged_overlay(scene: Scene, img: torch.Tensor, device) -> torch.Tensor:
+    """The analytic critical curve over the (H, W, 3) radiance, from the
+    unjittered theta-form camera rays, with a line ~1.5 pixels of impact
+    parameter wide and at least 0.06 M (pipeline.py:557-575)."""
+    from blackhole_simulation_tpu_torch.render.camera import camera_rays
+    from blackhole_simulation_tpu_torch.render.overlay import shadow_overlay
+
+    cam = scene.camera
+    m, a = _mass_spin(scene, device)
+    pix_b = float(np.float32(cam.fov / cam.height * cam.r))
+    width = torch.maximum(0.06 * m, 1.5 * torch.full_like(m, pix_b))
+    out = shadow_overlay(img.reshape(-1, 3), camera_rays(cam, m, a), m, a,
+                         cam.theta, line_width=width)
+    return out.reshape(img.shape)
 
 
 def render_radiance(scene: Scene, device=None) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Counterpart of ``blackhole_simulation_tpu/render/shading.py``. These are the
 plain PyTorch versions of what the render kernel (``csrc/render.cu``)
 computes per pixel, and the staged path's composite (``shade_crossings_rows``
-:702, ``disk_emission_cheb_rows`` :562), written expression for expression like the JAX twins so
+:702, ``disk_emission_cheb_rows`` :562), and the march's per-step jet
+emission (``jet_emission_step`` :782), written expression for expression
+like the JAX twins so
 that rounding matches: the same operation order, float32 throughout, scalar
 inputs (mass, spin, ISCO radius) as 0-dim float32 tensors, and constants
 rounded to float32 where the JAX code rounds them.
@@ -27,7 +29,9 @@ from blackhole_simulation_tpu_torch._elementwise import (
     const,
     cos,
     div_c,
+    exp,
     maximum,
+    pow_,
     sin,
     sqrt,
 )
@@ -58,8 +62,8 @@ class DiskParams:
 
 @dataclasses.dataclass(frozen=True)
 class JetParams:
-    """Relativistic jet cones along the spin axis. The jets are not in this
-    slice of the port: the dataclass exists so ``Scene`` has the JAX fields."""
+    """Relativistic jet cones along the spin axis: optically thin emission
+    that the march accumulates per step (``jet_emission_step``)."""
 
     beta: float = 0.92
     beaming_exponent: float = 3.5
@@ -69,6 +73,12 @@ class JetParams:
     z_max: float = 24.0
     density: float = 0.012
     turbulence: float = 0.5
+
+    @property
+    def gamma(self) -> float:
+        """The bulk Lorentz factor, in float64 (the JAX twin forms it from
+        Python floats and rounds it to float32 where it meets a row)."""
+        return 1.0 / math.sqrt(1.0 - self.beta * self.beta)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -395,6 +405,42 @@ def shade_crossings_rows(m, a, r_in, disk: DiskParams, cross_r, cross_phi,
         rgb = tuple(acc + w * c for acc, c in zip(rgb, c_rgb))
         trans = torch.where(on, trans * (1.0 - c_alpha), trans)
     return rgb, trans
+
+
+# ---------------------------------------------------------------------------
+# Jets
+# ---------------------------------------------------------------------------
+
+def jet_emission_step(jets: JetParams, r, st, ct, ph, dr, dth, dph, dlam):
+    """One march step's optically thin jet sample, (r, g, b) rows: cone
+    test, Gaussian radial profile, one noise octave and Doppler beaming
+    against the ray's direction (dr, dth, dph per unit affine parameter).
+    ``st``, ``ct``: sin and cos of theta. The JAX twin's expressions in its
+    order; exp and the beaming power go through float64 (as in the
+    kernels), ``jnp.mod`` is a floor-mod and ``jnp.sign`` is 0 at 0."""
+    z = r * ct
+    rho = torch.abs(r * st)
+    az = torch.abs(z)
+    cone_r = jets.core_radius + jets.opening_slope * az
+    in_cone = (az > jets.z_min) & (az < jets.z_max) & (rho < 2.5 * cone_r)
+    q = rho / maximum(cone_r, 1e-3)
+    profile = exp(-(q * q))
+
+    v_z = dr * ct - r * st * dth
+    v_rho = dr * st + r * ct * dth
+    v_ph = r * st * dph
+    v_mag = sqrt(v_z * v_z + v_rho * v_rho + v_ph * v_ph + 1e-12)
+    cos_psi = -torch.sign(z) * v_z / v_mag
+    gamma = float(np.float32(jets.gamma))
+    delta = 1.0 / (gamma * (1.0 - jets.beta * clip(cos_psi, -1.0, 1.0)))
+    beam = pow_(delta, jets.beaming_exponent)
+
+    noise = value_noise2(
+        az * 0.8, torch.remainder(ph, const(ph, TWO_PI)) * 2.0 + az)
+    turb = (1.0 - jets.turbulence) + jets.turbulence * (0.5 + noise)
+    mag = torch.where(in_cone, jets.density * dlam * profile * turb * beam,
+                      0.0)
+    return 0.62 * mag, 0.74 * mag, mag
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check it: the flagship render,
-the staged render, the inverse-rendering (training) step, the AB3 march and
-the certified (critical-band refined) render.
+the staged render, the inverse-rendering (training) step, the AB3 march,
+the certified (critical-band refined) render and the full-featured render
+(jets, start jitter, the NRS far field, the shadow overlay).
 
     python3 chip_smoke.py
 
@@ -90,6 +91,29 @@ printing a result line:
    kernel's band plane, as the certified render picks them; and
    the staged-refined against the fused-refined render at 480x270
    (test_fused.py:188-196's config, p99 |d| < 1e-3).
+10. The full-featured render. (a) The render kernel against
+   ``render_planes`` at 250x141, 48 steps, exact divides, a = 0.9, for
+   each new branch alone (jets, ``start_jitter=0.5``, the NRS far field at
+   fov 1.0 with the port's seeded ``nrs_init(0)`` weights, the shadow
+   overlay) and all four together: p99 |d| < 1e-4, mean < 1e-5, the max
+   printed (bit-equal is the aim). (b) The march kernel's jets
+   instantiation against ``march_u_plain`` there: integers identical,
+   states and records |d| < 1e-4, jet rows rel < 1e-5. (c) The staged
+   against the fused render for each feature at 480x270 (the flagship
+   MarchConfig at exact divides; the overlay through ``render()``, the
+   staged branch drawing it there): p99 |d| < 1e-4, mean < 5e-5.
+   (d) ``render()`` at 1920x1080 of ``scene_from_params(SimulationParams(
+   enable_jets=True), 1920, 1080)`` (the ``cli render --set enable_jets=1``
+   scene): median of 30 CUDA-event frames with min and max, the kernel
+   alone, its steps, registers and spills, and the bound with the jets'
+   operations; then the same for the full-featured 1080p scene (jets,
+   ``start_jitter=0.5``, the overlay and the NRS far field, at fov 1.2 so
+   that rays lie beyond b_min), and the staged jets render at 1080p, whose
+   march kernel (jets instantiation) is timed alone on its recorded
+   arguments. (e) The flagship instantiations keep their registers (render
+   56 / 0, march 60 / 0), phase 4's kernel stays within 5% of PR 3's
+   spread and its frame within 1.25x of it (the frame is mostly host work
+   and tonemap, which vary with the host the card shares).
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -115,6 +139,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from blackhole_simulation_tpu_torch.configs import (  # noqa: E402
+    SimulationParams,
+    scene_from_params,
+)
+from blackhole_simulation_tpu_torch.models.nrs import (  # noqa: E402
+    nrs_far_field_rows,
+    nrs_init,
+)
 from blackhole_simulation_tpu_torch.ops import build as kbuild  # noqa: E402
 from blackhole_simulation_tpu_torch.ops.march_grad import (  # noqa: E402
     march_grad,
@@ -155,6 +187,9 @@ from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
     render_radiance,
 )
 from blackhole_simulation_tpu_torch.render.post import tonemap  # noqa: E402
+from blackhole_simulation_tpu_torch.render.shading import (  # noqa: E402
+    JetParams,
+)
 from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
     critical_band_metric_u,
 )
@@ -188,6 +223,31 @@ OPS_PER_STEP_AB3 = 245
 # The band plane's metric (and the pole fold, when on) per pixel, beside
 # the precull's Chebyshev sum already in OPS_PER_PIXEL.
 OPS_PER_PIXEL_BAND = 12
+# The jets' term of one march step, counted the same way: the step's
+# direction (dr, dtheta, dphi from 1/dlam, ~12), the cone test and profile
+# (~14, exp as one), the direction cosine and beaming (~25, pow as one),
+# one value-noise octave (four lattice hashes of ~20 and the blend, ~95),
+# the turbulence, the magnitude and the three sums (~15).
+OPS_PER_STEP_JETS = 160
+# Per pixel: the start offset (one midpoint step and its hash, ~365), the
+# overlay (64 segments of ~21 and the prologue, ~1365) and the NRS skip
+# test (~8); per far pixel the NRS background (the MLP's ~1,200 multiplies
+# and adds and 48 tanh, the birth direction, the rotation and the
+# starfield, ~1,500).
+OPS_PER_PIXEL_JITTER = 365
+OPS_PER_PIXEL_OVERLAY = 1365
+OPS_PER_PIXEL_NRS = 8
+OPS_PER_FAR_PIXEL = 1500
+# The flagship instantiations' registers and spills, as PR 3 read them
+# (render.cu midpoint, march.cu midpoint), and the spread of PR 3's
+# phase-4 frames (ms, H100 80GB HBM3 at 700 W): a later slice keeps both.
+FLAGSHIP_REGISTERS = {"render.cu": (56, 0), "march.cu": (60, 0)}
+FLAGSHIP_FRAME_SPREAD_MS = (6.131, 6.814)
+FLAGSHIP_KERNEL_SPREAD_MS = (1.349, 1.366)
+# The frame is ~80% host work and tonemap, which vary with the host the
+# card shares; the kernel alone does not. The frame may exceed PR 3's
+# spread by this factor, the kernel by 5%.
+FRAME_SLACK = 1.25
 # The gradient kernel's least work per live march step, in march steps: the
 # checkpointing replay, the block's re-forward, and one reverse-mode VJP of
 # the step at about three times the step's operations (a transposed
@@ -427,7 +487,8 @@ def render_kernel_entry(scene, launches, ops_per_step, ops_per_pixel,
         "max_abs_err": s["max_abs"], "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "p99_abs": s["p99_abs"], "mean_abs": s["mean_abs"],
-        "steps_per_ray": total_steps / n_pix, **extra,
+        "steps_per_ray": total_steps / n_pix, "steps_sum": total_steps,
+        **extra,
     }
     return entry, s, k, st
 
@@ -776,7 +837,7 @@ def march_entry(name_note, launches, args, plain_args, ops_per_step, **extra):
     cmp = march_compare(k, p)
     n_rays = int(out[0].shape[1])
     steps = out[2].long()
-    k_slots = args[-1].max_crossings
+    k_slots = args[6].max_crossings
     bound_ms, bound_by = bound(ops_per_step * int(steps.sum()),
                                4 * n_rays * (9 + 8 + 3 + 3 * k_slots + 1))
     return cmp, dict(
@@ -838,7 +899,7 @@ def phase_ab3(flagship):
     n_pix = width * height
     scene = flagship_scene(width, height, cfg=ab3)
     (frame_ms, frame_min, frame_max), launches = render_frames(scene)
-    regs = registers("render.cu", "ILb1E")
+    regs = registers("render.cu", "ILi1ELb0E")
     render_entry, d, _, _ = render_kernel_entry(
         scene, launches["render"], OPS_PER_STEP_AB3, OPS_PER_PIXEL, 12,
         "blackhole_simulation_tpu/ops/pallas_march.py:428",
@@ -853,7 +914,7 @@ def phase_ab3(flagship):
           f"{render_entry['ms']:.3f} ms (midpoint {flagship['ms']:.3f}); "
           f"steps/ray {render_entry['steps_per_ray']:.2f} (midpoint "
           f"{flagship['steps_per_ray']:.2f}); registers/spill {regs} "
-          f"(midpoint {registers('render.cu', 'ILb0E')}); vs plain {d}")
+          f"(midpoint {registers('render.cu', 'ILi0ELb0E')}); vs plain {d}")
 
     # The staged AB3 render at 1080p: its march-kernel launches, and the
     # kernel alone on the recorded arguments.
@@ -877,13 +938,13 @@ def phase_ab3(flagship):
     mid_steps = mid_out[2].float().mean()
     cmp, march_e = march_entry(
         "staged render() with multistep (AB3)", launches, args, plain_args,
-        OPS_PER_STEP_AB3, registers_spill=list(registers("march.cu", "ILb1E")),
+        OPS_PER_STEP_AB3, registers_spill=list(registers("march.cu", "ILi1E")),
         midpoint_ms=mid_ms, midpoint_steps_per_ray=float(mid_steps))
     print(f"1080p AB3 march kernel {march_e['ms']:.3f} ms, "
           f"{march_e['steps_per_ray']:.2f} steps/ray, registers/spill "
           f"{march_e['registers_spill']}; the midpoint march kernel on the "
           f"same rays {mid_ms:.3f} ms, {float(mid_steps):.2f} steps/ray, "
-          f"{registers('march.cu', 'ILb0E')}; vs plain at exact divides "
+          f"{registers('march.cu', 'ILi0E')}; vs plain at exact divides "
           f"{cmp}")
     if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
         raise AssertionError(f"1080p AB3 march kernel vs plain failed: {cmp}")
@@ -1052,6 +1113,204 @@ def phase_refined_staged_vs_fused():
     return out
 
 
+# Phase 10: each new branch of the render kernel alone and all four
+# together: (Features overrides, MarchConfig overrides, fov).
+BRANCHES = {
+    "jets": (dict(jets=True), {}, 0.5),
+    "start_jitter": ({}, dict(start_jitter=0.5), 0.5),
+    "nrs": (dict(nrs_far_field=True), {}, 1.0),
+    "overlay": (dict(shadow_overlay=True), {}, 0.5),
+    "all": (dict(jets=True, shadow_overlay=True, nrs_far_field=True),
+            dict(start_jitter=0.5), 1.0),
+}
+
+
+def branch_scene(name, width, height, cfg, spin=0.9):
+    feats, over, fov = BRANCHES[name]
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=fov,
+                        width=width, height=height)
+    scene = Scene.create(mass=1.0, spin=spin, camera=cam,
+                         march_cfg=dataclasses.replace(cfg, **over),
+                         features=Features(**feats))
+    if feats.get("nrs_far_field"):
+        scene = dataclasses.replace(scene, nrs_params=nrs_init(0, DEV))
+    return scene
+
+
+def phase_features_parity():
+    """Phase 10 (a)-(c): each branch in the render kernel and the jets in
+    the march kernel against their plain versions, and the staged against
+    the fused render per feature."""
+    cfg = dataclasses.replace(FLAGSHIP_CFG, max_steps=48, approx_recip=False)
+    out = {}
+    for name in BRANCHES:
+        row, st = kernel_inputs(branch_scene(name, 250, 141, cfg), None, DEV)
+        s = diff_stats(render_planes_kernel(row, st), render_planes(row, st))
+        s["bit_equal"] = s["max_abs"] == 0.0
+        print(f"render kernel vs plain, {name} (250x141, 48 steps): {s}")
+        if not (s["p99_abs"] < 1e-4 and s["mean_abs"] < 1e-5):
+            raise AssertionError(f"render kernel {name} vs plain: {s}")
+        out[f"render_{name}"] = s
+
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.9)
+    mcfg = dataclasses.replace(cfg, fused=False, shadow_precull=False)
+    with torch.no_grad():
+        args = _march_inputs(camera_rays_u(_camera(250, 141), m, a), m, a,
+                             mcfg, None)
+        k = march_u(*args, mcfg, JetParams())
+        p = march_u_plain(*args, mcfg, JetParams())
+    torch.cuda.synchronize()
+    s = march_compare(k, p)
+    s["jet_rel"] = float(((k[8] - p[8]).abs() / (p[8].abs() + 1e-12)).max())
+    s["jet_max"] = float(p[8].max())
+    print(f"jets march kernel vs plain (250x141, 48 steps): {s}")
+    if not (s["frac_int_differ"] == 0.0 and s["max_abs"] < 1e-4
+            and s["jet_rel"] < 1e-5 and s["jet_max"] > 1e-3):
+        raise AssertionError(f"jets march kernel vs plain: {s}")
+    out["march_jets"] = s
+
+    scfg = dataclasses.replace(FLAGSHIP_CFG, approx_recip=False)
+    for name in ("jets", "start_jitter", "nrs", "overlay"):
+        fused = branch_scene(name, 480, 270, scfg, spin=0.999)
+        staged = dataclasses.replace(fused, march_cfg=dataclasses.replace(
+            fused.march_cfg, fused=False))
+        fn = render if name == "overlay" else render_radiance
+        march_u.launches = 0
+        ia = fn(staged, device=DEV)
+        torch.cuda.synchronize()
+        launches = march_u.launches
+        d = (ia - fn(fused, device=DEV)).abs()
+        st = {"p99_abs": float(torch.quantile(d.flatten().double(), 0.99)),
+              "mean_abs": float(d.mean()), "max_abs": float(d.max()),
+              "march_launches": launches}
+        print(f"staged vs fused, {name} (480x270, 256 steps): {st}")
+        if not (launches >= 1 and bool(torch.isfinite(ia).all())
+                and st["p99_abs"] < 1e-4 and st["mean_abs"] < STAGED_MEAN_BAR):
+            raise AssertionError(f"staged vs fused {name}: {st}")
+        out[f"staged_{name}"] = st
+    return out
+
+
+def full_featured_scene(width, height):
+    """The full-featured 1080p scene: ``cli render --set enable_jets=1``
+    with fov 1.2 (so that rays lie beyond b_min), ``start_jitter=0.5``,
+    the shadow overlay and the NRS far field on the port's seeded weights."""
+    scene = scene_from_params(SimulationParams(enable_jets=True, fov=1.2),
+                              width, height)
+    return dataclasses.replace(
+        scene, nrs_params=nrs_init(0, DEV),
+        features=dataclasses.replace(scene.features, shadow_overlay=True,
+                                     nrs_far_field=True),
+        march_cfg=dataclasses.replace(scene.march_cfg, start_jitter=0.5))
+
+
+def far_pixels(scene):
+    """The pixels beyond the NRS threshold (b is conserved, so the camera
+    rays' count is the kernel's)."""
+    from blackhole_simulation_tpu_torch.ops.render import nrs_b_min
+
+    m, a = _cuda_scalar(scene.bh.mass), _cuda_scalar(scene.bh.spin)
+    far, _ = nrs_far_field_rows(scene.nrs_params,
+                                camera_rays_u(scene.camera, m, a), m, a,
+                                b_min=nrs_b_min(scene))
+    return int(far.sum())
+
+
+def phase_full_featured(flagship):
+    """Phase 10 (d)-(e)."""
+    width, height = 1920, 1080
+    n_pix = width * height
+    entries, info = [], {}
+    for name, scene, marker in (
+            ("jets", scene_from_params(SimulationParams(enable_jets=True),
+                                       width, height), "ILi2ELb0E"),
+            ("full-featured", full_featured_scene(width, height),
+             "ILi2ELb1E")):
+        (frame_ms, frame_min, frame_max), launches = render_frames(scene)
+        if launches["render"] != 30:
+            raise AssertionError(f"{name} frames' launches: {launches}")
+        per_pixel = OPS_PER_PIXEL
+        n_far = 0
+        if name == "full-featured":
+            n_far = far_pixels(scene)
+            per_pixel += (OPS_PER_PIXEL_JITTER + OPS_PER_PIXEL_OVERLAY
+                          + OPS_PER_PIXEL_NRS)
+        regs = registers("render.cu", marker)
+        entry, d, _, _ = render_kernel_entry(
+            scene, launches["render"], OPS_PER_STEP + OPS_PER_STEP_JETS,
+            per_pixel, 12, "blackhole_simulation_tpu/ops/pallas_render.py:140",
+            path=f"{name} render() at 1920x1080", frame_ms=frame_ms,
+            frame_ms_min_max=[frame_min, frame_max],
+            mrays_per_s=n_pix / frame_ms / 1e3, registers_spill=list(regs),
+            far_pixels=n_far)
+        if n_far:
+            # the far pixels' NRS background, on top of the per-pixel count
+            extra, _ = bound(OPS_PER_FAR_PIXEL * n_far, 0)
+            entry["bound_ms"] += extra
+        print(f"{name} render() 1920x1080: {frame_ms:.3f} ms/frame median of "
+              f"30 (min {frame_min:.3f}, max {frame_max:.3f}), "
+              f"{entry['mrays_per_s']:.1f} Mrays/s; kernel {entry['ms']:.3f} "
+              f"ms, bound {entry['bound_ms']:.3f} ms; steps/ray "
+              f"{entry['steps_per_ray']:.2f}, sum {entry['steps_sum']}; far "
+              f"pixels {n_far}; registers/spill {regs}; vs plain {d}")
+        info[name] = {k: entry[k] for k in (
+            "frame_ms", "frame_ms_min_max", "ms", "bound_ms", "steps_per_ray",
+            "steps_sum", "registers_spill", "far_pixels")}
+        entries.append(entry)
+
+    # The staged jets render: the march kernel's jets instantiation, timed
+    # alone on the arguments it received.
+    scene = scene_from_params(SimulationParams(enable_jets=True), width,
+                              height)
+    staged = dataclasses.replace(scene, march_cfg=dataclasses.replace(
+        scene.march_cfg, fused=False))
+    march_u.launches = 0
+    march_u.record = []
+    frames = 3
+    for _ in range(frames):
+        img = render(staged)
+    torch.cuda.synchronize()
+    args, march_u.record = march_u.record[0], None
+    launches = march_u.launches
+    if launches < frames or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"staged jets render: {launches} march launches")
+    if args[7] is None or args[6].approx_recip:
+        raise AssertionError("the staged jets march took no jets")
+    cmp, march_e = march_entry(
+        "staged jets render() at 1920x1080", launches, args, args,
+        OPS_PER_STEP + OPS_PER_STEP_JETS,
+        registers_spill=list(registers("march.cu", "ILi2E")))
+    print(f"1080p jets march kernel {march_e['ms']:.3f} ms, "
+          f"{march_e['steps_per_ray']:.2f} steps/ray, registers/spill "
+          f"{march_e['registers_spill']}; vs plain {cmp}")
+    if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
+        raise AssertionError(f"1080p jets march kernel vs plain: {cmp}")
+    entries.append(march_e)
+
+    # (e) the flagship instantiations and frame.
+    kept = {"render.cu": registers("render.cu", "ILi0ELb0E"),
+            "march.cu": registers("march.cu", "ILi0E")}
+    lo, hi = FLAGSHIP_FRAME_SPREAD_MS
+    klo, khi = FLAGSHIP_KERNEL_SPREAD_MS
+    info["flagship"] = {"registers_spill": kept,
+                        "frame_ms": flagship["frame_ms"],
+                        "kernel_ms": flagship["ms"],
+                        "pr3_frame_spread_ms": [lo, hi],
+                        "pr3_kernel_spread_ms": [klo, khi]}
+    print(f"flagship instantiations' registers/spill {kept} (PR 3: "
+          f"{FLAGSHIP_REGISTERS}); phase 4 frame {flagship['frame_ms']:.3f} "
+          f"ms (PR 3's spread {lo}-{hi} ms), kernel {flagship['ms']:.3f} ms "
+          f"(PR 3's {klo}-{khi} ms)")
+    if kept != FLAGSHIP_REGISTERS:
+        raise AssertionError(f"flagship registers changed: {kept}")
+    if not (flagship["frame_ms"] < hi * FRAME_SLACK
+            and flagship["ms"] < khi * 1.05):
+        raise AssertionError(f"flagship frame {flagship['frame_ms']} ms / "
+                             f"kernel {flagship['ms']} ms above PR 3's "
+                             f"spread {lo}-{hi} / {klo}-{khi} ms")
+    return info, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1073,6 +1332,9 @@ def main() -> int:
     print(f"AB3: {json.dumps(ab3)}")
     certified, certified_kernels = phase_certified()
     print(f"certified: {json.dumps(certified)}")
+    features = phase_features_parity()
+    full, full_kernels = phase_full_featured(kernel)
+    print(f"features: {json.dumps({'parity': features, **full})}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1081,7 +1343,7 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s total")
     print(smi)
     print(json.dumps({"kernels": [kernel, *kernels, *certified_kernels,
-                                  *ab3_kernels, peak]}))
+                                  *ab3_kernels, *full_kernels, peak]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

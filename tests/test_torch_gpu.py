@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: the render, march and gradient kernels
-(with the band plane and the AB3 march) and the FP32 peak probe against
-their plain PyTorch versions, and through the port's entry points (render,
-the staged and the certified render, the training step).
+(with the band plane, the AB3 march, the jets, the start offset, the NRS far
+field and the shadow overlay) and the FP32 peak probe against their plain
+PyTorch versions, and through the port's entry points (render, the staged,
+the certified and the full-featured render, the training step).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -17,6 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from blackhole_simulation_tpu_torch.configs import (
+    SimulationParams,
+    scene_from_params,
+)
+from blackhole_simulation_tpu_torch.models.nrs import nrs_init
 from blackhole_simulation_tpu_torch.ops.march_grad import (
     march_grad,
     march_grad_kernel,
@@ -48,6 +54,7 @@ from blackhole_simulation_tpu_torch.render.pipeline import (
 from blackhole_simulation_tpu_torch.render.precull import (
     critical_band_metric_u,
 )
+from blackhole_simulation_tpu_torch.render.shading import JetParams
 from blackhole_simulation_tpu_torch.tools import vpu_peak
 
 pytestmark = pytest.mark.gpu
@@ -268,3 +275,75 @@ def test_probe_matches_plain_version(cuda):
                                   8)
     assert float(((out - p).abs() / p.abs()).max()) < 1e-6
     assert peak["lane_fma_per_s"] > 0.0
+
+
+# Each branch of the render kernel alone and all four together:
+# (Features overrides, MarchConfig overrides, fov).
+BRANCHES = {
+    "jets": (dict(jets=True), {}, 0.5),
+    "start_jitter": ({}, dict(start_jitter=0.5), 0.5),
+    "nrs": (dict(nrs_far_field=True), {}, 1.0),
+    "overlay": (dict(shadow_overlay=True), {}, 0.5),
+    "all": (dict(jets=True, shadow_overlay=True, nrs_far_field=True),
+            dict(start_jitter=0.5), 1.0),
+}
+
+
+def _branch_scene(name, width=250, height=141):
+    feats, cfg, fov = BRANCHES[name]
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=fov,
+                        width=width, height=height)
+    scene = Scene.create(mass=1.0, spin=0.9, camera=cam,
+                         march_cfg=dc.replace(CFG, **cfg),
+                         features=Features(**feats))
+    if feats.get("nrs_far_field"):
+        scene = dc.replace(scene, nrs_params=nrs_init(0))
+    return scene
+
+
+@pytest.mark.parametrize("name", sorted(BRANCHES))
+def test_render_kernel_branch_matches_plain_version(cuda, name):
+    row, st = kernel_inputs(_branch_scene(name), None, cuda)
+    before = render_planes_kernel.launches
+    k = render_planes_kernel(row, st)
+    p = render_planes(row, st)
+    torch.cuda.synchronize()
+    assert render_planes_kernel.launches == before + 1
+    d = (k - p).abs()
+    assert bool(torch.isfinite(k).all())
+    assert float(torch.quantile(d.flatten(), 0.99)) < 1e-4
+    assert float(d.mean()) < 1e-5
+
+
+def test_jets_march_kernel_matches_plain_version(cuda):
+    cfg = dc.replace(CFG, fused=False, shadow_precull=False)
+    args = _march_args(cuda, cfg)
+    before = march_u.launches
+    with torch.no_grad():
+        k = march_u(*args, cfg, JetParams())
+        p = march_u_plain(*args, cfg, JetParams())
+    assert march_u.launches == before + 1
+    for i in (1, 2, 6):
+        assert torch.equal(k[i], p[i]), i
+    for i in (0, 3, 4, 5, 7):
+        assert float((k[i] - p[i]).abs().max()) < 1e-4, i
+    assert float(p[8].max()) > 1e-3
+    rel = (k[8] - p[8]).abs() / (p[8].abs() + 1e-12)
+    assert float(rel.max()) < 1e-5
+
+
+def test_full_featured_render_runs_the_kernels(cuda):
+    scene = scene_from_params(SimulationParams(enable_jets=True), 96, 54)
+    assert scene.march_cfg.fused and scene.features.jets
+    before = render_planes_kernel.launches
+    img = render(scene)
+    torch.cuda.synchronize()
+    assert render_planes_kernel.launches == before + 1
+    assert img.shape == (54, 96, 3) and bool(torch.isfinite(img).all())
+    staged = dc.replace(_branch_scene("all", 96, 54), march_cfg=dc.replace(
+        CFG, fused=False, start_jitter=0.5))
+    before = march_u.launches
+    img = render(staged)
+    torch.cuda.synchronize()
+    assert march_u.launches == before + 1
+    assert bool(torch.isfinite(img).all())

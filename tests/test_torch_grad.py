@@ -158,7 +158,7 @@ def test_march_grad_matches_autograd_through_march_tile(precull, clip):
     # autograd straight through the plain march
     leaves = [x.clone().requires_grad_() for x in (yt0, m, a, r_h, r_ph)]
     y, mm, aa, rh, rph = leaves
-    t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin = march_tile(
+    t, r, u, ph, pr, pu, hit, steps, cr, cp, ct, nc, rmin, _ = march_tile(
         mm, aa, rh, rph, thr, (y[0], y[1], y[2], y[3], y[5], y[6], y[7]), cfg)
     out = torch.stack([t, r, u, ph, y[4], pr, pu, y[7]])
     loss = ((out * ct_fin).sum() + (cr * ct_cr).sum() + (cp * ct_cp).sum()
@@ -209,7 +209,8 @@ def test_wrappers_record_their_arguments():
     finally:
         march_u.record = march_grad_kernel.record = None
     assert len(m_rec) == 1 and len(g_rec) == 1
-    assert len(m_rec[0]) == 7 and len(g_rec[0]) == 13
+    # march_u's arguments end with the jets (none here)
+    assert len(m_rec[0]) == 8 and m_rec[0][7] is None and len(g_rec[0]) == 13
     with torch.no_grad():
         assert torch.equal(march_u(*m_rec[0])[0], rows.state_u)
     # the cotangents the loss sent into the march's outputs

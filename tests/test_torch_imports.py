@@ -28,6 +28,12 @@ MODULES = [
     "blackhole_simulation_tpu_torch.geometry.metrics",
     "blackhole_simulation_tpu_torch.physics.disk",
     "blackhole_simulation_tpu_torch.physics.spectrum",
+    "blackhole_simulation_tpu_torch.physics.shadow",
+    "blackhole_simulation_tpu_torch.render.overlay",
+    "blackhole_simulation_tpu_torch.models",
+    "blackhole_simulation_tpu_torch.models.nrs",
+    "blackhole_simulation_tpu_torch.configs",
+    "blackhole_simulation_tpu_torch.configs.simulation",
     "blackhole_simulation_tpu_torch.tools.vpu_peak",
     "blackhole_simulation_tpu_torch.tools.train_probe",
     "chip_smoke",
