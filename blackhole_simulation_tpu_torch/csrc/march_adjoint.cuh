@@ -1,0 +1,586 @@
+// The reverse adjoint (VJP) of one march step, written by hand in float:
+// the gradient kernel's per-step derivative (march_grad.cu).
+//
+// Counterpart of jax.vjp of blackhole_simulation_tpu/ops/pallas_grad.py::
+// make_composite (:71), which the Pallas gradient kernel traces at build
+// time. march_step_vjp takes the step's inputs x[11] (t, r, u, ph, pr, pu,
+// pph, m, a, r_h, r_ph) and returns J^T cto for the output cotangents
+// cto[10] (the six state rows, r_c, phi_c, t_c, dmin). It first recomputes
+// the step forward with march_step.cuh's own float functions, so the
+// forward's values, masks and crossing decisions are the replay's bit for
+// bit, keeping what the reverse reads (the stepped y, the unclipped u, the
+// last midpoint input, dlam); that recompute also gives crossed, advance
+// and dmin, from which the caller's inject() forms cto. Then it walks back
+// through the step: the renormalization, the advance/freeze select, the
+// crossing record, the midpoint rounds (each ks_rhs_vjp recomputes its own
+// forward: no tape) and the step size. The plain PyTorch mirror, function
+// for function, is ops/march_adjoint.py.
+//
+// The derivative rules are the forward-mode Dual step's (march_step.cuh),
+// which JAX's rules fix: ties of jmax, jmin and jclip split the cotangent
+// half and half; d|x| uses sign(0) = 0; the approximate reciprocal's
+// derivative is -y^2 of the approximate y; a branch chosen by value (the
+// renormalization's valid and nearest, the crossing record's 1e-12 guard)
+// passes nothing to the side not taken. A zero cotangent contributes
+// nothing, even where a discarded partial is not finite (the dual pass
+// skipped outputs whose cotangent was 0): a branch whose incoming cotangent
+// is exactly 0 is not reversed, and on a step that does not advance the
+// carry passes straight through, only a nonzero crossing cotangent
+// reversing the step's values.
+
+#pragma once
+
+#include "march_step.cuh"
+
+#define NIN 11   // t, r, u, ph, pr, pu, pph, m, a, r_h, r_ph
+#define NOUT 10  // 6 state rows, r_c, phi_c, t_c, dmin
+
+// (gx, gy) of jmax(x, y) / jmin(x, y) for the cotangent g.
+__device__ __forceinline__ void max_vjp(float x, float y, float g, float& gx,
+                                        float& gy) {
+  if (x == y) {
+    gx = gy = 0.5f * g;
+  } else if (x > y || x != x) {
+    gx = g;
+    gy = 0.0f;
+  } else {
+    gx = 0.0f;
+    gy = g;
+  }
+}
+__device__ __forceinline__ void min_vjp(float x, float y, float g, float& gx,
+                                        float& gy) {
+  if (x == y) {
+    gx = gy = 0.5f * g;
+  } else if (x < y || x != x) {
+    gx = g;
+    gy = 0.0f;
+  } else {
+    gx = 0.0f;
+    gy = g;
+  }
+}
+__device__ __forceinline__ float max_vjp_x(float x, float y, float g) {
+  float gx, gy;
+  max_vjp(x, y, g, gx, gy);
+  return gx;
+}
+__device__ __forceinline__ float min_vjp_x(float x, float y, float g) {
+  float gx, gy;
+  min_vjp(x, y, g, gx, gy);
+  return gx;
+}
+// gx of jclip(x, lo, hi) = jmin(jmax(x, lo), hi), constant bounds.
+__device__ __forceinline__ float clip_vjp(float x, float lo, float hi,
+                                          float g) {
+  return max_vjp_x(x, lo, min_vjp_x(jmax(x, lo), hi, g));
+}
+__device__ __forceinline__ float sgn(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+// gx of y = recip(x, approx).
+__device__ __forceinline__ float recip_vjp(float x, float y, float g,
+                                           bool approx) {
+  return approx ? -y * y * g : -(y * g) / x;
+}
+
+// The kernel's per-step cotangent clip of the six carry rows.
+__device__ __forceinline__ void clip_carry(float c[6], float limit) {
+  float ss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) ss = ss + c[k] * c[k];
+  const float norm = sqrtf(ss);
+  const float scale = jmin(1.0f, limit / jmax(norm, F(1e-30)));
+#pragma unroll
+  for (int k = 0; k < 6; ++k) c[k] = c[k] * scale;
+}
+
+// VJP of ks_rhs (p_t = -1) with the cotangents g[6] of its derivatives:
+// d[6] receives the primal, gp the cotangents of (m, a, r, u, pr, pu, pph)
+// (overwritten).
+__device__ __forceinline__ void ks_rhs_vjp(float m, float a, float r, float u,
+                                           float pr, float pu, float pph,
+                                           bool approx, const float g[6],
+                                           float d[6], float gp[7]) {
+  const float pt = -1.0f;
+  const float one_uu = 1.0f - u * u;
+  const float w = jmax(one_uu, F(1e-6));
+  const float S = r * r + a * a * u * u;
+  const float D = r * r - 2.0f * m * r + a * a;
+  const float inv_S = recip(S, approx);
+  const float h = 2.0f * m * r * inv_S;
+  const float inv_S2 = inv_S * inv_S;
+  const float inv_w = recip(w, approx);
+
+  const float S_r = 2.0f * r;
+  const float D_r = 2.0f * r - 2.0f * m;
+  const float h_r = 2.0f * m * (S - 2.0f * r * r) * inv_S2;
+  const float DS_r = (D_r * S - D * S_r) * inv_S2;
+  const float invS_r = -S_r * inv_S2;
+  const float wS_r = -w * S_r * inv_S2;
+  const float invSw_r = -S_r * inv_S2 * inv_w;
+  const float S_u = 2.0f * a * a * u;
+  const float w_u = -2.0f * u;
+  const float h_u = -2.0f * m * r * S_u * inv_S2;
+  const float DS_u = -D * S_u * inv_S2;
+  const float invS_u = -S_u * inv_S2;
+  const float wS_u = (w_u * S - w * S_u) * inv_S2;
+  const float iw2 = inv_w * inv_w;
+  const float R = S_u * w + S * w_u;
+  const float invSw_u = -R * inv_S2 * iw2;
+
+  d[0] = -(1.0f + h) * pt + h * pr;
+  d[1] = h * pt + D * inv_S * pr + a * inv_S * pph;
+  d[2] = w * inv_S * pu;
+  d[3] = a * inv_S * pr + pph * inv_S * inv_w;
+  d[4] = -0.5f * (-h_r * pt * pt + 2.0f * h_r * pt * pr + DS_r * pr * pr +
+                  2.0f * a * invS_r * pr * pph + wS_r * pu * pu +
+                  invSw_r * pph * pph);
+  d[5] = -0.5f * (-h_u * pt * pt + 2.0f * h_u * pt * pr + DS_u * pr * pr +
+                  2.0f * a * invS_u * pr * pph + wS_u * pu * pu +
+                  invSw_u * pph * pph);
+
+  // dH/dr and dH/du: d4 = -dH_dr, d5 = -dH_du
+  const float e = -0.5f * g[4];
+  const float f = -0.5f * g[5];
+  const float g_hr = e * (2.0f * pt * pr - pt * pt);
+  const float g_DSr = e * pr * pr;
+  const float g_invSr = e * 2.0f * a * pr * pph;
+  const float g_wSr = e * pu * pu;
+  const float g_invSwr = e * pph * pph;
+  const float g_hu = f * (2.0f * pt * pr - pt * pt);
+  const float g_DSu = f * pr * pr;
+  const float g_invSu = f * 2.0f * a * pr * pph;
+  const float g_wSu = f * pu * pu;
+  const float g_invSwu = f * pph * pph;
+  float gpr = e * (2.0f * h_r * pt + 2.0f * DS_r * pr + 2.0f * a * invS_r * pph) +
+              f * (2.0f * h_u * pt + 2.0f * DS_u * pr + 2.0f * a * invS_u * pph);
+  float gpph = e * (2.0f * a * invS_r * pr + 2.0f * invSw_r * pph) +
+               f * (2.0f * a * invS_u * pr + 2.0f * invSw_u * pph);
+  float gpu = e * 2.0f * wS_r * pu + f * 2.0f * wS_u * pu;
+  float ga = e * 2.0f * invS_r * pr * pph + f * 2.0f * invS_u * pr * pph;
+
+  // the first-order terms d0 .. d3
+  const float g_h = g[0] * (pr - pt) + g[1] * pt;
+  gpr = gpr + g[0] * h + g[1] * D * inv_S + g[3] * a * inv_S;
+  float g_D = g[1] * inv_S * pr;
+  float g_invS = g[1] * (D * pr + a * pph) + g[2] * w * pu +
+                 g[3] * (a * pr + pph * inv_w);
+  ga = ga + g[1] * inv_S * pph + g[3] * inv_S * pr;
+  gpph = gpph + g[1] * a * inv_S + g[3] * inv_S * inv_w;
+  float g_w = g[2] * inv_S * pu;
+  gpu = gpu + g[2] * w * inv_S;
+  float g_invw = g[3] * pph * inv_S;
+
+  // the r-derivative terms
+  const float g_Sr = -g_DSr * D * inv_S2 - g_invSr * inv_S2 -
+                     g_wSr * w * inv_S2 - g_invSwr * inv_S2 * inv_w;
+  const float g_Dr = g_DSr * S * inv_S2;
+  float g_S = g_hr * 2.0f * m * inv_S2 + g_DSr * D_r * inv_S2;
+  g_D = g_D - g_DSr * S_r * inv_S2;
+  float g_invS2 = g_hr * 2.0f * m * (S - 2.0f * r * r) +
+                  g_DSr * (D_r * S - D * S_r) - g_invSr * S_r -
+                  g_wSr * w * S_r - g_invSwr * S_r * inv_w;
+  float gm = g_hr * 2.0f * (S - 2.0f * r * r) * inv_S2;
+  float gr = -g_hr * 8.0f * m * r * inv_S2;
+  g_w = g_w - g_wSr * S_r * inv_S2;
+  g_invw = g_invw - g_invSwr * S_r * inv_S2;
+
+  // the u-derivative terms
+  const float g_Su = -g_hu * 2.0f * m * r * inv_S2 - g_DSu * D * inv_S2 -
+                     g_invSu * inv_S2 - g_wSu * w * inv_S2 -
+                     g_invSwu * w * inv_S2 * iw2;
+  const float g_wu = g_wSu * S * inv_S2 - g_invSwu * S * inv_S2 * iw2;
+  gm = gm - g_hu * 2.0f * r * S_u * inv_S2;
+  gr = gr - g_hu * 2.0f * m * S_u * inv_S2;
+  g_D = g_D - g_DSu * S_u * inv_S2;
+  g_S = g_S + g_wSu * w_u * inv_S2 - g_invSwu * w_u * inv_S2 * iw2;
+  g_w = g_w - g_wSu * S_u * inv_S2 - g_invSwu * S_u * inv_S2 * iw2;
+  g_invS2 = g_invS2 - g_hu * 2.0f * m * r * S_u - g_DSu * D * S_u -
+            g_invSu * S_u + g_wSu * (w_u * S - w * S_u) - g_invSwu * R * iw2;
+  g_invw = g_invw - g_invSwu * R * inv_S2 * 2.0f * inv_w;
+
+  // S_u = 2 a^2 u, w_u = -2 u, S_r = 2 r, D_r = 2 r - 2 m
+  ga = ga + g_Su * 4.0f * a * u;
+  float gu = g_Su * 2.0f * a * a - 2.0f * g_wu;
+  gr = gr + 2.0f * g_Sr + 2.0f * g_Dr;
+  gm = gm - 2.0f * g_Dr;
+
+  // inv_S2, h, the reciprocals, D, S, w
+  g_invS = g_invS + 2.0f * inv_S * g_invS2;
+  gm = gm + 2.0f * r * inv_S * g_h;
+  gr = gr + 2.0f * m * inv_S * g_h;
+  g_invS = g_invS + 2.0f * m * r * g_h;
+  g_w = g_w + recip_vjp(w, inv_w, g_invw, approx);
+  g_S = g_S + recip_vjp(S, inv_S, g_invS, approx);
+  gr = gr + (2.0f * r - 2.0f * m) * g_D + 2.0f * r * g_S;
+  gm = gm - 2.0f * r * g_D;
+  ga = ga + 2.0f * a * g_D + 2.0f * a * u * u * g_S;
+  gu = gu + 2.0f * a * a * u * g_S;
+  gu = gu - 2.0f * u * max_vjp_x(one_uu, F(1e-6), g_w);
+  gp[0] = gm;
+  gp[1] = ga;
+  gp[2] = gr;
+  gp[3] = gu;
+  gp[4] = gpr;
+  gp[5] = gpu;
+  gp[6] = gpph;
+}
+
+// The (r, u, pr, pu) at which the midpoint step evaluates its right-hand
+// side the e-th time (0: the start state), recomputed from the start.
+__device__ __forceinline__ void midpoint_input(float m, float a, float dlam,
+                                               const float x[6], float pph,
+                                               bool approx, int e,
+                                               float mid[4]) {
+  mid[0] = x[1];
+  mid[1] = x[2];
+  mid[2] = x[4];
+  mid[3] = x[5];
+  for (int k = 0; k < e; ++k) {
+    float d[6];
+    ks_rhs(m, a, mid[0], mid[1], mid[2], mid[3], pph, approx, d);
+    mid[0] = 0.5f * (x[1] + (x[1] + dlam * d[1]));
+    mid[1] = 0.5f * (x[2] + (x[2] + dlam * d[2]));
+    mid[2] = 0.5f * (x[4] + (x[4] + dlam * d[4]));
+    mid[3] = 0.5f * (x[5] + (x[5] + dlam * d[5]));
+  }
+}
+
+// VJP of midpoint_step (iters fixed-point rounds, then u clipped) with the
+// cotangents gy[6] of the stepped rows (consumed). nu_raw: the unclipped
+// stepped u; mid_last: the last evaluation's input (the forward keeps
+// both); earlier inputs are recomputed. gx[6] receives the start state's
+// cotangents (overwritten); g_dlam, gm, ga, gpph are added to.
+__device__ __forceinline__ void midpoint_step_vjp(
+    const MarchParams& mp, bool approx, float m, float a, float dlam,
+    const float x[6], float pph, float nu_raw, const float mid_last[4],
+    float gy[6], float gx[6], float& g_dlam, float& gm, float& ga,
+    float& gpph) {
+  gy[2] = clip_vjp(nu_raw, F(-1.0 + 1e-7), F(1.0 - 1e-7), gy[2]);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) gx[k] = 0.0f;
+  for (int e = mp.midpoint_iters; e >= 0; --e) {
+    float mid[4];
+    if (e == mp.midpoint_iters) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mid[k] = mid_last[k];
+    } else {
+      midpoint_input(m, a, dlam, x, pph, approx, e, mid);
+    }
+    float gd[6], d[6], gp[7];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) gd[k] = dlam * gy[k];
+    ks_rhs_vjp(m, a, mid[0], mid[1], mid[2], mid[3], pph, approx, gd, d, gp);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      g_dlam = g_dlam + gy[k] * d[k];
+      gx[k] = gx[k] + gy[k];
+    }
+    gm = gm + gp[0];
+    ga = ga + gp[1];
+    gpph = gpph + gp[6];
+    // evaluation e > 0 reads 0.5 (x + n_{e-1}); evaluation 0 reads x
+    const float s = e > 0 ? 0.5f : 1.0f;
+    gx[1] = gx[1] + s * gp[2];
+    gx[2] = gx[2] + s * gp[3];
+    gx[4] = gx[4] + s * gp[4];
+    gx[5] = gx[5] + s * gp[5];
+    gy[0] = 0.0f;
+    gy[1] = s * gp[2];
+    gy[2] = s * gp[3];
+    gy[3] = 0.0f;
+    gy[4] = s * gp[4];
+    gy[5] = s * gp[5];
+  }
+}
+
+// VJP of step_size with the cotangent g of dlam: adds to ga, grh, grph,
+// gr, gu, gpu.
+__device__ __forceinline__ void step_size_vjp(const MarchParams& mp,
+                                              bool approx, float a, float r_h,
+                                              float r_ph, float r, float u,
+                                              float pu, float g, float& ga,
+                                              float& grh, float& grph,
+                                              float& gr, float& gu,
+                                              float& gpu) {
+  const float rp = jmax(r_ph, F(1e-3));
+  const float inv_rph = 1.0f / rp;
+  const float base = (r - r_h) * mp.step_rate;
+  const float rf = r / mp.far_boost_radius;
+  const float far = jmax(rf, 1.0f);
+  const float dr = r - r_ph;
+  const float q = fabsf(dr) * inv_rph;
+  const float qm = jmax(q, F(0.25));
+  const float prox = jmin(qm, 1.0f);
+  const float rr = mp.far_step_cap_rate * r;
+  const float cap = mp.far_cap_on ? jmax(rr, mp.max_step) : mp.max_step;
+  const float bf = base * far;
+  const float v = bf * prox;
+  const float vm = jmax(v, mp.min_step);
+  const float dl1 = jmin(vm, cap);
+  const float one_uu = 1.0f - u * u;
+  const float w = jmax(one_uu, F(1e-6));
+  const float sig = r * r + a * a * u * u;
+  const float wpu = w * pu;
+  const float q2 = wpu / sig;
+  const float du_rate = fabsf(q2) + F(1e-12);
+  const float num = 0.5f * (1.0f - fabsf(u) + F(1e-6));
+  const float rc = approx ? rcp_approx(du_rate) : 0.0f;
+  const float q3 = approx ? num * rc : num / du_rate;
+  const float lim = jmax(q3, mp.min_step);
+
+  float g_dl1, g_lim;
+  min_vjp(dl1, lim, g, g_dl1, g_lim);
+  const float g_q3 = max_vjp_x(q3, mp.min_step, g_lim);
+  float g_num, g_du;
+  if (approx) {
+    g_num = g_q3 * rc;
+    g_du = -rc * rc * (g_q3 * num);
+  } else {
+    g_num = g_q3 / du_rate;
+    g_du = -(q3 * g_q3) / du_rate;
+  }
+  gu = gu - sgn(u) * 0.5f * g_num;
+  const float g_q2 = sgn(q2) * g_du;
+  const float g_wpu = g_q2 / sig;
+  const float g_sig = -(q2 * g_q2) / sig;
+  const float g_w = g_wpu * pu;
+  gpu = gpu + g_wpu * w;
+  gr = gr + 2.0f * r * g_sig;
+  ga = ga + 2.0f * a * u * u * g_sig;
+  gu = gu + 2.0f * a * a * u * g_sig;
+  gu = gu - 2.0f * u * max_vjp_x(one_uu, F(1e-6), g_w);
+
+  float g_vm, g_cap;
+  min_vjp(vm, cap, g_dl1, g_vm, g_cap);
+  const float g_v = max_vjp_x(v, mp.min_step, g_vm);
+  if (mp.far_cap_on)
+    gr = gr + mp.far_step_cap_rate * max_vjp_x(rr, mp.max_step, g_cap);
+  const float g_bf = g_v * prox;
+  const float g_prox = g_v * bf;
+  const float g_base = g_bf * far;
+  const float g_far = g_bf * base;
+  gr = gr + mp.step_rate * g_base;
+  grh = grh - mp.step_rate * g_base;
+  gr = gr + max_vjp_x(rf, 1.0f, g_far) / mp.far_boost_radius;
+  const float g_q = max_vjp_x(q, F(0.25), min_vjp_x(qm, 1.0f, g_prox));
+  const float g_abs = g_q * inv_rph;
+  const float g_inv = g_q * fabsf(dr);
+  const float sg = sgn(dr);
+  gr = gr + sg * g_abs;
+  grph = grph - sg * g_abs;
+  grph = grph + max_vjp_x(r_ph, F(1e-3), recip_vjp(rp, inv_rph, g_inv, false));
+}
+
+// VJP of crossing_record (the equator crossing interpolated between
+// (t, r, u, ph) and the stepped, clipped y) with the cotangents of
+// (r_c, phi_c, t_c): adds to gx[0..3] (t, r, u, ph) and gy[0..3]. The 1e-12
+// guard is a constant.
+__device__ __forceinline__ void crossing_record_vjp(
+    bool approx, float t, float r, float u, float ph, const float y[6],
+    float g_rc, float g_pc, float g_tc, float gx[6], float gy[6]) {
+  const float du = u - y[2];
+  const bool guard = fabsf(du) < F(1e-12);
+  const float den = guard ? F(1e-12) : du;
+  const float rc = approx ? rcp_approx(den) : 0.0f;
+  const float x = approx ? u * rc : u / den;
+  const float xm = jmax(x, 0.0f);
+  const float frac = jmin(xm, 1.0f);
+  const float g_frac =
+      g_rc * (y[1] - r) + g_pc * (y[3] - ph) + g_tc * (y[0] - t);
+  gx[0] = gx[0] + (g_tc - g_tc * frac);
+  gx[1] = gx[1] + (g_rc - g_rc * frac);
+  gx[3] = gx[3] + (g_pc - g_pc * frac);
+  gy[0] = gy[0] + g_tc * frac;
+  gy[1] = gy[1] + g_rc * frac;
+  gy[3] = gy[3] + g_pc * frac;
+  const float g_x = max_vjp_x(x, 0.0f, min_vjp_x(xm, 1.0f, g_frac));
+  float g_den;
+  if (approx) {
+    gx[2] = gx[2] + g_x * rc;
+    g_den = -rc * rc * (g_x * u);
+  } else {
+    gx[2] = gx[2] + g_x / den;
+    g_den = -(x * g_x) / den;
+  }
+  if (!guard) {
+    gx[2] = gx[2] + g_den;
+    gy[2] = gy[2] - g_den;
+  }
+}
+
+// VJP of ks_renormalize_pr (exact divides) with the cotangent g of the
+// projected p_r: gp receives the cotangents of (m, a, r, u, pr, pu, pph)
+// (overwritten). Without a real root the projection is the identity on pr;
+// with one, pr only picks the nearest root and gets nothing.
+__device__ __forceinline__ void renormalize_pr_vjp(float m, float a, float r,
+                                                   float u, float pr,
+                                                   float pu, float pph,
+                                                   float g, float gp[7]) {
+  const float pt = -1.0f;
+  const float one_uu = 1.0f - u * u;
+  const float w = jmax(one_uu, F(1e-6));
+  const float S = r * r + a * a * u * u;
+  const float D = r * r - 2.0f * m * r + a * a;
+  const float inv_S = 1.0f / S;
+  const float h = 2.0f * m * r * inv_S;
+  const float A = D * inv_S;
+  const float B = 2.0f * (h * pt + a * inv_S * pph);
+  const float C3 = pph * pph * inv_S / w;
+  const float C = -(1.0f + h) * pt * pt + w * inv_S * pu * pu + C3;
+  const float disc = B * B - 4.0f * A * C;
+  const bool valid = (disc >= 0.0f) && (fabsf(A) > F(1e-12));
+#pragma unroll
+  for (int k = 0; k < 7; ++k) gp[k] = 0.0f;
+  if (!valid) {
+    gp[4] = g;
+    return;
+  }
+  const float dm = jmax(disc, F(1e-30));
+  const float sq = sqrtf(dm);
+  const float denom = 2.0f * A;
+  const float sol1 = (-B + sq) / denom;
+  const float sol2 = (-B - sq) / denom;
+  const bool first = fabsf(sol1 - pr) < fabsf(sol2 - pr);
+  const float sol = first ? sol1 : sol2;
+  const float pm = first ? 1.0f : -1.0f;
+
+  const float g_num = g / denom;
+  float g_A = 2.0f * (-(sol * g) / denom);
+  float g_B = -g_num;
+  const float g_sq = pm * g_num;
+  const float g_disc = max_vjp_x(disc, F(1e-30), g_sq * 0.5f / sq);
+  g_B = g_B + 2.0f * B * g_disc;
+  g_A = g_A - 4.0f * C * g_disc;
+  const float g_C = -4.0f * A * g_disc;
+  const float g_h = -pt * pt * g_C + 2.0f * pt * g_B;
+  const float g_w = inv_S * pu * pu * g_C - (C3 / w) * g_C;
+  float g_invS = w * pu * pu * g_C + pph * pph / w * g_C;
+  const float gpu = 2.0f * w * inv_S * pu * g_C;
+  const float gpph = 2.0f * pph * inv_S / w * g_C + 2.0f * a * inv_S * g_B;
+  float ga = 2.0f * inv_S * pph * g_B;
+  g_invS = g_invS + 2.0f * a * pph * g_B + D * g_A;
+  const float g_D = inv_S * g_A;
+  float gm = 2.0f * r * inv_S * g_h;
+  float gr = 2.0f * m * inv_S * g_h;
+  g_invS = g_invS + 2.0f * m * r * g_h;
+  const float g_S = recip_vjp(S, inv_S, g_invS, false);
+  gr = gr + (2.0f * r - 2.0f * m) * g_D + 2.0f * r * g_S;
+  gm = gm - 2.0f * r * g_D;
+  ga = ga + 2.0f * a * g_D + 2.0f * a * u * u * g_S;
+  const float gu =
+      2.0f * a * a * u * g_S - 2.0f * u * max_vjp_x(one_uu, F(1e-6), g_w);
+  gp[0] = gm;
+  gp[1] = ga;
+  gp[2] = gr;
+  gp[3] = gu;
+  gp[5] = gpu;
+  gp[6] = gpph;
+}
+
+// J^T cto of one live march step (march_step at step i with the pre-step
+// crossing count nc) at x[NIN]. After the forward recompute,
+// inject(crossed, advance, dmin, cto) fills the output cotangents cto[NOUT],
+// as the gradient kernel injects its crossing and r_min cotangents there.
+// cin[NIN] receives the input cotangents.
+template <class Inject>
+__device__ __forceinline__ void march_step_vjp(const MarchParams& mp,
+                                               bool approx,
+                                               const float x[NIN], float thr,
+                                               int i, int nc, Inject inject,
+                                               float cin[NIN]) {
+  const float t = x[0], r = x[1], u = x[2], ph = x[3], pr = x[4], pu = x[5];
+  const float pph = x[6], m = x[7], a = x[8], r_h = x[9], r_ph = x[10];
+
+  // ---- forward, keeping what the reverse reads ----
+  const float dlam = step_size(mp, approx, a, r_h, r_ph, r, u, pu);
+  float d[6], y[6];
+  ks_rhs(m, a, r, u, pr, pu, pph, approx, d);
+  y[0] = t + dlam * d[0];
+  y[1] = r + dlam * d[1];
+  y[2] = u + dlam * d[2];
+  y[3] = ph + dlam * d[3];
+  y[4] = pr + dlam * d[4];
+  y[5] = pu + dlam * d[5];
+  float mid[4] = {r, u, pr, pu};
+  for (int it = 0; it < mp.midpoint_iters; ++it) {
+    mid[0] = 0.5f * (r + y[1]);
+    mid[1] = 0.5f * (u + y[2]);
+    mid[2] = 0.5f * (pr + y[4]);
+    mid[3] = 0.5f * (pu + y[5]);
+    ks_rhs(m, a, mid[0], mid[1], mid[2], mid[3], pph, approx, d);
+    y[0] = t + dlam * d[0];
+    y[1] = r + dlam * d[1];
+    y[2] = u + dlam * d[2];
+    y[3] = ph + dlam * d[3];
+    y[4] = pr + dlam * d[4];
+    y[5] = pu + dlam * d[5];
+  }
+  const float nu_raw = y[2];
+  y[2] = jclip(nu_raw, F(-1.0 + 1e-7), F(1.0 - 1e-7));
+  float r_c, phi_c, t_c;
+  crossing_record(approx, t, r, u, ph, y, r_c, phi_c, t_c);
+  float s[6] = {t, r, u, ph, pr, pu};
+  int hit = HIT_NONE;
+  bool crossed, advance;
+  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
+  const bool renorm = (i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE;
+  // (the renormalization changes p_r only: s[1], s[2], s[5] are final)
+  const float dmin = fabsf(s[1] - r_ph);
+  float cto[NOUT];
+  inject(crossed, advance, dmin, cto);
+
+  // ---- reverse ----
+  float c[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) c[k] = cto[k];
+  float g_pph = 0.0f, g_m = 0.0f, g_a = 0.0f, g_rh = 0.0f, g_rph = 0.0f;
+  // dmin = |s'[1] - r_ph|
+  if (cto[9] != 0.0f) {
+    const float sg = sgn(s[1] - r_ph);
+    c[1] = c[1] + cto[9] * sg;
+    g_rph = -cto[9] * sg;
+  }
+  // the renormalization of p_r, after the advance
+  if (renorm && c[4] != 0.0f) {
+    float gp[7];
+    renormalize_pr_vjp(m, a, s[1], s[2], y[4], s[5], pph, c[4], gp);
+    g_m = gp[0];
+    g_a = gp[1];
+    c[1] = c[1] + gp[2];
+    c[2] = c[2] + gp[3];
+    c[4] = gp[4];
+    c[5] = c[5] + gp[5];
+    g_pph = gp[6];
+  }
+  // the advance / freeze select: a frozen step is the identity
+  float cy[6], cx[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    cy[k] = advance ? c[k] : 0.0f;
+    cx[k] = advance ? 0.0f : c[k];
+  }
+  // the crossing record, where its cotangent is not 0
+  const bool xc = cto[6] != 0.0f || cto[7] != 0.0f || cto[8] != 0.0f;
+  if (xc) crossing_record_vjp(approx, t, r, u, ph, y, cto[6], cto[7], cto[8],
+                              cx, cy);
+  // the midpoint step and its size, where the step's values got any
+  if (advance || xc) {
+    const float x6[6] = {t, r, u, ph, pr, pu};
+    float gx[6], g_dlam = 0.0f;
+    midpoint_step_vjp(mp, approx, m, a, dlam, x6, pph, nu_raw, mid, cy, gx,
+                      g_dlam, g_m, g_a, g_pph);
+    step_size_vjp(mp, approx, a, r_h, r_ph, r, u, pu, g_dlam, g_a, g_rh,
+                  g_rph, gx[1], gx[2], gx[5]);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) cx[k] = cx[k] + gx[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) cin[k] = cx[k];
+  cin[6] = g_pph;
+  cin[7] = g_m;
+  cin[8] = g_a;
+  cin[9] = g_rh;
+  cin[10] = g_rph;
+}

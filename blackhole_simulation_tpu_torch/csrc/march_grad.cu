@@ -12,109 +12,44 @@
 //
 // Checkpoint and replay, not reverse integration:
 // 1. Replay the forward march from the initial rows and store the state
-//    (6 floats, hit, crossing count) at the start of every block of CKPT
-//    steps. The replay is march_step.cuh's step, the forward's own source,
-//    so masks, crossing slots and freeze points land on the same steps.
-// 2. Walk the blocks in reverse. Re-forward a live block from its
-//    checkpoint into a CKPT-step stack, then run the per-step VJP backwards
-//    through the stack. Steps of a ray that has stopped are the identity on
-//    the carry and are skipped; with MarchConfig.cotangent_clip > 0 the
-//    incoming carry cotangent is clipped once for them (the clip is
-//    idempotent) and before each live step's VJP.
+//    (6 floats and the crossing count) at the start of every block of CKPT
+//    steps that the ray enters live, in a global scratch buffer, written
+//    once and read once. The replay is march_step.cuh's step, the
+//    forward's own source, so masks, crossing slots and freeze points land
+//    on the same steps.
+// 2. Walk the ray's live blocks in reverse. Re-forward a block from its
+//    checkpoint into a CKPT-step stack in shared memory, then run the
+//    per-step VJP backwards through the stack. Steps of a ray that has
+//    stopped are the identity on the carry and are skipped; with
+//    MarchConfig.cotangent_clip > 0 the incoming carry cotangent is clipped
+//    once for them (the clip is idempotent) and before each live step's VJP.
 // 3. Cotangent injection: a crossing record's cotangent enters at the step
 //    that recorded it (crossed and replayed count == slot); the r_min
 //    cotangent enters at the last step whose |r - r_ph| equals the
 //    forward's r_min, or at the initial radius when no step reached it.
 //
-// The per-step VJP: the step (march_step.cuh, with the advance/freeze
-// selects and the boundary renormalization) runs on Dual<NDUAL> numbers,
-// NDUAL forward-mode tangent directions at a time, over the 11 inputs
-// (6 state rows, p_phi, m, a, r_h, r_ph). Each pass gives NDUAL columns of
-// the step's Jacobian; their dot products with the output cotangents are
-// NDUAL entries of J^T ct. ceil(11 / NDUAL) passes per live step. The
-// forward and its derivative come from one source; the approximate
-// reciprocal's derivative uses the approximate value (-y^2). NDUAL = 11
-// (one pass) computes the primal once per live step instead of once per
-// pass; it needs 255 registers and spills nothing (ptxas, sm_90a). Every
-// width gives the same result bit for bit.
+// The per-step VJP is march_adjoint.cuh's hand-written reverse adjoint of
+// the step (the forward recomputed, then walked back), which also gives the
+// step's crossed, advance and dmin for the injection.
 //
 // What bounds it on the H100: FP32 arithmetic, as the march: per live step
-// one replay step, one re-forward step and the dual passes (each a step
-// with NDUAL tangent lanes), plus a float step for the primal test values.
-// Memory: the checkpoints and the stack live in a global scratch buffer
-// the wrapper allocates, (ceil(max_steps / CKPT) + CKPT) x 8 words per ray,
-// laid out [slot][word][ray] so a warp's stores coalesce.
+// one replay step, one re-forward step and the adjoint (a forward step and
+// the reverse of its right-hand sides). The step is a long dependent FP32
+// chain, so its latency hides only behind other warps: __launch_bounds__
+// caps the registers at 65,536 / (THREADS x MIN_BLOCKS) and the stack of
+// CKPT x 7 words per thread fits MIN_BLOCKS blocks in an SM's shared
+// memory, for MIN_BLOCKS x THREADS / 32 resident warps. The stack is laid
+// out [step][word][thread], so a warp's 32 accesses fall in 32 banks.
 
-#include "march_step.cuh"
+#include "march_adjoint.cuh"
 
 #define THREADS 128
-#define CKPT 32
-#define NIN 11   // t, r, u, ph, pr, pu, pph, m, a, r_h, r_ph
-#define NOUT 10  // 6 state rows, r_c, phi_c, t_c, dmin
-#define NDUAL 11
+#define MIN_BLOCKS 4
+#define CKPT 8
+#define WORDS 7  // per checkpoint and stacked step: 6 state floats, nc
+#define SMEM_BYTES (CKPT * WORDS * THREADS * 4)
 
-__device__ __forceinline__ void clip6(float c[6], float limit) {
-  float ss = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) ss = ss + c[k] * c[k];
-  const float norm = sqrtf(ss);
-  const float scale = jmin(1.0f, limit / jmax(norm, F(1e-30)));
-#pragma unroll
-  for (int k = 0; k < 6; ++k) c[k] = c[k] * scale;
-}
-
-// One dual pass: the Jacobian columns of inputs G .. G + ND - 1, dotted
-// with the output cotangents cto into cin.
-template <int ND, int G>
-__device__ __forceinline__ void jvp_pass(const MarchParams& mp, bool approx,
-                                         const float x[NIN], float thr, int i,
-                                         int nc, const float cto[NOUT],
-                                         float cin[NIN]) {
-  typedef Dual<ND> D;
-  D xd[NIN];
-#pragma unroll
-  for (int q = 0; q < NIN; ++q) {
-    xd[q] = D(x[q]);
-    if (q >= G && q < G + ND) xd[q].d[q - G] = 1.0f;
-  }
-  D s[6] = {xd[0], xd[1], xd[2], xd[3], xd[4], xd[5]};
-  int hit = HIT_NONE;
-  bool crossed, advance;
-  D r_c, phi_c, t_c;
-  march_step(mp, approx, xd[7], xd[8], xd[9], xd[10], xd[6], thr, i, s, hit,
-             nc, crossed, advance, r_c, phi_c, t_c);
-  const D dmin = dabs(s[1] - xd[10]);
-#pragma unroll
-  for (int k = 0; k < ND; ++k) {
-    if (G + k < NIN) {
-      // A zero cotangent contributes nothing, even where a discarded
-      // partial is not finite.
-      float acc = 0.0f;
-#pragma unroll
-      for (int o = 0; o < 6; ++o)
-        if (cto[o] != 0.0f) acc = acc + cto[o] * s[o].d[k];
-      if (cto[6] != 0.0f) acc = acc + cto[6] * r_c.d[k];
-      if (cto[7] != 0.0f) acc = acc + cto[7] * phi_c.d[k];
-      if (cto[8] != 0.0f) acc = acc + cto[8] * t_c.d[k];
-      if (cto[9] != 0.0f) acc = acc + cto[9] * dmin.d[k];
-      cin[G + k] = acc;
-    }
-  }
-}
-
-template <int ND, int G>
-__device__ __forceinline__ void jvp_passes(const MarchParams& mp, bool approx,
-                                           const float x[NIN], float thr,
-                                           int i, int nc,
-                                           const float cto[NOUT],
-                                           float cin[NIN]) {
-  if constexpr (G < NIN) {
-    jvp_pass<ND, G>(mp, approx, x, thr, i, nc, cto, cin);
-    jvp_passes<ND, G + ND>(mp, approx, x, thr, i, nc, cto, cin);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
                   const float* __restrict__ thr_in,
                   const float* __restrict__ ctf,
@@ -124,7 +59,9 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
                   float* __restrict__ cty0, float* __restrict__ ctp,
                   float* __restrict__ scratch, int n, int n_blocks,
                   const MarchParams mp, float clip) {
-  const int j = blockIdx.x * THREADS + threadIdx.x;
+  extern __shared__ float stack[];  // [CKPT][WORDS][THREADS]
+  const int tid = threadIdx.x;
+  const int j = blockIdx.x * THREADS + tid;
   if (j >= n) return;
   const size_t N = (size_t)n;
   const bool approx = mp.approx_recip != 0;
@@ -139,19 +76,18 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
 #pragma unroll
   for (int k = 0; k < 7; ++k) y0[k] = y[k * N + j];
   const float pph = y0[6];
-  float* ck = scratch;                               // [n_blocks][8][N]
-  float* stack = scratch + (size_t)n_blocks * 8 * N;  // [CKPT][8][N]
 
-  // ---- phase 1: replay, checkpoint at the start of every block ----
+  // ---- phase 1: replay, checkpoint at the start of every live block ----
   float s[6] = {y0[0], y0[1], y0[2], y0[3], y0[4], y0[5]};
   int hit = y0[1] < thr ? HIT_HORIZON : HIT_NONE;
   int nc = 0;
-  for (int b = 0; b < n_blocks; ++b) {
-    float* slot = ck + (size_t)b * 8 * N + j;
+  int last = -1;
+  for (int b = 0; b < n_blocks && hit == HIT_NONE; ++b) {
+    float* slot = scratch + (size_t)b * WORDS * N + j;  // [b][WORDS][N]
 #pragma unroll
     for (int k = 0; k < 6; ++k) slot[k * N] = s[k];
-    slot[6 * N] = __int_as_float(hit);
-    slot[7 * N] = __int_as_float(nc);
+    slot[6 * N] = __int_as_float(nc);
+    last = b;
     const int i1 = min((b + 1) * CKPT, mp.max_steps);
     for (int i = b * CKPT; i < i1 && hit == HIT_NONE; ++i) {
       bool crossed, advance;
@@ -162,7 +98,7 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
     }
   }
 
-  // ---- phase 2: reverse sweep over blocks ----
+  // ---- phase 2: reverse sweep over the live blocks ----
   float c6[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) c6[k] = ctf[k * N + j];
@@ -171,24 +107,23 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
   const float ct_rmin = ctr[j];
   bool injected = false;
   // The steps after the ray stopped (the identity) clip the carry once.
-  if (clip > 0.0f) clip6(c6, clip);
+  if (clip > 0.0f) clip_carry(c6, clip);
 
-  for (int b = n_blocks - 1; b >= 0; --b) {
-    const float* slot = ck + (size_t)b * 8 * N + j;
-    if (__float_as_int(slot[6 * N]) != HIT_NONE) continue;
+  for (int b = last; b >= 0; --b) {
+    const float* slot = scratch + (size_t)b * WORDS * N + j;
 #pragma unroll
     for (int k = 0; k < 6; ++k) s[k] = slot[k * N];
+    nc = __float_as_int(slot[6 * N]);
     hit = HIT_NONE;
-    nc = __float_as_int(slot[7 * N]);
     // re-forward the block's live steps into the stack
     const int i0 = b * CKPT;
     const int i1 = min(i0 + CKPT, mp.max_steps);
     int n_live = 0;
     for (int i = i0; i < i1 && hit == HIT_NONE; ++i, ++n_live) {
-      float* e = stack + (size_t)n_live * 8 * N + j;
+      float* e = stack + n_live * WORDS * THREADS + tid;
 #pragma unroll
-      for (int k = 0; k < 6; ++k) e[k * N] = s[k];
-      e[7 * N] = __int_as_float(nc);
+      for (int k = 0; k < 6; ++k) e[k * THREADS] = s[k];
+      e[6 * THREADS] = __int_as_float(nc);
       bool crossed, advance;
       float r_c, phi_c, t_c;
       march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc,
@@ -197,45 +132,32 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
     }
     // backward through the stack
     for (int q = n_live - 1; q >= 0; --q) {
-      const int i = i0 + q;
-      const float* e = stack + (size_t)q * 8 * N + j;
+      const float* e = stack + q * WORDS * THREADS + tid;
       float x[NIN];
 #pragma unroll
-      for (int k = 0; k < 6; ++k) x[k] = e[k * N];
-      const int nc_q = __float_as_int(e[7 * N]);
+      for (int k = 0; k < 6; ++k) x[k] = e[k * THREADS];
+      const int nc_q = __float_as_int(e[6 * THREADS]);
       x[6] = pph;
       x[7] = m;
       x[8] = a;
       x[9] = r_h;
       x[10] = r_ph;
-      if (clip > 0.0f) clip6(c6, clip);
-
-      // Primal values of the step: which cotangents enter here.
-      float sp[6] = {x[0], x[1], x[2], x[3], x[4], x[5]};
-      int hit_q = HIT_NONE;
-      bool crossed, advance;
-      float r_c, phi_c, t_c;
-      march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, sp, hit_q, nc_q,
-                 crossed, advance, r_c, phi_c, t_c);
-      const float dmin = fabsf(sp[1] - r_ph);
-      float cto[NOUT];
+      if (clip > 0.0f) clip_carry(c6, clip);
+      auto inject = [&](bool crossed, bool advance, float dmin, float* cto) {
 #pragma unroll
-      for (int k = 0; k < 6; ++k) cto[k] = c6[k];
-      cto[6] = cto[7] = cto[8] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < K && crossed && nc_q == k) {
-          cto[6] = ctc[k * N + j];
-          cto[7] = ctc[(K + k) * N + j];
-          cto[8] = ctc[(2 * K + k) * N + j];
+        for (int k = 0; k < 6; ++k) cto[k] = c6[k];
+        cto[6] = cto[7] = cto[8] = 0.0f;
+        if (crossed && nc_q < K) {
+          cto[6] = ctc[nc_q * N + j];
+          cto[7] = ctc[(K + nc_q) * N + j];
+          cto[8] = ctc[(2 * K + nc_q) * N + j];
         }
-      }
-      const bool hitmin = advance && dmin == rmin_fin && !injected;
-      cto[9] = hitmin ? ct_rmin : 0.0f;
-      if (hitmin) injected = true;
-
+        const bool hitmin = advance && dmin == rmin_fin && !injected;
+        cto[9] = hitmin ? ct_rmin : 0.0f;
+        if (hitmin) injected = true;
+      };
       float cin[NIN];
-      jvp_passes<NDUAL, 0>(mp, approx, x, thr, i, nc_q, cto, cin);
+      march_step_vjp(mp, approx, x, thr, i0 + q, nc_q, inject, cin);
 #pragma unroll
       for (int k = 0; k < 6; ++k) c6[k] = cin[k];
       c_pph = c_pph + cin[6];
@@ -249,9 +171,9 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
   // r_min's initial-value case: no step came closer than |r0 - r_ph|.
   const float d0 = y0[1] - r_ph;
   if (!injected && fabsf(d0) == rmin_fin) {
-    const float sgn = d0 > 0.0f ? 1.0f : (d0 < 0.0f ? -1.0f : 0.0f);
-    c6[1] = c6[1] + ct_rmin * sgn;
-    c_rph = c_rph + (-ct_rmin * sgn);
+    const float sg = sgn(d0);
+    c6[1] = c6[1] + ct_rmin * sg;
+    c_rph = c_rph + (-ct_rmin * sg);
   }
 #pragma unroll
   for (int k = 0; k < 6; ++k) cty0[k * N + j] = c6[k];
@@ -264,7 +186,8 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
 
 extern "C" {
 
-// Launches the gradient kernel on ``stream``; returns cudaGetLastError().
+// Launches the gradient kernel on ``stream``; returns cudaGetLastError()
+// (a refused launch, such as too much shared memory, is an error here).
 // P: (4,) [m, a, r_h, r_ph]; y: (7, n) initial rows (t, r, u, ph, pr, pu,
 // pph) with p_t = -1; thr: (n,); ctf: (7, n); ctc: (3K, n); ctr, rminf:
 // (n,); cty0: (7, n) out; ctp: (4, n) out; scratch: bh_march_grad_scratch
@@ -275,8 +198,12 @@ int bh_march_grad_launch(const float* P, const float* y, const float* thr,
                          float* scratch, int n, const MarchParams* mp,
                          float clip, void* stream) {
   const int n_blocks = (mp->max_steps + CKPT - 1) / CKPT;
+  cudaError_t err = cudaFuncSetAttribute(
+      march_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0) {
-    march_grad_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+    march_grad_kernel<<<(n + THREADS - 1) / THREADS, THREADS, SMEM_BYTES,
                         (cudaStream_t)stream>>>(P, y, thr, ctf, ctc, ctr,
                                                 rminf, cty0, ctp, scratch, n,
                                                 n_blocks, *mp, clip);
@@ -284,9 +211,26 @@ int bh_march_grad_launch(const float* P, const float* y, const float* thr,
   return (int)cudaGetLastError();
 }
 
-// Scratch words per ray: the checkpoints and the re-forward stack.
+// Scratch words per ray: the block checkpoints.
 int bh_march_grad_scratch(int max_steps) {
-  return ((max_steps + CKPT - 1) / CKPT + CKPT) * 8;
+  return (max_steps + CKPT - 1) / CKPT * WORDS;
+}
+
+// The launch's shape: {threads per block, dynamic shared memory bytes per
+// block, steps per checkpoint block, resident blocks per SM by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor (-1 if it fails)}.
+void bh_march_grad_shape(int out[4]) {
+  out[0] = THREADS;
+  out[1] = SMEM_BYTES;
+  out[2] = CKPT;
+  int blocks = -1;
+  if (cudaFuncSetAttribute(march_grad_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, march_grad_kernel, THREADS, SMEM_BYTES) != cudaSuccess)
+    blocks = -1;
+  out[3] = blocks;
 }
 
 const char* bh_error_string(int err) {

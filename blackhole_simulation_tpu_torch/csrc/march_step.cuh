@@ -14,10 +14,12 @@
 // expression here is written in their order, so the two round alike.
 //
 // The step math is templated on its scalar type: float for the forward
-// march, Dual<N> (a value and N forward-mode tangents) for the gradient
-// kernel's per-step Jacobian. A Dual's value is computed by the same float
-// operations in the same order as the float instantiation, so a dual pass
-// reproduces the forward's values bit for bit.
+// march, Dual<N> (a value and N forward-mode tangents) for the per-step
+// Jacobian of step_vjp_check.cu, the card's check of the gradient kernel's
+// hand-written reverse adjoint (march_adjoint.cuh). A Dual's value is
+// computed by the same float operations in the same order as the float
+// instantiation, so a dual pass reproduces the forward's values bit for
+// bit.
 //
 // jnp semantics: maximum/minimum/clip propagate NaN (the march's sanity
 // freeze relies on NaN reaching isfinite) and, for tangents, split the

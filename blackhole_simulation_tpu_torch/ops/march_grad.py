@@ -8,10 +8,15 @@ ported), ``make_composite`` (:71, here ``ops/march.py::march_step_rows``),
 ``csrc/march_grad.cu``. ``march_grad`` is its plain version with the same
 structure: a checkpointed replay of the march, then, block by block in
 reverse, a re-forward into a step stack and a per-step VJP (here
-``torch.autograd.grad`` of the step) with the crossing and r_min cotangents
-injected at the steps that recorded them and the optional per-step
-cotangent clip. ``march_grad_kernel`` launches the kernel for CUDA tensors
-and runs ``march_grad`` for CPU tensors; nothing else picks between them.
+``torch.autograd.grad`` of the step, the kernel's being the hand-written
+adjoint of ``csrc/march_adjoint.cuh``) with the crossing and r_min
+cotangents injected at the steps that recorded them and the optional
+per-step cotangent clip. ``march_grad_kernel`` launches the kernel for CUDA
+tensors and runs ``march_grad`` for CPU tensors; nothing else picks between
+them. The blocks' length does not change the result: the replay is
+deterministic. ``step_vjp_check`` and ``renorm_vjp_check`` launch
+``csrc/step_vjp_check.cu``, the card's check of the adjoint against the
+forward-mode ``Dual<N>`` step and renormalization.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from blackhole_simulation_tpu_torch.render.march import (
     clip_rows,
 )
 
-CKPT = 32  # steps per checkpoint block
+CKPT = 8  # steps per checkpoint block, as csrc/march_grad.cu's
 
 
 def _blocks(cfg) -> int:
@@ -41,9 +46,10 @@ def _blocks(cfg) -> int:
 
 
 def scratch_words(cfg) -> int:
-    """Scratch words per ray of the kernel: the block checkpoints and the
-    re-forward stack, 8 words each (6 state rows, hit, crossing count)."""
-    return (_blocks(cfg) + CKPT) * 8
+    """Scratch words per ray of the kernel: the block checkpoints, 7 words
+    each (6 state rows, crossing count); the re-forward stack lives in
+    shared memory."""
+    return _blocks(cfg) * 7
 
 
 def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
@@ -208,6 +214,101 @@ march_grad_kernel.scratch_bytes = 0
 march_grad_kernel.record = None
 
 
+def grad_kernel_shape() -> dict:
+    """The gradient kernel's launch shape, from the built library: threads
+    per block, dynamic shared memory bytes per block, steps per checkpoint
+    block, and resident blocks and warps per SM by
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (on the current
+    device)."""
+    out = (ctypes.c_int * 4)()
+    _grad_library().bh_march_grad_shape(out)
+    threads, smem, ckpt, blocks = out
+    return {"threads": threads, "smem_bytes": smem, "ckpt": ckpt,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
+
+
+def step_vjp_check(yt0, thr, m, a, r_h, r_ph, cfg, cts, steps):
+    """Both per-step derivatives of the gradient kernel on the card, on the
+    same states and cotangents (``csrc/step_vjp_check.cu``): each ray of
+    ``yt0`` (8, N) is marched from its rows, and at each of its first
+    ``steps`` live steps the hand-written adjoint and the forward-mode
+    ``Dual<11>`` pass take the VJP with the output cotangents formed from
+    ``cts`` (10, N): the six carry rows, the crossing record's three where
+    the step crossed, dmin's where it advanced. Returns a dict of
+    ``adjoint``, ``dual`` (11, steps, N), the input cotangents by the two
+    routes; ``size`` (11, steps, N), the sum of the sizes of the terms the
+    dual pass adds up (|cotangent x partial|); ``state`` (7, steps, N), the
+    pre-step (t, r, u, ph, pr, pu) and crossing count; ``live`` (steps, N)
+    bool. CUDA tensors only: there is no plain version of a comparison of
+    two kernels."""
+    if yt0.device.type != "cuda":
+        raise ValueError("step_vjp_check runs on a CUDA device")
+    lib = _check_library()
+    dev = yt0.device
+    n = yt0.shape[1]
+    y7 = torch.cat([yt0[:4], yt0[5:8]]).detach().float().contiguous()
+    thr = thr.detach().float().contiguous()
+    cts = cts.detach().float().contiguous()
+    params = scalar_params(m, a, r_h, r_ph, dev)
+    out = {k: torch.empty((rows, steps, n), dtype=torch.float32, device=dev)
+           for k, rows in (("adjoint", 11), ("dual", 11), ("size", 11),
+                           ("state", 7))}
+    live = torch.empty((steps, n), dtype=torch.int32, device=dev)
+    c_mp = c_march_params(cfg)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bh_step_vjp_check_launch(
+            ptr(params), ptr(y7), ptr(thr), ptr(cts), ptr(out["adjoint"]),
+            ptr(out["dual"]), ptr(out["size"]), ptr(out["state"]), ptr(live),
+            ctypes.c_int(n), ctypes.c_int(steps), ctypes.byref(c_mp),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"step check launch failed: {lib.bh_error_string(err).decode()}")
+    out["live"] = live.bool()
+    return out
+
+
+def renorm_vjp_check(q):
+    """The renormalization's VJP on the card by both routes
+    (``csrc/step_vjp_check.cu``): ``q`` (8, N) float32 rows m, a, r, u,
+    pr, pu, pph and the cotangent of the projected p_r. Returns (adjoint,
+    dual), each (7, N): the cotangents of (m, a, r, u, pr, pu, pph) by the
+    hand-written ``renormalize_pr_vjp`` and by ``ks_renormalize_pr`` on
+    ``Dual<7>``. CUDA tensors only."""
+    if q.device.type != "cuda":
+        raise ValueError("renorm_vjp_check runs on a CUDA device")
+    lib = _check_library()
+    q = q.detach().float().contiguous()
+    n = q.shape[1]
+    adj = torch.empty((7, n), dtype=torch.float32, device=q.device)
+    dual = torch.empty_like(adj)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.bh_renorm_vjp_check_launch(
+            ptr(q), ptr(adj), ptr(dual), ctypes.c_int(n),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"renorm check launch failed: {lib.bh_error_string(err).decode()}")
+    return adj, dual
+
+
+@functools.cache
+def _check_library() -> ctypes.CDLL:
+    lib = load_library("step_vjp_check.cu", "bh_march_params_size")
+    lib.bh_step_vjp_check_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p])
+    lib.bh_step_vjp_check_launch.restype = ctypes.c_int
+    lib.bh_renorm_vjp_check_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    lib.bh_renorm_vjp_check_launch.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def _grad_library() -> ctypes.CDLL:
     lib = load_library("march_grad.cu", "bh_march_params_size")
@@ -217,4 +318,6 @@ def _grad_library() -> ctypes.CDLL:
     lib.bh_march_grad_launch.restype = ctypes.c_int
     lib.bh_march_grad_scratch.argtypes = [ctypes.c_int]
     lib.bh_march_grad_scratch.restype = ctypes.c_int
+    lib.bh_march_grad_shape.argtypes = [ctypes.c_void_p]
+    lib.bh_march_grad_shape.restype = None
     return lib

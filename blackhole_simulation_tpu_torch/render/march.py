@@ -44,7 +44,7 @@ class MarchConfig:
     ``renormalize_every``, and never when ``renormalize_every`` is not a
     multiple of it); the kernels exit per thread, so it has no other
     effect. ``remat_every`` has none: the differentiable march checkpoints
-    every 32 steps in its gradient kernel.
+    every ``ops/march_grad.CKPT`` (8) steps in its gradient kernel.
     """
 
     max_steps: int = 256

@@ -9,9 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero without
 printing a result line:
 
 1. Build: compile every CUDA source (``render.cu``, ``march.cu``,
-   ``march_grad.cu``, ``vpu_peak.cu``) with nvcc (one process per source,
-   started together) and print the build seconds and ptxas's registers and
-   spills of each kernel. Then the FP32 peak: the probe
+   ``march_grad.cu``, ``vpu_peak.cu``, ``step_vjp_check.cu``) with nvcc
+   (one process per source, started together) and print the build seconds,
+   ptxas's registers and spills of each kernel, and the gradient kernel's
+   dynamic shared memory per block (its re-forward stack). Then the FP32
+   peak: the probe
    (``tools/vpu_peak.py``) at its measuring size, whose output is held
    against its plain version on the same starts (which rounds each step once
    as the kernel's FMA does: rel < 1e-6, where one missing loop iteration
@@ -66,7 +68,24 @@ printing a result line:
    all four summed partials (m, a, r_h, r_ph) rel < 1e-3. Then
    ``ad_inverse_render`` at 256x256 (target at a = 0.85, start at 0.5,
    stages ((64, 8), (96, 4)), 36 steps): the final loss below 0.1x the
-   first and |spin - 0.85| < 1e-2.
+   first and |spin - 0.85| < 1e-2. Also the gradient kernel's per-step
+   check (``csrc/step_vjp_check.cu``): its hand-written adjoint against the
+   forward-mode ``Dual<11>`` pass over the same step, on 65,536 of the
+   recorded step's rays (a seeded sample) at every live step, with seeded
+   unit cotangents, approx_recip on and off: the relative difference
+   (floored as the gradient's) p99 <= 1e-4 and above 1e-3 on at most 0.1%
+   of elements, every element within 1e-4 of the size of its derivative's
+   terms (a ``Mag<11>`` pass: the sum of their absolute values), all
+   finite; both routes against float64 autograd through the plain step,
+   reported with the worst elements. The renormalization's VJP alone at
+   planted radial turning points (discriminants of exactly 0 among them):
+   adjoint against ``Dual<7>``, each state within 1e-5 of its largest
+   cotangent, and the exact double root against float64 autograd. The
+   CPU mirror ``ops/march_adjoint.py`` against the header on 4,096 of the
+   step's rays at every live step, exact divides: bit-equal. And the
+   kernel's resident warps per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through ctypes on
+   the built library), registers, spills and shared memory.
 8. The AB3 march (``multistep``): the march kernel against
    ``march_u_plain`` at 250x141, 48 steps, exact divides, a = 0.9 (integers
    identical, |d| < 1e-4); the render kernel against ``render_planes`` there,
@@ -148,9 +167,24 @@ from blackhole_simulation_tpu_torch.models.nrs import (  # noqa: E402
     nrs_init,
 )
 from blackhole_simulation_tpu_torch.ops import build as kbuild  # noqa: E402
+from blackhole_simulation_tpu_torch.ops.ks_kernel import (  # noqa: E402
+    ks_renormalize_pr,
+)
+from blackhole_simulation_tpu_torch.ops.march import (  # noqa: E402
+    march_step_rows,
+)
+from blackhole_simulation_tpu_torch.ops.march_adjoint import (  # noqa: E402
+    march_step_vjp_at,
+    renorm_discriminant,
+    turning_point_states,
+)
 from blackhole_simulation_tpu_torch.ops.march_grad import (  # noqa: E402
+    CKPT,
+    grad_kernel_shape,
     march_grad,
     march_grad_kernel,
+    renorm_vjp_check,
+    step_vjp_check,
 )
 from blackhole_simulation_tpu_torch.ops.pallas_march import (  # noqa: E402
     march_u,
@@ -170,6 +204,7 @@ from blackhole_simulation_tpu_torch.render.camera import (  # noqa: E402
     camera_rays_u,
 )
 from blackhole_simulation_tpu_torch.render.march import (  # noqa: E402
+    HIT_NONE,
     MarchConfig,
     MarchRows,
     _march_inputs,
@@ -195,7 +230,8 @@ from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
 )
 from blackhole_simulation_tpu_torch.tools import vpu_peak  # noqa: E402
 
-SOURCES = ("render.cu", "march.cu", "march_grad.cu", "vpu_peak.cu")
+SOURCES = ("render.cu", "march.cu", "march_grad.cu", "vpu_peak.cu",
+           "step_vjp_check.cu")
 # Published float32 peak of one H100 SXM outside the tensor cores (FLOP/s,
 # an FMA counted as two), the same in lane FMA instructions per second, and
 # the memory rate (bytes/s).
@@ -251,9 +287,32 @@ FRAME_SLACK = 1.25
 # The gradient kernel's least work per live march step, in march steps: the
 # checkpointing replay, the block's re-forward, and one reverse-mode VJP of
 # the step at about three times the step's operations (a transposed
-# multiply is two multiplies and an add). Its bytes: the checkpoint and
-# stack traffic through the scratch buffer besides its inputs and outputs.
+# multiply is two multiplies and an add). Its bytes: each live block's
+# checkpoint through the scratch buffer besides its inputs and outputs (the
+# re-forward stack stays in shared memory).
 GRAD_STEPS_PER_STEP = 2 + 3
+# Phase 7's per-step check of the gradient kernel's adjoint against the
+# dual pass, on a seeded sample of the 1080p step's rays at every live step.
+# The relative difference (floored at 1e-6, as grad_compare's): its 99th
+# percentile, and the share of elements above 1e-3. And every element's
+# difference over the size of its derivative's terms (the sum of their
+# absolute values, which float32 rounding of either route moves the result
+# by a small multiple of eps of, however much the terms cancel).
+STEP_CHECK_RAYS = 65536
+STEP_CHECK_P99_BAR = 1e-4
+STEP_CHECK_TAIL_BAR = 1e-3
+STEP_CHECK_SIZE_BAR = 1e-4
+# The mirror of the adjoint (ops/march_adjoint.py) against the header on
+# rays of the same step at exact divides, every live step: bit-equal.
+MIRROR_CHECK_RAYS = 4096
+# The renormalization's VJP alone at planted radial turning points: the
+# adjoint's largest difference from the dual pass, over the largest |dual|
+# cotangent of the same state (near a double root the small cotangents are
+# cancellations at float32 rounding of the large ones).
+RENORM_CHECK_BAR = 1e-5
+# The step's 11 inputs, in the order of the VJP's rows.
+STEP_INPUTS = ("t", "r", "u", "ph", "pr", "pu", "pph", "m", "a", "r_h",
+               "r_ph")
 # The device of phases 5-7.
 DEV = "cuda"
 FLAGSHIP_CFG = MarchConfig(
@@ -347,6 +406,11 @@ def phase_build():
         for entry, regs, spill in kbuild.ptxas_usage(src):
             print(f"ptxas {src}: {entry}: {regs} registers, {spill} bytes "
                   "spilled")
+    regs, spill = registers("march_grad.cu")
+    shape = grad_kernel_shape()
+    print(f"gradient kernel (march_grad.cu): {regs} registers, {spill} bytes "
+          f"spilled, {shape['smem_bytes']} bytes of dynamic shared memory per "
+          f"{shape['threads']}-thread block (a {shape['ckpt']}-step stack)")
     return secs
 
 
@@ -682,6 +746,184 @@ def grad_compare(k, p):
     }
 
 
+def _step_ref64(chk, yt0, thr, m, a, r_h, r_ph, cfg, cts):
+    """float64 autograd through the plain step (march_step_rows) at every
+    live step of a per-step check, from its recorded pre-step states, with
+    the check's cotangent injection: (11, steps, N), NaN where no step
+    ran."""
+    state, live = chk["state"], chk["live"]
+    steps, n = live.shape
+    out = torch.full((11, steps, n), math.nan, dtype=torch.float64,
+                     device=DEV)
+    scalars = [torch.as_tensor(v).detach().double().to(DEV)
+               for v in (m, a, r_h, r_ph)]
+    for i in range(steps):
+        sel = live[i]
+        k = int(sel.sum())
+        if k == 0:
+            continue
+        st = state[:, i, sel].double()
+        ins = [st[q].clone().requires_grad_() for q in range(6)]
+        ins += [yt0[7][sel].double().requires_grad_()]
+        ins += [v.expand(k).clone().requires_grad_() for v in scalars]
+        hit = torch.full((k,), HIT_NONE, dtype=torch.int32, device=DEV)
+        with torch.enable_grad():
+            (y2, r_c, phi_c, t_c, dmin, _), (_, _, crossed, advance) = (
+                march_step_rows(ins[7], ins[8], ins[9], ins[10],
+                                thr[sel].double(), cfg, i, tuple(ins[:6]),
+                                ins[6], hit, st[6].to(torch.int32)))
+            ct = cts[:, sel].double()
+            cto = [*ct[:6], *(torch.where(crossed, c, 0.0) for c in ct[6:9]),
+                   torch.where(advance, ct[9], 0.0)]
+            g = torch.autograd.grad([*y2, r_c, phi_c, t_c, dmin], ins, cto,
+                                    allow_unused=True)
+        out[:, i, sel] = torch.stack(
+            [torch.zeros(k, dtype=torch.float64, device=DEV) if x is None
+             else x for x in g])
+    return out
+
+
+def _element(idx, cfg, e, **rows):
+    """One element of a per-step check's live rows, for the report."""
+    k, col = divmod(int(e), int(idx.shape[0]))
+    i, j = (int(x) for x in idx[col])
+    return {"input": STEP_INPUTS[k], "step": i, "ray": j,
+            "renormalized": (i + 1) % cfg.renormalize_every == 0,
+            **{name: float(v[k, col]) for name, v in rows.items()}}
+
+
+def step_check(g_args):
+    """The gradient kernel's per-step adjoint against the dual pass on the
+    card (csrc/step_vjp_check.cu), on a seeded sample of the recorded step's
+    rays at every live step, with seeded unit cotangents, approx_recip on
+    and off. The relative difference (floored as grad_compare's): its 99th
+    percentile, the share above 1e-3 and the largest; the largest
+    difference over the size of the derivative's terms; and, to say how
+    near each route is to the true derivative, both against float64
+    autograd through the plain step at the recorded states (99th
+    percentile and largest). The worst element of the relative difference,
+    of the size ratio and of the adjoint against float64, with its input,
+    step, ray, both values, the float64 one and the terms' size (a size far
+    above |value| is a cancellation)."""
+    yt0, thr, m, a, r_h, r_ph, cfg = g_args[:7]
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    n = int(yt0.shape[1])
+    pick = torch.randperm(n, generator=gen, device=DEV)[:STEP_CHECK_RAYS]
+    cts = torch.randn((10, len(pick)), generator=gen, device=DEV)
+    # (kthvalue: torch.quantile takes at most 2**24 elements)
+    q99 = lambda x: float(x.kthvalue(max(1, math.ceil(0.99 * x.numel())))
+                          .values)
+    out = {}
+    for approx in (True, False):
+        c = dataclasses.replace(cfg, approx_recip=approx)
+        args = (yt0[:, pick], thr[pick], m, a, r_h, r_ph, c)
+        chk = step_vjp_check(*args, cts, cfg.max_steps)
+        torch.cuda.synchronize()
+        live = chk["live"]
+        idx = live.nonzero()
+        adj, dual, size = (chk[k][:, live] for k in ("adjoint", "dual",
+                                                     "size"))
+        diff = (adj - dual).abs()
+        rel = diff / (dual.abs() + 1e-6)
+        by_size = torch.where(diff > 0, diff / size, 0.0)
+        finite = bool(torch.isfinite(adj).all() and torch.isfinite(dual).all())
+        ref = _step_ref64(chk, *args, cts)[:, live]
+        ok_ref = torch.isfinite(ref)
+        ref_rel = lambda v: torch.where(
+            ok_ref, (v.double() - ref).abs() / (ref.abs() + 1e-6),
+            0.0).flatten()
+        rows = dict(adjoint=adj, dual=dual, float64=ref, size=size)
+        st = {"rays": len(pick), "live_steps": int(live.sum()),
+              "p99_rel": q99(rel.flatten()) if finite else math.nan,
+              "frac_rel_gt_1e-3": float((rel > 1e-3).double().mean()),
+              "max_rel": float(rel.max()), "finite": finite,
+              "max_diff_over_size": float(by_size.max()),
+              "ref_nonfinite": int((~ok_ref).sum()),
+              "adjoint_vs_f64_p99_max": [q99(ref_rel(adj)),
+                                         float(ref_rel(adj).max())],
+              "dual_vs_f64_p99_max": [q99(ref_rel(dual)),
+                                      float(ref_rel(dual).max())],
+              "worst_rel": _element(idx, cfg, rel.argmax(), **rows),
+              "worst_over_size": _element(idx, cfg, by_size.argmax(),
+                                          **rows),
+              "worst_vs_f64": _element(idx, cfg, ref_rel(adj).argmax(),
+                                       **rows)}
+        print(f"per-step adjoint vs dual pass (approx_recip={approx}): {st}")
+        if not (finite and st["p99_rel"] <= STEP_CHECK_P99_BAR
+                and st["frac_rel_gt_1e-3"] <= STEP_CHECK_TAIL_BAR
+                and st["max_diff_over_size"] <= STEP_CHECK_SIZE_BAR):
+            raise AssertionError(f"per-step adjoint vs dual failed: {st}")
+        out[f"approx_{approx}"] = st
+    return out
+
+
+def mirror_check(g_args):
+    """The adjoint's CPU mirror (ops/march_adjoint.py) against the header
+    it mirrors, on MIRROR_CHECK_RAYS of the recorded step's rays at every
+    live step, exact divides: the mirror runs on the check's recorded
+    states and must equal the kernel's adjoint bit for bit."""
+    yt0, thr, m, a, r_h, r_ph, cfg = g_args[:7]
+    cfg = dataclasses.replace(cfg, approx_recip=False)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    pick = torch.randperm(int(yt0.shape[1]), generator=gen,
+                          device=DEV)[:MIRROR_CHECK_RAYS]
+    cts = torch.randn((10, len(pick)), generator=gen, device=DEV)
+    args = (yt0[:, pick], thr[pick], m, a, r_h, r_ph, cfg)
+    chk = step_vjp_check(*args, cts, cfg.max_steps)
+    live = chk["live"].cpu()
+    got = chk["adjoint"].cpu()[:, live]
+    want = march_step_vjp_at(chk, *args, cts)[:, live]
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    st = {"rays": len(pick), "elements": int(same.numel()),
+          "not_bit_equal": int((~same).sum()),
+          "max_abs": float((got - want).abs().max())}
+    print(f"adjoint mirror (CPU) vs header (card), exact divides: {st}")
+    if st["not_bit_equal"]:
+        raise AssertionError(f"adjoint mirror differs from the header: {st}")
+    return st
+
+
+def renorm_check():
+    """The renormalization's VJP alone at planted radial turning points
+    (ops/march_adjoint.py::turning_point_states, csrc/step_vjp_check.cu):
+    the hand-written adjoint
+    against ks_renormalize_pr on Dual<7> (the same float32 discriminant, so
+    the same branch), each state's largest difference over its largest
+    |dual| cotangent <= RENORM_CHECK_BAR, all finite; at the exact double
+    root, the adjoint against float64 autograd through the plain
+    ks_renormalize_pr (rel 1e-5). A tie rule applied to the floored
+    discriminant fails here: it sends the double root's discriminant half
+    of 0.5 / sqrt(1e-30)."""
+    q = turning_point_states(device=DEV)
+    adj, dual = renorm_vjp_check(q)
+    disc = renorm_discriminant(q)
+    ins = [x.double().clone().requires_grad_() for x in q[:7, :1]]
+    with torch.enable_grad():
+        out = ks_renormalize_pr(ins[0], ins[1], ins[2], ins[3],
+                                torch.full_like(ins[0], -1.0), ins[4], ins[5],
+                                ins[6])
+        ref = torch.autograd.grad(out, ins, q[7, :1].double(),
+                                  allow_unused=True)
+    ref = torch.stack([torch.zeros(1, dtype=torch.float64, device=DEV)
+                       if x is None else x for x in ref])[:, 0]
+    rel = ((adj - dual).abs().amax(0)
+           / dual.abs().amax(0).clamp_min(1e-30))
+    root_rel = max(_rel(float(x), float(y)) for x, y in zip(adj[:, 0], ref))
+    st = {"states": int(q.shape[1]),
+          "disc_zero": int((disc == 0).sum()),
+          "disc_negative": int((disc < 0).sum()),
+          "disc_below_1e-4": int(((disc > 0) & (disc < 1e-4)).sum()),
+          "finite": bool(torch.isfinite(adj).all()
+                         and torch.isfinite(dual).all()),
+          "max_rel": float(rel.max()), "double_root_vs_f64_rel": root_rel,
+          "double_root_adjoint": [float(x) for x in adj[:, 0]]}
+    print(f"renormalization adjoint vs dual at turning points: {st}")
+    if not (st["finite"] and st["max_rel"] <= RENORM_CHECK_BAR
+            and root_rel <= 1e-5 and st["disc_zero"] >= 1):
+        raise AssertionError(f"renormalization adjoint failed: {st}")
+    return st
+
+
 def phase_train(steps=5, warmup=2, width=1920, height=1080):
     scene = flagship_scene(width, height, cfg=TRAIN_CFG, features=Features())
     cfg = scene.march_cfg
@@ -721,7 +963,6 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     grad_ms, _ = kernel_time(lambda: march_grad_kernel(*g_args), 3)
     n_rays = int(outs[0].shape[1])
     total_steps = int(outs[2].long().sum())
-    n_blocks = -(-cfg.max_steps // 32)
 
     cfg_x = dataclasses.replace(cfg, approx_recip=False)
     with torch.no_grad():
@@ -750,12 +991,26 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
             and max(gs["partials_rel"]) < 1e-3):
         raise AssertionError(f"1080p gradient kernel vs plain failed: {gs}")
 
+    checks = step_check(g_args)
+    checks["renorm"] = renorm_check()
+    checks["mirror"] = mirror_check(g_args)
+    shape = grad_kernel_shape()
+    regs, spill = registers("march_grad.cu")
+    print(f"gradient kernel occupancy: {shape['blocks_per_sm']} blocks of "
+          f"{shape['threads']} threads = {shape['warps_per_sm']} resident "
+          f"warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+          f"{regs} registers, {spill} bytes spilled, {shape['smem_bytes']} "
+          "bytes of shared memory per block")
+
     k_slots = cfg.max_crossings
     march_ops = OPS_PER_STEP * total_steps
     march_bytes = 4 * n_rays * (9 + 8 + 3 + 3 * k_slots + 1)
     grad_ops = GRAD_STEPS_PER_STEP * OPS_PER_STEP * total_steps
-    grad_bytes = 4 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4
-                                + 8 * n_blocks) + 2 * 7 * total_steps)
+    # inputs and outputs, then each live block's checkpoint (7 words) written
+    # once and read once; the stack stays in shared memory
+    live_blocks = int(((outs[2].long() + CKPT) // CKPT).sum())
+    grad_bytes = 4 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4)
+                      + 2 * 7 * live_blocks)
     print(f"training step {width}x{height}: {step_ms:.3f} ms/step median of {steps} "
           f"(min {step_min:.3f}, max {step_max:.3f}), "
           f"{n_pix / step_ms / 1e3:.2f} Mrays/s fwd+bwd; launches {launches}; "
@@ -773,7 +1028,8 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
         "mrays_per_s": n_pix / step_ms / 1e3, "steps": steps,
         "loss": float(loss), "clipped_grads": grads, "scratch_bytes": scratch,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "ad_curriculum": curriculum,
+        "ad_curriculum": curriculum, "step_check": checks,
+        "grad_occupancy": shape,
     }
     return train, [
         dict(name="march",
@@ -792,7 +1048,9 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
              ray_p999_rel=gs["ray_p999_rel"],
              frac_rel_gt_1e3=gs["frac_rel_gt_1e-3"], max_rel=gs["max_rel"],
              partials_rel=gs["partials_rel"], scratch_bytes=scratch,
-             **common),
+             registers_spill=[regs, spill], smem_bytes=shape["smem_bytes"],
+             warps_per_sm=shape["warps_per_sm"], ckpt=shape["ckpt"],
+             step_check=checks, **common),
     ]
 
 

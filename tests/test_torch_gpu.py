@@ -23,9 +23,18 @@ from blackhole_simulation_tpu_torch.configs import (
     scene_from_params,
 )
 from blackhole_simulation_tpu_torch.models.nrs import nrs_init
+from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_pr
+from blackhole_simulation_tpu_torch.ops.march_adjoint import (
+    march_step_vjp_at,
+    renorm_discriminant,
+    turning_point_states,
+)
 from blackhole_simulation_tpu_torch.ops.march_grad import (
+    grad_kernel_shape,
     march_grad,
     march_grad_kernel,
+    renorm_vjp_check,
+    step_vjp_check,
 )
 from blackhole_simulation_tpu_torch.ops.pallas_march import (
     march_u,
@@ -186,6 +195,74 @@ def test_grad_kernel_matches_plain_version(cuda):
     assert float(torch.quantile(rel.flatten(), 0.95)) < 1e-2
     for x, y in zip(k[1:], p[1:]):
         assert float(x) == pytest.approx(float(y), rel=5e-3)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_step_adjoint_matches_dual_pass(cuda, approx):
+    """The gradient kernel's hand-written per-step adjoint against the
+    forward-mode Dual<11> pass over the same step, on every live step of
+    48 with unit cotangents (csrc/step_vjp_check.cu): the relative
+    difference, floored at 1e-6, has p99 below 1e-4 and at most 0.1% above
+    1e-3; no element differs by more than 1e-4 of the size of its
+    derivative's terms."""
+    cfg = dc.replace(CFG, fused=False, approx_recip=approx)
+    args = _march_args(cuda, cfg, 96, 54)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cts = torch.randn((10, args[0].shape[1]), generator=gen, device=cuda)
+    chk = step_vjp_check(*args, cfg, cts, 48)
+    live = chk["live"]
+    adj, dual, size = (chk[k][:, live] for k in ("adjoint", "dual", "size"))
+    assert bool(torch.isfinite(adj).all()) and bool(torch.isfinite(dual).all())
+    diff = (adj - dual).abs()
+    rel = diff / (dual.abs() + 1e-6)
+    assert float(torch.quantile(rel.flatten(), 0.99)) < 1e-4
+    assert float((rel > 1e-3).double().mean()) <= 1e-3
+    assert float(torch.where(diff > 0, diff / size, 0.0).max()) <= 1e-4
+
+
+def test_adjoint_mirror_matches_header(cuda):
+    """ops/march_adjoint.py (the CPU mirror the CPU tests hold against
+    autograd and JAX) equals csrc/march_adjoint.cuh's adjoint bit for bit at
+    exact divides, on the states and cotangents of every live step of 48."""
+    cfg = dc.replace(CFG, fused=False, approx_recip=False)
+    args = _march_args(cuda, cfg, 96, 54)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cts = torch.randn((10, args[0].shape[1]), generator=gen, device=cuda)
+    chk = step_vjp_check(*args, cfg, cts, 48)
+    live = chk["live"].cpu()
+    got = chk["adjoint"].cpu()[:, live]
+    want = march_step_vjp_at(chk, *args, cfg, cts)[:, live]
+    assert torch.equal(got, want)
+
+
+def test_renorm_adjoint_at_turning_points(cuda):
+    """The renormalization's adjoint at planted radial turning points
+    (among them discriminants of exactly 0) against ks_renormalize_pr on
+    Dual<7>: each state's largest difference below 1e-5 of its largest
+    cotangent; at the exact double root, against float64 autograd."""
+    q = turning_point_states(device=cuda)
+    assert int((renorm_discriminant(q) == 0).sum()) >= 1
+    adj, dual = renorm_vjp_check(q)
+    assert bool(torch.isfinite(adj).all()) and bool(torch.isfinite(dual).all())
+    worst = (adj - dual).abs().amax(0) / dual.abs().amax(0).clamp_min(1e-30)
+    assert float(worst.max()) <= 1e-5
+    ins = [x.double().clone().requires_grad_() for x in q[:7, :1].cpu()]
+    out = ks_renormalize_pr(ins[0], ins[1], ins[2], ins[3],
+                            torch.full_like(ins[0], -1.0), ins[4], ins[5],
+                            ins[6])
+    ref = torch.autograd.grad(out, ins, q[7, :1].double().cpu(),
+                              allow_unused=True)
+    for x, r in zip(adj[:, 0].cpu(), ref):
+        r = 0.0 if r is None else float(r)
+        assert float(x) == pytest.approx(r, rel=1e-5, abs=1e-6)
+
+
+def test_grad_kernel_shape(cuda):
+    """The gradient kernel's stack fits the blocks its register cap
+    allows: at least 12 resident warps per SM."""
+    shape = grad_kernel_shape()
+    assert shape["warps_per_sm"] >= 12, shape
+    assert shape["smem_bytes"] == shape["ckpt"] * 7 * shape["threads"] * 4
 
 
 def test_training_step_runs_both_kernels(cuda):

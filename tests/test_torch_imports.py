@@ -20,6 +20,7 @@ MODULES = [
     "blackhole_simulation_tpu_torch.ops.build",
     "blackhole_simulation_tpu_torch.ops.pallas_march",
     "blackhole_simulation_tpu_torch.ops.march_grad",
+    "blackhole_simulation_tpu_torch.ops.march_adjoint",
     "blackhole_simulation_tpu_torch.render.march",
     "blackhole_simulation_tpu_torch.render.camera",
     "blackhole_simulation_tpu_torch.render.precull",
