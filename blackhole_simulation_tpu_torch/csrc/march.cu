@@ -1,7 +1,8 @@
 // March kernel for Hopper (sm_90a): march a batch of rays to horizon or
-// escape, one thread per ray, recording the final state, the termination
-// code, the step count, up to K equator crossings (r, phi, t), their count
-// and the photon-ring proximity min |r - r_ph|.
+// escape on persistent warps that refill their finished lanes, recording
+// the final state, the termination code, the step count, up to K equator
+// crossings (r, phi, t), their count and the photon-ring proximity
+// min |r - r_ph|.
 //
 // Replaces blackhole_simulation_tpu/ops/pallas_march.py::_march_kernel (the
 // Pallas TPU march-only kernel launched by pallas_march_u) with both of its
@@ -19,23 +20,48 @@
 // (the card's FP32 rate), far above the bytes' time. chip_smoke.py computes
 // both from the run.
 //
+// What holds it back (chip_smoke.py phase 12 on the one-thread-per-ray
+// kernel this design replaced, H100 80GB HBM3 at 700 W): divergence, less
+// than hoped. A warp of 32 consecutive rays marched until its slowest ray
+// ended, and lost 11-13% of its lanes that way on the 1080p training,
+// staged AB3 and staged jets marches (lane efficiency 0.87-0.89). Most of
+// the rest of the gap to the bound is instructions the hand count leaves
+// out (copies of one ray on every lane run at 1.64x the counted operations
+// per step; the jets' double-precision exp and pow make a jets step cost
+// two midpoint steps). The certified render's refinement re-march (16,384
+// rays, one wave) is the latency of its longest ray (3,428 steps) and
+// nothing else.
+//
 // Design for the card:
-// * One thread per ray, a 1-D launch over N rays with the tail masked;
-//   nothing is padded in memory. The ray state, the crossing slots, hit,
-//   steps, the count and r_min live in registers.
-// * Layout: every input and output is row-major [row][ray], so consecutive
-//   threads read and write consecutive words.
-// * The caller orders rays in 64 x 64 pixel blocks (ops/pallas_march.py::
-//   to_block_order) when MarchConfig.use_pallas is set, so a warp of 32
-//   consecutive rays is a compact strip of one block and retires with its
-//   slowest ray: the GPU form of the Pallas kernel's per-tile early exit.
-// * The loop is march_step.cuh's march_ray, the render kernel's own loop:
-//   while (i < max_steps && hit == NONE), renormalization after step i when
-//   (i + 1) % renormalize_every == 0 on live rays.
-// * The AB3 march (march_step.cuh's march_ray_ab3) is the kernel's other
-//   instantiation, chosen at launch: the midpoint instantiation carries none
-//   of its registers (two 6-word right-hand-side histories and two step
-//   sizes). It evaluates one right-hand side per step instead of two.
+// * A resident grid of persistent warps (resident blocks per SM x SMs,
+//   from the occupancy API, once per instantiation; fewer blocks where the
+//   rays are fewer). Each lane holds at most one ray, taken from a pool: an
+//   int32 counter in device memory that the warp's lanes advance together
+//   with one atomicAdd (pool_take), and that the launch's last block to
+//   retire sets back to zero (pool_retire), so a launch is one launch.
+// * The loop (the "while-while" traversal of Aila & Laine, Understanding
+//   the Efficiency of Ray Traversal on GPUs, HPG 2009, for a march): each
+//   lane marches its ray up to CHECK_STEPS steps (march_step.cuh's
+//   ray_step: the body of march_ray's or march_ray_ab3's loop, so every
+//   ray's arithmetic is unchanged), then the warp counts its live lanes
+//   with __ballot_sync; when fewer than REFILL are live, the lanes whose
+//   rays ended write them out and take the next rays together. A ray's
+//   outputs are written once, by the lane that finished it, so results do
+//   not depend on which lane ran which ray.
+// * REFILL and CHECK_STEPS, from builds with other values on the 1080p
+//   marches: refilling a few lanes at a time costs more than it saves (a
+//   pass stalls the warp's live lanes on the atomic and the loads), and a
+//   count after every step adds its ballot and a copy of the lane state to
+//   every step; 16 of 32 and every 16 steps did best on the training,
+//   AB3 and jets marches together.
+// * Per-ray state lives in registers (march_step.cuh's MarchRay); for AB3
+//   it carries the two right-hand-side histories and step sizes, which a
+//   birth resets. The midpoint instantiation carries none of AB3's or the
+//   jets' registers.
+// * Layout: every input and output is row-major [row][ray]; a refill's rays
+//   are consecutive, so its loads and stores stay in few lines. The
+//   caller orders rays in 64 x 64 pixel blocks (ops/pallas_march.py::
+//   to_block_order) when MarchConfig.use_pallas is set.
 // * approx_recip: rcp.approx.ftz.f32 for 1/S, 1/w and the step's divides,
 //   IEEE divides otherwise.
 // * Jets (a third instantiation, chosen when the caller passes JetParams):
@@ -49,8 +75,65 @@
 #include "march_step.cuh"
 
 #define THREADS 128
+// A warp refills its lanes once fewer than REFILL of its 32 rays are live;
+// it counts them every CHECK_STEPS steps (see the header comment).
+#define REFILL 16
+#define CHECK_STEPS 16
 
-// MARCH: 0 the midpoint march, 1 AB3, 2 the midpoint march with jets.
+template <int MARCH>
+__device__ __forceinline__ void march_birth(const float* __restrict__ y,
+                                            const float* __restrict__ thr,
+                                            size_t N, int j,
+                                            const MarchParams& mp, float m,
+                                            float a, float r_ph,
+                                            MarchRay<MARCH>& q) {
+  q.s[0] = y[j];
+  q.s[1] = y[N + j];
+  q.s[2] = y[2 * N + j];
+  q.s[3] = y[3 * N + j];
+  q.s[4] = y[5 * N + j];
+  q.s[5] = y[6 * N + j];
+  q.pph = y[7 * N + j];
+  q.thr = thr[j];
+  ray_begin(mp, m, a, r_ph, q);
+}
+
+template <int MARCH>
+__device__ __forceinline__ void march_finish(
+    const MarchRay<MARCH>& q, size_t N, int j, int max_crossings,
+    float* __restrict__ yo, int* __restrict__ hit_o, int* __restrict__ steps_o,
+    float* __restrict__ cr_o, float* __restrict__ cp_o,
+    float* __restrict__ ct_o, int* __restrict__ nc_o,
+    float* __restrict__ rmin_o, float* __restrict__ jet_o) {
+  yo[j] = q.s[0];
+  yo[N + j] = q.s[1];
+  yo[2 * N + j] = q.s[2];
+  yo[3 * N + j] = q.s[3];
+  yo[4 * N + j] = -1.0f;
+  yo[5 * N + j] = q.s[4];
+  yo[6 * N + j] = q.s[5];
+  yo[7 * N + j] = q.pph;
+  hit_o[j] = q.hit;
+  steps_o[j] = q.steps;
+  nc_o[j] = q.nc;
+  rmin_o[j] = q.rmin;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k < max_crossings) {
+      cr_o[k * N + j] = q.cr[k];
+      cp_o[k * N + j] = q.cp[k];
+      ct_o[k * N + j] = q.ct[k];
+    }
+  }
+  if (MARCH == MARCH_JETS) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) jet_o[c * N + j] = q.jet[c];
+  }
+}
+
+// MARCH: MARCH_MIDPOINT, MARCH_AB3 or MARCH_JETS. A resident grid of
+// persistent warps; each lane marches one ray at a time, taken from the
+// pool (pool[0]: the next ray index, pool[1]: retired blocks).
 template <int MARCH>
 __global__ void __launch_bounds__(THREADS)
 march_kernel(const float* __restrict__ P, const float* __restrict__ y,
@@ -59,75 +142,137 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
              float* __restrict__ cr_o, float* __restrict__ cp_o,
              float* __restrict__ ct_o, int* __restrict__ nc_o,
              float* __restrict__ rmin_o, float* __restrict__ jet_o, int n,
-             const MarchParams mp, const JetParams jp) {
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j >= n) return;
+             int* __restrict__ pool, const MarchParams mp,
+             const JetParams jp) {
   const size_t N = (size_t)n;
+  const int lane = threadIdx.x & 31;
+  const bool approx = mp.approx_recip != 0;
   const float m = __ldg(P + 0);
   const float a = __ldg(P + 1);
   const float r_h = __ldg(P + 2);
   const float r_ph = __ldg(P + 3);
-  float s[6] = {y[j], y[N + j], y[2 * N + j], y[3 * N + j], y[5 * N + j],
-                y[6 * N + j]};
-  const float pph = y[7 * N + j];
-  int hit, steps, nc;
-  float cr[KMAX], cp[KMAX], ct[KMAX], rmin, jet[3];
-  if (MARCH == 1)
-    march_ray_ab3(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph, thr[j], s,
-                  hit, steps, nc, cr, cp, ct, rmin);
-  else {
-    const JetParams jets = jp;
-    march_ray<MARCH == 2>(mp, mp.approx_recip != 0, m, a, r_h, r_ph, pph,
-                          thr[j], s, hit, steps, nc, cr, cp, ct, rmin, &jets,
-                          jet);
-  }
-  yo[j] = s[0];
-  yo[N + j] = s[1];
-  yo[2 * N + j] = s[2];
-  yo[3 * N + j] = s[3];
-  yo[4 * N + j] = -1.0f;
-  yo[5 * N + j] = s[4];
-  yo[6 * N + j] = s[5];
-  yo[7 * N + j] = pph;
-  hit_o[j] = hit;
-  steps_o[j] = steps;
-  nc_o[j] = nc;
-  rmin_o[j] = rmin;
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    if (k < mp.max_crossings) {
-      cr_o[k * N + j] = cr[k];
-      cp_o[k * N + j] = cp[k];
-      ct_o[k * N + j] = ct[k];
+  MarchRay<MARCH> q;
+  int j = -1;          // the lane's ray, -1 for none
+  bool live = false;   // the lane's ray is still marching
+  bool empty = false;  // the pool has no ray left (the same in every lane)
+  while (true) {
+    const unsigned lm = __ballot_sync(FULL_MASK, live);
+    const bool done = empty && lm == 0u;
+    if (done || (!empty && __popc(lm) < REFILL)) {
+      // The refill pass: the lanes whose rays ended write them out, then
+      // take the next rays together and birth them.
+      if (j >= 0 && !live) {
+        march_finish(q, N, j, mp.max_crossings, yo, hit_o, steps_o, cr_o,
+                     cp_o, ct_o, nc_o, rmin_o, jet_o);
+        j = -1;
+      }
+      if (done) break;
+      int end;
+      const int k = pool_take(pool, ~lm, lane, end);
+      if (!live && k < n) {
+        j = k;
+        march_birth(y, thr, N, j, mp, m, a, r_ph, q);
+        live = q.hit == HIT_NONE;
+      }
+      empty = end >= n;
+      continue;
+    }
+#pragma unroll 1
+    for (int rep = 0; rep < CHECK_STEPS && live; ++rep) {
+      ray_step(mp, approx, m, a, r_h, r_ph, jp, q);
+      live = q.hit == HIT_NONE;
     }
   }
-  if (MARCH == 2) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) jet_o[c * N + j] = jet[c];
+  pool_retire(pool);
+}
+
+// Resident blocks per SM of each instantiation, and the SM count, per
+// device (queried once).
+static int g_blocks[16][3];
+static int g_sms[16];
+
+static void* march_kernel_fn(int variant) {
+  return variant == MARCH_JETS ? (void*)march_kernel<MARCH_JETS>
+         : variant == MARCH_AB3 ? (void*)march_kernel<MARCH_AB3>
+                                : (void*)march_kernel<MARCH_MIDPOINT>;
+}
+
+static int march_shape(int variant, int* blocks, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 16) return (int)cudaErrorInvalidDevice;
+  if (g_blocks[dev][variant] == 0) {
+    int b = 0, s = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, march_kernel_fn(variant), THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    g_blocks[dev][variant] = b;
+    g_sms[dev] = s;
   }
+  *blocks = g_blocks[dev][variant];
+  *sms = g_sms[dev];
+  return 0;
+}
+
+static int march_variant(const MarchParams* mp, const JetParams* jp) {
+  return jp != nullptr ? MARCH_JETS
+         : mp->multistep ? MARCH_AB3 : MARCH_MIDPOINT;
 }
 
 extern "C" {
 
-// Launches the march kernel on ``stream``; returns cudaGetLastError().
-// P: (4,) [m, a, r_h, r_ph]; y: (8, n) rows with p_t = -1; thr: (n,).
-// jp: the jets' configuration, or null for no jets; jet: (3, n) rows that
-// receive the jets' radiance (unused without jets).
+// Launches the march kernel on ``stream``; returns a CUDA error code (0 on
+// success). P: (4,) [m, a, r_h, r_ph]; y: (8, n) rows with p_t = -1; thr:
+// (n,). jp: the jets' configuration, or null for no jets; jet: (3, n) rows
+// that receive the jets' radiance (unused without jets). pool: two int32
+// words, zero, which the launch leaves zero. The grid is the resident one
+// (blocks per SM x SMs), fewer blocks where n is smaller.
 int bh_march_launch(const float* P, const float* y, const float* thr,
                     float* yo, int* hit, int* steps, float* cr, float* cp,
                     float* ct, int* nc, float* rmin, float* jet, int n,
-                    const MarchParams* mp, const JetParams* jp,
+                    int* pool, const MarchParams* mp, const JetParams* jp,
                     void* stream) {
   if (n > 0) {
-    auto kernel = jp != nullptr ? march_kernel<2>
-                  : mp->multistep ? march_kernel<1>
-                                  : march_kernel<0>;
+    const int variant = march_variant(mp, jp);
+    int blocks = 0, sms = 0;
+    const int err = march_shape(variant, &blocks, &sms);
+    if (err != 0) return err;
+    int grid = blocks * sms;
+    const int need = (n + THREADS - 1) / THREADS;
+    if (grid > need) grid = need;
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
     const JetParams none = {};
-    kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-        P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, *mp,
-        jp != nullptr ? *jp : none);
+    const JetParams jets = jp != nullptr ? *jp : none;
+    if (variant == MARCH_JETS)
+      march_kernel<MARCH_JETS><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool, *mp,
+          jets);
+    else if (variant == MARCH_AB3)
+      march_kernel<MARCH_AB3><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool, *mp,
+          jets);
+    else
+      march_kernel<MARCH_MIDPOINT>
+          <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+              P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool,
+              *mp, jets);
   }
   return (int)cudaGetLastError();
+}
+
+// The launch shape of the instantiation that (mp, jp) selects: out =
+// {threads per block, resident blocks per SM, SMs}; returns a CUDA error
+// code.
+int bh_march_shape(const MarchParams* mp, const JetParams* jp, int* out) {
+  int blocks = 0, sms = 0;
+  const int err = march_shape(march_variant(mp, jp), &blocks, &sms);
+  out[0] = THREADS;
+  out[1] = blocks;
+  out[2] = sms;
+  return err;
 }
 
 const char* bh_error_string(int err) {

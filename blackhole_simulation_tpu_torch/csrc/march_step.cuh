@@ -5,6 +5,27 @@
 // slots and freeze points on the same steps as the forward march, and the
 // render kernel's march is the march kernel's.
 //
+// A ray is marched in one loop (march_ray, march_ray_ab3: the render
+// kernel's one thread per pixel) or a step at a time (MarchRay, ray_begin,
+// ray_step: the march kernel's persistent warps, which hand a lane the next
+// ray when its own ends). Both run the same step bodies (march_step with
+// record_step, jets_advance, ab3_step) in the same order; the step-level
+// form carries what the loops keep in locals, AB3's right-hand-side
+// histories and step sizes among them, as per-lane state.
+//
+// Why two forms: each writes its own prologue (the records cleared) and
+// end-of-march rule (AB3's tail renormalization, then hit = HIT_HORIZON),
+// so a change to either must be made in both (march_ray and march_ray_ab3
+// against ray_begin and ray_close). The render kernel built on the step
+// form alone (ray_begin, then one step at a time until the ray ends)
+// compiled to more registers than on the loops, nvcc for sm_90a: with the
+// end-of-march rule in the loop, 61 against 56 on the flagship
+// instantiation; with it once after the loop, 56, but 16 + 24 bytes of
+// spill on the AB3 instantiation and 10 + 12 on jets with extras, where
+// the loops have none (every MarchRay field order and loop shape tried
+// read the same). chip_smoke.py fails on a spill and pins the flagship at
+// 56, so the render kernel keeps the loops.
+//
 // Counterpart of blackhole_simulation_tpu/ops/ks_kernel.py (ks_rhs_rows,
 // ks_symplectic_step_rows, ks_renormalize_pr), ops/pallas_march.py
 // (diff_step_values, start_offset_rows, march_tile with its jets,
@@ -565,13 +586,39 @@ __device__ __forceinline__ void jet_emission(const JetParams& jp, float r,
   out[2] = mag;
 }
 
-// March one ray to horizon or escape (ops/march.py::march_tile, one ray):
+// The jets' step of a live ray at step index i (march_tile's jet term,
+// the body of march_ray<true>): the midpoint step, the crossing record, the
+// jets' emission summed into jet from the pre-step state, the stepped one
+// and 1 / dlam (even on a step the sanity test then rejects), the advance
+// and the renormalization.
+__device__ __forceinline__ void jets_advance(
+    const MarchParams& mp, bool approx, float m, float a, float r_h,
+    float r_ph, float pph, float thr, int i, float s[6], int& hit, int nc,
+    const JetParams& jp, float jet[3], bool& crossed, bool& advance,
+    float& r_c, float& phi_c, float& t_c) {
+  float y[6], c[3];
+  const float dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
+  midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4], s[5],
+                pph, y);
+  crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
+  const float inv = recip(dlam, approx);
+  const float st = sqrtf(jmax(1.0f - s[2] * s[2], F(1e-6)));
+  jet_emission(jp, s[1], st, s[2], s[3], (y[1] - s[1]) * inv,
+               -(y[2] - s[2]) * inv / st, (y[3] - s[3]) * inv, dlam, c);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) jet[k] = jet[k] + c[k];
+  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
+  if ((i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE)
+    s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+}
+
+// March one ray to horizon or escape (ops/march.py::march_tile, one ray;
+// its prologue and end-of-march rule are ray_begin's and ray_close's):
 // s = (t, r, u, ph, pr, pu) in, final state out; records up to
 // mp.max_crossings equator crossings and the photon-ring proximity
 // min |r - r_ph| over the marched path. With JETS, jet (3 values) receives
-// the jets' emission summed over the live steps (jp: their configuration),
-// from the pre-step state, the stepped one and 1 / dlam, the march_tile
-// jet term; it is added even on a step the sanity test then rejects.
+// the jets' emission summed over the live steps (jp: their configuration;
+// jets_advance).
 template <bool JETS>
 __device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
                                           float m, float a, float r_h,
@@ -592,20 +639,8 @@ __device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
     bool crossed, advance;
     float r_c, phi_c, t_c;
     if (JETS) {
-      float y[6], c[3];
-      const float dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
-      midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4],
-                    s[5], pph, y);
-      crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
-      const float inv = recip(dlam, approx);
-      const float st = sqrtf(jmax(1.0f - s[2] * s[2], F(1e-6)));
-      jet_emission(*jp, s[1], st, s[2], s[3], (y[1] - s[1]) * inv,
-                   -(y[2] - s[2]) * inv / st, (y[3] - s[3]) * inv, dlam, c);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) jet[k] = jet[k] + c[k];
-      advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
-      if ((i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE)
-        s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+      jets_advance(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc, *jp,
+                   jet, crossed, advance, r_c, phi_c, t_c);
     } else {
       march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc,
                  crossed, advance, r_c, phi_c, t_c);
@@ -616,17 +651,70 @@ __device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
   if (hit == HIT_NONE) hit = HIT_HORIZON;
 }
 
+// One AB3 step of a live ray at step index i (ops/march.py::
+// march_tile_ab3; the body of march_ray_ab3's loop). One right-hand side
+// per step: y_{n+1} = y_n + c0 f_n + c1 f_{n-1} + c2 f_{n-2} with the
+// variable-step Lagrange-integral coefficients of the step history
+// (h = dlam, h1, h2), the step growth bounded by dlam <= 2 h1, two
+// midpoint bootstrap steps that seed the history, the history (f1, f2, h1,
+// h2) shifted only when the ray advances, and the renormalization at the
+// per-ray cadence mp.ab3_renorm_every.
+__device__ __forceinline__ void ab3_step(
+    const MarchParams& mp, bool approx, float m, float a, float r_h,
+    float r_ph, float pph, float thr, int i, float s[6], float f1[6],
+    float f2[6], float& h1, float& h2, int& hit, int& nc, float cr[KMAX],
+    float cp[KMAX], float ct[KMAX], int& steps, float& rmin) {
+  const float third = F(1.0 / 3.0);
+  float f0[6], y[6], dlam;
+  ks_rhs(m, a, s[1], s[2], s[4], s[5], pph, approx, f0);
+  if (i < 2) {
+    dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
+    midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4],
+                  s[5], pph, y);
+  } else {
+    dlam = jmin(step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]),
+                2.0f * h1);
+    const float h12 = h1 + h2;
+    const float hh2 = dlam * dlam;
+    const float hh3 = hh2 * dlam;
+    const float c0 = divr(hh3 * third + (2.0f * h1 + h2) * hh2 * 0.5f +
+                              h1 * h12 * dlam,
+                          h1 * h12, approx);
+    const float c1 = -divr(hh3 * third + h12 * hh2 * 0.5f, h1 * h2, approx);
+    const float c2 = divr(hh3 * third + h1 * hh2 * 0.5f, h2 * h12, approx);
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      y[k] = s[k] + c0 * f0[k] + c1 * f1[k] + c2 * f2[k];
+    y[2] = jclip(y[2], F(-1.0 + 1e-7), F(1.0 - 1e-7));
+  }
+  float r_c, phi_c, t_c;
+  crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
+  bool crossed, advance;
+  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
+  record_step(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr, cp, ct,
+              steps, rmin);
+  if (advance) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      f2[k] = f1[k];
+      f1[k] = f0[k];
+    }
+    h2 = h1;
+    h1 = dlam;
+  }
+  if (i >= 2 && mp.ab3_renorm_every > 0 &&
+      (i + 1) % mp.ab3_renorm_every == 0 && hit == HIT_NONE)
+    s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+}
+
 // The AB3 march of one ray (ops/march.py::march_tile_ab3; the JAX package's
-// pallas_march.py::march_tile_ab3), march_ray's inputs and outputs. One
-// right-hand side per step: y_{n+1} = y_n + c0 f_n + c1 f_{n-1} + c2 f_{n-2}
-// with the variable-step Lagrange-integral coefficients of the step history
-// (h = dlam, h1, h2), the step growth bounded by dlam <= 2 h1, two midpoint
-// bootstrap steps that seed the history, and the history shifted only when
-// the ray advances. The Pallas tile loop shares its step counter across a
-// tile, but every ray's steps depend on that ray alone, so one thread per
-// ray reproduces it; its renormalization at tile-exit block boundaries
-// becomes the per-ray cadence mp.ab3_renorm_every / mp.ab3_tail_renorm.
-// Float only: the AB3 march has no gradient path.
+// pallas_march.py::march_tile_ab3), march_ray's inputs and outputs, a loop
+// of ab3_step (prologue and end-of-march rule as ray_begin and ray_close
+// have them for MARCH_AB3). The Pallas tile loop shares its step counter
+// across a tile, but every ray's steps depend on that ray alone, so one
+// thread per ray reproduces it; its renormalization at tile-exit block
+// boundaries becomes the per-ray cadence mp.ab3_renorm_every /
+// mp.ab3_tail_renorm. Float only: the AB3 march has no gradient path.
 __device__ __forceinline__ void march_ray_ab3(
     const MarchParams& mp, bool approx, float m, float a, float r_h,
     float r_ph, float pph, float thr, float s[6], int& hit, int& steps,
@@ -641,50 +729,140 @@ __device__ __forceinline__ void march_ray_ab3(
 #pragma unroll
   for (int k = 0; k < 6; ++k) f1[k] = f2[k] = 0.0f;
   float h1 = mp.min_step, h2 = mp.min_step;
-  const float third = F(1.0 / 3.0);
-  for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i) {
-    float f0[6], y[6], dlam;
-    ks_rhs(m, a, s[1], s[2], s[4], s[5], pph, approx, f0);
-    if (i < 2) {
-      dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
-      midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4],
-                    s[5], pph, y);
-    } else {
-      dlam = jmin(step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]),
-                  2.0f * h1);
-      const float h12 = h1 + h2;
-      const float hh2 = dlam * dlam;
-      const float hh3 = hh2 * dlam;
-      const float c0 = divr(hh3 * third + (2.0f * h1 + h2) * hh2 * 0.5f +
-                                h1 * h12 * dlam,
-                            h1 * h12, approx);
-      const float c1 = -divr(hh3 * third + h12 * hh2 * 0.5f, h1 * h2, approx);
-      const float c2 = divr(hh3 * third + h1 * hh2 * 0.5f, h2 * h12, approx);
-#pragma unroll
-      for (int k = 0; k < 6; ++k)
-        y[k] = s[k] + c0 * f0[k] + c1 * f1[k] + c2 * f2[k];
-      y[2] = jclip(y[2], F(-1.0 + 1e-7), F(1.0 - 1e-7));
-    }
-    float r_c, phi_c, t_c;
-    crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
-    bool crossed, advance;
-    advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
-    record_step(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr, cp, ct,
-                steps, rmin);
-    if (advance) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        f2[k] = f1[k];
-        f1[k] = f0[k];
-      }
-      h2 = h1;
-      h1 = dlam;
-    }
-    if (i >= 2 && mp.ab3_renorm_every > 0 &&
-        (i + 1) % mp.ab3_renorm_every == 0 && hit == HIT_NONE)
-      s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
-  }
+  for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i)
+    ab3_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, f1, f2, h1, h2, hit,
+             nc, cr, cp, ct, steps, rmin);
   if (mp.ab3_tail_renorm && hit == HIT_NONE)
     s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
   if (hit == HIT_NONE) hit = HIT_HORIZON;
+}
+
+// ---------------------------------------------------------------------------
+// One ray's march, one step at a time (the march kernel's persistent warps)
+// ---------------------------------------------------------------------------
+
+// The march variants: the midpoint march, the AB3 march and the midpoint
+// march with the jets' emission.
+#define MARCH_MIDPOINT 0
+#define MARCH_AB3 1
+#define MARCH_JETS 2
+
+// What one ray carries from one step to the next, march_ray's loop state
+// made lane state: the state s = (t, r, u, ph, pr, pu), its conserved p_phi
+// and termination radius, the step index i (the renormalization cadence
+// counts it), hit, the live step count, the crossing slots and their
+// count, the photon-ring proximity; with jets the emission summed over the
+// live steps; with AB3 the two right-hand-side histories and step sizes.
+// The march kernel keeps one in registers per lane and marches it a step
+// at a time, so that a lane whose ray has ended takes the next ray while
+// the rest of its warp marches on; fields a variant does not use cost it
+// no register.
+template <int MARCH>
+struct MarchRay {
+  float s[6];
+  float pph, thr;
+  int hit, steps, nc, i;
+  float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
+  float jet[3];
+  float f1[6], f2[6], h1, h2;
+};
+
+// The end of the march on a ray still live after max_steps steps: AB3's
+// tail renormalization, then hit = HIT_HORIZON (march_ray's own rule).
+template <int MARCH>
+__device__ __forceinline__ void ray_close(const MarchParams& mp, float m,
+                                          float a, MarchRay<MARCH>& q) {
+  if (q.hit == HIT_NONE && q.i >= mp.max_steps) {
+    if (MARCH == MARCH_AB3 && mp.ab3_tail_renorm)
+      q.s[4] = ks_renormalize_pr(m, a, q.s[1], q.s[2], q.s[4], q.s[5], q.pph);
+    q.hit = HIT_HORIZON;
+  }
+}
+
+// Birth of the march: q.s, q.pph and q.thr set by the caller; march_ray's
+// prologue (a ray born inside its termination radius has ended).
+template <int MARCH>
+__device__ __forceinline__ void ray_begin(const MarchParams& mp, float m,
+                                          float a, float r_ph,
+                                          MarchRay<MARCH>& q) {
+  q.hit = q.s[1] < q.thr ? HIT_HORIZON : HIT_NONE;
+  q.nc = 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) q.cr[k] = q.cp[k] = q.ct[k] = 0.0f;
+  q.rmin = fabsf(q.s[1] - r_ph);
+  q.steps = 0;
+  q.i = 0;
+  if (MARCH == MARCH_JETS) q.jet[0] = q.jet[1] = q.jet[2] = 0.0f;
+  if (MARCH == MARCH_AB3) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) q.f1[k] = q.f2[k] = 0.0f;
+    q.h1 = q.h2 = mp.min_step;
+  }
+  ray_close(mp, m, a, q);
+}
+
+// One step of a live ray (q.hit == HIT_NONE, q.i < mp.max_steps): one
+// iteration of march_ray's or march_ray_ab3's loop, the same functions in
+// the same order. Every ray's steps depend on that ray alone, so marching
+// it a step at a time, in any lane and beside any other ray, gives the
+// results of marching it in one loop.
+template <int MARCH>
+__device__ __forceinline__ void ray_step(const MarchParams& mp, bool approx,
+                                         float m, float a, float r_h,
+                                         float r_ph, const JetParams& jp,
+                                         MarchRay<MARCH>& q) {
+  if (MARCH == MARCH_AB3) {
+    ab3_step(mp, approx, m, a, r_h, r_ph, q.pph, q.thr, q.i, q.s, q.f1, q.f2,
+             q.h1, q.h2, q.hit, q.nc, q.cr, q.cp, q.ct, q.steps, q.rmin);
+  } else {
+    bool crossed, advance;
+    float r_c, phi_c, t_c;
+    if (MARCH == MARCH_JETS)
+      jets_advance(mp, approx, m, a, r_h, r_ph, q.pph, q.thr, q.i, q.s, q.hit,
+                   q.nc, jp, q.jet, crossed, advance, r_c, phi_c, t_c);
+    else
+      march_step(mp, approx, m, a, r_h, r_ph, q.pph, q.thr, q.i, q.s, q.hit,
+                 q.nc, crossed, advance, r_c, phi_c, t_c);
+    record_step(crossed, advance, r_c, phi_c, t_c, q.s[1], r_ph, q.nc, q.cr,
+                q.cp, q.ct, q.steps, q.rmin);
+  }
+  ++q.i;
+  ray_close(mp, m, a, q);
+}
+
+// ---------------------------------------------------------------------------
+// The persistent warps' ray pool (march.cu)
+// ---------------------------------------------------------------------------
+
+#define FULL_MASK 0xffffffffu
+
+// The warp's lanes in ``want`` take the next popc(want) indices of the pool
+// together: one atomicAdd by the lowest such lane, the base broadcast, each
+// lane its rank among them. Returns this lane's index (meaningful in
+// ``want`` only) and sets ``end`` to the first index no lane took. Called
+// by all 32 lanes with the same nonzero ``want``.
+__device__ __forceinline__ int pool_take(int* pool, unsigned want, int lane,
+                                         int& end) {
+  const int leader = __ffs(want) - 1;
+  const int count = __popc(want);
+  int base = 0;
+  if (lane == leader) base = atomicAdd(pool, count);
+  base = __shfl_sync(FULL_MASK, base, leader);
+  end = base + count;
+  return base + __popc(want & ((1u << lane) - 1u));
+}
+
+// The block's retirement: the last block of the launch to finish resets
+// the pool ([next index, retired blocks]) to zero for the next launch on
+// the stream, so that a launch needs no separate reset. Called by every
+// thread of the block once its warps have left their loops.
+__device__ __forceinline__ void pool_retire(int* pool) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(pool + 1, 1) == (int)gridDim.x - 1) {
+      atomicExch(pool, 0);
+      atomicExch(pool + 1, 0);
+    }
+  }
 }

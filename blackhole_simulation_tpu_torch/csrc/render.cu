@@ -22,6 +22,22 @@
 // card's FP32 rate); chip_smoke.py computes it from the step counts of the
 // run and the rate measured by tools/vpu_peak.py.
 //
+// What holds it back (chip_smoke.py phase 12, H100 80GB HBM3 at 700 W):
+// not divergence. An 8 x 4 patch's rays take nearly equal step counts, so
+// the warps lose 5-8% of their lanes to waiting (lane efficiency 0.92-0.94
+// on every 1080p path); the rest of the gap to the bound is instructions
+// the hand count leaves out (a ray-step costs ~1.6x its counted
+// operations), the per-pixel birth and composite, and on the full-featured
+// frame the NRS background and the overlay. Persistent warps that refill
+// finished lanes (the march kernel's design, march.cu) were built and
+// timed in several forms (refill thresholds, whole-warp refills, register
+// caps, the state parked in shared memory): each was slower than this
+// launch on the flagship, AB3, jets and full-featured 1080p frames, even
+// this kernel's own body looping over patches taken from a pool. The
+// loop's state costs registers beyond this kernel's 56 and so resident
+// warps, and a lane refill cannot win back more than the 6% the patches
+// lose.
+//
 // Design for the card:
 // * One thread per pixel. The ray state (7 values), hit, steps, the crossing
 //   count, r_min and the K <= 4 crossing slots live in registers; the slot
@@ -658,6 +674,20 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   if (steps_out != nullptr) steps_out[idx] = steps;
 }
 
+typedef void (*RenderKernel)(const float*, float*, int*, const RenderStatic);
+
+// The instantiation ``st`` selects. Jets take the midpoint march, as in the
+// JAX kernel (pallas_render.py:266).
+static RenderKernel render_kernel_for(const RenderStatic* st) {
+  const bool extras = st->start_jitter > 0.0f || st->nrs_on || st->overlay;
+  return st->jets ? (extras ? render_kernel<2, true>
+                            : render_kernel<2, false>)
+         : st->multistep ? (extras ? render_kernel<1, true>
+                                   : render_kernel<1, false>)
+                         : (extras ? render_kernel<0, true>
+                                   : render_kernel<0, false>);
+}
+
 extern "C" {
 
 // Launches the render kernel on ``stream``; returns cudaGetLastError().
@@ -668,17 +698,26 @@ int bh_render_launch(const float* params, float* out, int* steps,
   dim3 block(THREADS);
   dim3 grid((st->width + BLOCK_W - 1) / BLOCK_W,
             (st->height + BLOCK_H - 1) / BLOCK_H);
-  // Jets take the midpoint march, as in the JAX kernel
-  // (pallas_render.py:266).
-  const bool extras = st->start_jitter > 0.0f || st->nrs_on || st->overlay;
-  auto kernel = st->jets ? (extras ? render_kernel<2, true>
-                                   : render_kernel<2, false>)
-                : st->multistep ? (extras ? render_kernel<1, true>
-                                          : render_kernel<1, false>)
-                                : (extras ? render_kernel<0, true>
-                                          : render_kernel<0, false>);
-  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(params, out, steps, *st);
+  render_kernel_for(st)<<<grid, block, 0, (cudaStream_t)stream>>>(
+      params, out, steps, *st);
   return (int)cudaGetLastError();
+}
+
+// The launch shape of the instantiation that ``st`` selects, on the
+// current device: out = {threads per block, resident blocks per SM, SMs};
+// returns a CUDA error code.
+int bh_render_shape(const RenderStatic* st, int* out) {
+  int dev = 0, blocks = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, render_kernel_for(st), THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  out[0] = THREADS;
+  out[1] = blocks;
+  out[2] = sms;
+  return (int)err;
 }
 
 const char* bh_error_string(int err) {

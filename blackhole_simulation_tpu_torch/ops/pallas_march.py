@@ -12,11 +12,12 @@ jets (render/march.py:555-569), which the port runs in the same kernel
 ``march_tile_ab3``. ``march_u`` launches the kernel for CUDA tensors and
 runs the plain version for CPU tensors; nothing else picks between them.
 
-The CUDA kernel needs no tiles: it runs one thread per ray and masks the
-tail, so nothing is padded in memory (the Pallas wrapper pads to whole
-tiles with rays born dead). The block order is kept because it groups a
-warp's 32 rays into a compact strip of one pixel block, and because the
-training loss is defined over the block-ordered, edge-padded pixel ids.
+The CUDA kernel needs no tiles: a resident grid of persistent warps takes
+rays from a pool (``ray_pool``) until none is left, so nothing is padded
+in memory (the Pallas wrapper pads to whole tiles with rays born dead).
+The block order is kept because the training loss is defined over the
+block-ordered, edge-padded pixel ids, and because a warp's first rays are
+then a compact strip of one pixel block.
 """
 
 from __future__ import annotations
@@ -87,6 +88,19 @@ def from_block_order(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     x = x.reshape(hp // bh, wp // bw, bh, bw, *tail).transpose(1, 2)
     x = x.reshape(hp, wp, *tail)
     return x[:height, :width].reshape(height * width, *tail)
+
+
+def lane_efficiency(steps: torch.Tensor) -> float:
+    """The share of a one-ray-per-lane launch's lane-steps that march a
+    ray: sum(steps) / sum over warps of 32 x the warp's largest count, with
+    the 1-D ``steps`` grouped into warps of 32 consecutive entries in launch
+    order (the tail filled with zeros). A warp steps until its slowest ray
+    ends; 1.0 means no lane ever waits."""
+    steps = steps.reshape(-1).long()
+    pad = (-steps.numel()) % 32
+    warps = torch.cat([steps, steps.new_zeros(pad)]).reshape(-1, 32)
+    lane_steps = 32 * int(warps.amax(dim=1).sum())
+    return int(steps.sum()) / lane_steps if lane_steps else 1.0
 
 
 class _CMarchParams(ctypes.Structure):
@@ -191,7 +205,7 @@ def march_u_plain(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
 
 
 def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
-            jets=None):
+            jets=None, out=None):
     """March (8, N) u-chart rays (p_t normalized here) with per-ray
     termination radii ``thr``. Returns (yt (8, N), hit, steps, cross_r,
     cross_phi, cross_t (K, N), n_crossings, r_min_ph, jet (3, N)), as the
@@ -205,7 +219,9 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
     plain version (``march_u_plain``). The kernel applies
     ``cfg.approx_recip``; the plain version always divides exactly. While
     ``march_u.record`` is a list, each call appends its arguments to it, so
-    a caller can replay the kernel on a real step's own inputs.
+    a caller can replay the kernel on a real step's own inputs. ``out``, a
+    CUDA call's tuple of the nine outputs as this returns them, receives the
+    results in place of new tensors.
     """
     if march_u.record is not None:
         march_u.record.append((yt0, thr, m, a, r_h, r_ph, cfg, jets))
@@ -224,25 +240,31 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
     params = scalar_params(m, a, r_h, r_ph, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    yo = torch.empty((8, n), **f32)
-    hit = torch.empty(n, **i32)
-    steps = torch.empty(n, **i32)
-    nc = torch.empty(n, **i32)
-    cr = torch.empty((k_slots, n), **f32)
-    cp = torch.empty((k_slots, n), **f32)
-    ct = torch.empty((k_slots, n), **f32)
-    rmin = torch.empty(n, **f32)
-    jet = (torch.zeros if jets is None else torch.empty)((3, n), **f32)
+    k = k_slots
+    shapes = [(8, n), (n,), (n,), (k, n), (k, n), (k, n), (n,), (n,), (3, n)]
+    dtypes = [f32, i32, i32, f32, f32, f32, i32, f32, f32]
+    if out is None:
+        out = [torch.empty(sh, **dt) for sh, dt in zip(shapes, dtypes)]
+    elif len(out) != 9 or any(
+            x.shape != sh or x.dtype != dt["dtype"] or x.device != dev
+            or not x.is_contiguous()
+            for x, sh, dt in zip(out, shapes, dtypes)):
+        raise ValueError("out must hold the nine outputs as contiguous "
+                         "tensors, shaped and typed as march_u returns them")
+    yo, hit, steps, cr, cp, ct, nc, rmin, jet = out
+    if jets is None:
+        jet.zero_()
     c_mp = c_march_params(cfg)
     c_jets = c_jet_params(jets)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
+        pool = ray_pool(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bh_march_launch(
             ptr(params), ptr(y), ptr(thr), ptr(yo), ptr(hit), ptr(steps),
             ptr(cr), ptr(cp), ptr(ct), ptr(nc), ptr(rmin),
             ctypes.c_void_p(None if jets is None else jet.data_ptr()),
-            ctypes.c_int(n), ctypes.byref(c_mp),
+            ctypes.c_int(n), ptr(pool), ctypes.byref(c_mp),
             None if jets is None else ctypes.byref(c_jets),
             ctypes.c_void_p(stream),
         )
@@ -255,6 +277,44 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
 
 march_u.launches = 0
 march_u.record = None
+
+_POOLS: dict = {}
+
+
+def ray_pool(device) -> torch.Tensor:
+    """The ray pool of the render and march kernels on ``device``'s current
+    stream: two int32 words, [next ray, retired blocks]. A launch takes its
+    rays from it and its last block to retire sets both back to zero, so a
+    launch needs no reset of its own; launches on one stream run in order
+    and share it. Allocated zeroed at the stream's first launch."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    pool = _POOLS.get(key)
+    if pool is None:
+        pool = _POOLS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return pool
+
+
+def march_kernel_shape(cfg, jets=None) -> dict:
+    """The launch shape of the march kernel's instantiation for ``cfg`` and
+    ``jets``, from the built library on the current device: threads per
+    block, resident blocks and warps per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SM count;
+    the resident grid is their product."""
+    lib = _march_library()
+    out = (ctypes.c_int * 3)()
+    c_mp, c_jets = c_march_params(cfg), c_jet_params(jets)
+    err = lib.bh_march_shape(ctypes.byref(c_mp), None if jets is None
+                             else ctypes.byref(c_jets), out)
+    if err != 0:
+        raise RuntimeError("march kernel shape query failed: "
+                           f"{lib.bh_error_string(err).decode()}")
+    threads, blocks, sms = out
+    return {"threads": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32, "sms": sms}
 
 
 def load_library(source: str, params_size_fn: str) -> ctypes.CDLL:
@@ -283,7 +343,8 @@ def load_library(source: str, params_size_fn: str) -> ctypes.CDLL:
 def _march_library() -> ctypes.CDLL:
     lib = load_library("march.cu", "bh_march_params_size")
     lib.bh_march_launch.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_void_p])
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
     lib.bh_march_launch.restype = ctypes.c_int
+    lib.bh_march_shape.argtypes = [ctypes.c_void_p] * 3
+    lib.bh_march_shape.restype = ctypes.c_int
     return lib

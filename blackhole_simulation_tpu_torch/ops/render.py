@@ -599,7 +599,8 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
 
 
 def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
-                         steps: torch.Tensor | None = None) -> torch.Tensor:
+                         steps: torch.Tensor | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
     """(3, H, W) float32 radiance from one parameter row, plus the band
     plane as a fourth when ``st.cfg.refine_band`` > 0 (every branch of
     ``RenderStatic``); ``steps``, if given,
@@ -608,7 +609,9 @@ def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
 
     A CUDA row launches the render kernel (``csrc/render.cu``) on the
     current stream and counts the launch in ``render_planes_kernel.launches``;
-    a CPU row runs ``render_planes``. No other case is accepted.
+    a CPU row runs ``render_planes``. No other case is accepted. ``out``, a
+    CUDA call's contiguous float32 (planes, H, W) tensor, receives the
+    planes in place of a new one.
     """
     if row.dtype != torch.float32 or row.shape != (_P_PAD,):
         raise ValueError(f"parameter row must be float32 ({_P_PAD},), got "
@@ -628,8 +631,13 @@ def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
     lib = _render_library()
     row = row.contiguous()
     n_planes = 4 if st.cfg.refine_band > 0.0 else 3
-    out = torch.empty((n_planes, st.height, st.width), dtype=torch.float32,
-                      device=row.device)
+    shape = (n_planes, st.height, st.width)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=row.device)
+    elif (out.shape != shape or out.dtype != torch.float32
+          or out.device != row.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
+                         "on the row's device")
     c_st = _c_static(st)
     with torch.cuda.device(row.device):
         stream = torch.cuda.current_stream(row.device).cuda_stream
@@ -648,6 +656,38 @@ def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
 
 render_planes_kernel.launches = 0
 
+# The render kernel's pixel blocks (csrc/render.cu): a block of 4 warps
+# covers 16 x 8 pixels, each warp an 8 x 4 patch.
+_PATCH_W, _PATCH_H = 8, 4
+_BLOCK_W, _BLOCK_H = 16, 8
+_THREADS = 128
+
+
+def launch_pixel_order(width: int, height: int,
+                       device=None) -> torch.Tensor:
+    """The render kernel's threads in launch order: for each, the row-major
+    id of its pixel, or -1 where the frame's 16 x 8 blocks run past its
+    edge. Thread p is lane p % 32 of warp (p // 32) % 4 of block p // 128,
+    blocks row-major over the frame, so each run of 32 is one warp: an
+    8 x 4 pixel patch."""
+    gx = -(-width // _BLOCK_W)
+    gy = -(-height // _BLOCK_H)
+    p = torch.arange(gx * gy * _THREADS, device=device)
+    block, q = p // _THREADS, p % _THREADS
+    warp, lane = q // 32, q % 32
+    x = (block % gx) * _BLOCK_W + (warp % 2) * _PATCH_W + lane % _PATCH_W
+    y = (block // gx) * _BLOCK_H + (warp // 2) * _PATCH_H + lane // _PATCH_W
+    return torch.where((x < width) & (y < height), y * width + x, -1)
+
+
+def launch_steps(steps: torch.Tensor) -> torch.Tensor:
+    """An (H, W) plane of per-pixel step counts in the render kernel's
+    launch order (``launch_pixel_order``), 0 for the threads past the
+    frame's edge."""
+    order = launch_pixel_order(steps.shape[1], steps.shape[0], steps.device)
+    flat = steps.reshape(-1)
+    return torch.where(order >= 0, flat[order.clamp(min=0)], 0)
+
 
 @functools.cache
 def _render_library() -> ctypes.CDLL:
@@ -657,6 +697,8 @@ def _render_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("render.cu")))
     lib.bh_render_launch.argtypes = [ctypes.c_void_p] * 5
     lib.bh_render_launch.restype = ctypes.c_int
+    lib.bh_render_shape.argtypes = [ctypes.c_void_p] * 2
+    lib.bh_render_shape.restype = ctypes.c_int
     lib.bh_error_string.argtypes = [ctypes.c_int]
     lib.bh_error_string.restype = ctypes.c_char_p
     lib.bh_render_static_size.restype = ctypes.c_int
@@ -664,3 +706,20 @@ def _render_library() -> ctypes.CDLL:
         raise RuntimeError("RenderStatic differs between csrc/render.cu and "
                            "ops/render.py")
     return lib
+
+
+def render_kernel_shape(st: RenderStatic) -> dict:
+    """The launch shape of the render kernel's instantiation for ``st``,
+    from the built library on the current device: threads per block,
+    resident blocks and warps per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SM count."""
+    lib = _render_library()
+    out = (ctypes.c_int * 3)()
+    c_st = _c_static(st)
+    err = lib.bh_render_shape(ctypes.byref(c_st), out)
+    if err != 0:
+        raise RuntimeError("render kernel shape query failed: "
+                           f"{lib.bh_error_string(err).decode()}")
+    threads, blocks, sms = out
+    return {"threads": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32, "sms": sms}

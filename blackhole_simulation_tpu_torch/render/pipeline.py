@@ -78,7 +78,8 @@ class Features:
 class Scene:
     """Full scene description. ``spectral_coeffs``: host Chebyshev tables
     (t_coeffs (K,), rgb_coeffs (3, K), inv_logr) of the spectral disk, or
-    None (then ``render`` builds them)."""
+    None (then ``render`` builds them for a fused scene; a staged one
+    shades from the LUTs)."""
 
     bh: Kerr
     camera: Camera
@@ -150,9 +151,12 @@ def scene_from_numpy(*, mass, spin, camera: dict, march_cfg: dict | None = None,
 
 
 def ensure_spectral_coeffs(scene: Scene) -> Scene:
-    """Fill in the host spectral tables on a scene that needs them."""
+    """Fill in the host spectral Chebyshev tables on a fused scene that
+    needs them. A staged scene without them shades its spectral disk from
+    the float64-built LUTs (``shading.disk_emission_lut_rows``), as the
+    JAX package's does; one that carries them keeps the Chebyshev route."""
     if (scene.spectral_coeffs is not None or not scene.features.spectral_lut
-            or not scene.features.disk):
+            or not scene.features.disk or not scene.march_cfg.fused):
         return scene
     tables = spectral_kernel_tables(
         float(scene.bh.mass), float(scene.bh.spin), scene.disk
@@ -237,12 +241,14 @@ def kernel_inputs(scene: Scene, jitter, device):
 
 
 def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
-                     intensity_scale=1.0):
+                     intensity_scale=1.0, luts=None):
     """The staged composite: disk crossings front to back, the starfield
     behind escaped rays, the jets' radiance and the photon-ring glow, as
     (r, g, b) rows.
     ``rows``: MarchRows; ``m``, ``a``: 0-dim float32 tensors; ``lam``: the
-    (N,) conserved impact parameter L_z/E. Differentiable (autograd)."""
+    (N,) conserved impact parameter L_z/E; ``luts``: the spectral disk's
+    tables for this ``m`` and ``a`` (``scene_luts``), else looked up from
+    them. Differentiable (autograd)."""
     from blackhole_simulation_tpu_torch._elementwise import div_c, maximum
     from blackhole_simulation_tpu_torch.geometry.metrics import (
         isco_t,
@@ -263,7 +269,7 @@ def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
             m, a, isco_t(m, a), scene.disk, rows.cross_r, rows.cross_phi,
             rows.cross_t, rows.n_crossings, lam, density_scale,
             intensity_scale, spectral=feats.spectral_lut,
-            spectral_coeffs=scene.spectral_coeffs,
+            spectral_coeffs=scene.spectral_coeffs, luts=luts,
         )
     else:
         rgb, trans = (zero, zero, zero), zero + 1.0
@@ -292,6 +298,22 @@ def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
 def conserved_lam(rays: torch.Tensor) -> torch.Tensor:
     """lambda = L_z / E = -p_phi / p_t of (8, N) rows."""
     return -rays[7] / torch.where(torch.abs(rays[4]) < 1e-12, -1.0, rays[4])
+
+
+def scene_luts(scene: Scene, device):
+    """The staged spectral composite's tables for the scene's own mass and
+    spin (as float32, the values ``_mass_spin`` marches) on ``device``,
+    cached, so a frame reads nothing back; None where the disk shades
+    without them."""
+    from blackhole_simulation_tpu_torch.render.shading import disk_luts
+
+    feats = scene.features
+    if (not feats.disk or not feats.spectral_lut
+            or scene.spectral_coeffs is not None):
+        return None
+    return disk_luts(float(np.float32(scene.bh.mass)),
+                     float(np.float32(scene.bh.spin)), scene.disk,
+                     torch.device(device))
 
 
 def _mass_spin(scene: Scene, device):
@@ -368,7 +390,8 @@ def refine_critical_band(scene: Scene, cfg: MarchConfig, jitter,
                          jitter=jitter)
     jets = scene.jet_params if scene.features.jets else None
     rows = march_rows(rays, m, a, refinement_config(cfg), jets=jets)
-    rgb_f = shade_march_rows(rows, m, a, scene, conserved_lam(rays))
+    rgb_f = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
+                             luts=scene_luts(scene, band.device))
     # Column n catches the out-of-band entries and is cut off.
     out = torch.cat([rgb, rgb.new_zeros((3, 1))], dim=1)
     out[:, sel] = torch.stack(rgb_f)
@@ -412,7 +435,8 @@ def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
                                            b_min=nrs_b_min(scene))
         thr = torch.where(far, 1e9, precull_threshold(rays, m, a, cfg))
     rows = march_rows(rays, m, a, cfg, thr=thr, jets=jets)
-    rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays))
+    rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
+                           luts=scene_luts(scene, device))
     if nrs_on and scene.features.starfield:
         bg_far = starfield_rows(*far_dirs, params=scene.stars)
         rgb = tuple(torch.where(far, b_, c) for c, b_ in zip(rgb, bg_far))

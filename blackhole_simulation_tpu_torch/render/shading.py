@@ -12,7 +12,9 @@ rounded to float32 where the JAX code rounds them.
 
 The host-side float64 tables (``build_disk_luts``, ``spectral_cheb_coeffs``,
 ``spectral_kernel_tables``) feed the spectral disk: 65 Chebyshev scalars per
-scene that the kernel reads from its parameter row.
+scene that the kernel reads from its parameter row. A staged scene without
+them shades its spectral disk from the tables themselves
+(``disk_emission_lut_rows`` :472, the reference's LUT route).
 """
 
 from __future__ import annotations
@@ -372,27 +374,65 @@ def disk_emission_cheb_rows(disk: DiskParams, m, a, r_in, spectral_coeffs,
                               density_scale, intensity_scale)
 
 
+def disk_emission_lut_rows(disk: DiskParams, m, a, r_in, luts, r_c, phi_c,
+                           t_c, lam, density_scale=1.0, intensity_scale=1.0,
+                           octaves: int = 3):
+    """Shade one recorded disk crossing, spectral branch, from the tables
+    themselves: the Page-Thorne shape by linear interpolation in r (the
+    ``jnp.interp`` arithmetic) and the Planck/CIE chromaticity by linear
+    interpolation in observed temperature; exact g^4 intensity. ``luts``:
+    ``disk_luts`` on the rows' device. Geometry, turbulence and opacity are
+    the analytic branch's. Differentiable by autograd through ``r_c``,
+    ``lam`` and the scales; the tables are constants."""
+    r_grid, t_shape_tab, t_axis, rgb_table = luts
+    valid, r_c, g, turb, edge = _disk_geometry(
+        disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves
+    )
+    t_shape = _interp(r_c, r_grid, t_shape_tab)
+    t_obs = clip(g * t_shape * disk.t_peak, t_axis[0], t_axis[-1])
+    idx = torch.searchsorted(t_axis, t_obs.detach(), right=True) - 1
+    idx = torch.clamp(idx, 0, t_axis.shape[0] - 2)
+    t0 = t_axis[idx]
+    t1 = t_axis[idx + 1]
+    w1 = clip((t_obs - t0) / maximum(t1 - t0, 1e-3), 0.0, 1.0)
+    tab = rgb_table.T
+    color = tuple(tab[c][idx] * (1.0 - w1) + tab[c][idx + 1] * w1
+                  for c in range(3))
+    alpha = clip(disk.density * density_scale * edge * turb, 0.0, 1.0)
+    alpha = torch.where(valid, alpha, 0.0)
+    intensity = _powi(g, 4.0) * _pow4(t_shape) * intensity_scale
+    masked = torch.where(valid, intensity, 0.0)
+    return tuple(c * masked for c in color), alpha, valid
+
+
 def shade_crossings_rows(m, a, r_in, disk: DiskParams, cross_r, cross_phi,
                          cross_t, n_crossings, lam, density_scale=1.0,
                          intensity_scale=1.0, spectral: bool = False,
-                         spectral_coeffs=None):
+                         spectral_coeffs=None, luts=None):
     """Composite the K recorded crossings front to back:
     ((r, g, b) rows, transmittance). ``cross_*``: (K, N) rows; ``m``, ``a``,
     ``r_in``: 0-dim tensors. The spectral disk shades from
-    ``spectral_coeffs``; the JAX twin's float64 LUT branch (spectral without
-    coefficients) is not ported."""
+    ``spectral_coeffs`` when given (the fused kernel's Chebyshev fit), else
+    from the tables ``luts`` (``disk_luts`` on the rows' device: the JAX
+    twin's LUT branch). Without ``luts`` they are looked up for ``m`` and
+    ``a`` as they are, which reads both back to the host: the tables follow
+    the spin being marched, as the JAX twin builds them in its graph."""
     k_slots, n = cross_r.shape
-    if spectral and spectral_coeffs is None:
-        raise NotImplementedError(
-            "spectral shading without spectral_coeffs (the float64 LUT "
-            "branch) is not ported")
+    if not spectral or spectral_coeffs is not None:
+        luts = None
+    elif luts is None:
+        luts = disk_luts(float(m), float(a), disk, cross_r.device)
     zero = torch.zeros(n, dtype=cross_r.dtype, device=cross_r.device)
     rgb = (zero, zero, zero)
     trans = zero + 1.0
     for k in range(k_slots):
         filled = k < n_crossings
         octaves = 3 if k == 0 else 1
-        if spectral:
+        if luts is not None:
+            c_rgb, c_alpha, valid = disk_emission_lut_rows(
+                disk, m, a, r_in, luts, cross_r[k], cross_phi[k], cross_t[k],
+                lam, density_scale, intensity_scale, octaves)
+        elif spectral:
             c_rgb, c_alpha, valid = disk_emission_cheb_rows(
                 disk, m, a, r_in, spectral_coeffs, cross_r[k], cross_phi[k],
                 cross_t[k], lam, density_scale, intensity_scale, octaves)
@@ -521,6 +561,17 @@ def build_disk_luts(mass: float, spin: float, disk: DiskParams,
     rgb_table = blackbody_rgb(t_axis)
     f32 = lambda x: np.asarray(x, np.float32)
     return f32(r_grid), f32(t_shape), f32(t_axis), f32(rgb_table)
+
+
+@functools.lru_cache(maxsize=64)
+def disk_luts(mass: float, spin: float, disk: DiskParams,
+              device: torch.device | str = "cpu"):
+    """``build_disk_luts`` cached on (mass, spin, disk, device): the staged
+    spectral composite's float32 tables as tensors on ``device``, so a frame
+    builds and copies none of them. Constants: shared between callers, never
+    written."""
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in build_disk_luts(mass, spin, disk))
 
 
 def _interp(x, xp, fp):

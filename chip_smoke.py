@@ -46,7 +46,12 @@ printing a result line:
    against the fused render at 480x270: p99 |d| < 1e-4 analytic and
    < 2e-2 spectral (tests/test_fused.py's bars); mean |d| < 5e-5 over all
    pixels, and < 1e-5 (that file's mean bar) over the pixels with
-   |d| <= 1e-2. It prints the share of pixels above 1e-2.
+   |d| <= 1e-2. It prints the share of pixels above 1e-2. Last, a staged
+   spectral scene from ``Scene.create`` (no Chebyshev tables, so its disk
+   shades from the LUTs, as the JAX package's does) at 96x54, 48 steps,
+   exact divides, on the card against its plain render on the CPU: p99
+   |d| < 1e-4, mean < 1e-5, and its second frame finds the tables cached
+   on the card.
 6. The gradient kernel (``csrc/march_grad.cu``) on tests/test_grad_kernel.py's
    scene (48x32 rays, 48 steps, exact divides) and loss: d/d(spin) through
    ``march_rows_ad`` (both kernels) against autograd straight through the
@@ -130,9 +135,34 @@ printing a result line:
    that rays lie beyond b_min), and the staged jets render at 1080p, whose
    march kernel (jets instantiation) is timed alone on its recorded
    arguments. (e) The flagship instantiations keep their registers (render
-   56 / 0, march 60 / 0), phase 4's kernel stays within 5% of PR 3's
-   spread and its frame within 1.25x of it (the frame is mostly host work
+   56 / 0, march 56 / 0), phase 4's kernel stays within 5% of the
+   certified render's slice's spread and its frame within 1.25x of it (the frame is mostly host work
    and tonemap, which vary with the host the card shares).
+11. Small and ragged launches: the render kernel (midpoint, AB3, every
+   branch with jets) at 1x1, 31x1, 128x128 and 250x141 and the march
+   kernel (midpoint, AB3, jets) on 1, 31, 16,384 (fewer than its resident
+   lanes) and 35,250 rays, each against its plain version at 48 steps and
+   exact divides (step counts identical, hit and crossing counts too for
+   the march, the floats at phases 2 and 5's bars); and each launch's
+   outputs all written: two launches into buffers pre-filled with
+   different sentinels agree bit for bit, and the march kernel's ray pool
+   is back at zero after each.
+12. What holds the two forward kernels back on each 1080p path: its lane
+   efficiency (its step counts grouped into warps as a one-ray-per-thread
+   launch groups them: the render kernel's 8 x 4 patches,
+   ``ops/render.py::launch_pixel_order``; 32 consecutive rays for the
+   march), the uniform-ray probe (the march kernel on 2,073,600 copies of
+   one ray of the path's march, one near the median step count and one of
+   the longest: ms / (steps x rays) is what a ray-step costs at full
+   occupancy, and that cost x the path's steps its time without
+   divergence), and the refinement re-march's critical path (its longest
+   ray alone, and 32 copies of it). Each render entry of the kernels line
+   carries ``lane_efficiency`` (its own launch's warps) and each march
+   entry ``lane_efficiency_one_per_thread`` (warps of 32 consecutive rays,
+   the launch the persistent loop replaced); both carry
+   ``resident_warps_per_sm`` (the occupancy API on the built library), the
+   refinement's ``critical_path_ms``. Every instantiation of both kernels is printed
+   with its registers, spills and resident warps per SM; a spill fails.
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -187,10 +217,15 @@ from blackhole_simulation_tpu_torch.ops.march_grad import (  # noqa: E402
     step_vjp_check,
 )
 from blackhole_simulation_tpu_torch.ops.pallas_march import (  # noqa: E402
+    lane_efficiency,
+    march_kernel_shape,
     march_u,
     march_u_plain,
+    ray_pool,
 )
 from blackhole_simulation_tpu_torch.ops.render import (  # noqa: E402
+    launch_steps,
+    render_kernel_shape,
     render_planes,
     render_planes_kernel,
 )
@@ -224,6 +259,7 @@ from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
 from blackhole_simulation_tpu_torch.render.post import tonemap  # noqa: E402
 from blackhole_simulation_tpu_torch.render.shading import (  # noqa: E402
     JetParams,
+    disk_luts,
 )
 from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
     critical_band_metric_u,
@@ -274,10 +310,12 @@ OPS_PER_PIXEL_JITTER = 365
 OPS_PER_PIXEL_OVERLAY = 1365
 OPS_PER_PIXEL_NRS = 8
 OPS_PER_FAR_PIXEL = 1500
-# The flagship instantiations' registers and spills, as PR 3 read them
-# (render.cu midpoint, march.cu midpoint), and the spread of PR 3's
-# phase-4 frames (ms, H100 80GB HBM3 at 700 W): a later slice keeps both.
-FLAGSHIP_REGISTERS = {"render.cu": (56, 0), "march.cu": (60, 0)}
+# The flagship instantiations' registers and spills (render.cu midpoint
+# as the certified render's slice read it; march.cu midpoint as its
+# persistent-warp loop compiles, 60 before it), and the spread of that
+# slice's phase-4 frames (ms, H100 80GB HBM3 at 700 W): a later slice
+# keeps both.
+FLAGSHIP_REGISTERS = {"render.cu": (56, 0), "march.cu": (56, 0)}
 FLAGSHIP_FRAME_SPREAD_MS = (6.131, 6.814)
 FLAGSHIP_KERNEL_SPREAD_MS = (1.349, 1.366)
 # The frame is ~80% host work and tonemap, which vary with the host the
@@ -552,6 +590,9 @@ def render_kernel_entry(scene, launches, ops_per_step, ops_per_pixel,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "p99_abs": s["p99_abs"], "mean_abs": s["mean_abs"],
         "steps_per_ray": total_steps / n_pix, "steps_sum": total_steps,
+        "steps_max": int(steps.max()),
+        "lane_efficiency": lane_efficiency(launch_steps(steps)),
+        "resident_warps_per_sm": render_kernel_shape(st)["warps_per_sm"],
         **extra,
     }
     return entry, s, k, st
@@ -564,7 +605,8 @@ def phase_main_path(frames=30):
     (frame_ms, frame_min, frame_max), launches = render_frames(scene, frames)
     entry, s, k, _ = render_kernel_entry(
         scene, launches["render"], OPS_PER_STEP, OPS_PER_PIXEL, 12,
-        "blackhole_simulation_tpu/ops/pallas_render.py:140")
+        "blackhole_simulation_tpu/ops/pallas_render.py:140",
+        path="flagship render()", variant="midpoint")
     print(f"1080p kernel vs plain: {s}")
 
     # Where the frame's time goes besides the kernel.
@@ -656,7 +698,38 @@ def phase_march_parity():
                 and st["mean_abs_rest"] < STAGED_MEAN_REST_BAR):
             raise AssertionError(f"staged render failed ({name}): {st}")
         out[name] = st
+    out["lut"] = lut_route_check()
     return out
+
+
+def lut_route_check():
+    """A staged spectral scene from ``Scene.create`` (no Chebyshev tables:
+    its disk shades from the LUTs) rendered on the card through the march
+    kernel against the same scene's plain render on the CPU, at the
+    analytic bars (p99 |d| < 1e-4, mean < 1e-5); a second frame finds its
+    tables on the card (``disk_luts``'s cache), so it copies none."""
+    scene = flagship_scene(96, 54, cfg=dataclasses.replace(
+        FLAGSHIP_CFG, max_steps=48, approx_recip=False, fused=False))
+    if scene.spectral_coeffs is not None:
+        raise AssertionError("a staged spectral scene carries Chebyshev "
+                             "tables")
+    march_u.launches = 0
+    img = render_radiance(scene, device=DEV)
+    hits = disk_luts.cache_info().hits
+    render_radiance(scene, device=DEV)
+    torch.cuda.synchronize()
+    st = {"march_launches": march_u.launches,
+          "cache_hits": disk_luts.cache_info().hits - hits}
+    d = (img.cpu() - render_radiance(scene, device="cpu")).abs()
+    st.update(p99_abs=float(torch.quantile(d.flatten().double(), 0.99)),
+              mean_abs=float(d.mean()), max_abs=float(d.max()))
+    print(f"staged spectral render on the LUT route (96x54, 48 steps), card "
+          f"vs CPU plain: {st}")
+    if not (st["march_launches"] == 2 and st["cache_hits"] >= 1
+            and bool(torch.isfinite(img).all()) and st["p99_abs"] < 1e-4
+            and st["mean_abs"] < 1e-5):
+        raise AssertionError(f"LUT route on the card failed: {st}")
+    return st
 
 
 # tests/test_grad_kernel.py's scene and march configuration.
@@ -937,6 +1010,7 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
         step(params, target)
     m_args, g_args = march_u.record[0], march_grad_kernel.record[0]
     march_u.record = march_grad_kernel.record = None
+    RECORDED["midpoint"] = m_args
     torch.cuda.synchronize()
 
     results = []
@@ -1038,6 +1112,10 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
              launches=launches["march"], max_abs_err=ms["max_abs"],
              ms=march_ms, plain_ms=march_plain_ms, bound_ms=march_bound,
              bound_by=march_by, frac_int_differ=ms["frac_int_differ"],
+             path="training step", variant="midpoint",
+             steps_sum=total_steps, steps_max=int(outs[2].max()),
+             lane_efficiency_one_per_thread=lane_efficiency(outs[2]),
+             resident_warps_per_sm=march_kernel_shape(cfg)["warps_per_sm"],
              **common),
         dict(name="march_grad",
              source="blackhole_simulation_tpu_torch/csrc/march_grad.cu",
@@ -1107,7 +1185,252 @@ def march_entry(name_note, launches, args, plain_args, ops_per_step, **extra):
         library_ms=None, rays=n_rays,
         steps_sum=int(steps.sum()), steps_max=int(steps.max()),
         steps_per_ray=float(steps.float().mean()),
+        lane_efficiency_one_per_thread=lane_efficiency(steps),
+        resident_warps_per_sm=march_kernel_shape(
+            args[6], args[7] if len(args) > 7 else None)["warps_per_sm"],
         frac_int_differ=cmp["frac_int_differ"], **extra)
+
+
+# The march kernel's arguments on the 1080p paths, by march variant (the
+# training step's midpoint march, the staged AB3 and jets renders' and the
+# certified render's refinement re-march), kept for phase 12's probes.
+RECORDED = {}
+# Phase 12's uniform-ray probe: copies of one ray, as many as a 1080p frame
+# has pixels.
+PROBE_RAYS = 1920 * 1080
+
+
+def uniform_probe(args):
+    """The march kernel on PROBE_RAYS copies of one ray of ``args``, for
+    the ray nearest the median step count and for the longest: no lane
+    waits on another, so ms / (steps x rays) is what one ray-step costs at
+    full occupancy."""
+    yt0, thr, *rest = args
+    with torch.no_grad():
+        steps = march_u(*args)[2]
+    med = steps.float().median()
+    out = {}
+    for name, j in (("median", int((steps.float() - med).abs().argmin())),
+                    ("longest", int(steps.argmax()))):
+        y = yt0[:, j:j + 1].expand(8, PROBE_RAYS).contiguous()
+        t = thr[j:j + 1].expand(PROBE_RAYS).contiguous()
+        with torch.no_grad():
+            ms, o = kernel_time(lambda: march_u(y, t, *rest), 10)
+        n_steps = int(o[2][0])
+        if not bool((o[2] == n_steps).all()):
+            raise AssertionError("uniform probe: copies of one ray took "
+                                 "different step counts")
+        out[name] = {"ray": j, "steps": n_steps, "ms": ms,
+                     "ns_per_ray_step": ms * 1e6 / (n_steps * PROBE_RAYS)}
+    return out
+
+
+def critical_path(args):
+    """The march kernel alone on the longest ray of ``args``, and on 32
+    copies of it (one warp): the least time any schedule that marches one
+    ray per thread can take for the whole launch."""
+    yt0, thr, *rest = args
+    with torch.no_grad():
+        steps = march_u(*args)[2]
+    j = int(steps.argmax())
+    out = {"ray": j, "steps": int(steps[j])}
+    for copies in (1, 32):
+        y = yt0[:, j:j + 1].expand(8, copies).contiguous()
+        t = thr[j:j + 1].expand(copies).contiguous()
+        with torch.no_grad():
+            out[f"ms_{copies}"], _ = kernel_time(
+                lambda: march_u(y, t, *rest), 10)
+    return out
+
+
+def instantiation_shapes():
+    """Registers, spill bytes and resident warps per SM of every
+    instantiation of the render kernel (MARCH x EXTRAS) and the march
+    kernel (MARCH), from ptxas and the occupancy API."""
+    cfg = dataclasses.replace(FLAGSHIP_CFG, max_steps=48)
+    ab3 = dataclasses.replace(cfg, multistep=True)
+    render_cases = {
+        "ILi0ELb0E": flagship_scene(16, 8, cfg=cfg),
+        "ILi1ELb0E": flagship_scene(16, 8, cfg=ab3),
+        "ILi2ELb0E": branch_scene("jets", 16, 8, cfg),
+        "ILi0ELb1E": branch_scene("overlay", 16, 8, cfg),
+        "ILi1ELb1E": branch_scene("overlay", 16, 8, ab3),
+        "ILi2ELb1E": branch_scene("all", 16, 8, cfg),
+    }
+    out = {}
+    for marker, scene in render_cases.items():
+        _, st = kernel_inputs(scene, None, DEV)
+        out[f"render {marker}"] = [*registers("render.cu", marker),
+                                   render_kernel_shape(st)["warps_per_sm"]]
+    for marker, c, jets in (("ILi0E", cfg, None), ("ILi1E", ab3, None),
+                            ("ILi2E", cfg, JetParams())):
+        out[f"march {marker}"] = [*registers("march.cu", marker),
+                                  march_kernel_shape(c, jets)["warps_per_sm"]]
+    print(f"instantiations (registers, spill bytes, resident warps per SM):"
+          f" {json.dumps(out)}")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"instantiations that spill: {spilled}")
+    return out
+
+
+def phase_probes(entries):
+    """Phase 12: what holds the render and march kernels back on each
+    1080p path. For each march variant the uniform-ray probe's cost of one
+    ray-step; for each path its lane efficiency (``lane_efficiency`` of its
+    step counts grouped into warps of one ray per thread: the render
+    kernel's own launch, the launch the march kernel's persistent loop
+    replaced), that cost x its steps and its bound; and the refinement
+    re-march's critical path. Adds them to the kernels-line entries: a
+    march path's ``no_divergence_ms`` (the same kernel without waiting
+    lanes), a render path's ``steps_at_march_step_cost_ms`` (its steps at
+    the persistent march loop's cost per step, which is not render.cu's
+    loop; its per-pixel work left out)."""
+    probes = {v: uniform_probe(RECORDED[v])
+              for v in ("midpoint", "ab3", "jets")}
+    crit = critical_path(RECORDED["refinement"])
+    shapes = instantiation_shapes()
+    print(f"uniform-ray probe (march kernel, {PROBE_RAYS} copies of one "
+          f"ray): {json.dumps(probes)}")
+    print(f"refinement re-march critical path: {json.dumps(crit)}")
+    for e in entries:
+        if "variant" not in e:
+            continue
+        cost = probes[e["variant"]]["median"]["ns_per_ray_step"]
+        e["uniform_ns_per_ray_step"] = cost
+        march = e["name"] == "march"
+        eff = e["lane_efficiency_one_per_thread" if march
+                else "lane_efficiency"]
+        stepped = cost * e["steps_sum"] * 1e-6
+        e["no_divergence_ms" if march
+          else "steps_at_march_step_cost_ms"] = stepped
+        if e["path"].endswith("refinement re-march"):
+            e["critical_path_ms"] = crit["ms_1"]
+            e["critical_path_32_ms"] = crit["ms_32"]
+        print(f"{e['name']} kernel, {e['path']}: {e['ms']:.4f} ms; lane "
+              f"efficiency (one ray per thread) {eff:.4f}; steps at the "
+              f"march kernel's uniform cost {stepped:.4f} ms; bound "
+              f"{e['bound_ms']:.4f} ms;"
+              f" steps {e['steps_sum']} (max {e['steps_max']}); resident "
+              f"warps per SM {e['resident_warps_per_sm']}"
+              + (f"; critical path {crit['ms_1']:.4f} ms"
+                 if "critical_path_ms" in e else ""))
+    return {"uniform": probes, "critical_path": crit,
+            "instantiations": shapes}
+
+
+# Phase 11: small and ragged launches: one ray, fewer than a warp, fewer
+# than the march kernel's resident lanes, a ragged frame.
+POOL_FRAMES = ((1, 1), (31, 1), (128, 128), (250, 141))
+POOL_RAYS = (1, 31, 16384, 250 * 141)
+
+
+def same_bits(a, b):
+    """Bitwise equality of two tensors (NaN equal to the same NaN)."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def sentinel_render(row, st):
+    """Two launches of the render kernel into planes and steps pre-filled
+    with different sentinels (NaN / -1, then 7 / 12345): every element
+    written by one launch gives two bitwise-equal results."""
+    outs = []
+    for fill, ifill in ((math.nan, -1), (7.0, 12345)):
+        n_planes = 4 if st.cfg.refine_band > 0.0 else 3
+        out = torch.full((n_planes, st.height, st.width), fill, device=DEV)
+        steps = torch.full((st.height, st.width), ifill, dtype=torch.int32,
+                           device=DEV)
+        render_planes_kernel(row, st, steps, out=out)
+        outs.append((out, steps))
+    torch.cuda.synchronize()
+    (o1, s1), (o2, s2) = outs
+    return same_bits(o1, o2) and same_bits(s1, s2)
+
+
+def sentinel_march(args):
+    """The march kernel's twin of ``sentinel_render``, on all nine outputs,
+    and its ray pool back at zero after each launch."""
+    outs = []
+    n = int(args[0].shape[1])
+    k_slots = args[6].max_crossings
+    shapes = ((8, n), (n,), (n,), (k_slots, n), (k_slots, n), (k_slots, n),
+              (n,), (n,), (3, n))
+    ints = (1, 2, 6)
+    for fill, ifill in ((math.nan, -1), (7.0, 12345)):
+        out = tuple(torch.full(sh, ifill, dtype=torch.int32, device=DEV)
+                    if i in ints else torch.full(sh, fill, device=DEV)
+                    for i, sh in enumerate(shapes))
+        with torch.no_grad():
+            march_u(*args, out=out)
+        outs.append((out, ray_pool(DEV).clone()))
+    torch.cuda.synchronize()
+    (o1, p1), (o2, p2) = outs
+    return (all(same_bits(a, b) for a, b in zip(o1, o2))
+            and not bool(p1.any()) and not bool(p2.any()))
+
+
+def phase_edges():
+    """Phase 11: the render kernel (midpoint, AB3, every branch with jets)
+    at 1x1, 31x1, 128x128 (16,384 pixels, fewer than the resident grid's
+    lanes) and a ragged 250x141, and the march kernel (midpoint, AB3, jets)
+    on the first 1, 31, 16,384 and 35,250 of the 250x141 camera rays, each
+    against its plain version (48 steps, exact divides, a = 0.9): step
+    counts identical (and hit and crossing counts for the march), the
+    floats at phase 2's and phase 5's bars; and each launch's outputs fully
+    written (``sentinel_render``, ``sentinel_march``)."""
+    cfg = dataclasses.replace(FLAGSHIP_CFG, max_steps=48, approx_recip=False)
+    scenes = {
+        "midpoint": lambda w, h: flagship_scene(w, h, spin=0.9, cfg=cfg,
+                                                features=Features()),
+        "ab3": lambda w, h: flagship_scene(
+            w, h, spin=0.9, cfg=dataclasses.replace(cfg, multistep=True),
+            features=Features(spectral_lut=True)),
+        "all": lambda w, h: branch_scene("all", w, h, cfg),
+    }
+    out = {}
+    for name, make in scenes.items():
+        for w, h in POOL_FRAMES:
+            row, st = kernel_inputs(make(w, h), None, DEV)
+            sk = torch.empty((h, w), dtype=torch.int32, device=DEV)
+            sp = torch.empty((h, w), dtype=torch.int32, device=DEV)
+            d = diff_stats(render_planes_kernel(row, st, sk),
+                           render_planes(row, st, sp))
+            d["steps_equal"] = bool(torch.equal(sk, sp))
+            d["sentinel"] = sentinel_render(row, st)
+            key = f"render_{name}_{w}x{h}"
+            print(f"edges, {key}: {d}")
+            if not (d["steps_equal"] and d["sentinel"]
+                    and d["p99_abs"] < 1e-4 and d["mean_abs"] < 1e-5):
+                raise AssertionError(f"edges {key}: {d}")
+            out[key] = d
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.9)
+    mcfg = dataclasses.replace(cfg, fused=False, shadow_precull=False)
+    with torch.no_grad():
+        rays = _march_inputs(camera_rays_u(_camera(250, 141), m, a), m, a,
+                             mcfg, None)
+    for name, c, jets in (
+            ("midpoint", mcfg, None),
+            ("ab3", dataclasses.replace(mcfg, multistep=True), None),
+            ("jets", mcfg, JetParams())):
+        for n in POOL_RAYS:
+            args = (rays[0][:, :n].contiguous(), rays[1][:n].contiguous(),
+                    *rays[2:6], c, jets)
+            with torch.no_grad():
+                k, p = march_u(*args), march_u_plain(*args)
+            s = march_compare(k, p)
+            if jets is not None:
+                s["jet_rel"] = float(((k[8] - p[8]).abs()
+                                      / (p[8].abs() + 1e-12)).max())
+            s["sentinel"] = sentinel_march(args)
+            key = f"march_{name}_{n}"
+            print(f"edges, {key}: {s}")
+            if not (s["frac_int_differ"] == 0.0 and s["max_abs"] < 1e-4
+                    and s["sentinel"] and s.get("jet_rel", 0.0) < 1e-5):
+                raise AssertionError(f"edges {key}: {s}")
+            out[key] = s
+    return out
 
 
 def phase_ab3(flagship):
@@ -1161,7 +1484,8 @@ def phase_ab3(flagship):
     render_entry, d, _, _ = render_kernel_entry(
         scene, launches["render"], OPS_PER_STEP_AB3, OPS_PER_PIXEL, 12,
         "blackhole_simulation_tpu/ops/pallas_march.py:428",
-        path="flagship render() with multistep (AB3)", frame_ms=frame_ms,
+        path="flagship render() with multistep (AB3)", variant="ab3",
+        frame_ms=frame_ms,
         frame_ms_min_max=[frame_min, frame_max],
         mrays_per_s=n_pix / frame_ms / 1e3, registers_spill=list(regs),
         midpoint_frame_ms=flagship["frame_ms"],
@@ -1185,6 +1509,7 @@ def phase_ab3(flagship):
         img = render_radiance(staged, device=DEV)
     torch.cuda.synchronize()
     args, march_u.record = march_u.record[0], None
+    RECORDED["ab3"] = args
     launches = march_u.launches
     if launches < frames or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"staged AB3 render: {launches} march launches")
@@ -1196,7 +1521,8 @@ def phase_ab3(flagship):
     mid_steps = mid_out[2].float().mean()
     cmp, march_e = march_entry(
         "staged render() with multistep (AB3)", launches, args, plain_args,
-        OPS_PER_STEP_AB3, registers_spill=list(registers("march.cu", "ILi1E")),
+        OPS_PER_STEP_AB3, variant="ab3",
+        registers_spill=list(registers("march.cu", "ILi1E")),
         midpoint_ms=mid_ms, midpoint_steps_per_ray=float(mid_steps))
     print(f"1080p AB3 march kernel {march_e['ms']:.3f} ms, "
           f"{march_e['steps_per_ray']:.2f} steps/ray, registers/spill "
@@ -1252,7 +1578,8 @@ def phase_certified():
         scene, launches["render"], OPS_PER_STEP,
         OPS_PER_PIXEL + OPS_PER_PIXEL_BAND, 16,
         "blackhole_simulation_tpu/ops/pallas_render.py:140",
-        path="certified render() (band plane)", frame_ms=frame_ms)
+        path="certified render() (band plane)", variant="midpoint",
+        frame_ms=frame_ms)
     rgb, band = planes[:3].reshape(3, -1), planes[3].reshape(-1)
     band_px = int((band < CERTIFIED_CFG.refine_band).sum())
 
@@ -1263,9 +1590,10 @@ def phase_certified():
     march_u.record = []
     refine()
     args, march_u.record = march_u.record[0], None
+    RECORDED["refinement"] = args
     cmp, march_e = march_entry(
         "certified render(): the refinement re-march", launches["march"],
-        args, args, OPS_PER_STEP, refine_pass_ms=pass_ms,
+        args, args, OPS_PER_STEP, variant="midpoint", refine_pass_ms=pass_ms,
         refine_pass_ms_min_max=[pass_min, pass_max])
     if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
         raise AssertionError(f"refinement march kernel vs plain: {cmp}")
@@ -1497,7 +1825,8 @@ def phase_full_featured(flagship):
         entry, d, _, _ = render_kernel_entry(
             scene, launches["render"], OPS_PER_STEP + OPS_PER_STEP_JETS,
             per_pixel, 12, "blackhole_simulation_tpu/ops/pallas_render.py:140",
-            path=f"{name} render() at 1920x1080", frame_ms=frame_ms,
+            path=f"{name} render() at 1920x1080", variant="jets",
+            frame_ms=frame_ms,
             frame_ms_min_max=[frame_min, frame_max],
             mrays_per_s=n_pix / frame_ms / 1e3, registers_spill=list(regs),
             far_pixels=n_far)
@@ -1529,6 +1858,7 @@ def phase_full_featured(flagship):
         img = render(staged)
     torch.cuda.synchronize()
     args, march_u.record = march_u.record[0], None
+    RECORDED["jets"] = args
     launches = march_u.launches
     if launches < frames or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"staged jets render: {launches} march launches")
@@ -1536,7 +1866,7 @@ def phase_full_featured(flagship):
         raise AssertionError("the staged jets march took no jets")
     cmp, march_e = march_entry(
         "staged jets render() at 1920x1080", launches, args, args,
-        OPS_PER_STEP + OPS_PER_STEP_JETS,
+        OPS_PER_STEP + OPS_PER_STEP_JETS, variant="jets",
         registers_spill=list(registers("march.cu", "ILi2E")))
     print(f"1080p jets march kernel {march_e['ms']:.3f} ms, "
           f"{march_e['steps_per_ray']:.2f} steps/ray, registers/spill "
@@ -1593,6 +1923,12 @@ def main() -> int:
     features = phase_features_parity()
     full, full_kernels = phase_full_featured(kernel)
     print(f"features: {json.dumps({'parity': features, **full})}")
+    edges = phase_edges()
+    print(f"edges: {json.dumps(edges)}")
+    kernels_line = [kernel, *kernels, *certified_kernels, *ab3_kernels,
+                    *full_kernels, peak]
+    probes = phase_probes(kernels_line)
+    print(f"probes: {json.dumps(probes)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1600,8 +1936,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s total")
     print(smi)
-    print(json.dumps({"kernels": [kernel, *kernels, *certified_kernels,
-                                  *ab3_kernels, *full_kernels, peak]}))
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -37,10 +37,13 @@ from blackhole_simulation_tpu_torch.ops.march_grad import (
     step_vjp_check,
 )
 from blackhole_simulation_tpu_torch.ops.pallas_march import (
+    march_kernel_shape,
     march_u,
     march_u_plain,
+    ray_pool,
 )
 from blackhole_simulation_tpu_torch.ops.render import (
+    render_kernel_shape,
     render_planes,
     render_planes_kernel,
 )
@@ -63,7 +66,7 @@ from blackhole_simulation_tpu_torch.render.pipeline import (
 from blackhole_simulation_tpu_torch.render.precull import (
     critical_band_metric_u,
 )
-from blackhole_simulation_tpu_torch.render.shading import JetParams
+from blackhole_simulation_tpu_torch.render.shading import JetParams, disk_luts
 from blackhole_simulation_tpu_torch.tools import vpu_peak
 
 pytestmark = pytest.mark.gpu
@@ -171,6 +174,26 @@ def test_staged_render_matches_fused(cuda):
     torch.cuda.synchronize()
     assert march_u.launches == before + 1
     d = (a - render_radiance(fused)).abs()
+    assert float(torch.quantile(d.flatten(), 0.99)) < 1e-4
+    assert float(d.mean()) < 1e-5
+
+
+def test_staged_spectral_render_on_the_lut_route(cuda):
+    """A staged spectral scene from Scene.create carries no Chebyshev
+    tables, so its disk shades from the LUTs: through the march kernel on
+    the card, held against the same scene's plain render on the CPU at the
+    analytic bars; a second frame finds its tables on the card."""
+    scene = _scene(96, 54, features=Features(spectral_lut=True), fused=False)
+    assert scene.spectral_coeffs is None
+    before = march_u.launches
+    img = render_radiance(scene)
+    hits = disk_luts.cache_info().hits
+    render_radiance(scene)
+    torch.cuda.synchronize()
+    assert march_u.launches == before + 2
+    assert disk_luts.cache_info().hits > hits
+    d = (img.cpu() - render_radiance(scene, device="cpu")).abs()
+    assert bool(torch.isfinite(img).all())
     assert float(torch.quantile(d.flatten(), 0.99)) < 1e-4
     assert float(d.mean()) < 1e-5
 
@@ -424,3 +447,95 @@ def test_full_featured_render_runs_the_kernels(cuda):
     torch.cuda.synchronize()
     assert march_u.launches == before + 1
     assert bool(torch.isfinite(img).all())
+
+
+# Small and ragged launches: one ray, fewer than a warp, fewer than the
+# march kernel's resident lanes, a ragged frame; render variants (midpoint,
+# AB3, every branch) and march variants (midpoint, AB3, jets).
+POOL_FRAMES = [(1, 1), (31, 1), (128, 128), (250, 141)]
+POOL_RAYS = [1, 31, 16384, 250 * 141]
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def _pool_scene(variant, width, height):
+    if variant == "all":
+        return _branch_scene("all", width, height)
+    return _scene(width, height, multistep=variant == "ab3",
+                  features=Features(spectral_lut=variant == "ab3"))
+
+
+@pytest.mark.parametrize("size", POOL_FRAMES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("variant", ["midpoint", "ab3", "all"])
+def test_render_kernel_pool_edges(cuda, variant, size):
+    """Kernel vs plain version with identical step counts, and every
+    element of the planes and steps written by one launch: two launches
+    into buffers pre-filled with different sentinels agree bit for bit."""
+    row, st = kernel_inputs(_pool_scene(variant, *size), None, cuda)
+    sk = torch.empty((st.height, st.width), dtype=torch.int32, device=cuda)
+    sp = torch.empty_like(sk)
+    k = render_planes_kernel(row, st, sk)
+    p = render_planes(row, st, sp)
+    assert torch.equal(sk, sp)
+    d = (k - p).abs()
+    assert float(torch.quantile(d.flatten(), 0.99)) < 1e-4
+    assert float(d.mean()) < 1e-5
+    outs = []
+    for fill, ifill in ((math.nan, -1), (7.0, 12345)):
+        out = torch.full_like(k, fill)
+        steps = torch.full_like(sk, ifill)
+        render_planes_kernel(row, st, steps, out=out)
+        outs.append((out, steps))
+    assert torch.equal(_bits(outs[0][0]), _bits(outs[1][0]))
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(_bits(outs[0][0]), _bits(k))
+
+
+@pytest.mark.parametrize("n", POOL_RAYS)
+@pytest.mark.parametrize("variant", ["midpoint", "ab3", "jets"])
+def test_march_kernel_pool_edges(cuda, variant, n):
+    cfg = dc.replace(CFG, fused=False, shadow_precull=False,
+                     multistep=variant == "ab3")
+    jets = JetParams() if variant == "jets" else None
+    rays = _march_args(cuda, cfg)
+    args = (rays[0][:, :n].contiguous(), rays[1][:n].contiguous(),
+            *rays[2:6], cfg, jets)
+    with torch.no_grad():
+        k = march_u(*args)
+        p = march_u_plain(*args)
+        for i in (1, 2, 6):
+            assert torch.equal(k[i], p[i]), i
+        for i in (0, 3, 4, 5, 7):
+            assert float((k[i] - p[i]).abs().max()) < 1e-4, i
+        if jets is not None:
+            rel = (k[8] - p[8]).abs() / (p[8].abs() + 1e-12)
+            assert float(rel.max()) < 1e-5
+        outs = []
+        for fill, ifill in ((math.nan, -1), (7.0, 12345)):
+            out = tuple(torch.full_like(x, ifill if x.dtype == torch.int32
+                                        else fill) for x in k)
+            march_u(*args, out=out)
+            outs.append(out)
+            assert not bool(ray_pool(cuda).any())
+    for a, b, c in zip(*outs, k):
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a), _bits(c))
+
+
+def test_kernel_shapes(cuda):
+    """Resident warps per SM of every instantiation: at least 4, and the
+    flagship ones at least 24."""
+    row, st = kernel_inputs(_scene(16, 8, max_steps=256), None, cuda)
+    assert render_kernel_shape(st)["warps_per_sm"] >= 24
+    assert march_kernel_shape(CFG)["warps_per_sm"] >= 24
+    for name in sorted(BRANCHES):
+        _, st = kernel_inputs(_branch_scene(name, 16, 8), None, cuda)
+        for multistep in (False, True):
+            shape = render_kernel_shape(dc.replace(st, cfg=dc.replace(
+                st.cfg, multistep=multistep)))
+            assert shape["warps_per_sm"] >= 4 and shape["sms"] > 0, shape
+    for cfg, jets in ((dc.replace(CFG, multistep=True), None),
+                      (CFG, JetParams())):
+        assert march_kernel_shape(cfg, jets)["warps_per_sm"] >= 4

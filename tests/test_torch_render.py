@@ -142,3 +142,63 @@ def test_wrapper_takes_plain_version_only_for_cpu_rows():
     assert int(steps.max()) <= st.cfg.max_steps and int(steps.min()) >= 0
     with pytest.raises(ValueError):
         render_planes_kernel(row.double(), st)
+
+
+@pytest.mark.parametrize("size", [(250, 141), (16, 8), (31, 1), (1920, 1080)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_launch_pixel_order_covers_the_frame_in_patches(size):
+    """The render kernel's launch order: every pixel of a ragged frame
+    once, and each warp's 32 threads an 8 x 4 patch (cut at the frame's
+    edge)."""
+    from blackhole_simulation_tpu_torch.ops.render import launch_pixel_order
+
+    width, height = size
+    order = launch_pixel_order(width, height)
+    assert order.numel() == -(-width // 16) * -(-height // 8) * 128
+    inside = order[order >= 0]
+    assert torch.equal(torch.sort(inside).values,
+                       torch.arange(width * height))
+    for warp in order.reshape(-1, 32):
+        pix = warp[warp >= 0]
+        if pix.numel() == 0:
+            continue
+        x, y = pix % width, pix // width
+        assert int(x.min()) % 8 == 0 and int(y.min()) % 4 == 0
+        assert int(x.max() - x.min()) < 8 and int(y.max() - y.min()) < 4
+        full = (int(x.min()) + 8 <= width) and (int(y.min()) + 4 <= height)
+        if full:
+            assert pix.numel() == 32
+            lane = torch.arange(32)
+            assert torch.equal(x - x.min(), lane % 8)
+            assert torch.equal(y - y.min(), lane // 8)
+
+
+def test_launch_steps_follows_the_order():
+    from blackhole_simulation_tpu_torch.ops.render import (
+        launch_pixel_order,
+        launch_steps,
+    )
+
+    steps = torch.arange(20 * 9, dtype=torch.int32).reshape(9, 20)
+    got = launch_steps(steps)
+    order = launch_pixel_order(20, 9)
+    assert torch.equal(got[order >= 0], steps.reshape(-1)[order[order >= 0]])
+    assert not bool(got[order < 0].any())
+
+
+def test_lane_efficiency_known_answer():
+    """Two warps: one of equal rays (efficiency 1), one with a single
+    32-step ray among 4-step rays; and a ragged tail of zeros."""
+    from blackhole_simulation_tpu_torch.ops.pallas_march import (
+        lane_efficiency,
+    )
+
+    steps = torch.tensor([5] * 32 + [32] + [4] * 31)
+    want = (5 * 32 + 32 + 4 * 31) / (32 * 5 + 32 * 32)
+    assert lane_efficiency(steps) == pytest.approx(want, rel=1e-12)
+    assert lane_efficiency(torch.full((32,), 7)) == 1.0
+    # a 33rd ray makes a third warp of one ray and 31 empty lanes
+    assert lane_efficiency(torch.full((33,), 2)) == pytest.approx(
+        66 / (32 * 2 * 2), rel=1e-12)
+    assert lane_efficiency(torch.zeros(64, dtype=torch.int32)) == 1.0
+
