@@ -62,8 +62,15 @@
 //   are consecutive, so its loads and stores stay in few lines. The
 //   caller orders rays in 64 x 64 pixel blocks (ops/pallas_march.py::
 //   to_block_order) when MarchConfig.use_pallas is set.
-// * approx_recip: rcp.approx.ftz.f32 for 1/S, 1/w and the step's divides,
-//   IEEE divides otherwise.
+// * The step is march_step.cuh's, inherited as the render kernel has it:
+//   one FMNMX per min/max, the renormalization counted down per ray (a
+//   MarchRay field), the per-ray invariants computed once per launch, and
+//   AB3's two bootstrap steps run in the refill pass, where a lane births
+//   its ray (ray_boot), so that the step loop holds only the AB3 step.
+// * approx_recip (the APPROX instantiations, chosen at launch):
+//   rcp.approx.ftz.f32 for 1/S, 1/w and the step's divides and the step's
+//   multiply-adds contracted (march_step.cuh::madd); IEEE divides and no
+//   contraction otherwise, bit-equal to the plain version.
 // * Jets (a third instantiation, chosen when the caller passes JetParams):
 //   the midpoint march with the jets' emission summed per live step into
 //   three more registers and written as three more rows. The JAX package
@@ -131,11 +138,23 @@ __device__ __forceinline__ void march_finish(
   }
 }
 
-// MARCH: MARCH_MIDPOINT, MARCH_AB3 or MARCH_JETS. A resident grid of
-// persistent warps; each lane marches one ray at a time, taken from the
-// pool (pool[0]: the next ray index, pool[1]: retired blocks).
-template <int MARCH>
-__global__ void __launch_bounds__(THREADS)
+// Resident blocks per SM that each instantiation must allow, which caps
+// its registers at 65536 / (THREADS x blocks) (nvcc for sm_90a). With AB3's
+// bootstrap in the refill pass, ptxas's own choice put AB3 at 72 registers
+// and spilled 68 bytes on the exact route: the exact route must allow 6
+// blocks (at most 85 registers, no spill), the approx route 7 (72; at 64
+// it spilled 140 bytes). The others keep ptxas's own choice (0: no
+// bound): a register cap moved them (midpoint 64 -> 70, jets 72 -> 85).
+__host__ __device__ constexpr int march_min_blocks(int march, bool approx) {
+  return march == MARCH_AB3 ? (approx ? 7 : 6) : 0;
+}
+
+// MARCH: MARCH_MIDPOINT, MARCH_AB3 or MARCH_JETS; APPROX:
+// MarchConfig.approx_recip. A resident grid of persistent warps; each lane
+// marches one ray at a time, taken from the pool (pool[0]: the next ray
+// index, pool[1]: retired blocks).
+template <int MARCH, bool APPROX>
+__global__ void __launch_bounds__(THREADS, march_min_blocks(MARCH, APPROX))
 march_kernel(const float* __restrict__ P, const float* __restrict__ y,
              const float* __restrict__ thr, float* __restrict__ yo,
              int* __restrict__ hit_o, int* __restrict__ steps_o,
@@ -146,11 +165,11 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
              const JetParams jp) {
   const size_t N = (size_t)n;
   const int lane = threadIdx.x & 31;
-  const bool approx = mp.approx_recip != 0;
   const float m = __ldg(P + 0);
   const float a = __ldg(P + 1);
   const float r_h = __ldg(P + 2);
   const float r_ph = __ldg(P + 3);
+  const float inv_rph = inv_rph_of(r_ph);
   MarchRay<MARCH> q;
   int j = -1;          // the lane's ray, -1 for none
   bool live = false;   // the lane's ray is still marching
@@ -172,6 +191,7 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
       if (!live && k < n) {
         j = k;
         march_birth(y, thr, N, j, mp, m, a, r_ph, q);
+        ray_boot<MARCH, APPROX>(mp, m, a, r_h, r_ph, inv_rph, q);
         live = q.hit == HIT_NONE;
       }
       empty = end >= n;
@@ -179,40 +199,52 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
     }
 #pragma unroll 1
     for (int rep = 0; rep < CHECK_STEPS && live; ++rep) {
-      ray_step(mp, approx, m, a, r_h, r_ph, jp, q);
+      ray_step<MARCH, APPROX>(mp, m, a, r_h, r_ph, inv_rph, jp, q);
       live = q.hit == HIT_NONE;
     }
   }
   pool_retire(pool);
 }
 
-// Resident blocks per SM of each instantiation, and the SM count, per
-// device (queried once).
-static int g_blocks[16][3];
+// Resident blocks per SM of each instantiation (variant x approx), and the
+// SM count, per device (queried once).
+static int g_blocks[16][6];
 static int g_sms[16];
 
-static void* march_kernel_fn(int variant) {
-  return variant == MARCH_JETS ? (void*)march_kernel<MARCH_JETS>
-         : variant == MARCH_AB3 ? (void*)march_kernel<MARCH_AB3>
-                                : (void*)march_kernel<MARCH_MIDPOINT>;
+typedef void (*MarchKernel)(const float*, const float*, const float*, float*,
+                            int*, int*, float*, float*, float*, int*, float*,
+                            float*, int, int*, const MarchParams,
+                            const JetParams);
+
+template <bool APPROX>
+static MarchKernel march_kernel_fn(int variant) {
+  return variant == MARCH_JETS   ? march_kernel<MARCH_JETS, APPROX>
+         : variant == MARCH_AB3 ? march_kernel<MARCH_AB3, APPROX>
+                                : march_kernel<MARCH_MIDPOINT, APPROX>;
 }
 
-static int march_shape(int variant, int* blocks, int* sms) {
+static MarchKernel march_kernel_fn(int variant, bool approx) {
+  return approx ? march_kernel_fn<true>(variant)
+                : march_kernel_fn<false>(variant);
+}
+
+static int march_shape(int variant, bool approx, int* blocks, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 16) return (int)cudaErrorInvalidDevice;
-  if (g_blocks[dev][variant] == 0) {
+  const int k = variant * 2 + (approx ? 1 : 0);
+  if (g_blocks[dev][k] == 0) {
     int b = 0, s = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, march_kernel_fn(variant), THREADS, 0);
+        &b, march_kernel_fn(variant, approx), THREADS, 0);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    g_blocks[dev][variant] = b;
+    g_blocks[dev][k] = b;
     g_sms[dev] = s;
   }
-  *blocks = g_blocks[dev][variant];
+  *blocks = g_blocks[dev][k];
   *sms = g_sms[dev];
   return 0;
 }
@@ -237,8 +269,9 @@ int bh_march_launch(const float* P, const float* y, const float* thr,
                     void* stream) {
   if (n > 0) {
     const int variant = march_variant(mp, jp);
+    const bool approx = mp->approx_recip != 0;
     int blocks = 0, sms = 0;
-    const int err = march_shape(variant, &blocks, &sms);
+    const int err = march_shape(variant, approx, &blocks, &sms);
     if (err != 0) return err;
     int grid = blocks * sms;
     const int need = (n + THREADS - 1) / THREADS;
@@ -246,19 +279,10 @@ int bh_march_launch(const float* P, const float* y, const float* thr,
     if (grid < 1) return (int)cudaErrorInvalidConfiguration;
     const JetParams none = {};
     const JetParams jets = jp != nullptr ? *jp : none;
-    if (variant == MARCH_JETS)
-      march_kernel<MARCH_JETS><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool, *mp,
-          jets);
-    else if (variant == MARCH_AB3)
-      march_kernel<MARCH_AB3><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool, *mp,
-          jets);
-    else
-      march_kernel<MARCH_MIDPOINT>
-          <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-              P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool,
-              *mp, jets);
+    march_kernel_fn(variant, approx)<<<grid, THREADS, 0,
+                                       (cudaStream_t)stream>>>(
+        P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool, *mp,
+        jets);
   }
   return (int)cudaGetLastError();
 }
@@ -268,7 +292,8 @@ int bh_march_launch(const float* P, const float* y, const float* thr,
 // code.
 int bh_march_shape(const MarchParams* mp, const JetParams* jp, int* out) {
   int blocks = 0, sms = 0;
-  const int err = march_shape(march_variant(mp, jp), &blocks, &sms);
+  const int err = march_shape(march_variant(mp, jp), mp->approx_recip != 0,
+                              &blocks, &sms);
   out[0] = THREADS;
   out[1] = blocks;
   out[2] = sms;

@@ -13,8 +13,12 @@
 // and dmin, from which the caller's inject() forms cto. Then it walks back
 // through the step: the renormalization, the advance/freeze select, the
 // crossing record, the midpoint rounds (each ks_rhs_vjp recomputes its own
-// forward: no tape) and the step size. The plain PyTorch mirror, function
-// for function, is ops/march_adjoint.py.
+// forward: no tape) and the step size. On the approx_recip route the
+// forward recompute contracts the step's multiply-adds as the forward does
+// (march_step.cuh::madd, with its decisions the forward's); the reverse
+// stays uncontracted, its derivatives held at relative bars. The plain
+// PyTorch mirror, function for function, is ops/march_adjoint.py (the
+// exact route).
 //
 // The derivative rules are the forward-mode Dual step's (march_step.cuh),
 // which JAX's rules fix: ties of jmax, jmin and jclip split the cotangent
@@ -78,10 +82,13 @@ __device__ __forceinline__ float clip_vjp(float x, float lo, float hi,
 __device__ __forceinline__ float sgn(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
-// gx of y = recip(x, approx).
-__device__ __forceinline__ float recip_vjp(float x, float y, float g,
-                                           bool approx) {
-  return approx ? -y * y * g : -(y * g) / x;
+// gx of y = recip<APPROX>(x).
+template <bool APPROX>
+__device__ __forceinline__ float recip_vjp(float x, float y, float g) {
+  if constexpr (APPROX)
+    return -y * y * g;
+  else
+    return -(y * g) / x;
 }
 
 // The kernel's per-step cotangent clip of the six carry rows.
@@ -97,20 +104,23 @@ __device__ __forceinline__ void clip_carry(float c[6], float limit) {
 
 // VJP of ks_rhs (p_t = -1) with the cotangents g[6] of its derivatives:
 // d[6] receives the primal, gp the cotangents of (m, a, r, u, pr, pu, pph)
-// (overwritten).
+// (overwritten). Its own forward, uncontracted: it reads derivatives, held
+// at relative bars, and branches on nothing but w's floor, which both
+// routes compute uncontracted.
+template <bool APPROX>
 __device__ __forceinline__ void ks_rhs_vjp(float m, float a, float r, float u,
                                            float pr, float pu, float pph,
-                                           bool approx, const float g[6],
-                                           float d[6], float gp[7]) {
+                                           const float g[6], float d[6],
+                                           float gp[7]) {
   const float pt = -1.0f;
   const float one_uu = 1.0f - u * u;
   const float w = jmax(one_uu, F(1e-6));
   const float S = r * r + a * a * u * u;
   const float D = r * r - 2.0f * m * r + a * a;
-  const float inv_S = recip(S, approx);
+  const float inv_S = recip<APPROX>(S);
   const float h = 2.0f * m * r * inv_S;
   const float inv_S2 = inv_S * inv_S;
-  const float inv_w = recip(w, approx);
+  const float inv_w = recip<APPROX>(w);
 
   const float S_r = 2.0f * r;
   const float D_r = 2.0f * r - 2.0f * m;
@@ -211,8 +221,8 @@ __device__ __forceinline__ void ks_rhs_vjp(float m, float a, float r, float u,
   gm = gm + 2.0f * r * inv_S * g_h;
   gr = gr + 2.0f * m * inv_S * g_h;
   g_invS = g_invS + 2.0f * m * r * g_h;
-  g_w = g_w + recip_vjp(w, inv_w, g_invw, approx);
-  g_S = g_S + recip_vjp(S, inv_S, g_invS, approx);
+  g_w = g_w + recip_vjp<APPROX>(w, inv_w, g_invw);
+  g_S = g_S + recip_vjp<APPROX>(S, inv_S, g_invS);
   gr = gr + (2.0f * r - 2.0f * m) * g_D + 2.0f * r * g_S;
   gm = gm - 2.0f * r * g_D;
   ga = ga + 2.0f * a * g_D + 2.0f * a * u * u * g_S;
@@ -228,22 +238,23 @@ __device__ __forceinline__ void ks_rhs_vjp(float m, float a, float r, float u,
 }
 
 // The (r, u, pr, pu) at which the midpoint step evaluates its right-hand
-// side the e-th time (0: the start state), recomputed from the start.
+// side the e-th time (0: the start state), recomputed from the start as
+// midpoint_step advances it.
+template <bool APPROX>
 __device__ __forceinline__ void midpoint_input(float m, float a, float dlam,
                                                const float x[6], float pph,
-                                               bool approx, int e,
-                                               float mid[4]) {
+                                               int e, float mid[4]) {
   mid[0] = x[1];
   mid[1] = x[2];
   mid[2] = x[4];
   mid[3] = x[5];
   for (int k = 0; k < e; ++k) {
     float d[6];
-    ks_rhs(m, a, mid[0], mid[1], mid[2], mid[3], pph, approx, d);
-    mid[0] = 0.5f * (x[1] + (x[1] + dlam * d[1]));
-    mid[1] = 0.5f * (x[2] + (x[2] + dlam * d[2]));
-    mid[2] = 0.5f * (x[4] + (x[4] + dlam * d[4]));
-    mid[3] = 0.5f * (x[5] + (x[5] + dlam * d[5]));
+    ks_rhs<APPROX>(m, a, mid[0], mid[1], mid[2], mid[3], pph, d);
+    mid[0] = 0.5f * (x[1] + madd<APPROX>(dlam, d[1], x[1]));
+    mid[1] = 0.5f * (x[2] + madd<APPROX>(dlam, d[2], x[2]));
+    mid[2] = 0.5f * (x[4] + madd<APPROX>(dlam, d[4], x[4]));
+    mid[3] = 0.5f * (x[5] + madd<APPROX>(dlam, d[5], x[5]));
   }
 }
 
@@ -252,8 +263,9 @@ __device__ __forceinline__ void midpoint_input(float m, float a, float dlam,
 // stepped u; mid_last: the last evaluation's input (the forward keeps
 // both); earlier inputs are recomputed. gx[6] receives the start state's
 // cotangents (overwritten); g_dlam, gm, ga, gpph are added to.
+template <bool APPROX>
 __device__ __forceinline__ void midpoint_step_vjp(
-    const MarchParams& mp, bool approx, float m, float a, float dlam,
+    const MarchParams& mp, float m, float a, float dlam,
     const float x[6], float pph, float nu_raw, const float mid_last[4],
     float gy[6], float gx[6], float& g_dlam, float& gm, float& ga,
     float& gpph) {
@@ -266,12 +278,12 @@ __device__ __forceinline__ void midpoint_step_vjp(
 #pragma unroll
       for (int k = 0; k < 4; ++k) mid[k] = mid_last[k];
     } else {
-      midpoint_input(m, a, dlam, x, pph, approx, e, mid);
+      midpoint_input<APPROX>(m, a, dlam, x, pph, e, mid);
     }
     float gd[6], d[6], gp[7];
 #pragma unroll
     for (int k = 0; k < 6; ++k) gd[k] = dlam * gy[k];
-    ks_rhs_vjp(m, a, mid[0], mid[1], mid[2], mid[3], pph, approx, gd, d, gp);
+    ks_rhs_vjp<APPROX>(m, a, mid[0], mid[1], mid[2], mid[3], pph, gd, d, gp);
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
       g_dlam = g_dlam + gy[k] * d[k];
@@ -296,9 +308,11 @@ __device__ __forceinline__ void midpoint_step_vjp(
 }
 
 // VJP of step_size with the cotangent g of dlam: adds to ga, grh, grph,
-// gr, gu, gpu.
+// gr, gu, gpu. sig as step_size computes it (the min of the step and the
+// pole limit reads it).
+template <bool APPROX>
 __device__ __forceinline__ void step_size_vjp(const MarchParams& mp,
-                                              bool approx, float a, float r_h,
+                                              float a, float r_h,
                                               float r_ph, float r, float u,
                                               float pu, float g, float& ga,
                                               float& grh, float& grph,
@@ -321,20 +335,20 @@ __device__ __forceinline__ void step_size_vjp(const MarchParams& mp,
   const float dl1 = jmin(vm, cap);
   const float one_uu = 1.0f - u * u;
   const float w = jmax(one_uu, F(1e-6));
-  const float sig = r * r + a * a * u * u;
+  const float sig = madd<APPROX>(r, r, a * a * u * u);
   const float wpu = w * pu;
   const float q2 = wpu / sig;
   const float du_rate = fabsf(q2) + F(1e-12);
   const float num = 0.5f * (1.0f - fabsf(u) + F(1e-6));
-  const float rc = approx ? rcp_approx(du_rate) : 0.0f;
-  const float q3 = approx ? num * rc : num / du_rate;
+  const float rc = APPROX ? rcp_approx(du_rate) : 0.0f;
+  const float q3 = APPROX ? num * rc : num / du_rate;
   const float lim = jmax(q3, mp.min_step);
 
   float g_dl1, g_lim;
   min_vjp(dl1, lim, g, g_dl1, g_lim);
   const float g_q3 = max_vjp_x(q3, mp.min_step, g_lim);
   float g_num, g_du;
-  if (approx) {
+  if constexpr (APPROX) {
     g_num = g_q3 * rc;
     g_du = -rc * rc * (g_q3 * num);
   } else {
@@ -370,21 +384,22 @@ __device__ __forceinline__ void step_size_vjp(const MarchParams& mp,
   const float sg = sgn(dr);
   gr = gr + sg * g_abs;
   grph = grph - sg * g_abs;
-  grph = grph + max_vjp_x(r_ph, F(1e-3), recip_vjp(rp, inv_rph, g_inv, false));
+  grph = grph + max_vjp_x(r_ph, F(1e-3), recip_vjp<false>(rp, inv_rph, g_inv));
 }
 
 // VJP of crossing_record (the equator crossing interpolated between
 // (t, r, u, ph) and the stepped, clipped y) with the cotangents of
 // (r_c, phi_c, t_c): adds to gx[0..3] (t, r, u, ph) and gy[0..3]. The 1e-12
 // guard is a constant.
+template <bool APPROX>
 __device__ __forceinline__ void crossing_record_vjp(
-    bool approx, float t, float r, float u, float ph, const float y[6],
+    float t, float r, float u, float ph, const float y[6],
     float g_rc, float g_pc, float g_tc, float gx[6], float gy[6]) {
   const float du = u - y[2];
   const bool guard = fabsf(du) < F(1e-12);
   const float den = guard ? F(1e-12) : du;
-  const float rc = approx ? rcp_approx(den) : 0.0f;
-  const float x = approx ? u * rc : u / den;
+  const float rc = APPROX ? rcp_approx(den) : 0.0f;
+  const float x = APPROX ? u * rc : u / den;
   const float xm = jmax(x, 0.0f);
   const float frac = jmin(xm, 1.0f);
   const float g_frac =
@@ -397,7 +412,7 @@ __device__ __forceinline__ void crossing_record_vjp(
   gy[3] = gy[3] + g_pc * frac;
   const float g_x = max_vjp_x(x, 0.0f, min_vjp_x(xm, 1.0f, g_frac));
   float g_den;
-  if (approx) {
+  if constexpr (APPROX) {
     gx[2] = gx[2] + g_x * rc;
     g_den = -rc * rc * (g_x * u);
   } else {
@@ -465,7 +480,7 @@ __device__ __forceinline__ void renormalize_pr_vjp(float m, float a, float r,
   float gm = 2.0f * r * inv_S * g_h;
   float gr = 2.0f * m * inv_S * g_h;
   g_invS = g_invS + 2.0f * m * r * g_h;
-  const float g_S = recip_vjp(S, inv_S, g_invS, false);
+  const float g_S = recip_vjp<false>(S, inv_S, g_invS);
   gr = gr + (2.0f * r - 2.0f * m) * g_D + 2.0f * r * g_S;
   gm = gm - 2.0f * r * g_D;
   ga = ga + 2.0f * a * g_D + 2.0f * a * u * u * g_S;
@@ -484,9 +499,8 @@ __device__ __forceinline__ void renormalize_pr_vjp(float m, float a, float r,
 // inject(crossed, advance, dmin, cto) fills the output cotangents cto[NOUT],
 // as the gradient kernel injects its crossing and r_min cotangents there.
 // cin[NIN] receives the input cotangents.
-template <class Inject>
+template <bool APPROX, class Inject>
 __device__ __forceinline__ void march_step_vjp(const MarchParams& mp,
-                                               bool approx,
                                                const float x[NIN], float thr,
                                                int i, int nc, Inject inject,
                                                float cin[NIN]) {
@@ -494,33 +508,24 @@ __device__ __forceinline__ void march_step_vjp(const MarchParams& mp,
   const float pph = x[6], m = x[7], a = x[8], r_h = x[9], r_ph = x[10];
 
   // ---- forward, keeping what the reverse reads ----
-  const float dlam = step_size(mp, approx, a, r_h, r_ph, r, u, pu);
+  const float dlam =
+      step_size<APPROX>(mp, a, r_h, r_ph, inv_rph_of(r_ph), r, u, pu);
   float d[6], y[6];
-  ks_rhs(m, a, r, u, pr, pu, pph, approx, d);
-  y[0] = t + dlam * d[0];
-  y[1] = r + dlam * d[1];
-  y[2] = u + dlam * d[2];
-  y[3] = ph + dlam * d[3];
-  y[4] = pr + dlam * d[4];
-  y[5] = pu + dlam * d[5];
+  ks_rhs<APPROX>(m, a, r, u, pr, pu, pph, d);
+  advance_rows<APPROX>(dlam, t, r, u, ph, pr, pu, d, y);
   float mid[4] = {r, u, pr, pu};
   for (int it = 0; it < mp.midpoint_iters; ++it) {
     mid[0] = 0.5f * (r + y[1]);
     mid[1] = 0.5f * (u + y[2]);
     mid[2] = 0.5f * (pr + y[4]);
     mid[3] = 0.5f * (pu + y[5]);
-    ks_rhs(m, a, mid[0], mid[1], mid[2], mid[3], pph, approx, d);
-    y[0] = t + dlam * d[0];
-    y[1] = r + dlam * d[1];
-    y[2] = u + dlam * d[2];
-    y[3] = ph + dlam * d[3];
-    y[4] = pr + dlam * d[4];
-    y[5] = pu + dlam * d[5];
+    ks_rhs<APPROX>(m, a, mid[0], mid[1], mid[2], mid[3], pph, d);
+    advance_rows<APPROX>(dlam, t, r, u, ph, pr, pu, d, y);
   }
   const float nu_raw = y[2];
   y[2] = jclip(nu_raw, F(-1.0 + 1e-7), F(1.0 - 1e-7));
   float r_c, phi_c, t_c;
-  crossing_record(approx, t, r, u, ph, y, r_c, phi_c, t_c);
+  crossing_record<APPROX>(t, r, u, ph, y, r_c, phi_c, t_c);
   float s[6] = {t, r, u, ph, pr, pu};
   int hit = HIT_NONE;
   bool crossed, advance;
@@ -563,16 +568,16 @@ __device__ __forceinline__ void march_step_vjp(const MarchParams& mp,
   }
   // the crossing record, where its cotangent is not 0
   const bool xc = cto[6] != 0.0f || cto[7] != 0.0f || cto[8] != 0.0f;
-  if (xc) crossing_record_vjp(approx, t, r, u, ph, y, cto[6], cto[7], cto[8],
-                              cx, cy);
+  if (xc) crossing_record_vjp<APPROX>(t, r, u, ph, y, cto[6], cto[7], cto[8],
+                                      cx, cy);
   // the midpoint step and its size, where the step's values got any
   if (advance || xc) {
     const float x6[6] = {t, r, u, ph, pr, pu};
     float gx[6], g_dlam = 0.0f;
-    midpoint_step_vjp(mp, approx, m, a, dlam, x6, pph, nu_raw, mid, cy, gx,
-                      g_dlam, g_m, g_a, g_pph);
-    step_size_vjp(mp, approx, a, r_h, r_ph, r, u, pu, g_dlam, g_a, g_rh,
-                  g_rph, gx[1], gx[2], gx[5]);
+    midpoint_step_vjp<APPROX>(mp, m, a, dlam, x6, pph, nu_raw, mid, cy, gx,
+                              g_dlam, g_m, g_a, g_pph);
+    step_size_vjp<APPROX>(mp, a, r_h, r_ph, r, u, pu, g_dlam, g_a, g_rh,
+                          g_rph, gx[1], gx[2], gx[5]);
 #pragma unroll
     for (int k = 0; k < 6; ++k) cx[k] = cx[k] + gx[k];
   }

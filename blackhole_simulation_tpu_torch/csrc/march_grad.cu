@@ -49,6 +49,9 @@
 #define WORDS 7  // per checkpoint and stacked step: 6 state floats, nc
 #define SMEM_BYTES (CKPT * WORDS * THREADS * 4)
 
+// APPROX: MarchConfig.approx_recip, chosen at launch (the step's reciprocals
+// and its contracted multiply-adds, march_step.cuh).
+template <bool APPROX>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
                   const float* __restrict__ thr_in,
@@ -57,19 +60,20 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
                   const float* __restrict__ ctr,
                   const float* __restrict__ rminf,
                   float* __restrict__ cty0, float* __restrict__ ctp,
-                  float* __restrict__ scratch, int n, int n_blocks,
+                  float* __restrict__ scratch,
+                  int* __restrict__ replay, int n, int n_blocks,
                   const MarchParams mp, float clip) {
   extern __shared__ float stack[];  // [CKPT][WORDS][THREADS]
   const int tid = threadIdx.x;
   const int j = blockIdx.x * THREADS + tid;
   if (j >= n) return;
   const size_t N = (size_t)n;
-  const bool approx = mp.approx_recip != 0;
   const int K = mp.max_crossings;
   const float m = __ldg(P + 0);
   const float a = __ldg(P + 1);
   const float r_h = __ldg(P + 2);
   const float r_ph = __ldg(P + 3);
+  const float inv_rph = inv_rph_of(r_ph);
   const float thr = thr_in[j];
   const float rmin_fin = rminf[j];
   float y0[7];
@@ -81,7 +85,8 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
   float s[6] = {y0[0], y0[1], y0[2], y0[3], y0[4], y0[5]};
   int hit = y0[1] < thr ? HIT_HORIZON : HIT_NONE;
   int nc = 0;
-  int last = -1;
+  int last = -1, steps = 0;
+  int rn = mp.renormalize_every;
   for (int b = 0; b < n_blocks && hit == HIT_NONE; ++b) {
     float* slot = scratch + (size_t)b * WORDS * N + j;  // [b][WORDS][N]
 #pragma unroll
@@ -92,10 +97,17 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
     for (int i = b * CKPT; i < i1 && hit == HIT_NONE; ++i) {
       bool crossed, advance;
       float r_c, phi_c, t_c;
-      march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc,
-                 crossed, advance, r_c, phi_c, t_c);
+      march_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, rn, s, hit,
+                         nc, crossed, advance, r_c, phi_c, t_c);
       nc += crossed ? 1 : 0;
+      steps += advance ? 1 : 0;
     }
+  }
+  if (replay != nullptr) {
+    // the replay's outcome, with the forward's end-of-march rule
+    replay[j] = hit == HIT_NONE ? HIT_HORIZON : hit;
+    replay[N + j] = steps;
+    replay[2 * N + j] = nc;
   }
 
   // ---- phase 2: reverse sweep over the live blocks ----
@@ -119,6 +131,7 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
     const int i0 = b * CKPT;
     const int i1 = min(i0 + CKPT, mp.max_steps);
     int n_live = 0;
+    rn = renorm_start(i0, mp.renormalize_every);
     for (int i = i0; i < i1 && hit == HIT_NONE; ++i, ++n_live) {
       float* e = stack + n_live * WORDS * THREADS + tid;
 #pragma unroll
@@ -126,8 +139,8 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
       e[6 * THREADS] = __int_as_float(nc);
       bool crossed, advance;
       float r_c, phi_c, t_c;
-      march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc,
-                 crossed, advance, r_c, phi_c, t_c);
+      march_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, rn, s, hit,
+                         nc, crossed, advance, r_c, phi_c, t_c);
       nc += crossed ? 1 : 0;
     }
     // backward through the stack
@@ -157,7 +170,7 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
         if (hitmin) injected = true;
       };
       float cin[NIN];
-      march_step_vjp(mp, approx, x, thr, i0 + q, nc_q, inject, cin);
+      march_step_vjp<APPROX>(mp, x, thr, i0 + q, nc_q, inject, cin);
 #pragma unroll
       for (int k = 0; k < 6; ++k) c6[k] = cin[k];
       c_pph = c_pph + cin[6];
@@ -184,6 +197,15 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
   ctp[3 * N + j] = c_rph;
 }
 
+typedef void (*GradKernel)(const float*, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const float*, float*, float*, float*, int*, int,
+                           int, const MarchParams, float);
+
+static GradKernel grad_kernel_for(bool approx) {
+  return approx ? march_grad_kernel<true> : march_grad_kernel<false>;
+}
+
 extern "C" {
 
 // Launches the gradient kernel on ``stream``; returns cudaGetLastError()
@@ -191,22 +213,23 @@ extern "C" {
 // P: (4,) [m, a, r_h, r_ph]; y: (7, n) initial rows (t, r, u, ph, pr, pu,
 // pph) with p_t = -1; thr: (n,); ctf: (7, n); ctc: (3K, n); ctr, rminf:
 // (n,); cty0: (7, n) out; ctp: (4, n) out; scratch: bh_march_grad_scratch
-// words per ray.
+// words per ray; replay: null, or (3, n) int32 out, the replay's hit, live
+// steps and crossing count (the forward march's own, when the two agree).
 int bh_march_grad_launch(const float* P, const float* y, const float* thr,
                          const float* ctf, const float* ctc, const float* ctr,
                          const float* rminf, float* cty0, float* ctp,
-                         float* scratch, int n, const MarchParams* mp,
-                         float clip, void* stream) {
+                         float* scratch, int* replay, int n,
+                         const MarchParams* mp, float clip, void* stream) {
   const int n_blocks = (mp->max_steps + CKPT - 1) / CKPT;
+  const GradKernel kernel = grad_kernel_for(mp->approx_recip != 0);
   cudaError_t err = cudaFuncSetAttribute(
-      march_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
-    march_grad_kernel<<<(n + THREADS - 1) / THREADS, THREADS, SMEM_BYTES,
-                        (cudaStream_t)stream>>>(P, y, thr, ctf, ctc, ctr,
-                                                rminf, cty0, ctp, scratch, n,
-                                                n_blocks, *mp, clip);
+    kernel<<<(n + THREADS - 1) / THREADS, THREADS, SMEM_BYTES,
+             (cudaStream_t)stream>>>(P, y, thr, ctf, ctc, ctr, rminf, cty0,
+                                     ctp, scratch, replay, n, n_blocks, *mp,
+                                     clip);
   }
   return (int)cudaGetLastError();
 }
@@ -218,17 +241,19 @@ int bh_march_grad_scratch(int max_steps) {
 
 // The launch's shape: {threads per block, dynamic shared memory bytes per
 // block, steps per checkpoint block, resident blocks per SM by
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor (-1 if it fails)}.
-void bh_march_grad_shape(int out[4]) {
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor (-1 if it fails)} of the
+// instantiation that ``approx`` (MarchConfig.approx_recip) selects.
+void bh_march_grad_shape(int approx, int out[4]) {
+  const GradKernel kernel = grad_kernel_for(approx != 0);
   out[0] = THREADS;
   out[1] = SMEM_BYTES;
   out[2] = CKPT;
   int blocks = -1;
-  if (cudaFuncSetAttribute(march_grad_kernel,
+  if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            SMEM_BYTES) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, march_grad_kernel, THREADS, SMEM_BYTES) != cudaSuccess)
+          &blocks, kernel, THREADS, SMEM_BYTES) != cudaSuccess)
     blocks = -1;
   out[3] = blocks;
 }

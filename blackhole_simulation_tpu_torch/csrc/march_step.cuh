@@ -7,11 +7,12 @@
 //
 // A ray is marched in one loop (march_ray, march_ray_ab3: the render
 // kernel's one thread per pixel) or a step at a time (MarchRay, ray_begin,
-// ray_step: the march kernel's persistent warps, which hand a lane the next
-// ray when its own ends). Both run the same step bodies (march_step with
-// record_step, jets_advance, ab3_step) in the same order; the step-level
-// form carries what the loops keep in locals, AB3's right-hand-side
-// histories and step sizes among them, as per-lane state.
+// ray_boot, ray_step: the march kernel's persistent warps, which hand a
+// lane the next ray when its own ends). Both run the same step bodies
+// (march_step with record_step, jets_advance, ab3_boot_step and ab3_step)
+// in the same order; the step-level form carries what the loops keep in
+// locals, AB3's right-hand-side histories and step sizes and the
+// renormalization countdown among them, as per-lane state.
 //
 // Why two forms: each writes its own prologue (the records cleared) and
 // end-of-march rule (AB3's tail renormalization, then hit = HIT_HORIZON),
@@ -23,8 +24,9 @@
 // instantiation; with it once after the loop, 56, but 16 + 24 bytes of
 // spill on the AB3 instantiation and 10 + 12 on jets with extras, where
 // the loops have none (every MarchRay field order and loop shape tried
-// read the same). chip_smoke.py fails on a spill and pins the flagship at
-// 56, so the render kernel keeps the loops.
+// read the same; nvcc for sm_90a, before the step below). chip_smoke.py
+// fails on a spill and pins the flagship's registers, so the render kernel
+// keeps the loops.
 //
 // Counterpart of blackhole_simulation_tpu/ops/ks_kernel.py (ks_rhs_rows,
 // ks_symplectic_step_rows, ks_renormalize_pr), ops/pallas_march.py
@@ -41,6 +43,42 @@
 // computed by the same float operations in the same order as the float
 // instantiation, so a dual pass reproduces the forward's values bit for
 // bit.
+//
+// Two routes, chosen at compile time (APPROX, every kernel instantiated
+// for both and picked at launch from MarchConfig.approx_recip):
+// * the exact route (APPROX false) divides in IEEE and rounds every
+//   product and sum on its own: bit-equal to the plain PyTorch versions;
+// * the approx_recip route (APPROX true), the one the flagship, jets, AB3
+//   and training configurations run on the card, takes rcp.approx.ftz for
+//   the step's reciprocals and contracts the step's multiply-adds through
+//   madd: __fmaf_rn, one rounding where two operations round twice. The
+//   contraction is explicit (the build keeps --fmad=false), so the render
+//   kernel, the march kernel and the gradient kernel's replay contract the
+//   same terms and land on the same steps. This route is held to
+//   statistical bars against the plain version (chip_smoke.py phase 3).
+//
+// What bounds the step on the H100 is its instruction count, not its
+// lanes (chip_smoke.py phase 12: 0.92-0.94 lane efficiency in the render
+// kernel). The SASS census of the march loops (tools/sass_census.py,
+// chip_smoke.py phase 13; PERF.md) found that a midpoint step ran
+// ~1.6x its counted operations: three instructions per NaN-propagating
+// min/max, a ~20-instruction integer modulo for the renormalization
+// cadence, IEEE divides (each a reciprocal, Newton steps, a range check and
+// a branch around a slow-path call) and the separate product and sum of
+// every multiply-add. The design against each:
+// * jmax/jmin on a float are one FMNMX (PTX max.NaN / min.NaN);
+// * the renormalization cadence is a per-ray countdown (renorm_start,
+//   renorm_due), reset where it lands: the same steps as
+//   (i + 1) % renormalize_every == 0, AB3's i >= 2 start and its tail rule
+//   (ops/march.py::ab3_renorm_plan) included;
+// * 1 / max(r_ph, 1e-3) is computed once per ray (inv_rph_of), and the
+//   far-boost divide r / far_boost_radius only where it can exceed 1
+//   (far_boost), bit-equal to the plain max(r / fbr, 1);
+// * the AB3 march's two midpoint bootstrap steps are peeled out of its
+//   loop (ab3_boot_step; march_ray_ab3 runs them ahead of a loop whose body
+//   evaluates one right-hand side), so that the loop carries none of the
+//   midpoint step's registers; the step form runs them in ray_boot, which
+//   the march kernel calls where it births a ray, outside its step loop.
 //
 // jnp semantics: maximum/minimum/clip propagate NaN (the march's sanity
 // freeze relies on NaN reaching isfinite) and, for tangents, split the
@@ -197,11 +235,27 @@ __device__ __forceinline__ float val(float x) { return x; }
 template <int N>
 __device__ __forceinline__ float val(const Dual<N>& x) { return x.v; }
 
+// On a float, one FMNMX each: PTX's max.NaN / min.NaN (sm_80 and later)
+// return NaN when either input is NaN, as the compare-compare-select form
+// (a > b || a != a) ? a : b did in three instructions. Against that form on
+// planted pairs on the card (chip_smoke.py phase 13) they agree bit for bit
+// but in two cases: a NaN result is the canonical NaN, where the old form
+// passed the NaN operand through (isfinite reads both alike), and a tie of
+// opposite-sign zeros follows IEEE 754's -0 < +0 (max(+0, -0) = +0,
+// min(-0, +0) = -0) where the old form returned b. No call here meets such
+// a tie: every call's second operand is a nonzero constant, or +0 as max's
+// (where the two agree), or both operands are magnitudes, sums of squares
+// or positive step sizes, which are never -0. Keeping the old tie rule
+// would take back the compare and the select.
 __device__ __forceinline__ float jmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(a), "f"(b));
+  return y;
 }
 __device__ __forceinline__ float jmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  float y;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(a), "f"(b));
+  return y;
 }
 __device__ __forceinline__ float jclip(float x, float lo, float hi) {
   return jmin(jmax(x, lo), hi);
@@ -270,13 +324,49 @@ __device__ __forceinline__ Dual<N> rcp_approx(const Dual<N>& x) {
   DUAL_LOOP o.d[i] = g * x.d[i];
   return o;
 }
-template <class T>
-__device__ __forceinline__ T recip(const T& x, bool approx) {
-  return approx ? rcp_approx(x) : 1.0f / x;
+// The step's reciprocals and divides: on the approx_recip route (APPROX)
+// rcp.approx.ftz, else IEEE.
+template <bool APPROX, class T>
+__device__ __forceinline__ T recip(const T& x) {
+  if constexpr (APPROX)
+    return rcp_approx(x);
+  else
+    return 1.0f / x;
 }
-template <class T>
-__device__ __forceinline__ T divr(const T& num, const T& den, bool approx) {
-  return approx ? num * rcp_approx(den) : num / den;
+template <bool APPROX, class T>
+__device__ __forceinline__ T divr(const T& num, const T& den) {
+  if constexpr (APPROX)
+    return num * rcp_approx(den);
+  else
+    return num / den;
+}
+
+// a * b + c: one fused multiply-add, rounded once, on the approx_recip route
+// (APPROX); a product and a sum, each rounded, on the exact route, so that
+// it rounds as the plain version does. Explicit, because --fmad=false keeps
+// nvcc from contracting anything: the render kernel, the march kernel and
+// the gradient kernel's replay contract the same terms of the same step.
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+// A Dual's value by the same fused operation (so that a dual pass
+// reproduces the float forward bit for bit), its tangents by the product
+// and sum rules.
+template <int N>
+__device__ __forceinline__ Dual<N> fmadd(const Dual<N>& a, const Dual<N>& b,
+                                         const Dual<N>& c) {
+  Dual<N> o;
+  o.v = __fmaf_rn(a.v, b.v, c.v);
+  DUAL_LOOP o.d[i] = a.d[i] * b.v + a.v * b.d[i] + c.d[i];
+  return o;
+}
+template <bool APPROX, class A, class B, class C>
+__device__ __forceinline__ auto madd(const A& a, const B& b, const C& c) {
+  using R = decltype(a * b + c);
+  if constexpr (APPROX)
+    return fmadd(R(a), R(b), R(c));
+  else
+    return a * b + c;
 }
 
 // ---------------------------------------------------------------------------
@@ -315,50 +405,65 @@ __device__ float value_noise2(float x, float y) {
 // Step math (ops/ks_kernel.py), p_t = -1
 // ---------------------------------------------------------------------------
 
-template <class T>
+// The right-hand side of the Kerr-Schild Hamiltonian. Every sum of products
+// goes through madd, in the plain version's association, so the exact route
+// rounds as it does; w = max(1 - u^2, 1e-6) stays two roundings in both
+// routes (the adjoint reads its tie with the floor from the same value).
+template <bool APPROX, class T>
 __device__ __forceinline__ void ks_rhs(const T& m, const T& a, const T& r,
                                        const T& u, const T& pr, const T& pu,
-                                       const T& pph, bool approx, T d[6]) {
+                                       const T& pph, T d[6]) {
   const float pt = -1.0f;
   T w = jmax(1.0f - u * u, T(F(1e-6)));
-  T S = r * r + a * a * u * u;
-  T D = r * r - 2.0f * m * r + a * a;
-  T inv_S = recip(S, approx);
+  T S = madd<APPROX>(r, r, a * a * u * u);
+  T D = madd<APPROX>(a, a, madd<APPROX>(r, r, -(2.0f * m * r)));
+  T inv_S = recip<APPROX>(S);
   T h = 2.0f * m * r * inv_S;
   T inv_S2 = inv_S * inv_S;
-  T inv_w = recip(w, approx);
+  T inv_w = recip<APPROX>(w);
+  T a_iS = a * inv_S;
 
-  d[0] = -(1.0f + h) * pt + h * pr;
-  d[1] = h * pt + D * inv_S * pr + a * inv_S * pph;
+  d[0] = madd<APPROX>(h, pr, -(1.0f + h) * pt);
+  d[1] = madd<APPROX>(a_iS, pph, madd<APPROX>(D * inv_S, pr, h * pt));
   d[2] = w * inv_S * pu;
-  d[3] = a * inv_S * pr + pph * inv_S * inv_w;
+  d[3] = madd<APPROX>(a_iS, pr, pph * inv_S * inv_w);
 
   T S_r = 2.0f * r;
   T D_r = 2.0f * r - 2.0f * m;
-  T h_r = 2.0f * m * (S - 2.0f * r * r) * inv_S2;
-  T DS_r = (D_r * S - D * S_r) * inv_S2;
+  T h_r = 2.0f * m * madd<APPROX>(-(2.0f * r), r, S) * inv_S2;
+  T DS_r = madd<APPROX>(D_r, S, -(D * S_r)) * inv_S2;
   T invS_r = -S_r * inv_S2;
   T wS_r = -w * S_r * inv_S2;
   T invSw_r = -S_r * inv_S2 * inv_w;
-  T dH_dr = 0.5f * (-h_r * pt * pt + 2.0f * h_r * pt * pr +
-                    DS_r * pr * pr + 2.0f * a * invS_r * pr * pph +
-                    wS_r * pu * pu + invSw_r * pph * pph);
+  T sr = madd<APPROX>(2.0f * h_r * pt, pr, -h_r * pt * pt);
+  sr = madd<APPROX>(DS_r * pr, pr, sr);
+  sr = madd<APPROX>(2.0f * a * invS_r * pr, pph, sr);
+  sr = madd<APPROX>(wS_r * pu, pu, sr);
+  sr = madd<APPROX>(invSw_r * pph, pph, sr);
+  T dH_dr = 0.5f * sr;
 
   T S_u = 2.0f * a * a * u;
   T w_u = -2.0f * u;
   T h_u = -2.0f * m * r * S_u * inv_S2;
   T DS_u = -D * S_u * inv_S2;
   T invS_u = -S_u * inv_S2;
-  T wS_u = (w_u * S - w * S_u) * inv_S2;
-  T invSw_u = -(S_u * w + S * w_u) * inv_S2 * inv_w * inv_w;
-  T dH_du = 0.5f * (-h_u * pt * pt + 2.0f * h_u * pt * pr +
-                    DS_u * pr * pr + 2.0f * a * invS_u * pr * pph +
-                    wS_u * pu * pu + invSw_u * pph * pph);
+  T wS_u = madd<APPROX>(w_u, S, -(w * S_u)) * inv_S2;
+  T invSw_u = -madd<APPROX>(S, w_u, S_u * w) * inv_S2 * inv_w * inv_w;
+  T su = madd<APPROX>(2.0f * h_u * pt, pr, -h_u * pt * pt);
+  su = madd<APPROX>(DS_u * pr, pr, su);
+  su = madd<APPROX>(2.0f * a * invS_u * pr, pph, su);
+  su = madd<APPROX>(wS_u * pu, pu, su);
+  su = madd<APPROX>(invSw_u * pph, pph, su);
+  T dH_du = 0.5f * su;
   d[4] = -dH_dr;
   d[5] = -dH_du;
 }
 
-// Null projection of p_r (exact divides always).
+// Null projection of p_r (exact divides always, uncontracted in both
+// routes: the adjoint's renormalize_pr_vjp recomputes its branches, a real
+// root and the nearest one, from this arithmetic, so a contracted forward
+// could part from it at a radial turning point; it runs once per
+// renormalize_every steps).
 template <class T>
 __device__ __forceinline__ T ks_renormalize_pr(const T& m, const T& a,
                                                const T& r, const T& u,
@@ -389,84 +494,118 @@ __device__ __forceinline__ T ks_renormalize_pr(const T& m, const T& a,
 // march_tile / pallas_grad.py::make_composite)
 // ---------------------------------------------------------------------------
 
-// The curvature-adaptive, pole-throttled step size.
+// The renormalization cadence, counted down: rn holds the steps left until
+// the next one; renorm_due counts one step and says whether the
+// renormalization is due after it, (i + 1) % every == 0 for the step index
+// i at which rn was renorm_start(i, every). One decrement and a compare per
+// step where the modulo by a runtime divisor took about twenty
+// instructions.
+__device__ __forceinline__ int renorm_start(int i, int every) {
+  return every - i % every;
+}
+__device__ __forceinline__ bool renorm_due(int& rn, int every) {
+  if (--rn > 0) return false;
+  rn = every;
+  return true;
+}
+
+// 1 / max(r_ph, 1e-3): constant per launch, computed once by the caller of
+// the step.
 template <class T>
-__device__ __forceinline__ T step_size(const MarchParams& mp, bool approx,
-                                       const T& a, const T& r_h,
-                                       const T& r_ph, const T& r, const T& u,
-                                       const T& pu) {
-  T inv_rph = 1.0f / jmax(r_ph, T(F(1e-3)));
+__device__ __forceinline__ T inv_rph_of(const T& r_ph) {
+  return 1.0f / jmax(r_ph, T(F(1e-3)));
+}
+
+// max(r / fbr, 1): on a float, the divide only where it can exceed 1. A
+// correctly rounded r / fbr is at most 1 when r <= fbr, and a NaN r still
+// divides, so the two forms are equal bit for bit; most steps lie inside
+// fbr. On a Dual the plain form, whose tie at r = fbr splits the tangent.
+__device__ __forceinline__ float far_boost(float r, float fbr) {
+  return !(r <= fbr) ? r / fbr : 1.0f;
+}
+template <class T>
+__device__ __forceinline__ T far_boost(const T& r, float fbr) {
+  return jmax(r / fbr, T(1.0f));
+}
+
+// The curvature-adaptive, pole-throttled step size (inv_rph: inv_rph_of).
+template <bool APPROX, class T>
+__device__ __forceinline__ T step_size(const MarchParams& mp, const T& a,
+                                       const T& r_h, const T& r_ph,
+                                       const T& inv_rph, const T& r,
+                                       const T& u, const T& pu) {
   T base = (r - r_h) * mp.step_rate;
-  T far = jmax(r / mp.far_boost_radius, T(1.0f));
+  T far = far_boost(r, mp.far_boost_radius);
   T prox = jclip(dabs(r - r_ph) * inv_rph, T(F(0.25)), T(1.0f));
   T cap = mp.far_cap_on ? jmax(mp.far_step_cap_rate * r, T(mp.max_step))
                         : T(mp.max_step);
   T dlam = jclip(base * far * prox, T(mp.min_step), cap);
   T w = jmax(1.0f - u * u, T(F(1e-6)));
-  T sig = r * r + a * a * u * u;
+  T sig = madd<APPROX>(r, r, a * a * u * u);
   T du_rate = dabs(w * pu / sig) + F(1e-12);
   T margin = 1.0f - dabs(u) + F(1e-6);
-  return jmin(dlam, jmax(divr(0.5f * margin, du_rate, approx), T(mp.min_step)));
+  return jmin(dlam, jmax(divr<APPROX>(0.5f * margin, du_rate),
+                         T(mp.min_step)));
+}
+
+// The six rows advanced by dlam along the derivatives d: y = x + dlam d.
+template <bool APPROX, class T>
+__device__ __forceinline__ void advance_rows(const T& dlam, const T& t,
+                                             const T& r, const T& u,
+                                             const T& ph, const T& pr,
+                                             const T& pu, const T d[6],
+                                             T y[6]) {
+  y[0] = madd<APPROX>(dlam, d[0], t);
+  y[1] = madd<APPROX>(dlam, d[1], r);
+  y[2] = madd<APPROX>(dlam, d[2], u);
+  y[3] = madd<APPROX>(dlam, d[3], ph);
+  y[4] = madd<APPROX>(dlam, d[4], pr);
+  y[5] = madd<APPROX>(dlam, d[5], pu);
 }
 
 // The implicit-midpoint step of size dlam, u clipped off the poles.
-template <class T>
+template <bool APPROX, class T>
 __device__ __forceinline__ void midpoint_step(
-    const MarchParams& mp, bool approx, const T& m, const T& a,
-    const T& dlam, const T& t, const T& r, const T& u, const T& ph,
-    const T& pr, const T& pu, const T& pph, T y[6]) {
+    const MarchParams& mp, const T& m, const T& a, const T& dlam, const T& t,
+    const T& r, const T& u, const T& ph, const T& pr, const T& pu,
+    const T& pph, T y[6]) {
   T d[6];
-  ks_rhs(m, a, r, u, pr, pu, pph, approx, d);
-  T nt = t + dlam * d[0];
-  T nr = r + dlam * d[1];
-  T nu = u + dlam * d[2];
-  T nph = ph + dlam * d[3];
-  T npr = pr + dlam * d[4];
-  T npu = pu + dlam * d[5];
+  ks_rhs<APPROX>(m, a, r, u, pr, pu, pph, d);
+  advance_rows<APPROX>(dlam, t, r, u, ph, pr, pu, d, y);
   for (int it = 0; it < mp.midpoint_iters; ++it) {
-    ks_rhs(m, a, 0.5f * (r + nr), 0.5f * (u + nu), 0.5f * (pr + npr),
-           0.5f * (pu + npu), pph, approx, d);
-    nt = t + dlam * d[0];
-    nr = r + dlam * d[1];
-    nu = u + dlam * d[2];
-    nph = ph + dlam * d[3];
-    npr = pr + dlam * d[4];
-    npu = pu + dlam * d[5];
+    ks_rhs<APPROX>(m, a, 0.5f * (r + y[1]), 0.5f * (u + y[2]),
+                   0.5f * (pr + y[4]), 0.5f * (pu + y[5]), pph, d);
+    advance_rows<APPROX>(dlam, t, r, u, ph, pr, pu, d, y);
   }
-  y[0] = nt;
-  y[1] = nr;
-  y[2] = jclip(nu, T(F(-1.0 + 1e-7)), T(F(1.0 - 1e-7)));
-  y[3] = nph;
-  y[4] = npr;
-  y[5] = npu;
+  y[2] = jclip(y[2], T(F(-1.0 + 1e-7)), T(F(1.0 - 1e-7)));
 }
 
 // The equator-crossing record interpolated between (t, r, u, ph) and the
 // stepped y.
-template <class T>
-__device__ __forceinline__ void crossing_record(bool approx, const T& t,
-                                                const T& r, const T& u,
-                                                const T& ph, const T y[6],
-                                                T& r_c, T& phi_c, T& t_c) {
+template <bool APPROX, class T>
+__device__ __forceinline__ void crossing_record(const T& t, const T& r,
+                                                const T& u, const T& ph,
+                                                const T y[6], T& r_c,
+                                                T& phi_c, T& t_c) {
   const T& nu = y[2];
   T frac = jclip(
-      divr(u, fabsf(val(u - nu)) < F(1e-12) ? T(F(1e-12)) : u - nu, approx),
+      divr<APPROX>(u, fabsf(val(u - nu)) < F(1e-12) ? T(F(1e-12)) : u - nu),
       T(0.0f), T(1.0f));
-  r_c = r + frac * (y[1] - r);
-  phi_c = ph + frac * (y[3] - ph);
-  t_c = t + frac * (y[0] - t);
+  r_c = madd<APPROX>(frac, y[1] - r, r);
+  phi_c = madd<APPROX>(frac, y[3] - ph, ph);
+  t_c = madd<APPROX>(frac, y[0] - t, t);
 }
 
 // The stepped state and the interpolated equator-crossing record.
-template <class T>
+template <bool APPROX, class T>
 __device__ __forceinline__ void step_values(
-    const MarchParams& mp, bool approx, const T& m, const T& a, const T& r_h,
-    const T& r_ph, const T& t, const T& r, const T& u, const T& ph,
-    const T& pr, const T& pu, const T& pph, T y[6], T& r_c, T& phi_c,
-    T& t_c) {
-  T dlam = step_size(mp, approx, a, r_h, r_ph, r, u, pu);
-  midpoint_step(mp, approx, m, a, dlam, t, r, u, ph, pr, pu, pph, y);
-  crossing_record(approx, t, r, u, ph, y, r_c, phi_c, t_c);
+    const MarchParams& mp, const T& m, const T& a, const T& r_h,
+    const T& r_ph, const T& inv_rph, const T& t, const T& r, const T& u,
+    const T& ph, const T& pr, const T& pu, const T& pph, T y[6], T& r_c,
+    T& phi_c, T& t_c) {
+  T dlam = step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, r, u, pu);
+  midpoint_step<APPROX>(mp, m, a, dlam, t, r, u, ph, pr, pu, pph, y);
+  crossing_record<APPROX>(t, r, u, ph, y, r_c, phi_c, t_c);
 }
 
 // The step's epilogue on a live ray: the crossing test against the pre-step
@@ -493,38 +632,58 @@ __device__ __forceinline__ void advance_step(const MarchParams& mp, float thr,
   if (val(s[1]) > mp.escape_radius) hit = HIT_ESCAPE;
 }
 
-// One step of a live ray (hit == HIT_NONE on entry), step index i: the
-// step values, the crossing test against the pre-step crossing count nc,
-// the sanity freeze, the advance, the termination tests and the periodic
-// null renormalization after step i when (i + 1) % renormalize_every == 0
-// on a ray still live. s = (t, r, u, ph, pr, pu) is updated in place.
-template <class T>
+// One step of a live ray (hit == HIT_NONE on entry): the step values, the
+// crossing test against the pre-step crossing count nc, the sanity freeze,
+// the advance, the termination tests and the periodic null renormalization
+// after the step when the countdown rn says it is due (renorm_due; (i + 1)
+// % renormalize_every == 0 for step index i) on a ray still live.
+// s = (t, r, u, ph, pr, pu) is updated in place.
+template <bool APPROX, class T>
 __device__ __forceinline__ void march_step(
-    const MarchParams& mp, bool approx, const T& m, const T& a, const T& r_h,
-    const T& r_ph, const T& pph, float thr, int i, T s[6], int& hit, int nc,
-    bool& crossed, bool& advance, T& r_c, T& phi_c, T& t_c) {
+    const MarchParams& mp, const T& m, const T& a, const T& r_h,
+    const T& r_ph, const T& inv_rph, const T& pph, float thr, int& rn,
+    T s[6], int& hit, int nc, bool& crossed, bool& advance, T& r_c, T& phi_c,
+    T& t_c) {
   T y[6];
-  step_values(mp, approx, m, a, r_h, r_ph, s[0], s[1], s[2], s[3], s[4], s[5],
-              pph, y, r_c, phi_c, t_c);
+  step_values<APPROX>(mp, m, a, r_h, r_ph, inv_rph, s[0], s[1], s[2], s[3],
+                      s[4], s[5], pph, y, r_c, phi_c, t_c);
   advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
-  if ((i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE)
+  if (renorm_due(rn, mp.renormalize_every) && hit == HIT_NONE)
     s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
 }
 
 // A finished step's records: the crossing slot nc (then the count), the
 // step count and the photon-ring proximity, from the advanced radius r.
+// With LOCAL (the loop forms, the render kernel's), the slots are indexed
+// by the count (crossed implies nc < max_crossings <= KMAX), so they live
+// in local memory, cached in L1, and not in 12 of the loop's registers: a
+// ray writes them a few times in its march and reads them once, in its
+// composite (the flagship instantiation compiles to 48 registers against
+// 64 with the slots in registers). Without it (the step form, whose
+// MarchRay the march kernel keeps across its refill loop), each slot is a
+// register written under a compile-time index: indexed slots there made
+// the march kernel slower.
+template <bool LOCAL>
 __device__ __forceinline__ void record_step(bool crossed, bool advance,
                                             float r_c, float phi_c, float t_c,
                                             float r, float r_ph, int& nc,
                                             float cr[KMAX], float cp[KMAX],
                                             float ct[KMAX], int& steps,
                                             float& rmin) {
+  if constexpr (LOCAL) {
+    if (crossed) {
+      cr[nc] = r_c;
+      cp[nc] = phi_c;
+      ct[nc] = t_c;
+    }
+  } else {
 #pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    if (crossed && nc == k) {
-      cr[k] = r_c;
-      cp[k] = phi_c;
-      ct[k] = t_c;
+    for (int k = 0; k < KMAX; ++k) {
+      if (crossed && nc == k) {
+        cr[k] = r_c;
+        cp[k] = phi_c;
+        ct[k] = t_c;
+      }
     }
   }
   nc += crossed ? 1 : 0;
@@ -537,35 +696,47 @@ __device__ __forceinline__ void record_step(bool crossed, bool advance,
 // The start-jittered ray (ops/march.py::start_offset_rows): s advances by
 // one implicit-midpoint step of xi * jitter * dlam0, xi in [0, 1) hashed
 // from the conserved momenta, u clipped as the march clips it.
-__device__ __forceinline__ void start_offset(const MarchParams& mp,
-                                             bool approx, float m, float a,
-                                             float r_h, float r_ph,
+template <bool APPROX>
+__device__ __forceinline__ void start_offset(const MarchParams& mp, float m,
+                                             float a, float r_h, float r_ph,
                                              float jitter, float pph,
                                              float s[6]) {
   const float xi = hash21(pph * F(977.0), s[4] * F(991.0)) * jitter;
-  const float dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
+  const float dlam = step_size<APPROX>(mp, a, r_h, r_ph, inv_rph_of(r_ph),
+                                       s[1], s[2], s[5]);
   float y[6];
-  midpoint_step(mp, approx, m, a, dlam * xi, s[0], s[1], s[2], s[3], s[4],
-                s[5], pph, y);
+  midpoint_step<APPROX>(mp, m, a, dlam * xi, s[0], s[1], s[2], s[3], s[4],
+                        s[5], pph, y);
 #pragma unroll
   for (int k = 0; k < 6; ++k) s[k] = y[k];
 }
 
 // One step's optically thin jet sample (shading.jet_emission_step): cone
-// test, Gaussian profile, one noise octave, Doppler beaming; exp and the
-// beaming power through double, as the plain version computes them.
+// test, Gaussian profile, one noise octave, Doppler beaming. exp and the
+// beaming power in float on the approx_recip route (JAX's own float32
+// jnp.exp and **), through double on the exact route, as the plain version
+// computes them. In two parts: jet_emission everything but the beaming
+// power (pre, zero outside the cone, and the Doppler factor delta), then
+// jet_beaming the power and the three channels, which jets_advance runs
+// once the step's other values are dead (the double pow's slow path is a
+// subroutine, and every value live across its call is saved around it).
+template <bool APPROX>
 __device__ __forceinline__ void jet_emission(const JetParams& jp, float r,
                                              float st, float ct, float ph,
                                              float dr, float dth, float dph,
-                                             float dlam, float out[3]) {
+                                             float dlam, bool& in_cone,
+                                             float& pre, float& delta) {
   const float z = r * ct;
   const float rho = fabsf(r * st);
   const float az = fabsf(z);
   const float cone_r = jp.core_radius + jp.opening_slope * az;
-  const bool in_cone = (az > jp.z_min) && (az < jp.z_max) &&
-                       (rho < F(2.5) * cone_r);
+  in_cone = (az > jp.z_min) && (az < jp.z_max) && (rho < F(2.5) * cone_r);
   const float q = rho / jmax(cone_r, F(1e-3));
-  const float profile = (float)exp((double)(-(q * q)));
+  float profile;
+  if constexpr (APPROX)
+    profile = expf(-(q * q));
+  else
+    profile = (float)exp((double)(-(q * q)));
   const float v_z = dr * ct - r * st * dth;
   const float v_rho = dr * st + r * ct * dth;
   const float v_ph = r * st * dph;
@@ -573,43 +744,66 @@ __device__ __forceinline__ void jet_emission(const JetParams& jp, float r,
                             F(1e-12));
   const float sgn = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
   const float cos_psi = -sgn * v_z / v_mag;
-  const float delta =
-      1.0f / (jp.gamma * (1.0f - jp.beta * jclip(cos_psi, -1.0f, 1.0f)));
-  const float beam = (float)pow((double)delta, (double)jp.beaming_exponent);
+  delta = 1.0f / (jp.gamma * (1.0f - jp.beta * jclip(cos_psi, -1.0f, 1.0f)));
   const float noise = value_noise2(
       az * F(0.8), fmod_floor(ph, F(6.283185307179586)) * 2.0f + az);
   const float turb = jp.one_minus_turb + jp.turbulence * (0.5f + noise);
-  const float mag =
-      in_cone ? jp.density * dlam * profile * turb * beam : 0.0f;
+  pre = jp.density * dlam * profile * turb;
+}
+template <bool APPROX>
+__device__ __forceinline__ void jet_beaming(const JetParams& jp, bool in_cone,
+                                            float pre, float delta,
+                                            float out[3]) {
+  // the power inside the cone only: off the path of most steps, the double
+  // pow's call saves no registers around it there
+  float mag = 0.0f;
+  if (in_cone) {
+    float beam;
+    if constexpr (APPROX)
+      beam = powf(delta, jp.beaming_exponent);
+    else
+      beam = (float)pow((double)delta, (double)jp.beaming_exponent);
+    mag = pre * beam;
+  }
   out[0] = F(0.62) * mag;
   out[1] = F(0.74) * mag;
   out[2] = mag;
 }
 
-// The jets' step of a live ray at step index i (march_tile's jet term,
-// the body of march_ray<true>): the midpoint step, the crossing record, the
-// jets' emission summed into jet from the pre-step state, the stepped one
-// and 1 / dlam (even on a step the sanity test then rejects), the advance
-// and the renormalization.
+// The jets' step of a live ray (march_tile's jet term, the body of
+// march_ray<true>): the midpoint step, the crossing record, the jets'
+// emission from the pre-step state, the stepped one and 1 / dlam (even on a
+// step the sanity test then rejects), the advance, the renormalization
+// (countdown rn, as march_step's), the step's records (record_step, LOCAL
+// its), and last the emission's beaming, summed into jet.
+template <bool APPROX, bool LOCAL>
 __device__ __forceinline__ void jets_advance(
-    const MarchParams& mp, bool approx, float m, float a, float r_h,
-    float r_ph, float pph, float thr, int i, float s[6], int& hit, int nc,
-    const JetParams& jp, float jet[3], bool& crossed, bool& advance,
-    float& r_c, float& phi_c, float& t_c) {
-  float y[6], c[3];
-  const float dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
-  midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4], s[5],
-                pph, y);
-  crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
-  const float inv = recip(dlam, approx);
+    const MarchParams& mp, float m, float a, float r_h, float r_ph,
+    float inv_rph, float pph, float thr, int& rn, float s[6], int& hit,
+    int& nc, const JetParams& jp, float jet[3], float cr[KMAX],
+    float cp[KMAX], float ct[KMAX], int& steps, float& rmin) {
+  float y[6], c[3], r_c, phi_c, t_c;
+  bool crossed, advance;
+  const float dlam =
+      step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]);
+  midpoint_step<APPROX>(mp, m, a, dlam, s[0], s[1], s[2], s[3], s[4], s[5],
+                        pph, y);
+  crossing_record<APPROX>(s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
+  const float inv = recip<APPROX>(dlam);
   const float st = sqrtf(jmax(1.0f - s[2] * s[2], F(1e-6)));
-  jet_emission(jp, s[1], st, s[2], s[3], (y[1] - s[1]) * inv,
-               -(y[2] - s[2]) * inv / st, (y[3] - s[3]) * inv, dlam, c);
+  bool in_cone;
+  float pre, delta;
+  jet_emission<APPROX>(jp, s[1], st, s[2], s[3], (y[1] - s[1]) * inv,
+                       -(y[2] - s[2]) * inv / st, (y[3] - s[3]) * inv, dlam,
+                       in_cone, pre, delta);
+  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
+  if (renorm_due(rn, mp.renormalize_every) && hit == HIT_NONE)
+    s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+  record_step<LOCAL>(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr,
+                     cp, ct, steps, rmin);
+  jet_beaming<APPROX>(jp, in_cone, pre, delta, c);
 #pragma unroll
   for (int k = 0; k < 3; ++k) jet[k] = jet[k] + c[k];
-  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
-  if ((i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE)
-    s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
 }
 
 // March one ray to horizon or escape (ops/march.py::march_tile, one ray;
@@ -619,15 +813,14 @@ __device__ __forceinline__ void jets_advance(
 // min |r - r_ph| over the marched path. With JETS, jet (3 values) receives
 // the jets' emission summed over the live steps (jp: their configuration;
 // jets_advance).
-template <bool JETS>
-__device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
-                                          float m, float a, float r_h,
-                                          float r_ph, float pph, float thr,
-                                          float s[6], int& hit, int& steps,
-                                          int& nc, float cr[KMAX],
-                                          float cp[KMAX], float ct[KMAX],
-                                          float& rmin, const JetParams* jp,
-                                          float jet[3]) {
+template <bool JETS, bool APPROX>
+__device__ __forceinline__ void march_ray(const MarchParams& mp, float m,
+                                          float a, float r_h, float r_ph,
+                                          float pph, float thr, float s[6],
+                                          int& hit, int& steps, int& nc,
+                                          float cr[KMAX], float cp[KMAX],
+                                          float ct[KMAX], float& rmin,
+                                          const JetParams* jp, float jet[3]) {
   hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
   nc = 0;
 #pragma unroll
@@ -635,90 +828,134 @@ __device__ __forceinline__ void march_ray(const MarchParams& mp, bool approx,
   rmin = fabsf(s[1] - r_ph);
   steps = 0;
   if (JETS) jet[0] = jet[1] = jet[2] = 0.0f;
+  const float inv_rph = inv_rph_of(r_ph);
+  int rn = mp.renormalize_every;
   for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i) {
-    bool crossed, advance;
-    float r_c, phi_c, t_c;
     if (JETS) {
-      jets_advance(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc, *jp,
-                   jet, crossed, advance, r_c, phi_c, t_c);
+      jets_advance<APPROX, true>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, rn, s,
+                                 hit, nc, *jp, jet, cr, cp, ct, steps, rmin);
     } else {
-      march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc,
-                 crossed, advance, r_c, phi_c, t_c);
+      bool crossed, advance;
+      float r_c, phi_c, t_c;
+      march_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, rn, s, hit,
+                         nc, crossed, advance, r_c, phi_c, t_c);
+      record_step<true>(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr,
+                        cp, ct, steps, rmin);
     }
-    record_step(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr, cp, ct,
-                steps, rmin);
   }
   if (hit == HIT_NONE) hit = HIT_HORIZON;
 }
 
-// One AB3 step of a live ray at step index i (ops/march.py::
+// The end of an AB3 step (bootstrap or not): the crossing record, the
+// advance, the records, and the history (f1, f2, h1, h2) shifted. The
+// Pallas kernel shifts it only when the ray advances; a ray that does not
+// advance has ended (advance_step sets its hit), so no later step reads the
+// history and the shift needs no predicate. LOCAL: record_step's.
+template <bool APPROX, bool LOCAL>
+__device__ __forceinline__ void ab3_finish(
+    const MarchParams& mp, float r_ph, float thr, float s[6], const float y[6],
+    const float f0[6], float dlam, float f1[6], float f2[6], float& h1,
+    float& h2, int& hit, int& nc, float cr[KMAX], float cp[KMAX],
+    float ct[KMAX], int& steps, float& rmin) {
+  float r_c, phi_c, t_c;
+  crossing_record<APPROX>(s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
+  bool crossed, advance;
+  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
+  record_step<LOCAL>(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr,
+                     cp, ct, steps, rmin);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    f2[k] = f1[k];
+    f1[k] = f0[k];
+  }
+  h2 = h1;
+  h1 = dlam;
+}
+
+// One of the AB3 march's two bootstrap steps (step index 0 or 1): a
+// midpoint step that seeds the history with the start's right-hand side. No
+// renormalization follows it (the cadence starts at step 2). Peeled out of
+// ab3_step, so that the loop's body holds one right-hand side and no
+// midpoint step.
+template <bool APPROX, bool LOCAL>
+__device__ __forceinline__ void ab3_boot_step(
+    const MarchParams& mp, float m, float a, float r_h, float r_ph,
+    float inv_rph, float pph, float thr, float s[6], float f1[6],
+    float f2[6], float& h1, float& h2, int& hit, int& nc, float cr[KMAX],
+    float cp[KMAX], float ct[KMAX], int& steps, float& rmin) {
+  float f0[6], y[6];
+  ks_rhs<APPROX>(m, a, s[1], s[2], s[4], s[5], pph, f0);
+  const float dlam =
+      step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]);
+  midpoint_step<APPROX>(mp, m, a, dlam, s[0], s[1], s[2], s[3], s[4], s[5],
+                        pph, y);
+  ab3_finish<APPROX, LOCAL>(mp, r_ph, thr, s, y, f0, dlam, f1, f2, h1, h2,
+                            hit, nc, cr, cp, ct, steps, rmin);
+}
+
+// The first value of the AB3 renormalization countdown, at step 2 (the
+// first step after the bootstrap; ops/march.py::ab3_renorm_plan's cadence
+// every, 0 for none, which no countdown from INT_MAX reaches).
+__device__ __forceinline__ int ab3_renorm_start(int every) {
+  return every > 0 ? renorm_start(2, every) : 0x7fffffff;
+}
+
+// One AB3 step of a live ray after the bootstrap (ops/march.py::
 // march_tile_ab3; the body of march_ray_ab3's loop). One right-hand side
 // per step: y_{n+1} = y_n + c0 f_n + c1 f_{n-1} + c2 f_{n-2} with the
 // variable-step Lagrange-integral coefficients of the step history
-// (h = dlam, h1, h2), the step growth bounded by dlam <= 2 h1, two
-// midpoint bootstrap steps that seed the history, the history (f1, f2, h1,
-// h2) shifted only when the ray advances, and the renormalization at the
-// per-ray cadence mp.ab3_renorm_every.
+// (h = dlam, h1, h2), the step growth bounded by dlam <= 2 h1, and the
+// renormalization at the per-ray cadence mp.ab3_renorm_every (countdown
+// rn from ab3_renorm_start). LOCAL: record_step's.
+template <bool APPROX, bool LOCAL>
 __device__ __forceinline__ void ab3_step(
-    const MarchParams& mp, bool approx, float m, float a, float r_h,
-    float r_ph, float pph, float thr, int i, float s[6], float f1[6],
+    const MarchParams& mp, float m, float a, float r_h, float r_ph,
+    float inv_rph, float pph, float thr, int& rn, float s[6], float f1[6],
     float f2[6], float& h1, float& h2, int& hit, int& nc, float cr[KMAX],
     float cp[KMAX], float ct[KMAX], int& steps, float& rmin) {
   const float third = F(1.0 / 3.0);
-  float f0[6], y[6], dlam;
-  ks_rhs(m, a, s[1], s[2], s[4], s[5], pph, approx, f0);
-  if (i < 2) {
-    dlam = step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]);
-    midpoint_step(mp, approx, m, a, dlam, s[0], s[1], s[2], s[3], s[4],
-                  s[5], pph, y);
-  } else {
-    dlam = jmin(step_size(mp, approx, a, r_h, r_ph, s[1], s[2], s[5]),
-                2.0f * h1);
-    const float h12 = h1 + h2;
-    const float hh2 = dlam * dlam;
-    const float hh3 = hh2 * dlam;
-    const float c0 = divr(hh3 * third + (2.0f * h1 + h2) * hh2 * 0.5f +
-                              h1 * h12 * dlam,
-                          h1 * h12, approx);
-    const float c1 = -divr(hh3 * third + h12 * hh2 * 0.5f, h1 * h2, approx);
-    const float c2 = divr(hh3 * third + h1 * hh2 * 0.5f, h2 * h12, approx);
+  float f0[6], y[6];
+  ks_rhs<APPROX>(m, a, s[1], s[2], s[4], s[5], pph, f0);
+  const float dlam = jmin(
+      step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]),
+      2.0f * h1);
+  const float h12 = h1 + h2;
+  const float hh2 = dlam * dlam;
+  const float hh3 = hh2 * dlam;
+  // The coefficients' shared terms; x * hh2 * 0.5 = x * (hh2 * 0.5) bit for
+  // bit (halving is exact).
+  const float t3 = hh3 * third;
+  const float t2 = hh2 * 0.5f;
+  const float c0 = divr<APPROX>(
+      madd<APPROX>(h1 * h12, dlam, madd<APPROX>(2.0f * h1 + h2, t2, t3)),
+      h1 * h12);
+  const float c1 = -divr<APPROX>(madd<APPROX>(h12, t2, t3), h1 * h2);
+  const float c2 = divr<APPROX>(madd<APPROX>(h1, t2, t3), h2 * h12);
 #pragma unroll
-    for (int k = 0; k < 6; ++k)
-      y[k] = s[k] + c0 * f0[k] + c1 * f1[k] + c2 * f2[k];
-    y[2] = jclip(y[2], F(-1.0 + 1e-7), F(1.0 - 1e-7));
-  }
-  float r_c, phi_c, t_c;
-  crossing_record(approx, s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
-  bool crossed, advance;
-  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
-  record_step(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr, cp, ct,
-              steps, rmin);
-  if (advance) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      f2[k] = f1[k];
-      f1[k] = f0[k];
-    }
-    h2 = h1;
-    h1 = dlam;
-  }
-  if (i >= 2 && mp.ab3_renorm_every > 0 &&
-      (i + 1) % mp.ab3_renorm_every == 0 && hit == HIT_NONE)
+  for (int k = 0; k < 6; ++k)
+    y[k] = madd<APPROX>(c2, f2[k],
+                        madd<APPROX>(c1, f1[k], madd<APPROX>(c0, f0[k], s[k])));
+  y[2] = jclip(y[2], F(-1.0 + 1e-7), F(1.0 - 1e-7));
+  ab3_finish<APPROX, LOCAL>(mp, r_ph, thr, s, y, f0, dlam, f1, f2, h1, h2,
+                            hit, nc, cr, cp, ct, steps, rmin);
+  if (renorm_due(rn, mp.ab3_renorm_every) && hit == HIT_NONE)
     s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
 }
 
 // The AB3 march of one ray (ops/march.py::march_tile_ab3; the JAX package's
-// pallas_march.py::march_tile_ab3), march_ray's inputs and outputs, a loop
-// of ab3_step (prologue and end-of-march rule as ray_begin and ray_close
-// have them for MARCH_AB3). The Pallas tile loop shares its step counter
-// across a tile, but every ray's steps depend on that ray alone, so one
-// thread per ray reproduces it; its renormalization at tile-exit block
-// boundaries becomes the per-ray cadence mp.ab3_renorm_every /
-// mp.ab3_tail_renorm. Float only: the AB3 march has no gradient path.
+// pallas_march.py::march_tile_ab3), march_ray's inputs and outputs: the two
+// bootstrap steps, then a loop of ab3_step (prologue and end-of-march rule
+// as ray_begin and ray_close have them for MARCH_AB3). The Pallas tile loop
+// shares its step counter across a tile, but every ray's steps depend on
+// that ray alone, so one thread per ray reproduces it; its renormalization
+// at tile-exit block boundaries becomes the per-ray cadence
+// mp.ab3_renorm_every / mp.ab3_tail_renorm. Float only: the AB3 march has
+// no gradient path.
+template <bool APPROX>
 __device__ __forceinline__ void march_ray_ab3(
-    const MarchParams& mp, bool approx, float m, float a, float r_h,
-    float r_ph, float pph, float thr, float s[6], int& hit, int& steps,
-    int& nc, float cr[KMAX], float cp[KMAX], float ct[KMAX], float& rmin) {
+    const MarchParams& mp, float m, float a, float r_h, float r_ph, float pph,
+    float thr, float s[6], int& hit, int& steps, int& nc, float cr[KMAX],
+    float cp[KMAX], float ct[KMAX], float& rmin) {
   hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
   nc = 0;
 #pragma unroll
@@ -729,9 +966,23 @@ __device__ __forceinline__ void march_ray_ab3(
 #pragma unroll
   for (int k = 0; k < 6; ++k) f1[k] = f2[k] = 0.0f;
   float h1 = mp.min_step, h2 = mp.min_step;
-  for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i)
-    ab3_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, f1, f2, h1, h2, hit,
-             nc, cr, cp, ct, steps, rmin);
+  const float inv_rph = inv_rph_of(r_ph);
+  int i = 0;
+  // the bootstrap, unrolled: two copies of the midpoint step ahead of the
+  // loop, none inside it
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    if (i < mp.max_steps && hit == HIT_NONE) {
+      ab3_boot_step<APPROX, true>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, s,
+                                  f1, f2, h1, h2, hit, nc, cr, cp, ct, steps,
+                                  rmin);
+      ++i;
+    }
+  }
+  int rn = ab3_renorm_start(mp.ab3_renorm_every);
+  for (; i < mp.max_steps && hit == HIT_NONE; ++i)
+    ab3_step<APPROX, true>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, rn, s, f1,
+                           f2, h1, h2, hit, nc, cr, cp, ct, steps, rmin);
   if (mp.ab3_tail_renorm && hit == HIT_NONE)
     s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
   if (hit == HIT_NONE) hit = HIT_HORIZON;
@@ -749,19 +1000,19 @@ __device__ __forceinline__ void march_ray_ab3(
 
 // What one ray carries from one step to the next, march_ray's loop state
 // made lane state: the state s = (t, r, u, ph, pr, pu), its conserved p_phi
-// and termination radius, the step index i (the renormalization cadence
-// counts it), hit, the live step count, the crossing slots and their
-// count, the photon-ring proximity; with jets the emission summed over the
-// live steps; with AB3 the two right-hand-side histories and step sizes.
-// The march kernel keeps one in registers per lane and marches it a step
-// at a time, so that a lane whose ray has ended takes the next ray while
-// the rest of its warp marches on; fields a variant does not use cost it
-// no register.
+// and termination radius, the step index i, the renormalization countdown
+// rn, hit, the live step count, the crossing slots and their count, the
+// photon-ring proximity; with jets the emission summed over the live
+// steps; with AB3 the two right-hand-side histories and step sizes. The
+// march kernel keeps one in registers per lane and marches it a step at a
+// time, so that a lane whose ray has ended takes the next ray while the
+// rest of its warp marches on; fields a variant does not use cost it no
+// register.
 template <int MARCH>
 struct MarchRay {
   float s[6];
   float pph, thr;
-  int hit, steps, nc, i;
+  int hit, steps, nc, i, rn;
   float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
   float jet[3];
   float f1[6], f2[6], h1, h2;
@@ -792,6 +1043,8 @@ __device__ __forceinline__ void ray_begin(const MarchParams& mp, float m,
   q.rmin = fabsf(q.s[1] - r_ph);
   q.steps = 0;
   q.i = 0;
+  q.rn = MARCH == MARCH_AB3 ? ab3_renorm_start(mp.ab3_renorm_every)
+                            : mp.renormalize_every;
   if (MARCH == MARCH_JETS) q.jet[0] = q.jet[1] = q.jet[2] = 0.0f;
   if (MARCH == MARCH_AB3) {
 #pragma unroll
@@ -801,30 +1054,55 @@ __device__ __forceinline__ void ray_begin(const MarchParams& mp, float m,
   ray_close(mp, m, a, q);
 }
 
+// AB3's two bootstrap steps of a ray just born (ray_begin), each while the
+// ray is live: march_ray_ab3's steps ahead of its loop, made lane state.
+// The march kernel runs them where it births a ray, so that its step loop
+// (ray_step) holds one right-hand side and no midpoint step. Nothing for
+// the other variants.
+template <int MARCH, bool APPROX>
+__device__ __forceinline__ void ray_boot(const MarchParams& mp, float m,
+                                         float a, float r_h, float r_ph,
+                                         float inv_rph, MarchRay<MARCH>& q) {
+  if (MARCH != MARCH_AB3) return;
+  // unrolled, as march_ray_ab3's: no loop of its own beside the step loop
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    if (q.hit != HIT_NONE) break;
+    ab3_boot_step<APPROX, false>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr,
+                                 q.s, q.f1, q.f2, q.h1, q.h2, q.hit, q.nc,
+                                 q.cr, q.cp, q.ct, q.steps, q.rmin);
+    ++q.i;
+    ray_close(mp, m, a, q);
+  }
+}
+
 // One step of a live ray (q.hit == HIT_NONE, q.i < mp.max_steps): one
-// iteration of march_ray's or march_ray_ab3's loop, the same functions in
-// the same order. Every ray's steps depend on that ray alone, so marching
-// it a step at a time, in any lane and beside any other ray, gives the
-// results of marching it in one loop.
-template <int MARCH>
-__device__ __forceinline__ void ray_step(const MarchParams& mp, bool approx,
-                                         float m, float a, float r_h,
-                                         float r_ph, const JetParams& jp,
+// iteration of march_ray's or march_ray_ab3's loops, the same functions in
+// the same order (for AB3 after ray_boot, so a step past the bootstrap).
+// Every ray's
+// steps depend on that ray alone, so marching it a step at a time, in any
+// lane and beside any other ray, gives the results of marching it in one
+// loop. inv_rph: inv_rph_of(r_ph).
+template <int MARCH, bool APPROX>
+__device__ __forceinline__ void ray_step(const MarchParams& mp, float m,
+                                         float a, float r_h, float r_ph,
+                                         float inv_rph, const JetParams& jp,
                                          MarchRay<MARCH>& q) {
   if (MARCH == MARCH_AB3) {
-    ab3_step(mp, approx, m, a, r_h, r_ph, q.pph, q.thr, q.i, q.s, q.f1, q.f2,
-             q.h1, q.h2, q.hit, q.nc, q.cr, q.cp, q.ct, q.steps, q.rmin);
+    ab3_step<APPROX, false>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr, q.rn,
+                            q.s, q.f1, q.f2, q.h1, q.h2, q.hit, q.nc, q.cr,
+                            q.cp, q.ct, q.steps, q.rmin);
+  } else if (MARCH == MARCH_JETS) {
+    jets_advance<APPROX, false>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr,
+                                q.rn, q.s, q.hit, q.nc, jp, q.jet, q.cr, q.cp,
+                                q.ct, q.steps, q.rmin);
   } else {
     bool crossed, advance;
     float r_c, phi_c, t_c;
-    if (MARCH == MARCH_JETS)
-      jets_advance(mp, approx, m, a, r_h, r_ph, q.pph, q.thr, q.i, q.s, q.hit,
-                   q.nc, jp, q.jet, crossed, advance, r_c, phi_c, t_c);
-    else
-      march_step(mp, approx, m, a, r_h, r_ph, q.pph, q.thr, q.i, q.s, q.hit,
-                 q.nc, crossed, advance, r_c, phi_c, t_c);
-    record_step(crossed, advance, r_c, phi_c, t_c, q.s[1], r_ph, q.nc, q.cr,
-                q.cp, q.ct, q.steps, q.rmin);
+    march_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr, q.rn, q.s,
+                       q.hit, q.nc, crossed, advance, r_c, phi_c, t_c);
+    record_step<false>(crossed, advance, r_c, phi_c, t_c, q.s[1], r_ph, q.nc,
+                       q.cr, q.cp, q.ct, q.steps, q.rmin);
   }
   ++q.i;
   ray_close(mp, m, a, q);

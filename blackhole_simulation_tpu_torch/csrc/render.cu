@@ -9,8 +9,9 @@
 // written in its order, so the two round alike. Built by ops/build.py with
 // nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false (no
 // --use_fast_math: divides, sqrtf, expf and logf stay IEEE/full precision;
-// FMA contraction stays off so each operation rounds as the plain version's
-// does) and loaded through ctypes.
+// the compiler contracts nothing, so each operation rounds as the plain
+// version's does, and the approx_recip route's fused multiply-adds are the
+// step's own, explicit ones) and loaded through ctypes.
 //
 // What bounds it on the H100: FP32 arithmetic. Its only memory traffic is a
 // 4 KB parameter row (every thread reads the same words, served by the L1)
@@ -26,22 +27,33 @@
 // not divergence. An 8 x 4 patch's rays take nearly equal step counts, so
 // the warps lose 5-8% of their lanes to waiting (lane efficiency 0.92-0.94
 // on every 1080p path); the rest of the gap to the bound is instructions
-// the hand count leaves out (a ray-step costs ~1.6x its counted
-// operations), the per-pixel birth and composite, and on the full-featured
-// frame the NRS background and the overlay. Persistent warps that refill
-// finished lanes (the march kernel's design, march.cu) were built and
-// timed in several forms (refill thresholds, whole-warp refills, register
-// caps, the state parked in shared memory): each was slower than this
-// launch on the flagship, AB3, jets and full-featured 1080p frames, even
-// this kernel's own body looping over patches taken from a pool. The
-// loop's state costs registers beyond this kernel's 56 and so resident
-// warps, and a lane refill cannot win back more than the 6% the patches
-// lose.
+// the hand count leaves out, the per-pixel birth and composite, and on the
+// full-featured frame the NRS background and the overlay. The SASS census
+// of the march loop (tools/sass_census.py, chip_smoke.py phase 13) showed
+// where a step's uncounted instructions went: three per NaN-propagating
+// min/max, a ~20-instruction modulo for the renormalization cadence, IEEE
+// divides with their range checks and slow-path branches, and a separate
+// product and sum for every multiply-add. The step (march_step.cuh) now
+// takes one FMNMX per min/max, a per-ray renormalization countdown, the
+// per-ray invariants out of the loop, the far-boost divide only beyond
+// far_boost_radius, the AB3 bootstrap peeled out of its loop, and on the
+// approx_recip route a fused multiply-add for each contracted term: the
+// flagship loop fell from 629 instructions to 421 (PERF.md).
+// Persistent warps that refill finished lanes (the march kernel's design,
+// march.cu) were built and timed in several forms (refill thresholds,
+// whole-warp refills, register caps, the state parked in shared memory):
+// each was slower than this launch on the flagship, AB3, jets and
+// full-featured 1080p frames, even this kernel's own body looping over
+// patches taken from a pool. The loop's state costs registers beyond this
+// kernel's and so resident warps, and a lane refill cannot win back more
+// than the 6% the patches lose.
 //
 // Design for the card:
 // * One thread per pixel. The ray state (7 values), hit, steps, the crossing
-//   count, r_min and the K <= 4 crossing slots live in registers; the slot
-//   loops are unrolled so their indices are compile-time.
+//   count and r_min live in registers; the K <= 4 crossing slots, indexed
+//   by the count, in local memory (written a few times per ray, read once
+//   by the composite), which keeps the flagship at 48 registers and 40
+//   resident warps per SM.
 // * Each warp covers an 8 x 4 pixel patch (a block of 4 warps covers 16 x 8
 //   pixels). A warp retires when its slowest ray does, so compact patches
 //   keep sky and shadow-interior warps short: the GPU form of the Pallas
@@ -49,7 +61,8 @@
 //   while (i < max_steps && hit == NONE), so no overshoot steps exist.
 // * The periodic null renormalization runs after step i when
 //   (i + 1) % renormalize_every == 0 and the ray is still live, the cadence
-//   of the Pallas kernel's block-boundary hoist.
+//   of the Pallas kernel's block-boundary hoist, counted down per ray
+//   (march_step.cuh::renorm_due) rather than by a modulo.
 // * The march loop and its step are march_step.cuh's, the same source as
 //   the march kernel (march.cu) and the gradient kernel's replay.
 // * The parameter row stays in device memory; the static configuration
@@ -61,10 +74,15 @@
 //   pole criterion folded in when refine_pole_w > 0), which the refinement
 //   pass (render/pipeline.py::refine_critical_band) selects from.
 // * With MarchConfig.multistep the march is march_step.cuh's AB3 march
-//   (march_ray_ab3), the kernel's other instantiation, chosen at launch.
-// * approx_recip: 1/S, 1/w and the step's divides use rcp.approx.ftz.f32,
-//   as the Pallas kernel uses the TPU's approximate reciprocal. Every other
-//   division is exact.
+//   (march_ray_ab3: its two midpoint bootstrap steps, then a loop of
+//   one-right-hand-side steps), the kernel's other instantiation, chosen
+//   at launch.
+// * approx_recip (the APPROX instantiations, chosen at launch): 1/S, 1/w
+//   and the step's divides use rcp.approx.ftz.f32, as the Pallas kernel
+//   uses the TPU's approximate reciprocal, and the step's multiply-adds are
+//   contracted (march_step.cuh::madd), as XLA contracts them on a GPU; the
+//   jets' exp and pow are float. Every other division is exact. Without it
+//   the kernel is bit-equal to the plain version.
 // * sqrtf is IEEE (correctly rounded); sin and cos go through double and
 //   round once. The plain version computes these three the same way, so
 //   that a last-bit difference cannot grow along a chaotic orbit or move a
@@ -410,12 +428,26 @@ __device__ float nrs_deflection(const float* __restrict__ W, float bn,
   return alpha;
 }
 
+// Registers per thread of each instantiation (MARCH, EXTRAS), set for both
+// routes, since ptxas's own choice spilled on some (nvcc for sm_90a:
+// 72 registers and 8 bytes on the exact route's jets with extras; at 80,
+// 8 bytes on AB3 with extras, which takes 96, as it compiled to 95 before
+// the step's redesign); chip_smoke.py fails on a spill. The others are what
+// ptxas chooses on its own; the flagship's 48 come from the crossing slots
+// kept in local memory (record_step<true>).
+__host__ __device__ constexpr int render_registers(int march, bool extras) {
+  return extras ? (march == 1 ? 96 : 80) : (march == 0 ? 48 : 64);
+}
+
 // MARCH: 0 the midpoint march, 1 AB3, 2 the midpoint march with jets.
 // EXTRAS: the start offset, the NRS far field and the shadow overlay, each
 // then on as RenderStatic says; without EXTRAS none of their code is built,
-// so the flagship instantiation (0, false) carries none of it.
-template <int MARCH, bool EXTRAS>
+// so the flagship instantiations (0, false, *) carry none of it. APPROX:
+// MarchConfig.approx_recip, the march's reciprocals and contracted
+// multiply-adds (march_step.cuh); the flagship runs (0, false, true).
+template <int MARCH, bool EXTRAS, bool APPROX>
 __global__ void __launch_bounds__(THREADS)
+    __maxnreg__(render_registers(MARCH, EXTRAS))
 render_kernel(const float* __restrict__ P, float* __restrict__ out,
               int* __restrict__ steps_out, const RenderStatic st) {
   const int warp = threadIdx.x >> 5;
@@ -423,7 +455,6 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   const int x = blockIdx.x * BLOCK_W + (warp & 1) * PATCH_W + (lane % PATCH_W);
   const int y = blockIdx.y * BLOCK_H + (warp >> 1) * PATCH_H + (lane / PATCH_W);
   if (x >= st.width || y >= st.height) return;
-  const bool approx = st.approx_recip != 0;
 
   const float m = __ldg(P + P_M);
   const float a = __ldg(P + P_A);
@@ -475,7 +506,7 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   // --- start offset (ops/march.py::start_offset_rows) ---
   if (EXTRAS && st.start_jitter > 0.0f) {
     float s0[6] = {t, r, u, ph, pr, pu};
-    start_offset(mp, approx, m, a, r_h, r_ph, st.start_jitter, pph, s0);
+    start_offset<APPROX>(mp, m, a, r_h, r_ph, st.start_jitter, pph, s0);
     t = s0[0];
     r = s0[1];
     u = s0[2];
@@ -541,12 +572,12 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   int hit, steps, nc;
   float cr[KMAX], cp[KMAX], ct[KMAX], rmin, jet[3];
   if (MARCH == 1) {
-    march_ray_ab3(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc,
-                  cr, cp, ct, rmin);
+    march_ray_ab3<APPROX>(mp, m, a, r_h, r_ph, pph, thr, s, hit, steps, nc,
+                          cr, cp, ct, rmin);
   } else {
     const JetParams jp = st.jet;
-    march_ray<MARCH == 2>(mp, approx, m, a, r_h, r_ph, pph, thr, s, hit,
-                          steps, nc, cr, cp, ct, rmin, &jp, jet);
+    march_ray<MARCH == 2, APPROX>(mp, m, a, r_h, r_ph, pph, thr, s, hit,
+                                  steps, nc, cr, cp, ct, rmin, &jp, jet);
   }
 
   // --- composite ---
@@ -676,16 +707,23 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
 
 typedef void (*RenderKernel)(const float*, float*, int*, const RenderStatic);
 
+template <bool APPROX>
+static RenderKernel render_kernel_for(bool jets, bool multistep, bool extras) {
+  return jets ? (extras ? render_kernel<2, true, APPROX>
+                        : render_kernel<2, false, APPROX>)
+         : multistep ? (extras ? render_kernel<1, true, APPROX>
+                               : render_kernel<1, false, APPROX>)
+                     : (extras ? render_kernel<0, true, APPROX>
+                               : render_kernel<0, false, APPROX>);
+}
+
 // The instantiation ``st`` selects. Jets take the midpoint march, as in the
 // JAX kernel (pallas_render.py:266).
 static RenderKernel render_kernel_for(const RenderStatic* st) {
   const bool extras = st->start_jitter > 0.0f || st->nrs_on || st->overlay;
-  return st->jets ? (extras ? render_kernel<2, true>
-                            : render_kernel<2, false>)
-         : st->multistep ? (extras ? render_kernel<1, true>
-                                   : render_kernel<1, false>)
-                         : (extras ? render_kernel<0, true>
-                                   : render_kernel<0, false>);
+  return st->approx_recip
+             ? render_kernel_for<true>(st->jets, st->multistep, extras)
+             : render_kernel_for<false>(st->jets, st->multistep, extras);
 }
 
 extern "C" {

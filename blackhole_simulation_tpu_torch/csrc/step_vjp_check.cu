@@ -25,6 +25,10 @@
 // Dual<7>) on states the caller plants, such as a double root of its
 // quadratic (a radial turning point), which a sample of real rays rarely
 // holds at a renormalization step.
+//
+// minmax_check_kernel: march_step.cuh's float jmax and jmin (one FMNMX
+// each) against the compare-compare-select form they replaced, on pairs
+// the caller plants (signed zeros, NaN, infinities, denormals).
 
 #include "march_adjoint.cuh"
 
@@ -134,6 +138,13 @@ template <int N>
 __device__ __forceinline__ Mag<N> rcp_approx(const Mag<N>& x) {
   MAG_OP(rcp_approx(x.v), o.v * o.v * x.m[i])
 }
+// The value by the step's fused operation (march_step.cuh::madd).
+template <int N>
+__device__ __forceinline__ Mag<N> fmadd(const Mag<N>& a, const Mag<N>& b,
+                                        const Mag<N>& c) {
+  MAG_OP(__fmaf_rn(a.v, b.v, c.v),
+         a.m[i] * fabsf(b.v) + fabsf(a.v) * b.m[i] + c.m[i])
+}
 
 // A number's tangent (Dual) or term size (Mag) along input k, and the
 // seed of input k's direction.
@@ -157,8 +168,8 @@ __device__ __forceinline__ float weight(float c, bool size) {
 // or Mag<NIN> (their term sizes), dotted with the output cotangents cto (by
 // their absolute values for Mag) into cin. A zero cotangent contributes
 // nothing, even where a discarded partial is not finite.
-template <class D, bool SIZE>
-__device__ __forceinline__ void jvp_pass(const MarchParams& mp, bool approx,
+template <class D, bool SIZE, bool APPROX>
+__device__ __forceinline__ void jvp_pass(const MarchParams& mp,
                                          const float x[NIN], float thr, int i,
                                          int nc, const float cto[NOUT],
                                          float cin[NIN]) {
@@ -172,8 +183,10 @@ __device__ __forceinline__ void jvp_pass(const MarchParams& mp, bool approx,
   int hit = HIT_NONE;
   bool crossed, advance;
   D r_c, phi_c, t_c;
-  march_step(mp, approx, xd[7], xd[8], xd[9], xd[10], xd[6], thr, i, s, hit,
-             nc, crossed, advance, r_c, phi_c, t_c);
+  int rn = renorm_start(i, mp.renormalize_every);
+  march_step<APPROX>(mp, xd[7], xd[8], xd[9], xd[10], inv_rph_of(xd[10]),
+                     xd[6], thr, rn, s, hit, nc, crossed, advance, r_c, phi_c,
+                     t_c);
   const D dmin = dabs(s[1] - xd[10]);
 #pragma unroll
   for (int k = 0; k < NIN; ++k) {
@@ -194,7 +207,9 @@ __device__ __forceinline__ void jvp_pass(const MarchParams& mp, bool approx,
 // (10, n) cotangents; adj, dual, mag: (11, steps, n) out, each live step's
 // input cotangents by the two routes and their term sizes; st:
 // (7, steps, n) out, the pre-step state (t, r, u, ph, pr, pu) and crossing
-// count; live: (steps, n) out, 1 where step i ran.
+// count; live: (steps, n) out, 1 where step i ran. APPROX:
+// MarchConfig.approx_recip, chosen at launch.
+template <bool APPROX>
 __global__ void __launch_bounds__(THREADS)
 step_vjp_check_kernel(const float* __restrict__ P,
                       const float* __restrict__ y,
@@ -207,8 +222,8 @@ step_vjp_check_kernel(const float* __restrict__ P,
   if (j >= n) return;
   const size_t N = (size_t)n;
   const size_t plane = (size_t)steps * N;
-  const bool approx = mp.approx_recip != 0;
   const float m = P[0], a = P[1], r_h = P[2], r_ph = P[3];
+  const float inv_rph = inv_rph_of(r_ph);
   const float thr = thr_in[j];
   const float pph = y[6 * N + j];
   float s[6];
@@ -219,6 +234,7 @@ step_vjp_check_kernel(const float* __restrict__ P,
   for (int k = 0; k < NOUT; ++k) ct[k] = cts[k * N + j];
   int hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
   int nc = 0;
+  int rn = mp.renormalize_every;
   for (int i = 0; i < steps; ++i) {
     const size_t at = (size_t)i * N + j;
     if (hit != HIT_NONE || i >= mp.max_steps) {
@@ -238,18 +254,18 @@ step_vjp_check_kernel(const float* __restrict__ P,
       if (!advance) cto[9] = 0.0f;
     };
     float cin[NIN], size[NIN];
-    march_step_vjp(mp, approx, x, thr, i, nc, inject, cin);
+    march_step_vjp<APPROX>(mp, x, thr, i, nc, inject, cin);
 #pragma unroll
     for (int k = 0; k < NIN; ++k) adj[k * plane + at] = cin[k];
 
     bool crossed, advance;
     float r_c, phi_c, t_c;
-    march_step(mp, approx, m, a, r_h, r_ph, pph, thr, i, s, hit, nc, crossed,
-               advance, r_c, phi_c, t_c);
+    march_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, rn, s, hit, nc,
+                       crossed, advance, r_c, phi_c, t_c);
     float cto[NOUT];
     inject(crossed, advance, 0.0f, cto);
-    jvp_pass<Dual<NIN>, false>(mp, approx, x, thr, i, nc, cto, cin);
-    jvp_pass<Mag<NIN>, true>(mp, approx, x, thr, i, nc, cto, size);
+    jvp_pass<Dual<NIN>, false, APPROX>(mp, x, thr, i, nc, cto, cin);
+    jvp_pass<Mag<NIN>, true, APPROX>(mp, x, thr, i, nc, cto, size);
 #pragma unroll
     for (int k = 0; k < NIN; ++k) {
       dual[k * plane + at] = cin[k];
@@ -289,6 +305,21 @@ renorm_vjp_check_kernel(const float* __restrict__ q, float* __restrict__ adj,
   }
 }
 
+// out: (4, n), per pair (a, b): jmax(a, b), the old form of it, jmin(a, b),
+// the old form of it.
+__global__ void __launch_bounds__(THREADS)
+minmax_check_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ out, int n) {
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  if (j >= n) return;
+  const size_t N = (size_t)n;
+  const float x = a[j], y = b[j];
+  out[j] = jmax(x, y);
+  out[N + j] = (x > y || x != x) ? x : y;
+  out[2 * N + j] = jmin(x, y);
+  out[3 * N + j] = (x < y || x != x) ? x : y;
+}
+
 extern "C" {
 
 int bh_step_vjp_check_launch(const float* P, const float* y, const float* thr,
@@ -296,8 +327,9 @@ int bh_step_vjp_check_launch(const float* P, const float* y, const float* thr,
                              float* mag, float* st, int* live, int n,
                              int steps, const MarchParams* mp, void* stream) {
   if (n > 0) {
-    step_vjp_check_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                            (cudaStream_t)stream>>>(
+    auto kernel = mp->approx_recip ? step_vjp_check_kernel<true>
+                                   : step_vjp_check_kernel<false>;
+    kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
         P, y, thr, cts, adj, dual, mag, st, live, n, steps, *mp);
   }
   return (int)cudaGetLastError();
@@ -308,6 +340,15 @@ int bh_renorm_vjp_check_launch(const float* q, float* adj, float* dual,
   if (n > 0) {
     renorm_vjp_check_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
                               (cudaStream_t)stream>>>(q, adj, dual, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int bh_minmax_check_launch(const float* a, const float* b, float* out, int n,
+                           void* stream) {
+  if (n > 0) {
+    minmax_check_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                          (cudaStream_t)stream>>>(a, b, out, n);
   }
   return (int)cudaGetLastError();
 }

@@ -6,6 +6,13 @@ interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -Xptxas -v -shared -Xcompiler -fPIC -o <lib> <source>
 
+``--fmad=false`` stays: nvcc contracts a product and a sum into one fused
+multiply-add wherever inlining lets it, so the render kernel's step, the
+march kernel's and the gradient kernel's replay would contract differently
+and part on chaotic rays, and the exact route would no longer round as the
+plain versions do. The approx_recip route contracts explicitly instead
+(``csrc/march_step.cuh::madd``), the same terms in every kernel.
+
 The library lands in ``build/kernels/`` at the repository root, named by a
 hash of the source, every header of ``csrc/`` and the flags, so an edited
 source or shared header never loads a stale build. ptxas's report

@@ -147,14 +147,17 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
 
 
 def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
-                      ct_ct, ct_rmin, rmin_fin):
+                      ct_ct, ct_rmin, rmin_fin, replay=None):
     """The march VJP, as ``march_grad``. CUDA tensors launch the gradient
     kernel (``csrc/march_grad.cu``) on the current stream, with a scratch
     buffer of ``scratch_words(cfg)`` float32 words per ray (its size in bytes
     is kept in ``march_grad_kernel.scratch_bytes``), and count the launch in
     ``march_grad_kernel.launches``; CPU tensors run ``march_grad``. While
     ``march_grad_kernel.record`` is a list, each call appends its arguments
-    to it."""
+    to it. ``replay``, a contiguous int32 (3, N) CUDA tensor, receives the
+    kernel's replay of the forward march: each ray's hit, live steps and
+    crossing count, which equal the march kernel's when the replay lands on
+    the forward's steps."""
     if march_grad_kernel.record is not None:
         march_grad_kernel.record.append(
             (yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
@@ -168,6 +171,12 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
     if cfg.multistep:
         raise NotImplementedError("the gradient kernel replays the midpoint "
                                   "march; the AB3 march has no gradient")
+    if replay is not None and (
+            replay.dtype != torch.int32 or replay.shape != (3, n)
+            or replay.device != yt0.device or replay.device.type != "cuda"
+            or not replay.is_contiguous()):
+        raise ValueError("replay must be a contiguous int32 (3, N) tensor on "
+                         "the rays' CUDA device")
     if yt0.device.type == "cpu":
         return march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr,
                           ct_cp, ct_ct, ct_rmin, rmin_fin)
@@ -196,6 +205,7 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
         err = lib.bh_march_grad_launch(
             ptr(params), ptr(y7), ptr(thr), ptr(ctf), ptr(ctc), ptr(ct_rmin),
             ptr(rmin_fin), ptr(cty0), ptr(ctp), ptr(scratch),
+            ctypes.c_void_p(0 if replay is None else replay.data_ptr()),
             ctypes.c_int(n), ctypes.byref(c_mp),
             ctypes.c_float(cfg.cotangent_clip), ctypes.c_void_p(stream),
         )
@@ -214,14 +224,15 @@ march_grad_kernel.scratch_bytes = 0
 march_grad_kernel.record = None
 
 
-def grad_kernel_shape() -> dict:
+def grad_kernel_shape(approx: bool = True) -> dict:
     """The gradient kernel's launch shape, from the built library: threads
     per block, dynamic shared memory bytes per block, steps per checkpoint
     block, and resident blocks and warps per SM by
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (on the current
-    device)."""
+    device), of the instantiation for ``MarchConfig.approx_recip`` =
+    ``approx`` (the training step's route by default)."""
     out = (ctypes.c_int * 4)()
-    _grad_library().bh_march_grad_shape(out)
+    _grad_library().bh_march_grad_shape(ctypes.c_int(int(approx)), out)
     threads, smem, ckpt, blocks = out
     return {"threads": threads, "smem_bytes": smem, "ckpt": ckpt,
             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
@@ -296,6 +307,31 @@ def renorm_vjp_check(q):
     return adj, dual
 
 
+def minmax_check(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The float jmax and jmin of ``csrc/march_step.cuh`` (one FMNMX each)
+    and the compare-compare-select form they replaced, on the card, for
+    each pair of the float32 (N,) tensors a, b: (4, N) rows jmax, the old
+    jmax, jmin, the old jmin. CUDA tensors only: it compares two device
+    instructions."""
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError("minmax_check runs on a CUDA device")
+    lib = _check_library()
+    a = a.detach().float().contiguous()
+    b = b.detach().float().contiguous()
+    n = a.shape[0]
+    out = torch.empty((4, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.bh_minmax_check_launch(
+            ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"min/max check launch failed: {lib.bh_error_string(err).decode()}")
+    return out
+
+
 @functools.cache
 def _check_library() -> ctypes.CDLL:
     lib = load_library("step_vjp_check.cu", "bh_march_params_size")
@@ -306,6 +342,9 @@ def _check_library() -> ctypes.CDLL:
     lib.bh_renorm_vjp_check_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
     lib.bh_renorm_vjp_check_launch.restype = ctypes.c_int
+    lib.bh_minmax_check_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    lib.bh_minmax_check_launch.restype = ctypes.c_int
     return lib
 
 
@@ -313,11 +352,11 @@ def _check_library() -> ctypes.CDLL:
 def _grad_library() -> ctypes.CDLL:
     lib = load_library("march_grad.cu", "bh_march_params_size")
     lib.bh_march_grad_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p,
+        [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
                                   ctypes.c_float, ctypes.c_void_p])
     lib.bh_march_grad_launch.restype = ctypes.c_int
     lib.bh_march_grad_scratch.argtypes = [ctypes.c_int]
     lib.bh_march_grad_scratch.restype = ctypes.c_int
-    lib.bh_march_grad_shape.argtypes = [ctypes.c_void_p]
+    lib.bh_march_grad_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.bh_march_grad_shape.restype = None
     return lib

@@ -37,7 +37,11 @@ class MarchConfig:
 
     ``approx_recip`` applies in the CUDA kernels and never in the plain
     versions, as the JAX package applies it on the TPU and never in
-    interpret mode. ``multistep`` (the AB3 march) applies with
+    interpret mode: the kernels' approximate reciprocal, their step's
+    multiply-adds contracted into fused ones (one rounding each, as XLA
+    contracts them on a GPU) and the jets' exp and pow in float; held to
+    statistical bars against the plain versions. Without it the kernels
+    are bit-equal to the plain versions. ``multistep`` (the AB3 march) applies with
     ``use_pallas`` only, as in the JAX package, whose jnp march ignores it.
     ``exit_check_every`` sets the AB3 march's renormalization cadence (a
     live ray is renormalized at the multiples of it that are multiples of

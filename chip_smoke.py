@@ -10,9 +10,11 @@ printing a result line:
 
 1. Build: compile every CUDA source (``render.cu``, ``march.cu``,
    ``march_grad.cu``, ``vpu_peak.cu``, ``step_vjp_check.cu``) with nvcc
-   (one process per source, started together) and print the build seconds,
-   ptxas's registers and spills of each kernel, and the gradient kernel's
-   dynamic shared memory per block (its re-forward stack). Then the FP32
+   (one process per source, started together; every march kernel is
+   instantiated for both routes, exact and approx_recip) and print the
+   build seconds, ptxas's registers and spills of each kernel, and the
+   gradient kernel's dynamic shared memory per block (its re-forward
+   stack). Then the FP32
    peak: the probe
    (``tools/vpu_peak.py``) at its measuring size, whose output is held
    against its plain version on the same starts (which rounds each step once
@@ -21,16 +23,21 @@ printing a result line:
    published 67 TFLOP/s. Every ``bound_ms`` below is the larger of the
    hand-counted operations over the larger of the measured rate and the
    published one in lane FMAs (33.5e12/s; each counted add or multiply is
-   one lane instruction under ``--fmad=false``, so the bound never
-   flatters a kernel) and the bytes over 3.35 TB/s.
+   one lane instruction under ``--fmad=false``, and on the approx_recip
+   route each contracted multiply-add one, ``OPS_PER_STEP*_FUSED``, so the
+   bound never flatters a kernel) and the bytes over 3.35 TB/s.
 2. Short-horizon parity: the render kernel against its plain PyTorch version
    (``ops/render.py::render_planes``) on the card, exact divides, 48 steps,
    a = 0.9, 250x141 (neither side a multiple of the kernel's block), for the
    spectral and the analytic disk: p99 |d| < 1e-4 and mean |d| < 1e-5.
-3. Flagship-config parity at 480x270: 256 steps, approx_recip on in the
-   kernel (the plain version always divides exactly): all finite,
-   mean |d| < 1e-3, fewer than 1% of pixels with |d| > 1e-2 (the chaotic
-   critical-band rays).
+3. The approx_recip route at 480x270, 256 steps (approximate reciprocals
+   and contracted multiply-adds in the kernel; the plain version divides
+   exactly and rounds every operation): all finite, mean |d| < 1e-3, fewer
+   than 1% of pixels with |d| > 1e-2 (the chaotic critical-band rays), for
+   the render kernel's flagship, AB3, jets and full-featured
+   instantiations, the march kernel's midpoint and AB3 ones (staged
+   renders, the plain march in place of the kernel) and its jets one (the
+   jets' radiance rows).
 4. The main path: ``render()`` at 1920x1080 on the flagship scene (Kerr
    a = 0.999, spectral disk, 256 steps, the ``bench.py`` / ``cli render``
    MarchConfig). The launch counter is reset just before and read just
@@ -90,7 +97,10 @@ printing a result line:
    step's rays at every live step, exact divides: bit-equal. And the
    kernel's resident warps per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through ctypes on
-   the built library), registers, spills and shared memory.
+   the built library), registers, spills and shared memory. And the
+   gradient kernel's replay against the forward march on the recorded
+   step's rays (approx_recip on): every ray's hit, live steps and crossing
+   count equal the march kernel's.
 8. The AB3 march (``multistep``): the march kernel against
    ``march_u_plain`` at 250x141, 48 steps, exact divides, a = 0.9 (integers
    identical, |d| < 1e-4); the render kernel against ``render_planes`` there,
@@ -134,10 +144,12 @@ printing a result line:
    ``start_jitter=0.5``, the overlay and the NRS far field, at fov 1.2 so
    that rays lie beyond b_min), and the staged jets render at 1080p, whose
    march kernel (jets instantiation) is timed alone on its recorded
-   arguments. (e) The flagship instantiations keep their registers (render
-   56 / 0, march 56 / 0), phase 4's kernel stays within 5% of the
-   certified render's slice's spread and its frame within 1.25x of it (the frame is mostly host work
-   and tonemap, which vary with the host the card shares).
+   arguments. (e) The flagship instantiations keep their registers
+   (``FLAGSHIP_REGISTERS``), phase 4's kernel stays within 5% of the
+   certified render's slice's spread and its frame within 1.25x of it (the
+   frame is mostly host work and tonemap, which vary with the host the card
+   shares). Each 1080p render path's kernel and the staged AB3 march stay
+   within 5% of the step's parent's times (``PARENT_KERNEL_MS``).
 11. Small and ragged launches: the render kernel (midpoint, AB3, every
    branch with jets) at 1x1, 31x1, 128x128 and 250x141 and the march
    kernel (midpoint, AB3, jets) on 1, 31, 16,384 (fewer than its resident
@@ -155,14 +167,25 @@ printing a result line:
    one ray of the path's march, one near the median step count and one of
    the longest: ms / (steps x rays) is what a ray-step costs at full
    occupancy, and that cost x the path's steps its time without
-   divergence), and the refinement re-march's critical path (its longest
+   divergence; its twin for the render kernel is a 1080p frame at fov 1e-7
+   whose pixels all march the view axis, midpoint against AB3 on both
+   routes), and the refinement re-march's critical path (its longest
    ray alone, and 32 copies of it). Each render entry of the kernels line
    carries ``lane_efficiency`` (its own launch's warps) and each march
    entry ``lane_efficiency_one_per_thread`` (warps of 32 consecutive rays,
    the launch the persistent loop replaced); both carry
    ``resident_warps_per_sm`` (the occupancy API on the built library), the
-   refinement's ``critical_path_ms``. Every instantiation of both kernels is printed
-   with its registers, spills and resident warps per SM; a spill fails.
+   refinement's ``critical_path_ms``. Every instantiation of both kernels
+   is printed with its registers, spills and resident warps per SM; a
+   spill fails.
+13. The step's instructions: ``tools/sass_census.py`` on this run's
+   libraries (the march loop of every instantiation by instruction class,
+   printed on a ``census`` line, its FP32 arithmetic beside the counted
+   operations per step); march_step.cuh's one-instruction ``jmax`` /
+   ``jmin`` against the compare-compare-select form they replaced on
+   planted pairs (signed zeros, NaN, infinities, denormals: the same bits
+   or both NaN, but for the ties of opposite-sign zeros, which are
+   printed); and no render or march entry above 100% of its bound.
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -197,6 +220,7 @@ from blackhole_simulation_tpu_torch.models.nrs import (  # noqa: E402
     nrs_init,
 )
 from blackhole_simulation_tpu_torch.ops import build as kbuild  # noqa: E402
+from blackhole_simulation_tpu_torch.ops import pallas_march  # noqa: E402
 from blackhole_simulation_tpu_torch.ops.ks_kernel import (  # noqa: E402
     ks_renormalize_pr,
 )
@@ -213,6 +237,7 @@ from blackhole_simulation_tpu_torch.ops.march_grad import (  # noqa: E402
     grad_kernel_shape,
     march_grad,
     march_grad_kernel,
+    minmax_check,
     renorm_vjp_check,
     step_vjp_check,
 )
@@ -264,6 +289,7 @@ from blackhole_simulation_tpu_torch.render.shading import (  # noqa: E402
 from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
     critical_band_metric_u,
 )
+from blackhole_simulation_tpu_torch.tools import sass_census  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import vpu_peak  # noqa: E402
 
 SOURCES = ("render.cu", "march.cu", "march_grad.cu", "vpu_peak.cu",
@@ -301,6 +327,19 @@ OPS_PER_PIXEL_BAND = 12
 # one value-noise octave (four lattice hashes of ~20 and the blend, ~95),
 # the turbulence, the magnitude and the three sums (~15).
 OPS_PER_STEP_JETS = 160
+# The same steps on the approx_recip route, whose multiply-adds are
+# contracted (march_step.cuh::madd): each fused pair is one lane
+# instruction, so it counts one. Counted from the code: a right-hand side
+# fuses 21 pairs, the midpoint step's two updates of six rows 12, the
+# crossing record 3, the step size's sigma 1 (the same expression as the
+# first right-hand side's S, which the compiler shares): 58 per midpoint
+# step; an AB3 step fuses one right-hand side (21), its coefficients (4),
+# its three-term updates (18) and the crossing record (3): 46. The jets'
+# sample has no contracted term (its exp and pow, in float on this route,
+# count one each as before). The renormalization stays uncontracted.
+OPS_PER_STEP_FUSED = OPS_PER_STEP - 58
+OPS_PER_STEP_AB3_FUSED = OPS_PER_STEP_AB3 - 46
+OPS_PER_STEP_JETS_FUSED = OPS_PER_STEP_JETS
 # Per pixel: the start offset (one midpoint step and its hash, ~365), the
 # overlay (64 segments of ~21 and the prologue, ~1365) and the NRS skip
 # test (~8); per far pixel the NRS background (the MLP's ~1,200 multiplies
@@ -311,17 +350,33 @@ OPS_PER_PIXEL_OVERLAY = 1365
 OPS_PER_PIXEL_NRS = 8
 OPS_PER_FAR_PIXEL = 1500
 # The flagship instantiations' registers and spills (render.cu midpoint
-# as the certified render's slice read it; march.cu midpoint as its
-# persistent-warp loop compiles, 60 before it), and the spread of that
-# slice's phase-4 frames (ms, H100 80GB HBM3 at 700 W): a later slice
-# keeps both.
-FLAGSHIP_REGISTERS = {"render.cu": (56, 0), "march.cu": (56, 0)}
+# on the approx_recip route, render_kernel<0, false, true>, and march.cu's
+# midpoint on it, march_kernel<0, true>, the training step's; both 56 / 0
+# before the step's redesign, when approx was a runtime flag), and the
+# spread of the certified render's slice's phase-4 frames (ms, H100 80GB
+# HBM3 at 700 W): a later slice keeps both.
+FLAGSHIP_MARKERS = {"render.cu": "ILi0ELb0ELb1E", "march.cu": "ILi0ELb1E"}
+FLAGSHIP_REGISTERS = {"render.cu": (48, 0), "march.cu": (64, 0)}
 FLAGSHIP_FRAME_SPREAD_MS = (6.131, 6.814)
 FLAGSHIP_KERNEL_SPREAD_MS = (1.349, 1.366)
 # The frame is ~80% host work and tonemap, which vary with the host the
 # card shares; the kernel alone does not. The frame may exceed PR 3's
 # spread by this factor, the kernel by 5%.
 FRAME_SLACK = 1.25
+# The kernel alone on each 1080p render path and the staged AB3 march
+# before the step's redesign (the persistent march kernel's commit), the
+# slower of its two runs (H100 80GB HBM3 at 700 W, PERF.md): a later slice
+# stays within 5% of them.
+PARENT_KERNEL_MS = {"flagship render": 1.350, "certified render": 1.360,
+                 "AB3 render": 1.535, "jets render": 3.408,
+                 "full-featured render": 2.914, "staged AB3 march": 1.351}
+PARENT_SLACK = 1.05
+# The same kernels after the redesign, the slower of the change's two runs
+# in its comparison call (H100 80GB HBM3 at 700 W, PERF.md section 5):
+# printed beside PARENT_KERNEL_MS's gate, for the next slice to gate on.
+SLICE_KERNEL_MS = {"flagship render": 0.993, "certified render": 1.000,
+                   "AB3 render": 0.999, "jets render": 2.105,
+                   "full-featured render": 2.198, "staged AB3 march": 1.033}
 # The gradient kernel's least work per live march step, in march steps: the
 # checkpointing replay, the block's re-forward, and one reverse-mode VJP of
 # the step at about three times the step's operations (a transposed
@@ -385,6 +440,29 @@ def plain_twin(st):
         st, cfg=dataclasses.replace(st.cfg, approx_recip=False))
 
 
+def step_ops(variant, approx):
+    """Counted operations of one march step of ``variant`` ("midpoint",
+    "ab3", "jets") on the approx_recip route (contracted) or the exact
+    one."""
+    if variant == "ab3":
+        return OPS_PER_STEP_AB3_FUSED if approx else OPS_PER_STEP_AB3
+    mid = OPS_PER_STEP_FUSED if approx else OPS_PER_STEP
+    if variant == "jets":
+        return mid + (OPS_PER_STEP_JETS_FUSED if approx else OPS_PER_STEP_JETS)
+    return mid
+
+
+def parent_gate(name, ms):
+    """Fail when the kernel alone on ``name``'s path is more than 5% slower
+    than before the step's redesign (PARENT_KERNEL_MS)."""
+    ref, now = PARENT_KERNEL_MS[name], SLICE_KERNEL_MS[name]
+    print(f"{name}: kernel {ms:.4f} ms, before the step's redesign {ref} ms, "
+          f"ratio {ms / ref:.4f}; after it {now} ms, ratio {ms / now:.4f}")
+    if not ms <= ref * PARENT_SLACK:
+        raise AssertionError(f"{name} kernel {ms} ms is more than 5% above "
+                             f"its parent's {ref} ms")
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the counted operations over the
     lane rate (the larger of the measured and the published one) and the
@@ -444,9 +522,9 @@ def phase_build():
         for entry, regs, spill in kbuild.ptxas_usage(src):
             print(f"ptxas {src}: {entry}: {regs} registers, {spill} bytes "
                   "spilled")
-    regs, spill = registers("march_grad.cu")
+    regs, spill = registers("march_grad.cu", "ILb1E")
     shape = grad_kernel_shape()
-    print(f"gradient kernel (march_grad.cu): {regs} registers, {spill} bytes "
+    print(f"gradient kernel (march_grad.cu, approx_recip): {regs} registers, {spill} bytes "
           f"spilled, {shape['smem_bytes']} bytes of dynamic shared memory per "
           f"{shape['threads']}-thread block (a {shape['ckpt']}-step stack)")
     return secs
@@ -518,17 +596,88 @@ def phase_short_parity():
     return out
 
 
-def phase_flagship_parity():
-    row, st = kernel_inputs(flagship_scene(480, 270), None, "cuda")
-    k = render_planes_kernel(row, st)
-    p = render_planes(row, plain_twin(st))
-    torch.cuda.synchronize()
+def approx_bars(k, p):
+    """Phase 3's bars for the approx_recip route against the exact plain
+    version: all finite, mean |d| < 1e-3, under 1% of pixels with some
+    channel above 1e-2 (the chaotic critical-band rays)."""
     s = diff_stats(k, p)
-    print(f"flagship parity (480x270, 256 steps, approx_recip kernel): {s}")
-    if not (torch.isfinite(k).all() and s["mean_abs"] < 1e-3
-            and s["frac_gt_1e-2"] < 0.01):
-        raise AssertionError(f"flagship parity failed: {s}")
+    s["finite"] = bool(torch.isfinite(k).all())
+    s["ok"] = (s["finite"] and s["mean_abs"] < 1e-3
+               and s["frac_gt_1e-2"] < 0.01)
     return s
+
+
+def plain_march(yt0, thr, m, a, r_h, r_ph, cfg, jets=None, out=None):
+    """``march_u``'s signature on ``march_u_plain`` (exact divides)."""
+    return march_u_plain(yt0, thr, m, a, r_h, r_ph, cfg, jets)
+
+
+def staged_plain(scene):
+    """The staged render of ``scene`` on the card with the plain march in
+    place of the march kernel (``render/march.py`` looks ``march_u`` up at
+    each call)."""
+    kernel = pallas_march.march_u
+    pallas_march.march_u = plain_march
+    try:
+        return render_radiance(scene, device=DEV)
+    finally:
+        pallas_march.march_u = kernel
+
+
+def phase_flagship_parity():
+    """Phase 3: the approx_recip route at 480x270, 256 steps, against the
+    plain version at exact divides: the render kernel's flagship (spectral),
+    AB3, jets and full-featured instantiations, and the march kernel's
+    midpoint and AB3 ones (staged renders, the plain march in place of the
+    kernel) and its jets one (the jets' radiance rows of 480x270 camera
+    rays)."""
+    ab3 = dataclasses.replace(FLAGSHIP_CFG, multistep=True)
+    out = {}
+    for name, scene in (
+            ("flagship", flagship_scene(480, 270)),
+            ("ab3", flagship_scene(480, 270, cfg=ab3)),
+            ("jets", branch_scene("jets", 480, 270, FLAGSHIP_CFG)),
+            ("full-featured", branch_scene("all", 480, 270, FLAGSHIP_CFG))):
+        row, st = kernel_inputs(scene, None, DEV)
+        k = render_planes_kernel(row, st)
+        p = render_planes(row, plain_twin(st))
+        torch.cuda.synchronize()
+        s = approx_bars(k, p)
+        print(f"approx_recip route, render kernel {name} (480x270, 256 "
+              f"steps) vs plain: {s}")
+        if not s["ok"]:
+            raise AssertionError(f"approx route, render {name}: {s}")
+        out[f"render_{name}"] = s
+    for name, cfg in (("midpoint", FLAGSHIP_CFG), ("ab3", ab3)):
+        scene = flagship_scene(480, 270, features=Features(),
+                               cfg=dataclasses.replace(cfg, fused=False))
+        march_u.launches = 0
+        k = render_radiance(scene, device=DEV)
+        launches = march_u.launches
+        p = staged_plain(scene)
+        torch.cuda.synchronize()
+        s = approx_bars(k.permute(2, 0, 1), p.permute(2, 0, 1))
+        s["march_launches"] = launches
+        print(f"approx_recip route, march kernel {name} (staged 480x270, "
+              f"256 steps) vs the plain march: {s}")
+        if not (s["ok"] and launches >= 1):
+            raise AssertionError(f"approx route, march {name}: {s}")
+        out[f"march_{name}"] = s
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.9)
+    cfg = dataclasses.replace(FLAGSHIP_CFG, fused=False, shadow_precull=False)
+    with torch.no_grad():
+        args = _march_inputs(camera_rays_u(_camera(480, 270), m, a), m, a,
+                             cfg, None)
+        k = march_u(*args, cfg, JetParams())[8]
+        p = march_u_plain(*args, cfg, JetParams())[8]
+    torch.cuda.synchronize()
+    s = approx_bars(k.reshape(3, 270, 480), p.reshape(3, 270, 480))
+    print(f"approx_recip route, march kernel jets (480x270 camera rays, 256 "
+          f"steps), jet radiance vs plain: {s}")
+    if not s["ok"]:
+        raise AssertionError(f"approx route, march jets: {s}")
+    out["march_jets"] = s
+    return out
 
 
 def render_frames(scene, frames=30, warmup=3):
@@ -604,10 +753,11 @@ def phase_main_path(frames=30):
     scene = flagship_scene(width, height)
     (frame_ms, frame_min, frame_max), launches = render_frames(scene, frames)
     entry, s, k, _ = render_kernel_entry(
-        scene, launches["render"], OPS_PER_STEP, OPS_PER_PIXEL, 12,
-        "blackhole_simulation_tpu/ops/pallas_render.py:140",
+        scene, launches["render"], step_ops("midpoint", True), OPS_PER_PIXEL,
+        12, "blackhole_simulation_tpu/ops/pallas_render.py:140",
         path="flagship render()", variant="midpoint")
     print(f"1080p kernel vs plain: {s}")
+    parent_gate("flagship render", entry["ms"])
 
     # Where the frame's time goes besides the kernel.
     t0 = time.perf_counter()
@@ -956,6 +1106,28 @@ def mirror_check(g_args):
     return st
 
 
+def replay_check(m_args, g_args):
+    """The gradient kernel's replay against the forward march on the
+    recorded training step's rays (approx_recip on, the step's own route):
+    every ray's hit, live steps and crossing count equal the march
+    kernel's."""
+    n = int(m_args[0].shape[1])
+    replay = torch.empty((3, n), dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        fwd = march_u(*m_args)
+        march_grad_kernel(*g_args, replay=replay)
+    torch.cuda.synchronize()
+    st = {"rays": n, "approx_recip": bool(m_args[6].approx_recip)}
+    for i, (name, k) in enumerate((("hit", 1), ("steps", 2), ("nc", 6))):
+        st[f"{name}_differ"] = int((replay[i] != fwd[k]).sum())
+    print(f"gradient kernel's replay vs the march kernel (1080p training "
+          f"rays): {st}")
+    if not (st["approx_recip"] and st["hit_differ"] == 0
+            and st["steps_differ"] == 0 and st["nc_differ"] == 0):
+        raise AssertionError(f"replay differs from the forward march: {st}")
+    return st
+
+
 def renorm_check():
     """The renormalization's VJP alone at planted radial turning points
     (ops/march_adjoint.py::turning_point_states, csrc/step_vjp_check.cu):
@@ -1066,10 +1238,11 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
         raise AssertionError(f"1080p gradient kernel vs plain failed: {gs}")
 
     checks = step_check(g_args)
+    checks["forward_replay"] = replay_check(m_args, g_args)
     checks["renorm"] = renorm_check()
     checks["mirror"] = mirror_check(g_args)
-    shape = grad_kernel_shape()
-    regs, spill = registers("march_grad.cu")
+    shape = grad_kernel_shape(cfg.approx_recip)
+    regs, spill = registers("march_grad.cu", "ILb1E")
     print(f"gradient kernel occupancy: {shape['blocks_per_sm']} blocks of "
           f"{shape['threads']} threads = {shape['warps_per_sm']} resident "
           f"warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
@@ -1077,9 +1250,13 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
           "bytes of shared memory per block")
 
     k_slots = cfg.max_crossings
-    march_ops = OPS_PER_STEP * total_steps
+    march_ops = step_ops("midpoint", cfg.approx_recip) * total_steps
     march_bytes = 4 * n_rays * (9 + 8 + 3 + 3 * k_slots + 1)
-    grad_ops = GRAD_STEPS_PER_STEP * OPS_PER_STEP * total_steps
+    # the replay, the re-forward and the VJP's recompute of the step run it
+    # as the march does (contracted on the approx route); the VJP's reverse
+    # (two steps' worth) is uncontracted
+    grad_ops = (3 * step_ops("midpoint", cfg.approx_recip)
+                + (GRAD_STEPS_PER_STEP - 3) * OPS_PER_STEP) * total_steps
     # inputs and outputs, then each live block's checkpoint (7 words) written
     # once and read once; the stack stays in shared memory
     live_blocks = int(((outs[2].long() + CKPT) // CKPT).sum())
@@ -1225,6 +1402,39 @@ def uniform_probe(args):
     return out
 
 
+def render_uniform_probe():
+    """The render kernel on a 1080p frame whose pixels all march one ray
+    (fov 1e-7: every camera ray is the view axis to float precision;
+    precull off, so each marches to the horizon), midpoint and AB3, on both
+    routes: ms / (sum of steps) is what one of render.cu's own ray-steps
+    costs, with the per-pixel birth and composite spread over it."""
+    out = {}
+    for approx in (True, False):
+        route = "approx" if approx else "exact"
+        for name, multistep in (("midpoint", False), ("ab3", True)):
+            cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=1e-7,
+                                width=1920, height=1080)
+            cfg = dataclasses.replace(FLAGSHIP_CFG, shadow_precull=False,
+                                      multistep=multistep,
+                                      approx_recip=approx)
+            scene = Scene.create(mass=1.0, spin=0.999, camera=cam,
+                                 march_cfg=cfg, features=Features())
+            row, st = kernel_inputs(scene, None, DEV)
+            steps = torch.empty((st.height, st.width), dtype=torch.int32,
+                                device=DEV)
+            render_planes_kernel(row, st, steps)
+            ms, _ = kernel_time(lambda: render_planes_kernel(row, st), 20)
+            total = int(steps.long().sum())
+            out[f"{name}_{route}"] = {
+                "ms": ms, "steps_sum": total,
+                "steps_min_max": [int(steps.min()), int(steps.max())],
+                "ns_per_ray_step": ms * 1e6 / total}
+        out[f"ab3_over_midpoint_{route}"] = (
+            out[f"ab3_{route}"]["ns_per_ray_step"]
+            / out[f"midpoint_{route}"]["ns_per_ray_step"])
+    return out
+
+
 def critical_path(args):
     """The march kernel alone on the longest ray of ``args``, and on 32
     copies of it (one warp): the least time any schedule that marches one
@@ -1245,27 +1455,33 @@ def critical_path(args):
 
 def instantiation_shapes():
     """Registers, spill bytes and resident warps per SM of every
-    instantiation of the render kernel (MARCH x EXTRAS) and the march
-    kernel (MARCH), from ptxas and the occupancy API."""
-    cfg = dataclasses.replace(FLAGSHIP_CFG, max_steps=48)
-    ab3 = dataclasses.replace(cfg, multistep=True)
-    render_cases = {
-        "ILi0ELb0E": flagship_scene(16, 8, cfg=cfg),
-        "ILi1ELb0E": flagship_scene(16, 8, cfg=ab3),
-        "ILi2ELb0E": branch_scene("jets", 16, 8, cfg),
-        "ILi0ELb1E": branch_scene("overlay", 16, 8, cfg),
-        "ILi1ELb1E": branch_scene("overlay", 16, 8, ab3),
-        "ILi2ELb1E": branch_scene("all", 16, 8, cfg),
-    }
+    instantiation of the render kernel (MARCH x EXTRAS x APPROX) and the
+    march kernel (MARCH x APPROX), from ptxas and the occupancy API."""
     out = {}
-    for marker, scene in render_cases.items():
-        _, st = kernel_inputs(scene, None, DEV)
-        out[f"render {marker}"] = [*registers("render.cu", marker),
-                                   render_kernel_shape(st)["warps_per_sm"]]
-    for marker, c, jets in (("ILi0E", cfg, None), ("ILi1E", ab3, None),
-                            ("ILi2E", cfg, JetParams())):
-        out[f"march {marker}"] = [*registers("march.cu", marker),
-                                  march_kernel_shape(c, jets)["warps_per_sm"]]
+    for approx in (True, False):
+        cfg = dataclasses.replace(FLAGSHIP_CFG, max_steps=48,
+                                  approx_recip=approx)
+        ab3 = dataclasses.replace(cfg, multistep=True)
+        a = int(approx)
+        render_cases = {
+            f"ILi0ELb0ELb{a}E": flagship_scene(16, 8, cfg=cfg),
+            f"ILi1ELb0ELb{a}E": flagship_scene(16, 8, cfg=ab3),
+            f"ILi2ELb0ELb{a}E": branch_scene("jets", 16, 8, cfg),
+            f"ILi0ELb1ELb{a}E": branch_scene("overlay", 16, 8, cfg),
+            f"ILi1ELb1ELb{a}E": branch_scene("overlay", 16, 8, ab3),
+            f"ILi2ELb1ELb{a}E": branch_scene("all", 16, 8, cfg),
+        }
+        for marker, scene in render_cases.items():
+            _, st = kernel_inputs(scene, None, DEV)
+            out[f"render {marker}"] = [
+                *registers("render.cu", marker),
+                render_kernel_shape(st)["warps_per_sm"]]
+        for marker, c, jets in ((f"ILi0ELb{a}E", cfg, None),
+                                (f"ILi1ELb{a}E", ab3, None),
+                                (f"ILi2ELb{a}E", cfg, JetParams())):
+            out[f"march {marker}"] = [
+                *registers("march.cu", marker),
+                march_kernel_shape(c, jets)["warps_per_sm"]]
     print(f"instantiations (registers, spill bytes, resident warps per SM):"
           f" {json.dumps(out)}")
     spilled = {k: v for k, v in out.items() if v[1]}
@@ -1290,8 +1506,13 @@ def phase_probes(entries):
               for v in ("midpoint", "ab3", "jets")}
     crit = critical_path(RECORDED["refinement"])
     shapes = instantiation_shapes()
+    rprobe = render_uniform_probe()
+    per_step = {v: probes[v]["median"]["ns_per_ray_step"] for v in probes}
+    probes["ab3_over_midpoint"] = per_step["ab3"] / per_step["midpoint"]
     print(f"uniform-ray probe (march kernel, {PROBE_RAYS} copies of one "
           f"ray): {json.dumps(probes)}")
+    print(f"uniform-ray probe (render kernel, one ray in every pixel of a "
+          f"1080p frame): {json.dumps(rprobe)}")
     print(f"refinement re-march critical path: {json.dumps(crit)}")
     for e in entries:
         if "variant" not in e:
@@ -1315,8 +1536,8 @@ def phase_probes(entries):
               f"warps per SM {e['resident_warps_per_sm']}"
               + (f"; critical path {crit['ms_1']:.4f} ms"
                  if "critical_path_ms" in e else ""))
-    return {"uniform": probes, "critical_path": crit,
-            "instantiations": shapes}
+    return {"uniform": probes, "render_uniform": rprobe,
+            "critical_path": crit, "instantiations": shapes}
 
 
 # Phase 11: small and ragged launches: one ray, fewer than a warp, fewer
@@ -1480,9 +1701,9 @@ def phase_ab3(flagship):
     n_pix = width * height
     scene = flagship_scene(width, height, cfg=ab3)
     (frame_ms, frame_min, frame_max), launches = render_frames(scene)
-    regs = registers("render.cu", "ILi1ELb0E")
+    regs = registers("render.cu", "ILi1ELb0ELb1E")
     render_entry, d, _, _ = render_kernel_entry(
-        scene, launches["render"], OPS_PER_STEP_AB3, OPS_PER_PIXEL, 12,
+        scene, launches["render"], step_ops("ab3", True), OPS_PER_PIXEL, 12,
         "blackhole_simulation_tpu/ops/pallas_march.py:428",
         path="flagship render() with multistep (AB3)", variant="ab3",
         frame_ms=frame_ms,
@@ -1496,7 +1717,8 @@ def phase_ab3(flagship):
           f"{render_entry['ms']:.3f} ms (midpoint {flagship['ms']:.3f}); "
           f"steps/ray {render_entry['steps_per_ray']:.2f} (midpoint "
           f"{flagship['steps_per_ray']:.2f}); registers/spill {regs} "
-          f"(midpoint {registers('render.cu', 'ILi0ELb0E')}); vs plain {d}")
+          f"(midpoint {registers('render.cu', 'ILi0ELb0ELb1E')}); vs plain {d}")
+    parent_gate("AB3 render", render_entry["ms"])
 
     # The staged AB3 render at 1080p: its march-kernel launches, and the
     # kernel alone on the recorded arguments.
@@ -1521,17 +1743,18 @@ def phase_ab3(flagship):
     mid_steps = mid_out[2].float().mean()
     cmp, march_e = march_entry(
         "staged render() with multistep (AB3)", launches, args, plain_args,
-        OPS_PER_STEP_AB3, variant="ab3",
-        registers_spill=list(registers("march.cu", "ILi1E")),
+        step_ops("ab3", args[6].approx_recip), variant="ab3",
+        registers_spill=list(registers("march.cu", "ILi1ELb1E")),
         midpoint_ms=mid_ms, midpoint_steps_per_ray=float(mid_steps))
     print(f"1080p AB3 march kernel {march_e['ms']:.3f} ms, "
           f"{march_e['steps_per_ray']:.2f} steps/ray, registers/spill "
           f"{march_e['registers_spill']}; the midpoint march kernel on the "
           f"same rays {mid_ms:.3f} ms, {float(mid_steps):.2f} steps/ray, "
-          f"{registers('march.cu', 'ILi0E')}; vs plain at exact divides "
+          f"{registers('march.cu', 'ILi0ELb1E')}; vs plain at exact divides "
           f"{cmp}")
     if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
         raise AssertionError(f"1080p AB3 march kernel vs plain failed: {cmp}")
+    parent_gate("staged AB3 march", march_e["ms"])
     return out, [render_entry, march_e]
 
 
@@ -1575,11 +1798,12 @@ def phase_certified():
 
     # The kernel with its band plane, alone and against its plain version.
     render_e, _, planes, st = render_kernel_entry(
-        scene, launches["render"], OPS_PER_STEP,
+        scene, launches["render"], step_ops("midpoint", True),
         OPS_PER_PIXEL + OPS_PER_PIXEL_BAND, 16,
         "blackhole_simulation_tpu/ops/pallas_render.py:140",
         path="certified render() (band plane)", variant="midpoint",
         frame_ms=frame_ms)
+    parent_gate("certified render", render_e["ms"])
     rgb, band = planes[:3].reshape(3, -1), planes[3].reshape(-1)
     band_px = int((band < CERTIFIED_CFG.refine_band).sum())
 
@@ -1593,7 +1817,8 @@ def phase_certified():
     RECORDED["refinement"] = args
     cmp, march_e = march_entry(
         "certified render(): the refinement re-march", launches["march"],
-        args, args, OPS_PER_STEP, variant="midpoint", refine_pass_ms=pass_ms,
+        args, args, step_ops("midpoint", args[6].approx_recip),
+        variant="midpoint", refine_pass_ms=pass_ms,
         refine_pass_ms_min_max=[pass_min, pass_max])
     if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
         raise AssertionError(f"refinement march kernel vs plain: {cmp}")
@@ -1809,9 +2034,9 @@ def phase_full_featured(flagship):
     entries, info = [], {}
     for name, scene, marker in (
             ("jets", scene_from_params(SimulationParams(enable_jets=True),
-                                       width, height), "ILi2ELb0E"),
+                                       width, height), "ILi2ELb0ELb1E"),
             ("full-featured", full_featured_scene(width, height),
-             "ILi2ELb1E")):
+             "ILi2ELb1ELb1E")):
         (frame_ms, frame_min, frame_max), launches = render_frames(scene)
         if launches["render"] != 30:
             raise AssertionError(f"{name} frames' launches: {launches}")
@@ -1822,8 +2047,11 @@ def phase_full_featured(flagship):
             per_pixel += (OPS_PER_PIXEL_JITTER + OPS_PER_PIXEL_OVERLAY
                           + OPS_PER_PIXEL_NRS)
         regs = registers("render.cu", marker)
+        if not scene.march_cfg.approx_recip:
+            raise AssertionError(f"the {name} scene left the approx_recip "
+                                 "route")
         entry, d, _, _ = render_kernel_entry(
-            scene, launches["render"], OPS_PER_STEP + OPS_PER_STEP_JETS,
+            scene, launches["render"], step_ops("jets", True),
             per_pixel, 12, "blackhole_simulation_tpu/ops/pallas_render.py:140",
             path=f"{name} render() at 1920x1080", variant="jets",
             frame_ms=frame_ms,
@@ -1840,6 +2068,7 @@ def phase_full_featured(flagship):
               f"ms, bound {entry['bound_ms']:.3f} ms; steps/ray "
               f"{entry['steps_per_ray']:.2f}, sum {entry['steps_sum']}; far "
               f"pixels {n_far}; registers/spill {regs}; vs plain {d}")
+        parent_gate(f"{name} render", entry["ms"])
         info[name] = {k: entry[k] for k in (
             "frame_ms", "frame_ms_min_max", "ms", "bound_ms", "steps_per_ray",
             "steps_sum", "registers_spill", "far_pixels")}
@@ -1866,8 +2095,8 @@ def phase_full_featured(flagship):
         raise AssertionError("the staged jets march took no jets")
     cmp, march_e = march_entry(
         "staged jets render() at 1920x1080", launches, args, args,
-        OPS_PER_STEP + OPS_PER_STEP_JETS, variant="jets",
-        registers_spill=list(registers("march.cu", "ILi2E")))
+        step_ops("jets", False), variant="jets",
+        registers_spill=list(registers("march.cu", "ILi2ELb0E")))
     print(f"1080p jets march kernel {march_e['ms']:.3f} ms, "
           f"{march_e['steps_per_ray']:.2f} steps/ray, registers/spill "
           f"{march_e['registers_spill']}; vs plain {cmp}")
@@ -1876,8 +2105,8 @@ def phase_full_featured(flagship):
     entries.append(march_e)
 
     # (e) the flagship instantiations and frame.
-    kept = {"render.cu": registers("render.cu", "ILi0ELb0E"),
-            "march.cu": registers("march.cu", "ILi0E")}
+    kept = {src: registers(src, marker)
+            for src, marker in FLAGSHIP_MARKERS.items()}
     lo, hi = FLAGSHIP_FRAME_SPREAD_MS
     klo, khi = FLAGSHIP_KERNEL_SPREAD_MS
     info["flagship"] = {"registers_spill": kept,
@@ -1885,7 +2114,7 @@ def phase_full_featured(flagship):
                         "kernel_ms": flagship["ms"],
                         "pr3_frame_spread_ms": [lo, hi],
                         "pr3_kernel_spread_ms": [klo, khi]}
-    print(f"flagship instantiations' registers/spill {kept} (PR 3: "
+    print(f"flagship instantiations' registers/spill {kept} (pinned: "
           f"{FLAGSHIP_REGISTERS}); phase 4 frame {flagship['frame_ms']:.3f} "
           f"ms (PR 3's spread {lo}-{hi} ms), kernel {flagship['ms']:.3f} ms "
           f"(PR 3's {klo}-{khi} ms)")
@@ -1899,6 +2128,60 @@ def phase_full_featured(flagship):
     return info, entries
 
 
+# Phase 13's planted pairs for the min/max check: signed zeros, NaN of both
+# signs, infinities, denormals, ordinary values.
+MINMAX_VALUES = (0.0, -0.0, 1.0, -1.0, math.nan, -math.nan, math.inf,
+                 -math.inf, 1e-40, -1e-40, 1e-6, 0.25)
+
+
+def phase_census(kernels):
+    """Phase 13: the SASS census of every instantiation's march loop
+    (``tools/sass_census.py`` on this run's libraries), the contracted
+    counts against the census's FP32 arithmetic, and march_step.cuh's
+    one-instruction jmax / jmin against the compare-compare-select form
+    they replaced on planted pairs: equal bit for bit, or both NaN, except
+    the ties of opposite-sign zeros (reported)."""
+    census = sass_census.run()
+    print(f"census: {json.dumps(census)}")
+    fp32 = {k: v["counts"]["FFMA"] + v["counts"]["FMUL"]
+            + v["counts"]["FADD"] for k, v in census.items()}
+    print(f"census FP32 arithmetic (FFMA + FMUL + FADD) of each march loop: "
+          f"{json.dumps(fp32)}; counted operations per step: midpoint "
+          f"{OPS_PER_STEP} exact / {OPS_PER_STEP_FUSED} contracted, AB3 "
+          f"{OPS_PER_STEP_AB3} / {OPS_PER_STEP_AB3_FUSED}, jets term "
+          f"{OPS_PER_STEP_JETS} / {OPS_PER_STEP_JETS_FUSED}")
+    vals = torch.tensor(MINMAX_VALUES, dtype=torch.float32, device=DEV)
+    a = vals.repeat_interleave(len(MINMAX_VALUES))
+    b = vals.repeat(len(MINMAX_VALUES))
+    got = minmax_check(a, b)
+    torch.cuda.synchronize()
+    bits = got.view(torch.int32)
+    nan = torch.isnan(got)
+    zero_tie = (a == 0) & (b == 0) & (torch.signbit(a) != torch.signbit(b))
+    st = {"pairs": int(a.numel())}
+    for name, new, old in (("max", 0, 1), ("min", 2, 3)):
+        same = (bits[new] == bits[old]) | (nan[new] & nan[old])
+        st[f"{name}_differ"] = int((~same).sum())
+        st[f"{name}_differ_not_zero_tie"] = int((~same & ~zero_tie).sum())
+        st[f"{name}_nan_bits_differ"] = int(
+            (nan[new] & nan[old] & (bits[new] != bits[old])).sum())
+        st[f"{name}_zero_ties"] = [
+            [float(x), float(y), float(got[new, i]), float(got[old, i])]
+            for i, (x, y) in enumerate(zip(a.tolist(), b.tolist()))
+            if bool(zero_tie[i]) and bits[new, i] != bits[old, i]]
+    print(f"min/max, one FMNMX against compare-compare-select on planted "
+          f"pairs: {json.dumps(st)}")
+    if st["max_differ_not_zero_tie"] or st["min_differ_not_zero_tie"]:
+        raise AssertionError(f"jmax/jmin differ from the old form: {st}")
+    for e in kernels:
+        if e["name"] in ("render", "march") and e.get("ms"):
+            e["share_of_bound"] = e["bound_ms"] / e["ms"]
+            if e["share_of_bound"] > 1.0:
+                raise AssertionError(f"{e['name']} ({e.get('path')}) reads "
+                                     f"above its bound: {e}")
+    return {"census": census, "minmax": st}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1910,7 +2193,7 @@ def main() -> int:
     phase_build()
     peak = phase_peak()
     phase_short_parity()
-    phase_flagship_parity()
+    print(f"approx route: {json.dumps(phase_flagship_parity())}")
     kernel = phase_main_path()
     phase_march_parity()
     phase_grad_parity()
@@ -1929,6 +2212,7 @@ def main() -> int:
                     *full_kernels, peak]
     probes = phase_probes(kernels_line)
     print(f"probes: {json.dumps(probes)}")
+    phase_census(kernels_line)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

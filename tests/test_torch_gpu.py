@@ -29,10 +29,13 @@ from blackhole_simulation_tpu_torch.ops.march_adjoint import (
     renorm_discriminant,
     turning_point_states,
 )
+from blackhole_simulation_tpu_torch.ops import pallas_march
+from blackhole_simulation_tpu_torch.ops.march import ab3_renorm_plan
 from blackhole_simulation_tpu_torch.ops.march_grad import (
     grad_kernel_shape,
     march_grad,
     march_grad_kernel,
+    minmax_check,
     renorm_vjp_check,
     step_vjp_check,
 )
@@ -539,3 +542,161 @@ def test_kernel_shapes(cuda):
     for cfg, jets in ((dc.replace(CFG, multistep=True), None),
                       (CFG, JetParams())):
         assert march_kernel_shape(cfg, jets)["warps_per_sm"] >= 4
+
+
+# The approx_recip route (the step's reciprocals approximate, its
+# multiply-adds contracted) against the plain version at exact divides,
+# 480x270, 256 steps: all finite, mean |d| < 1e-3, under 1% of pixels with
+# a channel above 1e-2 (chip_smoke.py phase 3).
+def _approx_bars(k, p):
+    d = (k - p).abs()
+    assert bool(torch.isfinite(k).all())
+    assert float(d.mean()) < 1e-3
+    assert float((d.amax(dim=0) > 1e-2).float().mean()) < 0.01
+
+
+def _approx_scene(name):
+    kw = dict(max_steps=256, approx_recip=True)
+    if name == "flagship":
+        return _scene(480, 270, spin=0.999,
+                      features=Features(spectral_lut=True), **kw)
+    if name == "ab3":
+        return _scene(480, 270, spin=0.999,
+                      features=Features(spectral_lut=True), multistep=True,
+                      **kw)
+    scene = _branch_scene("jets" if name == "jets" else "all", 480, 270)
+    return dc.replace(scene, march_cfg=dc.replace(scene.march_cfg, **kw))
+
+
+@pytest.mark.parametrize("name", ["flagship", "ab3", "jets", "full"])
+def test_approx_route_render_instantiations(cuda, name):
+    row, st = kernel_inputs(_approx_scene(name), None, cuda)
+    assert st.cfg.approx_recip
+    k = render_planes_kernel(row, st)
+    p = render_planes(row, dc.replace(st, cfg=dc.replace(
+        st.cfg, approx_recip=False)))
+    _approx_bars(k, p)
+
+
+def _plain_march(yt0, thr, m, a, r_h, r_ph, cfg, jets=None, out=None):
+    return march_u_plain(yt0, thr, m, a, r_h, r_ph, cfg, jets)
+
+
+@pytest.mark.parametrize("multistep", [False, True])
+def test_approx_route_march_instantiations(cuda, multistep, monkeypatch):
+    """The staged render through the march kernel's approx_recip
+    instantiation against the same render with the plain march."""
+    scene = _scene(480, 270, spin=0.999, max_steps=256, approx_recip=True,
+                   multistep=multistep, fused=False)
+    before = march_u.launches
+    k = render_radiance(scene)
+    assert march_u.launches == before + 1
+    monkeypatch.setattr(pallas_march, "march_u", _plain_march)
+    p = render_radiance(scene)
+    _approx_bars(k.permute(2, 0, 1), p.permute(2, 0, 1))
+
+
+def test_approx_route_march_jets(cuda):
+    cfg = dc.replace(CFG, max_steps=256, approx_recip=True, fused=False,
+                     shadow_precull=False)
+    args = _march_args(cuda, cfg, 480, 270)
+    with torch.no_grad():
+        k = march_u(*args, cfg, JetParams())[8]
+        p = march_u_plain(*args, cfg, JetParams())[8]
+    _approx_bars(k.reshape(3, 270, 480), p.reshape(3, 270, 480))
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_gradient_replay_equals_forward(cuda, approx):
+    """The gradient kernel's replay lands on the forward march's steps:
+    every ray's hit, live steps and crossing count equal the march
+    kernel's, on both routes."""
+    cfg = dc.replace(CFG, max_steps=256, fused=False, approx_recip=approx)
+    args = _march_args(cuda, cfg, 128, 96, spin=0.999)
+    yt0, n = args[0], args[0].shape[1]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k = cfg.max_crossings
+    cts = [torch.randn(shape, generator=gen, device=cuda)
+           for shape in ((8, n), (k, n), (k, n), (k, n), (n,))]
+    replay = torch.full((3, n), -1, dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        fwd = march_u(*args, cfg)
+        march_grad_kernel(*args, cfg, *cts, fwd[7], replay=replay)
+    torch.cuda.synchronize()
+    for row, i in ((0, 1), (1, 2), (2, 6)):
+        assert torch.equal(replay[row], fwd[i]), row
+    assert int(fwd[6].sum()) > 0 and int(fwd[2].max()) > 16
+
+
+# Signed zeros, NaN of both signs, infinities, denormals, ordinary values.
+MINMAX_VALUES = (0.0, -0.0, 1.0, -1.0, math.nan, -math.nan, math.inf,
+                 -math.inf, 1e-40, -1e-40, 1e-6, 0.25)
+
+
+def test_minmax_on_planted_pairs(cuda):
+    """One FMNMX against the compare-compare-select form: the same bits, or
+    both NaN, on every pair but the ties of opposite-sign zeros, where IEEE
+    754's -0 < +0 holds (max(+0, -0) = +0, min(-0, +0) = -0)."""
+    vals = torch.tensor(MINMAX_VALUES, dtype=torch.float32, device=cuda)
+    a = vals.repeat_interleave(len(MINMAX_VALUES))
+    b = vals.repeat(len(MINMAX_VALUES))
+    got = minmax_check(a, b)
+    bits, nan = got.view(torch.int32), torch.isnan(got)
+    zero_tie = (a == 0) & (b == 0) & (torch.signbit(a) != torch.signbit(b))
+    for new, old in ((0, 1), (2, 3)):
+        same = (bits[new] == bits[old]) | (nan[new] & nan[old])
+        assert bool(same[~zero_tie].all()), new
+    assert bool(torch.isnan(got[:, torch.isnan(a) | torch.isnan(b)]).all())
+    tie = zero_tie.nonzero().flatten()
+    assert not bool(torch.signbit(got[0, tie]).any())
+    assert bool(torch.signbit(got[2, tie]).all())
+
+
+def _exact_route_bit_equal(row, st, cfg, cuda):
+    """The render kernel's planes and steps and every output row of the
+    march kernel bit-equal to their plain versions (exact divides): a
+    renormalization one step early or late moves p_r by the null
+    constraint's drift alone, which only bit equality sees."""
+    assert not st.cfg.approx_recip and not cfg.approx_recip
+    sk = torch.empty((st.height, st.width), dtype=torch.int32, device=cuda)
+    sp = torch.empty_like(sk)
+    k = render_planes_kernel(row, st, sk)
+    p = render_planes(row, st, sp)
+    assert torch.equal(sk, sp)
+    assert torch.equal(_bits(k), _bits(p))
+    args = _march_args(cuda, cfg)
+    with torch.no_grad():
+        k, p = march_u(*args, cfg), march_u_plain(*args, cfg)
+    for i, (a, b) in enumerate(zip(k, p)):
+        assert torch.equal(_bits(a), _bits(b)), i
+
+
+@pytest.mark.parametrize("renorm", [1, 3, 16])
+def test_renormalization_countdown_lands_on_the_same_steps(cuda, renorm):
+    """The counted-down renormalization at renormalize_every = 1, 3, 16,
+    exact divides: the render and march kernels equal their plain versions,
+    whose cadence is (i + 1) % renormalize_every == 0."""
+    row, st = kernel_inputs(_scene(renormalize_every=renorm), None, cuda)
+    _exact_route_bit_equal(row, st, dc.replace(
+        CFG, renormalize_every=renorm, fused=False), cuda)
+
+
+# AB3's renormalization regimes (tests/test_torch_ab3.py): (max_steps,
+# renormalize_every, exit_check_every).
+AB3_REGIMES = {"default-16-8": (48, 16, 8), "steps-below-exit": (40, 20, 64),
+               "no-renorm-12-8": (48, 12, 8), "tail-60-16-8": (60, 16, 8)}
+
+
+@pytest.mark.parametrize("regime", sorted(AB3_REGIMES))
+def test_ab3_renormalization_countdown_and_tail(cuda, regime):
+    """AB3's countdown starts after its bootstrap (i >= 2) and its tail
+    rule renormalizes once more after the march: both kernels equal their
+    plain versions in every regime of ops/march.py::ab3_renorm_plan."""
+    steps, renorm, exit_every = AB3_REGIMES[regime]
+    kw = dict(max_steps=steps, renormalize_every=renorm,
+              exit_check_every=exit_every, multistep=True)
+    assert ab3_renorm_plan(dc.replace(CFG, **kw)) == {
+        "default-16-8": (16, False), "steps-below-exit": (0, False),
+        "no-renorm-12-8": (0, False), "tail-60-16-8": (16, True)}[regime]
+    row, st = kernel_inputs(_scene(**kw), None, cuda)
+    _exact_route_bit_equal(row, st, dc.replace(CFG, fused=False, **kw), cuda)
