@@ -17,7 +17,15 @@ What runs:
 - inverse rendering (``parallel``): ``make_inverse_step``,
   ``make_ad_inverse_step``, ``ad_inverse_render`` and ``inverse_render``
   differentiate the staged render, with the march kernel forward and the
-  gradient kernel (``csrc/march_grad.cu``) backward (``march_rows_ad``).
+  gradient kernel (``csrc/march_grad.cu``) backward (``march_rows_ad``);
+  ``make_fd_inverse_step`` / ``fd_inverse_render`` (``inverse_render``'s
+  ``method="fd"``) take central differences of nine forward passes, each
+  one march-kernel launch;
+- the float64 oracle (``geodesic``): the adaptive RKF45 integrator in plain
+  PyTorch on the inputs' device (``oracle_march``; on a GPU its trials run
+  as captured CUDA graphs), ``render.pipeline.oracle_render`` and
+  ``shade_sample`` in float64, the ground truth the fast paths are held
+  against (``chip_smoke.py`` phase 14).
 
 The entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions. The
@@ -25,7 +33,13 @@ package imports torch and numpy, never JAX.
 
 Layout (each module names its JAX counterpart):
 
-- ``geometry`` -- Kerr scalars: host float64, and differentiable radii.
+- ``geometry`` -- Kerr scalars: host float64, and differentiable radii;
+                  the tensor metrics (both charts), tensor algebra,
+                  Christoffel symbols and radii of the oracle layer.
+- ``geodesic`` -- Hamilton's equations in closed form, the RKF45 / RK4 /
+                  implicit-midpoint steppers and step controller, the
+                  invariants, the batched driver ``integrate`` and the
+                  oracle march.
 - ``configs``  -- the simulation parameter schema, presets and
                   ``scene_from_params``.
 - ``models``   -- the NRS far-field MLP.

@@ -2,7 +2,8 @@
 
 Counterpart of ``blackhole_simulation_tpu/ops/ks_kernel.py`` (``w_floor``
 :253, ``_geom_u`` :287, ``ks_rhs_rows`` :382, ``ks_symplectic_step_rows``
-:433, ``ks_renormalize_pr`` :465, ``ks_renormalize_u`` :369). With u = cos(theta) the Hamiltonian
+:433, ``ks_renormalize_pr`` :465, ``ks_renormalize_u`` :369,
+``theta_state_to_u`` / ``u_state_to_theta`` :270-285). With u = cos(theta) the Hamiltonian
 
     H = 1/2 [ -(1+h) p_t^2 + 2 h p_t p_r + (D/S) p_r^2 + (2a/S) p_r p_phi
               + (w/S) p_u^2 + p_phi^2 / (S w) ],
@@ -19,9 +20,15 @@ from __future__ import annotations
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import (
+    arccos,
+    clip,
+    cos,
     maximum,
     sqrt,
 )
+
+# The chart maps' floor for sin^2(theta) = 1 - u^2, in every dtype.
+_W_EPS = 1e-12
 
 
 def w_floor(dtype) -> float:
@@ -141,3 +148,20 @@ def ks_renormalize_u(m, a, yt):
     projected onto the null shell; differentiable (autograd)."""
     new_pr = ks_renormalize_pr(m, a, yt[1], yt[2], yt[4], yt[5], yt[6], yt[7])
     return torch.cat([yt[:5], new_pr[None], yt[6:]], dim=0)
+
+
+def theta_state_to_u(yt: torch.Tensor) -> torch.Tensor:
+    """(8, N) state rows with theta, p_theta -> u = cos(theta),
+    p_u = -p_theta / sin(theta)."""
+    c = cos(yt[2])
+    s = sqrt(maximum(1.0 - c * c, _W_EPS))
+    return torch.stack([yt[0], yt[1], c, yt[3], yt[4], yt[5], -yt[6] / s,
+                        yt[7]])
+
+
+def u_state_to_theta(yt: torch.Tensor) -> torch.Tensor:
+    """(8, N) u-chart rows -> theta = arccos(u), p_theta = -p_u sin(theta)."""
+    u = clip(yt[2], -1.0, 1.0)
+    s = sqrt(maximum(1.0 - u * u, _W_EPS))
+    return torch.stack([yt[0], yt[1], arccos(u), yt[3], yt[4], yt[5],
+                        -yt[6] * s, yt[7]])

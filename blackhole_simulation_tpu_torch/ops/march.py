@@ -29,7 +29,6 @@ import torch
 from blackhole_simulation_tpu_torch._elementwise import (
     clip,
     const,
-    div_c,
     maximum,
     sqrt,
 )
@@ -42,22 +41,13 @@ from blackhole_simulation_tpu_torch.render.march import (
     HIT_ESCAPE,
     HIT_HORIZON,
     HIT_NONE,
+    adaptive_dlam,
 )
 
 
 def step_size(a, r_h, r_ph, cfg, r, u, pu):
     """The curvature-adaptive, pole-throttled step size dlam."""
-    inv_rph = 1.0 / maximum(r_ph, 1e-3)
-
-    base = (r - r_h) * cfg.step_rate
-    far = maximum(div_c(r, cfg.far_boost_radius), 1.0)
-    prox = clip(torch.abs(r - r_ph) * inv_rph, 0.25, 1.0)
-    if cfg.far_step_cap_rate > 0.0:
-        cap = maximum(cfg.far_step_cap_rate * r, cfg.max_step)
-    else:
-        cap = cfg.max_step
-    dlam = clip(base * far * prox, cfg.min_step, cap)
-
+    dlam = adaptive_dlam(r, r_h, r_ph, cfg)
     w = maximum(1.0 - u * u, w_floor(r.dtype))
     sig = r * r + a * a * u * u
     du_rate = torch.abs(w * pu / sig) + 1e-12

@@ -118,21 +118,33 @@ _P_TOTAL = _P_NRS_W + _NRS_FLAT
 _P_PAD = -(-_P_TOTAL // 128) * 128
 
 
+@functools.lru_cache(maxsize=64)
+def _row_camera(cam, m: float, a: float):
+    """The row's camera scalars (``camera_scalars_t`` of float32 mass and
+    spin) as tuples of floats, cached: a scene's row is built every
+    sample, and these scalar torch operations would cost the host more
+    than the rest of the row."""
+    from blackhole_simulation_tpu_torch.render.camera import camera_scalars_t
+
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    return tuple(tuple(x.double().reshape(-1).tolist())
+                 for x in camera_scalars_t(cam, f32(m), f32(a)))
+
+
 def build_param_row(scene, jitter=None) -> np.ndarray:
     """The kernel's (_P_PAD,) float32 parameter row for one sample.
 
     Built in float64 and cast once. Mass and spin are first rounded to
     float32, as the JAX package casts them before it builds its row, and
-    the radii come from them in float32 arithmetic, as the JAX package's
-    do; the camera values stay float64 until the cast.
+    the radii and the camera tetrad (``camera_scalars_t``, the staged
+    path's) come from them in float32 arithmetic, as the JAX package's do;
+    the camera's own values stay float64 until the cast.
     ``scene.march_cfg`` must already carry render_sample's precull
     adjustments. The overlay block
     holds the line width (float32 arithmetic, as the JAX package forms it)
     and ``bardeen_shadow``'s 64-point curve; the NRS block, when the scene
     has weights and the feature on, b_min, theta / pi and the flat weights.
     """
-    from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
-    from blackhole_simulation_tpu_torch.render.camera import camera_scalars
     from blackhole_simulation_tpu_torch.render.precull import (
         _eta_crit_cheb_coeffs,
     )
@@ -144,8 +156,8 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
     cfg = scene.march_cfg
     m = float(np.float32(scene.bh.mass))
     a = float(np.float32(scene.bh.spin))
-    bh = Kerr(mass=m, spin=a)
-    c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s = camera_scalars(cam, bh)
+    (c0, c_r, c_th, c_ph, (k1,), (k2,), (roll_c,),
+     (roll_s,)) = _row_camera(cam, m, a)
     u0 = math.cos(cam.theta)
     s0 = math.sqrt(max(1.0 - math.cos(cam.theta) ** 2, 1e-12))
     jx, jy = (0.0, 0.0) if jitter is None else (float(jitter[0]), float(jitter[1]))

@@ -3,18 +3,26 @@ disk parameters from a target image by pixel gradients through the march.
 
 Counterpart of ``blackhole_simulation_tpu/parallel/train.py``:
 ``InverseParams`` (:33), ``_forward`` (:52), ``init_opt_state`` (:86),
-``make_inverse_step`` (:92-182, without a mesh), ``make_ad_inverse_step``
-(:388-438, without a mesh), ``_adam_update`` (:473), ``ad_inverse_render``
-(:500) and ``inverse_render`` (:527, methods ``"ad"`` and ``"ad-step"``).
+``make_inverse_step`` (:92-182, without a mesh), the central-difference
+driver (:236-385, without a mesh: ``_FD_FIELDS``, ``_FD_H``,
+``_params_to_vec``, ``_vec_to_params``, ``fd_state_init``,
+``fd_state_params``, ``make_fd_inverse_step``, ``fd_inverse_render``),
+``make_ad_inverse_step`` (:388-438, without a mesh), ``_adam_update``
+(:473), ``ad_inverse_render`` (:500) and ``inverse_render`` (:527, methods
+``"ad"``, ``"fd"`` and ``"ad-step"``).
 
 The forward renders the parameterized scene through ``march_rows_ad``: the
 march kernel (``csrc/march.cu``) forward and the gradient kernel
 (``csrc/march_grad.cu``) backward, with camera ray birth, the null
 renormalization and the shading differentiated by autograd around them.
-The steps run on ``cuda`` unless the caller passes ``device="cpu"`` (the
-kernels' plain versions); with no CUDA device and no explicit CPU request
-they raise. A mesh (the sharded steps) and ``method="fd"`` (the central-
-difference optimizer) are not ported and raise NotImplementedError.
+The central-difference step evaluates the loss at the centre and at +-h
+on each of the four parameters: nine forward passes under ``no_grad``,
+each one launch of the march kernel (the JAX twin vmaps the nine into one
+program; each variant here has its own spin, and the kernel takes its
+scalars per launch). The steps run on ``cuda`` unless the caller passes
+``device="cpu"`` (the kernels' plain versions); with no CUDA device and no
+explicit CPU request they raise. A mesh (the sharded steps) is not ported
+and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -186,6 +194,108 @@ def make_inverse_step(scene, mesh=None, lr=2e-2, b1=0.9, b2=0.999, eps=1e-8,
     return step
 
 
+# The central-difference driver. Reverse-mode AD through a long chaotic
+# march returns gradients of random sign on near-critical rays (the JAX
+# twin's rationale, train.py:222-236), while the loss itself is a smooth
+# basin: central differences of the loss value at h ~ the basin scale
+# converge. The state vector and Adam moments are float32.
+
+_FD_FIELDS = _FIELDS
+_FD_H = (0.008, 0.008, 0.05, 0.05)
+
+
+def _params_to_vec(p: InverseParams) -> torch.Tensor:
+    return torch.stack([getattr(p, f) for f in _FD_FIELDS])
+
+
+def _vec_to_params(v: torch.Tensor) -> InverseParams:
+    return InverseParams(**{f: v[i] for i, f in enumerate(_FD_FIELDS)})
+
+
+def fd_state_init(params: InverseParams):
+    """The central-difference driver's checkpointable state:
+    (vec (4,), (m, v, step count))."""
+    vec = _params_to_vec(params).to(torch.float32)
+    zeros = torch.zeros(4, dtype=torch.float32, device=vec.device)
+    return (vec, (zeros, zeros,
+                  torch.zeros((), dtype=torch.int32, device=vec.device)))
+
+
+def fd_state_params(state) -> InverseParams:
+    """InverseParams of a central-difference driver state."""
+    return _vec_to_params(state[0])
+
+
+def make_fd_inverse_step(scene, mesh=None, lr=3e-2, b1=0.9, b2=0.999,
+                         eps=1e-8, total_steps: int | None = None, h=_FD_H,
+                         device=None):
+    """One central-difference Adam step:
+    ((vec, opt_state), target) -> ((vec', opt_state'), loss). The loss is
+    the per-pixel MSE over the row-major frame divided by the pixel count,
+    at the centre and at +-h along each parameter (nine forward passes);
+    the gradient is the central difference; Adam with the cosine lr
+    schedule when ``total_steps`` is set, and spin clipped to +-0.998."""
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    n_pix = scene.camera.width * scene.camera.height
+    h_vec = torch.tensor(h, dtype=torch.float32, device=device)
+    offsets = torch.cat([torch.zeros((1, 4), dtype=torch.float32,
+                                     device=device),
+                         torch.diag(h_vec), -torch.diag(h_vec)])
+    pix_ids = torch.arange(n_pix, device=device)
+
+    def step(state, target):
+        vec, (m_t, v_t, t) = state
+        target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
+        target_flat = target_flat.to(torch.float32)
+        with torch.no_grad():
+            ls = torch.stack([
+                torch.sum((_forward(_vec_to_params(v), scene, pix_ids)
+                           - target_flat) ** 2)
+                for v in vec[None, :] + offsets
+            ]) / n_pix
+        g = (ls[1:5] - ls[5:9]) / (2.0 * h_vec)
+        t = t + 1
+        tf = t.to(torch.float32)
+        if total_steps is not None:
+            frac = torch.clamp(tf / total_steps, max=1.0)
+            lr_t = lr * (0.1 + 0.45 * (1.0 + torch.cos(math.pi * frac)))
+        else:
+            lr_t = lr
+        m_t = b1 * m_t + (1 - b1) * g
+        v_t = b2 * v_t + (1 - b2) * g * g
+        mhat = m_t / (1 - torch.pow(b1, tf))
+        vhat = v_t / (1 - torch.pow(b2, tf))
+        vec = vec - lr_t * mhat / (torch.sqrt(vhat) + eps)
+        vec = torch.cat([torch.clamp(vec[:1], -0.998, 0.998), vec[1:]])
+        return (vec, (m_t, v_t, t)), ls[0]
+
+    return step
+
+
+def fd_inverse_render(scene, target, n_steps=40, mesh=None, lr=3e-2,
+                      init: InverseParams | None = None, device=None):
+    """Central-difference inverse rendering: ``n_steps`` of
+    ``make_fd_inverse_step`` with the cosine schedule over them. Returns
+    (params, loss_history)."""
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    params = (init or InverseParams.init()).to(device)
+    step = make_fd_inverse_step(scene, None, lr, total_steps=n_steps,
+                                device=device)
+    state = fd_state_init(params)
+    target = torch.as_tensor(target, device=device)
+    losses = []
+    for _ in range(n_steps):
+        state, loss = step(state, target)
+        losses.append(float(loss))
+    return fd_state_params(state), losses
+
+
 def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
                          march_steps: int = 64, clip: float = 0.03,
                          total_steps: int | None = None, device=None):
@@ -259,14 +369,16 @@ def inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
                    init: InverseParams | None = None, method: str = "ad",
                    ad_stages=_AD_STAGES, device=None):
     """Run the inverse optimization; returns (params, loss_history).
-    ``method``: "ad" (the curriculum, ad_inverse_render) or "ad-step" (the
-    raw step at the scene's own config); "fd" is not ported."""
+    ``method``: "ad" (the curriculum, ad_inverse_render), "fd" (central
+    differences, fd_inverse_render, lr 3e-2 by default) or "ad-step" (the
+    raw step at the scene's own config)."""
     from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
 
     _no_mesh(mesh)
     if method == "fd":
-        raise NotImplementedError(
-            "not ported yet: the central-difference optimizer (method='fd')")
+        return fd_inverse_render(scene, target, n_steps, None,
+                                 3e-2 if lr is None else lr, init,
+                                 device=device)
     if method == "ad":
         return ad_inverse_render(scene, target, n_steps, None, lr, init,
                                  stages=ad_stages, device=device)

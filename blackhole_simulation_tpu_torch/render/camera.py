@@ -1,19 +1,22 @@
 """Pinhole camera and the scalar prologue of per-pixel ray construction.
 
 Counterpart of ``blackhole_simulation_tpu/render/camera.py``: ``Camera``
-(:41), ``zamo_tetrad`` (:64), ``bl_to_ks_momentum`` (:89), ``pixel_grid``
-(:100), ``camera_rays_u`` (:134), ``camera_rays`` (:181, the theta-form
-(N, 8) rows the staged shadow overlay reads), ``camera_scalars`` (:193) and
-``_momenta_from_ndc`` (:215). The camera sits at one point, so its tetrad is
-a handful of scalars:
+(:41), ``zamo_tetrad`` (:64) and ``bl_to_ks_momentum`` (:89) as
+``_zamo_tetrad_t`` and ``_lower_to_ks``, ``pixel_grid`` (:100),
+``camera_rays_indexed`` (:117), ``camera_rays_u`` (:134), ``camera_rays``
+(:181, the theta-form (N, 8) rows the staged shadow overlay and the oracle
+read), ``camera_scalars`` (:193) as ``camera_scalars_t``, and
+``_momenta_from_ndc`` (:215). The camera sits at one point, so its tetrad
+is a handful of scalars: ``camera_scalars_t`` computes them from 0-d
+tensors, differentiably in spin, mass and the camera's theta, rounding each
+operation in the dtype JAX's weak typing gives it, and casts them to the
+rays' dtype once. The render kernel's parameter row (``ops/render.py``)
+and the staged and training paths' rays take the same scalars.
 
-* ``camera_scalars`` computes them on the host in float64 with numpy for the
-  render kernel's parameter row (``ops/render.py``);
-* ``camera_scalars_t`` computes them from 0-d tensors in float64 torch,
-  differentiably in spin, mass and the camera's theta, and casts them to
-  float32 once; ``camera_rays_u`` builds the staged path's and the training
-  path's (8, N) rays from them with float32 per-pixel arithmetic in the JAX
-  package's order.
+Every ray builder takes ``dtype``: float32 (the default, the render and
+training paths) rounds as the JAX package's float32 route does; float64
+(the oracle's route, JAX's ``camera_rays(cam, bh, dtype=float64)``) never
+rounds through float32.
 """
 
 from __future__ import annotations
@@ -24,14 +27,14 @@ import math
 import numpy as np
 import torch
 
-from blackhole_simulation_tpu_torch._elementwise import const, div_c, sqrt
-
-from blackhole_simulation_tpu_torch.geometry.metrics import (
-    Kerr,
-    kerr_cov_bl,
-    kerr_delta,
-    kerr_sigma,
+from blackhole_simulation_tpu_torch._elementwise import (
+    const,
+    cos,
+    div_c,
+    sin,
+    sqrt,
 )
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,84 +61,32 @@ class Camera:
                    height=int(height))
 
 
-def zamo_tetrad(m, a, r, theta):
-    """ZAMO orthonormal tetrad (u, e_r, e_th, e_ph) in the BL coordinate
-    basis, each a contravariant (4,) float64 vector."""
-    s = np.sin(theta)
-    s2 = max(s * s, 1e-12)
-    sig = kerr_sigma(a, r, theta)
-    delta = kerr_delta(m, a, r)
-    r2a2 = r * r + a * a
-    big_a = r2a2 * r2a2 - a * a * delta * s2
-    alpha = np.sqrt(max(delta * sig / big_a, 1e-30))
-    omega = 2.0 * m * a * r / big_a
-    u = np.array([1.0 / alpha, 0.0, 0.0, omega / alpha])
-    e_r = np.array([0.0, np.sqrt(max(delta / sig, 1e-30)), 0.0, 0.0])
-    e_th = np.array([0.0, 0.0, 1.0 / np.sqrt(sig), 0.0])
-    e_ph = np.array(
-        [0.0, 0.0, 0.0, np.sqrt(max(sig / big_a, 1e-30)) / np.sqrt(s2)]
-    )
-    return u, e_r, e_th, e_ph
-
-
-def bl_to_ks_momentum(m, a, r, p):
-    """Covariant momentum BL -> ingoing KS:
-    p_r += -(2Mr/Delta) p_t - (a/Delta) p_phi. ``p``: (4,) float64."""
-    delta = kerr_delta(m, a, r)
-    out = np.array(p, np.float64)
-    out[1] += -(2.0 * m * r / delta) * p[0] - (a / delta) * p[3]
-    return out
-
-
-def camera_scalars(camera: Camera, bh: Kerr):
-    """(c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s) in float64: the
-    KS-lowered ZAMO tetrad coefficient 4-vectors and the NDC scale and
-    rotation. A pixel's covariant momentum is
-    c0 + n_r c_r + n_th c_th + n_ph c_ph for its unit direction n. k1 is
-    the float32 product of float32 tan(fov/2) and the aspect ratio, as the
-    JAX package forms it (the float64 product can differ in the last bit,
-    which the start offset's hash would turn into another offset)."""
-    m, a = float(bh.mass), float(bh.spin)
-    r0, th0 = camera.r, camera.theta
-    aspect = camera.width / camera.height
-    half = math.tan(camera.fov / 2.0)
-    g_bl = kerr_cov_bl(m, a, r0, th0)
-    coeffs = [
-        bl_to_ks_momentum(m, a, r0, g_bl @ v)
-        for v in zamo_tetrad(m, a, r0, th0)
-    ]
-    c0, c_r, c_th, c_ph = coeffs
-    k1 = float(np.float32(half) * np.float32(aspect))
-    return (c0, c_r, c_th, c_ph, k1, half,
-            math.cos(camera.roll), math.sin(camera.roll))
-
-
 def _zamo_tetrad_t(m, a, r, theta):
-    """zamo_tetrad on float64 0-d tensors: (u, e_r, e_th, e_ph) as lists of
-    4 components (None for a structural zero)."""
-    s = torch.sin(theta)
+    """zamo_tetrad on 0-d tensors: (u, e_r, e_th, e_ph) as lists of 4
+    components (None for a structural zero), in the inputs' dtype."""
+    s = sin(theta)
     s2 = torch.clamp(s * s, min=1e-12)
-    c = torch.cos(theta)
+    c = cos(theta)
     sig = r * r + a * a * c * c
     delta = r * r - 2.0 * m * r + a * a
     r2a2 = r * r + a * a
     big_a = r2a2 * r2a2 - a * a * delta * s2
-    alpha = torch.sqrt(torch.clamp(delta * sig / big_a, min=1e-30))
+    alpha = sqrt(torch.clamp(delta * sig / big_a, min=1e-30))
     omega = 2.0 * m * a * r / big_a
     u = [1.0 / alpha, None, None, omega / alpha]
-    e_r = [None, torch.sqrt(torch.clamp(delta / sig, min=1e-30)), None, None]
-    e_th = [None, None, 1.0 / torch.sqrt(sig), None]
+    e_r = [None, sqrt(torch.clamp(delta / sig, min=1e-30)), None, None]
+    e_th = [None, None, 1.0 / sqrt(sig), None]
     e_ph = [None, None, None,
-            torch.sqrt(torch.clamp(sig / big_a, min=1e-30)) / torch.sqrt(s2)]
+            sqrt(torch.clamp(sig / big_a, min=1e-30)) / sqrt(s2)]
     return u, e_r, e_th, e_ph
 
 
 def _lower_to_ks(m, a, r, theta, v):
-    """g_BL v, then the BL -> KS covector shift of p_r, on float64 0-d
-    tensors; ``v`` as from _zamo_tetrad_t."""
-    s = torch.sin(theta)
+    """g_BL v, then the BL -> KS covector shift of p_r, on 0-d tensors;
+    ``v`` as from _zamo_tetrad_t."""
+    s = sin(theta)
     s2 = s * s
-    c = torch.cos(theta)
+    c = cos(theta)
     sig = r * r + a * a * c * c
     delta = r * r - 2.0 * m * r + a * a
     two_mr = 2.0 * m * r
@@ -144,7 +95,7 @@ def _lower_to_ks(m, a, r, theta, v):
     g_rr = sig / delta
     g_thth = sig
     g_phph = (r * r + a * a + two_mr * a * a * s2 / sig) * s2
-    zero = torch.zeros((), dtype=torch.float64, device=m.device)
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
     vt, vr, vth, vph = (zero if x is None else x for x in v)
     p = [g_tt * vt + g_tph * vph, g_rr * vr, g_thth * vth,
          g_tph * vt + g_phph * vph]
@@ -152,39 +103,61 @@ def _lower_to_ks(m, a, r, theta, v):
     return p
 
 
-def camera_scalars_t(camera: Camera, mass, spin, theta=None):
-    """(c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s) as float32 tensors on
+def camera_scalars_t(camera: Camera, mass, spin, theta=None,
+                     dtype=torch.float32):
+    """(c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s) as ``dtype`` tensors on
     ``mass``'s device: each c a (4,) tensor, the rest 0-d. ``theta``
     overrides ``camera.theta`` (a differentiable 0-d tensor in training).
-    The tetrad scalars are computed in float64 and cast once; k1 is the
-    float32 product of tan(fov/2) and the aspect ratio, as the JAX package
-    forms it."""
+    The tetrad is computed in the dtype of the tensors among mass, spin and
+    ``theta`` (float64 if none is one); numbers and the camera's fields
+    take that dtype, as JAX's weakly typed Python scalars do. So the render
+    and training paths, whose mass and spin are float32, round the tetrad
+    in float32 where the JAX package does, and the oracle's float64 route
+    never rounds through float32. The scalars are cast to ``dtype`` once;
+    k1 is the product of tan(fov/2) and the aspect ratio in ``dtype``, as
+    the JAX package forms it."""
     dev = torch.as_tensor(mass).device
-    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
-    m = f64(mass) if not torch.is_tensor(mass) else mass.double()
-    a = f64(spin) if not torch.is_tensor(spin) else spin.double()
-    th = (f64(camera.theta) if theta is None
-          else (theta.double() if torch.is_tensor(theta) else f64(theta)))
-    r0 = f64(camera.r)
-    coeffs = [torch.stack(_lower_to_ks(m, a, r0, th, v)).float()
+    tensors = [x for x in (mass, spin, theta) if torch.is_tensor(x)]
+    ct = torch.float64
+    if tensors:
+        ct = tensors[0].dtype
+        for x in tensors[1:]:
+            ct = torch.promote_types(ct, x.dtype)
+    weak = lambda x: (x.to(ct) if torch.is_tensor(x)
+                      else torch.as_tensor(x, dtype=ct, device=dev))
+    m, a = weak(mass), weak(spin)
+    th = weak(camera.theta if theta is None else theta)
+    r0 = weak(camera.r)
+    coeffs = [torch.stack(_lower_to_ks(m, a, r0, th, v)).to(dtype)
               for v in _zamo_tetrad_t(m, a, r0, th)]
-    f32 = lambda x: torch.tensor(np.float32(x), device=dev)
-    half = f32(math.tan(camera.fov / 2.0))
-    k1 = half * f32(camera.width / camera.height)
-    return (*coeffs, k1, half, f32(math.cos(camera.roll)),
-            f32(math.sin(camera.roll)))
+    rounded = lambda x: torch.tensor(x, dtype=torch.float64,
+                                     device=dev).to(dtype)
+    half = rounded(math.tan(camera.fov / 2.0))
+    k1 = half * rounded(camera.width / camera.height)
+    return (*coeffs, k1, half, rounded(math.cos(camera.roll)),
+            rounded(math.sin(camera.roll)))
 
 
-def pixel_grid(width: int, height: int, jitter=None, device=None):
+def _jitter_values(jitter, dtype):
+    """The (2,) sub-pixel offset as numbers rounded to ``dtype``."""
+    if jitter is None:
+        return 0.0, 0.0
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return float(np_dtype(jitter[0])), float(np_dtype(jitter[1]))
+
+
+def pixel_grid(width: int, height: int, jitter=None, device=None,
+               dtype=torch.float32):
     """Normalized pixel coordinates (ndc_x, ndc_y) in [-1, 1], y up, as
-    (H, W) float32 tensors; ``jitter`` is a (2,) sub-pixel offset."""
-    xs = div_c(torch.arange(width, dtype=torch.float32, device=device) + 0.5,
+    (H, W) ``dtype`` tensors; ``jitter`` is a (2,) sub-pixel offset."""
+    xs = div_c(torch.arange(width, dtype=dtype, device=device) + 0.5,
                float(width))
-    ys = div_c(torch.arange(height, dtype=torch.float32, device=device) + 0.5,
+    ys = div_c(torch.arange(height, dtype=dtype, device=device) + 0.5,
                float(height))
     if jitter is not None:
-        xs = xs + div_c(const(xs, float(np.float32(jitter[0]))), float(width))
-        ys = ys + div_c(const(ys, float(np.float32(jitter[1]))), float(height))
+        jx, jy = _jitter_values(jitter, dtype)
+        xs = xs + div_c(const(xs, jx), float(width))
+        ys = ys + div_c(const(ys, jy), float(height))
     ndc_x = xs * 2.0 - 1.0
     ndc_y = 1.0 - ys * 2.0
     return torch.meshgrid(ndc_x, ndc_y, indexing="xy")
@@ -204,38 +177,53 @@ def _momenta_from_ndc(scalars, nx, ny):
             for j in range(4)]
 
 
+def _ndc_of_ids(camera: Camera, pix_ids, jitter, dtype, device):
+    """NDC coordinates of flat row-major pixel ids."""
+    pix_ids = torch.as_tensor(pix_ids, device=device)
+    ix = (pix_ids % camera.width).to(dtype)
+    iy = (pix_ids // camera.width).to(dtype)
+    jx, jy = _jitter_values(jitter, dtype)
+    nx = div_c(ix + 0.5 + jx, float(camera.width)) * 2.0 - 1.0
+    ny = 1.0 - div_c(iy + 0.5 + jy, float(camera.height)) * 2.0
+    return nx, ny
+
+
+def _ndc(camera: Camera, pix_ids, jitter, dtype, device):
+    """NDC coordinates of the whole frame (row-major) or of ``pix_ids``."""
+    if pix_ids is not None:
+        return _ndc_of_ids(camera, pix_ids, jitter, dtype, device)
+    nx, ny = pixel_grid(camera.width, camera.height, jitter, device, dtype)
+    return nx.reshape(-1), ny.reshape(-1)
+
+
+def _camera_value(x, dtype):
+    """A camera field rounded to ``dtype``, as a number."""
+    return float(np.float32(x)) if dtype == torch.float32 else float(x)
+
+
 def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
-                  theta=None) -> torch.Tensor:
-    """(8, N) float32 u-chart null-ray rows (t, r, u, phi, p_t, p_r, p_u,
-    p_phi) normalized to p_t = -1, on ``mass``'s device: the whole frame in
-    row-major order, or the flat row-major pixel ids ``pix_ids``.
+                  theta=None, dtype=torch.float32) -> torch.Tensor:
+    """(8, N) u-chart null-ray rows (t, r, u, phi, p_t, p_r, p_u, p_phi)
+    normalized to p_t = -1, in ``dtype`` on ``mass``'s device: the whole
+    frame in row-major order, or the flat row-major pixel ids ``pix_ids``.
     Differentiable in ``mass``, ``spin`` and ``theta`` (which overrides
     ``camera.theta``)."""
     dev = torch.as_tensor(mass).device
-    scalars = camera_scalars_t(camera, mass, spin, theta)
-    if pix_ids is None:
-        nx, ny = pixel_grid(camera.width, camera.height, jitter, dev)
-        nx, ny = nx.reshape(-1), ny.reshape(-1)
-    else:
-        pix_ids = torch.as_tensor(pix_ids, device=dev)
-        ix = (pix_ids % camera.width).to(torch.float32)
-        iy = (pix_ids // camera.width).to(torch.float32)
-        jx = 0.0 if jitter is None else float(np.float32(jitter[0]))
-        jy = 0.0 if jitter is None else float(np.float32(jitter[1]))
-        nx = div_c(ix + 0.5 + jx, float(camera.width)) * 2.0 - 1.0
-        ny = 1.0 - div_c(iy + 0.5 + jy, float(camera.height)) * 2.0
+    scalars = camera_scalars_t(camera, mass, spin, theta, dtype)
+    nx, ny = _ndc(camera, pix_ids, jitter, dtype, dev)
     p = _momenta_from_ndc(scalars, nx, ny)
     inv = 1.0 / (-p[0])
     th = (torch.as_tensor(camera.theta, dtype=torch.float64, device=dev)
-          if theta is None else torch.as_tensor(theta).double())
-    u0 = torch.cos(th).float()
-    s0 = torch.sqrt(torch.clamp(1.0 - torch.cos(th) ** 2, min=1e-12)).float()
+          if theta is None else torch.as_tensor(theta))
+    c0 = cos(th)
+    u0 = c0.to(dtype)
+    s0 = sqrt(torch.clamp(1.0 - c0 * c0, min=1e-12)).to(dtype)
     zero = torch.zeros_like(nx)
     return torch.stack([
         zero,
-        zero + float(np.float32(camera.r)),
+        zero + _camera_value(camera.r, dtype),
         zero + u0,
-        zero + float(np.float32(camera.phi)),
+        zero + _camera_value(camera.phi, dtype),
         zero - 1.0,
         p[1] * inv,
         -(p[2] * inv) / s0,
@@ -243,20 +231,33 @@ def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
     ])
 
 
-def camera_rays(camera: Camera, mass, spin, jitter=None) -> torch.Tensor:
-    """(H*W, 8) float32 theta-chart null-ray states (t, r, theta, phi, p_t,
-    p_r, p_theta, p_phi) in row-major pixel order, momenta not normalized,
-    on ``mass``'s device: the JAX package's legacy layout, which the staged
-    shadow overlay reads its conserved quantities from."""
+def _theta_rays(camera: Camera, mass, spin, pix_ids, jitter, dtype):
+    """(N, 8) theta-chart states of the frame or of ``pix_ids``."""
     dev = torch.as_tensor(mass).device
-    scalars = camera_scalars_t(camera, mass, spin)
-    nx, ny = pixel_grid(camera.width, camera.height, jitter, dev)
-    p = _momenta_from_ndc(scalars, nx.reshape(-1), ny.reshape(-1))
+    scalars = camera_scalars_t(camera, mass, spin, dtype=dtype)
+    nx, ny = _ndc(camera, pix_ids, jitter, dtype, dev)
+    p = _momenta_from_ndc(scalars, nx, ny)
     zero = torch.zeros_like(p[0])
     return torch.stack([
         zero,
-        zero + float(np.float32(camera.r)),
-        zero + float(np.float32(camera.theta)),
-        zero + float(np.float32(camera.phi)),
+        zero + _camera_value(camera.r, dtype),
+        zero + _camera_value(camera.theta, dtype),
+        zero + _camera_value(camera.phi, dtype),
         p[0], p[1], p[2], p[3],
     ], dim=-1)
+
+
+def camera_rays(camera: Camera, mass, spin, jitter=None,
+                dtype=torch.float32) -> torch.Tensor:
+    """(H*W, 8) theta-chart null-ray states (t, r, theta, phi, p_t, p_r,
+    p_theta, p_phi) in row-major pixel order, momenta not normalized, in
+    ``dtype`` on ``mass``'s device: the JAX package's legacy layout, which
+    the staged shadow overlay and the oracle read."""
+    return _theta_rays(camera, mass, spin, None, jitter, dtype)
+
+
+def camera_rays_indexed(camera: Camera, mass, spin, pix_ids, jitter=None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """(len(pix_ids), 8) theta-chart states of the flat row-major pixel ids
+    ``pix_ids`` (iy * width + ix)."""
+    return _theta_rays(camera, mass, spin, pix_ids, jitter, dtype)

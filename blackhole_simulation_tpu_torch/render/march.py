@@ -7,7 +7,9 @@ JAX scene's config carries over field by field; ``refinement_config``
 (:192-214), ``MarchRows`` (:249), ``precull_threshold`` (:286),
 ``march_rows`` (:427) and the differentiable ``march_rows_ad`` (:381) with
 its custom VJP ``_march_kernel_diff`` (:338-378), here a
-``torch.autograd.Function``.
+``torch.autograd.Function``; ``MarchResult`` (:226), ``adaptive_dlam``
+(:269) and ``march`` (:307), the (N, 8) theta-form packing wrapper over
+``march_rows`` that the oracle comparisons read.
 
 Both march entry points run the march kernel (``csrc/march.cu`` through
 ``ops/pallas_march.march_u``) for CUDA rays and its plain version for CPU
@@ -124,6 +126,45 @@ class MarchRows:
     n_crossings: torch.Tensor  # (N,) int32
     r_min_ph: torch.Tensor     # (N,)
     jet_radiance: torch.Tensor  # (3, N), zeros without jets
+
+
+@dataclasses.dataclass
+class MarchResult:
+    """Packed march result, the layout the oracle (``geodesic/oracle.py``)
+    shares with ``march``."""
+
+    state: torch.Tensor         # (N, 8) final theta-form state
+    hit: torch.Tensor           # (N,) int32 HIT_* code
+    steps: torch.Tensor         # (N,) int32 steps taken while live
+    cross_r: torch.Tensor       # (N, K) crossing radii (0 = empty)
+    cross_phi: torch.Tensor     # (N, K)
+    cross_t: torch.Tensor       # (N, K)
+    n_crossings: torch.Tensor   # (N,) int32
+    jet_radiance: torch.Tensor  # (N, 3)
+    r_min_ph: torch.Tensor      # (N,) min |r - r_ph| along the march
+
+
+def adaptive_dlam(r, r_h, r_ph, cfg: MarchConfig):
+    """The curvature-adaptive affine step: (r - r_h) step_rate, boosted in
+    the far field, clamped down near the photon sphere, clipped to
+    [min_step, cap] (cap = max(max_step, far_step_cap_rate r) when that
+    rate is on). In r's dtype; ``r_ph`` enters as one reciprocal, then a
+    multiply, as in the kernels."""
+    from blackhole_simulation_tpu_torch._elementwise import (
+        clip,
+        div_c,
+        maximum,
+    )
+
+    inv_rph = 1.0 / maximum(r_ph, 1e-3)
+    base = (r - r_h) * cfg.step_rate
+    far = maximum(div_c(r, cfg.far_boost_radius), 1.0)
+    prox = clip(torch.abs(r - r_ph) * inv_rph, 0.25, 1.0)
+    if cfg.far_step_cap_rate > 0.0:
+        cap = maximum(cfg.far_step_cap_rate * r, cfg.max_step)
+    else:
+        cap = cfg.max_step
+    return clip(base * far * prox, cfg.min_step, cap)
 
 
 def refinement_config(cfg: MarchConfig) -> MarchConfig:
@@ -281,3 +322,27 @@ def march_rows_ad(yt0: torch.Tensor, mass, spin,
     yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
     outs = _MarchKernelDiff.apply(yt0, thr, m, a, r_h, r_ph, cfg)
     return MarchRows(*outs, torch.zeros_like(yt0[:3]))
+
+
+def march(y0: torch.Tensor, mass, spin, cfg: MarchConfig = MarchConfig(),
+          jets=None) -> MarchResult:
+    """``march_rows`` on (N, 8) theta-form states (t, r, theta, phi, p_t,
+    p_r, p_theta, p_phi), packed back into a MarchResult whose state is in
+    theta form. Runs the march kernel for CUDA rays."""
+    from blackhole_simulation_tpu_torch.ops.ks_kernel import (
+        theta_state_to_u,
+        u_state_to_theta,
+    )
+
+    rows = march_rows(theta_state_to_u(y0.T), mass, spin, cfg, jets=jets)
+    return MarchResult(
+        state=u_state_to_theta(rows.state_u).T,
+        hit=rows.hit,
+        steps=rows.steps,
+        cross_r=rows.cross_r.T,
+        cross_phi=rows.cross_phi.T,
+        cross_t=rows.cross_t.T,
+        n_crossings=rows.n_crossings,
+        jet_radiance=rows.jet_radiance.T,
+        r_min_ph=rows.r_min_ph,
+    )

@@ -6,7 +6,10 @@ Counterpart of ``blackhole_simulation_tpu/render/pipeline.py``: ``Features``
 ``fused_path_active`` (:164), ``refine_critical_band`` (:333),
 ``render_sample`` (:406; its fused branch :434-451 and its staged branch
 :452-518), ``render`` (:581, with the staged overlay of ``_render_jit``
-:557-575) and ``render_radiance`` (:600).
+:557-575), ``render_radiance`` (:600), and the oracle layer's entries:
+``shade_sample_rows`` (:188) and ``shade_sample`` (:264), which shade in
+the dtype they are given, ``render_sample_scaled`` (:520) and
+``oracle_render`` (:608).
 
 A sample takes one of two branches, as in the JAX package:
 
@@ -240,15 +243,18 @@ def kernel_inputs(scene: Scene, jitter, device):
     return row, st
 
 
-def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
-                     intensity_scale=1.0, luts=None):
-    """The staged composite: disk crossings front to back, the starfield
-    behind escaped rays, the jets' radiance and the photon-ring glow, as
-    (r, g, b) rows.
-    ``rows``: MarchRows; ``m``, ``a``: 0-dim float32 tensors; ``lam``: the
-    (N,) conserved impact parameter L_z/E; ``luts``: the spectral disk's
-    tables for this ``m`` and ``a`` (``scene_luts``), else looked up from
-    them. Differentiable (autograd)."""
+_DUMMY_U = (0.0, 100.0, 0.0, 0.0, -1.0, -1.0, 0.0, 0.0)
+_DUMMY_THETA = (0.0, 100.0, 1.5707964, 0.0, -1.0, -1.0, 0.0, 0.0)
+
+
+def _composite(scene: Scene, m, a, hit, crossings, n_crossings, r_min_ph,
+               lam, state_rows, escape_rows, dummy, jet_rows,
+               density_scale, intensity_scale, spectral_coeffs, luts):
+    """Disk crossings front to back, the starfield behind escaped rays (from
+    ``escape_rows`` of the state rows, captured rays taking the far-field
+    ``dummy`` state so nothing non-finite reaches a masked lane), the jets'
+    radiance and the photon-ring glow: (r, g, b) rows in ``lam``'s
+    dtype."""
     from blackhole_simulation_tpu_torch._elementwise import div_c, maximum
     from blackhole_simulation_tpu_torch.geometry.metrics import (
         isco_t,
@@ -256,43 +262,87 @@ def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
     )
     from blackhole_simulation_tpu_torch.render.march import HIT_ESCAPE
     from blackhole_simulation_tpu_torch.render.shading import (
-        escape_direction_u_rows,
         shade_crossings_rows,
         starfield_rows,
     )
 
     feats = scene.features
-    escaped = rows.hit == HIT_ESCAPE
+    escaped = hit == HIT_ESCAPE
     zero = torch.zeros_like(lam)
     if feats.disk:
         rgb, trans = shade_crossings_rows(
-            m, a, isco_t(m, a), scene.disk, rows.cross_r, rows.cross_phi,
-            rows.cross_t, rows.n_crossings, lam, density_scale,
-            intensity_scale, spectral=feats.spectral_lut,
-            spectral_coeffs=scene.spectral_coeffs, luts=luts,
+            m, a, isco_t(m, a), scene.disk, *crossings, n_crossings, lam,
+            density_scale, intensity_scale, spectral=feats.spectral_lut,
+            spectral_coeffs=spectral_coeffs, luts=luts,
         )
     else:
         rgb, trans = (zero, zero, zero), zero + 1.0
     if feats.starfield:
-        dummy = (0.0, 100.0, 0.0, 0.0, -1.0, -1.0, 0.0, 0.0)
-        srows = tuple(torch.where(escaped, rows.state_u[i], dummy[i])
+        srows = tuple(torch.where(escaped, state_rows[i], dummy[i])
                       for i in range(8))
-        bg = starfield_rows(*escape_direction_u_rows(srows, m, a),
-                            params=scene.stars)
+        bg = starfield_rows(*escape_rows(srows, m, a), params=scene.stars)
         w_bg = torch.where(escaped, trans, 0.0)
         rgb = tuple(c + w_bg * b for c, b in zip(rgb, bg))
     if feats.jets:
-        rgb = tuple(c + j for c, j in zip(rgb, rows.jet_radiance))
+        rgb = tuple(c + j for c, j in zip(rgb, jet_rows))
     if feats.photon_ring_glow:
         r_ph = photon_sphere_t(m, a)
-        near = torch.exp(-14.0 * rows.r_min_ph / maximum(r_ph, 1e-3))
+        near = torch.exp(-14.0 * r_min_ph / maximum(r_ph, 1e-3))
         glow = torch.where(escaped, 0.6 * near, 0.0)
-        order = div_c(torch.clamp(rows.n_crossings, 0, 3).to(lam.dtype), 3.0)
+        order = div_c(torch.clamp(n_crossings, 0, 3).to(lam.dtype), 3.0)
         warm = (1.0, 0.82, 0.55)
         cool = (0.82, 0.88, 1.0)
         rgb = tuple(c + glow * (w + order * (k - w))
                     for c, w, k in zip(rgb, warm, cool))
     return rgb
+
+
+def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
+                     intensity_scale=1.0, luts=None):
+    """The staged composite (``_composite``) of MarchRows, as (r, g, b)
+    rows. ``m``, ``a``: 0-dim float32 tensors; ``lam``: the (N,) conserved
+    impact parameter L_z/E; ``luts``: the spectral disk's tables for this
+    ``m`` and ``a`` (``scene_luts``), else looked up from them.
+    Differentiable (autograd)."""
+    from blackhole_simulation_tpu_torch.render.shading import (
+        escape_direction_u_rows,
+    )
+
+    return _composite(
+        scene, m, a, rows.hit, (rows.cross_r, rows.cross_phi, rows.cross_t),
+        rows.n_crossings, rows.r_min_ph, lam, rows.state_u,
+        escape_direction_u_rows, _DUMMY_U, rows.jet_radiance, density_scale,
+        intensity_scale, scene.spectral_coeffs, luts)
+
+
+def shade_sample_rows(result, m, a, scene: Scene, y0, density_scale=1.0,
+                      intensity_scale=1.0):
+    """The composite of a packed ``MarchResult`` (the oracle's, or
+    ``march``'s) from its (N, 8) theta-form initial states ``y0``, as
+    (r, g, b) rows in the dtype it is given (float64 for the oracle): the
+    JAX twin's ``shade_sample_rows`` (pipeline.py:188). A spectral disk
+    shades from the LUTs built in that dtype, never from Chebyshev
+    tables."""
+    from blackhole_simulation_tpu_torch.render.shading import (
+        escape_direction_rows,
+    )
+
+    lam = -y0[:, 7] / torch.where(torch.abs(y0[:, 4]) < 1e-12, -1.0, y0[:, 4])
+    return _composite(
+        scene, m, a, result.hit,
+        (result.cross_r.T, result.cross_phi.T, result.cross_t.T),
+        result.n_crossings, result.r_min_ph, lam, result.state.T,
+        escape_direction_rows, _DUMMY_THETA, result.jet_radiance.T,
+        density_scale, intensity_scale, None, None)
+
+
+def shade_sample(result, m, a, scene: Scene, y0, density_scale=1.0,
+                 intensity_scale=1.0) -> torch.Tensor:
+    """(N, 3) radiance of a packed ``MarchResult`` (``shade_sample_rows``
+    stacked)."""
+    return torch.stack(shade_sample_rows(result, m, a, scene, y0,
+                                         density_scale, intensity_scale),
+                       dim=-1)
 
 
 def conserved_lam(rays: torch.Tensor) -> torch.Tensor:
@@ -513,3 +563,47 @@ def render_radiance(scene: Scene, device=None) -> torch.Tensor:
     device = resolve_device(device)
     planes = render_sample(ensure_spectral_coeffs(scene), None, device)
     return planes.permute(1, 2, 0)
+
+
+def render_sample_scaled(scene: Scene, jitter=None, density_scale=1.0,
+                         intensity_scale=1.0, device=None) -> torch.Tensor:
+    """(H*W, 3) float32 radiance of the staged render with the disk's
+    density and intensity scaled by ``density_scale`` / ``intensity_scale``
+    (numbers or 0-d tensors): the differentiable entry of the inverse path
+    and the density-gradient gate (JAX pipeline.py:520). It marches through
+    ``march_rows_ad`` (the march kernel forward, the gradient kernel
+    backward), so autograd reaches the scales. ``start_jitter`` has no
+    gradient path and is refused."""
+    from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
+    from blackhole_simulation_tpu_torch.render.march import march_rows_ad
+
+    if scene.march_cfg.start_jitter > 0.0:
+        raise NotImplementedError(
+            "render_sample_scaled: start_jitter has no gradient path")
+    device = resolve_device(device)
+    m, a = _mass_spin(scene, device)
+    rays = camera_rays_u(scene.camera, m, a, jitter=jitter)
+    rows = march_rows_ad(rays, m, a, scene.march_cfg)
+    rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
+                           density_scale=density_scale,
+                           intensity_scale=intensity_scale,
+                           luts=scene_luts(scene, device))
+    return torch.stack(rgb, dim=-1)
+
+
+def oracle_render(scene: Scene, device=None) -> torch.Tensor:
+    """Float64 oracle radiance (H, W, 3): the camera's rays in float64, the
+    adaptive-RKF45 oracle (``geodesic/oracle.py``) in place of the march,
+    and the same shading (``shade_sample``) in float64, on ``device``
+    (``cuda`` unless the caller passes ``"cpu"``)."""
+    from blackhole_simulation_tpu_torch.geodesic.oracle import oracle_march
+    from blackhole_simulation_tpu_torch.render.camera import camera_rays
+
+    device = resolve_device(device)
+    f64 = lambda v: torch.tensor(float(v), dtype=torch.float64, device=device)
+    m, a = f64(scene.bh.mass), f64(scene.bh.spin)
+    cam = scene.camera
+    rays = camera_rays(cam, m, a, dtype=torch.float64)
+    result = oracle_march(rays, m, a, scene.march_cfg)
+    return shade_sample(result, m, a, scene, rays).reshape(
+        cam.height, cam.width, 3)

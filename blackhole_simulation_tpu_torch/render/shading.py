@@ -15,6 +15,12 @@ The host-side float64 tables (``build_disk_luts``, ``spectral_cheb_coeffs``,
 scene that the kernel reads from its parameter row. A staged scene without
 them shades its spectral disk from the tables themselves
 (``disk_emission_lut_rows`` :472, the reference's LUT route).
+
+The oracle shades in float64 (``render/pipeline.py::shade_sample``): every
+function here computes in its rows' dtype, and only the lattice hash rounds
+through float32, as the JAX twin's does. ``shade_disk_crossings`` (:664),
+``escape_direction_rows`` (:827) and ``escape_direction`` (:888) shade the
+oracle's theta-form ``MarchResult``.
 """
 
 from __future__ import annotations
@@ -100,11 +106,12 @@ def _fract(x):
 
 
 def hash21(x, y):
-    """2-D lattice hash -> float in [0, 1) (fractional-arithmetic hash).
+    """2-D lattice hash -> float32 in [0, 1) (fractional-arithmetic hash),
+    of float32 inputs whatever their dtype, as the JAX twin casts them.
     A hash turns any rounding difference into a different value: every
     operation here rounds on its own, in this order, in the kernel too."""
-    x = x + 0.5
-    y = y + 0.5
+    x = x.float() + 0.5
+    y = y.float() + 0.5
     px = _fract(x * 0.1031)
     py = _fract(y * 0.1030)
     pz = _fract((x + y) * 0.0973)
@@ -421,7 +428,8 @@ def shade_crossings_rows(m, a, r_in, disk: DiskParams, cross_r, cross_phi,
     if not spectral or spectral_coeffs is not None:
         luts = None
     elif luts is None:
-        luts = disk_luts(float(m), float(a), disk, cross_r.device)
+        luts = disk_luts(float(m), float(a), disk, cross_r.device,
+                         cross_r.dtype)
     zero = torch.zeros(n, dtype=cross_r.dtype, device=cross_r.device)
     rgb = (zero, zero, zero)
     trans = zero + 1.0
@@ -445,6 +453,20 @@ def shade_crossings_rows(m, a, r_in, disk: DiskParams, cross_r, cross_phi,
         rgb = tuple(acc + w * c for acc, c in zip(rgb, c_rgb))
         trans = torch.where(on, trans * (1.0 - c_alpha), trans)
     return rgb, trans
+
+
+def shade_disk_crossings(m, a, r_in, disk: DiskParams, result, y0,
+                         density_scale=1.0, intensity_scale=1.0,
+                         spectral: bool = False):
+    """``shade_crossings_rows`` on a packed ``MarchResult`` (crossings
+    (N, K)), with lambda = -p_phi / p_t from the (N, 8) initial states
+    ``y0``. A spectral disk shades from the LUTs, as the JAX twin's does
+    (it passes no Chebyshev tables)."""
+    lam = -y0[:, 7] / torch.where(torch.abs(y0[:, 4]) < 1e-12, -1.0, y0[:, 4])
+    return shade_crossings_rows(
+        m, a, r_in, disk, result.cross_r.T, result.cross_phi.T,
+        result.cross_t.T, result.n_crossings, lam, density_scale,
+        intensity_scale, spectral=spectral)
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +532,37 @@ def escape_direction_u_rows(rows_u, m, a):
     return dx * inv_n, dy * inv_n, dz * inv_n
 
 
+def escape_direction_rows(rows, m, a):
+    """Unit Cartesian direction (dx, dy, dz) of an escaped ray from its
+    theta-chart rows (t, r, theta, ph, p_t, p_r, p_theta, p_phi): the
+    sparse Kerr-Schild contravariant momentum, nearly flat at the escape
+    radius, rotated by the position angles."""
+    _, r, th, ph, pt, pr, pth, pph = rows
+    s = sin(th)
+    ct = cos(th)
+    s2 = maximum(s * s, 1e-12)
+    sig = r * r + a * a * ct * ct
+    delta = r * r - 2.0 * m * r + a * a
+    inv_sig = 1.0 / sig
+    h = 2.0 * m * r * inv_sig
+    v_r = h * pt + delta * inv_sig * pr + a * inv_sig * pph
+    v_th = r * (pth * inv_sig)
+    v_ph = r * s * (a * inv_sig * pr + pph * inv_sig / s2)
+    sp, cp = sin(ph), cos(ph)
+    dx = v_r * s * cp + v_th * ct * cp - v_ph * sp
+    dy = v_r * s * sp + v_th * ct * sp + v_ph * cp
+    dz = v_r * ct - v_th * s
+    inv_n = 1.0 / sqrt(maximum(dx * dx + dy * dy + dz * dz, 1e-30))
+    return dx * inv_n, dy * inv_n, dz * inv_n
+
+
+def escape_direction(y, m, a):
+    """(..., 3) escape directions of (..., 8) theta-chart states."""
+    return torch.stack(
+        escape_direction_rows(tuple(y[..., i] for i in range(8)), m, a),
+        dim=-1)
+
+
 def starfield_rows(dx, dy, dz, params: StarfieldParams = StarfieldParams()):
     """Two-scale hashed starfield plus fbm nebula: direction rows in,
     (r, g, b) rows out."""
@@ -543,10 +596,10 @@ def starfield_rows(dx, dy, dz, params: StarfieldParams = StarfieldParams()):
 # ---------------------------------------------------------------------------
 
 def build_disk_luts(mass: float, spin: float, disk: DiskParams,
-                    n_r: int = 256, n_t: int = 128):
+                    n_r: int = 256, n_t: int = 128, dtype=np.float32):
     """The Page-Thorne temperature-shape LUT on a log-r grid from the ISCO to
     the disk edge, and the Planck/CIE chromaticity LUT over observed
-    temperature (^2.5-warped axis). Built in float64, returned as float32
+    temperature (^2.5-warped axis). Built in float64, returned as ``dtype``
     numpy arrays (r_grid, t_shape, t_axis, rgb_table (n_t, 3))."""
     from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
     from blackhole_simulation_tpu_torch.physics.disk import page_thorne_flux
@@ -559,19 +612,20 @@ def build_disk_luts(mass: float, spin: float, disk: DiskParams,
     t_shape = t_raw / max(t_raw.max(), 1e-30)
     t_axis = 900.0 + (4e4 - 900.0) * np.linspace(0.0, 1.0, n_t) ** 2.5
     rgb_table = blackbody_rgb(t_axis)
-    f32 = lambda x: np.asarray(x, np.float32)
-    return f32(r_grid), f32(t_shape), f32(t_axis), f32(rgb_table)
+    cast = lambda x: np.asarray(x, dtype)
+    return cast(r_grid), cast(t_shape), cast(t_axis), cast(rgb_table)
 
 
 @functools.lru_cache(maxsize=64)
 def disk_luts(mass: float, spin: float, disk: DiskParams,
-              device: torch.device | str = "cpu"):
-    """``build_disk_luts`` cached on (mass, spin, disk, device): the staged
-    spectral composite's float32 tables as tensors on ``device``, so a frame
-    builds and copies none of them. Constants: shared between callers, never
-    written."""
+              device: torch.device | str = "cpu", dtype=torch.float32):
+    """``build_disk_luts`` cached on (mass, spin, disk, device, dtype): the
+    staged spectral composite's tables (float32; float64 for the oracle) as
+    tensors on ``device``, so a frame builds and copies none of them.
+    Constants: shared between callers, never written."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return tuple(torch.as_tensor(x, device=device)
-                 for x in build_disk_luts(mass, spin, disk))
+                 for x in build_disk_luts(mass, spin, disk, dtype=np_dtype))
 
 
 def _interp(x, xp, fp):
@@ -580,7 +634,8 @@ def _interp(x, xp, fp):
     df = fp[i] - fp[i - 1]
     dx = xp[i] - xp[i - 1]
     delta = x - xp[i - 1]
-    eps = float(np.spacing(np.finfo(np.float32).eps))
+    np_dtype = np.float64 if xp.dtype == torch.float64 else np.float32
+    eps = float(np.spacing(np.finfo(np_dtype).eps))
     dx0 = torch.abs(dx) <= eps
     f = torch.where(dx0, fp[i - 1],
                     fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)

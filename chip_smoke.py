@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU and check it: the flagship render,
 the staged render, the inverse-rendering (training) step, the AB3 march,
-the certified (critical-band refined) render and the full-featured render
-(jets, start jitter, the NRS far field, the shadow overlay).
+the certified (critical-band refined) render, the full-featured render
+(jets, start jitter, the NRS far field, the shadow overlay), the float64
+oracle's gates and the central-difference inverse path.
 
     python3 chip_smoke.py
 
@@ -149,7 +150,9 @@ printing a result line:
    certified render's slice's spread and its frame within 1.25x of it (the
    frame is mostly host work and tonemap, which vary with the host the card
    shares). Each 1080p render path's kernel and the staged AB3 march stay
-   within 5% of the step's parent's times (``PARENT_KERNEL_MS``).
+   within 5% of their times after the step's redesign (``PARENT_KERNEL_MS``,
+   the step-redesign slice's own times; before it, the gate held the
+   persistent march kernel's commit's times).
 11. Small and ragged launches: the render kernel (midpoint, AB3, every
    branch with jets) at 1x1, 31x1, 128x128 and 250x141 and the march
    kernel (midpoint, AB3, jets) on 1, 31, 16,384 (fewer than its resident
@@ -186,6 +189,38 @@ printing a result line:
    planted pairs (signed zeros, NaN, infinities, denormals: the same bits
    or both NaN, but for the ties of opposite-sign zeros, which are
    printed); and no render or march entry above 100% of its bound.
+14. The oracle gates on the card (the float64 adaptive-RKF45 oracle,
+   ``geodesic/oracle.py``, on ``cuda``; its trials in blocks of 32, each
+   block one captured CUDA graph), on tests/test_oracle_gate.py's scene
+   (no star spots): (a) the oracle on the card against the same oracle on
+   the CPU, the one CPU run of the phase and named as the reference, at
+   24x16, a = 0.999, disk on: hit codes identical on >= 99% of rays, image
+   p99 |d| < 1e-6; (b) ``bench.py:336-389``'s gate_full at 256x256,
+   a = 0.999 (the oracle there also run without graphs: bit-equal, both
+   timed): the fast render at the validation step (step_rate 0.03, 1024
+   steps) on the staged route (march kernel) and the fused one (render
+   kernel), each frac_ok > 0.98 and trimmed_rel < 1e-2; (c)
+   ``bench.py:391-466``'s gate_1080p: the certified flagship frame
+   (approx_recip, refine_band 0.6, analytic shading) at 4096 stratified
+   pixels (seed 0) against the oracle through ``camera_rays_indexed`` in
+   float64: frac_ok > 0.98, abs_err_p99 < 1e-2, rel_err_bright_median
+   < 0.05; (d) the convergence ladder (test_oracle_gate.py:105-155)
+   through ``march`` (the march kernel) at a = 0, 48x32: median escape
+   angle < 2e-2 at step rate 0.2, each halving < 0.55x the rung before,
+   < 1.5e-3 at 0.05; (e) the gradient gates (test_oracle_gate.py:236-380)
+   at 48x32, a = 0.999, turbulence 0, the validation step: d/d(spin) and
+   d/d(theta_cam) through ``parallel/train.py::_forward`` (the march and
+   gradient kernels), d/d(density) through ``render_sample_scaled``, each
+   against the card's oracle central difference at two step sizes: stable
+   share > 0.7, the same sign, rel < 0.2. Each part prints its seconds.
+15. The central-difference inverse path: ``make_fd_inverse_step`` at
+   1920x1080 in phase 7's configuration (5 timed steps after a warm-up, the
+   march kernel's counter reset before them; CUDA-event median ms/step and
+   Mrays/s over the nine forward passes; exactly nine march launches per
+   step; loss and state finite), then ``inverse_render(method="fd")`` in
+   tests/test_parallel.py:155-176's configuration (64x64, target a = 0.85,
+   160 steps, start 0.55, lr 0.04, 48 steps): final loss < 0.2x the first,
+   |spin - 0.85| < 0.02, nine launches per step.
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -254,20 +289,36 @@ from blackhole_simulation_tpu_torch.ops.render import (  # noqa: E402
     render_planes,
     render_planes_kernel,
 )
+from blackhole_simulation_tpu_torch.geodesic import (  # noqa: E402
+    oracle as oracle_module,
+)
+from blackhole_simulation_tpu_torch.geodesic.oracle import (  # noqa: E402
+    oracle_march,
+)
 from blackhole_simulation_tpu_torch.parallel import (  # noqa: E402
     InverseParams,
     ad_inverse_render,
+    fd_state_init,
+    inverse_render,
+    make_fd_inverse_step,
     make_inverse_step,
+)
+from blackhole_simulation_tpu_torch.parallel.train import (  # noqa: E402
+    _forward,
 )
 from blackhole_simulation_tpu_torch.render.camera import (  # noqa: E402
     Camera,
+    camera_rays,
+    camera_rays_indexed,
     camera_rays_u,
 )
 from blackhole_simulation_tpu_torch.render.march import (  # noqa: E402
+    HIT_ESCAPE,
     HIT_NONE,
     MarchConfig,
     MarchRows,
     _march_inputs,
+    march,
     march_rows,
     march_rows_ad,
     refinement_config,
@@ -277,14 +328,18 @@ from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
     Scene,
     kernel_inputs,
     refine_critical_band,
-    select_band,
     render,
     render_radiance,
+    render_sample_scaled,
+    select_band,
+    shade_sample,
 )
 from blackhole_simulation_tpu_torch.render.post import tonemap  # noqa: E402
 from blackhole_simulation_tpu_torch.render.shading import (  # noqa: E402
     JetParams,
+    StarfieldParams,
     disk_luts,
+    escape_direction,
 )
 from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
     critical_band_metric_u,
@@ -363,20 +418,14 @@ FLAGSHIP_KERNEL_SPREAD_MS = (1.349, 1.366)
 # card shares; the kernel alone does not. The frame may exceed PR 3's
 # spread by this factor, the kernel by 5%.
 FRAME_SLACK = 1.25
-# The kernel alone on each 1080p render path and the staged AB3 march
-# before the step's redesign (the persistent march kernel's commit), the
-# slower of its two runs (H100 80GB HBM3 at 700 W, PERF.md): a later slice
-# stays within 5% of them.
-PARENT_KERNEL_MS = {"flagship render": 1.350, "certified render": 1.360,
-                 "AB3 render": 1.535, "jets render": 3.408,
-                 "full-featured render": 2.914, "staged AB3 march": 1.351}
+# The kernel alone on each 1080p render path and the staged AB3 march after
+# the step's redesign (the step-redesign slice's commit), the slower of the
+# change's two runs in its first comparison call (H100 80GB HBM3 at 700 W,
+# PERF.md): a later slice stays within 5% of them.
+PARENT_KERNEL_MS = {"flagship render": 0.993, "certified render": 1.000,
+                    "AB3 render": 0.999, "jets render": 2.105,
+                    "full-featured render": 2.198, "staged AB3 march": 1.033}
 PARENT_SLACK = 1.05
-# The same kernels after the redesign, the slower of the change's two runs
-# in its comparison call (H100 80GB HBM3 at 700 W, PERF.md section 5):
-# printed beside PARENT_KERNEL_MS's gate, for the next slice to gate on.
-SLICE_KERNEL_MS = {"flagship render": 0.993, "certified render": 1.000,
-                   "AB3 render": 0.999, "jets render": 2.105,
-                   "full-featured render": 2.198, "staged AB3 march": 1.033}
 # The gradient kernel's least work per live march step, in march steps: the
 # checkpointing replay, the block's re-forward, and one reverse-mode VJP of
 # the step at about three times the step's operations (a transposed
@@ -454,10 +503,10 @@ def step_ops(variant, approx):
 
 def parent_gate(name, ms):
     """Fail when the kernel alone on ``name``'s path is more than 5% slower
-    than before the step's redesign (PARENT_KERNEL_MS)."""
-    ref, now = PARENT_KERNEL_MS[name], SLICE_KERNEL_MS[name]
-    print(f"{name}: kernel {ms:.4f} ms, before the step's redesign {ref} ms, "
-          f"ratio {ms / ref:.4f}; after it {now} ms, ratio {ms / now:.4f}")
+    than after the step's redesign (PARENT_KERNEL_MS)."""
+    ref = PARENT_KERNEL_MS[name]
+    print(f"{name}: kernel {ms:.4f} ms, after the step's redesign {ref} ms, "
+          f"ratio {ms / ref:.4f}")
     if not ms <= ref * PARENT_SLACK:
         raise AssertionError(f"{name} kernel {ms} ms is more than 5% above "
                              f"its parent's {ref} ms")
@@ -2182,6 +2231,364 @@ def phase_census(kernels):
     return {"census": census, "minmax": st}
 
 
+# Phase 14: the oracle gates on the card. The gate scene of
+# tests/test_oracle_gate.py: r = 30, theta = pi/2 - 0.25, fov 0.5, no star
+# spots (their exp(-40 d^2) shading turns an escape direction's last digits
+# into radiance), 256 steps; the fast paths at the validation step.
+GATE_STARS = StarfieldParams(density=0.0)
+FINE = dict(step_rate=0.03, max_steps=1024)
+F64 = torch.float64
+
+
+def gate_scene(spin, width, height, disk=True, cfg=MarchConfig(max_steps=256),
+               turbulence=None):
+    scene = Scene.create(mass=1.0, spin=spin, camera=_camera(width, height),
+                         features=Features(disk=disk), stars=GATE_STARS,
+                         march_cfg=cfg)
+    if turbulence is not None:
+        scene = dataclasses.replace(scene, disk=dataclasses.replace(
+            scene.disk, turbulence=turbulence))
+    return scene
+
+
+def fine(scene, **over):
+    return dataclasses.replace(scene, march_cfg=dataclasses.replace(
+        scene.march_cfg, **{**FINE, **over}))
+
+
+def _f64(v, device=None):
+    return torch.tensor(float(v), dtype=F64, device=device or DEV)
+
+
+def oracle_result(scene, device=None, pix=None):
+    """(rays, MarchResult, seconds) of the float64 oracle on ``device``
+    (``DEV`` by default): the whole frame, or the row-major pixel ids
+    ``pix``."""
+    device = device or DEV
+    m, a = _f64(scene.bh.mass, device), _f64(scene.bh.spin, device)
+    t0 = time.perf_counter()
+    if pix is None:
+        rays = camera_rays(scene.camera, m, a, dtype=F64)
+    else:
+        rays = camera_rays_indexed(scene.camera, m, a,
+                                   torch.as_tensor(pix, device=device),
+                                   dtype=F64)
+    res = oracle_march(rays, m, a, scene.march_cfg)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return rays, res, time.perf_counter() - t0
+
+
+def oracle_image(scene, rays, res):
+    m, a = _f64(scene.bh.mass, rays.device), _f64(scene.bh.spin, rays.device)
+    return shade_sample(res, m, a, scene, rays)
+
+
+def image_gate(img_fast, img_oracle):
+    """bench.py's gate_full statistics (:366-372): the share of pixels
+    within 1e-2 (1 + |oracle|), and the 97.5%-trimmed mean |d| over the
+    oracle's mean radiance."""
+    d = np.abs(img_fast - img_oracle).max(axis=2)
+    scale = float(np.abs(img_oracle).mean()) + 1e-8
+    frac_ok = float((d < 1e-2 * (1.0 + np.abs(img_oracle).max(axis=2))).mean())
+    trimmed = np.sort(d.reshape(-1))[: int(d.size * 0.975)]
+    return frac_ok, float(trimmed.mean() / scale)
+
+
+def oracle_card_vs_cpu(width=24, height=16):
+    """(a) The oracle on the card against the same oracle on the CPU (the
+    CPU run is the reference, named as one): hit codes identical on >= 99%
+    of rays, image p99 |d| < 1e-6."""
+    scene = gate_scene(0.999, width, height)
+    rays, res, secs = oracle_result(scene)
+    img = oracle_image(scene, rays, res).cpu().numpy()
+    cpu_rays, cpu_res, cpu_secs = oracle_result(scene, device="cpu")
+    ref = oracle_image(scene, cpu_rays, cpu_res).numpy()
+    d = np.abs(img - ref).max(axis=1)
+    same = float((res.hit.cpu() == cpu_res.hit).float().mean())
+    out = {"size": [width, height], "hit_same": same, "max_abs": float(d.max()),
+           "p99_abs": float(np.percentile(d, 99)), "card_s": secs,
+           "cpu_reference_s": cpu_secs,
+           "steps_max": int(res.steps.max()), "dtype": str(img.dtype)}
+    print(f"oracle card vs CPU reference {width}x{height} a=0.999: {out}")
+    if not (same >= 0.99 and out["p99_abs"] < 1e-6 and img.dtype == np.float64
+            and res.state.device.type == "cuda"):
+        raise AssertionError(f"oracle on the card vs the CPU: {out}")
+    return out
+
+
+def eager_oracle_result(scene):
+    """oracle_result with the trial blocks run eagerly (no CUDA graph)."""
+    keep = oracle_module._graphed
+    oracle_module._graphed = lambda trials, carry, k, max_trials: (carry, 0)
+    try:
+        return oracle_result(scene)
+    finally:
+        oracle_module._graphed = keep
+
+
+def gate_full(size=256):
+    """(b) bench.py:336-389 on the card: the fast render at the validation
+    step against the oracle at 256x256, a = 0.999, on the scene's own
+    staged route (march kernel) and on the fused one (render kernel). The
+    oracle runs twice, its trial blocks as CUDA graphs and eagerly: the two
+    must be bit-equal; both are timed."""
+    scene = gate_scene(0.999, size, size)
+    rays, res, oracle_s = oracle_result(scene)
+    _, eager, eager_s = eager_oracle_result(scene)
+    same = all(torch.equal(getattr(res, f.name), getattr(eager, f.name))
+               for f in dataclasses.fields(res))
+    if not same:
+        raise AssertionError("the graphed oracle differs from the eager one")
+    ref = oracle_image(scene, rays, res).reshape(size, size, 3).cpu().numpy()
+    out = {"size": size, "spin": 0.999, "oracle_s": oracle_s,
+           "oracle_eager_s": eager_s, "graphed_equals_eager": same,
+           "oracle_steps_max": int(res.steps.max())}
+    for route, over in (("staged", {}),
+                        ("fused", dict(use_pallas=True, fused=True))):
+        march_u.launches = render_planes_kernel.launches = 0
+        img = render_radiance(fine(scene, **over), device=DEV).cpu().numpy()
+        frac_ok, trimmed_rel = image_gate(img, ref)
+        out[route] = {"frac_ok": frac_ok, "trimmed_rel": trimmed_rel,
+                      "launches": {"march": march_u.launches,
+                                   "render": render_planes_kernel.launches}}
+        kernel = "march" if route == "staged" else "render"
+        if not (frac_ok > 0.98 and trimmed_rel < 1e-2
+                and out[route]["launches"][kernel] == 1):
+            raise AssertionError(f"gate_full {route}: {out}")
+    print(f"gate_full: {out}")
+    return out
+
+
+def gate_1080p(width=1920, height=1080, n_sub=4096):
+    """(c) bench.py:391-466 on the card: the certified flagship frame
+    (approx_recip, refine_band 0.6, analytic shading) at 4096 stratified
+    pixels against the oracle through camera_rays_indexed in float64."""
+    scene = Scene.create(mass=1.0, spin=0.999, camera=_camera(width, height),
+                         stars=GATE_STARS, march_cfg=CERTIFIED_CFG)
+    t0 = time.perf_counter()
+    img = render_radiance(scene, device=DEV).reshape(-1, 3).cpu().numpy()
+    render_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    stride = (width * height) // n_sub
+    pix = (np.arange(n_sub) * stride
+           + rng.integers(0, stride, n_sub)).astype(np.int64)
+    rays, res, oracle_s = oracle_result(scene, pix=pix)
+    orc = oracle_image(scene, rays, res).cpu().numpy()
+    d = np.abs(img[pix] - orc).max(axis=1)
+    om = np.abs(orc).max(axis=1)
+    bright = om > 0.02
+    out = {
+        "n_pixels": n_sub, "config": "flagship 1920x1080 a=0.999 refined "
+        "band<0.6, analytic", "frac_ok": float((d < 1e-2 * (1.0 + om)).mean()),
+        "abs_err_p99": float(np.percentile(d, 99)),
+        "rel_err_bright_median": float(np.median(
+            d[bright] / (om[bright] + 1e-3))) if bright.any() else 0.0,
+        "n_bright": int(bright.sum()), "render_s": render_s,
+        "oracle_s": oracle_s, "oracle_steps_max": int(res.steps.max()),
+    }
+    print(f"gate_1080p: {out}")
+    if not (out["frac_ok"] > 0.98 and out["abs_err_p99"] < 1e-2
+            and out["rel_err_bright_median"] < 0.05):
+        raise AssertionError(f"gate_1080p: {out}")
+    return out
+
+
+def convergence_ladder(width=48, height=32):
+    """(d) tests/test_oracle_gate.py:105-155 through the port's ``march``
+    (the march kernel): median escape-direction angle against the oracle's
+    at step rates 0.2, 0.1, 0.05, a = 0."""
+    scene = gate_scene(0.0, width, height, disk=False)
+    m32, a32 = _cuda_scalar(1.0), _cuda_scalar(0.0)
+    rays32 = camera_rays(scene.camera, m32, a32)
+    rays64, ro, oracle_s = oracle_result(scene)
+    m64, a64 = _f64(1.0), _f64(0.0)
+    d_o = escape_direction(ro.state, m64, a64)
+    medians = []
+    for step_rate, max_steps in ((0.2, 256), (0.1, 512), (0.05, 1024)):
+        cfg = dataclasses.replace(scene.march_cfg, step_rate=step_rate,
+                                  max_steps=max_steps)
+        rf = march(rays32, m32, a32, cfg)
+        both = (rf.hit == HIT_ESCAPE) & (ro.hit == HIT_ESCAPE)
+        d_f = escape_direction(rf.state, m32, a32)[both]
+        cos_a = torch.clamp((d_f * d_o[both].float()).sum(dim=1), -1.0, 1.0)
+        medians.append(float(torch.median(torch.arccos(cos_a))))
+    out = {"medians_rad": medians, "oracle_s": oracle_s}
+    print(f"convergence ladder {width}x{height} a=0: {out}")
+    if not (medians[0] < 2e-2 and medians[1] < 0.55 * medians[0]
+            and medians[2] < 0.55 * medians[1] and medians[2] < 1.5e-3):
+        raise AssertionError(f"convergence ladder: {out}")
+    return out
+
+
+def param_gate(name, oracle_images, ad_grad, p0, eps, width=48, height=32):
+    """tests/test_oracle_gate.py:236-380's stable-pixel gate: the oracle's
+    central difference at eps and eps / 2 defines the stable pixels (> 70%
+    of them); the fast path's autograd of a seeded stable-pixel weighting
+    must have the oracle FD's sign and be within rel 0.2 of it."""
+    img = dict(zip((p0 + eps, p0 - eps, p0 + eps / 2, p0 - eps / 2),
+                   oracle_images([p0 + eps, p0 - eps, p0 + eps / 2,
+                                  p0 - eps / 2])))
+    fd = (img[p0 + eps] - img[p0 - eps]) / (2 * eps)
+    fd2 = (img[p0 + eps / 2] - img[p0 - eps / 2]) / eps
+    denom = np.abs(fd) + np.abs(fd2) + 1e-2
+    stable = (np.abs(fd - fd2) / denom < 0.05).all(axis=2)
+    rng = np.random.default_rng(0)
+    weights = (rng.uniform(0.5, 1.5, size=(height, width, 3))
+               * stable[..., None]).astype(np.float32)
+    g_ad = ad_grad(p0, torch.from_numpy(weights).to(DEV))
+    g_fd = float(np.sum(fd * weights))
+    rel = abs(g_ad - g_fd) / (abs(g_fd) + 1e-6)
+    out = {"stable": float(stable.mean()), "ad": g_ad, "oracle_fd": g_fd,
+           "rel": rel}
+    print(f"d/d({name}) gate: {out}")
+    if not (stable.mean() > 0.7 and np.sign(g_ad) == np.sign(g_fd)
+            and rel < 0.2):
+        raise AssertionError(f"d/d({name}) gate: {out}")
+    return out
+
+
+def gradient_gates(width=48, height=32):
+    """(e) d/d(spin), d/d(density) and d/d(theta_cam) at a = 0.999,
+    turbulence 0, the validation step, each against the card's oracle FD."""
+    n = width * height
+    base = gate_scene(0.999, width, height, turbulence=0.0)
+    ids = torch.arange(n, device=DEV)
+
+    def frames(scenes):
+        out = []
+        for sc in scenes:
+            rays, res, _ = oracle_result(sc)
+            out.append(oracle_image(sc, rays, res).reshape(height, width, 3)
+                       .cpu().numpy())
+        return out
+
+    def forward_grad(p0, weights, field):
+        vals = {"spin": 0.999, "theta_cam": float(base.camera.theta),
+                "density": base.disk.density, "t_peak": base.disk.t_peak}
+        vals[field] = p0
+        leaf = _cuda_scalar(p0, grad=True)
+        params = InverseParams.init(device=DEV, **{
+            k: v for k, v in vals.items() if k != field})
+        params = dataclasses.replace(params, **{field: leaf})
+        rgb = _forward(params, fine(base), ids).reshape(height, width, 3)
+        return float(torch.autograd.grad(torch.sum(rgb * weights), leaf)[0])
+
+    def with_spin(a):
+        return dataclasses.replace(base, bh=dataclasses.replace(base.bh,
+                                                                spin=a))
+
+    def with_theta(th):
+        return dataclasses.replace(base, camera=dataclasses.replace(
+            base.camera, theta=th))
+
+    def density_frames(values):
+        # The march does not depend on the density: one oracle march,
+        # shaded at each density.
+        rays, res, _ = oracle_result(base)
+        return [oracle_image(dataclasses.replace(
+            base, disk=dataclasses.replace(base.disk, density=v)), rays,
+            res).reshape(height, width, 3).cpu().numpy() for v in values]
+
+    def density_grad(p0, weights):
+        dens = _cuda_scalar(p0, grad=True)
+        rgb = render_sample_scaled(fine(base), density_scale=dens
+                                   / base.disk.density, device=DEV)
+        loss = torch.sum(rgb.reshape(height, width, 3) * weights)
+        return float(torch.autograd.grad(loss, dens)[0])
+
+    march_u.launches = march_grad_kernel.launches = 0
+    t0 = time.perf_counter()
+    out = {
+        "spin": param_gate(
+            "spin", lambda v: frames([with_spin(a) for a in v]),
+            lambda p, w: forward_grad(p, w, "spin"), 0.999, 5e-4, width,
+            height),
+        "density": param_gate("density", density_frames, density_grad, 0.7,
+                              0.05, width, height),
+        "theta_cam": param_gate(
+            "theta_cam", lambda v: frames([with_theta(t) for t in v]),
+            lambda p, w: forward_grad(p, w, "theta_cam"),
+            float(base.camera.theta), 2e-3, width, height),
+    }
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {"march": march_u.launches,
+                       "march_grad": march_grad_kernel.launches}
+    # Three forward marches; the gradient kernel for spin and theta_cam
+    # (the density enters after the march, which its gradient skips).
+    if out["launches"] != {"march": 3, "march_grad": 2}:
+        raise AssertionError(f"gradient gates' kernel launches: {out}")
+    return out
+
+
+def phase_oracle_gates():
+    """Phase 14: the oracle gates on the card."""
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": oracle_card_vs_cpu(), "gate_full": gate_full(),
+           "gate_1080p": gate_1080p(), "ladder": convergence_ladder(),
+           "gradients": gradient_gates()}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14 (oracle gates): {out['seconds']:.1f} s")
+    return out
+
+
+def phase_fd(steps=5, width=1920, height=1080, inverse_size=64,
+             inverse_steps=48):
+    """Phase 15: the central-difference inverse path. One step at 1080p in
+    phase 7's configuration, timed (each step nine march-kernel launches),
+    then tests/test_parallel.py:155-176's recovery of a = 0.85."""
+    t0 = time.perf_counter()
+    scene = flagship_scene(width, height, cfg=TRAIN_CFG, features=Features())
+    state = fd_state_init(InverseParams.init(
+        spin=0.9, theta_cam=float(scene.camera.theta), device=DEV))
+    target = torch.zeros((height, width, 3), device=DEV)
+    step = make_fd_inverse_step(scene, device=DEV)
+    step(state, target)                      # warm-up
+    torch.cuda.synchronize()
+    results = []
+    march_u.launches = 0
+    step_ms, step_min, step_max = timed(
+        lambda: results.append(step(state, target)), steps)
+    launches = march_u.launches
+    (vec, (m1, v1, t1)), loss = results[-1]
+    n_rays = 9 * width * height
+    out = {"step_ms": step_ms, "step_ms_min_max": [step_min, step_max],
+           "mrays_per_s": n_rays / step_ms / 1e3, "march_launches": launches,
+           "launches_per_step": launches / steps, "loss": float(loss),
+           "vec": vec.tolist()}
+    print(f"FD step 1920x1080: {step_ms:.3f} ms/step median of {steps} "
+          f"(min {step_min:.3f}, max {step_max:.3f}), "
+          f"{out['mrays_per_s']:.1f} Mrays/s (9 forward passes), "
+          f"{launches} march launches")
+    finite = all(math.isfinite(x) for x in [float(loss), *vec.tolist(),
+                                            *m1.tolist(), *v1.tolist()])
+    if launches != 9 * steps or not finite:
+        raise AssertionError(f"FD step: {out}")
+
+    cam = _camera(inverse_size, inverse_size)
+    scene_true = Scene.create(mass=1.0, spin=0.85, camera=cam,
+                              march_cfg=MarchConfig(max_steps=160))
+    target = render_radiance(scene_true, device=DEV)
+    march_u.launches = 0
+    t1 = time.perf_counter()
+    params, losses = inverse_render(
+        scene_true, target, n_steps=inverse_steps, lr=0.04, method="fd",
+        init=InverseParams.init(spin=0.55, theta_cam=float(cam.theta)),
+        device=DEV)
+    spin = float(params.spin)
+    out["inverse"] = {"seconds": time.perf_counter() - t1, "spin": spin,
+                      "first_loss": losses[0], "final_loss": losses[-1],
+                      "march_launches": march_u.launches}
+    print(f"fd_inverse_render 64x64 a=0.85 from 0.55, 48 steps: "
+          f"{out['inverse']}")
+    if not (losses[-1] < 0.2 * losses[0] and abs(spin - 0.85) < 0.02
+            and march_u.launches == 9 * inverse_steps):
+        raise AssertionError(f"fd_inverse_render: {out['inverse']}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 15 (central differences): {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2213,6 +2620,8 @@ def main() -> int:
     probes = phase_probes(kernels_line)
     print(f"probes: {json.dumps(probes)}")
     phase_census(kernels_line)
+    print(f"oracle: {json.dumps(phase_oracle_gates())}")
+    print(f"fd: {json.dumps(phase_fd())}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

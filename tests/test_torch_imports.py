@@ -26,7 +26,17 @@ MODULES = [
     "blackhole_simulation_tpu_torch.render.precull",
     "blackhole_simulation_tpu_torch.parallel",
     "blackhole_simulation_tpu_torch.parallel.train",
+    "blackhole_simulation_tpu_torch.geometry",
     "blackhole_simulation_tpu_torch.geometry.metrics",
+    "blackhole_simulation_tpu_torch.geometry.radii",
+    "blackhole_simulation_tpu_torch.geometry.tensor",
+    "blackhole_simulation_tpu_torch.geodesic",
+    "blackhole_simulation_tpu_torch.geodesic.hamiltonian",
+    "blackhole_simulation_tpu_torch.geodesic.integrate",
+    "blackhole_simulation_tpu_torch.geodesic.integrator",
+    "blackhole_simulation_tpu_torch.geodesic.invariants",
+    "blackhole_simulation_tpu_torch.geodesic.oracle",
+    "blackhole_simulation_tpu_torch.geodesic.state",
     "blackhole_simulation_tpu_torch.physics.disk",
     "blackhole_simulation_tpu_torch.physics.spectrum",
     "blackhole_simulation_tpu_torch.physics.shadow",

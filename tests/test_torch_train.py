@@ -179,7 +179,8 @@ def test_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         make_ad_inverse_step(ts, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
-        inverse_render(ts, target, n_steps=1, method="fd", device="cpu")
+        inverse_render(ts, target, n_steps=1, method="fd", mesh=object(),
+                       device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             make_inverse_step(ts)
