@@ -25,11 +25,19 @@ What runs:
   PyTorch on the inputs' device (``oracle_march``; on a GPU its trials run
   as captured CUDA graphs), ``render.pipeline.oracle_render`` and
   ``shade_sample`` in float64, the ground truth the fast paths are held
-  against (``chip_smoke.py`` phase 14).
+  against (``chip_smoke.py`` phase 14);
+- NRS training (``models/nrs.py``: ``generate_training_data`` labels the
+  equatorial ray family in one float64 batch of the integrator,
+  ``train_nrs`` fits the surrogate), temporal accumulation
+  (``render/accumulate.py``), the progressive tile renderer
+  (``render/tiles.py``, one march-kernel launch per batch of tiles), and
+  the analytics behind ``engine.PhysicsEngine`` (``physics``,
+  ``spacetime``, the native seqlock bridge).
 
 The entry points run on ``cuda`` unless the caller passes
-``device="cpu"``, which runs the kernels' plain PyTorch versions. The
-package imports torch and numpy, never JAX.
+``device="cpu"``, which runs the kernels' plain PyTorch versions (the
+temporal accumulator and the analytic functions run where their tensors
+are). The package imports torch and numpy, never JAX.
 
 Layout (each module names its JAX counterpart):
 
@@ -42,12 +50,15 @@ Layout (each module names its JAX counterpart):
                   oracle march.
 - ``configs``  -- the simulation parameter schema, presets and
                   ``scene_from_params``.
-- ``models``   -- the NRS far-field MLP.
-- ``physics``  -- Page-Thorne flux and Planck/CIE colour for the spectral
-                  disk tables, the Bardeen shadow curve (host float64).
+- ``models``   -- the NRS far-field MLP and its training.
+- ``physics``  -- Page-Thorne flux and temperature, Planck/CIE colour and
+                  the LUTs, the Bardeen shadow curve (host float64);
+                  redshift, Hawking temperature, matter fields (tensors).
+- ``spacetime``-- curvature, embedding, frame-drag and light-cone fields.
+- ``engine``   -- ``PhysicsEngine`` and the ctypes seqlock bridge.
 - ``render``   -- camera and rays, config dataclasses, the differentiable
-                  march, shading, precull, the shadow overlay, post, and
-                  the pipeline entry points.
+                  march, shading, precull, the shadow overlay, post, the
+                  pipeline entry points, TAA and the tile renderer.
 - ``ops``      -- the step math, the plain march and its gradient, the
                   kernels' wrappers and parameter rows, and the nvcc build.
 - ``parallel`` -- inverse rendering on one device.

@@ -4,7 +4,7 @@ the kernel's and the JAX package's.
 * ``div_c``: divide by a constant exactly (IEEE), as each JAX operation
   does on its own. PyTorch's CUDA division by a Python number multiplies by
   the reciprocal instead, which rounds differently.
-* ``sqrt``, ``sin``, ``cos``, ``exp``, ``tanh``, ``arccos``, ``pow``:
+* ``sqrt``, ``sin``, ``cos``, ``tan``, ``exp``, ``tanh``, ``arccos``, ``pow``:
   correctly rounded (or nearly), by way of float64.
   PyTorch's vectorized CPU float32 sqrt is not always correctly rounded
   (IEEE sqrtf is, on the card and in XLA), and a last-bit difference in a
@@ -18,10 +18,15 @@ the kernel's and the JAX package's.
   autograd they go through ``torch.maximum`` / ``torch.minimum``, whose
   gradient splits half and half at ties as JAX's does (``torch.clamp``
   passes the whole gradient to ``x``); the values are the same either way.
+* ``interp``: ``jnp.interp`` (constant extrapolation), the same arithmetic.
+* ``f64_args``: numbers and arrays as float64 tensors beside the tensors
+  among the arguments, for the analytic functions that run where their
+  tensor inputs are.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -45,6 +50,10 @@ def sin(x: torch.Tensor) -> torch.Tensor:
 
 def cos(x: torch.Tensor) -> torch.Tensor:
     return torch.cos(x.double()).to(x.dtype)
+
+
+def tan(x: torch.Tensor) -> torch.Tensor:
+    return torch.tan(x.double()).to(x.dtype)
 
 
 def exp(x: torch.Tensor) -> torch.Tensor:
@@ -81,3 +90,28 @@ def maximum(x: torch.Tensor, y) -> torch.Tensor:
     if x.requires_grad:
         return torch.maximum(x, const(x, y))
     return torch.clamp(x, min=y)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """jnp.interp (constant extrapolation) on 1-D tensors, same arithmetic."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    np_dtype = np.float64 if xp.dtype == torch.float64 else np.float32
+    eps = float(np.spacing(np.finfo(np_dtype).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def f64_args(*xs):
+    """Each argument as a tensor: tensors as they are, numbers and arrays as
+    float64 tensors on the device of the first tensor argument (the CPU
+    when there is none)."""
+    dev = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    return tuple(x if isinstance(x, torch.Tensor)
+                 else torch.as_tensor(np.asarray(x, np.float64), device=dev)
+                 for x in xs)

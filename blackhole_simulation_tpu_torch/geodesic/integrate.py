@@ -6,9 +6,10 @@ code and max |H| drift; finished rays freeze. Every trip of the loop is one
 attempted step, accepted per ray by the step controller, within a budget of
 ``max_trials`` attempts. The JAX twin tests ``any(live)`` on every trip of
 its ``lax.while_loop``; here the loop runs in blocks of ``exit_every`` trips
-and tests between blocks (on a GPU each test waits for the device). A
-finished ray never changes, so the trips a block adds after the last ray
-ends leave every output as the per-trip test would.
+and tests between blocks (on a GPU each test waits for the device, and each
+block is one captured CUDA graph, ``graphed_blocks``, which the oracle
+march shares). A finished ray never changes, so the trips a block adds
+after the last ray ends leave every output as the per-trip test would.
 
 Termination codes: 0 NONE / 1 HORIZON / 2 ESCAPE / 3 MAX_STEPS /
 4 DISK_CROSSING.
@@ -68,10 +69,38 @@ def _horizon(metric, opts, like):
             * torch.as_tensor(metric.event_horizon()).to(like))
 
 
+def graphed_blocks(trials, carry, k, max_trials, live):
+    """Run whole blocks of k trials as one captured CUDA graph, replayed
+    while ``live(carry)`` holds for some ray and a whole block fits the
+    budget; returns the carry and the trials run (the caller runs any
+    remainder eagerly). The shapes are fixed, so one capture serves every
+    block; the graph runs the same kernels on the same inputs as the eager
+    loop."""
+    static = tuple(t.clone() for t in carry)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trials(tuple(t.clone() for t in static), k)   # warm-up, discarded
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trials(static, k)
+        for dst, src in zip(static, out):
+            dst.copy_(src)
+    done = 0
+    while done + k <= max_trials and bool(live(static).any()):
+        graph.replay()
+        done += k
+    return static, done
+
+
 def integrate(y0, metric, opts: IntegrationOptions = IntegrationOptions(),
               exit_every: int = 32) -> Trajectory:
     """Integrate a batch of null rays to termination. y0: (..., 8), in the
-    metric's dtype (float64 for the oracle)."""
+    metric's dtype (float64 for the oracle). On a GPU each block of
+    ``exit_every`` trials is one captured CUDA graph (``graphed_blocks``):
+    a trial is about a thousand small launches, which the host would
+    otherwise issue one by one."""
     y0 = renormalize_null(torch.as_tensor(y0), metric)
     batch_shape = y0.shape[:-1]
     dev = y0.device
@@ -85,10 +114,10 @@ def integrate(y0, metric, opts: IntegrationOptions = IntegrationOptions(),
     adaptive = opts.method is IntegrationMethod.RKF45
     max_trials = opts.max_steps * (2 if adaptive else 1)
     step = rk4_step if opts.method is IntegrationMethod.RK4 else symplectic_step
-    y = y0
-    trials = 0
-    while trials < max_trials and bool((term == TERM_NONE).any()):
-        for _ in range(min(exit_every, max_trials - trials)):
+
+    def trials(carry, n):
+        y, h, term, steps, drift = carry
+        for _ in range(n):
             live = term == TERM_NONE
             if adaptive:
                 y_trial, err = rkf45_step(metric, y, h)
@@ -107,10 +136,27 @@ def integrate(y0, metric, opts: IntegrationOptions = IntegrationOptions(),
             h_now = torch.abs(hamiltonian(y, metric))
             drift = torch.where(advance, torch.maximum(drift, h_now), drift)
             term = _classify_termination(y, term, steps, horizon, opts)
-            trials += 1
+        return y, h, term, steps, drift
+
+    carry = (y0, h, term, steps, drift)
+    live = lambda c: c[2] == TERM_NONE
+    done = 0
+    if dev.type == "cuda":
+        carry, done = graphed_blocks(trials, carry, exit_every, max_trials,
+                                     live)
+    while done < max_trials and bool(live(carry).any()):
+        block = min(exit_every, max_trials - done)
+        carry = trials(carry, block)
+        done += block
+    y, _, term, steps, drift = carry
     term = torch.where(term == TERM_NONE, TERM_MAX_STEPS, term)
+    integrate.trials = done
     return Trajectory(final_state=y, termination=term.to(torch.int32),
                       steps_taken=steps, max_hamiltonian_drift=drift)
+
+
+# The attempted steps (loop trips) of the last call, blocks included.
+integrate.trials = 0
 
 
 def integrate_path(y0, metric, n_steps: int = 1000, step_size: float = 1e-2,

@@ -12,7 +12,8 @@ trial. Here trials run in blocks of ``exit_every`` (on a GPU each test
 waits for the device), never past ``max_trials = 2 * max_steps``. A ray
 that has finished never changes, and the step size and the trial count are
 not returned, so the extra trials of the last block change no output.
-On a GPU a block is one captured CUDA graph (``_graphed``): the trial is a
+On a GPU a block is one captured CUDA graph
+(``geodesic/integrate.py::graphed_blocks``): the trial is a
 few hundred small elementwise launches, which the host would otherwise
 issue one by one.
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from blackhole_simulation_tpu_torch.geodesic.integrate import graphed_blocks
 from blackhole_simulation_tpu_torch.geodesic.integrator import (
     IntegrationOptions,
     rkf45_step,
@@ -85,30 +87,6 @@ def _trial(bh, opts, cfg, horizon_r, r_ph, slot_ids, carry):
     return y, h, hit.to(torch.int32), steps, cr, cp, ct, nc, rmin
 
 
-def _graphed(trials, carry, k, max_trials):
-    """Run whole blocks of k trials as one captured CUDA graph, replayed
-    while a ray is live and a whole block fits the budget; returns the
-    carry and the trials run (the caller runs any remainder). The shapes
-    are fixed, so one capture serves every block; the graph runs the same
-    kernels on the same inputs as the eager loop."""
-    static = tuple(t.clone() for t in carry)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        trials(tuple(t.clone() for t in static), k)   # warm-up, discarded
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = trials(static, k)
-        for dst, src in zip(static, out):
-            dst.copy_(src)
-    done = 0
-    while done + k <= max_trials and bool((static[2] == HIT_NONE).any()):
-        graph.replay()
-        done += k
-    return static, done
-
-
 def oracle_march(y0, mass, spin, cfg: MarchConfig = MarchConfig(),
                  opts: IntegrationOptions | None = None,
                  exit_every: int = 32) -> MarchResult:
@@ -149,7 +127,8 @@ def oracle_march(y0, mass, spin, cfg: MarchConfig = MarchConfig(),
 
     done = 0
     if dev.type == "cuda":
-        carry, done = _graphed(trials, carry, exit_every, max_trials)
+        carry, done = graphed_blocks(trials, carry, exit_every, max_trials,
+                                     lambda c: c[2] == HIT_NONE)
     while done < max_trials and bool((carry[2] == HIT_NONE).any()):
         block = min(exit_every, max_trials - done)
         carry = trials(carry, block)

@@ -1,15 +1,21 @@
 """Neural Radiance Surrogate: the 3 -> 16 -> 16 -> 16 -> 3 tanh MLP that
 stands in for the march on far-field rays.
 
-Counterpart of ``blackhole_simulation_tpu/models/nrs.py`` (:32-143):
-``NRS_LAYERS``, ``NRS_HIDDEN``, ``nrs_init``, ``nrs_apply``,
-``nrs_flat_weights``, ``nrs_from_flat`` and ``nrs_far_field_rows``. The MLP
-maps (|b| / 40, theta / pi, a) to (deflection, time delay, escape logit);
-the render uses the deflection. Weights are a list of (w (in, out),
-b (out,)) float32 pairs; ``nrs_params_from_numpy`` carries the JAX
-package's over. Training (``generate_training_data``, ``train_nrs``) labels
-its data with the float64 geodesic oracle, which the port does not have
-yet, and is not ported.
+Counterpart of ``blackhole_simulation_tpu/models/nrs.py``: ``NRS_LAYERS``,
+``NRS_HIDDEN``, ``nrs_init``, ``nrs_apply``, ``nrs_flat_weights``,
+``nrs_from_flat`` and ``nrs_far_field_rows`` (:32-143), and the training
+half, ``generate_training_data`` (:146-183) and ``train_nrs`` (:186-214).
+The MLP maps (|b| / 40, theta / pi, a) to (deflection, time delay, escape
+logit); the render uses the deflection. Weights are a list of
+(w (in, out), b (out,)) float32 pairs; ``nrs_init(seed)`` draws the JAX
+package's weights for the same seed (``models/threefry.py``), and
+``nrs_params_from_numpy`` carries any of the JAX package's over.
+
+The training labels come from the float64 geodesic integrator
+(``geodesic/integrate.py``): the whole equatorial ray family is one batch,
+integrated where the tensors live. Training is full-batch MSE by autograd
+with the JAX package's Adam written out term for term. Every entry point
+runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -36,25 +42,37 @@ _IN, _OUT = 3, 3
 _SIZES = [_IN] + [NRS_HIDDEN] * (NRS_LAYERS - 1) + [_OUT]
 
 
+def _device(device):
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    return resolve_device(device)
+
+
 def nrs_init(seed: int = 0, device=None):
-    """Xavier-style normal init from ``torch.Generator().manual_seed(seed)``
-    (zero biases). Deterministic, but not the JAX package's weights:
-    ``jax.random``'s stream is not ``torch``'s, so the same seed gives other
-    numbers. To run the JAX package's weights, convert them with
-    ``nrs_params_from_numpy``."""
-    gen = torch.Generator().manual_seed(seed)
+    """Xavier-style normal init with zero biases, on ``device`` (``cuda``
+    unless the caller passes ``"cpu"``): the JAX package's ``nrs_init(seed)``
+    weights, drawn from ``jax.random``'s threefry stream as
+    ``models/threefry.py`` computes it in numpy (about 1.5% of them up to
+    3 float32 ulps away)."""
+    from blackhole_simulation_tpu_torch.models import threefry
+
+    device = _device(device)
+    key = threefry.prng_key(seed)
     params = []
     for fan_in, fan_out in zip(_SIZES[:-1], _SIZES[1:]):
-        scale = math.sqrt(2.0 / (fan_in + fan_out))
-        w = torch.randn((fan_in, fan_out), generator=gen) * scale
-        params.append((w.to(device), torch.zeros(fan_out, device=device)))
+        key, sub = threefry.split(key)
+        scale = np.float32(math.sqrt(2.0 / (fan_in + fan_out)))
+        w = threefry.normal(sub, (fan_in, fan_out)) * scale
+        params.append((torch.from_numpy(w).to(device),
+                       torch.zeros(fan_out, device=device)))
     return params
 
 
 def nrs_params_from_numpy(params, device=None):
     """The JAX package's NRS weights, a list of (w (in, out), b (out,))
     arrays (numpy, or anything ``np.asarray`` takes), as the port's float32
-    tensors on ``device``."""
+    tensors on ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    device = _device(device)
     as_t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
     return [(as_t(w), as_t(b)) for w, b in params]
 
@@ -138,3 +156,98 @@ def nrs_far_field_rows(params, rays_u: torch.Tensor, m, a,
     cy = nz * vx - nx * vz
     cz = nx * vy - ny * vx
     return far, (vx * ca + cx * sa, vy * ca + cy * sa, vz * ca + cz * sa)
+
+
+def generate_training_data(n: int = 256, spin_range=(-0.99, 0.99),
+                           b_range=(3.0, 40.0), r0: float = 200.0,
+                           seed: int = 0, device=None):
+    """Oracle-labelled dataset of the equatorial ray family: inputs
+    (b / b_range[1], theta / pi, a) and targets (deflection, time delay
+    against flat space / 50, escaped flag), float32 (n, 3) tensors on
+    ``device`` (``cuda`` unless the caller passes ``"cpu"``).
+
+    b and a are drawn from ``np.random.default_rng(seed)`` as the JAX
+    package draws them, so the inputs are bit-equal to its. All n rays are
+    integrated as one batch in float64: a Kerr-Schild metric whose spin is
+    the (n,) tensor of draws, rays born at (0, r0, pi/2, 0) with
+    p = (-1, 0, b) projected onto the null cone, RKF45 to termination
+    (30,000 steps, escape at 1.5 r0). The labels are the JAX package's
+    (nrs.py:161-176), in float64, then rounded."""
+    from blackhole_simulation_tpu_torch.geodesic import (
+        TERM_ESCAPE,
+        IntegrationOptions,
+        integrate,
+        null_ray,
+    )
+    from blackhole_simulation_tpu_torch.geometry.metrics import (
+        KS,
+        KerrMetric,
+    )
+
+    device = _device(device)
+    rng = np.random.default_rng(seed)
+    b = rng.uniform(*b_range, n)
+    a = rng.uniform(*spin_range, n)
+    theta = np.full(n, np.pi / 2)
+
+    f64 = dict(dtype=torch.float64, device=device)
+    b_t = torch.tensor(b, **f64)
+    bh = KerrMetric.create(1.0, torch.tensor(a, **f64), chart=KS,
+                           device=device)
+    zero = torch.zeros_like(b_t)
+    x = torch.stack([zero, zero + r0, zero + math.pi / 2, zero], dim=-1)
+    y0 = null_ray(x, torch.stack([zero - 1.0, zero, b_t], dim=-1), bh)
+    traj = integrate(y0, bh, IntegrationOptions(max_steps=30_000,
+                                                escape_radius=r0 * 1.5))
+    fin = traj.final_state
+    esc = traj.termination == TERM_ESCAPE
+    r_out = fin[:, 1]
+    out_angle = torch.arctan2(fin[:, 7] / r_out, fin[:, 5])
+    in_angle = (torch.arcsin(torch.clamp(torch.abs(b_t) / r0, 0.0, 1.0))
+                * torch.sign(b_t))
+    deflection = torch.where(esc, fin[:, 3] + out_angle + in_angle - math.pi,
+                             0.0)
+    delay = torch.where(esc, fin[:, 0] - (r_out - r0), 0.0)
+    x_in = np.stack([b / b_range[1], theta / np.pi, a], axis=-1).astype(
+        np.float32)
+    y = torch.stack([deflection, delay / 50.0, esc.to(torch.float64)],
+                    dim=-1).to(torch.float32)
+    return torch.from_numpy(x_in).to(device), y
+
+
+def train_nrs(x, y, n_steps: int = 500, lr: float = 3e-3, seed: int = 0, *,
+              params=None, device=None):
+    """Full-batch Adam on the MSE of ``nrs_apply(params, x)`` against ``y``:
+    (params, loss history), the loss recorded at step 1 and every 50th, as
+    the JAX package records it. Starts from ``nrs_init(seed)`` unless
+    ``params`` are given (e.g. the JAX package's weights through
+    ``nrs_params_from_numpy``). The Adam update is the JAX package's term
+    for term (nrs.py:198-207): m = 0.9 m + 0.1 g, v = 0.999 v + 0.001 g^2,
+    the bias corrections, then p - lr m_hat / (sqrt(v_hat) + 1e-8) (not
+    ``torch.optim.Adam``, which folds the corrections into the step size).
+    Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    device = _device(device)
+    x = torch.as_tensor(x, device=device)
+    y = torch.as_tensor(y, device=device)
+    if params is None:
+        params = nrs_init(seed, device)
+    leaves = [t.detach().to(device).clone().requires_grad_(True)
+              for pair in params for t in pair]
+    opt_m = [torch.zeros_like(p) for p in leaves]
+    opt_v = [torch.zeros_like(p) for p in leaves]
+    pairs = lambda ts: [(ts[i], ts[i + 1]) for i in range(0, len(ts), 2)]
+    losses = []
+    for t in range(1, n_steps + 1):
+        loss = torch.mean((nrs_apply(pairs(leaves), x) - y) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            bc1, bc2 = 1 - 0.9 ** float(t), 1 - 0.999 ** float(t)
+            for i, (p, g) in enumerate(zip(leaves, grads)):
+                opt_m[i] = 0.9 * opt_m[i] + 0.1 * g
+                opt_v[i] = 0.999 * opt_v[i] + 0.001 * g * g
+                mhat = div_c(opt_m[i], bc1)
+                vhat = div_c(opt_v[i], bc2)
+                p.sub_(lr * mhat / (sqrt(vhat) + 1e-8))
+        if t % 50 == 0 or t == 1:
+            losses.append(float(loss.detach()))
+    return [(w.detach(), b.detach()) for w, b in pairs(leaves)], losses

@@ -1,9 +1,11 @@
 """Blackbody spectra -> CIE XYZ -> linear sRGB, host float64 numpy.
 
-Counterpart of ``blackhole_simulation_tpu/physics/spectrum.py:24-100``: the
+Counterpart of ``blackhole_simulation_tpu/physics/spectrum.py``: the
 Gaussian-sum CIE 1931 colour matching fits, the Planck law with its overflow
-guard, the trapezoid over 380-780 nm and the XYZ -> linear sRGB matrix.
-Runs once per scene, to build the spectral disk tables.
+guard, the trapezoid over 380-780 nm, the XYZ -> linear sRGB matrix
+(:24-100) and the 2-D blackbody LUT ``generate_blackbody_lut`` (:102-117).
+Runs once per scene, to build the spectral disk tables, and behind the
+engine facade.
 """
 
 from __future__ import annotations
@@ -78,3 +80,18 @@ def blackbody_rgb(t_kelvin, normalize: bool = True):
     if normalize:
         xyz = xyz / np.maximum(xyz[..., 1:2], 1e-30)
     return np.clip(xyz_to_linear_rgb(xyz), 0.0, None)
+
+
+def generate_blackbody_lut(width: int = 256, height: int = 64, t_max=4e4,
+                           g_min=0.05, g_max=5.0):
+    """2-D blackbody LUT, RGBA float32 of shape (height, width, 4): rows are
+    the g-factor in [g_min, g_max], columns the temperature on a ^2.5-warped
+    axis up to ``t_max``. RGB is the chromaticity of the blackbody at g T;
+    alpha its bolometric intensity (g T / (g_max t_max))^4."""
+    ts = t_max * np.linspace(0.0, 1.0, width) ** 2.5
+    gs = g_min + (g_max - g_min) * np.linspace(0.0, 1.0, height)
+    t_obs = gs[:, None] * np.maximum(ts[None, :], 1.0)
+    rgb = blackbody_rgb(t_obs)
+    intensity = (t_obs / (g_max * t_max)) ** 4
+    return np.concatenate([rgb, intensity[..., None]], axis=-1).astype(
+        np.float32)

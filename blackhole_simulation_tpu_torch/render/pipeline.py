@@ -106,7 +106,8 @@ def scene_from_numpy(*, mass, spin, camera: dict, march_cfg: dict | None = None,
                      features: dict | None = None, disk: dict | None = None,
                      stars: dict | None = None, post: dict | None = None,
                      jet_params: dict | None = None,
-                     spectral_coeffs=None, nrs_params=None) -> Scene:
+                     spectral_coeffs=None, nrs_params=None,
+                     device=None) -> Scene:
     """Build the port's Scene from a JAX Scene's leaves and static fields
     given as plain numbers and numpy arrays: ``mass`` and ``spin``; the
     camera's r/theta/phi/fov/roll/width/height; and each static dataclass
@@ -114,7 +115,8 @@ def scene_from_numpy(*, mass, spin, camera: dict, march_cfg: dict | None = None,
     JetParams) as a dict of its fields (``dataclasses.asdict``). The
     ``spectral_coeffs`` tables, if given, are used as they are;
     ``nrs_params``, the NRS weights as (w, b) arrays, go through
-    ``models/nrs.nrs_params_from_numpy``."""
+    ``models/nrs.nrs_params_from_numpy`` onto ``device`` (``cuda`` unless
+    the caller passes ``"cpu"``; unused without weights)."""
     from blackhole_simulation_tpu_torch.models.nrs import (
         nrs_params_from_numpy,
     )
@@ -148,7 +150,7 @@ def scene_from_numpy(*, mass, spin, camera: dict, march_cfg: dict | None = None,
         post=make(PostParams, post),
         spectral_coeffs=spectral_coeffs,
         nrs_params=(None if nrs_params is None
-                    else nrs_params_from_numpy(nrs_params)),
+                    else nrs_params_from_numpy(nrs_params, device)),
     )
     return ensure_spectral_coeffs(scene)
 

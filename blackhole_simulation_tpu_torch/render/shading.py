@@ -20,7 +20,10 @@ The oracle shades in float64 (``render/pipeline.py::shade_sample``): every
 function here computes in its rows' dtype, and only the lattice hash rounds
 through float32, as the JAX twin's does. ``shade_disk_crossings`` (:664),
 ``escape_direction_rows`` (:827) and ``escape_direction`` (:888) shade the
-oracle's theta-form ``MarchResult``.
+oracle's theta-form ``MarchResult``. ``hash31`` (:62) is the 3-D lattice
+hash; ``blackbody_ramp`` (:190), ``disk_emission`` (:324),
+``disk_emission_lut`` (:654) and ``starfield`` (:931) stack the row
+functions' channels on a last axis, as the JAX twin's wrappers do.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from blackhole_simulation_tpu_torch._elementwise import (
     cos,
     div_c,
     exp,
+    interp,
     maximum,
     pow_,
     sin,
@@ -115,6 +119,19 @@ def hash21(x, y):
     px = _fract(x * 0.1031)
     py = _fract(y * 0.1030)
     pz = _fract((x + y) * 0.0973)
+    d = px * (py + 33.33) + py * (pz + 33.33) + pz * (px + 33.33)
+    return _fract((px + py + 2.0 * d) * (pz + d))
+
+
+def hash31(x, y, z):
+    """3-D lattice hash -> float32 in [0, 1), of float32 inputs whatever
+    their dtype."""
+    x = torch.as_tensor(x).float() + 0.5
+    y = torch.as_tensor(y).float() + 0.5
+    z = torch.as_tensor(z).float() + 0.5
+    px = _fract(x * 0.1031)
+    py = _fract(y * 0.1030)
+    pz = _fract(z * 0.0973)
     d = px * (py + 33.33) + py * (pz + 33.33) + pz * (px + 33.33)
     return _fract((px + py + 2.0 * d) * (pz + d))
 
@@ -232,6 +249,11 @@ def blackbody_ramp_rows(t_kelvin):
     return tuple(out)
 
 
+def blackbody_ramp(t_kelvin):
+    """(..., 3) stack of blackbody_ramp_rows."""
+    return torch.stack(blackbody_ramp_rows(t_kelvin), dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Thin accretion disk
 # ---------------------------------------------------------------------------
@@ -316,6 +338,20 @@ def disk_emission_rows(disk: DiskParams, m, a, r_in, r_c, phi_c, t_c, lam,
     return tuple(c * masked for c in color), alpha, valid
 
 
+def disk_emission(disk: DiskParams, m, a, r_c, phi_c, t_c, lam,
+                  density_scale=1.0, intensity_scale=1.0, octaves: int = 3,
+                  r_in=None):
+    """disk_emission_rows with the rgb rows stacked: ((..., 3) rgb, alpha,
+    valid). ``r_in`` defaults to the prograde ISCO of (m, a)."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import isco_t
+
+    r_in = isco_t(m, a).to(r_c.dtype) if r_in is None else r_in
+    rgb, alpha, valid = disk_emission_rows(
+        disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves, density_scale,
+        intensity_scale)
+    return torch.stack(rgb, dim=-1), alpha, valid
+
+
 SPECTRAL_CHEB_K = 16
 SPECTRAL_T_LO = 900.0
 SPECTRAL_T_HI = 4e4
@@ -395,7 +431,7 @@ def disk_emission_lut_rows(disk: DiskParams, m, a, r_in, luts, r_c, phi_c,
     valid, r_c, g, turb, edge = _disk_geometry(
         disk, m, a, r_in, r_c, phi_c, t_c, lam, octaves
     )
-    t_shape = _interp(r_c, r_grid, t_shape_tab)
+    t_shape = interp(r_c, r_grid, t_shape_tab)
     t_obs = clip(g * t_shape * disk.t_peak, t_axis[0], t_axis[-1])
     idx = torch.searchsorted(t_axis, t_obs.detach(), right=True) - 1
     idx = torch.clamp(idx, 0, t_axis.shape[0] - 2)
@@ -410,6 +446,19 @@ def disk_emission_lut_rows(disk: DiskParams, m, a, r_in, luts, r_c, phi_c,
     intensity = _powi(g, 4.0) * _pow4(t_shape) * intensity_scale
     masked = torch.where(valid, intensity, 0.0)
     return tuple(c * masked for c in color), alpha, valid
+
+
+def disk_emission_lut(disk: DiskParams, m, a, luts, r_c, phi_c, t_c, lam,
+                      density_scale=1.0, intensity_scale=1.0,
+                      octaves: int = 3):
+    """disk_emission_lut_rows at the prograde ISCO of (m, a) with the rgb
+    rows stacked: ((..., 3) rgb, alpha, valid)."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import isco_t
+
+    rgb, alpha, valid = disk_emission_lut_rows(
+        disk, m, a, isco_t(m, a).to(r_c.dtype), luts, r_c, phi_c, t_c, lam,
+        density_scale, intensity_scale, octaves)
+    return torch.stack(rgb, dim=-1), alpha, valid
 
 
 def shade_crossings_rows(m, a, r_in, disk: DiskParams, cross_r, cross_phi,
@@ -591,6 +640,13 @@ def starfield_rows(dx, dy, dz, params: StarfieldParams = StarfieldParams()):
     )
 
 
+def starfield(direction, params: StarfieldParams = StarfieldParams()):
+    """(..., 3) starfield of (..., 3) unit directions (starfield_rows
+    stacked)."""
+    return torch.stack(starfield_rows(direction[..., 0], direction[..., 1],
+                                      direction[..., 2], params), dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Host-side spectral tables (float64 build, float32 Chebyshev projection)
 # ---------------------------------------------------------------------------
@@ -628,21 +684,6 @@ def disk_luts(mass: float, spin: float, disk: DiskParams,
                  for x in build_disk_luts(mass, spin, disk, dtype=np_dtype))
 
 
-def _interp(x, xp, fp):
-    """jnp.interp (constant extrapolation) on 1-D tensors, same arithmetic."""
-    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
-    df = fp[i] - fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
-    np_dtype = np.float64 if xp.dtype == torch.float64 else np.float32
-    eps = float(np.spacing(np.finfo(np_dtype).eps))
-    dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fp[i - 1],
-                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
-
-
 def spectral_cheb_coeffs(luts):
     """Chebyshev projections of the two spectral LUTs, in float32 as the JAX
     twin computes them: t_shape on x' = sqrt(log(r/r_in)/log(r_out/r_in))
@@ -657,10 +698,10 @@ def spectral_cheb_coeffs(luts):
     x01 = 0.5 * (nodes + 1.0)
     r_in, r_out = r_grid[0], r_grid[-1]
     r_nodes = r_in * (r_out / r_in) ** (x01 * x01)
-    t_vals = _interp(r_nodes, r_grid, t_shape_tab)
+    t_vals = interp(r_nodes, r_grid, t_shape_tab)
     t_nodes = SPECTRAL_T_LO + (SPECTRAL_T_HI - SPECTRAL_T_LO) * x01**2.5
     rgb_vals = torch.stack(
-        [_interp(t_nodes, t_axis, rgb_table[:, c].contiguous()) for c in range(3)]
+        [interp(t_nodes, t_axis, rgb_table[:, c].contiguous()) for c in range(3)]
     )
     dct = cos(div_c(math.pi * k[:, None] * (k[None, :] + 0.5), K))
 

@@ -73,18 +73,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_call(fn):
-    """One call of ``fn`` under ``torch.profiler``, after a warm-up call."""
+def profile_once(fn):
+    """One call of ``fn`` under ``torch.profiler``: (its result, the
+    profile: wall ms by CUDA events, device time summed over its kernels
+    and grouped (render, march and gradient kernels, everything else), the
+    device's idle share, the kernel launches and the 20 operations with the
+    most device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end)
@@ -98,13 +101,19 @@ def profile_call(fn):
         groups[key] += _device_us(e) / 1e3
     busy = sum(groups.values())
     top = sorted(kernels, key=_device_us, reverse=True)[:20]
-    return {
+    return out, {
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms), "groups_ms": groups,
         "device_kernels": len(kernels),
         "launches": sum(e.count for e in kernels),
         "top": [(e.key[:80], e.count, _device_us(e) / 1e3) for e in top],
     }
+
+
+def profile_call(fn):
+    """``profile_once`` of ``fn`` after a warm-up call: the profile."""
+    fn()
+    return profile_once(fn)[1]
 
 
 def main(argv=None) -> int:

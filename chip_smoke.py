@@ -2,7 +2,8 @@
 the staged render, the inverse-rendering (training) step, the AB3 march,
 the certified (critical-band refined) render, the full-featured render
 (jets, start jitter, the NRS far field, the shadow overlay), the float64
-oracle's gates and the central-difference inverse path.
+oracle's gates, the central-difference inverse path, NRS training, the
+progressive tile renderer, temporal accumulation and the engine facade.
 
     python3 chip_smoke.py
 
@@ -221,6 +222,47 @@ printing a result line:
    tests/test_parallel.py:155-176's configuration (64x64, target a = 0.85,
    160 steps, start 0.55, lr 0.04, 48 steps): final loss < 0.2x the first,
    |spin - 0.85| < 0.02, nine launches per step.
+16. NRS training at full size (tests/test_models.py:73-74):
+   ``generate_training_data(n=384, seed=1)`` on the card (seconds with
+   the integrator's trial blocks as CUDA graphs and eager, bit-equal; the
+   trials; the launches per trial and idle share of one eager 32-trial
+   block under torch.profiler) against the same call on the CPU, the
+   phase's one CPU reference: the inputs equal, the escape flags
+   identical, deflection and delay |d| < 1e-5; ``train_nrs(x, y,
+   n_steps=2500, lr=5e-3)`` on the card (ms per step, launches per step):
+   final loss < 0.01; 400 steps on the card and on the CPU from the same
+   weights: loss histories within rel 1e-3; the trained surrogate's far
+   field at 1920x1080 in tests/test_models.py:86-112's scene (r = 60,
+   theta = pi/2 - 0.2, fov 1.0, a = 0.6, the march through the march
+   kernel at 512 steps, escape radius 300, far cap 0.4): the median angle
+   error < 2 deg and < 0.25x the straight line's; the render kernel's NRS
+   branch on the trained weights at 250x141 against ``render_planes``
+   (phase 2's bars), and at 1920x1080 (30 CUDA-event frames, the kernel
+   alone beside phase 10's full-featured kernel, a kernels-line entry).
+17. The progressive tile renderer (``render/tiles.py``) at 1920x1080 on
+   the flagship scene with ``fused=False``, tile 64, batch 8: every pixel
+   covered, one march launch per batch (64 per frame), the image against
+   the staged ``render_radiance``: (|d| < 1e-3) on more than 99.8% of the
+   pixels (tests/test_tiles.py:79), the bit-equal share and the max |d|
+   printed; two frames' CUDA-event ms beside ``render_radiance``'s, the
+   device idle share and launches of one batch under the profiler; one
+   tile batch's march kernel alone on its recorded arguments and its exact
+   route against the plain march (a kernels-line entry).
+18. Temporal accumulation at 1920x1080: 16 flagship frames at
+   ``halton_jitters`` offsets through ``TemporalAccumulator.resolve`` on
+   the card, and the same frames copied to the CPU through the CPU's
+   accumulator: max |d| < 1e-5; then 8 frames of an orbit (phi += 0.01
+   per frame, ``camera=`` passed, so ``taa_resolve_reprojected``) under
+   the same bar; the CUDA-event ms and the launches of each resolve.
+19. ``PhysicsEngine`` on the card against ``PhysicsEngine(device="cpu")``
+   in float64: the scalar API (horizon, ISCO, photon sphere, dilation,
+   Hawking temperature, disk flux at mdot 2.5, g-factor, shadow radius and
+   shift) rel < 1e-12; the disk and spectrum LUTs and both meshes rel <
+   1e-10; the Kretschmann, frame-drag and light-cone fields at ``cli
+   fields``' defaults and on a 1024x1024 grid (timed) rel < 1e-10; one
+   ``tick`` of the native bridge (which must load; ``native/`` left
+   untouched); one ``integrate_ray_relativistic`` with the same
+   termination and steps on both devices.
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -232,6 +274,7 @@ then a JSON line describing each kernel, then the last line
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import subprocess
@@ -250,9 +293,21 @@ from blackhole_simulation_tpu_torch.configs import (  # noqa: E402
     SimulationParams,
     scene_from_params,
 )
+from blackhole_simulation_tpu_torch.engine import (  # noqa: E402
+    NativeBridge,
+    PhysicsEngine,
+)
+from blackhole_simulation_tpu_torch.geodesic.integrate import (  # noqa: E402
+    integrate,
+)
+# The module (the package re-exports the function under its name).
+integrate_module = importlib.import_module(
+    "blackhole_simulation_tpu_torch.geodesic.integrate")
 from blackhole_simulation_tpu_torch.models.nrs import (  # noqa: E402
+    generate_training_data,
     nrs_far_field_rows,
     nrs_init,
+    train_nrs,
 )
 from blackhole_simulation_tpu_torch.ops import build as kbuild  # noqa: E402
 from blackhole_simulation_tpu_torch.ops import pallas_march  # noqa: E402
@@ -323,13 +378,19 @@ from blackhole_simulation_tpu_torch.render.march import (  # noqa: E402
     march_rows_ad,
     refinement_config,
 )
+from blackhole_simulation_tpu_torch.render.accumulate import (  # noqa: E402
+    TemporalAccumulator,
+)
 from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
     Features,
     Scene,
+    ensure_spectral_coeffs,
+    halton_jitters,
     kernel_inputs,
     refine_critical_band,
     render,
     render_radiance,
+    render_sample,
     render_sample_scaled,
     select_band,
     shade_sample,
@@ -340,11 +401,16 @@ from blackhole_simulation_tpu_torch.render.shading import (  # noqa: E402
     StarfieldParams,
     disk_luts,
     escape_direction,
+    escape_direction_u_rows,
+)
+from blackhole_simulation_tpu_torch.render.tiles import (  # noqa: E402
+    ProgressiveRenderer,
 )
 from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
     critical_band_metric_u,
 )
 from blackhole_simulation_tpu_torch.tools import sass_census  # noqa: E402
+from blackhole_simulation_tpu_torch.tools import train_probe  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import vpu_peak  # noqa: E402
 
 SOURCES = ("render.cu", "march.cu", "march_grad.cu", "vpu_peak.cu",
@@ -2319,12 +2385,12 @@ def oracle_card_vs_cpu(width=24, height=16):
 
 def eager_oracle_result(scene):
     """oracle_result with the trial blocks run eagerly (no CUDA graph)."""
-    keep = oracle_module._graphed
-    oracle_module._graphed = lambda trials, carry, k, max_trials: (carry, 0)
+    keep = oracle_module.graphed_blocks
+    oracle_module.graphed_blocks = lambda trials, carry, *rest: (carry, 0)
     try:
         return oracle_result(scene)
     finally:
-        oracle_module._graphed = keep
+        oracle_module.graphed_blocks = keep
 
 
 def gate_full(size=256):
@@ -2589,6 +2655,438 @@ def phase_fd(steps=5, width=1920, height=1080, inverse_size=64,
     return out
 
 
+def profiled(fn):
+    """(result, profile) of one call of ``fn`` under torch.profiler
+    (``tools/train_probe.py::profile_once``): its kernel launches, device
+    busy ms and idle share."""
+    out, prof = train_probe.profile_once(fn)
+    prof.pop("top")
+    return out, prof
+
+
+NRS_CFG = MarchConfig(max_steps=512, escape_radius=300.0,
+                      far_step_cap_rate=0.4)
+
+
+def nrs_far_field_error(params, width=1920, height=1080):
+    """tests/test_models.py:86-112 at 1920x1080: the median angle (degrees)
+    between the surrogate's deflected direction and the marched escape
+    direction over the far, escaped rays, beside the straight line's; the
+    march through the march kernel."""
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.6)
+    cam = Camera.create(r=60.0, theta=math.pi / 2 - 0.2, fov=1.0,
+                        width=width, height=height)
+    rays = camera_rays_u(cam, m, a)
+    far, dirs = nrs_far_field_rows(params, rays, m, a, b_min=12.0)
+    march_u.launches = 0
+    rows = march_rows(rays, m, a, NRS_CFG)
+    torch.cuda.synchronize()
+    launches = march_u.launches
+    mdir = escape_direction_u_rows(tuple(rows.state_u[i] for i in range(8)),
+                                   m, a)
+    sdir = escape_direction_u_rows(tuple(rays[i] for i in range(8)), m, a)
+    mask = far & (rows.hit == HIT_ESCAPE)
+
+    def ang(d):
+        dot = d[0] * mdir[0] + d[1] * mdir[1] + d[2] * mdir[2]
+        return torch.rad2deg(torch.arccos(torch.clamp(dot.double(), -1.0,
+                                                      1.0)))[mask]
+
+    out = {"rays": int(mask.sum()), "march_launches": launches,
+           "median_deg_nrs": float(ang(dirs).median()),
+           "median_deg_straight": float(ang(sdir).median())}
+    if not (launches == 1 and out["rays"] > 0
+            and out["median_deg_nrs"] < 2.0
+            and out["median_deg_nrs"] < 0.25 * out["median_deg_straight"]):
+        raise AssertionError(f"NRS far field at {width}x{height}: {out}")
+    return out
+
+
+def label_launches_per_trial(x):
+    """torch.profiler over one block of 32 RKF45 trials (the integrator's
+    exit-test block) of rays like the label batch's, born as
+    ``generate_training_data`` births them from b and a read back from its
+    float32 inputs ``x``: every trial makes the same launches, so the
+    labels' launches are this block's / 32 x their trials (the profiler's
+    own cost over all of them is ~30 s)."""
+    from blackhole_simulation_tpu_torch.geodesic import (
+        IntegrationOptions,
+        null_ray,
+    )
+    from blackhole_simulation_tpu_torch.geometry.metrics import (
+        KS,
+        KerrMetric,
+    )
+
+    f64 = dict(dtype=torch.float64, device=DEV)
+    b = x[:, 0].to(**f64) * 40.0
+    bh = KerrMetric.create(1.0, x[:, 2].to(**f64), chart=KS, device=DEV)
+    zero = torch.zeros_like(b)
+    y0 = null_ray(torch.stack([zero, zero + 200.0, zero + math.pi / 2, zero],
+                              dim=-1),
+                  torch.stack([zero - 1.0, zero, b], dim=-1), bh)
+    opts = IntegrationOptions(max_steps=16, escape_radius=300.0)
+    _, prof = profiled(lambda: integrate(y0, bh, opts))
+    if integrate.trials != 32:
+        raise AssertionError(f"one block is 32 trials: {integrate.trials}")
+    return prof
+
+
+def phase_nrs(full_featured_ms):
+    """Phase 16: NRS training at full size (tests/test_models.py:73-74):
+    the labels on the card against the CPU's, 2,500 training steps on the
+    card, 400 steps on the card against the CPU from the same weights, the
+    trained surrogate's far field at 1080p, and the render kernel on the
+    trained weights."""
+    t0 = time.perf_counter()
+    out = {}
+    t1 = time.perf_counter()
+    x, y = generate_training_data(n=384, seed=1, device=DEV)
+    torch.cuda.synchronize()
+    label_s = time.perf_counter() - t1
+    trials = integrate.trials
+    # The same labels with the trial blocks eager (no CUDA graph), and the
+    # launches of one eager block.
+    keep = integrate_module.graphed_blocks
+    integrate_module.graphed_blocks = lambda trials, carry, *rest: (carry, 0)
+    try:
+        per_trial = label_launches_per_trial(x)
+        t1 = time.perf_counter()
+        x2, y2 = generate_training_data(n=384, seed=1, device=DEV)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t1
+    finally:
+        integrate_module.graphed_blocks = keep
+    t1 = time.perf_counter()
+    xc, yc = generate_training_data(n=384, seed=1, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    d = (y.cpu() - yc).abs()
+    out["labels"] = {
+        "seconds": label_s, "eager_seconds": eager_s, "trials": trials,
+        "eager_launches_per_trial": per_trial["launches"] / 32,
+        "eager_launches_est": per_trial["launches"] / 32 * trials,
+        "eager_idle_share_32_trials": per_trial["idle_share"],
+        "graph_replays": -(-trials // 32),
+        "cpu_reference_seconds": cpu_s, "escaped": int(yc[:, 2].sum()),
+        "max_abs_deflection": float(d[:, 0].max()),
+        "max_abs_delay": float(d[:, 1].max()),
+        "graphed_equals_eager": bool(torch.equal(y2, y)
+                                     and torch.equal(x2, x))}
+    print(f"NRS labels n=384 on the card: {json.dumps(out['labels'])}")
+    if not (out["labels"]["graphed_equals_eager"]
+            and torch.equal(x.cpu(), xc) and torch.equal(y[:, 2].cpu(), yc[:, 2])
+            and out["labels"]["max_abs_deflection"] < 1e-5
+            and out["labels"]["max_abs_delay"] < 1e-5):
+        raise AssertionError(f"NRS labels card vs CPU: {out['labels']}")
+
+    steps = 2500
+    t1 = time.perf_counter()
+    params, losses = train_nrs(x, y, n_steps=steps, lr=5e-3, device=DEV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    _, step_prof = profiled(
+        lambda: train_nrs(x, y, n_steps=1, lr=5e-3, device=DEV))
+    start = nrs_init(0, "cpu")
+    _, l_card = train_nrs(x, y, n_steps=400, lr=5e-3, params=start,
+                          device=DEV)
+    _, l_cpu = train_nrs(x.cpu(), y.cpu(), n_steps=400, lr=5e-3,
+                         params=start, device="cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    out["training"] = {"steps": steps, "seconds": train_s,
+                       "ms_per_step": train_s / steps * 1e3,
+                       "first_loss": losses[0], "final_loss": losses[-1],
+                       "launches_one_step_call": step_prof["launches"],
+                       "card_vs_cpu_400_steps_rel": rel}
+    print(f"NRS training on the card: {json.dumps(out['training'])}")
+    if not (losses[-1] < 0.01 and rel < 1e-3):
+        raise AssertionError(f"NRS training: {out['training']}")
+
+    out["far_field"] = nrs_far_field_error(params)
+    print(f"NRS far field 1920x1080, trained weights: "
+          f"{json.dumps(out['far_field'])}")
+
+    # The render kernel's NRS branch on the trained weights.
+    cfg = dataclasses.replace(FLAGSHIP_CFG, max_steps=48, approx_recip=False)
+    scene = dataclasses.replace(branch_scene("nrs", 250, 141, cfg),
+                                nrs_params=params)
+    row, st = kernel_inputs(scene, None, DEV)
+    before = render_planes_kernel.launches
+    s = diff_stats(render_planes_kernel(row, st), render_planes(row, st))
+    s["far_pixels"] = far_pixels(scene)
+    print(f"render kernel vs plain, trained NRS (250x141, 48 steps): {s}")
+    if not (render_planes_kernel.launches == before + 1 and s["far_pixels"]
+            and s["p99_abs"] < 1e-4 and s["mean_abs"] < 1e-5):
+        raise AssertionError(f"render kernel, trained NRS: {s}")
+    out["render_250x141"] = s
+
+    width, height = 1920, 1080
+    scene = dataclasses.replace(
+        branch_scene("nrs", width, height, FLAGSHIP_CFG), nrs_params=params)
+    (frame_ms, frame_min, frame_max), launches = render_frames(scene)
+    n_far = far_pixels(scene)
+    entry, d, _, _ = render_kernel_entry(
+        scene, launches["render"], step_ops("midpoint", True),
+        OPS_PER_PIXEL + OPS_PER_PIXEL_NRS, 12,
+        "blackhole_simulation_tpu/ops/pallas_render.py:140",
+        path="trained-NRS render() at 1920x1080", variant="midpoint",
+        frame_ms=frame_ms, frame_ms_min_max=[frame_min, frame_max],
+        far_pixels=n_far)
+    extra, _ = bound(OPS_PER_FAR_PIXEL * n_far, 0)
+    entry["bound_ms"] += extra
+    entry["full_featured_kernel_ms"] = full_featured_ms
+    print(f"trained-NRS render() 1920x1080: {frame_ms:.3f} ms/frame median "
+          f"of 30 (min {frame_min:.3f}, max {frame_max:.3f}); kernel "
+          f"{entry['ms']:.3f} ms beside the full-featured kernel's "
+          f"{full_featured_ms:.3f} ms (phase 10), bound "
+          f"{entry['bound_ms']:.3f} ms; far pixels {n_far}; steps/ray "
+          f"{entry['steps_per_ray']:.2f}; vs plain {d}")
+    if launches["render"] != 30 or not n_far:
+        raise AssertionError(f"trained-NRS frames: {launches}, {n_far}")
+    out["render_1080p"] = {k: entry[k] for k in (
+        "frame_ms", "ms", "bound_ms", "far_pixels", "steps_per_ray")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16 (NRS training): {out['seconds']:.1f} s")
+    return out, [entry]
+
+
+def phase_tiles(width=1920, height=1080, tile=64, batch_tiles=8):
+    """Phase 17: the progressive tile renderer at 1080p on the flagship
+    scene, staged: every pixel covered, one march launch per batch, the
+    image against the staged ``render_radiance``."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(FLAGSHIP_CFG, fused=False)
+    scene = flagship_scene(width, height, cfg=cfg)
+    prog = ProgressiveRenderer(scene, tile, batch_tiles, device=DEV)
+    batches = -(-prog.grid.n_tiles // batch_tiles)
+    march_u.launches = 0
+    march_u.record = []
+    frame_ms, _, _ = timed(prog.render_all, 1)
+    launches = march_u.launches
+    args, march_u.record = march_u.record[0], None
+    img = prog.image
+    ref = render_radiance(scene, device=DEV)
+    ref_ms, ref_min, ref_max = timed(
+        lambda: render_radiance(scene, device=DEV), 5)
+    frame2_ms, _, _ = timed(ProgressiveRenderer(scene, tile, batch_tiles,
+                                                device=DEV).render_all, 1)
+    # One batch under the profiler: every batch makes the same launches.
+    _, prof = profiled(ProgressiveRenderer(scene, tile, batch_tiles,
+                                           device=DEV).step)
+    diff = (img - ref).abs().amax(dim=-1)
+    out = {"tiles": prog.grid.n_tiles, "batches": batches,
+           "march_launches": launches,
+           "covered": bool(prog.covered.all()),
+           "frac_below_1e-3": float((diff < 1e-3).float().mean()),
+           "frac_bit_equal": float((img == ref).all(dim=-1).float().mean()),
+           "max_abs": float(diff.max()), "finite": bool(
+               torch.isfinite(img).all()),
+           "frame_ms_runs": [frame_ms, frame2_ms],
+           "render_radiance_ms": ref_ms,
+           "render_radiance_ms_min_max": [ref_min, ref_max],
+           "batch_wall_ms": prof["wall_ms"],
+           "batch_device_busy_ms": prof["device_busy_ms"],
+           "batch_idle_share": prof["idle_share"],
+           "launches_per_batch": prof["launches"],
+           "launches_per_frame": prof["launches"] * batches}
+    print(f"progressive renderer {width}x{height}, tile {tile}, batch "
+          f"{batch_tiles}: {json.dumps(out)}")
+    if not (out["covered"] and out["finite"] and launches == batches
+            and out["frac_below_1e-3"] > 0.998):
+        raise AssertionError(f"progressive renderer: {out}")
+    plain = dataclasses.replace(args[6], approx_recip=False)
+    cmp, entry = march_entry(
+        f"progressive tiles {width}x{height} (one batch of {batch_tiles} "
+        "tiles)",
+        launches, args, (*args[:6], plain, args[7]),
+        step_ops("midpoint", True), variant="midpoint",
+        batches_per_frame=batches)
+    print(f"tile batch march kernel {entry['ms']:.3f} ms on {entry['rays']} "
+          f"rays, bound {entry['bound_ms']:.3f} ms; exact route vs plain "
+          f"{cmp}")
+    if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
+        raise AssertionError(f"tile batch march kernel vs plain: {cmp}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17 (progressive tiles): {out['seconds']:.1f} s")
+    return out, [entry]
+
+
+def _taa_frames(scene, keys, orbit):
+    """The flagship's (H, W, 3) radiance frames: one per Halton jitter of
+    ``keys``, or with ``orbit`` one per camera phi of ``keys``."""
+    frames = []
+    for c in keys:
+        if orbit:
+            cam = dataclasses.replace(scene.camera, phi=c)
+            s = dataclasses.replace(scene, camera=cam)
+            frames.append(render_radiance(s, device=DEV))
+        else:
+            frames.append(render_sample(scene, c, DEV).permute(1, 2, 0)
+                          .contiguous())
+    return frames
+
+
+def _accumulate(frames, cams, device):
+    """Every resolve of a TemporalAccumulator over ``frames`` on
+    ``device`` (copied to the host), and on the card each resolve's
+    CUDA-event ms and its launches (one more resolve under the profiler,
+    whose state change is undone)."""
+    acc = TemporalAccumulator()
+    outs, ms, launches = [], [], []
+    for f, cam in zip(frames, cams):
+        f = f.to(device)
+        resolve = lambda: acc.resolve(f, cam is not None, cam)
+        if device != "cpu" and acc.history is not None:
+            state = (acc.history, acc.frame_count, acc.prev_camera)
+            launches.append(profiled(resolve)[1]["launches"])
+            acc.history, acc.frame_count, acc.prev_camera = state
+            ms.append(timed(resolve, 1)[0])
+        else:
+            resolve()
+        outs.append(acc.history.cpu())
+    return outs, ms, launches
+
+
+def phase_taa(width=1920, height=1080, n_static=16, n_orbit=8):
+    """Phase 18: TAA at 1080p, the card's accumulator against the CPU's on
+    the same frames: a static Halton-jittered sequence (``taa_resolve``)
+    and an orbit (``taa_resolve_reprojected``)."""
+    t0 = time.perf_counter()
+    scene = ensure_spectral_coeffs(flagship_scene(width, height))
+    out = {}
+    cam = scene.camera
+    for name, keys, cams in (
+            ("static", list(halton_jitters(n_static)), [None] * n_static),
+            ("orbit", [cam.phi + 0.01 * k for k in range(n_orbit)],
+             [(cam.r, cam.theta, cam.phi + 0.01 * k, cam.fov, cam.roll)
+              for k in range(n_orbit)])):
+        frames = _taa_frames(scene, keys, name == "orbit")
+        card, ms, launches = _accumulate(frames, cams, DEV)
+        host, _, _ = _accumulate([f.cpu() for f in frames], cams, "cpu")
+        d = max(float((a - b).abs().max()) for a, b in zip(card, host))
+        out[name] = {"frames": len(frames), "max_abs": d,
+                     "bit_equal": all(torch.equal(a, b)
+                                      for a, b in zip(card, host)),
+                     "resolve_ms_median": float(np.median(ms)),
+                     "resolve_ms_min_max": [min(ms), max(ms)],
+                     "launches_per_resolve": float(np.median(launches)),
+                     "finite": all(bool(torch.isfinite(a).all())
+                                   for a in card)}
+        print(f"TAA {name} {width}x{height} ({len(frames)} frames), card vs "
+              f"CPU: {json.dumps(out[name])}")
+        if not (d < 1e-5 and out[name]["finite"]):
+            raise AssertionError(f"TAA {name}: {out[name]}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 (TAA): {out['seconds']:.1f} s")
+    return out
+
+
+def _engine_values(eng):
+    """The engine's scalar API (float64 numbers)."""
+    return {
+        "horizon": eng.compute_horizon(),
+        "isco": [eng.compute_isco(), eng.compute_isco(False)],
+        "photon_sphere": [eng.compute_photon_sphere(),
+                          eng.compute_photon_sphere(False)],
+        "dilation": eng.compute_dilation(eng.compute_isco()),
+        "hawking": eng.compute_hawking_temperature(1.0),
+        "disk_flux_mdot_2.5": eng.compute_disk_flux(8.0, 2.5),
+        "g_factor": eng.compute_g_factor(8.0, 2.0),
+        "shadow_radius": eng.compute_shadow_radius(),
+        "shadow_shift": eng.compute_shadow_shift(),
+    }
+
+
+def _rel_max(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    ok = np.isfinite(b)
+    if not np.array_equal(ok, np.isfinite(a)):
+        return math.inf
+    return float(np.max(np.abs(a[ok] - b[ok])
+                        / np.maximum(np.abs(b[ok]), 1e-300), initial=0.0))
+
+
+def phase_engine():
+    """Phase 19: ``PhysicsEngine`` on the card against
+    ``PhysicsEngine(device="cpu")`` in float64: the scalar API, the LUTs and
+    meshes, the fields at ``cli fields``' defaults and on a 1024x1024
+    grid, one tick of the native bridge, one ray."""
+    t0 = time.perf_counter()
+    native_dir = ROOT / "native"
+    before = sorted((p.name, p.stat().st_mtime_ns) for p in
+                    native_dir.iterdir())
+    params = SimulationParams()
+    card = PhysicsEngine(params.mass, params.spin, prefer_native=True,
+                         device=DEV)
+    host = PhysicsEngine(params.mass, params.spin, prefer_native=False,
+                         device="cpu")
+    out = {"bridge": type(card.bridge).__name__,
+           "bridge_library": str(getattr(card.bridge, "path", None))}
+    if not isinstance(card.bridge, NativeBridge):
+        raise AssertionError(f"the native bridge did not load: {out}")
+    r = np.linspace(1.2, 20.0, 64)
+    th = np.linspace(0.05, np.pi - 0.05, 33)
+    a, b = _engine_values(card), _engine_values(host)
+    out["scalar_rel"] = {k: _rel_max(a[k], b[k]) for k in a}
+    tables = {
+        "disk_lut": lambda e: e.generate_disk_lut(512)[0],
+        "spectrum_lut": lambda e: e.generate_spectrum_lut(256, 64),
+        "embedding_mesh": lambda e: e.generate_embedding_mesh(),
+        "ergosphere_mesh": lambda e: e.generate_ergosphere_mesh(),
+    }
+    out["tables_rel"] = {k: _rel_max(f(card), f(host))
+                         for k, f in tables.items()}
+    fields = {
+        "kretschmann": lambda e, r, th: e.compute_kretschmann_field(r, th),
+        "frame_drag": lambda e, r, th: e.compute_frame_drag_field(r, th),
+        "light_cone_ks": lambda e, r, th: e.compute_light_cone_field(r, th),
+        "light_cone_bl": lambda e, r, th: e.compute_light_cone_field(
+            r, th, use_ks=False),
+    }
+    out["fields_rel"] = {k: _rel_max(f(card, r, th)[2], f(host, r, th)[2])
+                         for k, f in fields.items()}
+    r1 = np.linspace(1.2, 20.0, 1024)
+    th1 = np.linspace(0.05, np.pi - 0.05, 1024)
+    out["fields_1024_rel"], out["fields_1024_ms"] = {}, {}
+    for k, f in fields.items():
+        f(card, r1, th1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = f(card, r1, th1)[2]
+        out["fields_1024_ms"][k] = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        ref = f(host, r1, th1)[2]
+        out["fields_1024_ms"][f"{k}_cpu"] = (time.perf_counter() - t1) * 1e3
+        out["fields_1024_rel"][k] = _rel_max(got, ref)
+    snap = card.tick(0.02)
+    out["tick"] = {"camera": snap["camera"], "physics": snap["physics"],
+                   "shadow_points": int(snap["shadow_curve"].shape[0])}
+    ray = [0.0, 20.0, math.pi / 2, 0.0, -1.0, -0.5, 0.0, 0.0]
+    rc = card.integrate_ray_relativistic(ray, max_steps=20_000)
+    rh = host.integrate_ray_relativistic(ray, max_steps=20_000)
+    out["ray"] = {"termination": [rc["termination"], rh["termination"]],
+                  "steps": [rc["steps_taken"], rh["steps_taken"]],
+                  "final_rel": _rel_max(rc["final_state"],
+                                        rh["final_state"])}
+    card.close()
+    host.close()
+    out["native_untouched"] = before == sorted(
+        (p.name, p.stat().st_mtime_ns) for p in native_dir.iterdir())
+    print(f"PhysicsEngine card vs CPU: {json.dumps(out)}")
+    worst = lambda d: max(d.values())
+    if not (worst(out["scalar_rel"]) < 1e-12
+            and worst(out["tables_rel"]) < 1e-10
+            and worst(out["fields_rel"]) < 1e-10
+            and worst(out["fields_1024_rel"]) < 1e-10
+            and len(set(out["ray"]["termination"])) == 1
+            and len(set(out["ray"]["steps"])) == 1
+            and out["native_untouched"]
+            and math.isfinite(snap["physics"]["horizon"])):
+        raise AssertionError(f"PhysicsEngine card vs CPU: {out}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 19 (engine): {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2622,6 +3120,15 @@ def main() -> int:
     phase_census(kernels_line)
     print(f"oracle: {json.dumps(phase_oracle_gates())}")
     print(f"fd: {json.dumps(phase_fd())}")
+    nrs, nrs_kernels = phase_nrs(full["full-featured"]["ms"])
+    print(f"nrs: {json.dumps(nrs)}")
+    tiles, tile_kernels = phase_tiles()
+    print(f"tiles: {json.dumps(tiles)}")
+    print(f"taa: {json.dumps(phase_taa())}")
+    print(f"engine: {json.dumps(phase_engine())}")
+    for e in nrs_kernels + tile_kernels:
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+    kernels_line += nrs_kernels + tile_kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -115,6 +115,7 @@ def _tscene(feats, fov, fused, spin=0.9, **cfg):
         march_cfg={**BASE, "use_pallas": fused, "fused": fused, **cfg},
         features=feats,
         nrs_params=_np_nrs() if feats.get("nrs_far_field") else None,
+        device="cpu",
     )
 
 
@@ -281,7 +282,7 @@ def test_shadow_overlay_matches_jax():
 
 def test_nrs_apply_matches_jax():
     x = np.random.default_rng(4).uniform(-1, 1, (512, 3)).astype(np.float32)
-    params = tnrs.nrs_params_from_numpy(_np_nrs())
+    params = tnrs.nrs_params_from_numpy(_np_nrs(), "cpu")
     out = tnrs.nrs_apply(params, torch.from_numpy(x)).numpy()
     with jax.disable_jit():
         ref = np.asarray(jnrs.nrs_apply(_j_nrs(), jnp.asarray(x)))
@@ -293,7 +294,7 @@ def test_nrs_far_field_rows_matches_jax():
     jcam = JCamera.create(r=30.0, theta=THETA, fov=1.0, width=W, height=H)
     m, a = torch.tensor(1.0), torch.tensor(np.float32(0.9))
     far, dirs = tnrs.nrs_far_field_rows(
-        tnrs.nrs_params_from_numpy(_np_nrs()), camera_rays_u(cam, m, a), m, a,
+        tnrs.nrs_params_from_numpy(_np_nrs(), "cpu"), camera_rays_u(cam, m, a), m, a,
         b_min=B_MIN)
     with jax.disable_jit():
         rays = jcamera.camera_rays_u(jcam, _jbh(), dtype=jnp.float32)
@@ -308,18 +309,18 @@ def test_nrs_far_field_rows_matches_jax():
 
 def test_nrs_weights_round_trip():
     flat = jnrs.nrs_flat_weights(_j_nrs())
-    params = tnrs.nrs_params_from_numpy(_np_nrs())
+    params = tnrs.nrs_params_from_numpy(_np_nrs(), "cpu")
     assert flat.shape == (659,)
     np.testing.assert_array_equal(tnrs.nrs_flat_weights(params), flat)
     back = tnrs.nrs_from_flat(flat)
     for (w, b), (w2, b2) in zip(params, back):
         assert torch.equal(w, w2) and torch.equal(b, b2)
     # The port's own init: seeded, the JAX shapes, zero biases.
-    p0, p1 = tnrs.nrs_init(0), tnrs.nrs_init(0)
+    p0, p1 = tnrs.nrs_init(0, "cpu"), tnrs.nrs_init(0, "cpu")
     assert [tuple(w.shape) for w, _ in p0] == [(3, 16), (16, 16), (16, 16),
                                                (16, 3)]
     assert all(torch.equal(w, w2) for (w, _), (w2, _) in zip(p0, p1))
-    assert not torch.equal(p0[0][0], tnrs.nrs_init(1)[0][0])
+    assert not torch.equal(p0[0][0], tnrs.nrs_init(1, "cpu")[0][0])
     assert all(float(b.abs().max()) == 0.0 for _, b in p0)
 
 

@@ -2,7 +2,9 @@
 (with the band plane, the AB3 march, the jets, the start offset, the NRS far
 field and the shadow overlay) and the FP32 peak probe against their plain
 PyTorch versions, and through the port's entry points (render, the staged,
-the certified and the full-featured render, the training step).
+the certified and the full-featured render, the training step, NRS
+training, the progressive tile renderer, TAA and the engine facade, each
+against the same call on the CPU).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -12,6 +14,7 @@ only PyTorch; there, skip tests/conftest.py (which configures JAX):
 """
 
 import dataclasses as dc
+import importlib
 import math
 
 import numpy as np
@@ -22,7 +25,12 @@ from blackhole_simulation_tpu_torch.configs import (
     SimulationParams,
     scene_from_params,
 )
-from blackhole_simulation_tpu_torch.models.nrs import nrs_init
+from blackhole_simulation_tpu_torch.engine import PhysicsEngine
+from blackhole_simulation_tpu_torch.models.nrs import (
+    generate_training_data,
+    nrs_init,
+    train_nrs,
+)
 from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_pr
 from blackhole_simulation_tpu_torch.ops.march_adjoint import (
     march_step_vjp_at,
@@ -54,6 +62,7 @@ from blackhole_simulation_tpu_torch.parallel import (
     InverseParams,
     make_inverse_step,
 )
+from blackhole_simulation_tpu_torch.render.accumulate import TemporalAccumulator
 from blackhole_simulation_tpu_torch.render.camera import Camera, camera_rays_u
 from blackhole_simulation_tpu_torch.render.march import (
     MarchConfig,
@@ -70,6 +79,7 @@ from blackhole_simulation_tpu_torch.render.precull import (
     critical_band_metric_u,
 )
 from blackhole_simulation_tpu_torch.render.shading import JetParams, disk_luts
+from blackhole_simulation_tpu_torch.render.tiles import ProgressiveRenderer
 from blackhole_simulation_tpu_torch.tools import vpu_peak
 
 pytestmark = pytest.mark.gpu
@@ -700,3 +710,100 @@ def test_ab3_renormalization_countdown_and_tail(cuda, regime):
         "no-renorm-12-8": (0, False), "tail-60-16-8": (16, True)}[regime]
     row, st = kernel_inputs(_scene(**kw), None, cuda)
     _exact_route_bit_equal(row, st, dc.replace(CFG, fused=False, **kw), cuda)
+
+
+# --- NRS training, tiles, TAA and the engine on the card ------------------------
+
+def test_nrs_labels_and_training_match_cpu(cuda):
+    """Phase 16's bars at a small size: the labels on the card against the
+    CPU's (flags identical, |d| < 1e-5), 100 training steps from the same
+    weights (loss histories rel < 1e-3)."""
+    x, y = generate_training_data(n=64, seed=1, device=cuda)
+    xc, yc = generate_training_data(n=64, seed=1, device="cpu")
+    assert x.device.type == "cuda" and torch.equal(x.cpu(), xc)
+    assert torch.equal(y[:, 2].cpu(), yc[:, 2])
+    assert float((y.cpu() - yc)[:, :2].abs().max()) < 1e-5
+    start = nrs_init(0, "cpu")
+    params, l_card = train_nrs(x, y, n_steps=100, lr=5e-3, params=start,
+                               device=cuda)
+    _, l_cpu = train_nrs(xc, yc, n_steps=100, lr=5e-3, params=start,
+                         device="cpu")
+    assert params[0][0].device.type == "cuda"
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-3)
+
+
+def test_integrate_graphed_blocks_equal_eager(cuda, monkeypatch):
+    """The integrator's trial blocks as CUDA graphs give the eager loop's
+    labels bit for bit."""
+    x, y = generate_training_data(n=32, seed=3, device=cuda)
+    module = importlib.import_module(
+        "blackhole_simulation_tpu_torch.geodesic.integrate")
+    monkeypatch.setattr(module, "graphed_blocks",
+                        lambda trials, carry, *rest: (carry, 0))
+    x2, y2 = generate_training_data(n=32, seed=3, device=cuda)
+    assert torch.equal(x, x2) and torch.equal(y, y2)
+
+
+def test_trained_nrs_render_kernel_matches_plain_version(cuda):
+    x, y = generate_training_data(n=128, seed=1, device=cuda)
+    params, losses = train_nrs(x, y, n_steps=300, lr=5e-3, device=cuda)
+    assert losses[-1] < losses[0]
+    scene = dc.replace(_branch_scene("nrs"), nrs_params=params)
+    row, st = kernel_inputs(scene, None, cuda)
+    before = render_planes_kernel.launches
+    d = (render_planes_kernel(row, st) - render_planes(row, st)).abs()
+    assert render_planes_kernel.launches == before + 1
+    assert float(torch.quantile(d.flatten(), 0.99)) < 1e-4
+    assert float(d.mean()) < 1e-5
+
+
+def test_progressive_renderer_launches_the_march_kernel(cuda):
+    """One march launch per batch of tiles, every pixel covered, the image
+    against the staged render_radiance (tests/test_tiles.py's bar)."""
+    scene = _scene(128, 96, max_steps=64, fused=False)
+    prog = ProgressiveRenderer(scene, tile=32, batch_tiles=4, device=cuda)
+    before = march_u.launches
+    img = prog.render_all()
+    assert march_u.launches - before == -(-prog.grid.n_tiles // 4)
+    assert img.device.type == "cuda" and prog.covered.all()
+    ref = render_radiance(scene, device=cuda)
+    diff = (img - ref).abs().amax(dim=-1)
+    assert float((diff < 1e-3).float().mean()) > 0.998
+    assert float(diff.max()) < 5e-2
+
+
+@pytest.mark.parametrize("orbit", [False, True])
+def test_taa_on_the_card_matches_cpu(cuda, orbit):
+    rng = np.random.default_rng(3)
+    frames = rng.random((6, 54, 96, 3)).astype(np.float32)
+    acc_k, acc_c = TemporalAccumulator(), TemporalAccumulator()
+    for k, f in enumerate(frames):
+        cam = (30.0, 1.3, 0.01 * k, 0.5, 0.0) if orbit else None
+        out_k = acc_k.resolve(torch.from_numpy(f).to(cuda), orbit, cam)
+        out_c = acc_c.resolve(torch.from_numpy(f), orbit, cam)
+        assert out_k.device.type == "cuda"
+        assert float((out_k.cpu() - out_c).abs().max()) < 1e-5
+
+
+def test_engine_on_the_card_matches_cpu(cuda):
+    card = PhysicsEngine(1.0, 0.9, prefer_native=False, device=cuda)
+    host = PhysicsEngine(1.0, 0.9, prefer_native=False, device="cpu")
+    r = np.linspace(1.2, 20.0, 64)
+    th = np.linspace(0.05, np.pi - 0.05, 33)
+    for name in ("compute_horizon", "compute_isco", "compute_shadow_shift",
+                 "compute_hawking_temperature"):
+        np.testing.assert_allclose(getattr(card, name)(),
+                                   getattr(host, name)(), rtol=1e-12)
+    np.testing.assert_allclose(card.compute_g_factor(8.0, 2.0),
+                               host.compute_g_factor(8.0, 2.0), rtol=1e-12)
+    for name in ("compute_kretschmann_field", "compute_frame_drag_field",
+                 "compute_light_cone_field"):
+        np.testing.assert_allclose(getattr(card, name)(r, th)[2],
+                                   getattr(host, name)(r, th)[2], rtol=1e-10)
+    np.testing.assert_allclose(card.generate_embedding_mesh(),
+                               host.generate_embedding_mesh(), rtol=1e-10)
+    ray = [0.0, 20.0, math.pi / 2, 0.0, -1.0, -0.5, 0.0, 0.0]
+    a = card.integrate_ray_relativistic(ray, max_steps=20_000)
+    b = host.integrate_ray_relativistic(ray, max_steps=20_000)
+    assert (a["termination"], a["steps_taken"]) == (b["termination"],
+                                                    b["steps_taken"])

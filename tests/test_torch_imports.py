@@ -37,12 +37,29 @@ MODULES = [
     "blackhole_simulation_tpu_torch.geodesic.invariants",
     "blackhole_simulation_tpu_torch.geodesic.oracle",
     "blackhole_simulation_tpu_torch.geodesic.state",
+    "blackhole_simulation_tpu_torch.constants",
+    "blackhole_simulation_tpu_torch.physics",
     "blackhole_simulation_tpu_torch.physics.disk",
+    "blackhole_simulation_tpu_torch.physics.hawking",
+    "blackhole_simulation_tpu_torch.physics.matter",
+    "blackhole_simulation_tpu_torch.physics.redshift",
     "blackhole_simulation_tpu_torch.physics.spectrum",
     "blackhole_simulation_tpu_torch.physics.shadow",
     "blackhole_simulation_tpu_torch.render.overlay",
+    "blackhole_simulation_tpu_torch.render.accumulate",
+    "blackhole_simulation_tpu_torch.render.tiles",
+    "blackhole_simulation_tpu_torch.render.shading",
+    "blackhole_simulation_tpu_torch.spacetime",
+    "blackhole_simulation_tpu_torch.spacetime.curvature",
+    "blackhole_simulation_tpu_torch.spacetime.embedding",
+    "blackhole_simulation_tpu_torch.spacetime.frame_drag",
+    "blackhole_simulation_tpu_torch.spacetime.lightcone",
+    "blackhole_simulation_tpu_torch.engine",
+    "blackhole_simulation_tpu_torch.engine.facade",
+    "blackhole_simulation_tpu_torch.engine.native",
     "blackhole_simulation_tpu_torch.models",
     "blackhole_simulation_tpu_torch.models.nrs",
+    "blackhole_simulation_tpu_torch.models.threefry",
     "blackhole_simulation_tpu_torch.configs",
     "blackhole_simulation_tpu_torch.configs.simulation",
     "blackhole_simulation_tpu_torch.tools.vpu_peak",
