@@ -3,7 +3,10 @@
 Counterpart of ``blackhole_simulation_tpu/ops/ks_kernel.py`` (``w_floor``
 :253, ``_geom_u`` :287, ``ks_rhs_rows`` :382, ``ks_symplectic_step_rows``
 :433, ``ks_renormalize_pr`` :465, ``ks_renormalize_u`` :369,
-``theta_state_to_u`` / ``u_state_to_theta`` :270-285). With u = cos(theta) the Hamiltonian
+``theta_state_to_u`` / ``u_state_to_theta`` :270-285), and the
+theta-form ``_geom`` (:36) and ``ks_hamiltonian`` (:50) on packed
+(..., 8) states, which the march telemetry reads. With u = cos(theta) the
+Hamiltonian
 
     H = 1/2 [ -(1+h) p_t^2 + 2 h p_t p_r + (D/S) p_r^2 + (2a/S) p_r p_phi
               + (w/S) p_u^2 + p_phi^2 / (S w) ],
@@ -24,11 +27,41 @@ from blackhole_simulation_tpu_torch._elementwise import (
     clip,
     cos,
     maximum,
+    sin,
     sqrt,
 )
 
 # The chart maps' floor for sin^2(theta) = 1 - u^2, in every dtype.
 _W_EPS = 1e-12
+_SIN2_EPS = 1e-12
+
+
+def _geom(m, a, r, th):
+    """(sin^2, sin 2theta, S, D, 1/S, h) at one theta-form point."""
+    s = sin(th)
+    c = cos(th)
+    s2 = maximum(s * s, _SIN2_EPS)
+    sin2t = 2.0 * s * c
+    S = r * r + a * a * c * c
+    D = r * r - 2.0 * m * r + a * a
+    inv_S = 1.0 / S
+    h = 2.0 * m * r * inv_S
+    return s2, sin2t, S, D, inv_S, h
+
+
+def ks_hamiltonian(m, a, y: torch.Tensor) -> torch.Tensor:
+    """H of packed theta-form states y (..., 8) -> (...)."""
+    r, th = y[..., 1], y[..., 2]
+    pt, pr, pth, pph = y[..., 4], y[..., 5], y[..., 6], y[..., 7]
+    s2, _, S, D, inv_S, h = _geom(m, a, r, th)
+    return 0.5 * (
+        -(1.0 + h) * pt * pt
+        + 2.0 * h * pt * pr
+        + D * inv_S * pr * pr
+        + 2.0 * a * inv_S * pr * pph
+        + pth * pth * inv_S
+        + pph * pph * inv_S / s2
+    )
 
 
 def w_floor(dtype) -> float:

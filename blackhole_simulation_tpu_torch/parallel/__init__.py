@@ -1,4 +1,5 @@
-"""Inverse rendering: recover scene parameters from a target image."""
+"""Inverse rendering on one device (``train.py``) and its checkpoints
+(``checkpoint.py``)."""
 
 from blackhole_simulation_tpu_torch.parallel.train import (
     InverseParams,

@@ -3,7 +3,9 @@ the staged render, the inverse-rendering (training) step, the AB3 march,
 the certified (critical-band refined) render, the full-featured render
 (jets, start jitter, the NRS far field, the shadow overlay), the float64
 oracle's gates, the central-difference inverse path, NRS training, the
-progressive tile renderer, temporal accumulation and the engine facade.
+progressive tile renderer, temporal accumulation, the engine facade, and
+the app in front of them (the CLI, the live loop, the cinematic director
+and the checkpointed inverse path).
 
     python3 chip_smoke.py
 
@@ -263,6 +265,30 @@ printing a result line:
    ``tick`` of the native bridge (which must load; ``native/`` left
    untouched); one ``integrate_ray_relativistic`` with the same
    termination and steps on both devices.
+20. The app on the card, through ``app.cli.main`` (no ``--device``: the
+   card by default) and ``app.live.run_live``, outputs in a temporary
+   directory: ``render`` at 1920x1080 (the CLI's default parameters, the
+   fused path; its PNG equal byte for byte to ``encode_png`` of the
+   direct ``render(scene_from_params(...)).clamp(0, 1)`` on the card),
+   then ``--certified``, each's wall seconds (PNG encode included) and
+   launches; ``animate --director grand_survey --frames 8`` at 480x270 (8
+   render launches, each PNG equal to the direct render of
+   ``grand_survey(i / 30)``'s camera); ``run_live`` headless at 1280x720,
+   240 frames of the orbit script with the calibration (frames, FPS mean
+   and p5, quality, calibrated FPS, final scale, scale changes), then 48
+   frames without it under the profiler (render launches per displayed
+   frame, 1 expected; the device idle share); the display program
+   (antialiased resize to 66x120, reprojected TAA, uint8) on the card
+   against the CPU on the same card-rendered 1280x704 frames (max |d| <=
+   1e-5 before the cast) and the render kernel alone at that rung (a
+   kernels-line entry); ``inverse`` at its defaults (96x96, 60 AD steps:
+   seconds and march and gradient launches per step, |recovered - true|,
+   finite JSON); ``inverse --checkpoint-dir --steps 10`` stopped after
+   the save of step 6 and resumed by a fresh ``main`` against an
+   uninterrupted run (the final FD state bit for bit); ``bench`` and
+   ``validate`` with ``--seconds 1`` at 480x270 (finite FPS, frames > 0);
+   ``info`` and ``fields`` on the card against ``--device cpu`` (rel <=
+   1e-12 / 1e-10).
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -273,12 +299,16 @@ then a JSON line describing each kernel, then the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -289,9 +319,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from blackhole_simulation_tpu_torch.app import cli  # noqa: E402
+from blackhole_simulation_tpu_torch.app import live  # noqa: E402
+from blackhole_simulation_tpu_torch.app.screenshot import (  # noqa: E402
+    encode_png,
+    load_png_rgb,
+)
 from blackhole_simulation_tpu_torch.configs import (  # noqa: E402
     SimulationParams,
     scene_from_params,
+)
+from blackhole_simulation_tpu_torch.engine.cinema import (  # noqa: E402
+    grand_survey,
+)
+from blackhole_simulation_tpu_torch.parallel.checkpoint import (  # noqa: E402
+    CheckpointManager,
 )
 from blackhole_simulation_tpu_torch.engine import (  # noqa: E402
     NativeBridge,
@@ -3087,6 +3129,312 @@ def phase_engine():
     return out
 
 
+# Phase 20's sizes: the CLI still, the CLI's 480x270 default for the
+# animation, benchmark and validation, the live session, and the inverse
+# demo at its defaults.
+APP = {"still": (1920, 1080), "small": (480, 270), "live": (1280, 720),
+       "live_frames": 240, "live_profiled_frames": 48,
+       "inverse": (96, 96), "inverse_steps": 60}
+
+
+def _size_args(key):
+    w, h = APP[key]
+    return ("--width", str(w), "--height", str(h))
+
+
+def _reset_launches():
+    render_planes_kernel.launches = 0
+    march_u.launches = 0
+    march_grad_kernel.launches = 0
+
+
+def _launches():
+    return {"render": render_planes_kernel.launches,
+            "march": march_u.launches,
+            "march_grad": march_grad_kernel.launches}
+
+
+def run_cli(*argv):
+    """``app.cli.main(argv)`` with the launch counters reset just before it:
+    (its stdout, wall seconds to its return, the kernel launches)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    return buf.getvalue(), secs, _launches()
+
+
+def _direct_png(params, width, height, camera=None, certified=False):
+    """encode_png of the clamped ``render()`` of the CLI's scene, computed
+    directly on the card."""
+    scene = scene_from_params(params, width, height, device=DEV)
+    if camera is not None:
+        scene = dataclasses.replace(scene, camera=camera)
+    if certified:
+        scene = dataclasses.replace(scene, march_cfg=dataclasses.replace(
+            scene.march_cfg, refine_band=0.6, refine_budget=16384))
+    return encode_png(render(scene, device=DEV).clamp(0.0, 1.0).cpu()
+                      .numpy())
+
+
+def _app_render(tmp):
+    out = {}
+    params = SimulationParams()
+    w, h = APP["still"]
+    for name, extra in (("render", ()), ("certified", ("--certified",))):
+        path = os.path.join(tmp, f"{name}.png")
+        runs = [run_cli("render", *_size_args("still"), *extra, "--out",
+                        path) for _ in range(2)]
+        with open(path, "rb") as f:
+            data = f.read()
+        img = load_png_rgb(path)
+        equal = data == _direct_png(params, w, h, certified=bool(extra))
+        out[name] = {"seconds": [r[1] for r in runs],
+                     "launches": runs[-1][2], "png_shape": list(img.shape),
+                     "png_equal_direct": equal}
+    print(f"cli render {w}x{h}: {json.dumps(out)}")
+    if not (out["render"]["png_equal_direct"]
+            and out["render"]["png_shape"] == [h, w, 3]
+            and out["render"]["launches"]["render"] == 1
+            and out["certified"]["launches"]["render"] == 1
+            and out["certified"]["launches"]["march"] == 1):
+        raise AssertionError(f"cli render: {out}")
+    return out
+
+
+def _app_animate(tmp, frames=8):
+    outdir = os.path.join(tmp, "frames")
+    _, secs, launches = run_cli("animate", "--director", "grand_survey",
+                                "--frames", str(frames), *_size_args("small"),
+                                "--outdir", outdir)
+    params = SimulationParams()
+    w, h = APP["small"]
+    scene0 = scene_from_params(params, w, h, device=DEV)
+    equal = []
+    for i in range(frames):
+        r, theta, phi = grand_survey(i / 30.0)
+        cam = Camera.create(r=r, theta=theta, phi=phi, fov=params.fov,
+                            width=scene0.camera.width,
+                            height=scene0.camera.height)
+        with open(os.path.join(outdir, f"frame_{i:05d}.png"), "rb") as f:
+            equal.append(f.read() == _direct_png(params, w, h, cam))
+    out = {"seconds": secs, "launches": launches, "frames_equal": equal}
+    print(f"cli animate grand_survey {frames} frames {w}x{h}: "
+          f"{json.dumps(out)}")
+    if not (all(equal) and launches["render"] == frames):
+        raise AssertionError(f"cli animate: {out}")
+    return out
+
+
+def _live_stats(stats):
+    """cli live's summary of run_live's stats."""
+    fps = np.asarray(stats["fps"][2:] or [0.0])
+    scales = stats["scales"]
+    return {"frames": stats["frames"], "fps_mean": float(fps.mean()),
+            "fps_p5": float(np.percentile(fps, 5)),
+            "quality": stats["quality"],
+            "calibrated_fps": stats["calibrated_fps"],
+            "final_scale": scales[-1] if scales else None,
+            "scale_changes": sum(1 for a, b in zip(scales, scales[1:])
+                                 if a != b),
+            "frame_ms_p95": stats["monitor"]["frame_ms_p95"]}
+
+
+def _display_card_vs_cpu(cfg, width, height, term_cols=120):
+    """The display program on the card and on the CPU, fed the same two
+    card-rendered frames at the full rung (the second accumulated on the
+    first): max |d| of the resolved frames and of the uint8 displays."""
+    w, h = live.rung_size(width, height, 1.0)
+    rows = max(2, (term_cols * height // width) // 2) * 2
+    cams = [live.live_camera(30.0, 1.3, 0.2, 0.9),
+            live.live_camera(29.8, 1.31, 0.25, 0.9)]
+    frames = [live.render_live_frame(c, 1.0, cfg, w, h, DEV) for c in cams]
+    res = {}
+    for dev in (DEV, "cpu"):
+        hist = prev = None
+        for img, c in zip(frames, cams):
+            cam_now = (*c[:3], 0.5, 0.0)
+            disp, hist_new = live.display_program(
+                img.to(dev), hist, prev, cam_now, hist is not None, rows,
+                term_cols)
+            hist, prev = hist_new, cam_now
+        res[dev] = (disp.cpu(), hist.cpu())
+    return {"rung": [w, h], "display": [rows, term_cols],
+            "max_abs": float((res[DEV][1] - res["cpu"][1]).abs().max()),
+            "max_uint8": int((res[DEV][0].int() - res["cpu"][0].int())
+                             .abs().max()),
+            "finite": bool(torch.isfinite(res[DEV][1]).all())}
+
+
+def _app_live():
+    if sys.stdout.isatty():
+        raise AssertionError("phase 20 runs the live loop headless: stdout "
+                             "must not be a terminal")
+    frames, profiled_frames = APP["live_frames"], APP["live_profiled_frames"]
+    width, height = APP["live"]
+    kw = dict(width=width, height=height, script="orbit", device=DEV)
+    _reset_launches()
+    t0 = time.perf_counter()
+    stats = live.run_live(frames=frames, calibrate=True, **kw)
+    out = {"seconds": time.perf_counter() - t0, **_live_stats(stats),
+           "launches": _launches()}
+    _reset_launches()
+    stats_p, prof = profiled(lambda: live.run_live(
+        frames=profiled_frames, calibrate=False, **kw))
+    out["profiled"] = {"frames": stats_p["frames"],
+                       "render_launches": render_planes_kernel.launches,
+                       "render_launches_per_frame":
+                           render_planes_kernel.launches / stats_p["frames"],
+                       "wall_ms": prof["wall_ms"],
+                       "device_busy_ms": prof["device_busy_ms"],
+                       "idle_share": prof["idle_share"],
+                       "launches_per_frame":
+                           prof["launches"] / stats_p["frames"]}
+    cfg = live.live_march_config(out["quality"], True)
+    out["display_card_vs_cpu"] = _display_card_vs_cpu(cfg, width, height)
+    print(f"live {width}x{height} orbit: {json.dumps(out)}")
+    disp = out["display_card_vs_cpu"]
+    if not (out["frames"] > 0 and math.isfinite(out["fps_mean"])
+            and out["profiled"]["render_launches_per_frame"] == 1.0
+            and disp["max_abs"] <= 1e-5 and disp["finite"]):
+        raise AssertionError(f"live: {out}")
+    w, h = disp["rung"]
+    cam = Camera.create(r=30.0, theta=1.3, phi=0.2, fov=0.5, width=w,
+                        height=h)
+    scene = Scene.create(mass=1.0, spin=0.9, camera=cam, march_cfg=cfg)
+    entry, s, _, _ = render_kernel_entry(
+        scene, out["launches"]["render"], step_ops("midpoint", True),
+        OPS_PER_PIXEL, 12, "blackhole_simulation_tpu/ops/pallas_render.py:140",
+        path=f"live loop full rung {w}x{h} (quality {out['quality']})",
+        variant="midpoint")
+    print(f"live rung render kernel {entry['ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms; vs plain {s}")
+    return out, entry
+
+
+def _final_fd_state(directory, step):
+    with np.load(os.path.join(directory, f"step_{step:08d}.npz")) as d:
+        return [d[k].tobytes() for k in sorted(d.files)]
+
+
+class _StopAfter(Exception):
+    pass
+
+
+def _app_inverse(tmp):
+    steps = APP["inverse_steps"]
+    size = _size_args("inverse")
+    text, secs, launches = run_cli("inverse", *size, "--steps", str(steps))
+    res = json.loads(text.strip().splitlines()[-1])
+    out = {"seconds": secs, "seconds_per_step": secs / steps,
+           "march_per_step": launches["march"] / steps,
+           "grad_per_step": launches["march_grad"] / steps, **res}
+    if not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"cli inverse: {out}")
+    a, b, c = (os.path.join(tmp, d) for d in ("ck_a", "ck_b", "ck_c"))
+    argv = ("inverse", *size, "--steps", "10", "--checkpoint-dir")
+    _, secs_a, launches_a = run_cli(*argv, a)
+    save = CheckpointManager.save
+
+    def save_then_stop(self, step, tree):
+        path = save(self, step, tree)
+        if step == 6:
+            raise _StopAfter
+        return path
+
+    CheckpointManager.save = save_then_stop
+    try:
+        run_cli(*argv, b)
+    except _StopAfter:
+        pass
+    finally:
+        CheckpointManager.save = save
+    stopped_at = CheckpointManager(b).steps()
+    resumed, _, _ = run_cli(*argv, b)
+    # The same stop through the arguments: a --steps 6 run, then --steps
+    # 10. Its cosine schedule spans 6 steps, so it is expected to differ.
+    run_cli("inverse", *size, "--steps", "6", "--checkpoint-dir", c)
+    run_cli(*argv, c)
+    out["checkpoint"] = {
+        "fd_seconds_per_step": secs_a / 10,
+        "fd_march_per_step": launches_a["march"] / 10,
+        "steps_kept_at_stop": stopped_at,
+        "resumed_from_6": "resumed from step 6" in resumed,
+        "resumed_equal_uninterrupted":
+            _final_fd_state(a, 10) == _final_fd_state(b, 10),
+        "steps_6_then_10_equal":
+            _final_fd_state(a, 10) == _final_fd_state(c, 10)}
+    print(f"cli inverse {size[1]}x{size[3]}: {json.dumps(out)}")
+    ck = out["checkpoint"]
+    if not (ck["resumed_from_6"] and ck["resumed_equal_uninterrupted"]
+            and stopped_at == [2, 4, 6] and launches["march_grad"] > 0):
+        raise AssertionError(f"cli inverse: {out}")
+    return out
+
+
+def _app_bench_validate():
+    text, secs, _ = run_cli("bench", *_size_args("small"), "--seconds", "1")
+    lines = text.strip().splitlines()
+    presets = [json.loads(line) for line in lines[:-1]]
+    bench = {"seconds": secs, "presets": presets,
+             "recommended": lines[-1].split(": ", 1)[1]}
+    text, secs, _ = run_cli("validate", *_size_args("small"), "--seconds",
+                            "1")
+    report = json.loads(text)
+    validate = {"seconds": secs, "baseline": report["baseline"],
+                "features": report["features"],
+                "targets_met": report["targets_met"]}
+    out = {"bench": bench, "validate": validate}
+    print(f"cli bench / validate {APP['small'][0]}x{APP['small'][1]}: "
+          f"{json.dumps(out)}")
+    numbers = [p["fps_avg"] for p in presets] + [
+        report["baseline"]["fps"]] + [f["cost_ms"] for f in
+                                       report["features"]]
+    if not (len(presets) == 4 and all(p["frames"] > 0 for p in presets)
+            and report["baseline"]["frames"] > 0
+            and all(math.isfinite(x) for x in numbers)):
+        raise AssertionError(f"cli bench / validate: {out}")
+    return out
+
+
+def _app_info_fields(tmp):
+    card, _, _ = run_cli("info")
+    host, _, _ = run_cli("--device", "cpu", "info")
+    a, b = json.loads(card), json.loads(host)
+    out = {"info_rel": max(_rel_max(a[k], b[k]) for k in a)}
+    run_cli("fields", "--out", os.path.join(tmp, "card.npz"))
+    run_cli("--device", "cpu", "fields", "--out",
+            os.path.join(tmp, "cpu.npz"))
+    with np.load(os.path.join(tmp, "card.npz")) as c, \
+            np.load(os.path.join(tmp, "cpu.npz")) as h:
+        out["fields_rel"] = {k: _rel_max(c[k], h[k]) for k in c.files}
+    print(f"cli info / fields card vs CPU: {json.dumps(out)}")
+    if not (out["info_rel"] <= 1e-12
+            and max(out["fields_rel"].values()) <= 1e-10):
+        raise AssertionError(f"cli info / fields: {out}")
+    return out
+
+
+def phase_app():
+    """Phase 20: the app on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"render": _app_render(tmp), "animate": _app_animate(tmp)}
+        out["live"], entry = _app_live()
+        out["inverse"] = _app_inverse(tmp)
+        out["bench_validate"] = _app_bench_validate()
+        out["info_fields"] = _app_info_fields(tmp)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 20 (app): {out['seconds']:.1f} s")
+    return out, entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3126,9 +3474,11 @@ def main() -> int:
     print(f"tiles: {json.dumps(tiles)}")
     print(f"taa: {json.dumps(phase_taa())}")
     print(f"engine: {json.dumps(phase_engine())}")
-    for e in nrs_kernels + tile_kernels:
+    app, live_kernel = phase_app()
+    print(f"app: {json.dumps(app)}")
+    for e in nrs_kernels + tile_kernels + [live_kernel]:
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
-    kernels_line += nrs_kernels + tile_kernels
+    kernels_line += nrs_kernels + tile_kernels + [live_kernel]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

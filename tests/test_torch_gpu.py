@@ -4,7 +4,8 @@ field and the shadow overlay) and the FP32 peak probe against their plain
 PyTorch versions, and through the port's entry points (render, the staged,
 the certified and the full-featured render, the training step, NRS
 training, the progressive tile renderer, TAA and the engine facade, each
-against the same call on the CPU).
+against the same call on the CPU), and the app: the CLI's PNG against the
+direct render, the live display program against the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -21,6 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+from blackhole_simulation_tpu_torch.app import live
+from blackhole_simulation_tpu_torch.app.cli import main as cli_main
+from blackhole_simulation_tpu_torch.app.screenshot import encode_png
 from blackhole_simulation_tpu_torch.configs import (
     SimulationParams,
     scene_from_params,
@@ -807,3 +811,41 @@ def test_engine_on_the_card_matches_cpu(cuda):
     b = host.integrate_ray_relativistic(ray, max_steps=20_000)
     assert (a["termination"], a["steps_taken"]) == (b["termination"],
                                                     b["steps_taken"])
+
+
+def test_cli_render_png_equals_direct_render(cuda, tmp_path):
+    """``cli render`` (no --device: the card) writes the PNG of the direct
+    fused render on the card, byte for byte, from one render launch."""
+    path = str(tmp_path / "r.png")
+    render_planes_kernel.launches = 0
+    assert cli_main(["render", "--width", "320", "--height", "180", "--out",
+                     path]) == 0
+    assert render_planes_kernel.launches == 1
+    scene = scene_from_params(SimulationParams(), 320, 180, device=cuda)
+    assert scene.march_cfg.fused and scene.march_cfg.approx_recip
+    img = render(scene, device=cuda).clamp(0.0, 1.0).cpu().numpy()
+    with open(path, "rb") as f:
+        assert f.read() == encode_png(img)
+
+
+def test_live_display_program_matches_cpu(cuda):
+    """The live display program (antialiased resize, reprojected TAA,
+    uint8) on the card against the CPU on the same two card-rendered
+    frames of the fused path, the second accumulated on the first."""
+    cfg = live.live_march_config("medium", True)
+    w, h = live.rung_size(640, 360, 1.0)
+    cams = [live.live_camera(30.0, 1.3, 0.2, 0.9),
+            live.live_camera(29.8, 1.31, 0.25, 0.9)]
+    frames = [live.render_live_frame(c, 1.0, cfg, w, h, cuda) for c in cams]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        hist = prev = None
+        for img, c in zip(frames, cams):
+            cam_now = (*c[:3], 0.5, 0.0)
+            disp, hist_new = live.display_program(
+                img.to(dev), hist, prev, cam_now, hist is not None, 32, 60)
+            hist, prev = hist_new, cam_now
+        out[dev.type] = (disp.cpu(), hist.cpu())
+    assert out["cuda"][1].shape == (32, 60, 3)
+    assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 1e-5
+    assert int((out["cuda"][0].int() - out["cpu"][0].int()).abs().max()) <= 1

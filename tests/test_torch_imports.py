@@ -62,6 +62,29 @@ MODULES = [
     "blackhole_simulation_tpu_torch.models.threefry",
     "blackhole_simulation_tpu_torch.configs",
     "blackhole_simulation_tpu_torch.configs.simulation",
+    "blackhole_simulation_tpu_torch.configs.performance",
+    "blackhole_simulation_tpu_torch.configs.physics",
+    "blackhole_simulation_tpu_torch.utils",
+    "blackhole_simulation_tpu_torch.utils.cache",
+    "blackhole_simulation_tpu_torch.utils.device",
+    "blackhole_simulation_tpu_torch.utils.errors",
+    "blackhole_simulation_tpu_torch.utils.validate",
+    "blackhole_simulation_tpu_torch.engine.cinema",
+    "blackhole_simulation_tpu_torch.perf",
+    "blackhole_simulation_tpu_torch.perf.adaptive_resolution",
+    "blackhole_simulation_tpu_torch.perf.benchmark",
+    "blackhole_simulation_tpu_torch.perf.monitor",
+    "blackhole_simulation_tpu_torch.perf.telemetry",
+    "blackhole_simulation_tpu_torch.perf.timer",
+    "blackhole_simulation_tpu_torch.perf.validator",
+    "blackhole_simulation_tpu_torch.app",
+    "blackhole_simulation_tpu_torch.app.animate",
+    "blackhole_simulation_tpu_torch.app.cli",
+    "blackhole_simulation_tpu_torch.app.live",
+    "blackhole_simulation_tpu_torch.app.screenshot",
+    "blackhole_simulation_tpu_torch.app.state",
+    "blackhole_simulation_tpu_torch.__main__",
+    "blackhole_simulation_tpu_torch.parallel.checkpoint",
     "blackhole_simulation_tpu_torch.tools.vpu_peak",
     "blackhole_simulation_tpu_torch.tools.train_probe",
     "chip_smoke",
