@@ -32,7 +32,11 @@ What runs:
   (``render/accumulate.py``), the progressive tile renderer
   (``render/tiles.py``, one march-kernel launch per batch of tiles), and
   the analytics behind ``engine.PhysicsEngine`` (``physics``,
-  ``spacetime``, the native seqlock bridge).
+  ``spacetime``, the native seqlock bridge);
+- multi-device (``parallel``): ``make_mesh`` over ``torch.distributed``
+  (one process per device, NCCL on cards, gloo on the CPU),
+  ``render_sharded`` (each rank marches its shard of the rays on the march
+  kernel) and ``mesh=`` on the inverse steps; ``cli sweep`` runs on it.
 
 The entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions (the
@@ -61,8 +65,13 @@ Layout (each module names its JAX counterpart):
                   pipeline entry points, TAA and the tile renderer.
 - ``ops``      -- the step math, the plain march and its gradient, the
                   kernels' wrappers and parameter rows, and the nvcc build.
-- ``parallel`` -- inverse rendering on one device.
+- ``parallel`` -- the device mesh over ``torch.distributed`` (one process
+                  per device), the sharded render, and inverse rendering on
+                  one device or sharded over the mesh.
+- ``constants``-- geometric units and SI constants.
 - ``csrc``     -- CUDA sources.
 """
+
+from blackhole_simulation_tpu_torch import constants  # noqa: F401
 
 __version__ = "0.1.0"

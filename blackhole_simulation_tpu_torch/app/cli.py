@@ -5,7 +5,7 @@ subcommands and their arguments:
   info       -- derived physics readout (JSON)
   render     -- still frame -> PNG
   animate    -- cinematic director sequence -> PNGs
-  sweep      -- mesh-sharded batched camera sweep (not ported: raises)
+  sweep      -- mesh-sharded batched camera sweep -> npz volume
   bench      -- preset sweep benchmark
   validate   -- per-feature cost measurement -> JSON
   fields     -- spacetime analytics fields -> .npz
@@ -20,6 +20,12 @@ entry points take ``device=``, where the JAX package reads
 (``render/pipeline.resolve_device``) and raises where there is no CUDA
 device; ``--device cpu`` runs the kernels' plain PyTorch versions. Every
 subcommand passes it down.
+
+``sweep`` runs on the device mesh (``parallel/mesh.py``). Under
+``torchrun`` (WORLD_SIZE > 1) it starts ``torch.distributed`` from the
+environment (NCCL with one rank per card; gloo with ``--device cpu``), and
+every rank renders its shard of each frame; alone, it runs a one-device
+mesh on ``--device``. Rank 0 writes the npz and prints the JSON line.
 """
 
 from __future__ import annotations
@@ -151,13 +157,72 @@ def cmd_animate(args) -> int:
 
 
 def cmd_sweep(args) -> int:
-    """The mesh-sharded batched camera sweep: it needs the device mesh and
-    the sharded render (``parallel/mesh.py``, ``parallel/render.py``),
-    which the port does not have yet."""
-    raise NotImplementedError(
-        "sweep: the mesh-sharded camera sweep needs parallel/mesh.py and "
-        "parallel/render.py, which the multi-device slice of the port adds"
+    """The mesh-sharded batched camera sweep: each frame's rays shard over
+    the mesh (``render_sharded``), the whole image is on every rank
+    (``gather_image``), and rank 0 stacks the frames into one npz volume
+    and prints {frames, shape, devices, mrays_per_s, out}."""
+    import time
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from blackhole_simulation_tpu_torch.configs.simulation import (
+        scene_from_params,
     )
+    from blackhole_simulation_tpu_torch.engine.cinema import DIRECTORS
+    from blackhole_simulation_tpu_torch.parallel import (
+        gather_image,
+        initialize_multihost,
+        make_mesh,
+        render_sharded,
+    )
+    from blackhole_simulation_tpu_torch.render import Camera
+
+    started = False
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not dist.is_initialized():
+        initialize_multihost(num_processes=world, device=args.device)
+        started = True
+    try:
+        params = _params_from_args(args)
+        director = DIRECTORS[args.director]
+        mesh = make_mesh(args.devices if args.devices > 0 else None,
+                         device=args.device)
+        lead = not dist.is_initialized() or dist.get_rank() == 0
+        scene0 = scene_from_params(params, width=args.width,
+                                   height=args.height, device=mesh.device)
+
+        frames = []
+        t0 = time.perf_counter()
+        for i in range(args.frames):
+            r, theta, phi = director(i * args.dt)
+            cam = Camera.create(
+                r=r, theta=theta, phi=phi, fov=params.fov,
+                width=scene0.camera.width, height=scene0.camera.height,
+            )
+            scene = dataclasses.replace(scene0, camera=cam)
+            img = gather_image(render_sharded(scene, mesh,
+                                              n_samples=args.samples))
+            frames.append(img.cpu().numpy())
+            if lead:
+                print(f"frame {i + 1}/{args.frames} r={r:.1f}",
+                      file=sys.stderr)
+        elapsed = time.perf_counter() - t0
+        if lead:
+            vol = np.stack(frames)
+            np.savez(args.out, frames=vol)
+            n_rays = args.frames * args.samples * vol.shape[1] * vol.shape[2]
+            print(json.dumps({
+                "frames": args.frames,
+                "shape": list(vol.shape),
+                "devices": mesh.size,
+                "mrays_per_s": round(n_rays / elapsed / 1e6, 3),
+                "out": args.out,
+            }))
+    finally:
+        if started:
+            dist.destroy_process_group()
+    return 0
 
 
 def _frame_sum(args):
@@ -361,8 +426,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_animate)
 
     p = sub.add_parser(
-        "sweep", help="mesh-sharded batched camera sweep -> npz volume "
-                      "(needs the multi-device slice: raises)"
+        "sweep", help="mesh-sharded batched camera sweep -> npz volume"
     )
     _add_param_args(p)
     p.add_argument("--director", choices=["grand_survey", "descent"],

@@ -7,6 +7,7 @@ from blackhole_simulation_tpu_torch.geometry.metrics import (
     KS,
     Kerr,
     KerrMetric,
+    Metric,
     Minkowski,
     Schwarzschild,
     event_horizon_t,
@@ -21,6 +22,6 @@ from blackhole_simulation_tpu_torch.geometry.tensor import (
     raise_index,
 )
 
-__all__ = ["BL", "KS", "Kerr", "KerrMetric", "Minkowski", "Schwarzschild",
+__all__ = ["BL", "KS", "Kerr", "KerrMetric", "Metric", "Minkowski", "Schwarzschild",
            "christoffel", "contract", "determinant", "event_horizon_t",
            "isco_t", "lower_index", "photon_sphere_t", "raise_index", "radii"]

@@ -14,11 +14,18 @@ arccos, cos and cube root evaluated in float64 and rounded once (the cube
 root as ``x ** (1/3)`` on x >= 0, since torch has no cbrt).
 
 Oracle side (tensors, batched over leading ray axes, any float dtype):
-``kerr_cov_bl`` (:69), ``kerr_con_bl`` (:85), ``kerr_cov_ks`` (:102),
+``kerr_sigma`` and ``kerr_delta`` (:58-67), ``kerr_cov_bl`` (:69), ``kerr_con_bl`` (:85), ``kerr_cov_ks`` (:102),
 ``kerr_con_ks`` (:124), ``hamiltonian_bl`` (:147), ``hamiltonian_ks``
 (:166), and the metric classes ``KerrMetric``
 (the JAX package's tensor ``Kerr``, :198-293, named apart from the host
-``Kerr`` above), ``Schwarzschild`` (:296) and ``Minkowski`` (:336).
+``Kerr`` above), ``Schwarzschild`` (:296), ``Minkowski`` (:336) and
+their union ``Metric`` (:369).
+
+The JAX package's ``Kerr(mass, spin, chart)`` is the port's
+``KerrMetric``; the port's ``Kerr`` is the render path's host float
+holder, which every scene and render entry takes. The two names part on
+purpose: giving ``Kerr`` the tensor API would touch every caller of the
+render path for no computation.
 
 The JAX package takes (dH/dr, dH/dtheta) from ``jax.grad`` of the summed
 Hamiltonian (``_ham_derivs`` :184). Here they are the closed forms of
@@ -167,6 +174,17 @@ def _angles(theta):
 def _zeros(r, *others):
     return torch.zeros(torch.broadcast_shapes(r.shape, *(o.shape for o in others)),
                        dtype=r.dtype, device=r.device)
+
+
+def kerr_sigma(a, r, theta):
+    """Sigma = r^2 + a^2 cos^2(theta)."""
+    c = torch.cos(theta)
+    return r * r + a * a * c * c
+
+
+def kerr_delta(m, a, r):
+    """Delta = r^2 - 2 M r + a^2."""
+    return r * r - 2.0 * m * r + a * a
 
 
 def kerr_cov_bl(m, a, r, theta) -> torch.Tensor:
@@ -558,3 +576,8 @@ class Minkowski:
 
     def event_horizon(self):
         return torch.zeros((), dtype=torch.float64)
+
+
+# Any of the tensor metrics (the JAX package's ``Metric``, :369, whose
+# ``Kerr`` is the port's ``KerrMetric``).
+Metric = KerrMetric | Schwarzschild | Minkowski

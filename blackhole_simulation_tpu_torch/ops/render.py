@@ -120,15 +120,15 @@ _P_PAD = -(-_P_TOTAL // 128) * 128
 
 @functools.lru_cache(maxsize=64)
 def _row_camera(cam, m: float, a: float):
-    """The row's camera scalars (``camera_scalars_t`` of float32 mass and
+    """The row's camera scalars (``camera_scalars`` of float32 mass and
     spin) as tuples of floats, cached: a scene's row is built every
     sample, and these scalar torch operations would cost the host more
     than the rest of the row."""
-    from blackhole_simulation_tpu_torch.render.camera import camera_scalars_t
+    from blackhole_simulation_tpu_torch.render.camera import camera_scalars
 
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)
     return tuple(tuple(x.double().reshape(-1).tolist())
-                 for x in camera_scalars_t(cam, f32(m), f32(a)))
+                 for x in camera_scalars(cam, f32(m), f32(a)))
 
 
 def build_param_row(scene, jitter=None) -> np.ndarray:
@@ -136,7 +136,7 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
 
     Built in float64 and cast once. Mass and spin are first rounded to
     float32, as the JAX package casts them before it builds its row, and
-    the radii and the camera tetrad (``camera_scalars_t``, the staged
+    the radii and the camera tetrad (``camera_scalars``, the staged
     path's) come from them in float32 arithmetic, as the JAX package's do;
     the camera's own values stay float64 until the cast.
     ``scene.march_cfg`` must already carry render_sample's precull

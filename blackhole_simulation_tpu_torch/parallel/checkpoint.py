@@ -6,8 +6,9 @@ without Orbax: the port writes the JAX package's fallback format, one
 JAX package writes on that route and the JAX package reads what it
 writes. Leaves are flattened in ``jax.tree_util``'s order over tuples,
 lists, dicts (by sorted key), dataclasses (by field) and tensors or
-arrays; the FD driver's state ``(vec, (m, v, t))`` has the same four
-leaves in the same order in both packages.
+arrays; ``None`` is an empty subtree with no leaf, as in ``jax.tree_util``,
+and comes back as ``None``. The FD step's state ``(vec, (m, v, t))`` has
+the same four leaves in the same order in both packages.
 
 ``save_checkpoint(path, tree)`` / ``load_checkpoint(path, like)``
 round-trip a tree bit for bit, and put the loaded leaves on ``like``'s
@@ -26,7 +27,10 @@ import torch
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of ``tree`` in ``jax.tree_util.tree_leaves``' order."""
+    """The leaves of ``tree`` in ``jax.tree_util.tree_leaves``' order
+    (``None`` has none)."""
+    if tree is None:
+        return []
     if isinstance(tree, (tuple, list)):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     if isinstance(tree, dict):
@@ -43,6 +47,8 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(node):
+        if node is None:
+            return None
         if isinstance(node, (tuple, list)):
             return type(node)(build(x) for x in node)
         if isinstance(node, dict):

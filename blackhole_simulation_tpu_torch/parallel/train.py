@@ -1,15 +1,15 @@
-"""Inverse rendering on one device: recover spin, camera inclination and
-disk parameters from a target image by pixel gradients through the march.
+"""Inverse rendering, on one device or sharded over the mesh: recover spin,
+camera inclination and disk parameters from a target image by pixel
+gradients through the march.
 
 Counterpart of ``blackhole_simulation_tpu/parallel/train.py``:
 ``InverseParams`` (:33), ``_forward`` (:52), ``init_opt_state`` (:86),
-``make_inverse_step`` (:92-182, without a mesh), the central-difference
-driver (:236-385, without a mesh: ``_FD_FIELDS``, ``_FD_H``,
-``_params_to_vec``, ``_vec_to_params``, ``fd_state_init``,
-``fd_state_params``, ``make_fd_inverse_step``, ``fd_inverse_render``),
-``make_ad_inverse_step`` (:388-438, without a mesh), ``_adam_update``
-(:473), ``ad_inverse_render`` (:500) and ``inverse_render`` (:527, methods
-``"ad"``, ``"fd"`` and ``"ad-step"``).
+``make_inverse_step`` (:92-237), the central-difference path (:236-385:
+``_FD_FIELDS``, ``_FD_H``, ``_params_to_vec``, ``_vec_to_params``,
+``fd_state_init``, ``fd_state_params``, ``make_fd_inverse_step``,
+``fd_inverse_render``), ``make_ad_inverse_step`` (:388-470),
+``_adam_update`` (:473), ``ad_inverse_render`` (:500) and
+``inverse_render`` (:527, methods ``"ad"``, ``"fd"`` and ``"ad-step"``).
 
 The forward renders the parameterized scene through ``march_rows_ad``: the
 march kernel (``csrc/march.cu``) forward and the gradient kernel
@@ -21,8 +21,16 @@ each one launch of the march kernel (the JAX twin vmaps the nine into one
 program; each variant here has its own spin, and the kernel takes its
 scalars per launch). The steps run on ``cuda`` unless the caller passes
 ``device="cpu"`` (the kernels' plain versions); with no CUDA device and no
-explicit CPU request they raise. A mesh (the sharded steps) is not ported
-and raises NotImplementedError.
+explicit CPU request they raise.
+
+With a mesh (``parallel/mesh.py``; every rank builds the same step and
+calls it with the same state and target) each rank takes its contiguous
+slice of the row-major pixel ids and of the target (the AD curriculum's, a
+slab of whole rows), computes its loss sum, or the FD step's (9,) loss
+vector, with its gradient, and all-reduces what the JAX twin psums; Adam
+then runs the same on every rank, on ``mesh.device``. The mesh path uses
+row-major pixels even with ``use_pallas``, and divides by the frame's
+pixel count, as the JAX twin's does.
 """
 
 from __future__ import annotations
@@ -154,39 +162,82 @@ def _value_and_grad(loss_fn, params: InverseParams):
     return loss.detach(), grads
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: the sharded inverse step (mesh)")
+def _step_device(mesh, device) -> torch.device:
+    """The step's device: ``mesh.device`` with a mesh (``device``, if given,
+    must agree), else ``resolve_device(device)``. Raises TypeError for a
+    mesh that is not a port ``Mesh``."""
+    from blackhole_simulation_tpu_torch.parallel.mesh import Mesh
+    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
+
+    if mesh is None:
+        return resolve_device(device)
+    if not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a blackhole_simulation_tpu_torch "
+                        f"parallel Mesh (make_mesh), not {type(mesh).__name__}")
+    if device is not None:
+        d = torch.device(device)
+        if d.type != mesh.device.type or d.index not in (None,
+                                                         mesh.device.index):
+            raise ValueError(f"device {d} is not the mesh's {mesh.device}")
+    return mesh.device
+
+
+def _mesh_pixels(mesh, n_pix, device):
+    """This rank's contiguous slice of the row-major pixel ids, and the
+    sharding that cuts the target the same way."""
+    from blackhole_simulation_tpu_torch.parallel.render import shard_rays_spec
+
+    spec = shard_rays_spec(mesh)
+    return spec.shard(torch.arange(n_pix, device=device), 0), spec
+
+
+def _psum(mesh, loss, grads):
+    """(loss, grads) summed over the mesh, in one all-reduce."""
+    from blackhole_simulation_tpu_torch.parallel.mesh import all_reduce_sum
+
+    total = all_reduce_sum(mesh, torch.stack([loss, *grads]))
+    return total[0], tuple(total[1:])
 
 
 def make_inverse_step(scene, mesh=None, lr=2e-2, b1=0.9, b2=0.999, eps=1e-8,
                       total_steps: int | None = None, device=None):
     """One Adam step on the per-pixel MSE at the scene's own march config:
     ((params, opt_state), target) -> ((params', opt_state'), loss). Bare
-    InverseParams start a fresh optimizer state. With ``use_pallas`` the
-    pixels are in block order (``to_block_order``): the edge-padded frame,
-    with the loss divided by the padded pixel count, as the JAX twin."""
+    InverseParams start a fresh optimizer state. Without a mesh and with
+    ``use_pallas`` the pixels are in block order (``to_block_order``): the
+    edge-padded frame, with the loss divided by the padded pixel count, as
+    the JAX twin. With a mesh the pixel count must divide the mesh size."""
     from blackhole_simulation_tpu_torch.ops.pallas_march import to_block_order
-    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
 
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _step_device(mesh, device)
     h, w = scene.camera.height, scene.camera.width
     ids = torch.arange(h * w, device=device)
-    pix_order = to_block_order(ids, h, w) if scene.march_cfg.use_pallas else ids
-    n_eff = int(pix_order.shape[0])
+    if mesh is not None:
+        if (h * w) % mesh.size:
+            raise ValueError(
+                f"pixel count {h * w} must divide the mesh size {mesh.size} "
+                "for the sharded inverse step")
+        pix_order, spec = _mesh_pixels(mesh, h * w, device)
+        n_eff = h * w
+    else:
+        pix_order = (to_block_order(ids, h, w) if scene.march_cfg.use_pallas
+                     else ids)
+        n_eff = int(pix_order.shape[0])
 
     def step(state, target):
         params, opt_state = _unpack(state, device)
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
-        target_flat = target_flat.to(torch.float32)[pix_order]
+        target_flat = target_flat.to(torch.float32)
+        target_flat = (spec.shard(target_flat, 0) if mesh is not None
+                       else target_flat[pix_order])
 
         def loss_fn(p):
             rgb = _forward(p, scene, pix_order)
             return torch.sum((rgb - target_flat) ** 2)
 
         loss, grads = _value_and_grad(loss_fn, params)
+        if mesh is not None:
+            loss, grads = _psum(mesh, loss, grads)
         params, opt_state = _adam_update(params, opt_state, grads, n_eff, lr,
                                          total_steps, b1, b2, eps)
         return (params, opt_state), loss / n_eff
@@ -234,28 +285,42 @@ def make_fd_inverse_step(scene, mesh=None, lr=3e-2, b1=0.9, b2=0.999,
     the per-pixel MSE over the row-major frame divided by the pixel count,
     at the centre and at +-h along each parameter (nine forward passes);
     the gradient is the central difference; Adam with the cosine lr
-    schedule when ``total_steps`` is set, and spin clipped to +-0.998."""
-    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
-
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    schedule when ``total_steps`` is set, and spin clipped to +-0.998. With
+    a mesh each rank sums its pixels' nine losses and the (9,) vector is
+    all-reduced; the pixel count must divide the mesh size."""
+    device = _step_device(mesh, device)
     n_pix = scene.camera.width * scene.camera.height
     h_vec = torch.tensor(h, dtype=torch.float32, device=device)
     offsets = torch.cat([torch.zeros((1, 4), dtype=torch.float32,
                                      device=device),
                          torch.diag(h_vec), -torch.diag(h_vec)])
-    pix_ids = torch.arange(n_pix, device=device)
+    if mesh is not None:
+        if n_pix % mesh.size:
+            raise ValueError(
+                f"pixel count {n_pix} must divide the mesh size {mesh.size}")
+        pix_ids, spec = _mesh_pixels(mesh, n_pix, device)
+    else:
+        pix_ids = torch.arange(n_pix, device=device)
 
     def step(state, target):
+        from blackhole_simulation_tpu_torch.parallel.mesh import (
+            all_reduce_sum,
+        )
+
         vec, (m_t, v_t, t) = state
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
         target_flat = target_flat.to(torch.float32)
+        if mesh is not None:
+            target_flat = spec.shard(target_flat, 0)
         with torch.no_grad():
             ls = torch.stack([
                 torch.sum((_forward(_vec_to_params(v), scene, pix_ids)
                            - target_flat) ** 2)
                 for v in vec[None, :] + offsets
-            ]) / n_pix
+            ])
+            if mesh is not None:
+                ls = all_reduce_sum(mesh, ls)
+            ls = ls / n_pix
         g = (ls[1:5] - ls[5:9]) / (2.0 * h_vec)
         t = t + 1
         tf = t.to(torch.float32)
@@ -280,12 +345,9 @@ def fd_inverse_render(scene, target, n_steps=40, mesh=None, lr=3e-2,
     """Central-difference inverse rendering: ``n_steps`` of
     ``make_fd_inverse_step`` with the cosine schedule over them. Returns
     (params, loss_history)."""
-    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
-
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _step_device(mesh, device)
     params = (init or InverseParams.init()).to(device)
-    step = make_fd_inverse_step(scene, None, lr, total_steps=n_steps,
+    step = make_fd_inverse_step(scene, mesh, lr, total_steps=n_steps,
                                 device=device)
     state = fd_state_init(params)
     target = torch.as_tensor(target, device=device)
@@ -301,11 +363,10 @@ def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
                          total_steps: int | None = None, device=None):
     """One curriculum stage's Adam step on the pooled pixel loss, marched
     at ``march_steps`` with the per-step cotangent clip ``clip``:
-    ((params, opt_state), target) -> ((params', opt_state'), loss)."""
-    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
-
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    ((params, opt_state), target) -> ((params', opt_state'), loss). With a
+    mesh each rank renders and pools its own slab of height / n_dev rows;
+    (height // pool) must divide the mesh size."""
+    device = _step_device(mesh, device)
     h, w = scene.camera.height, scene.camera.width
     while pool > 1 and (h % pool or w % pool):
         pool //= 2
@@ -315,22 +376,37 @@ def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
         fused=False, refine_band=0.0, start_jitter=0.0,
     )
     stage_scene = dataclasses.replace(scene, march_cfg=cfg)
-    pix = torch.arange(h * w, device=device)
     n_pool = (h // pool) * (w // pool)
+    if mesh is not None:
+        if (h // pool) % mesh.size:
+            raise ValueError(
+                f"{h // pool} rows of {pool}x{pool} pooled blocks must divide "
+                f"the mesh size {mesh.size}")
+        rows = h // mesh.size
+        pix, spec = _mesh_pixels(mesh, h * w, device)
+    else:
+        rows = h
+        pix = torch.arange(h * w, device=device)
 
     def pooled(x):
-        return x.reshape(h // pool, pool, w // pool, pool, 3).mean(dim=(1, 3))
+        return x.reshape(rows // pool, pool, w // pool, pool, 3).mean(
+            dim=(1, 3))
 
     def step(state, target):
         params, opt_state = _unpack(state, device)
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
-        target_p = pooled(target_flat.to(torch.float32))
+        target_flat = target_flat.to(torch.float32)
+        if mesh is not None:
+            target_flat = spec.shard(target_flat, 0)
+        target_p = pooled(target_flat)
 
         def loss_fn(p):
             return torch.sum((pooled(_forward(p, stage_scene, pix))
                               - target_p) ** 2)
 
         loss, grads = _value_and_grad(loss_fn, params)
+        if mesh is not None:
+            loss, grads = _psum(mesh, loss, grads)
         params, opt_state = _adam_update(params, opt_state, grads, n_pool, lr,
                                          total_steps)
         return (params, opt_state), loss / n_pool
@@ -344,17 +420,14 @@ def ad_inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
     """The short-horizon pooled-gradient curriculum: ``n_steps`` split over
     the (march steps, pool) stages, fresh Adam moments per stage. Returns
     (params, loss_history)."""
-    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
-
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _step_device(mesh, device)
     params = (init or InverseParams.init()).to(device)
     target = torch.as_tensor(target, device=device)
     per = max(n_steps // len(stages), 1)
     lrs = [3e-2, 1.2e-2, 6e-3] if lr is None else [lr] * len(stages)
     losses = []
     for (march_steps, pool), lr_s in zip(stages, lrs):
-        step = make_ad_inverse_step(scene, None, lr_s, pool=pool,
+        step = make_ad_inverse_step(scene, mesh, lr_s, pool=pool,
                                     march_steps=march_steps,
                                     total_steps=per, device=device)
         state = (params, init_opt_state(params))
@@ -371,21 +444,19 @@ def inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
     """Run the inverse optimization; returns (params, loss_history).
     ``method``: "ad" (the curriculum, ad_inverse_render), "fd" (central
     differences, fd_inverse_render, lr 3e-2 by default) or "ad-step" (the
-    raw step at the scene's own config)."""
-    from blackhole_simulation_tpu_torch.render.pipeline import resolve_device
-
-    _no_mesh(mesh)
+    raw step at the scene's own config). ``mesh`` shards each step over
+    the mesh."""
     if method == "fd":
-        return fd_inverse_render(scene, target, n_steps, None,
+        return fd_inverse_render(scene, target, n_steps, mesh,
                                  3e-2 if lr is None else lr, init,
                                  device=device)
     if method == "ad":
-        return ad_inverse_render(scene, target, n_steps, None, lr, init,
+        return ad_inverse_render(scene, target, n_steps, mesh, lr, init,
                                  stages=ad_stages, device=device)
     if method != "ad-step":
         raise ValueError(f"unknown method {method!r}")
-    device = resolve_device(device)
-    step = make_inverse_step(scene, None, 2e-2 if lr is None else lr,
+    device = _step_device(mesh, device)
+    step = make_inverse_step(scene, mesh, 2e-2 if lr is None else lr,
                              total_steps=n_steps, device=device)
     params = (init or InverseParams.init()).to(device)
     state = (params, init_opt_state(params))

@@ -1,13 +1,14 @@
 """Pinhole camera and the scalar prologue of per-pixel ray construction.
 
 Counterpart of ``blackhole_simulation_tpu/render/camera.py``: ``Camera``
-(:41), ``zamo_tetrad`` (:64) and ``bl_to_ks_momentum`` (:89) as
-``_zamo_tetrad_t`` and ``_lower_to_ks``, ``pixel_grid`` (:100),
+(:41), ``zamo_tetrad`` (:64) and ``bl_to_ks_momentum`` (:89) on tensors of
+any shape (the camera's prologue takes them on 0-d tensors as
+``_zamo_tetrad_t`` and ``_lower_to_ks``), ``pixel_grid`` (:100),
 ``camera_rays_indexed`` (:117), ``camera_rays_u`` (:134), ``camera_rays``
 (:181, the theta-form (N, 8) rows the staged shadow overlay and the oracle
-read), ``camera_scalars`` (:193) as ``camera_scalars_t``, and
+read), ``camera_scalars`` (:193), and
 ``_momenta_from_ndc`` (:215). The camera sits at one point, so its tetrad
-is a handful of scalars: ``camera_scalars_t`` computes them from 0-d
+is a handful of scalars: ``camera_scalars`` computes them from 0-d
 tensors, differentiably in spin, mass and the camera's theta, rounding each
 operation in the dtype JAX's weak typing gives it, and casts them to the
 rays' dtype once. The render kernel's parameter row (``ops/render.py``)
@@ -81,6 +82,28 @@ def _zamo_tetrad_t(m, a, r, theta):
     return u, e_r, e_th, e_ph
 
 
+def zamo_tetrad(m, a, r, theta):
+    """ZAMO orthonormal tetrad in the Boyer-Lindquist coordinate basis:
+    (u, e_r, e_th, e_ph), each a (..., 4) contravariant vector over the
+    broadcast shape of the tensor arguments. u = (d_t + omega d_phi) /
+    alpha with lapse alpha = sqrt(Delta Sigma / A), omega = 2 M a r / A,
+    A = (r^2 + a^2)^2 - a^2 Delta sin^2 theta."""
+    m, a, r, theta = torch.broadcast_tensors(*(
+        torch.as_tensor(x) for x in (m, a, r, theta)))
+    z = torch.zeros_like(r)
+    return tuple(torch.stack([z if c is None else c for c in v], dim=-1)
+                 for v in _zamo_tetrad_t(m, a, r, theta))
+
+
+def bl_to_ks_momentum(m, a, r, p: torch.Tensor) -> torch.Tensor:
+    """Covariant momentum (..., 4) from Boyer-Lindquist to ingoing
+    Kerr-Schild: p_r += -(2 M r / Delta) p_t - (a / Delta) p_phi."""
+    delta = r * r - 2.0 * m * r + a * a
+    shift = -(2.0 * m * r / delta) * p[..., 0] - (a / delta) * p[..., 3]
+    return torch.cat([p[..., :1], p[..., 1:2] + shift[..., None], p[..., 2:]],
+                     dim=-1)
+
+
 def _lower_to_ks(m, a, r, theta, v):
     """g_BL v, then the BL -> KS covector shift of p_r, on 0-d tensors;
     ``v`` as from _zamo_tetrad_t."""
@@ -103,8 +126,8 @@ def _lower_to_ks(m, a, r, theta, v):
     return p
 
 
-def camera_scalars_t(camera: Camera, mass, spin, theta=None,
-                     dtype=torch.float32):
+def camera_scalars(camera: Camera, mass, spin, theta=None,
+                   dtype=torch.float32):
     """(c0, c_r, c_th, c_ph, k1, k2, roll_c, roll_s) as ``dtype`` tensors on
     ``mass``'s device: each c a (4,) tensor, the rest 0-d. ``theta``
     overrides ``camera.theta`` (a differentiable 0-d tensor in training).
@@ -209,7 +232,7 @@ def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
     Differentiable in ``mass``, ``spin`` and ``theta`` (which overrides
     ``camera.theta``)."""
     dev = torch.as_tensor(mass).device
-    scalars = camera_scalars_t(camera, mass, spin, theta, dtype)
+    scalars = camera_scalars(camera, mass, spin, theta, dtype)
     nx, ny = _ndc(camera, pix_ids, jitter, dtype, dev)
     p = _momenta_from_ndc(scalars, nx, ny)
     inv = 1.0 / (-p[0])
@@ -234,7 +257,7 @@ def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
 def _theta_rays(camera: Camera, mass, spin, pix_ids, jitter, dtype):
     """(N, 8) theta-chart states of the frame or of ``pix_ids``."""
     dev = torch.as_tensor(mass).device
-    scalars = camera_scalars_t(camera, mass, spin, dtype=dtype)
+    scalars = camera_scalars(camera, mass, spin, dtype=dtype)
     nx, ny = _ndc(camera, pix_ids, jitter, dtype, dev)
     p = _momenta_from_ndc(scalars, nx, ny)
     zero = torch.zeros_like(p[0])

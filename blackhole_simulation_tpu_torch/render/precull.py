@@ -2,7 +2,8 @@
 as a Chebyshev series.
 
 Counterpart of ``blackhole_simulation_tpu/render/precull.py:49-116``,
-``_cheb_eval`` (:109), ``capture_mask_u`` (:157), ``band_metric_values``
+``_cheb_eval`` (:109), ``capture_mask`` (:119, the packed theta form),
+``capture_mask_u`` (:157), ``band_metric_values``
 (:180), ``pole_w_min_values`` (:199), ``fold_pole_metric`` (:216),
 ``critical_band_metric_u`` (:227) and ``_capture_core`` (:261).
 
@@ -24,7 +25,13 @@ import math
 import numpy as np
 import torch
 
-from blackhole_simulation_tpu_torch._elementwise import const, cos, div_c, sqrt
+from blackhole_simulation_tpu_torch._elementwise import (
+    const,
+    cos,
+    div_c,
+    sin,
+    sqrt,
+)
 
 # Chebyshev fit of the critical curve eta_c(lam): terms, and the bound on
 # |fit - exact| over a in [0.1, 0.999] that the cull subtracts so it can only
@@ -139,6 +146,30 @@ def _cheb_eval(coeffs, mid, half, lam):
 
 
 @torch.no_grad()
+def capture_mask(m, a, y0: torch.Tensor, margin: float = 0.04):
+    """(N,) bool: True where the ray of the (N, 8) theta-form states
+    (t, r, theta, phi, p_t, p_r, p_theta, p_phi) is provably captured (with
+    margin). ``m``, ``a``: numbers or 0-d tensors (the signed spin; the fit
+    uses |a| clamped to [1e-3, 0.999] M)."""
+    dtype = y0.dtype
+    m = torch.as_tensor(m).detach().to(y0.device, dtype)
+    a_signed = torch.as_tensor(a).detach().to(y0.device, dtype)
+    flip = torch.where(a_signed < 0.0, -1.0, 1.0).to(dtype)
+    a_c = torch.minimum(torch.maximum(torch.abs(a_signed), 1e-3 * m), 0.999 * m)
+    y0t = y0.T
+    th = y0t[2]
+    pt, pth, pph = y0t[4], y0t[6], y0t[7]
+    e = -pt
+    inv_e = 1.0 / torch.where(torch.abs(e) < 1e-12, 1.0, e)
+    lam = flip * pph * inv_e
+    s = sin(th)
+    c = cos(th)
+    s2 = torch.clamp(s * s, min=1e-12)
+    c2 = c * c
+    return _capture_core(m, a_c, a_signed, y0t[1], s2, c2, pt, y0t[5],
+                         pth * pth, pph, lam, inv_e, margin)
+
+
 def capture_mask_u(m, a, yt_u: torch.Tensor, margin: float = 0.04):
     """(N,) bool: True where the ray of the (8, N) u-chart rows is provably
     captured (with margin). ``m``, ``a``: 0-d float32 tensors (the signed

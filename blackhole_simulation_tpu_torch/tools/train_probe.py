@@ -58,6 +58,13 @@ def train_scene(width, height):
     return _flagship(width, height, TRAIN_CFG, Features())
 
 
+def flagship_scene(width, height):
+    """bench.py's flagship render: the flagship camera (Kerr a = 0.999),
+    MarchConfig with fused=True, the spectral disk."""
+    return _flagship(width, height, dataclasses.replace(TRAIN_CFG, fused=True),
+                     Features(spectral_lut=True))
+
+
 def certified_scene(width, height):
     """bench.py's certified scene: the flagship render (spectral disk) with
     the critical-band refinement pass."""

@@ -3,9 +3,10 @@ the staged render, the inverse-rendering (training) step, the AB3 march,
 the certified (critical-band refined) render, the full-featured render
 (jets, start jitter, the NRS far field, the shadow overlay), the float64
 oracle's gates, the central-difference inverse path, NRS training, the
-progressive tile renderer, temporal accumulation, the engine facade, and
-the app in front of them (the CLI, the live loop, the cinematic director
-and the checkpointed inverse path).
+progressive tile renderer, temporal accumulation, the engine facade, the
+app in front of them (the CLI, the live loop, the cinematic director
+and the checkpointed inverse path), and the multi-device layer (the
+sharded render and steps over ``torch.distributed``, ``cli sweep``).
 
     python3 chip_smoke.py
 
@@ -289,6 +290,39 @@ printing a result line:
    ``validate`` with ``--seconds 1`` at 480x270 (finite FPS, frames > 0);
    ``info`` and ``fields`` on the card against ``--device cpu`` (rel <=
    1e-12 / 1e-10).
+21. The multi-device layer (``parallel/mesh.py``, ``parallel/render.py``,
+   the mesh branches of ``parallel/train.py``, ``cli sweep``). (a) World 1
+   on NCCL in this process (file init), so the collectives run on the
+   card: ``render_sharded`` of the flagship scene (spectral disk, a =
+   0.999, 256 steps, ``use_pallas``; the sharded path takes the staged
+   march kernel) and of phase 10's jets scene at 1920x1080, each
+   bit-equal to the single-device ``render()`` of ``single_device_twin``
+   (fused off, no refinement, overlay or NRS skip; for jets also no jets
+   and no precull, as the sharded render marches them: JAX
+   parallel/render.py:66-81 gives march_rows no jets), one march launch
+   and no render launch per frame; 5 CUDA-event frames of each (the
+   sharded and the single-device render), one profiled frame, and the
+   march kernel alone. (b) Gloo worlds of 2 and 3 spawned processes
+   sharing the card (NCCL refuses two ranks on one device): each rank's
+   image bit-equal to world 1's, one march launch per rank per frame; at
+   world 3 the frame is 1922x1078, whose 527 pixel blocks leave 4,096
+   zero rays (r = 0) in the last shard in block order and one in
+   row-major order (1918x1078's 510 blocks split evenly): the kernel's hit,
+   steps and crossing count equal the plain version's on every padding
+   ray, all dead at step 0. (c) The sharded AD step (``make_inverse_step``)
+   and FD step on phase 7's training scene at 1080p, world 2 against world
+   1: loss rel < 1e-4, spin |d| < 5e-5, FD loss rel < 1e-4 and state
+   vector |d| < 5e-4 (tests/test_parallel.py's bars), one march and one
+   gradient launch per rank per AD step, nine march launches per rank per
+   FD step; the world-1 step timed. (d) ``cli sweep`` at its defaults but
+   ``--frames 4`` (480x270, grand_survey, one sample) on the world-1 mesh:
+   the npz frames bit-equal to ``render_sharded`` of the director's
+   cameras, ``devices: 1``, one march launch per frame. Kernels-line
+   entries: the march kernel on world 1's flagship and jets launches,
+   rank 0's flagship shard and AD-step shard at world 2 and the sweep's
+   first frame (each against its plain version at exact divides, phase
+   17's bars), and the gradient kernel on rank 0's AD-step shard (phase
+   7's bars).
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -315,6 +349,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -399,6 +434,11 @@ from blackhole_simulation_tpu_torch.parallel import (  # noqa: E402
     inverse_render,
     make_fd_inverse_step,
     make_inverse_step,
+    make_mesh,
+    render_sharded,
+)
+from blackhole_simulation_tpu_torch.parallel.render import (  # noqa: E402
+    single_device_twin,
 )
 from blackhole_simulation_tpu_torch.parallel.train import (  # noqa: E402
     _forward,
@@ -1363,7 +1403,6 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     # Each kernel alone on the recorded step's own arguments, then against
     # its plain version there at exact divides.
     march_ms, outs = kernel_time(lambda: march_u(*m_args), 20)
-    grad_ms, _ = kernel_time(lambda: march_grad_kernel(*g_args), 3)
     n_rays = int(outs[0].shape[1])
     total_steps = int(outs[2].long().sum())
 
@@ -1378,21 +1417,9 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     print(f"1080p march kernel vs plain (step inputs, exact divides): {ms}")
     if not (ms["frac_int_differ"] < 1e-3 and ms["frac_gt_1e-4"] < 1e-3):
         raise AssertionError(f"1080p march kernel vs plain failed: {ms}")
-    # The step's cotangents, replayed from the exact-divide forward's r_min.
-    g_x = (*g_args[:6], cfg_x, *g_args[7:12], k[7])
-    gk = march_grad_kernel(*g_x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gp = march_grad(*g_x)
-    torch.cuda.synchronize()
-    grad_plain_ms = (time.perf_counter() - t0) * 1e3
-    gs = grad_compare(gk, gp)
+    gs, grad_e = grad_entry("training step", launches["march_grad"], m_args,
+                            g_args)
     print(f"1080p gradient kernel vs plain (step inputs, exact divides): {gs}")
-    if not (gs["finite"] and gs["ray_p95_rel"] < 1e-2
-            and gs["ray_p999_rel"] < GRAD_P999_BAR
-            and gs["frac_rel_gt_1e-3"] < GRAD_TAIL_BAR
-            and max(gs["partials_rel"]) < 1e-3):
-        raise AssertionError(f"1080p gradient kernel vs plain failed: {gs}")
 
     checks = step_check(g_args)
     checks["forward_replay"] = replay_check(m_args, g_args)
@@ -1409,16 +1436,7 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     k_slots = cfg.max_crossings
     march_ops = step_ops("midpoint", cfg.approx_recip) * total_steps
     march_bytes = 4 * n_rays * (9 + 8 + 3 + 3 * k_slots + 1)
-    # the replay, the re-forward and the VJP's recompute of the step run it
-    # as the march does (contracted on the approx route); the VJP's reverse
-    # (two steps' worth) is uncontracted
-    grad_ops = (3 * step_ops("midpoint", cfg.approx_recip)
-                + (GRAD_STEPS_PER_STEP - 3) * OPS_PER_STEP) * total_steps
-    # inputs and outputs, then each live block's checkpoint (7 words) written
-    # once and read once; the stack stays in shared memory
-    live_blocks = int(((outs[2].long() + CKPT) // CKPT).sum())
-    grad_bytes = 4 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4)
-                      + 2 * 7 * live_blocks)
+    grad_ms = grad_e["ms"]
     print(f"training step {width}x{height}: {step_ms:.3f} ms/step median of {steps} "
           f"(min {step_min:.3f}, max {step_max:.3f}), "
           f"{n_pix / step_ms / 1e3:.2f} Mrays/s fwd+bwd; launches {launches}; "
@@ -1430,7 +1448,6 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     common = dict(route="cuda", library_ms=None, steps_per_ray=(
         total_steps / n_rays), rays=n_rays)
     march_bound, march_by = bound(march_ops, march_bytes)
-    grad_bound, grad_by = bound(grad_ops, grad_bytes)
     train = {
         "step_ms": step_ms, "step_ms_min_max": [step_min, step_max],
         "mrays_per_s": n_pix / step_ms / 1e3, "steps": steps,
@@ -1451,18 +1468,12 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
              lane_efficiency_one_per_thread=lane_efficiency(outs[2]),
              resident_warps_per_sm=march_kernel_shape(cfg)["warps_per_sm"],
              **common),
-        dict(name="march_grad",
-             source="blackhole_simulation_tpu_torch/csrc/march_grad.cu",
-             replaces="blackhole_simulation_tpu/ops/pallas_grad.py:149",
-             launches=launches["march_grad"], max_abs_err=gs["max_abs"],
-             ms=grad_ms, plain_ms=grad_plain_ms, bound_ms=grad_bound,
-             bound_by=grad_by, ray_p95_rel=gs["ray_p95_rel"],
-             ray_p999_rel=gs["ray_p999_rel"],
-             frac_rel_gt_1e3=gs["frac_rel_gt_1e-3"], max_rel=gs["max_rel"],
-             partials_rel=gs["partials_rel"], scratch_bytes=scratch,
-             registers_spill=[regs, spill], smem_bytes=shape["smem_bytes"],
+        dict(grad_e, frac_rel_gt_1e3=gs["frac_rel_gt_1e-3"],
+             max_rel=gs["max_rel"], partials_rel=gs["partials_rel"],
+             scratch_bytes=scratch, registers_spill=[regs, spill],
+             smem_bytes=shape["smem_bytes"],
              warps_per_sm=shape["warps_per_sm"], ckpt=shape["ckpt"],
-             step_check=checks, **common),
+             step_check=checks),
     ]
 
 
@@ -3435,6 +3446,411 @@ def phase_app():
     return out, entry
 
 
+# Phase 21: the multi-device layer (parallel/mesh.py, parallel/render.py,
+# the mesh branches of parallel/train.py, cli sweep). World 1 runs in this
+# process on NCCL, so the collectives run on the card; worlds 2 and 3 are
+# spawned processes on gloo (NCCL refuses two ranks on one device) sharing
+# the one card, each marching its shard on csrc/march.cu. The frames: 1080p,
+# and one whose pixel-block padded count is no multiple of 3 x TILE (4,096
+# zero rays at world 3 in block order, one in row-major order; the blocks
+# of 1918x1078 split evenly, so it has none).
+MD_SIZE = (1920, 1080)
+MD_PAD_SIZE = (1922, 1078)
+MD_BACKEND = "nccl"
+MD_TIMEOUT = 600
+MD_SWEEP_FRAMES = 4
+
+
+def md_scenes(width, height):
+    """The flagship scene (spectral disk, a = 0.999, 256 steps, use_pallas)
+    and phase 10's jets scene."""
+    return {"flagship": flagship_scene(width, height),
+            "jets": scene_from_params(SimulationParams(enable_jets=True),
+                                      width, height, device=DEV)}
+
+
+def train_scene(width, height):
+    """Phase 7's training scene (bench.py's step: the flagship camera, a =
+    0.999, and MarchConfig with fused off, analytic disk)."""
+    return flagship_scene(width, height, cfg=TRAIN_CFG, features=Features())
+
+
+def padding_check(args):
+    """The zero rays (r = 0) of a march launch's recorded arguments: the
+    kernel's hit, steps and crossing count against the plain version's, per
+    ray; both must be dead (hit, no step)."""
+    pad = args[0][1] == 0
+    n = int(pad.sum())
+    with torch.no_grad():
+        k = march_u(*args)
+        p = march_u_plain(args[0][:, pad].contiguous(), args[1][pad],
+                          *args[2:])
+    kh, ks, kc = k[1][pad], k[2][pad], k[6][pad]
+    ok = bool(n > 0 and torch.equal(kh, p[1]) and torch.equal(ks, p[2])
+              and torch.equal(kc, p[6]) and bool((ks == 0).all())
+              and bool((kh != HIT_NONE).all()))
+    return {"rays": n, "ok": ok,
+            "kernel_hits": sorted({int(x) for x in kh.unique()}),
+            "kernel_max_steps": int(ks.max()) if n else None}
+
+
+def md_steps(mesh, record=False):
+    """One sharded AD step (``make_inverse_step``) and one FD step on
+    phase 7's 1080p training scene from spin 0.9, zero target: losses,
+    parameters, launches, and (``record``) the kernels' arguments."""
+    scene = train_scene(*MD_SIZE)
+    w, h = MD_SIZE
+    params = InverseParams.init(spin=0.9, theta_cam=float(scene.camera.theta),
+                                device=DEV)
+    target = torch.zeros((h, w, 3), device=DEV)
+    out = {}
+    step = make_inverse_step(scene, mesh)
+    if record:
+        march_u.record, march_grad_kernel.record = [], []
+    torch.cuda.synchronize()
+    _reset_launches()
+    (p1, _), loss = step(params, target)
+    torch.cuda.synchronize()
+    out["ad"] = {"loss": float(loss), "params": [float(x) for x in
+                                                 p1.leaves()],
+                 "launches": _launches()}
+    if record:
+        out["args"] = (march_u.record[0], march_grad_kernel.record[0])
+        march_u.record = march_grad_kernel.record = None
+    fd = make_fd_inverse_step(scene, mesh)
+    _reset_launches()
+    (vec, _), fd_loss = fd(fd_state_init(params), target)
+    torch.cuda.synchronize()
+    out["fd"] = {"loss": float(fd_loss), "vec": vec.tolist(),
+                 "launches": _launches()}
+    return out, step, (params, target)
+
+
+def _md_worker(rank, world, directory, device, sizes):
+    """One rank of a spawned gloo world: the sharded renders of the phase's
+    scenes (1080p at world 2, the padded frame at world 3) and, at world
+    2, the sharded steps. Results go to ``directory``; the parent checks
+    them. ``device`` and ``sizes`` (MD_SIZE, MD_PAD_SIZE) are the
+    parent's."""
+    global DEV, MD_SIZE, MD_PAD_SIZE
+    DEV = device
+    MD_SIZE, MD_PAD_SIZE = sizes
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device).index or 0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{directory}/init", rank=rank,
+        world_size=world)
+    try:
+        mesh = make_mesh(device=device)
+        out = {"mesh": [mesh.size, mesh.rank, mesh.backend], "renders": {}}
+        size = MD_SIZE if world == 2 else MD_PAD_SIZE
+        for name, scene in md_scenes(*size).items():
+            march_u.record = []
+            torch.cuda.synchronize()
+            _reset_launches()
+            img = render_sharded(scene, mesh)
+            torch.cuda.synchronize()
+            launches = _launches()
+            args = march_u.record[0]
+            march_u.record = None
+            torch.save(img.cpu(), os.path.join(directory,
+                                               f"{name}_{rank}.pt"))
+            entry = {"launches": launches,
+                     "shard_rays": int(args[0].shape[1])}
+            if world == 3 and rank == world - 1:
+                entry["padding"] = padding_check(args)
+            if rank == 0 and world == 2 and name == "flagship":
+                torch.save(args, os.path.join(directory, "march_args.pt"))
+            out["renders"][name] = entry
+        if world == 2:
+            steps, _, _ = md_steps(mesh, record=rank == 0)
+            if rank == 0:
+                torch.save(steps.pop("args"),
+                           os.path.join(directory, "step_args.pt"))
+            out["steps"] = steps
+        with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_md_worlds(dirs):
+    """Start the gloo worlds ({world: directory}) together and wait for
+    them; a rank that raises ends the others and fails the phase, as does
+    a world that outlives MD_TIMEOUT seconds."""
+    import torch.multiprocessing as mp
+
+    ctxs = [mp.start_processes(
+        _md_worker, args=(n, str(d), DEV, (MD_SIZE, MD_PAD_SIZE)), nprocs=n,
+        join=False, start_method="spawn") for n, d in dirs.items()]
+    deadline = time.monotonic() + MD_TIMEOUT
+    for ctx in ctxs:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for c in ctxs:
+                    for proc in c.processes:
+                        proc.kill()
+                raise AssertionError(
+                    f"phase 21's worlds outlived {MD_TIMEOUT} s")
+
+
+def grad_entry(path, launches, m_args, g_args):
+    """A kernels-line entry for a gradient-kernel launch on recorded
+    arguments: the kernel alone (3 launches), and against its plain
+    version at exact divides, the cotangents replayed from the exact-divide
+    forward's r_min (phase 7's bars), with the bound from this run's
+    steps: the replay, the re-forward and the VJP's recompute of the step
+    run it as the march does (contracted on the approx route), the VJP's
+    reverse (two steps' worth) is uncontracted; the bytes are the inputs
+    and outputs and each live block's checkpoint (7 words) written once and
+    read once (the stack stays in shared memory)."""
+    cfg = g_args[6]
+    grad_ms, _ = kernel_time(lambda: march_grad_kernel(*g_args), 3)
+    cfg_x = dataclasses.replace(cfg, approx_recip=False)
+    with torch.no_grad():
+        outs = march_u(*m_args)
+        k = march_u(*m_args[:6], cfg_x)
+    g_x = (*g_args[:6], cfg_x, *g_args[7:12], k[7])
+    gk = march_grad_kernel(*g_x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp = march_grad(*g_x)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    gs = grad_compare(gk, gp)
+    if not (gs["finite"] and gs["ray_p95_rel"] < 1e-2
+            and gs["ray_p999_rel"] < GRAD_P999_BAR
+            and gs["frac_rel_gt_1e-3"] < GRAD_TAIL_BAR
+            and max(gs["partials_rel"]) < 1e-3):
+        raise AssertionError(f"{path}: gradient kernel vs plain: {gs}")
+    n_rays = int(outs[0].shape[1])
+    total_steps = int(outs[2].long().sum())
+    k_slots = cfg.max_crossings
+    ops = (3 * step_ops("midpoint", cfg.approx_recip)
+           + (GRAD_STEPS_PER_STEP - 3) * OPS_PER_STEP) * total_steps
+    live_blocks = int(((outs[2].long() + CKPT) // CKPT).sum())
+    nbytes = 4 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4)
+                  + 2 * 7 * live_blocks)
+    bound_ms, bound_by = bound(ops, nbytes)
+    return gs, dict(
+        name="march_grad", route="cuda",
+        source="blackhole_simulation_tpu_torch/csrc/march_grad.cu",
+        replaces="blackhole_simulation_tpu/ops/pallas_grad.py:149",
+        path=path, launches=launches, max_abs_err=gs["max_abs"], ms=grad_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, rays=n_rays, steps_per_ray=total_steps / n_rays,
+        ray_p95_rel=gs["ray_p95_rel"], ray_p999_rel=gs["ray_p999_rel"],
+        share_of_bound=bound_ms / grad_ms)
+
+
+def md_march_entry(path, launches, args):
+    """march_entry on a sharded launch's recorded arguments, its plain
+    version at exact divides, held to phase 17's bars."""
+    plain = (*args[:6], dataclasses.replace(args[6], approx_recip=False),
+             *args[7:])
+    cmp, entry = march_entry(path, launches, args, plain,
+                             step_ops("jets" if args[7] is not None else
+                                      "midpoint", args[6].approx_recip))
+    print(f"{path}: march kernel vs plain (exact divides) {cmp}")
+    if not (cmp["frac_int_differ"] < 1e-3 and cmp["frac_gt_1e-4"] < 1e-3):
+        raise AssertionError(f"{path}: march kernel vs plain: {cmp}")
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    return entry
+
+
+def _md_world_one(mesh):
+    """(a): world 1 on this process's group: each 1080p scene's sharded
+    frame against its single-device render, bit for bit, timed; and the
+    padded frame's images for world 3."""
+    out, entries, images = {}, [], {}
+    w, h = MD_SIZE
+    for name, scene in md_scenes(w, h).items():
+        march_u.record = []
+        torch.cuda.synchronize()
+        _reset_launches()
+        img = render_sharded(scene, mesh)
+        torch.cuda.synchronize()
+        launches = _launches()
+        args = march_u.record[0]
+        march_u.record = None
+        ref_scene = single_device_twin(scene)
+        ref = render(ref_scene, device=DEV)
+        frame_ms, frame_min, frame_max = timed(
+            lambda: render_sharded(scene, mesh), 5)
+        single_ms, _, _ = timed(lambda: render(ref_scene, device=DEV), 5)
+        kernel_ms, _ = kernel_time(lambda: march_u(*args), 20)
+        _, prof = train_probe.profile_once(lambda: render_sharded(scene,
+                                                                  mesh))
+        prof["top"] = prof["top"][:6]
+        res = {"bit_equal_single_device": bool(torch.equal(img, ref)),
+               "launches": launches, "frame_ms": frame_ms,
+               "frame_ms_min_max": [frame_min, frame_max],
+               "single_device_frame_ms": single_ms, "march_ms": kernel_ms,
+               "mrays_per_s": w * h / frame_ms / 1e3, "profile": prof}
+        print(f"sharded render world 1 ({mesh.backend}) {name} {w}x{h}: "
+              f"{json.dumps(res)}")
+        if not (res["bit_equal_single_device"] and launches["march"] == 1
+                and launches["render"] == 0):
+            raise AssertionError(f"sharded render world 1 {name}: {res}")
+        out[name] = res
+        images[name] = img
+        entries.append(md_march_entry(
+            f"sharded render, world 1 ({mesh.backend}), {name} {w}x{h}",
+            launches["march"], args))
+    for name, scene in md_scenes(*MD_PAD_SIZE).items():
+        images[f"{name}_pad"] = render_sharded(scene, mesh)
+    return out, entries, images
+
+
+def _md_sweep(mesh, tmp):
+    """(d): cli sweep at its defaults but --frames: the npz frames against
+    render_sharded of the director's cameras, bit for bit."""
+    path = os.path.join(tmp, "sweep.npz")
+    stdout, secs, launches = run_cli("sweep", "--frames",
+                                     str(MD_SWEEP_FRAMES), "--out", path)
+    line = json.loads(stdout.strip().splitlines()[-1])
+    with np.load(path) as f:
+        frames = f["frames"]
+    params = SimulationParams()
+    scene0 = scene_from_params(params, 480, 270, device=DEV)
+    equal, args = [], None
+    for i in range(MD_SWEEP_FRAMES):
+        r, theta, phi = grand_survey(i * 1.0)
+        cam = Camera.create(r=r, theta=theta, phi=phi, fov=params.fov,
+                            width=480, height=270)
+        if i == 0:
+            march_u.record = []
+        img = render_sharded(dataclasses.replace(scene0, camera=cam), mesh)
+        if i == 0:
+            args = march_u.record[0]
+            march_u.record = None
+        equal.append(bool(np.array_equal(frames[i], img.cpu().numpy())))
+    out = {"json": line, "seconds": secs, "launches": launches,
+           "frames_equal_render_sharded": equal}
+    print(f"cli sweep: {json.dumps(out)}")
+    if not (all(equal) and line["devices"] == 1
+            and line["frames"] == MD_SWEEP_FRAMES
+            and line["shape"] == [MD_SWEEP_FRAMES, 270, 480, 3]
+            and launches["march"] == MD_SWEEP_FRAMES
+            and launches["render"] == 0 and np.isfinite(frames).all()):
+        raise AssertionError(f"cli sweep: {out}")
+    return out, md_march_entry("cli sweep 480x270, world 1, frame 0",
+                               launches["march"] // MD_SWEEP_FRAMES, args)
+
+
+def _md_check_worlds(dirs, images, steps1):
+    """(b) and (c): the spawned worlds' images against world 1's, bit for
+    bit; their launches; the padding rays; the sharded steps against world
+    1's at tests/test_parallel.py's bars."""
+    out = {}
+    for n, d in dirs.items():
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        res = {"ranks": ranks}
+        for name in ("flagship", "jets"):
+            key = name if n == 2 else f"{name}_pad"
+            ref = images[key].cpu()
+            same = [torch.equal(torch.load(os.path.join(d, f"{name}_{r}.pt")),
+                                ref) for r in range(n)]
+            res[f"{name}_bit_equal_world_1"] = same
+            bad_launch = [rk["renders"][name]["launches"] for rk in ranks
+                          if rk["renders"][name]["launches"]["march"] != 1]
+            if not all(same) or bad_launch:
+                raise AssertionError(f"world {n} {name}: equal {same}, "
+                                     f"launches {bad_launch}")
+            if n == 3:
+                pad = ranks[-1]["renders"][name]["padding"]
+                res[f"{name}_padding"] = pad
+                if not pad["ok"]:
+                    raise AssertionError(f"world 3 {name} padding: {pad}")
+        if n == 2:
+            checks = []
+            for rk in ranks:
+                ad, fd = rk["steps"]["ad"], rk["steps"]["fd"]
+                checks.append({
+                    "ad_loss_rel": abs(ad["loss"] / steps1["ad"]["loss"] - 1),
+                    "ad_spin_abs": abs(ad["params"][0]
+                                       - steps1["ad"]["params"][0]),
+                    "ad_params_abs": max(abs(x - y) for x, y in zip(
+                        ad["params"], steps1["ad"]["params"])),
+                    "fd_loss_rel": abs(fd["loss"] / steps1["fd"]["loss"] - 1),
+                    "fd_vec_abs": max(abs(x - y) for x, y in zip(
+                        fd["vec"], steps1["fd"]["vec"])),
+                    "ad_launches": ad["launches"],
+                    "fd_launches": fd["launches"]})
+            res["steps"] = checks
+            for c in checks:
+                if not (c["ad_loss_rel"] < 1e-4 and c["ad_spin_abs"] < 5e-5
+                        and c["fd_loss_rel"] < 1e-4
+                        and c["fd_vec_abs"] < 5e-4
+                        and c["ad_launches"]["march"] == 1
+                        and c["ad_launches"]["march_grad"] == 1
+                        and c["fd_launches"]["march"] == 9):
+                    raise AssertionError(f"world 2 sharded steps: {c}")
+        print(f"world {n} (gloo, one card): {json.dumps(res)}")
+        out[n] = res
+    return out
+
+
+def phase_multi_device():
+    """Phase 21: the multi-device layer (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            MD_BACKEND, init_method=f"file://{tmp}/init1", rank=0,
+            world_size=1)
+        try:
+            mesh = make_mesh(device=DEV)
+            if not (mesh.group is not None and mesh.size == 1
+                    and mesh.backend == MD_BACKEND):
+                raise AssertionError(f"world-1 mesh: {mesh}")
+            out["world1"], entries, images = _md_world_one(mesh)
+            steps1, step, step_in = md_steps(mesh)
+            step_ms, step_min, step_max = timed(lambda: step(*step_in), 3)
+            steps1["ad"]["step_ms"] = step_ms
+            steps1["ad"]["step_ms_min_max"] = [step_min, step_max]
+            out["steps_world1"] = steps1
+            print(f"sharded steps world 1 ({MD_BACKEND}): "
+                  f"{json.dumps(steps1)}")
+            out["sweep"], sweep_entry = _md_sweep(mesh, tmp)
+            dirs = {}
+            for n in (2, 3):
+                dirs[n] = os.path.join(tmp, f"world{n}")
+                os.makedirs(dirs[n])
+            t_spawn = time.perf_counter()
+            spawn_md_worlds(dirs)
+            out["spawned_worlds_seconds"] = time.perf_counter() - t_spawn
+            out["worlds"] = _md_check_worlds(dirs, images, steps1)
+            w2 = dirs[2]
+            m_args = torch.load(os.path.join(w2, "march_args.pt"),
+                                map_location=DEV, weights_only=False)
+            entries.append(md_march_entry(
+                f"sharded render, world 2 (gloo), rank 0's shard, flagship "
+                f"{MD_SIZE[0]}x{MD_SIZE[1]}",
+                out["worlds"][2]["ranks"][0]["renders"]["flagship"]
+                ["launches"]["march"], m_args))
+            sm_args, sg_args = torch.load(os.path.join(w2, "step_args.pt"),
+                                          map_location=DEV,
+                                          weights_only=False)
+            rank0 = out["worlds"][2]["ranks"][0]["steps"]["ad"]["launches"]
+            entries.append(md_march_entry(
+                "sharded AD step, world 2 (gloo), rank 0's shard",
+                rank0["march"], sm_args))
+            gs, g_entry = grad_entry(
+                "sharded AD step, world 2 (gloo), rank 0's shard",
+                rank0["march_grad"], sm_args, sg_args)
+            print(f"sharded AD step gradient kernel vs plain: {gs}")
+            entries += [sweep_entry, g_entry]
+        finally:
+            torch.distributed.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 21 (multi-device): {out['seconds']:.1f} s")
+    return out, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3476,9 +3892,11 @@ def main() -> int:
     print(f"engine: {json.dumps(phase_engine())}")
     app, live_kernel = phase_app()
     print(f"app: {json.dumps(app)}")
+    multi, md_kernels = phase_multi_device()
+    print(f"multi-device: {json.dumps(multi)}")
     for e in nrs_kernels + tile_kernels + [live_kernel]:
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
-    kernels_line += nrs_kernels + tile_kernels + [live_kernel]
+    kernels_line += nrs_kernels + tile_kernels + [live_kernel] + md_kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

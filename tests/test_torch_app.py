@@ -403,9 +403,37 @@ def test_inverse_reports_json(capsys):
     assert all(math.isfinite(v) for v in last.values())
 
 
-def test_sweep_waits_for_multi_device():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tcli.main(["--device", "cpu", "sweep", "--frames", "2"])
+def test_sweep_waits_for_multi_device(tmp_path, capsys):
+    """The sweep, which waited for the multi-device slice, runs: JAX's
+    test_sweep_tiny (tests/test_app.py:195) on a one-device mesh, with the
+    frames equal to render_sharded of the director's cameras."""
+    from blackhole_simulation_tpu_torch.engine.cinema import grand_survey
+    from blackhole_simulation_tpu_torch.parallel import (
+        make_mesh,
+        render_sharded,
+    )
+    from blackhole_simulation_tpu_torch.render import Camera
+
+    out = str(tmp_path / "sweep.npz")
+    assert tcli.main(["--device", "cpu", "sweep", "--frames", "2", "--width",
+                      "24", "--height", "16", "--set", "quality=low",
+                      "--out", out]) == 0
+    with np.load(out) as data:
+        frames = data["frames"]
+    assert frames.shape == (2, 16, 24, 3) and np.isfinite(frames).all()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["devices"] == 1 and line["shape"] == [2, 16, 24, 3]
+    assert "mrays_per_s" in line and line["out"] == out
+    params = dataclasses.replace(tsim.SimulationParams(), quality="low")
+    scene0 = tsim.scene_from_params(params, width=24, height=16,
+                                    device="cpu")
+    for i in range(2):
+        r, theta, phi = grand_survey(float(i))
+        cam = Camera.create(r=r, theta=theta, phi=phi, fov=params.fov,
+                            width=24, height=16)
+        img = render_sharded(dataclasses.replace(scene0, camera=cam),
+                             make_mesh(device="cpu"))
+        assert np.array_equal(frames[i], img.numpy())
 
 
 @pytest.mark.parametrize("cmd", ["info", "render", "animate", "sweep",

@@ -150,3 +150,52 @@ def test_loads_the_jax_npz_route(case, tmp_path, monkeypatch):
     for b, g in zip(jck.jax.tree_util.tree_leaves(back),
                     tck.tree_leaves(got)):
         assert np.array_equal(np.asarray(b), g.numpy())
+
+
+def _none_trees():
+    return {
+        "opt_none": {"x": torch.zeros(3), "opt": None},
+        "nested_none": (torch.zeros(2), None, {"b": 1.0, "a": None}),
+    }
+
+
+def _as_jax(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return tuple(_as_jax(x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _as_jax(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return jnp.asarray(tree.numpy())
+    return tree
+
+
+@pytest.mark.parametrize("case", ["opt_none", "nested_none"])
+def test_none_is_an_empty_subtree(case, tmp_path, monkeypatch):
+    """``None`` holds no leaf, as in ``jax.tree_util``: the leaf count is
+    JAX's, the tree round-trips with its ``None`` in place, and the
+    ``leaf_{i}`` files equal the JAX package's npz route on the same
+    tree."""
+    tree = _none_trees()[case]
+    jtree = _as_jax(tree)
+    leaves = tck.tree_leaves(tree)
+    assert len(leaves) == len(jck.jax.tree_util.tree_leaves(jtree))
+    path = tck.save_checkpoint(str(tmp_path / "t"), tree)
+    back = tck.load_checkpoint(path, tree)
+    if case == "opt_none":
+        assert back["opt"] is None and list(back) == ["x", "opt"]
+        assert back["x"].numpy().tobytes() == tree["x"].numpy().tobytes()
+    else:
+        assert back[1] is None and back[2]["a"] is None
+        assert back[0].numpy().tobytes() == tree[0].numpy().tobytes()
+        assert float(back[2]["b"]) == 1.0
+    monkeypatch.setattr(jck, "_HAVE_ORBAX", False)
+    jpath = jck.save_checkpoint(str(tmp_path / "j"), jtree)
+    with np.load(path) as a, np.load(jpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes()
+    jback = jck.load_checkpoint(path, jtree)
+    assert (jck.jax.tree_util.tree_structure(jback)
+            == jck.jax.tree_util.tree_structure(jtree))

@@ -1,9 +1,16 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package.
+"""The port and chip_smoke.py import neither JAX nor the JAX package, and
+the port has a twin of every public name of the JAX package.
 
-Checked in a fresh interpreter (this test process has both loaded), and
-statically over the port's sources.
+The imports are checked in a fresh interpreter (this test process has both
+loaded), and statically over the port's sources. The names are read from
+each JAX module's top level with ``ast`` (no JAX import): every one must be
+an attribute of the port's module of the same path, or have its twin under
+another name listed in ``TWINS`` (checked to exist), or stand in
+``ABSENT`` with the reason it has none.
 """
 
+import ast
+import importlib
 import json
 import subprocess
 import sys
@@ -85,8 +92,13 @@ MODULES = [
     "blackhole_simulation_tpu_torch.app.state",
     "blackhole_simulation_tpu_torch.__main__",
     "blackhole_simulation_tpu_torch.parallel.checkpoint",
+    "blackhole_simulation_tpu_torch.parallel.mesh",
+    "blackhole_simulation_tpu_torch.parallel.render",
+    "blackhole_simulation_tpu_torch.ops",
+    "blackhole_simulation_tpu_torch.ops.ks_kernel",
     "blackhole_simulation_tpu_torch.tools.vpu_peak",
     "blackhole_simulation_tpu_torch.tools.train_probe",
+    "blackhole_simulation_tpu_torch.tools.mesh_check",
     "chip_smoke",
 ]
 
@@ -126,3 +138,97 @@ def test_source_imports_no_jax(path):
             assert mod != "blackhole_simulation_tpu" and not mod.startswith(
                 "blackhole_simulation_tpu."
             ), line
+
+
+JAX = ROOT / "blackhole_simulation_tpu"
+
+# JAX name (module path relative to the package, name) -> its port twin
+# under another name or in another module ("module.path:name").
+TWINS = {
+    ("ops/pallas_march.py", "pallas_march_u"): "ops.pallas_march:march_u",
+    ("ops/pallas_march.py", "diff_step_values"): "ops.march:diff_step_values",
+    ("ops/pallas_march.py", "start_offset_rows"):
+        "ops.march:start_offset_rows",
+    ("ops/pallas_march.py", "HIT_NONE"): "render.march:HIT_NONE",
+    ("ops/pallas_march.py", "HIT_HORIZON"): "render.march:HIT_HORIZON",
+    ("ops/pallas_march.py", "HIT_ESCAPE"): "render.march:HIT_ESCAPE",
+    ("ops/pallas_grad.py", "CKPT"): "ops.march_grad:CKPT",
+    ("ops/pallas_grad.py", "pallas_march_grad"):
+        "ops.march_grad:march_grad_kernel",
+    ("ops/pallas_grad.py", "make_composite"): "ops.march:march_step_rows",
+    ("ops/pallas_render.py", "pallas_render_sample"):
+        "ops.render:render_planes_kernel",
+}
+
+# JAX names with no port twin, and why.
+ABSENT = {
+    ("ops/pallas_march.py", "recip_approx"):
+        "the TPU approximate reciprocal with its VJP: the CUDA kernels' "
+        "approx_recip route (csrc/march_step.cuh) and the gradient kernel's "
+        "replay of it take its place; the plain versions divide exactly",
+    ("ops/pallas_march.py", "make_div_recip"):
+        "picks (div, recip) for the Pallas kernel body; the CUDA kernels pick "
+        "the route by template instantiation at launch",
+}
+
+
+def _public_names(path):
+    """The public top-level names of a module: its functions, classes and
+    assigned names; a package's __init__ adds the names it imports."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, ast.ImportFrom) and path.name == "__init__.py":
+            names.update(a.asname or a.name for a in node.names)
+    return sorted(n for n in names if not n.startswith("_"))
+
+
+def _port_module(rel):
+    parts = list(Path(rel).with_suffix("").parts)
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(["blackhole_simulation_tpu_torch", *parts])
+
+
+def _resolve(spec):
+    mod, name = spec.split(":")
+    return getattr(importlib.import_module(
+        f"blackhole_simulation_tpu_torch.{mod}"), name)
+
+
+@pytest.mark.parametrize(
+    "rel", sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py")))
+def test_every_public_name_has_a_twin(rel):
+    missing = []
+    try:
+        module = importlib.import_module(_port_module(rel))
+    except ModuleNotFoundError:
+        module = None
+    for name in _public_names(JAX / rel):
+        key = (rel, name)
+        if key in TWINS:
+            _resolve(TWINS[key])
+        elif key not in ABSENT and not hasattr(module, name):
+            missing.append(name)
+    assert not missing, f"{rel}: no port twin for {missing}"
+
+
+def test_twin_and_absence_lists_are_current():
+    """Every listed name is still public in the JAX package, and a listed
+    absence is not quietly present in the port."""
+    for rel, name in [*TWINS, *ABSENT]:
+        assert name in _public_names(JAX / rel), (rel, name)
+    for rel, name in ABSENT:
+        try:
+            module = importlib.import_module(_port_module(rel))
+        except ModuleNotFoundError:
+            continue
+        assert not hasattr(module, name), (rel, name)

@@ -172,13 +172,15 @@ def test_inverse_render_ad_step_runs():
 
 
 def test_refuses_what_is_not_ported():
+    """A mesh that is not the port's Mesh (parallel/mesh.py) is refused;
+    without CUDA and without device="cpu" the steps raise."""
     _, ts = _scenes(16, 8, 0.8, JMarchConfig(max_steps=24))
     target = torch.zeros(8, 16, 3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         make_inverse_step(ts, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         make_ad_inverse_step(ts, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         inverse_render(ts, target, n_steps=1, method="fd", mesh=object(),
                        device="cpu")
     if not torch.cuda.is_available():
