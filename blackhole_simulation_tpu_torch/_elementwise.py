@@ -22,6 +22,14 @@ the kernel's and the JAX package's.
 * ``f64_args``: numbers and arrays as float64 tensors beside the tensors
   among the arguments, for the analytic functions that run where their
   tensor inputs are.
+* ``host``, ``leaf``, ``grad_wanted``, ``attach``: a scene's data leaves
+  (mass, spin, the camera's r, theta, phi, fov, roll) are numbers or 0-d
+  tensors, which may require grad. ``host`` reads a leaf's value for the
+  static decisions of the host (tile shapes, caches, the precull switch),
+  ``leaf`` makes it a tensor for the arithmetic, keeping its graph,
+  ``grad_wanted`` says whether autograd will ask for a derivative, and
+  ``attach`` gives a value computed on the host the derivative of its
+  tensor twin without changing one bit of it.
 """
 
 from __future__ import annotations
@@ -93,16 +101,23 @@ def maximum(x: torch.Tensor, y) -> torch.Tensor:
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """jnp.interp (constant extrapolation) on 1-D tensors, same arithmetic."""
+    """jnp.interp (constant extrapolation) on 1-D tensors, same arithmetic.
+    The table reads are ``index_select``s: where the tables carry a graph
+    (the spectral disk's, differentiated in spin), their backward adds
+    into the short tables with atomics, where advanced indexing's sorts
+    each run of a repeated index serially (4 s of a 1080p frame's backward
+    on the H100, chip_smoke.py phase 22)."""
     i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
-    df = fp[i] - fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
+    flat, shape = i.reshape(-1), i.shape
+    at = lambda t, j: torch.index_select(t, 0, j).reshape(shape)
+    df = at(fp, flat) - at(fp, flat - 1)
+    dx = at(xp, flat) - at(xp, flat - 1)
+    delta = x - at(xp, flat - 1)
     np_dtype = np.float64 if xp.dtype == torch.float64 else np.float32
     eps = float(np.spacing(np.finfo(np_dtype).eps))
     dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fp[i - 1],
-                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f0 = at(fp, flat - 1)
+    f = torch.where(dx0, f0, f0 + (delta / torch.where(dx0, 1.0, dx)) * df)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
 
@@ -115,3 +130,37 @@ def f64_args(*xs):
     return tuple(x if isinstance(x, torch.Tensor)
                  else torch.as_tensor(np.asarray(x, np.float64), device=dev)
                  for x in xs)
+
+
+def host(x) -> float:
+    """A number, or a 0-d tensor's detached value, as a Python float."""
+    if isinstance(x, torch.Tensor):
+        return float(x.detach())
+    return float(x)
+
+
+def leaf(x, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A scene leaf as a 0-d ``dtype`` tensor on ``device``: a tensor is
+    cast (keeping its graph; rounded once, as ``torch.tensor(float(x),
+    dtype)`` rounds a number), a number is made one."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device if device is not None else x.device,
+                    dtype=dtype).reshape(())
+    return torch.tensor(float(x), dtype=dtype, device=device)
+
+
+def grad_wanted(*xs) -> bool:
+    """True when autograd is on and any tensor among ``xs`` requires
+    grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def attach(value: torch.Tensor, twin: torch.Tensor) -> torch.Tensor:
+    """``value`` (computed on the host, no graph) with the gradient of
+    ``twin``, a differentiable computation of the same quantity: value +
+    (twin - twin.detach()), which adds an exact zero, so the result equals
+    ``value`` bit for bit. ``value`` itself where ``twin`` has no graph."""
+    if not twin.requires_grad:
+        return value
+    return value + (twin - twin.detach()).to(value.dtype)

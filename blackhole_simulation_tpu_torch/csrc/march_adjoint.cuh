@@ -3,7 +3,9 @@
 //
 // Counterpart of jax.vjp of blackhole_simulation_tpu/ops/pallas_grad.py::
 // make_composite (:71), which the Pallas gradient kernel traces at build
-// time. march_step_vjp takes the step's inputs x[11] (t, r, u, ph, pr, pu,
+// time, and, for the jets' march, of jax.grad through the jets' term of
+// the jnp march's step (render/march.py:555-569, which the JAX package
+// differentiates by jnp AD; its gradient kernel has no jets). march_step_vjp takes the step's inputs x[11] (t, r, u, ph, pr, pu,
 // pph, m, a, r_h, r_ph) and returns J^T cto for the output cotangents
 // cto[10] (the six state rows, r_c, phi_c, t_c, dmin). It first recomputes
 // the step forward with march_step.cuh's own float functions, so the
@@ -494,16 +496,168 @@ __device__ __forceinline__ void renormalize_pr_vjp(float m, float a, float r,
   gp[6] = gpph;
 }
 
+// VJP of one step's jet emission (march_step.cuh::jet_emission and
+// jet_beaming, the arguments jets_advance gives them) with the cotangents
+// cj[3] of its three channels, at the pre-step t, r, u, ph = x[0..3], the
+// stepped y (u clipped) and the step size dlam: adds to gx[1..3] (r, u,
+// ph), gy[1..3] (the stepped r, the clipped u, the stepped ph) and g_dlam.
+// Returns false, adding nothing, outside the cone or where the channels'
+// cotangents sum to 0 (a zero cotangent contributes nothing). The forward
+// is recomputed with the same float operations in the same order, so the
+// cone test is the forward's. What has no derivative takes JAX's:
+// in_cone and the live mask select, sign(z) is a constant, floor has
+// derivative 0 (so the hashed lattice values are constants and fract's
+// derivative is 1), the floored modulo's is 1; clip passes nothing outside
+// its range and half at a tie (clip_vjp); |x| takes sign(0) = 0. The
+// profile's exp and the beaming power are the forward's (float on the
+// approx_recip route, through double on the exact one); their derivatives
+// are formed from those values, exp(x) and p beam / delta.
+template <bool APPROX>
+__device__ __forceinline__ bool jet_emission_vjp(const JetParams& jp,
+                                                 const float x[6],
+                                                 const float y[6],
+                                                 float dlam, const float cj[3],
+                                                 float gx[6], float gy[6],
+                                                 float& g_dlam) {
+  const float r = x[1], u = x[2], ph = x[3];
+  const float inv = recip<APPROX>(dlam);
+  const float wj = jmax(1.0f - u * u, F(1e-6));
+  const float st = sqrtf(wj);
+  const float ct = u;
+  const float ddr = y[1] - r;
+  const float ddu = y[2] - u;
+  const float ddp = y[3] - ph;
+  const float dr = ddr * inv;
+  const float dth = -ddu * inv / st;
+  const float dph = ddp * inv;
+  // jet_emission, kept
+  const float z = r * ct;
+  const float rs = r * st;
+  const float rho = fabsf(rs);
+  const float az = fabsf(z);
+  const float cone_r = jp.core_radius + jp.opening_slope * az;
+  const bool in_cone =
+      (az > jp.z_min) && (az < jp.z_max) && (rho < F(2.5) * cone_r);
+  const float g_mag = F(0.62) * cj[0] + F(0.74) * cj[1] + cj[2];
+  if (!in_cone || g_mag == 0.0f) return false;
+  const float crm = jmax(cone_r, F(1e-3));
+  const float q = rho / crm;
+  float profile;
+  if constexpr (APPROX)
+    profile = expf(-(q * q));
+  else
+    profile = (float)exp((double)(-(q * q)));
+  const float v_z = dr * ct - r * st * dth;
+  const float v_rho = dr * st + r * ct * dth;
+  const float v_ph = r * st * dph;
+  const float v_mag = sqrtf(v_z * v_z + v_rho * v_rho + v_ph * v_ph +
+                            F(1e-12));
+  const float sg = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+  const float cos_psi = -sg * v_z / v_mag;
+  const float den = jp.gamma * (1.0f - jp.beta * jclip(cos_psi, -1.0f, 1.0f));
+  const float delta = 1.0f / den;
+  const float nx = az * F(0.8);
+  const float ny = fmod_floor(ph, F(6.283185307179586)) * 2.0f + az;
+  const float xf = floorf(nx), yf = floorf(ny);
+  const float fx = nx - xf, fy = ny - yf;
+  const float tx = smooth(fx), ty = smooth(fy);
+  const float c00 = hash21(xf, yf);
+  const float c10 = hash21(xf + 1.0f, yf);
+  const float c01 = hash21(xf, yf + 1.0f);
+  const float c11 = hash21(xf + 1.0f, yf + 1.0f);
+  const float noise = c00 * (1.0f - tx) * (1.0f - ty) +
+                      c10 * tx * (1.0f - ty) + c01 * (1.0f - tx) * ty +
+                      c11 * tx * ty;
+  const float turb = jp.one_minus_turb + jp.turbulence * (0.5f + noise);
+  const float dd = jp.density * dlam;
+  const float pre = dd * profile * turb;
+  float beam;
+  if constexpr (APPROX)
+    beam = powf(delta, jp.beaming_exponent);
+  else
+    beam = (float)pow((double)delta, (double)jp.beaming_exponent);
+
+  // ---- reverse: mag = pre * beam, the channels 0.62, 0.74, 1 of mag ----
+  const float g_pre = g_mag * beam;
+  const float g_beam = g_mag * pre;
+  const float g_delta = g_beam * (jp.beaming_exponent * beam / delta);
+  const float g_den = -(delta * g_delta) / den;
+  const float g_cc = -(jp.gamma * jp.beta) * g_den;
+  const float g_cos = clip_vjp(cos_psi, -1.0f, 1.0f, g_cc);
+  // cos_psi = (-sg v_z) / v_mag
+  float g_vz = (-sg) * g_cos / v_mag;
+  const float g_vmag = -(cos_psi * g_cos) / v_mag;
+  const float g_vsum = g_vmag * 0.5f / v_mag;
+  g_vz = g_vz + 2.0f * v_z * g_vsum;
+  const float g_vrho = 2.0f * v_rho * g_vsum;
+  const float g_vph = 2.0f * v_ph * g_vsum;
+  // pre = density dlam profile turb
+  g_dlam = g_dlam + g_pre * jp.density * profile * turb;
+  const float g_profile = g_pre * dd * turb;
+  const float g_turb = g_pre * dd * profile;
+  // the noise octave: d/dtx, d/dty of the bilinear blend, smooth' = 6t(1-t)
+  const float g_noise = g_turb * jp.turbulence;
+  const float dn_tx = (c10 - c00) * (1.0f - ty) + (c11 - c01) * ty;
+  const float dn_ty = (c01 - c00) * (1.0f - tx) + (c11 - c10) * tx;
+  const float g_nx = g_noise * dn_tx * (6.0f * fx * (1.0f - fx));
+  const float g_ny = g_noise * dn_ty * (6.0f * fy * (1.0f - fy));
+  float g_az = F(0.8) * g_nx + g_ny;
+  float g_ph = 2.0f * g_ny;
+  // profile = exp(-q^2), q = rho / max(cone_r, 1e-3)
+  const float g_q = -2.0f * q * profile * g_profile;
+  float g_rho = g_q / crm;
+  const float g_crm = -(q * g_q) / crm;
+  g_az = g_az + jp.opening_slope * max_vjp_x(cone_r, F(1e-3), g_crm);
+  // the ray's direction: v_z, v_rho, v_ph of (dr, dth, dph) at (r, st, ct)
+  const float g_dr = g_vz * ct + g_vrho * st;
+  float g_ct = g_vz * dr + g_vrho * r * dth;
+  float g_r = -g_vz * st * dth + g_vrho * ct * dth + g_vph * st * dph;
+  float g_st = -g_vz * r * dth + g_vrho * dr + g_vph * r * dph;
+  const float g_dth = -g_vz * r * st + g_vrho * r * ct;
+  const float g_dph = g_vph * r * st;
+  // z = r ct, az = |z|; rho = |r st|
+  const float g_z = sgn(z) * g_az;
+  g_r = g_r + g_z * ct;
+  g_ct = g_ct + g_z * r;
+  g_rho = sgn(rs) * g_rho;
+  g_r = g_r + g_rho * st;
+  g_st = g_st + g_rho * r;
+  // dth = (-(y_u - u) inv) / st, dr = (y_r - r) inv, dph = (y_ph - ph) inv
+  const float g_num = g_dth / st;
+  g_st = g_st - (dth * g_dth) / st;
+  float g_inv = g_num * (-ddu) + g_dr * ddr + g_dph * ddp;
+  gy[1] = gy[1] + g_dr * inv;
+  g_r = g_r - g_dr * inv;
+  gy[2] = gy[2] - g_num * inv;
+  float g_u = g_ct + g_num * inv;
+  gy[3] = gy[3] + g_dph * inv;
+  g_ph = g_ph - g_dph * inv;
+  g_dlam = g_dlam + recip_vjp<APPROX>(dlam, inv, g_inv);
+  // st = sqrt(max(1 - u^2, 1e-6))
+  const float g_wj = g_st * 0.5f / st;
+  g_u = g_u - 2.0f * u * max_vjp_x(1.0f - u * u, F(1e-6), g_wj);
+  gx[1] = gx[1] + g_r;
+  gx[2] = gx[2] + g_u;
+  gx[3] = gx[3] + g_ph;
+  return true;
+}
+
 // J^T cto of one live march step (march_step at step i with the pre-step
 // crossing count nc) at x[NIN]. After the forward recompute,
 // inject(crossed, advance, dmin, cto) fills the output cotangents cto[NOUT],
 // as the gradient kernel injects its crossing and r_min cotangents there.
-// cin[NIN] receives the input cotangents.
-template <bool APPROX, class Inject>
+// cin[NIN] receives the input cotangents. With JETS the step is the jets'
+// (jets_advance: the same state update, plus the emission from the
+// pre-step state, the stepped one and dlam, on every live step, also one
+// that the sanity test freezes): cj[3], the jet radiance's cotangent, adds
+// the emission's VJP (jet_emission_vjp, jp its configuration).
+template <bool APPROX, bool JETS = false, class Inject>
 __device__ __forceinline__ void march_step_vjp(const MarchParams& mp,
                                                const float x[NIN], float thr,
                                                int i, int nc, Inject inject,
-                                               float cin[NIN]) {
+                                               float cin[NIN],
+                                               const JetParams* jp = nullptr,
+                                               const float* cj = nullptr) {
   const float t = x[0], r = x[1], u = x[2], ph = x[3], pr = x[4], pu = x[5];
   const float pph = x[6], m = x[7], a = x[8], r_h = x[9], r_ph = x[10];
 
@@ -570,10 +724,18 @@ __device__ __forceinline__ void march_step_vjp(const MarchParams& mp,
   const bool xc = cto[6] != 0.0f || cto[7] != 0.0f || cto[8] != 0.0f;
   if (xc) crossing_record_vjp<APPROX>(t, r, u, ph, y, cto[6], cto[7], cto[8],
                                       cx, cy);
-  // the midpoint step and its size, where the step's values got any
-  if (advance || xc) {
+  // the jets' emission, from the pre-step state, the stepped one and dlam
+  float g_dlam_jet = 0.0f;
+  bool jet_on = false;
+  if constexpr (JETS) {
     const float x6[6] = {t, r, u, ph, pr, pu};
-    float gx[6], g_dlam = 0.0f;
+    jet_on = jet_emission_vjp<APPROX>(*jp, x6, y, dlam, cj, cx, cy,
+                                      g_dlam_jet);
+  }
+  // the midpoint step and its size, where the step's values got any
+  if (advance || xc || jet_on) {
+    const float x6[6] = {t, r, u, ph, pr, pu};
+    float gx[6], g_dlam = JETS ? g_dlam_jet : 0.0f;
     midpoint_step_vjp<APPROX>(mp, m, a, dlam, x6, pph, nu_raw, mid, cy, gx,
                               g_dlam, g_m, g_a, g_pph);
     step_size_vjp<APPROX>(mp, a, r_h, r_ph, r, u, pu, g_dlam, g_a, g_rh,

@@ -32,6 +32,16 @@
 // the step (the forward recomputed, then walked back), which also gives the
 // step's crossed, advance and dmin for the injection.
 //
+// Jets (the JETS instantiation, chosen when the caller passes JetParams):
+// the march kernel's jets march sums the jets' emission of every live step
+// into a (3, n) radiance, whose cotangent is the same at every step. The
+// replay and the checkpoints are the midpoint march's (the emission does
+// not feed the state); each live step's VJP adds the emission's
+// (march_adjoint.cuh::jet_emission_vjp), as jax.grad of the JAX package's
+// jnp march takes it. The JAX gradient kernel has no jets: the JAX package
+// differentiates a jets march by jnp AD, never on its gradient kernel. The
+// other instantiations compile without the jets' code.
+//
 // What bounds it on the H100: FP32 arithmetic, as the march: per live step
 // one replay step, one re-forward step and the adjoint (a forward step and
 // the reverse of its right-hand sides). The step is a long dependent FP32
@@ -50,8 +60,9 @@
 #define SMEM_BYTES (CKPT * WORDS * THREADS * 4)
 
 // APPROX: MarchConfig.approx_recip, chosen at launch (the step's reciprocals
-// and its contracted multiply-adds, march_step.cuh).
-template <bool APPROX>
+// and its contracted multiply-adds, march_step.cuh); JETS: the jets' march
+// (ctj: the (3, n) cotangent of its radiance, jp: the jets' configuration).
+template <bool APPROX, bool JETS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
                   const float* __restrict__ thr_in,
@@ -62,7 +73,8 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
                   float* __restrict__ cty0, float* __restrict__ ctp,
                   float* __restrict__ scratch,
                   int* __restrict__ replay, int n, int n_blocks,
-                  const MarchParams mp, float clip) {
+                  const MarchParams mp, float clip,
+                  const float* __restrict__ ctj, const JetParams jp) {
   extern __shared__ float stack[];  // [CKPT][WORDS][THREADS]
   const int tid = threadIdx.x;
   const int j = blockIdx.x * THREADS + tid;
@@ -117,6 +129,11 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
   float c_pph = ctf[6 * N + j];
   float c_m = 0.0f, c_a = 0.0f, c_rh = 0.0f, c_rph = 0.0f;
   const float ct_rmin = ctr[j];
+  float cj[3] = {0.0f, 0.0f, 0.0f};
+  if (JETS) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cj[c] = ctj[c * N + j];
+  }
   bool injected = false;
   // The steps after the ray stopped (the identity) clip the carry once.
   if (clip > 0.0f) clip_carry(c6, clip);
@@ -170,7 +187,11 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
         if (hitmin) injected = true;
       };
       float cin[NIN];
-      march_step_vjp<APPROX>(mp, x, thr, i0 + q, nc_q, inject, cin);
+      if constexpr (JETS)
+        march_step_vjp<APPROX, true>(mp, x, thr, i0 + q, nc_q, inject, cin,
+                                     &jp, cj);
+      else
+        march_step_vjp<APPROX>(mp, x, thr, i0 + q, nc_q, inject, cin);
 #pragma unroll
       for (int k = 0; k < 6; ++k) c6[k] = cin[k];
       c_pph = c_pph + cin[6];
@@ -200,10 +221,15 @@ march_grad_kernel(const float* __restrict__ P, const float* __restrict__ y,
 typedef void (*GradKernel)(const float*, const float*, const float*,
                            const float*, const float*, const float*,
                            const float*, float*, float*, float*, int*, int,
-                           int, const MarchParams, float);
+                           int, const MarchParams, float, const float*,
+                           const JetParams);
 
-static GradKernel grad_kernel_for(bool approx) {
-  return approx ? march_grad_kernel<true> : march_grad_kernel<false>;
+static GradKernel grad_kernel_for(bool approx, bool jets) {
+  if (jets)
+    return approx ? march_grad_kernel<true, true>
+                  : march_grad_kernel<false, true>;
+  return approx ? march_grad_kernel<true, false>
+                : march_grad_kernel<false, false>;
 }
 
 extern "C" {
@@ -214,14 +240,20 @@ extern "C" {
 // pph) with p_t = -1; thr: (n,); ctf: (7, n); ctc: (3K, n); ctr, rminf:
 // (n,); cty0: (7, n) out; ctp: (4, n) out; scratch: bh_march_grad_scratch
 // words per ray; replay: null, or (3, n) int32 out, the replay's hit, live
-// steps and crossing count (the forward march's own, when the two agree).
+// steps and crossing count (the forward march's own, when the two agree);
+// jp: the jets' configuration, or null for no jets, with ctj (3, n), the
+// cotangent of the jets' radiance (unused without jets).
 int bh_march_grad_launch(const float* P, const float* y, const float* thr,
                          const float* ctf, const float* ctc, const float* ctr,
                          const float* rminf, float* cty0, float* ctp,
                          float* scratch, int* replay, int n,
-                         const MarchParams* mp, float clip, void* stream) {
+                         const MarchParams* mp, float clip, const float* ctj,
+                         const JetParams* jp, void* stream) {
   const int n_blocks = (mp->max_steps + CKPT - 1) / CKPT;
-  const GradKernel kernel = grad_kernel_for(mp->approx_recip != 0);
+  const GradKernel kernel =
+      grad_kernel_for(mp->approx_recip != 0, jp != nullptr);
+  const JetParams none = {};
+  const JetParams jets = jp != nullptr ? *jp : none;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -229,7 +261,7 @@ int bh_march_grad_launch(const float* P, const float* y, const float* thr,
     kernel<<<(n + THREADS - 1) / THREADS, THREADS, SMEM_BYTES,
              (cudaStream_t)stream>>>(P, y, thr, ctf, ctc, ctr, rminf, cty0,
                                      ctp, scratch, replay, n, n_blocks, *mp,
-                                     clip);
+                                     clip, ctj, jets);
   }
   return (int)cudaGetLastError();
 }
@@ -242,9 +274,10 @@ int bh_march_grad_scratch(int max_steps) {
 // The launch's shape: {threads per block, dynamic shared memory bytes per
 // block, steps per checkpoint block, resident blocks per SM by
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor (-1 if it fails)} of the
-// instantiation that ``approx`` (MarchConfig.approx_recip) selects.
-void bh_march_grad_shape(int approx, int out[4]) {
-  const GradKernel kernel = grad_kernel_for(approx != 0);
+// instantiation that ``approx`` (MarchConfig.approx_recip) and ``jets``
+// select.
+void bh_march_grad_shape(int approx, int jets, int out[4]) {
+  const GradKernel kernel = grad_kernel_for(approx != 0, jets != 0);
   out[0] = THREADS;
   out[1] = SMEM_BYTES;
   out[2] = CKPT;
@@ -263,5 +296,7 @@ const char* bh_error_string(int err) {
 }
 
 int bh_march_params_size() { return (int)sizeof(MarchParams); }
+
+int bh_jet_params_size() { return (int)sizeof(JetParams); }
 
 }  // extern "C"

@@ -97,7 +97,20 @@
 #define HIT_NONE 0
 #define HIT_HORIZON 1
 #define HIT_ESCAPE 2
+// The crossing slots a ray carries: 4 (MarchConfig.max_crossings 1 to 4) in
+// the default build; ops/build.py builds a separate library with -DKMAX=8,
+// 16, ... for more (ops/build.py::kmax_for), whose slots past the fourth
+// are indexed (record_step), and whose composite loops do not unroll.
+#ifndef KMAX
 #define KMAX 4
+#endif
+// #pragma unroll where KMAX is 4, none above: a KMAX-long unrolled body
+// (a disk slot's shading each) only makes the larger builds long.
+#if KMAX > 4
+#define UNROLL_SLOTS _Pragma("unroll 1")
+#else
+#define UNROLL_SLOTS _Pragma("unroll")
+#endif
 
 // The static march configuration. Must match ops/pallas_march.py::
 // _CMarchParams field for field. multistep selects the AB3 march;
@@ -662,7 +675,8 @@ __device__ __forceinline__ void march_step(
 // 64 with the slots in registers). Without it (the step form, whose
 // MarchRay the march kernel keeps across its refill loop), each slot is a
 // register written under a compile-time index: indexed slots there made
-// the march kernel slower.
+// the march kernel slower. Above four slots (KMAX > 4, a build of its own)
+// both forms index them.
 template <bool LOCAL>
 __device__ __forceinline__ void record_step(bool crossed, bool advance,
                                             float r_c, float phi_c, float t_c,
@@ -670,7 +684,7 @@ __device__ __forceinline__ void record_step(bool crossed, bool advance,
                                             float cr[KMAX], float cp[KMAX],
                                             float ct[KMAX], int& steps,
                                             float& rmin) {
-  if constexpr (LOCAL) {
+  if constexpr (LOCAL || KMAX > 4) {
     if (crossed) {
       cr[nc] = r_c;
       cp[nc] = phi_c;

@@ -585,7 +585,7 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   float rgb[3] = {0.0f, 0.0f, 0.0f};
   float trans = 1.0f;
   if (st.disk_on) {
-#pragma unroll
+    UNROLL_SLOTS
     for (int k = 0; k < KMAX; ++k) {
       // Slots past the crossing count add nothing (the plain version
       // evaluates and masks them).

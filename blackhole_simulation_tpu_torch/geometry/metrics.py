@@ -4,8 +4,11 @@ of the float64 oracle layer.
 Counterpart of ``blackhole_simulation_tpu/geometry/metrics.py``.
 
 Host and render side: the derived radii of ``Kerr`` (event horizon,
-prograde photon sphere, ISCO, :235-265). ``Kerr`` holds host floats and
-computes the radii in float64 with numpy, once per frame.
+prograde photon sphere, ISCO, :235-265). ``Kerr``'s mass and spin are
+numbers or 0-d tensors (a scene's data leaves, which may require grad, as
+the JAX package's ``Scene`` leaves are differentiable); its methods compute
+the radii of their values in float64 with numpy, for the host's static
+decisions.
 ``event_horizon_t``, ``photon_sphere_t`` and ``isco_t`` compute the same
 radii from 0-d tensors, differentiably in mass and spin, for the staged and
 training paths: in the inputs' dtype, operation by operation as the JAX
@@ -22,10 +25,12 @@ Oracle side (tensors, batched over leading ray axes, any float dtype):
 their union ``Metric`` (:369).
 
 The JAX package's ``Kerr(mass, spin, chart)`` is the port's
-``KerrMetric``; the port's ``Kerr`` is the render path's host float
-holder, which every scene and render entry takes. The two names part on
-purpose: giving ``Kerr`` the tensor API would touch every caller of the
-render path for no computation.
+``KerrMetric``; the port's ``Kerr`` is the render path's holder of the
+scene's mass and spin, which every scene and render entry takes. The two
+names part on purpose: the render path reads its leaves through
+``_elementwise.leaf`` (arithmetic, keeping the graph) and ``host`` (static
+decisions), and the radii that enter its arithmetic come from the tensor
+functions above.
 
 The JAX package takes (dH/dr, dH/dtheta) from ``jax.grad`` of the summed
 Hamiltonian (``_ham_derivs`` :184). Here they are the closed forms of
@@ -43,32 +48,36 @@ import dataclasses
 import numpy as np
 import torch
 
+from blackhole_simulation_tpu_torch._elementwise import host as _host
+
 
 @dataclasses.dataclass(frozen=True)
 class Kerr:
     """Kerr black hole of mass M and angular momentum a = J/M (geometric units).
 
-    ``mass`` and ``spin`` are plain floats; the radii are float64 and
-    prograde.
+    ``mass`` and ``spin`` are numbers or 0-d tensors (which may require
+    grad); the methods' radii are host float64 values of them, prograde.
+    A tensor field hashes by identity, so no cache takes a ``Kerr``.
     """
 
-    mass: float
-    spin: float
+    mass: float | torch.Tensor
+    spin: float | torch.Tensor
 
     @property
     def spin_ratio(self) -> float:
-        return self.spin / self.mass
+        return _host(self.spin) / _host(self.mass)
 
     def event_horizon(self) -> float:
         """r+ = M + sqrt(M^2 - a^2)."""
-        m, a = float(self.mass), float(self.spin)
+        m, a = _host(self.mass), _host(self.spin)
         return m + float(np.sqrt(max(m * m - a * a, 0.0)))
 
     def photon_sphere(self) -> float:
         """Equatorial circular photon orbit r_ph = 2M{1 + cos[(2/3) acos(-|a*|)]}."""
         a_star = abs(float(np.clip(self.spin_ratio, -1.0, 1.0)))
         return float(
-            2.0 * self.mass * (1.0 + np.cos((2.0 / 3.0) * np.arccos(-a_star)))
+            2.0 * _host(self.mass)
+            * (1.0 + np.cos((2.0 / 3.0) * np.arccos(-a_star)))
         )
 
     def isco(self) -> float:
@@ -79,7 +88,7 @@ class Kerr:
         )
         z2 = np.sqrt(3.0 * a_star**2 + z1 * z1)
         root = np.sqrt(max((3.0 - z1) * (3.0 + z1 + 2.0 * z2), 0.0))
-        return float(self.mass * (3.0 + z2 - root))
+        return float(_host(self.mass) * (3.0 + z2 - root))
 
 
 def _radii_args(mass, spin):

@@ -18,6 +18,14 @@ hash of the source, every header of ``csrc/`` and the flags, so an edited
 source or shared header never loads a stale build. ptxas's report
 (registers, spills) is kept beside it. The first call of a kernel's wrapper
 builds it; nothing is built at import time.
+
+A march records ``MarchConfig.max_crossings`` equator crossings per ray,
+any number from 1, as the JAX kernels take any. The kernels carry
+``KMAX`` crossing slots per ray (``csrc/march_step.cuh``): the default
+build has 4; more crossings take a build of their own with ``-DKMAX``
+the next power of two from 8 up to ``KMAX_LIMIT`` (``kmax_for``), whose
+library name carries it, so the default build and its instantiations are
+the same whatever else is built.
 """
 
 from __future__ import annotations
@@ -47,27 +55,53 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _paths(source: str) -> tuple[Path, Path]:
+KMAX_DEFAULT = 4
+KMAX_LIMIT = 256
+
+
+def kmax_for(max_crossings: int) -> int:
+    """The crossing slots of the build that records ``max_crossings``
+    crossings: 4 up to 4, else the next power of two from 8. Raises
+    ValueError below 1 or above ``KMAX_LIMIT`` (each slot is 12 bytes of
+    a ray's state: 256 take 3 KB per thread)."""
+    if not 1 <= max_crossings <= KMAX_LIMIT:
+        raise ValueError(f"max_crossings must lie in 1..{KMAX_LIMIT}, got "
+                         f"{max_crossings}")
+    if max_crossings <= KMAX_DEFAULT:
+        return KMAX_DEFAULT
+    k = 8
+    while k < max_crossings:
+        k *= 2
+    return k
+
+
+def _flags(kmax: int) -> tuple[str, ...]:
+    return NVCC_FLAGS if kmax == KMAX_DEFAULT else (*NVCC_FLAGS,
+                                                    f"-DKMAX={kmax}")
+
+
+def _paths(source: str, kmax: int = KMAX_DEFAULT) -> tuple[Path, Path]:
     src = CSRC / source
     digest = hashlib.sha1(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    stem = f"{src.stem}-{digest.hexdigest()[:12]}"
+    digest.update(" ".join(_flags(kmax)).encode())
+    tag = "" if kmax == KMAX_DEFAULT else f"-k{kmax}"
+    stem = f"{src.stem}{tag}-{digest.hexdigest()[:12]}"
     return BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless an identical build exists; return
-    the shared library's path. Raises RuntimeError with nvcc's output if the
-    compile fails."""
-    lib, report = _paths(source)
+def build(source: str, kmax: int = KMAX_DEFAULT) -> Path:
+    """Compile ``csrc/<source>`` with ``kmax`` crossing slots unless an
+    identical build exists; return the shared library's path. Raises
+    RuntimeError with nvcc's output if the compile fails."""
+    lib, report = _paths(source, kmax)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        [_nvcc(), *_flags(kmax), "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True, timeout=900,
     )
     if proc.returncode != 0:
@@ -77,16 +111,17 @@ def build(source: str) -> Path:
     return lib
 
 
-def ptxas_report(source: str) -> str:
+def ptxas_report(source: str, kmax: int = KMAX_DEFAULT) -> str:
     """ptxas's -v report of the current build of ``csrc/<source>``."""
-    return _paths(source)[1].read_text()
+    return _paths(source, kmax)[1].read_text()
 
 
-def ptxas_usage(source: str) -> list[tuple[str, int, int]]:
+def ptxas_usage(source: str, kmax: int = KMAX_DEFAULT
+                ) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill bytes stored + loaded) of each kernel
     entry in the current build of ``csrc/<source>``."""
     usage, entry, spill = [], None, 0
-    for line in ptxas_report(source).splitlines():
+    for line in ptxas_report(source, kmax).splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             entry, spill = m.group(1), 0
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",

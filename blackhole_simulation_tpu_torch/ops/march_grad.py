@@ -11,7 +11,12 @@ reverse, a re-forward into a step stack and a per-step VJP (here
 ``torch.autograd.grad`` of the step, the kernel's being the hand-written
 adjoint of ``csrc/march_adjoint.cuh``) with the crossing and r_min
 cotangents injected at the steps that recorded them and the optional
-per-step cotangent clip. ``march_grad_kernel`` launches the kernel for CUDA
+per-step cotangent clip. With the jets (a ``JetParams``) the march is the
+jets' march, whose emission every live step adds to the (3, N) jet
+radiance: the jet radiance's cotangent enters the VJP of every live step
+(the kernel's jets instantiation, ``march_adjoint.cuh::jet_emission_vjp``),
+as ``jax.grad`` of the JAX package's jnp march differentiates
+``jet_emission_step`` inside its loop (render/march.py:555-569). ``march_grad_kernel`` launches the kernel for CUDA
 tensors and runs ``march_grad`` for CPU tensors; nothing else picks between
 them. The blocks' length does not change the result: the replay is
 deterministic. ``step_vjp_check`` and ``renorm_vjp_check`` launch
@@ -28,6 +33,7 @@ import torch
 
 from blackhole_simulation_tpu_torch.ops.march import march_step_rows
 from blackhole_simulation_tpu_torch.ops.pallas_march import (
+    c_jet_params,
     c_march_params,
     load_library,
     scalar_params,
@@ -53,14 +59,16 @@ def scratch_words(cfg) -> int:
 
 
 def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
-               ct_rmin, rmin_fin):
+               ct_rmin, rmin_fin, ct_jet=None, jets=None):
     """Plain version of the march VJP (``pallas_march_grad``'s contract).
 
     ``yt0``: (8, N) rows normalized to p_t = -1 (the march's input);
     ``ct_fin``: (8, N) cotangent of the final rows (the p_t row is ignored);
     ``ct_cr/cp/ct``: (K, N) crossing cotangents; ``ct_rmin``, ``rmin_fin``:
-    (N,). Returns (ct_yt0 (8, N) with a zero p_t row, ct_m, ct_a, ct_rh,
-    ct_rph), the scalars summed over rays. Always divides exactly.
+    (N,); ``jets``: the jets' ``JetParams`` (the march with their emission)
+    with ``ct_jet`` (3, N), the jet radiance's cotangent, or None. Returns
+    (ct_yt0 (8, N) with a zero p_t row, ct_m, ct_a, ct_rh, ct_rph), the
+    scalars summed over rays. Always divides exactly.
     """
     k_slots = cfg.max_crossings
     n = yt0.shape[1]
@@ -112,10 +120,10 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
             ins += [x.expand(n).clone().requires_grad_()
                     for x in (pph, m, a, r_h, r_ph)]
             with torch.enable_grad():
-                (y2, r_c, phi_c, t_c, dmin, _), (_, _, crossed, advance) = (
+                (y2, r_c, phi_c, t_c, dmin, jet), (_, _, crossed, advance) = (
                     march_step_rows(ins[7], ins[8], ins[9], ins[10], thr,
                                     cfg, i, tuple(ins[:6]), ins[6], hits,
-                                    ncs))
+                                    ncs, jets))
                 ct_rc, ct_rp, ct_rt = zero, zero, zero
                 for k in range(k_slots):
                     sel = crossed & (ncs == k)
@@ -125,9 +133,12 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
                 hitmin = advance & (dmin == rmin_fin) & ~injected
                 injected = injected | hitmin
                 ct_dmin = torch.where(hitmin, ct_rmin, zero)
-                grads = torch.autograd.grad(
-                    [*y2, r_c, phi_c, t_c, dmin], ins,
-                    [*ct6, ct_rc, ct_rp, ct_rt, ct_dmin], allow_unused=True)
+                outs = [*y2, r_c, phi_c, t_c, dmin]
+                cts = [*ct6, ct_rc, ct_rp, ct_rt, ct_dmin]
+                if jet is not None:
+                    outs.append(jet)
+                    cts.append(ct_jet)
+                grads = torch.autograd.grad(outs, ins, cts, allow_unused=True)
             grads = [torch.zeros_like(pph) if g is None else g for g in grads]
             ct6 = torch.stack(grads[:6])
             ct_pph = ct_pph + grads[6]
@@ -147,9 +158,11 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
 
 
 def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
-                      ct_ct, ct_rmin, rmin_fin, replay=None):
+                      ct_ct, ct_rmin, rmin_fin, ct_jet=None, jets=None,
+                      replay=None):
     """The march VJP, as ``march_grad``. CUDA tensors launch the gradient
-    kernel (``csrc/march_grad.cu``) on the current stream, with a scratch
+    kernel (``csrc/march_grad.cu``; its jets instantiation with ``jets``)
+    on the current stream, with a scratch
     buffer of ``scratch_words(cfg)`` float32 words per ray (its size in bytes
     is kept in ``march_grad_kernel.scratch_bytes``), and count the launch in
     ``march_grad_kernel.launches``; CPU tensors run ``march_grad``. While
@@ -161,13 +174,14 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
     if march_grad_kernel.record is not None:
         march_grad_kernel.record.append(
             (yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
-             ct_rmin, rmin_fin))
+             ct_rmin, rmin_fin, ct_jet, jets))
     n = yt0.shape[1]
-    k_slots = cfg.max_crossings
     if yt0.dtype != torch.float32 or yt0.shape != (8, n):
         raise ValueError("rays must be float32 (8, N)")
-    if not 1 <= k_slots <= 4:
-        raise NotImplementedError("the march kernels record 1 to 4 crossings")
+    if cfg.max_crossings < 1:
+        raise ValueError("max_crossings must be at least 1")
+    if (jets is None) != (ct_jet is None):
+        raise ValueError("jets and ct_jet go together")
     if cfg.multistep:
         raise NotImplementedError("the gradient kernel replays the midpoint "
                                   "march; the AB3 march has no gradient")
@@ -179,7 +193,7 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
                          "the rays' CUDA device")
     if yt0.device.type == "cpu":
         return march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr,
-                          ct_cp, ct_ct, ct_rmin, rmin_fin)
+                          ct_cp, ct_ct, ct_rmin, rmin_fin, ct_jet, jets)
     if yt0.device.type != "cuda":
         raise ValueError(f"no gradient path for device {yt0.device}")
     lib = _grad_library()
@@ -190,6 +204,7 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
     ctf = rows7(ct_fin)
     ctc = torch.cat([ct_cr, ct_cp, ct_ct]).detach().float().contiguous()
     thr, ct_rmin, rmin_fin = flat(thr), flat(ct_rmin), flat(rmin_fin)
+    ctj = None if jets is None else flat(ct_jet)
     params = scalar_params(m, a, r_h, r_ph, dev)
     cty0 = torch.empty((7, n), dtype=torch.float32, device=dev)
     ctp = torch.empty((4, n), dtype=torch.float32, device=dev)
@@ -199,6 +214,7 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
                            "and ops/march_grad.py")
     scratch = torch.empty(words * n, dtype=torch.float32, device=dev)
     c_mp = c_march_params(cfg)
+    c_jets = c_jet_params(jets)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -207,7 +223,10 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
             ptr(rmin_fin), ptr(cty0), ptr(ctp), ptr(scratch),
             ctypes.c_void_p(0 if replay is None else replay.data_ptr()),
             ctypes.c_int(n), ctypes.byref(c_mp),
-            ctypes.c_float(cfg.cotangent_clip), ctypes.c_void_p(stream),
+            ctypes.c_float(cfg.cotangent_clip),
+            ctypes.c_void_p(0 if ctj is None else ctj.data_ptr()),
+            None if jets is None else ctypes.byref(c_jets),
+            ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
@@ -224,15 +243,16 @@ march_grad_kernel.scratch_bytes = 0
 march_grad_kernel.record = None
 
 
-def grad_kernel_shape(approx: bool = True) -> dict:
+def grad_kernel_shape(approx: bool = True, jets: bool = False) -> dict:
     """The gradient kernel's launch shape, from the built library: threads
     per block, dynamic shared memory bytes per block, steps per checkpoint
     block, and resident blocks and warps per SM by
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (on the current
     device), of the instantiation for ``MarchConfig.approx_recip`` =
-    ``approx`` (the training step's route by default)."""
+    ``approx`` (the training step's route by default) and ``jets``."""
     out = (ctypes.c_int * 4)()
-    _grad_library().bh_march_grad_shape(ctypes.c_int(int(approx)), out)
+    _grad_library().bh_march_grad_shape(ctypes.c_int(int(approx)),
+                                        ctypes.c_int(int(jets)), out)
     threads, smem, ckpt, blocks = out
     return {"threads": threads, "smem_bytes": smem, "ckpt": ckpt,
             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
@@ -353,10 +373,11 @@ def _grad_library() -> ctypes.CDLL:
     lib = load_library("march_grad.cu", "bh_march_params_size")
     lib.bh_march_grad_launch.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_float, ctypes.c_void_p])
+                                  ctypes.c_float] + [ctypes.c_void_p] * 3)
     lib.bh_march_grad_launch.restype = ctypes.c_int
     lib.bh_march_grad_scratch.argtypes = [ctypes.c_int]
     lib.bh_march_grad_scratch.restype = ctypes.c_int
-    lib.bh_march_grad_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.bh_march_grad_shape.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
     lib.bh_march_grad_shape.restype = None
     return lib

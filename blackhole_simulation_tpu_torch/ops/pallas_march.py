@@ -28,6 +28,7 @@ import functools
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import const
+from blackhole_simulation_tpu_torch.ops.build import KMAX_DEFAULT, kmax_for
 from blackhole_simulation_tpu_torch.ops.march import (
     ab3_renorm_plan,
     march_tile,
@@ -181,8 +182,8 @@ def _check_rows(yt0, thr, cfg):
                          f"{tuple(yt0.shape)}")
     if thr.shape != (yt0.shape[1],) or thr.device != yt0.device:
         raise ValueError("thr must be (N,) on the rays' device")
-    if not 1 <= cfg.max_crossings <= 4:
-        raise NotImplementedError("the march kernels record 1 to 4 crossings")
+    if cfg.max_crossings < 1:
+        raise ValueError("max_crossings must be at least 1")
 
 
 def march_u_plain(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
@@ -216,7 +217,9 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
 
     CUDA tensors launch the march kernel (``csrc/march.cu``) on the current
     stream and count the launch in ``march_u.launches``; CPU tensors run the
-    plain version (``march_u_plain``). The kernel applies
+    plain version (``march_u_plain``). More than 4 crossings
+    (``cfg.max_crossings``, up to ``ops/build.KMAX_LIMIT`` on the card) run
+    on a build with more slots (``ops/build.kmax_for``). The kernel applies
     ``cfg.approx_recip``; the plain version always divides exactly. While
     ``march_u.record`` is a list, each call appends its arguments to it, so
     a caller can replay the kernel on a real step's own inputs. ``out``, a
@@ -233,7 +236,7 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
     k_slots = cfg.max_crossings
     if yt0.device.type != "cuda":
         raise ValueError(f"no march path for device {yt0.device}")
-    lib = _march_library()
+    lib = _march_library(kmax_for(k_slots))
     dev = yt0.device
     y = yt0.detach().contiguous()
     thr = thr.detach().to(torch.float32).contiguous()
@@ -304,7 +307,7 @@ def march_kernel_shape(cfg, jets=None) -> dict:
     block, resident blocks and warps per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SM count;
     the resident grid is their product."""
-    lib = _march_library()
+    lib = _march_library(kmax_for(cfg.max_crossings))
     out = (ctypes.c_int * 3)()
     c_mp, c_jets = c_march_params(cfg), c_jet_params(jets)
     err = lib.bh_march_shape(ctypes.byref(c_mp), None if jets is None
@@ -317,12 +320,13 @@ def march_kernel_shape(cfg, jets=None) -> dict:
             "warps_per_sm": blocks * threads // 32, "sms": sms}
 
 
-def load_library(source: str, params_size_fn: str) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<source>``; check that its
-    MarchParams matches ``_CMarchParams``."""
+def load_library(source: str, params_size_fn: str,
+                 kmax: int = KMAX_DEFAULT) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<source>`` with ``kmax``
+    crossing slots; check that its MarchParams matches ``_CMarchParams``."""
     from blackhole_simulation_tpu_torch.ops.build import build
 
-    lib = ctypes.CDLL(str(build(source)))
+    lib = ctypes.CDLL(str(build(source, kmax)))
     lib.bh_error_string.argtypes = [ctypes.c_int]
     lib.bh_error_string.restype = ctypes.c_char_p
     size = getattr(lib, params_size_fn)
@@ -340,8 +344,8 @@ def load_library(source: str, params_size_fn: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _march_library() -> ctypes.CDLL:
-    lib = load_library("march.cu", "bh_march_params_size")
+def _march_library(kmax: int = KMAX_DEFAULT) -> ctypes.CDLL:
+    lib = load_library("march.cu", "bh_march_params_size", kmax)
     lib.bh_march_launch.argtypes = (
         [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
     lib.bh_march_launch.restype = ctypes.c_int

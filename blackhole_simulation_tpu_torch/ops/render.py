@@ -31,11 +31,13 @@ from blackhole_simulation_tpu_torch._elementwise import (
     cos,
     div_c,
     exp,
+    host,
     maximum,
     sin,
     sqrt,
     tanh,
 )
+from blackhole_simulation_tpu_torch.ops.build import KMAX_DEFAULT, kmax_for
 from blackhole_simulation_tpu_torch.ops.ks_kernel import ks_renormalize_pr
 from blackhole_simulation_tpu_torch.ops.march import (
     ab3_renorm_plan,
@@ -138,7 +140,9 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
     float32, as the JAX package casts them before it builds its row, and
     the radii and the camera tetrad (``camera_scalars``, the staged
     path's) come from them in float32 arithmetic, as the JAX package's do;
-    the camera's own values stay float64 until the cast.
+    the camera's own values stay float64 until the cast. Tensor leaves
+    enter by value (the row is host data: the fused kernel has no
+    gradient path, as the JAX package's has none).
     ``scene.march_cfg`` must already carry render_sample's precull
     adjustments. The overlay block
     holds the line width (float32 arithmetic, as the JAX package forms it)
@@ -152,10 +156,10 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
         spectral_kernel_tables,
     )
 
-    cam = scene.camera
+    cam = scene.camera.host()
     cfg = scene.march_cfg
-    m = float(np.float32(scene.bh.mass))
-    a = float(np.float32(scene.bh.spin))
+    m = float(np.float32(host(scene.bh.mass)))
+    a = float(np.float32(host(scene.bh.spin)))
     (c0, c_r, c_th, c_ph, (k1,), (k2,), (roll_c,),
      (roll_s,)) = _row_camera(cam, m, a)
     u0 = math.cos(cam.theta)
@@ -177,7 +181,7 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
         tables = scene.spectral_coeffs
         if tables is None:
             tables = spectral_kernel_tables(
-                float(scene.bh.mass), float(scene.bh.spin), scene.disk
+                host(scene.bh.mass), host(scene.bh.spin), scene.disk
             )
         tc, rc, il = tables
         t_coeffs = np.asarray(tc, np.float64)
@@ -638,9 +642,7 @@ def render_planes_kernel(row: torch.Tensor, st: RenderStatic,
         return render_planes(row, st, steps)
     if row.device.type != "cuda":
         raise ValueError(f"no render path for device {row.device}")
-    if not 1 <= st.cfg.max_crossings <= 4:
-        raise NotImplementedError("the render kernel records 1 to 4 crossings")
-    lib = _render_library()
+    lib = _render_library(kmax_for(st.cfg.max_crossings))
     row = row.contiguous()
     n_planes = 4 if st.cfg.refine_band > 0.0 else 3
     shape = (n_planes, st.height, st.width)
@@ -702,11 +704,12 @@ def launch_steps(steps: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _render_library() -> ctypes.CDLL:
-    """Build (at first use) and load csrc/render.cu."""
+def _render_library(kmax: int = KMAX_DEFAULT) -> ctypes.CDLL:
+    """Build (at first use) and load csrc/render.cu with ``kmax`` crossing
+    slots (``ops/build.kmax_for``)."""
     from blackhole_simulation_tpu_torch.ops.build import build
 
-    lib = ctypes.CDLL(str(build("render.cu")))
+    lib = ctypes.CDLL(str(build("render.cu", kmax)))
     lib.bh_render_launch.argtypes = [ctypes.c_void_p] * 5
     lib.bh_render_launch.restype = ctypes.c_int
     lib.bh_render_shape.argtypes = [ctypes.c_void_p] * 2
@@ -725,7 +728,7 @@ def render_kernel_shape(st: RenderStatic) -> dict:
     from the built library on the current device: threads per block,
     resident blocks and warps per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SM count."""
-    lib = _render_library()
+    lib = _render_library(kmax_for(st.cfg.max_crossings))
     out = (ctypes.c_int * 3)()
     c_st = _c_static(st)
     err = lib.bh_render_shape(ctypes.byref(c_st), out)

@@ -11,10 +11,15 @@ Counterpart of ``blackhole_simulation_tpu/parallel/train.py``:
 ``_adam_update`` (:473), ``ad_inverse_render`` (:500) and
 ``inverse_render`` (:527, methods ``"ad"``, ``"fd"`` and ``"ad-step"``).
 
-The forward renders the parameterized scene through ``march_rows_ad``: the
-march kernel (``csrc/march.cu``) forward and the gradient kernel
+The forward renders the parameterized scene through ``march_rows_ad`` with
+``use_pallas`` and ``march_rows`` without, as the JAX twin's takes its
+Pallas kernels or its jnp march: in both the march kernel
+(``csrc/march.cu``) forward and the gradient kernel
 (``csrc/march_grad.cu``) backward, with camera ray birth, the null
-renormalization and the shading differentiated by autograd around them.
+renormalization and the shading differentiated by autograd around them;
+a spectral disk's tables are built in the graph from the spin being
+optimized (``render/shading.py::build_disk_luts_t``), as the JAX twin
+builds them in its.
 The central-difference step evaluates the loss at the centre and at +-h
 on each of the four parameters: nine forward passes under ``no_grad``,
 each one launch of the march kernel (the JAX twin vmaps the nine into one
@@ -41,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from blackhole_simulation_tpu_torch._elementwise import const, div_c
+from blackhole_simulation_tpu_torch._elementwise import const, div_c, host
 
 _AD_STAGES = ((64, 8), (96, 4), (128, 2))  # (march steps, pool k) per stage
 _FIELDS = ("spin", "theta_cam", "log_density", "log_t_peak")
@@ -95,17 +100,22 @@ def init_opt_state(params: InverseParams):
 
 def _forward(params: InverseParams, scene, pix_ids):
     """Radiance (len(pix_ids), 3) of the parameterized scene: rays for the
-    given row-major pixel ids, the differentiable march, the composite with
-    the density and peak-temperature scales."""
+    given row-major pixel ids, the differentiable march (``march_rows_ad``
+    with ``use_pallas``, ``march_rows`` without, the start offset
+    included), the composite with the density and peak-temperature
+    scales."""
     from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
-    from blackhole_simulation_tpu_torch.render.march import march_rows_ad
+    from blackhole_simulation_tpu_torch.render.march import (
+        march_rows,
+        march_rows_ad,
+    )
     from blackhole_simulation_tpu_torch.render.pipeline import (
         conserved_lam,
         shade_march_rows,
     )
 
     dev = params.spin.device
-    m = torch.tensor(float(scene.bh.mass), dtype=torch.float32, device=dev)
+    m = torch.tensor(host(scene.bh.mass), dtype=torch.float32, device=dev)
     a = params.spin
     # Density and peak temperature enter as multiplicative scales on the
     # static DiskParams.
@@ -113,7 +123,8 @@ def _forward(params: InverseParams, scene, pix_ids):
     int_scale = torch.exp(params.log_t_peak - math.log(scene.disk.t_peak))
     rays = camera_rays_u(scene.camera, m, a, pix_ids=pix_ids,
                          theta=params.theta_cam)
-    rows = march_rows_ad(rays, m, a, scene.march_cfg)
+    cfg = scene.march_cfg
+    rows = (march_rows_ad if cfg.use_pallas else march_rows)(rays, m, a, cfg)
     rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
                            density_scale=dens_scale,
                            intensity_scale=int_scale)

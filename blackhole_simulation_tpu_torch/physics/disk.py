@@ -1,4 +1,4 @@
-"""Page-Thorne relativistic thin-disk flux and temperature, host float64.
+"""Page-Thorne relativistic thin-disk flux and temperature, float64.
 
 Counterpart of ``blackhole_simulation_tpu/physics/disk.py``: circular orbit
 E(r), L_z(r), Omega(r), the Page-Thorne flux integral
@@ -6,9 +6,17 @@ E(r), L_z(r), Omega(r), the Page-Thorne flux integral
 (:101), the normalized temperature LUT ``generate_temperature_lut`` (:113)
 and ``temperature_profile`` (:126). The JAX package takes the exact
 derivatives dL/dr and dOmega/dr with ``jax.grad``; here ``torch.autograd``
-takes them, in float64 on the CPU. It runs once per scene, to build the
-spectral disk tables (``render/shading.py``), and behind the engine facade
-(``engine/facade.py``).
+takes them, in float64.
+
+``page_thorne_flux_t`` is the flux on float64 tensors, differentiable in
+r, m and a (the derivatives dL/dr and dOmega/dr keep their graphs, so the
+second derivatives reach m and a, as ``jax.grad`` of the JAX twin gives
+them): the spectral disk's tables are built from it in the render's graph
+when the scene's mass or spin requires grad (``render/shading.py::
+build_disk_luts_t``). ``page_thorne_flux`` is its numpy face, for the
+cached tables and the engine facade (``engine/facade.py``). The inner
+integral's interpolation is ``jnp.interp``'s arithmetic
+(``_elementwise.interp``).
 """
 
 from __future__ import annotations
@@ -18,6 +26,13 @@ import math
 import numpy as np
 import torch
 
+from blackhole_simulation_tpu_torch._elementwise import (
+    attach,
+    grad_wanted,
+    host,
+    interp,
+    maximum,
+)
 from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
 
 
@@ -37,58 +52,80 @@ def circular_orbit_angular_momentum(m, a, r):
 
 def circular_orbit_omega(m, a, r):
     """Keplerian angular velocity Omega(r), prograde."""
-    sqm = math.sqrt(m)
+    sqm = torch.sqrt(m) if isinstance(m, torch.Tensor) else math.sqrt(m)
     return sqm / (r**1.5 + a * sqm)
 
 
 def _d_dr(fn, m, a, r):
     """Elementwise exact d fn(m, a, r) / dr by autograd (fn is pointwise),
-    also when the caller runs under ``torch.no_grad``."""
+    also when the caller runs under ``torch.no_grad``. Where autograd wants
+    a derivative of the result (``grad_wanted`` of m, a, r) it keeps its
+    graph, so that the second derivatives reach m, a and r."""
+    if grad_wanted(m, a, r):
+        rr = r if r.requires_grad else r.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(m, a, rr).sum(), rr, create_graph=True)
+        return g
     with torch.enable_grad():
         rr = r.detach().clone().requires_grad_(True)
         (g,) = torch.autograd.grad(fn(m, a, rr).sum(), rr)
     return g.detach()
 
 
-def page_thorne_flux(r, m=1.0, a=0.0, mdot=1.0, n_grid: int = 512):
-    """Page-Thorne flux F(r) per unit disk area at accretion rate ``mdot``,
-    float64 numpy array of r's shape.
+def page_thorne_flux_t(r, m, a, mdot=1.0, n_grid: int = 512):
+    """Page-Thorne flux F(r) per unit disk area at accretion rate ``mdot``
+    on float64 tensors: ``r`` of any shape, ``m`` and ``a`` numbers or 0-d
+    tensors, differentiable in all three. Zero inside the ISCO (no-torque
+    boundary). The inner integral is a cumulative trapezoid over a
+    log-spaced grid from the ISCO to max(r), interpolated at r, as the JAX
+    twin computes it. The ISCO keeps its host float64 value
+    (``Kerr.isco``) and takes its derivative from ``isco_t``."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import isco_t
 
-    ``r``: float64 radii (a number or an array). Zero inside the ISCO
-    (no-torque boundary). The inner integral is a cumulative trapezoid over
-    a log-spaced grid from the ISCO to max(r), interpolated at r, as the
-    JAX twin computes it. The arguments' positions are the JAX twin's.
-    """
-    m = float(m)
-    a = float(a)
-    shape = np.shape(r)
-    r_np = np.atleast_1d(np.asarray(r, np.float64)).ravel()
-    r_isco = Kerr(mass=m, spin=a).isco()
-    r_max = max(float(r_np.max()), r_isco * 2.0) * 1.001
-    with torch.no_grad():
-        ts = torch.linspace(0.0, 1.0, n_grid, dtype=torch.float64)
-        grid = r_isco * (r_max / r_isco) ** ts
+    f64 = lambda x: (x.to(torch.float64) if isinstance(x, torch.Tensor)
+                     else torch.tensor(float(x), dtype=torch.float64))
+    m, a, r = f64(m), f64(a), f64(r)
+    dev = r.device
+    m, a = m.to(dev), a.to(dev)
+    r_isco = attach(
+        torch.tensor(Kerr(mass=host(m), spin=host(a)).isco(),
+                     dtype=torch.float64, device=dev),
+        isco_t(m, a))
+    r_max = maximum(torch.amax(r), r_isco * 2.0) * 1.001
+    ts = torch.linspace(0.0, 1.0, n_grid, dtype=torch.float64, device=dev)
+    grid = r_isco * (r_max / r_isco) ** ts
     e_g = circular_orbit_energy(m, a, grid)
     l_g = circular_orbit_angular_momentum(m, a, grid)
     om_g = circular_orbit_omega(m, a, grid)
-    vals = (e_g - om_g * l_g) * _d_dr(circular_orbit_angular_momentum, m, a, grid)
+    vals = (e_g - om_g * l_g) * _d_dr(circular_orbit_angular_momentum, m, a,
+                                      grid)
     panels = 0.5 * (vals[1:] + vals[:-1]) * torch.diff(grid)
-    cum = torch.cat([torch.zeros(1, dtype=torch.float64), torch.cumsum(panels, 0)])
-    integral = np.interp(r_np, grid.numpy(), cum.numpy())
+    cum = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev),
+                     torch.cumsum(panels, 0)])
+    rf = r.reshape(-1)
+    integral = interp(rf, grid, cum)
 
-    rt = torch.as_tensor(r_np)
-    e = circular_orbit_energy(m, a, rt)
-    lz = circular_orbit_angular_momentum(m, a, rt)
-    om = circular_orbit_omega(m, a, rt)
-    dom_dr = _d_dr(circular_orbit_omega, m, a, rt)
+    e = circular_orbit_energy(m, a, rf)
+    lz = circular_orbit_angular_momentum(m, a, rf)
+    om = circular_orbit_omega(m, a, rf)
+    dom_dr = _d_dr(circular_orbit_omega, m, a, rf)
     flux = (
-        -(float(mdot) / (4.0 * math.pi * rt))
+        -(float(mdot) / (4.0 * math.pi * rf))
         * dom_dr
-        / torch.clamp((e - om * lz) ** 2, min=1e-30)
-        * torch.as_tensor(integral)
+        / maximum((e - om * lz) ** 2, 1e-30)
+        * integral
     )
-    flux = torch.where(rt > r_isco, torch.clamp(flux, min=0.0), 0.0)
-    return flux.detach().numpy().reshape(shape)
+    flux = torch.where(rf > r_isco, maximum(flux, 0.0), 0.0)
+    return flux.reshape(r.shape)
+
+
+def page_thorne_flux(r, m=1.0, a=0.0, mdot=1.0, n_grid: int = 512):
+    """``page_thorne_flux_t`` of host values: a float64 numpy array of r's
+    shape. The arguments' positions are the JAX twin's."""
+    shape = np.shape(r)
+    r_t = torch.as_tensor(np.atleast_1d(np.asarray(r, np.float64)).ravel())
+    with torch.no_grad():
+        flux = page_thorne_flux_t(r_t, host(m), host(a), mdot, n_grid)
+    return flux.numpy().reshape(shape)
 
 
 def disk_temperature(r, m=1.0, a=0.0, mdot=1.0, t_scale=1e7):

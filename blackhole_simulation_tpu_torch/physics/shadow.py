@@ -104,6 +104,69 @@ def bardeen_shadow(m=1.0, a=0.0, theta_obs=np.pi / 2, n: int = 32):
     return alpha_full, beta_full, valid_full
 
 
+def bardeen_shadow_t(m, a, theta_obs, n: int = 32):
+    """``bardeen_shadow`` with the derivatives of the curve: float64
+    tensors (alpha, beta) and the numpy ``valid``, for ``m``, ``a`` and
+    ``theta_obs`` numbers or 0-d tensors (which may require grad). The
+    values are ``bardeen_shadow``'s, bit for bit; each point takes the
+    derivative of its branch (the general curve, the a ~ 0 circle or the
+    on-axis circle) as the JAX twin's jnp.where selects it
+    (``_elementwise.attach`` of a float64 torch twin)."""
+    import torch
+
+    from blackhole_simulation_tpu_torch._elementwise import attach, host, leaf
+    from blackhole_simulation_tpu_torch.geometry.metrics import (
+        photon_sphere_t,
+    )
+
+    alpha_h, beta_h, valid = bardeen_shadow(host(m), host(a),
+                                            host(theta_obs), n)
+    dev = next((x.device for x in (m, a, theta_obs)
+                if isinstance(x, torch.Tensor)), None)
+    m, a, th = (leaf(x, torch.float64, dev) for x in (m, a, theta_obs))
+    phi = torch.as_tensor(np.linspace(0.0, np.pi, n), device=dev)
+    near_schw = abs(host(a)) < 1e-6
+    on_axis = abs(np.sin(host(theta_obs))) < 0.05
+    if near_schw:
+        b0 = 3.0 * np.sqrt(3.0) * m
+        alpha, beta = b0 * torch.cos(phi), b0 * torch.sin(phi)
+    elif on_axis:
+        r0 = 3.0 * m
+        for _ in range(8):
+            fval = r0 * r0 * r0 - 3.0 * m * (r0 * r0) + a * a * r0 + m * a * a
+            fp = 3.0 * (r0 * r0) - 6.0 * m * r0 + a * a
+            r0 = r0 - fval / fp
+        _, eta0 = _critical_t(m, a, r0)
+        b_axis = torch.sqrt(torch.clamp(eta0 + a * a, min=0.0))
+        alpha, beta = b_axis * torch.cos(phi), b_axis * torch.sin(phi)
+    else:
+        r_pro = photon_sphere_t(m, a, prograde=True)
+        r_ret = photon_sphere_t(m, a, prograde=False)
+        ts = torch.as_tensor(0.5 * (1.0 - np.cos(np.linspace(0.0, np.pi, n))),
+                             device=dev)
+        xi, eta = _critical_t(m, a, r_pro + (r_ret - r_pro) * ts)
+        s, c = torch.sin(th), torch.cos(th)
+        s_safe = torch.clamp(torch.abs(s), min=1e-8)
+        alpha = -xi / s_safe
+        cs = c / s_safe
+        beta = torch.sqrt(torch.clamp(eta + a * a * c * c - xi * xi * (cs * cs),
+                                      min=0.0))
+    alpha_t = torch.cat([alpha, alpha.flip(0)])
+    beta_t = torch.cat([beta, -beta.flip(0)])
+    f64 = lambda x: torch.as_tensor(np.asarray(x, np.float64), device=dev)
+    return attach(f64(alpha_h), alpha_t), attach(f64(beta_h), beta_t), valid
+
+
+def _critical_t(m, a, r):
+    """``shadow_critical_params`` on tensors (away from its guards)."""
+    delta = r * r - 2.0 * m * r + a * a
+    rm = r - m
+    xi = (m * (r * r - a * a) - r * delta) / (a * rm)
+    eta = r * r * r * (4.0 * a * a * m - r * ((r - 3.0 * m) * (r - 3.0 * m))) / (
+        a * a * rm * rm)
+    return xi, eta
+
+
 def magnification(solid_angle_image, solid_angle_source):
     """Lensing magnification as the solid-angle ratio."""
     return (np.asarray(solid_angle_image)

@@ -9,10 +9,21 @@ any shape (the camera's prologue takes them on 0-d tensors as
 read), ``camera_scalars`` (:193), and
 ``_momenta_from_ndc`` (:215). The camera sits at one point, so its tetrad
 is a handful of scalars: ``camera_scalars`` computes them from 0-d
-tensors, differentiably in spin, mass and the camera's theta, rounding each
-operation in the dtype JAX's weak typing gives it, and casts them to the
-rays' dtype once. The render kernel's parameter row (``ops/render.py``)
-and the staged and training paths' rays take the same scalars.
+tensors, differentiably in mass, spin and the camera's five fields,
+rounding each operation in the dtype JAX's weak typing gives it, and casts
+them to the rays' dtype once.
+
+The camera's r, theta, phi, fov and roll are numbers or 0-d tensors (the
+JAX ``Camera``'s data leaves, which ``jax.grad`` differentiates); a tensor
+field may require grad, and every function that births rays then carries
+its derivative. A tensor field gives the same rays, bit for bit, as the
+number it holds:
+the host functions of fov and roll (tan, cos, sin, in float64, rounded
+once) keep their host values and take their derivatives from torch
+(``_elementwise.attach``). ``Camera.host`` is the camera with number
+fields, which the caches and the render kernel's parameter row read. The
+render kernel's parameter row (``ops/render.py``) and the staged and
+training paths' rays take the same scalars.
 
 Every ray builder takes ``dtype``: float32 (the default, the render and
 training paths) rounds as the JAX package's float32 route does; float64
@@ -29,13 +40,15 @@ import numpy as np
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import (
+    attach,
     const,
     cos,
     div_c,
+    host,
+    leaf,
     sin,
     sqrt,
 )
-
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,22 +57,33 @@ class Camera:
 
     ``fov`` is the full vertical field of view in radians; ``roll`` rotates
     the image plane; ``width`` and ``height`` are the frame size in pixels.
+    r, theta, phi, fov and roll are numbers or 0-d tensors (see the module
+    docstring); a tensor field hashes by identity, so caches take
+    ``host()``.
     """
 
-    r: float
-    theta: float
-    phi: float
-    fov: float
-    roll: float
+    r: float | torch.Tensor
+    theta: float | torch.Tensor
+    phi: float | torch.Tensor
+    fov: float | torch.Tensor
+    roll: float | torch.Tensor
     width: int = 256
     height: int = 256
 
     @classmethod
     def create(cls, r=30.0, theta=math.pi / 2 - 0.3, phi=0.0, fov=0.35,
                roll=0.0, width=256, height=256):
-        return cls(r=float(r), theta=float(theta), phi=float(phi),
-                   fov=float(fov), roll=float(roll), width=int(width),
-                   height=int(height))
+        f = lambda v: v if isinstance(v, torch.Tensor) else float(v)
+        return cls(r=f(r), theta=f(theta), phi=f(phi), fov=f(fov),
+                   roll=f(roll), width=int(width), height=int(height))
+
+    def host(self) -> "Camera":
+        """This camera with each field's value as a number."""
+        fields = ("r", "theta", "phi", "fov", "roll")
+        if not any(isinstance(getattr(self, k), torch.Tensor) for k in fields):
+            return self
+        return dataclasses.replace(
+            self, **{k: host(getattr(self, k)) for k in fields})
 
 
 def _zamo_tetrad_t(m, a, r, theta):
@@ -155,10 +179,23 @@ def camera_scalars(camera: Camera, mass, spin, theta=None,
               for v in _zamo_tetrad_t(m, a, r0, th)]
     rounded = lambda x: torch.tensor(x, dtype=torch.float64,
                                      device=dev).to(dtype)
-    half = rounded(math.tan(camera.fov / 2.0))
+    half = _field_fn(camera.fov, lambda v: math.tan(v / 2.0),
+                     lambda v: torch.tan(v / 2.0), dtype, dev)
     k1 = half * rounded(camera.width / camera.height)
-    return (*coeffs, k1, half, rounded(math.cos(camera.roll)),
-            rounded(math.sin(camera.roll)))
+    return (*coeffs, k1, half,
+            _field_fn(camera.roll, math.cos, torch.cos, dtype, dev),
+            _field_fn(camera.roll, math.sin, torch.sin, dtype, dev))
+
+
+def _field_fn(x, host_fn, torch_fn, dtype, dev):
+    """host_fn of a camera field in float64, rounded once to ``dtype``; for
+    a tensor field with the derivative of ``torch_fn`` of its float64
+    value (the value stays the host's, bit for bit)."""
+    value = torch.tensor(host_fn(host(x)), dtype=torch.float64,
+                         device=dev).to(dtype)
+    if isinstance(x, torch.Tensor):
+        value = attach(value, torch_fn(leaf(x, torch.float64, dev)).to(dtype))
+    return value
 
 
 def _jitter_values(jitter, dtype):
@@ -219,8 +256,11 @@ def _ndc(camera: Camera, pix_ids, jitter, dtype, device):
     return nx.reshape(-1), ny.reshape(-1)
 
 
-def _camera_value(x, dtype):
-    """A camera field rounded to ``dtype``, as a number."""
+def _camera_value(x, dtype, device=None):
+    """A camera field rounded to ``dtype``: a number as a number, a tensor
+    as a 0-d ``dtype`` tensor on ``device`` (keeping its graph)."""
+    if isinstance(x, torch.Tensor):
+        return leaf(x, dtype, device)
     return float(np.float32(x)) if dtype == torch.float32 else float(x)
 
 
@@ -229,14 +269,14 @@ def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
     """(8, N) u-chart null-ray rows (t, r, u, phi, p_t, p_r, p_u, p_phi)
     normalized to p_t = -1, in ``dtype`` on ``mass``'s device: the whole
     frame in row-major order, or the flat row-major pixel ids ``pix_ids``.
-    Differentiable in ``mass``, ``spin`` and ``theta`` (which overrides
-    ``camera.theta``)."""
+    Differentiable in ``mass``, ``spin``, the camera's tensor fields and
+    ``theta`` (which overrides ``camera.theta``)."""
     dev = torch.as_tensor(mass).device
     scalars = camera_scalars(camera, mass, spin, theta, dtype)
     nx, ny = _ndc(camera, pix_ids, jitter, dtype, dev)
     p = _momenta_from_ndc(scalars, nx, ny)
     inv = 1.0 / (-p[0])
-    th = (torch.as_tensor(camera.theta, dtype=torch.float64, device=dev)
+    th = (leaf(camera.theta, torch.float64, dev)
           if theta is None else torch.as_tensor(theta))
     c0 = cos(th)
     u0 = c0.to(dtype)
@@ -244,9 +284,9 @@ def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
     zero = torch.zeros_like(nx)
     return torch.stack([
         zero,
-        zero + _camera_value(camera.r, dtype),
+        zero + _camera_value(camera.r, dtype, dev),
         zero + u0,
-        zero + _camera_value(camera.phi, dtype),
+        zero + _camera_value(camera.phi, dtype, dev),
         zero - 1.0,
         p[1] * inv,
         -(p[2] * inv) / s0,
@@ -263,9 +303,9 @@ def _theta_rays(camera: Camera, mass, spin, pix_ids, jitter, dtype):
     zero = torch.zeros_like(p[0])
     return torch.stack([
         zero,
-        zero + _camera_value(camera.r, dtype),
-        zero + _camera_value(camera.theta, dtype),
-        zero + _camera_value(camera.phi, dtype),
+        zero + _camera_value(camera.r, dtype, dev),
+        zero + _camera_value(camera.theta, dtype, dev),
+        zero + _camera_value(camera.phi, dtype, dev),
         p[0], p[1], p[2], p[3],
     ], dim=-1)
 

@@ -15,9 +15,16 @@ Both march entry points run the march kernel (``csrc/march.cu`` through
 ``ops/pallas_march.march_u``) for CUDA rays and its plain version for CPU
 rays. ``march_rows`` also takes the jets (the kernel's jets instantiation,
 with exact divides and the midpoint march, as the JAX package's jnp march
-runs them) and applies ``start_jitter``; ``march_rows_ad``'s backward runs the gradient kernel
-(``csrc/march_grad.cu`` through ``ops/march_grad.march_grad_kernel``) or its
-plain version likewise. ``approx_recip`` applies in the kernels when
+runs them) and applies ``start_jitter``. Both are differentiable: their
+backward runs the gradient kernel (``csrc/march_grad.cu`` through
+``ops/march_grad.march_grad_kernel``; with the jets its jets
+instantiation) or its plain version likewise. ``march_rows`` under
+autograd is the JAX package's jnp march under ``jax.grad``: the exact
+midpoint march (``_kernel_cfg``), the start offset applied to the rows in
+PyTorch before the kernel (autograd differentiates it, the hash's floors
+included), and a refusal where the JAX package would run its Pallas
+kernel, which has no VJP. ``march_rows_ad`` is the JAX package's twin: no
+jets, no start offset. ``approx_recip`` applies in the kernels when
 ``use_pallas`` is set, as the JAX package applies it in its Pallas kernels
 only.
 """
@@ -250,39 +257,59 @@ def march_rows(yt0: torch.Tensor, mass, spin, cfg: MarchConfig = MarchConfig(),
     accumulates the jets' emission per step. With ``cfg.start_jitter`` > 0
     each ray first advances by its hashed start offset
     (``ops/march.py::start_offset_rows``, exact divides), after the null
-    projection, as the JAX package's march_rows does (:469-480). Not
-    differentiable (see march_rows_ad)."""
+    projection, as the JAX package's march_rows does (:469-480).
+
+    Differentiable where autograd wants a derivative of the rows, mass or
+    spin: the march kernel forward and the gradient kernel backward
+    (``_MarchKernelDiff``, with the jets' emission when ``jets``), on the
+    exact midpoint march, the start offset differentiated by autograd.
+    ``thr`` is detached (it enters comparisons only). Raises
+    NotImplementedError there for ``cfg.use_pallas`` without jets, where
+    the JAX package marches on its Pallas kernel, which has no VJP
+    (``jax.grad`` raises)."""
+    from blackhole_simulation_tpu_torch._elementwise import grad_wanted
     from blackhole_simulation_tpu_torch.ops.march import start_offset_rows
     from blackhole_simulation_tpu_torch.ops.pallas_march import march_u
 
-    with torch.no_grad():
-        yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
-        if cfg.start_jitter > 0.0:
-            ot, orr, ou, oph, opr, opu, _ = start_offset_rows(
-                m, a, r_h, r_ph, cfg,
-                tuple(yt0[i] for i in (0, 1, 2, 3, 5, 6, 7)))
-            yt0 = torch.stack([ot, orr, ou, oph, yt0[4], opr, opu, yt0[7]])
-        return MarchRows(*march_u(yt0, thr, m, a, r_h, r_ph,
-                                  _kernel_cfg(cfg, jets), jets))
+    differentiable = grad_wanted(yt0, mass, spin)
+    if differentiable and cfg.use_pallas and jets is None:
+        raise NotImplementedError(
+            "march_rows: use_pallas marches on the Pallas kernel in the JAX "
+            "package, which has no VJP (jax.grad raises 'Linearization "
+            "failed'); a differentiable march takes use_pallas=False")
+    yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
+    if cfg.start_jitter > 0.0:
+        ot, orr, ou, oph, opr, opu, _ = start_offset_rows(
+            m, a, r_h, r_ph, cfg,
+            tuple(yt0[i] for i in (0, 1, 2, 3, 5, 6, 7)))
+        yt0 = torch.stack([ot, orr, ou, oph, yt0[4], opr, opu, yt0[7]])
+    args = (yt0, thr, m, a, r_h, r_ph, _kernel_cfg(cfg, jets), jets)
+    if differentiable:
+        return MarchRows(*_MarchKernelDiff.apply(*args))
+    return MarchRows(*march_u(*args))
 
 
 class _MarchKernelDiff(torch.autograd.Function):
     """The march with its gradient kernel as the backward; differentiable in
-    the rows and (m, a, r_h, r_ph), not in thr."""
+    the rows and (m, a, r_h, r_ph), not in thr. With ``jets`` the march
+    sums the jets' emission (the ninth output, differentiable too); without
+    them the ninth output is zeros."""
 
     @staticmethod
-    def forward(ctx, yt0, thr, m, a, r_h, r_ph, cfg):
+    def forward(ctx, yt0, thr, m, a, r_h, r_ph, cfg, jets=None):
         from blackhole_simulation_tpu_torch.ops.pallas_march import march_u
 
-        outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg)[:8]
-        ctx.cfg = cfg
+        outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg, jets)
+        ctx.cfg, ctx.jets = cfg, jets
         ctx.save_for_backward(yt0, thr, m, a, r_h, r_ph, outs[7])
         ctx.mark_non_differentiable(outs[1], outs[2], outs[6])
+        if jets is None:
+            ctx.mark_non_differentiable(outs[8])
         return outs
 
     @staticmethod
     def backward(ctx, ct_yt, _ct_hit, _ct_steps, ct_cr, ct_cp, ct_ct,
-                 _ct_nc, ct_rmin):
+                 _ct_nc, ct_rmin, ct_jet):
         from blackhole_simulation_tpu_torch.ops.march_grad import (
             march_grad_kernel,
         )
@@ -293,13 +320,15 @@ class _MarchKernelDiff(torch.autograd.Function):
         z = lambda g, shape: (g if g is not None else
                               torch.zeros(shape, dtype=yt0.dtype,
                                           device=yt0.device))
+        jets = ctx.jets
         ct_yt0, ct_m, ct_a, ct_rh, ct_rph = march_grad_kernel(
             yt0, thr, m, a, r_h, r_ph, ctx.cfg, z(ct_yt, (8, n)),
             z(ct_cr, (k, n)), z(ct_cp, (k, n)), z(ct_ct, (k, n)),
             z(ct_rmin, (n,)), rmin,
+            None if jets is None else z(ct_jet, (3, n)), jets,
         )
         return (ct_yt0, None, ct_m.to(m.dtype), ct_a.to(a.dtype),
-                ct_rh.to(r_h.dtype), ct_rph.to(r_ph.dtype), None)
+                ct_rh.to(r_h.dtype), ct_rph.to(r_ph.dtype), None, None)
 
 
 def march_rows_ad(yt0: torch.Tensor, mass, spin,
@@ -321,7 +350,7 @@ def march_rows_ad(yt0: torch.Tensor, mass, spin,
             "march_rows_ad: the AB3 march (multistep) has no gradient path")
     yt0, thr, m, a, r_h, r_ph = _march_inputs(yt0, mass, spin, cfg, thr)
     outs = _MarchKernelDiff.apply(yt0, thr, m, a, r_h, r_ph, cfg)
-    return MarchRows(*outs, torch.zeros_like(yt0[:3]))
+    return MarchRows(*outs)
 
 
 def march(y0: torch.Tensor, mass, spin, cfg: MarchConfig = MarchConfig(),

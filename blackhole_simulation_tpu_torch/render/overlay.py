@@ -32,11 +32,12 @@ from blackhole_simulation_tpu_torch._elementwise import (
 )
 
 
-def pixel_celestial_coords(y0: torch.Tensor, a, theta_obs: float):
+def pixel_celestial_coords(y0: torch.Tensor, a, theta_obs):
     """Per-ray Bardeen (alpha, beta, beta^2 deficit) from (N, 8) theta-form
     states at the camera (``camera_rays``). beta's sign follows -p_theta;
     where beta^2 < 0 beta folds to 0 and the deficit |beta^2| is returned,
-    to be added to the squared distance."""
+    to be added to the squared distance. ``theta_obs``: a number or a 0-d
+    tensor, rounded to the rows' dtype."""
     a = torch.as_tensor(a, dtype=y0.dtype, device=y0.device)
     th = y0[:, 2]
     pt, pth, pph = y0[:, 4], y0[:, 6], y0[:, 7]
@@ -50,7 +51,8 @@ def pixel_celestial_coords(y0: torch.Tensor, a, theta_obs: float):
     q = pth * pth + c2 * (pph * pph / s2 - a * a * pt * pt)
     eta = q * inv_e * inv_e
 
-    th0 = const(y0, float(np.float32(theta_obs)))
+    th0 = (theta_obs.to(y0.dtype) if isinstance(theta_obs, torch.Tensor)
+           else const(y0, float(np.float32(theta_obs))))
     s0 = sin(th0)
     c0 = cos(th0)
     s0 = torch.where(torch.abs(s0) < 1e-6, 1e-6, s0)
@@ -84,24 +86,28 @@ def _polyline_distance_sq(px, py, deficit, cx, cy, valid):
 
 
 def shadow_overlay(radiance: torch.Tensor, y0: torch.Tensor, m, a,
-                   theta_obs: float, n_pts: int = 32, line_width=None,
+                   theta_obs, n_pts: int = 32, line_width=None,
                    color=(0.15, 1.0, 0.35), gain: float = 1.2) -> torch.Tensor:
     """Add the analytic critical curve to (N, 3) linear radiance.
 
     ``y0``: (N, 8) theta-form camera rays; ``m``, ``a``: 0-d float32
-    tensors; ``line_width``: the Gaussian half-width in impact-parameter
-    units (0.06 M when None; the pipeline passes ~1.5 pixels' worth)."""
-    from blackhole_simulation_tpu_torch.physics.shadow import bardeen_shadow
+    tensors; ``theta_obs``: a number or a 0-d tensor; ``line_width``: the
+    Gaussian half-width in impact-parameter units (0.06 M when None; the
+    pipeline passes ~1.5 pixels' worth). Differentiable in the rows, m, a,
+    theta_obs and the width: the curve is ``bardeen_shadow_t``'s, float64
+    rounded to float32 as the JAX twin's."""
+    from blackhole_simulation_tpu_torch.physics.shadow import bardeen_shadow_t
 
     m = torch.as_tensor(m, dtype=y0.dtype, device=y0.device)
     if line_width is None:
         line_width = 0.06 * m
-    alpha_c, beta_c, valid = bardeen_shadow(float(m), float(a), theta_obs,
-                                            n_pts)
+    alpha_c, beta_c, valid = bardeen_shadow_t(m, a, theta_obs, n_pts)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),
                                     device=y0.device)
     px, py, deficit = pixel_celestial_coords(y0, a, theta_obs)
-    d_sq = _polyline_distance_sq(px, py, deficit, f32(alpha_c), f32(beta_c),
+    d_sq = _polyline_distance_sq(px, py, deficit,
+                                 alpha_c.to(y0.device, torch.float32),
+                                 beta_c.to(y0.device, torch.float32),
                                  valid.tolist())
     w = torch.as_tensor(line_width, dtype=y0.dtype, device=y0.device)
     weight = gain * exp(-d_sq / maximum(w * w, 1e-12))

@@ -39,6 +39,21 @@ Samples are accumulated and tone-mapped on the device. The entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``, which selects the
 kernels' plain PyTorch versions. With no CUDA device and no explicit CPU
 request they raise; they never fall back to the CPU.
+
+The render is differentiable, as the JAX package's is under ``jax.grad``:
+the scene's data leaves (``bh.mass``, ``bh.spin``, the camera's r, theta,
+phi, fov and roll, numbers or 0-d tensors, and the NRS weights) may
+require grad, and ``render``, ``render_radiance`` and
+``render_sample_scaled`` then carry their derivatives on the staged route
+(``use_pallas=False``, the ``MarchConfig`` default): the camera's ray
+birth, the NRS far field, the march (``march_rows``: the march kernel
+forward and the gradient kernel backward, the jets' emission and the start
+offset included), the composite with the spectral disk's tables built in
+the graph, the refinement pass, the overlay and the tone map. Where the
+JAX package raises (a fused scene, or ``use_pallas`` without jets, whose
+Pallas kernels have no VJP) the port raises NotImplementedError. No cache
+is keyed by a tensor leaf: the host reads their values (``_elementwise.
+host``) for its static decisions and caches.
 """
 
 from __future__ import annotations
@@ -48,6 +63,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from blackhole_simulation_tpu_torch._elementwise import (
+    grad_wanted,
+    host,
+    leaf,
+)
 from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
 from blackhole_simulation_tpu_torch.render.camera import Camera
 from blackhole_simulation_tpu_torch.render.march import MarchConfig
@@ -97,9 +117,21 @@ class Scene:
 
     @classmethod
     def create(cls, mass=1.0, spin=0.9, camera=None, **kw):
-        bh = Kerr(mass=float(mass), spin=float(spin))
+        f = lambda v: v if isinstance(v, torch.Tensor) else float(v)
+        bh = Kerr(mass=f(mass), spin=f(spin))
         scene = cls(bh=bh, camera=camera or Camera.create(), **kw)
         return ensure_spectral_coeffs(scene)
+
+    def leaves(self) -> list:
+        """The scene's data leaves, the JAX ``Scene``'s pytree leaves: mass,
+        spin, the camera's five fields and the NRS weights (numbers or
+        tensors)."""
+        cam = self.camera
+        out = [self.bh.mass, self.bh.spin, cam.r, cam.theta, cam.phi,
+               cam.fov, cam.roll]
+        if self.nrs_params is not None:
+            out += [t for w_b in self.nrs_params for t in w_b]
+        return out
 
 
 def scene_from_numpy(*, mass, spin, camera: dict, march_cfg: dict | None = None,
@@ -164,7 +196,7 @@ def ensure_spectral_coeffs(scene: Scene) -> Scene:
             or not scene.features.disk or not scene.march_cfg.fused):
         return scene
     tables = spectral_kernel_tables(
-        float(scene.bh.mass), float(scene.bh.spin), scene.disk
+        host(scene.bh.mass), host(scene.bh.spin), scene.disk
     )
     return dataclasses.replace(scene, spectral_coeffs=tables)
 
@@ -354,26 +386,47 @@ def conserved_lam(rays: torch.Tensor) -> torch.Tensor:
 
 def scene_luts(scene: Scene, device):
     """The staged spectral composite's tables for the scene's own mass and
-    spin (as float32, the values ``_mass_spin`` marches) on ``device``,
-    cached, so a frame reads nothing back; None where the disk shades
-    without them."""
-    from blackhole_simulation_tpu_torch.render.shading import disk_luts
+    spin (as float32, the values ``_mass_spin`` marches) on ``device``:
+    cached, so a frame reads nothing back, or, where autograd wants a
+    derivative of mass or spin, built in the graph from them
+    (``shading.disk_luts_for``); None where the disk shades without
+    them."""
+    from blackhole_simulation_tpu_torch.render.shading import disk_luts_for
 
     feats = scene.features
     if (not feats.disk or not feats.spectral_lut
             or scene.spectral_coeffs is not None):
         return None
-    return disk_luts(float(np.float32(scene.bh.mass)),
-                     float(np.float32(scene.bh.spin)), scene.disk,
-                     torch.device(device))
+    m, a = _mass_spin(scene, device)
+    return disk_luts_for(m, a, scene.disk, torch.device(device))
 
 
 def _mass_spin(scene: Scene, device):
-    """The scene's mass and spin as 0-dim float32 tensors on ``device``."""
-    return (torch.tensor(float(scene.bh.mass), dtype=torch.float32,
-                         device=device),
-            torch.tensor(float(scene.bh.spin), dtype=torch.float32,
-                         device=device))
+    """The scene's mass and spin as 0-dim float32 tensors on ``device``
+    (keeping a tensor leaf's graph)."""
+    return (leaf(scene.bh.mass, torch.float32, device),
+            leaf(scene.bh.spin, torch.float32, device))
+
+
+def _refuse_kernel_grad(scene: Scene, where: str):
+    """NotImplementedError where autograd wants a derivative of a scene that
+    the JAX package renders on a Pallas kernel, which has no VJP: a fused
+    scene (``pallas_render_sample``), or ``use_pallas`` without jets (the
+    staged march's ``pallas_march_u``); ``jax.grad`` of either raises
+    ("Linearization failed")."""
+    cfg = scene.march_cfg
+    if not cfg.use_pallas or not grad_wanted(*scene.leaves()):
+        return
+    if cfg.fused:
+        raise NotImplementedError(
+            f"{where}: a fused scene renders on the render kernel, which "
+            "has no gradient path, as the JAX package's pallas_render_sample "
+            "has no VJP (jax.grad raises); take use_pallas=False")
+    if not scene.features.jets:
+        raise NotImplementedError(
+            f"{where}: use_pallas marches on the march kernel forward only, "
+            "as the JAX package's pallas_march_u has no VJP (jax.grad "
+            "raises); take use_pallas=False")
 
 
 def _smallest(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -496,9 +549,10 @@ def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
         rgb = tuple(from_block_order(c, h, w) for c in rgb)
     rgb = torch.stack(rgb)
     if cfg.refine_band > 0.0:
-        # The band metric of the born rays, in row order.
-        band = critical_band_metric_u(m, a, rays, cfg.refine_band,
-                                      cfg.refine_pole_w)
+        # The band metric of the born rays, in row order (it selects
+        # pixels, and has no derivative).
+        band = critical_band_metric_u(m.detach(), a.detach(), rays.detach(),
+                                      cfg.refine_band, cfg.refine_pole_w)
         if block:
             band = from_block_order(band, h, w)
         rgb = refine_critical_band(scene, cfg, jitter, rgb, band)
@@ -509,6 +563,7 @@ def render_sample(scene: Scene, jitter, device) -> torch.Tensor:
     """One jittered sub-sample: (3, H, W) float32 linear radiance planes."""
     from blackhole_simulation_tpu_torch.ops.render import render_planes_kernel
 
+    _refuse_kernel_grad(scene, "render_sample")
     if fused_path_active(scene):
         row, st = kernel_inputs(scene, jitter, device)
         planes = render_planes_kernel(row, st)
@@ -547,21 +602,25 @@ def render(scene: Scene, n_samples: int = 1, device=None) -> torch.Tensor:
 def _staged_overlay(scene: Scene, img: torch.Tensor, device) -> torch.Tensor:
     """The analytic critical curve over the (H, W, 3) radiance, from the
     unjittered theta-form camera rays, with a line ~1.5 pixels of impact
-    parameter wide and at least 0.06 M (pipeline.py:557-575)."""
+    parameter wide and at least 0.06 M (pipeline.py:557-575): a tensor in
+    the camera's fov and r, as JAX's traced width is."""
     from blackhole_simulation_tpu_torch.render.camera import camera_rays
     from blackhole_simulation_tpu_torch.render.overlay import shadow_overlay
 
     cam = scene.camera
     m, a = _mass_spin(scene, device)
-    pix_b = float(np.float32(cam.fov / cam.height * cam.r))
-    width = torch.maximum(0.06 * m, 1.5 * torch.full_like(m, pix_b))
+    f64 = lambda x: leaf(x, torch.float64, device)
+    pix_b = (f64(cam.fov) / cam.height * f64(cam.r)).to(torch.float32)
+    width = torch.maximum(0.06 * m, 1.5 * pix_b)
     out = shadow_overlay(img.reshape(-1, 3), camera_rays(cam, m, a), m, a,
                          cam.theta, line_width=width)
     return out.reshape(img.shape)
 
 
 def render_radiance(scene: Scene, device=None) -> torch.Tensor:
-    """Un-tonemapped single-sample radiance, (H, W, 3) float32."""
+    """Un-tonemapped single-sample radiance, (H, W, 3) float32: the
+    differentiable target of inverse rendering and of the oracle gates
+    (see the module docstring for its gradients)."""
     device = resolve_device(device)
     planes = render_sample(ensure_spectral_coeffs(scene), None, device)
     return planes.permute(1, 2, 0)
@@ -573,19 +632,17 @@ def render_sample_scaled(scene: Scene, jitter=None, density_scale=1.0,
     density and intensity scaled by ``density_scale`` / ``intensity_scale``
     (numbers or 0-d tensors): the differentiable entry of the inverse path
     and the density-gradient gate (JAX pipeline.py:520). It marches through
-    ``march_rows_ad`` (the march kernel forward, the gradient kernel
-    backward), so autograd reaches the scales. ``start_jitter`` has no
-    gradient path and is refused."""
+    ``march_rows`` (the march kernel forward, the gradient kernel backward
+    where autograd wants it, ``start_jitter`` included), so autograd
+    reaches the scales and the scene's leaves; like JAX's, it refuses a
+    derivative of the march with ``use_pallas`` (``march_rows``)."""
     from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
-    from blackhole_simulation_tpu_torch.render.march import march_rows_ad
+    from blackhole_simulation_tpu_torch.render.march import march_rows
 
-    if scene.march_cfg.start_jitter > 0.0:
-        raise NotImplementedError(
-            "render_sample_scaled: start_jitter has no gradient path")
     device = resolve_device(device)
     m, a = _mass_spin(scene, device)
     rays = camera_rays_u(scene.camera, m, a, jitter=jitter)
-    rows = march_rows_ad(rays, m, a, scene.march_cfg)
+    rows = march_rows(rays, m, a, scene.march_cfg)
     rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
                            density_scale=density_scale,
                            intensity_scale=intensity_scale,
@@ -602,7 +659,7 @@ def oracle_render(scene: Scene, device=None) -> torch.Tensor:
     from blackhole_simulation_tpu_torch.render.camera import camera_rays
 
     device = resolve_device(device)
-    f64 = lambda v: torch.tensor(float(v), dtype=torch.float64, device=device)
+    f64 = lambda v: torch.tensor(host(v), dtype=torch.float64, device=device)
     m, a = f64(scene.bh.mass), f64(scene.bh.spin)
     cam = scene.camera
     rays = camera_rays(cam, m, a, dtype=torch.float64)

@@ -3,7 +3,8 @@
 Counterpart of ``blackhole_simulation_tpu/render/post.py``: plain tensor
 operations on an (H, W, 3) float32 image, on whatever device the image is.
 The blur wraps around the frame edges (``torch.roll``), as the JAX twin's
-``jnp.roll`` does.
+``jnp.roll`` does. Differentiable by autograd, with ``jnp.clip``'s
+derivative (``_elementwise.clip``, ``maximum``: half at a tie).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from blackhole_simulation_tpu_torch._elementwise import clip, maximum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +48,7 @@ def _blur_axis(img: torch.Tensor, axis: int) -> torch.Tensor:
 def bloom(img: torch.Tensor, params: PostParams) -> torch.Tensor:
     """Bright-pass -> ``bloom_passes`` separable blurs -> additive combine."""
     luma = img[..., 0] * _LUMA[0] + img[..., 1] * _LUMA[1] + img[..., 2] * _LUMA[2]
-    bright = img * torch.clamp(luma - params.bloom_threshold, min=0.0)[..., None]
+    bright = img * maximum(luma - params.bloom_threshold, 0.0)[..., None]
     blurred = bright
     for _ in range(params.bloom_passes):
         blurred = _blur_axis(_blur_axis(blurred, 0), 1)
@@ -55,7 +58,7 @@ def bloom(img: torch.Tensor, params: PostParams) -> torch.Tensor:
 def aces(x: torch.Tensor) -> torch.Tensor:
     """ACES filmic approximation (Narkowicz fit)."""
     a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
-    return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+    return clip((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
 
 
 def tonemap(img: torch.Tensor, params: PostParams = PostParams()) -> torch.Tensor:
@@ -65,4 +68,4 @@ def tonemap(img: torch.Tensor, params: PostParams = PostParams()) -> torch.Tenso
         img = bloom(img, params)
     if params.tonemap:
         img = aces(img)
-    return torch.pow(torch.clamp(img, 0.0, 1.0), 1.0 / params.gamma)
+    return torch.pow(clip(img, 0.0, 1.0), 1.0 / params.gamma)

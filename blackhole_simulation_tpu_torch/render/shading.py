@@ -36,12 +36,16 @@ import numpy as np
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import (
+    attach,
     clip,
     const,
     cos,
     div_c,
     exp,
+    grad_wanted,
+    host,
     interp,
+    leaf,
     maximum,
     pow_,
     sin,
@@ -470,15 +474,16 @@ def shade_crossings_rows(m, a, r_in, disk: DiskParams, cross_r, cross_phi,
     ``r_in``: 0-dim tensors. The spectral disk shades from
     ``spectral_coeffs`` when given (the fused kernel's Chebyshev fit), else
     from the tables ``luts`` (``disk_luts`` on the rows' device: the JAX
-    twin's LUT branch). Without ``luts`` they are looked up for ``m`` and
-    ``a`` as they are, which reads both back to the host: the tables follow
-    the spin being marched, as the JAX twin builds them in its graph."""
+    twin's LUT branch). Without ``luts`` they are built for ``m`` and ``a``
+    as they are: in the graph (``build_disk_luts_t``) where autograd wants
+    a derivative of m or a, as the JAX twin builds them in its graph,
+    else looked up in the cache (``disk_luts``), which reads both back to
+    the host."""
     k_slots, n = cross_r.shape
     if not spectral or spectral_coeffs is not None:
         luts = None
     elif luts is None:
-        luts = disk_luts(float(m), float(a), disk, cross_r.device,
-                         cross_r.dtype)
+        luts = disk_luts_for(m, a, disk, cross_r.device, cross_r.dtype)
     zero = torch.zeros(n, dtype=cross_r.dtype, device=cross_r.device)
     rgb = (zero, zero, zero)
     trans = zero + 1.0
@@ -651,25 +656,50 @@ def starfield(direction, params: StarfieldParams = StarfieldParams()):
 # Host-side spectral tables (float64 build, float32 Chebyshev projection)
 # ---------------------------------------------------------------------------
 
-def build_disk_luts(mass: float, spin: float, disk: DiskParams,
-                    n_r: int = 256, n_t: int = 128, dtype=np.float32):
-    """The Page-Thorne temperature-shape LUT on a log-r grid from the ISCO to
-    the disk edge, and the Planck/CIE chromaticity LUT over observed
-    temperature (^2.5-warped axis). Built in float64, returned as ``dtype``
-    numpy arrays (r_grid, t_shape, t_axis, rgb_table (n_t, 3))."""
-    from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
-    from blackhole_simulation_tpu_torch.physics.disk import page_thorne_flux
+def build_disk_luts_t(mass, spin, disk: DiskParams, n_r: int = 256,
+                      n_t: int = 128, dtype=torch.float32):
+    """The Page-Thorne temperature-shape LUT on a log-r grid from the ISCO
+    to the disk edge and the Planck/CIE chromaticity LUT over observed
+    temperature (^2.5-warped axis), built in float64 and returned as
+    ``dtype`` tensors (r_grid, t_shape, t_axis, rgb_table (n_t, 3)) on the
+    device of ``mass``: the JAX twin's ``build_disk_luts`` (:337-380).
+    ``mass`` and ``spin`` are numbers or 0-d tensors; the grid and the
+    shape are differentiable in them (``physics/disk.page_thorne_flux_t``),
+    so that the tables' spin and mass terms reach a render's gradient, as
+    the JAX twin builds them in its graph. The chromaticity table depends
+    on neither."""
+    from blackhole_simulation_tpu_torch.geometry.metrics import Kerr, isco_t
+    from blackhole_simulation_tpu_torch.physics.disk import page_thorne_flux_t
     from blackhole_simulation_tpu_torch.physics.spectrum import blackbody_rgb
 
-    r_in = Kerr(mass=float(mass), spin=float(spin)).isco()
-    r_grid = r_in * (disk.outer_radius / r_in) ** np.linspace(0.0, 1.0, n_r)
-    flux = page_thorne_flux(r_grid, mass, spin, n_grid=n_r)
-    t_raw = np.maximum(flux, 0.0) ** 0.25
-    t_shape = t_raw / max(t_raw.max(), 1e-30)
+    dev = mass.device if isinstance(mass, torch.Tensor) else None
+    m64 = leaf(mass, torch.float64, dev)
+    a64 = leaf(spin, torch.float64, dev)
+    r_in = attach(
+        torch.tensor(Kerr(mass=host(mass), spin=host(spin)).isco(),
+                     dtype=torch.float64, device=dev),
+        isco_t(m64, a64))
+    ts = torch.as_tensor(np.linspace(0.0, 1.0, n_r), device=dev)
+    r_grid = r_in * (disk.outer_radius / r_in) ** ts
+    flux = page_thorne_flux_t(r_grid, m64, a64, n_grid=n_r)
+    t_raw = maximum(flux, 0.0) ** 0.25
+    t_shape = t_raw / maximum(torch.amax(t_raw), 1e-30)
     t_axis = 900.0 + (4e4 - 900.0) * np.linspace(0.0, 1.0, n_t) ** 2.5
     rgb_table = blackbody_rgb(t_axis)
-    cast = lambda x: np.asarray(x, dtype)
-    return cast(r_grid), cast(t_shape), cast(t_axis), cast(rgb_table)
+    const_t = lambda x: torch.as_tensor(np.asarray(x, np.float64),
+                                        device=dev).to(dtype)
+    return (r_grid.to(dtype), t_shape.to(dtype), const_t(t_axis),
+            const_t(rgb_table))
+
+
+def build_disk_luts(mass: float, spin: float, disk: DiskParams,
+                    n_r: int = 256, n_t: int = 128, dtype=np.float32):
+    """``build_disk_luts_t`` of host values as ``dtype`` numpy arrays
+    (r_grid, t_shape, t_axis, rgb_table (n_t, 3))."""
+    with torch.no_grad():
+        luts = build_disk_luts_t(host(mass), host(spin), disk, n_r, n_t,
+                                 torch.float64)
+    return tuple(np.asarray(x.numpy(), dtype) for x in luts)
 
 
 @functools.lru_cache(maxsize=64)
@@ -678,10 +708,26 @@ def disk_luts(mass: float, spin: float, disk: DiskParams,
     """``build_disk_luts`` cached on (mass, spin, disk, device, dtype): the
     staged spectral composite's tables (float32; float64 for the oracle) as
     tensors on ``device``, so a frame builds and copies none of them.
-    Constants: shared between callers, never written."""
+    Constants: shared between callers, never written; keyed by numbers
+    only, and holding no graph (a differentiable render builds its tables
+    with ``build_disk_luts_t`` instead)."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return tuple(torch.as_tensor(x, device=device)
                  for x in build_disk_luts(mass, spin, disk, dtype=np_dtype))
+
+
+def disk_luts_for(m, a, disk: DiskParams, device, dtype=torch.float32):
+    """The spectral composite's tables for mass ``m`` and spin ``a``
+    (numbers or 0-d tensors): built in the graph where autograd wants a
+    derivative of either (``build_disk_luts_t``), else the cached
+    constants of their values (``disk_luts``)."""
+    if grad_wanted(m, a):
+        return build_disk_luts_t(leaf(m, torch.float64, device),
+                                 leaf(a, torch.float64, device), disk,
+                                 dtype=dtype)
+    # float32 by default: the cache's key is its arguments as given
+    kw = {} if dtype == torch.float32 else {"dtype": dtype}
+    return disk_luts(host(m), host(a), disk, torch.device(device), **kw)
 
 
 def spectral_cheb_coeffs(luts):

@@ -5,8 +5,9 @@ the certified (critical-band refined) render, the full-featured render
 oracle's gates, the central-difference inverse path, NRS training, the
 progressive tile renderer, temporal accumulation, the engine facade, the
 app in front of them (the CLI, the live loop, the cinematic director
-and the checkpointed inverse path), and the multi-device layer (the
-sharded render and steps over ``torch.distributed``, ``cli sweep``).
+and the checkpointed inverse path), the multi-device layer (the
+sharded render and steps over ``torch.distributed``, ``cli sweep``), and
+the differentiable render (``render_radiance`` under autograd).
 
     python3 chip_smoke.py
 
@@ -323,6 +324,30 @@ printing a result line:
    first frame (each against its plain version at exact divides, phase
    17's bars), and the gradient kernel on rank 0's AD-step shard (phase
    7's bars).
+22. The differentiable render. (a) The gradient kernel's jets
+   instantiation against its plain version (``march_grad`` with the
+   jets) on the 64x64 crop of phase 10's 1080p jets scene where the jets
+   are, on the AD route (the exact midpoint march, no precull), with the
+   cotangents of the crop's mean radiance (recorded from ``march_rows``
+   and the composite under autograd): phase 7's bars. (b) ``render_radiance``
+   under autograd at 1920x1080: the flagship physics (a = 0.999, r = 30,
+   spectral disk on the LUT route, 256 steps) on the staged route
+   (``use_pallas=False``), and the same with the jets; the scene's seven
+   leaves (mass, spin, the camera's r, theta, phi, fov, roll) as 0-d
+   tensors that require grad; the mean radiance's gradient in each,
+   finite; forward + backward and the forward alone, median of 5; the
+   march and gradient launches per frame (one each); the gradient kernel
+   alone on the frame's recorded arguments, its bound and its
+   instantiation's registers and spill; the flagship frame's gradient
+   kernel against its plain version (phase 7's bars). (c) The oracle
+   gradient gates for spin and theta through ``render_radiance``, as the
+   JAX package's tests/test_oracle_gate.py:236-304 and :362-395 run them
+   (phase 14's ``param_gate`` and oracle frames). (d) Eight crossings: the
+   march, render and gradient kernels' KMAX = 8 builds, each against its
+   plain version on near-critical rays (a 64x64 pixel at sub-pixel
+   offsets about its critical point) that record up to 6 crossings: the
+   march and render bit-equal (exact route), the gradient at phase 7's
+   bars.
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -454,6 +479,7 @@ from blackhole_simulation_tpu_torch.render.march import (  # noqa: E402
     HIT_NONE,
     MarchConfig,
     MarchRows,
+    _kernel_cfg,
     _march_inputs,
     march,
     march_rows,
@@ -466,6 +492,7 @@ from blackhole_simulation_tpu_torch.render.accumulate import (  # noqa: E402
 from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
     Features,
     Scene,
+    conserved_lam,
     ensure_spectral_coeffs,
     halton_jitters,
     kernel_inputs,
@@ -475,6 +502,7 @@ from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
     render_sample,
     render_sample_scaled,
     select_band,
+    shade_march_rows,
     shade_sample,
 )
 from blackhole_simulation_tpu_torch.render.post import tonemap  # noqa: E402
@@ -719,7 +747,7 @@ def phase_build():
         for entry, regs, spill in kbuild.ptxas_usage(src):
             print(f"ptxas {src}: {entry}: {regs} registers, {spill} bytes "
                   "spilled")
-    regs, spill = registers("march_grad.cu", "ILb1E")
+    regs, spill = registers("march_grad.cu", "ILb1ELb0E")
     shape = grad_kernel_shape()
     print(f"gradient kernel (march_grad.cu, approx_recip): {regs} registers, {spill} bytes "
           f"spilled, {shape['smem_bytes']} bytes of dynamic shared memory per "
@@ -1426,7 +1454,7 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     checks["renorm"] = renorm_check()
     checks["mirror"] = mirror_check(g_args)
     shape = grad_kernel_shape(cfg.approx_recip)
-    regs, spill = registers("march_grad.cu", "ILb1E")
+    regs, spill = registers("march_grad.cu", "ILb1ELb0E")
     print(f"gradient kernel occupancy: {shape['blocks_per_sm']} blocks of "
           f"{shape['threads']} threads = {shape['warps_per_sm']} resident "
           f"warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
@@ -2567,20 +2595,39 @@ def param_gate(name, oracle_images, ad_grad, p0, eps, width=48, height=32):
     return out
 
 
+# The oracle frames of the gradient gates, by (parameter, value): phase 14
+# renders them, phase 22 gates render_radiance's gradients on the same.
+ORACLE_FRAMES = {}
+
+
+def gate_oracle_images(field, base):
+    """The oracle images of ``base`` with ``field`` ("spin" or "theta_cam")
+    at each of a list of values, rendered once per value (ORACLE_FRAMES)."""
+    def scene_at(v):
+        if field == "spin":
+            return dataclasses.replace(base, bh=dataclasses.replace(
+                base.bh, spin=v))
+        return dataclasses.replace(base, camera=dataclasses.replace(
+            base.camera, theta=v))
+
+    def images(values):
+        for v in values:
+            if (field, v) not in ORACLE_FRAMES:
+                sc = scene_at(v)
+                rays, res, _ = oracle_result(sc)
+                ORACLE_FRAMES[(field, v)] = oracle_image(sc, rays, res).reshape(
+                    sc.camera.height, sc.camera.width, 3).cpu().numpy()
+        return [ORACLE_FRAMES[(field, v)] for v in values]
+
+    return images
+
+
 def gradient_gates(width=48, height=32):
     """(e) d/d(spin), d/d(density) and d/d(theta_cam) at a = 0.999,
     turbulence 0, the validation step, each against the card's oracle FD."""
     n = width * height
     base = gate_scene(0.999, width, height, turbulence=0.0)
     ids = torch.arange(n, device=DEV)
-
-    def frames(scenes):
-        out = []
-        for sc in scenes:
-            rays, res, _ = oracle_result(sc)
-            out.append(oracle_image(sc, rays, res).reshape(height, width, 3)
-                       .cpu().numpy())
-        return out
 
     def forward_grad(p0, weights, field):
         vals = {"spin": 0.999, "theta_cam": float(base.camera.theta),
@@ -2592,14 +2639,6 @@ def gradient_gates(width=48, height=32):
         params = dataclasses.replace(params, **{field: leaf})
         rgb = _forward(params, fine(base), ids).reshape(height, width, 3)
         return float(torch.autograd.grad(torch.sum(rgb * weights), leaf)[0])
-
-    def with_spin(a):
-        return dataclasses.replace(base, bh=dataclasses.replace(base.bh,
-                                                                spin=a))
-
-    def with_theta(th):
-        return dataclasses.replace(base, camera=dataclasses.replace(
-            base.camera, theta=th))
 
     def density_frames(values):
         # The march does not depend on the density: one oracle march,
@@ -2620,13 +2659,13 @@ def gradient_gates(width=48, height=32):
     t0 = time.perf_counter()
     out = {
         "spin": param_gate(
-            "spin", lambda v: frames([with_spin(a) for a in v]),
+            "spin", gate_oracle_images("spin", base),
             lambda p, w: forward_grad(p, w, "spin"), 0.999, 5e-4, width,
             height),
         "density": param_gate("density", density_frames, density_grad, 0.7,
                               0.05, width, height),
         "theta_cam": param_gate(
-            "theta_cam", lambda v: frames([with_theta(t) for t in v]),
+            "theta_cam", gate_oracle_images("theta_cam", base),
             lambda p, w: forward_grad(p, w, "theta_cam"),
             float(base.camera.theta), 2e-3, width, height),
     }
@@ -3851,6 +3890,357 @@ def phase_multi_device():
     return out, entries
 
 
+# Phase 22: the differentiable render. The flagship physics on the staged
+# route, which the JAX package differentiates (use_pallas=False); its
+# kernels run the exact midpoint march (render/march.py::_kernel_cfg).
+AD_CFG = dataclasses.replace(FLAGSHIP_CFG, use_pallas=False, fused=False)
+AD_FRAMES = 5
+AD_CROP = 64
+# The CPU test's near-critical rays (tests/test_torch_ad_crossings.py): one
+# pixel of a 64x64 frame at a = 0.9, at sub-pixel offsets about its
+# critical point, 512 steps at step rate 0.05: 3 to 6 crossings each.
+K8_PIX = 32 * 64 + 59
+K8_CRIT = 0.490541473031044
+K8_CFG = MarchConfig(max_steps=512, step_rate=0.05, max_crossings=8)
+
+
+def leaf_scene(scene):
+    """``scene`` with its seven data leaves (mass, spin, the camera's r,
+    theta, phi, fov, roll) as float32 0-d tensors on the card that require
+    grad: (scene, leaves)."""
+    t = lambda v: torch.tensor(float(v), dtype=torch.float32, device=DEV,
+                               requires_grad=True)
+    cam = scene.camera
+    names = ("r", "theta", "phi", "fov", "roll")
+    leaves = [t(scene.bh.mass), t(scene.bh.spin)] + [
+        t(getattr(cam, k)) for k in names]
+    return dataclasses.replace(
+        scene, bh=dataclasses.replace(scene.bh, mass=leaves[0],
+                                      spin=leaves[1]),
+        camera=dataclasses.replace(cam, **dict(zip(names, leaves[2:])))
+    ), leaves
+
+
+def grad_ops(total_steps, jets):
+    """The gradient kernel's counted operations on the exact route (phase
+    7's count) and, with jets, the emission's recompute and its reverse
+    (about twice the forward term) at every live step."""
+    ops = (3 * step_ops("midpoint", False)
+           + (GRAD_STEPS_PER_STEP - 3) * OPS_PER_STEP)
+    if jets:
+        ops += 3 * OPS_PER_STEP_JETS
+    return ops * total_steps
+
+
+# Phase 22(d)'s gradient bars in place of phase 7's per-ray tail: its rays
+# march 512 steps at step rate 0.05 about a critical point, twice phase
+# 7's 256 and more chaotic, and its first run on the card put 10 of 4,096
+# rays above rel 1e-3 (the worst at 4.1e-3) with the summed partials
+# within 7e-5: every ray within rel 1e-2 instead.
+K8_GRAD_MAX_REL = 1e-2
+
+
+def grad_kernel_entry(path, launches, args, steps, jets, max_rel=None,
+                      **extra):
+    """A kernels-line entry for the gradient kernel on ``args``: the kernel
+    alone (3 launches) and its plain version once, phase 7's bars (or,
+    with ``max_rel``, every ray's worst row within it in place of the
+    per-ray tail), the bound from this run's live steps (``steps``)."""
+    ms, gk = kernel_time(lambda: march_grad_kernel(*args), 3)
+    t0 = time.perf_counter()
+    gp = march_grad(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    gs = grad_compare(gk, gp)
+    tail = (gs["max_rel"] < max_rel if max_rel is not None else
+            gs["ray_p999_rel"] < GRAD_P999_BAR
+            and gs["frac_rel_gt_1e-3"] < GRAD_TAIL_BAR)
+    if not (gs["finite"] and gs["ray_p95_rel"] < 1e-2 and tail
+            and max(gs["partials_rel"]) < 1e-3):
+        raise AssertionError(f"{path}: gradient kernel vs plain: {gs}")
+    n_rays = int(args[0].shape[1])
+    k_slots = args[6].max_crossings
+    live_blocks = int(((steps.long() + CKPT) // CKPT).sum())
+    nbytes = 4 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4
+                            + (3 if jets else 0)) + 2 * 7 * live_blocks)
+    bound_ms, bound_by = bound(grad_ops(int(steps.long().sum()), jets),
+                               nbytes)
+    return gs, dict(
+        name="march_grad", route="cuda",
+        source="blackhole_simulation_tpu_torch/csrc/march_grad.cu",
+        replaces="blackhole_simulation_tpu/ops/pallas_grad.py:149",
+        path=path, launches=launches, max_abs_err=gs["max_abs"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, rays=n_rays,
+        steps_per_ray=float(steps.float().mean()),
+        ray_p95_rel=gs["ray_p95_rel"], ray_p999_rel=gs["ray_p999_rel"],
+        share_of_bound=bound_ms / ms, **extra)
+
+
+def ad_frames(scene):
+    """(b) for one scene at 1080p: the AD frame's times, launches,
+    gradients and the gradient kernel's recorded arguments."""
+    sc, leaves = leaf_scene(scene)
+
+    def frame():
+        return torch.autograd.grad(render_radiance(sc).mean(), leaves)
+
+    frame()                                  # builds the tables' graph once
+    march_u.record, march_grad_kernel.record = [], []
+    grads = frame()
+    torch.cuda.synchronize()
+    m_args, g_args = march_u.record[0], march_grad_kernel.record[0]
+    march_u.record = march_grad_kernel.record = None
+    march_u.launches = march_grad_kernel.launches = 0
+    render_planes_kernel.launches = 0
+    fb = timed(frame, AD_FRAMES)
+    launches = {"march": march_u.launches,
+                "march_grad": march_grad_kernel.launches,
+                "render": render_planes_kernel.launches}
+    fwd = timed(lambda: render_radiance(sc), AD_FRAMES)
+    with torch.no_grad():
+        fwd_nograd = timed(lambda: render_radiance(sc), AD_FRAMES)
+    grads = [float(g) for g in grads]
+    if launches != {"march": AD_FRAMES, "march_grad": AD_FRAMES,
+                    "render": 0}:
+        raise AssertionError(f"AD frames' launches: {launches}")
+    if not all(math.isfinite(g) for g in grads):
+        raise AssertionError(f"AD frame gradients not finite: {grads}")
+    return {"fwd_bwd_ms": fb[0], "fwd_bwd_ms_min_max": list(fb[1:]),
+            "fwd_ms": fwd[0], "fwd_ms_nograd": fwd_nograd[0],
+            "launches_per_frame": {"march": 1, "march_grad": 1},
+            "grads": dict(zip(("mass", "spin", "r", "theta", "phi", "fov",
+                               "roll"), grads))}, m_args, g_args
+
+
+def jets_crop_args():
+    """(a)'s gradient-kernel arguments, recorded from a differentiable
+    render of the 64x64 crop of phase 10's 1080p jets scene where most
+    rays pass through the jets' cone (the whole frame's jets march picks
+    it): the AD route's march (the exact midpoint march; jets turn the
+    precull off) and the composite of the crop's rays, the mean radiance's
+    gradient in mass and spin, so that the kernel gets a real loss's
+    cotangents, as phase 7's does. Returns (arguments, the crop's march
+    outputs)."""
+    scene = scene_from_params(SimulationParams(enable_jets=True), 1920, 1080)
+    cfg = dataclasses.replace(scene.march_cfg, shadow_precull=False)
+    kcfg = _kernel_cfg(cfg, scene.jet_params)
+    m, a = _cuda_scalar(float(scene.bh.mass)), _cuda_scalar(
+        float(scene.bh.spin))
+    with torch.no_grad():
+        frame = march_u(*_march_inputs(camera_rays_u(scene.camera, m, a),
+                                       m, a, kcfg, None), kcfg,
+                        scene.jet_params)
+    lit = (frame[8].abs().sum(0) > 0).float().reshape(1, 1, 1080, 1920)
+    share = torch.nn.functional.avg_pool2d(lit, AD_CROP, stride=AD_CROP // 2)
+    by, bx = divmod(int(share.reshape(-1).argmax()), share.shape[-1])
+    y0, x0 = by * AD_CROP // 2, bx * AD_CROP // 2
+    ys, xs = torch.meshgrid(torch.arange(AD_CROP), torch.arange(AD_CROP),
+                            indexing="ij")
+    ids = ((ys + y0) * 1920 + xs + x0).reshape(-1).to(DEV)
+    m, a = _cuda_scalar(float(scene.bh.mass), True), _cuda_scalar(
+        float(scene.bh.spin), True)
+    rays = camera_rays_u(scene.camera, m, a, pix_ids=ids)
+    march_u.record, march_grad_kernel.record = [], []
+    rows = march_rows(rays, m, a, cfg, jets=scene.jet_params)
+    rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays))
+    torch.autograd.grad(torch.stack(rgb).mean(), (m, a))
+    m_args, g_args = march_u.record[0], march_grad_kernel.record[0]
+    march_u.record = march_grad_kernel.record = None
+    if g_args[14] is None or g_args[6].approx_recip:
+        raise AssertionError("the jets crop's gradient kernel took the "
+                             "wrong instantiation")
+    with torch.no_grad():
+        outs = march_u(*m_args)
+    return g_args, outs
+
+
+def ad_gates(width=48, height=32):
+    """(c) the oracle gradient gates for spin and theta through
+    ``render_radiance`` (phase 14's frames and param_gate)."""
+    base = gate_scene(0.999, width, height, turbulence=0.0)
+
+    def ad_grad(field):
+        def grad(p0, weights):
+            leaf = _cuda_scalar(p0, grad=True)
+            if field == "spin":
+                sc = dataclasses.replace(base, bh=dataclasses.replace(
+                    base.bh, spin=leaf))
+            else:
+                sc = dataclasses.replace(base, camera=dataclasses.replace(
+                    base.camera, theta=leaf))
+            rgb = render_radiance(fine(sc))
+            return float(torch.autograd.grad(torch.sum(rgb * weights),
+                                             leaf)[0])
+        return grad
+
+    return {
+        "spin": param_gate("spin", gate_oracle_images("spin", base),
+                           ad_grad("spin"), 0.999, 5e-4, width, height),
+        "theta_cam": param_gate(
+            "theta_cam", gate_oracle_images("theta_cam", base),
+            ad_grad("theta_cam"), float(base.camera.theta), 2e-3, width,
+            height),
+    }
+
+
+def k8_checks():
+    """(d) each kernel's KMAX = 8 build against its plain version on the
+    near-critical rays, driven through the entry points (the staged
+    sample under autograd, the fused sample) with the counts reset."""
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5, width=64,
+                        height=64)
+    base = Scene.create(mass=1.0, spin=0.9, camera=cam, march_cfg=K8_CFG)
+    jitter = np.asarray((K8_CRIT, 0.0), np.float32)
+    sc, leaves = leaf_scene(base)
+    march_u.launches = march_grad_kernel.launches = 0
+    render_planes_kernel.launches = 0
+    march_u.record, march_grad_kernel.record = [], []
+    rgb = render_sample(sc, jitter, DEV)
+    grads = torch.autograd.grad(rgb.mean(), leaves)
+    fused = dataclasses.replace(base, march_cfg=dataclasses.replace(
+        K8_CFG, use_pallas=True, fused=True))
+    planes = render_sample(fused, jitter, DEV)
+    torch.cuda.synchronize()
+    launches = {"march": march_u.launches,
+                "march_grad": march_grad_kernel.launches,
+                "render": render_planes_kernel.launches}
+    m_args, g_args = march_u.record[0], march_grad_kernel.record[0]
+    march_u.record = march_grad_kernel.record = None
+    if launches != {"march": 1, "march_grad": 1, "render": 1}:
+        raise AssertionError(f"K = 8 launches: {launches}")
+    if not (all(math.isfinite(float(g)) for g in grads)
+            and bool(torch.isfinite(planes).all())):
+        raise AssertionError("K = 8 render not finite")
+    # the march kernel on the critical sweep's rays and on the frame's
+    m, a = _cuda_scalar(1.0), _cuda_scalar(0.9)
+    rays = torch.cat([camera_rays_u(cam, m, a, pix_ids=torch.tensor(
+        [K8_PIX], device=DEV), jitter=(K8_CRIT + d, 0.0))
+        for d in (-1e-4, -1e-6, -1e-8, 0.0, 3e-14, 1e-8, 1e-6, 1e-4)], 1)
+    sweep = _march_inputs(rays, m, a, K8_CFG, None)
+    with torch.no_grad():
+        k_sweep = march_u(*sweep, K8_CFG)
+        p_sweep = march_u_plain(*sweep, K8_CFG)
+    s_cmp = march_compare(k_sweep, p_sweep)
+    max_nc = int(k_sweep[6].max())
+    cmp, march_e = march_entry(
+        "K = 8 staged sample 64x64 (near-critical pixel)",
+        launches["march"], m_args, m_args, step_ops("midpoint", False),
+        variant="midpoint KMAX 8", registers_spill=list(
+            next((r, sp) for e, r, sp in kbuild.ptxas_usage("march.cu", 8)
+                 if "ILi0ELb0E" in e)))
+    # phase 5's bars: the integers equal, the floats within 1e-4
+    if not (max_nc > 4 and s_cmp["frac_int_differ"] == 0.0
+            and s_cmp["max_abs"] < 1e-4 and cmp["frac_int_differ"] == 0.0
+            and cmp["max_abs"] < 1e-4):
+        raise AssertionError(f"K = 8 march kernel vs plain: {cmp}, sweep "
+                             f"{s_cmp}, max crossings {max_nc}")
+    # the render kernel at the critical offset, exact route: phase 10's
+    # bars (bit-equal is the aim)
+    row, st = kernel_inputs(fused, jitter, DEV)
+    steps = torch.empty((64, 64), dtype=torch.int32, device=DEV)
+    k = render_planes_kernel(row, st, steps)
+    r_ms, _ = kernel_time(lambda: render_planes_kernel(row, st), 20)
+    t0 = time.perf_counter()
+    pl = render_planes(row, st)
+    torch.cuda.synchronize()
+    r_plain_ms = (time.perf_counter() - t0) * 1e3
+    r_cmp = diff_stats(k, pl)
+    r_cmp["bit_equal"] = r_cmp["max_abs"] == 0.0
+    if not (r_cmp["p99_abs"] < 1e-4 and r_cmp["mean_abs"] < 1e-5):
+        raise AssertionError(f"K = 8 render kernel vs plain: {r_cmp}")
+    total = int(steps.long().sum())
+    r_bound, r_by = bound(step_ops("midpoint", False) * total
+                          + OPS_PER_PIXEL * 64 * 64,
+                          12 * 64 * 64 + 4 * row.numel())
+    render_e = {
+        "name": "render", "route": "cuda",
+        "source": "blackhole_simulation_tpu_torch/csrc/render.cu",
+        "replaces": "blackhole_simulation_tpu/ops/pallas_render.py:140",
+        "path": "K = 8 fused sample 64x64 (near-critical pixel)",
+        "variant": "midpoint KMAX 8", "launches": launches["render"],
+        "max_abs_err": r_cmp["max_abs"], "ms": r_ms, "plain_ms": r_plain_ms,
+        "bound_ms": r_bound, "bound_by": r_by, "library_ms": None,
+        "steps_sum": total, "registers_spill": list(next(
+            (r, sp) for e, r, sp in kbuild.ptxas_usage("render.cu", 8)
+            if "ILi0ELb0ELb0E" in e))}
+    gs, grad_e = grad_kernel_entry(
+        "K = 8 staged sample 64x64 under autograd", launches["march_grad"],
+        g_args, march_u(*m_args)[2], False, max_rel=K8_GRAD_MAX_REL,
+        variant="exact KMAX 8")
+    print(f"K = 8: launches {launches}; max crossings {max_nc}; sweep "
+          f"{s_cmp}; march {cmp}; render {r_cmp}; gradient {gs}")
+    return {"launches": launches, "max_crossings": max_nc,
+            "sweep_vs_plain": s_cmp, "march_vs_plain": cmp,
+            "render_vs_plain": r_cmp, "gradient_vs_plain": gs}, [
+        march_e, render_e, grad_e]
+
+
+def phase_ad_render():
+    """Phase 22: the differentiable render (see the module docstring)."""
+    t0 = time.perf_counter()
+    out, entries = {}, []
+    # (b) the 1080p AD frames
+    for name, feats in (("flagship", Features(spectral_lut=True)),
+                        ("jets", Features(spectral_lut=True, jets=True))):
+        scene = flagship_scene(1920, 1080, cfg=AD_CFG, features=feats)
+        info, m_args, g_args = ad_frames(scene)
+        jets = feats.jets
+        if (g_args[14] is not None) != jets or g_args[6].approx_recip:
+            raise AssertionError(f"{name}: the AD frame's gradient kernel "
+                                 "took the wrong instantiation")
+        g_ms, _ = kernel_time(lambda: march_grad_kernel(*g_args), 3)
+        steps = march_u(*m_args)[2]
+        g_bound, g_by = bound(grad_ops(int(steps.long().sum()), jets), 0)
+        marker = "ILb0ELb1E" if jets else "ILb0ELb0E"
+        info.update(grad_kernel_ms=g_ms, grad_bound_ms=g_bound,
+                    grad_bound_by=g_by,
+                    grad_registers_spill=list(registers("march_grad.cu",
+                                                        marker)),
+                    grad_resident_warps_per_sm=grad_kernel_shape(
+                        False, jets)["warps_per_sm"],
+                    steps_per_ray=float(steps.float().mean()))
+        print(f"AD {name} render_radiance 1920x1080: forward + backward "
+              f"{info['fwd_bwd_ms']:.1f} ms (median of {AD_FRAMES}), forward "
+              f"{info['fwd_ms']:.1f} ms ({info['fwd_ms_nograd']:.1f} without "
+              f"grad); gradient kernel {g_ms:.3f} ms, bound {g_bound:.3f} "
+              f"ms, registers/spill {info['grad_registers_spill']}; "
+              f"gradients {info['grads']}")
+        if name == "flagship":
+            gs, entry = grad_kernel_entry(
+                "AD flagship render_radiance 1920x1080",
+                AD_FRAMES, g_args, steps, False, variant="exact",
+                registers_spill=info["grad_registers_spill"])
+            info["grad_vs_plain"] = gs
+            entries.append(entry)
+        else:
+            jets_launches, jets_1080 = AD_FRAMES, info
+        out[name] = info
+    # (a) the jets instantiation against its plain version on the crop
+    args, outs = jets_crop_args()
+    gs, entry = grad_kernel_entry(
+        "jets gradient, 64x64 crop of the 1080p jets scene", jets_launches,
+        args, outs[2], True, variant="exact jets",
+        registers_spill=jets_1080["grad_registers_spill"],
+        ms_1080p=jets_1080["grad_kernel_ms"],
+        jet_rays=int((outs[8].abs().sum(0) > 0).sum()))
+    print(f"jets gradient kernel vs plain (64x64 crop, {entry['jet_rays']} "
+          f"of its rays through the jets): {gs}")
+    if entry["jet_rays"] < AD_CROP * AD_CROP // 8:
+        raise AssertionError(f"the jets crop has {entry['jet_rays']} rays "
+                             "through the jets")
+    out["jets_crop"] = gs
+    entries.append(entry)
+    # (c) the oracle gradient gates through render_radiance
+    out["gates"] = ad_gates()
+    # (d) eight crossings
+    out["k8"], k8_entries = k8_checks()
+    entries += k8_entries
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 22 (differentiable render): {out['seconds']:.1f} s")
+    return out, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3894,9 +4284,12 @@ def main() -> int:
     print(f"app: {json.dumps(app)}")
     multi, md_kernels = phase_multi_device()
     print(f"multi-device: {json.dumps(multi)}")
+    ad, ad_kernels = phase_ad_render()
+    print(f"differentiable render: {json.dumps(ad)}")
     for e in nrs_kernels + tile_kernels + [live_kernel]:
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
-    kernels_line += nrs_kernels + tile_kernels + [live_kernel] + md_kernels
+    kernels_line += (nrs_kernels + tile_kernels + [live_kernel] + md_kernels
+                     + ad_kernels)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

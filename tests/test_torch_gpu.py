@@ -152,12 +152,17 @@ def test_entry_points_launch_once_per_sample(cuda):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """A float64 row, and a crossing count outside 1..KMAX_LIMIT (any
+    count in between takes a build with enough slots, ops/build.py)."""
+    from blackhole_simulation_tpu_torch.ops.build import KMAX_LIMIT
+
     row, st = kernel_inputs(_scene(16, 8), None, cuda)
     with pytest.raises(ValueError):
         render_planes_kernel(row.double(), st)
-    with pytest.raises(NotImplementedError):
-        render_planes_kernel(row, dc.replace(st, cfg=dc.replace(
-            st.cfg, max_crossings=5)))
+    for k in (0, KMAX_LIMIT + 1):
+        with pytest.raises(ValueError):
+            render_planes_kernel(row, dc.replace(st, cfg=dc.replace(
+                st.cfg, max_crossings=k)))
 
 
 def _march_args(cuda, cfg, width=250, height=141, spin=0.9):
@@ -849,3 +854,106 @@ def test_live_display_program_matches_cpu(cuda):
     assert out["cuda"][1].shape == (32, 60, 3)
     assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 1e-5
     assert int((out["cuda"][0].int() - out["cpu"][0].int()).abs().max()) <= 1
+
+
+# ---------------------------------------------------------------------------
+# The differentiable render (chip_smoke.py phase 22)
+# ---------------------------------------------------------------------------
+
+JET_CAM = Camera.create(r=30.0, theta=0.9, fov=1.0, width=24, height=16)
+
+
+def test_jets_gradient_kernel_matches_its_plain_version(cuda):
+    """The gradient kernel's jets instantiation against march_grad with
+    the jets, seeded positive cotangents of every output and of the jet
+    radiance (a loss's, as the summed partials then add without
+    cancelling): every ray's worst row within rel 1e-2 (on 384 rays the
+    99.9th percentile is the worst ray), the summed partials within 1e-3."""
+    from blackhole_simulation_tpu_torch.render.shading import JetParams
+
+    cfg = MarchConfig(max_steps=64)
+    jets = JetParams()
+    m, a = torch.tensor(1.0, device=cuda), torch.tensor(0.9, device=cuda)
+    yt0, thr, m, a, r_h, r_ph = _march_inputs(
+        camera_rays_u(JET_CAM, m, a), m, a, cfg, None)
+    outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg, jets)
+    assert int((outs[8].abs().sum(0) > 0).sum()) > 0
+    n, k = yt0.shape[1], cfg.max_crossings
+    g = torch.Generator(device="cpu").manual_seed(2)
+    f = lambda *s: (0.5 + torch.rand(*s, generator=g)).to(cuda)
+    ct_fin = f(8, n)
+    ct_fin[4] = 0.0
+    args = (yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, f(k, n), f(k, n),
+            f(k, n), f(n), outs[7], f(3, n), jets)
+    before = march_grad_kernel.launches
+    got = march_grad_kernel(*args)
+    assert march_grad_kernel.launches == before + 1
+    want = march_grad(*args)
+    rows = [0, 1, 2, 3, 5, 6, 7]
+    rel = ((got[0][rows] - want[0][rows]).abs()
+           / (want[0][rows].abs() + 1e-6)).amax(dim=0)
+    assert bool(torch.isfinite(got[0]).all())
+    assert float(rel.max()) < 1e-2
+    for x, y in zip(got[1:], want[1:]):
+        assert float(x) == pytest.approx(float(y), rel=1e-3)
+
+
+def test_differentiable_render_launches_both_kernels(cuda):
+    """A CUDA scene under autograd marches on the march kernel and takes
+    its gradient on the gradient kernel (its jets instantiation here), no
+    CPU path; the same scene on the CPU gives the same gradient."""
+    scene = _scene(24, 16, features=Features(jets=True), use_pallas=False,
+                   fused=False, shadow_precull=False)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        a = torch.tensor(0.9, device=dev, requires_grad=True)
+        sc = dc.replace(scene, bh=dc.replace(scene.bh, spin=a))
+        before = (march_u.launches, march_grad_kernel.launches)
+        (g,) = torch.autograd.grad(render_radiance(sc, device=dev).mean(), a)
+        after = (march_u.launches, march_grad_kernel.launches)
+        assert after == ((before[0] + 1, before[1] + 1) if dev.type == "cuda"
+                         else before)
+        grads.append(float(g))
+    assert math.isfinite(grads[0])
+    assert grads[0] == pytest.approx(grads[1], rel=5e-3)
+
+
+def test_kernels_take_eight_crossings(cuda):
+    """Each kernel's KMAX = 8 build against its plain version on rays of a
+    near-critical pixel (tests/test_torch_ad_crossings.py's) that record up
+    to 6 crossings."""
+    from blackhole_simulation_tpu_torch.ops.build import kmax_for
+
+    assert (kmax_for(4), kmax_for(5), kmax_for(8), kmax_for(9)) == (4, 8, 8,
+                                                                   16)
+    cfg = MarchConfig(max_steps=512, step_rate=0.05, max_crossings=8)
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5, width=64,
+                        height=64)
+    m, a = torch.tensor(1.0, device=cuda), torch.tensor(0.9, device=cuda)
+    crit = 0.490541473031044
+    rays = torch.cat([camera_rays_u(cam, m, a, pix_ids=torch.tensor(
+        [32 * 64 + 59], device=cuda), jitter=(crit + d, 0.0))
+        for d in (-1e-4, -1e-6, -1e-8, 0.0, 3e-14, 1e-8, 1e-6, 1e-4)], 1)
+    yt0, thr, m, a, r_h, r_ph = _march_inputs(rays, m, a, cfg, None)
+    k_out = march_u(yt0, thr, m, a, r_h, r_ph, cfg)
+    p_out = march_u_plain(yt0, thr, m, a, r_h, r_ph, cfg)
+    for i in (1, 2, 6):
+        assert torch.equal(k_out[i], p_out[i])
+    for i in (0, 3, 4, 5, 7):
+        assert float((k_out[i] - p_out[i]).abs().max()) < 1e-4
+    assert int(k_out[6].max()) > 4
+    n = yt0.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    f = lambda *s: torch.rand(*s, generator=g).to(cuda)
+    args = (yt0, thr, m, a, r_h, r_ph, cfg, f(8, n), f(8, n), f(8, n),
+            f(8, n), f(n), k_out[7])
+    gk, gp = march_grad_kernel(*args), march_grad(*args)
+    assert bool(torch.isfinite(gk[0]).all())
+    for x, y in zip(gk[1:], gp[1:]):
+        assert float(x) == pytest.approx(float(y), rel=1e-3)
+    scene = Scene.create(mass=1.0, spin=0.9, camera=cam, march_cfg=dc.replace(
+        cfg, use_pallas=True, fused=True))
+    row, st = kernel_inputs(scene, np.asarray((crit, 0.0), np.float32), cuda)
+    d = (render_planes_kernel(row, st) - render_planes(row, st)).abs()
+    assert float(torch.quantile(d.flatten().double(), 0.99)) < 1e-4
+    assert float(d.mean()) < 1e-5

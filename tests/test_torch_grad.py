@@ -209,8 +209,10 @@ def test_wrappers_record_their_arguments():
     finally:
         march_u.record = march_grad_kernel.record = None
     assert len(m_rec) == 1 and len(g_rec) == 1
-    # march_u's arguments end with the jets (none here)
-    assert len(m_rec[0]) == 8 and m_rec[0][7] is None and len(g_rec[0]) == 13
+    # march_u's arguments end with the jets (none here), the gradient
+    # kernel's with the jet radiance's cotangent and the jets (none here)
+    assert len(m_rec[0]) == 8 and m_rec[0][7] is None and len(g_rec[0]) == 15
+    assert g_rec[0][13] is None and g_rec[0][14] is None
     with torch.no_grad():
         assert torch.equal(march_u(*m_rec[0])[0], rows.state_u)
     # the cotangents the loss sent into the march's outputs

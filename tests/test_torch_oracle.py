@@ -223,9 +223,20 @@ def test_render_sample_scaled_gradient_matches_jax():
 
 
 def test_render_sample_scaled_refuses_start_jitter():
+    """It refused start_jitter while the offset had no gradient path; it
+    takes it now, as JAX's does (tests/test_torch_ad_jitter.py holds
+    it to JAX's), and refuses only what JAX's refuses: a derivative of the
+    march with use_pallas."""
     _, ts = _scenes(8, 4, 0.9, start_jitter=0.5)
+    ds = torch.tensor(0.6, requires_grad=True)
+    out = render_sample_scaled(ts, density_scale=ds, device="cpu")
+    assert bool(torch.isfinite(out).all())
+    assert math.isfinite(float(torch.autograd.grad(out.sum(), ds)[0]))
+    a = torch.tensor(0.9, requires_grad=True)
+    pallas = dc.replace(ts, bh=dc.replace(ts.bh, spin=a),
+                        march_cfg=dc.replace(ts.march_cfg, use_pallas=True))
     with pytest.raises(NotImplementedError):
-        render_sample_scaled(ts, device="cpu")
+        render_sample_scaled(pallas, device="cpu")
 
 
 @pytest.mark.gpu
