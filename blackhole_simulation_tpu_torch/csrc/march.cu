@@ -71,6 +71,12 @@
 //   rcp.approx.ftz.f32 for 1/S, 1/w and the step's divides and the step's
 //   multiply-adds contracted (march_step.cuh::madd); IEEE divides and no
 //   contraction otherwise, bit-equal to the plain version.
+// * Float64 (march_kernel_f64, bh_march_launch64): the same
+//   three variants on double rays, rows, records and lengths, on the exact
+//   route only, as the JAX package marches float64 in jnp (exact divides);
+//   the hit, steps and crossing counts stay int32. The wrapper picks them
+//   by the rays' dtype. The H100 runs FP64 at half its FP32 rate, and a
+//   double ray holds twice the registers.
 // * Jets (a third instantiation, chosen when the caller passes JetParams):
 //   the midpoint march with the jets' emission summed per live step into
 //   three more registers and written as three more rows. The JAX package
@@ -87,13 +93,13 @@
 #define REFILL 16
 #define CHECK_STEPS 16
 
-template <int MARCH>
-__device__ __forceinline__ void march_birth(const float* __restrict__ y,
-                                            const float* __restrict__ thr,
+template <int MARCH, class R>
+__device__ __forceinline__ void march_birth(const R* __restrict__ y,
+                                            const R* __restrict__ thr,
                                             size_t N, int j,
-                                            const MarchParams& mp, float m,
-                                            float a, float r_ph,
-                                            MarchRay<MARCH>& q) {
+                                            const MarchParamsT<R>& mp, R m,
+                                            R a, R r_ph,
+                                            MarchRay<MARCH, R>& q) {
   q.s[0] = y[j];
   q.s[1] = y[N + j];
   q.s[2] = y[2 * N + j];
@@ -105,13 +111,12 @@ __device__ __forceinline__ void march_birth(const float* __restrict__ y,
   ray_begin(mp, m, a, r_ph, q);
 }
 
-template <int MARCH>
+template <int MARCH, class R>
 __device__ __forceinline__ void march_finish(
-    const MarchRay<MARCH>& q, size_t N, int j, int max_crossings,
-    float* __restrict__ yo, int* __restrict__ hit_o, int* __restrict__ steps_o,
-    float* __restrict__ cr_o, float* __restrict__ cp_o,
-    float* __restrict__ ct_o, int* __restrict__ nc_o,
-    float* __restrict__ rmin_o, float* __restrict__ jet_o) {
+    const MarchRay<MARCH, R>& q, size_t N, int j, int max_crossings,
+    R* __restrict__ yo, int* __restrict__ hit_o, int* __restrict__ steps_o,
+    R* __restrict__ cr_o, R* __restrict__ cp_o, R* __restrict__ ct_o,
+    int* __restrict__ nc_o, R* __restrict__ rmin_o, R* __restrict__ jet_o) {
   yo[j] = q.s[0];
   yo[N + j] = q.s[1];
   yo[2 * N + j] = q.s[2];
@@ -145,32 +150,34 @@ __device__ __forceinline__ void march_finish(
 // blocks (at most 85 registers, no spill), the approx route 7 (72; at 64
 // it spilled 140 bytes). The others keep ptxas's own choice (0: no
 // bound): a register cap moved them (midpoint 64 -> 70, jets 72 -> 85).
+// The double instantiations (march_kernel_f64) keep ptxas's own choice.
 __host__ __device__ constexpr int march_min_blocks(int march, bool approx) {
   return march == MARCH_AB3 ? (approx ? 7 : 6) : 0;
 }
 
-// MARCH: MARCH_MIDPOINT, MARCH_AB3 or MARCH_JETS; APPROX:
-// MarchConfig.approx_recip. A resident grid of persistent warps; each lane
-// marches one ray at a time, taken from the pool (pool[0]: the next ray
-// index, pool[1]: retired blocks).
-template <int MARCH, bool APPROX>
-__global__ void __launch_bounds__(THREADS, march_min_blocks(MARCH, APPROX))
-march_kernel(const float* __restrict__ P, const float* __restrict__ y,
-             const float* __restrict__ thr, float* __restrict__ yo,
-             int* __restrict__ hit_o, int* __restrict__ steps_o,
-             float* __restrict__ cr_o, float* __restrict__ cp_o,
-             float* __restrict__ ct_o, int* __restrict__ nc_o,
-             float* __restrict__ rmin_o, float* __restrict__ jet_o, int n,
-             int* __restrict__ pool, const MarchParams mp,
-             const JetParams jp) {
+// The kernel's body. MARCH: MARCH_MIDPOINT, MARCH_AB3 or MARCH_JETS;
+// APPROX: MarchConfig.approx_recip; R: float, or double on the exact
+// route. A resident grid of persistent warps; each lane marches one ray at
+// a time, taken from the pool (pool[0]: the next ray index, pool[1]:
+// retired blocks).
+template <int MARCH, bool APPROX, class R>
+__device__ __forceinline__ void march_body(
+    const R* __restrict__ P, const R* __restrict__ y,
+    const R* __restrict__ thr, R* __restrict__ yo, int* __restrict__ hit_o,
+    int* __restrict__ steps_o, R* __restrict__ cr_o, R* __restrict__ cp_o,
+    R* __restrict__ ct_o, int* __restrict__ nc_o, R* __restrict__ rmin_o,
+    R* __restrict__ jet_o, int n, int* __restrict__ pool,
+    const MarchParamsT<R>& mp, const JetParamsT<R>& jp) {
+  static_assert(sizeof(R) == 4 || !APPROX,
+                "the float64 march has the exact route only");
   const size_t N = (size_t)n;
   const int lane = threadIdx.x & 31;
-  const float m = __ldg(P + 0);
-  const float a = __ldg(P + 1);
-  const float r_h = __ldg(P + 2);
-  const float r_ph = __ldg(P + 3);
-  const float inv_rph = inv_rph_of(r_ph);
-  MarchRay<MARCH> q;
+  const R m = __ldg(P + 0);
+  const R a = __ldg(P + 1);
+  const R r_h = __ldg(P + 2);
+  const R r_ph = __ldg(P + 3);
+  const R inv_rph = inv_rph_of(r_ph);
+  MarchRay<MARCH, R> q;
   int j = -1;          // the lane's ray, -1 for none
   bool live = false;   // the lane's ray is still marching
   bool empty = false;  // the pool has no ray left (the same in every lane)
@@ -206,15 +213,47 @@ march_kernel(const float* __restrict__ P, const float* __restrict__ y,
   pool_retire(pool);
 }
 
-// Resident blocks per SM of each instantiation (variant x approx), and the
-// SM count, per device (queried once).
-static int g_blocks[16][6];
+// The float march (march_body on float).
+template <int MARCH, bool APPROX>
+__global__ void __launch_bounds__(THREADS, march_min_blocks(MARCH, APPROX))
+march_kernel(const float* __restrict__ P, const float* __restrict__ y,
+             const float* __restrict__ thr, float* __restrict__ yo,
+             int* __restrict__ hit_o, int* __restrict__ steps_o,
+             float* __restrict__ cr_o, float* __restrict__ cp_o,
+             float* __restrict__ ct_o, int* __restrict__ nc_o,
+             float* __restrict__ rmin_o, float* __restrict__ jet_o, int n,
+             int* __restrict__ pool, const MarchParams mp,
+             const JetParams jp) {
+  march_body<MARCH, APPROX>(P, y, thr, yo, hit_o, steps_o, cr_o, cp_o, ct_o,
+                            nc_o, rmin_o, jet_o, n, pool, mp, jp);
+}
+
+// The float64 march (march_body on double, exact route).
+template <int MARCH>
+__global__ void __launch_bounds__(THREADS)
+march_kernel_f64(const double* __restrict__ P, const double* __restrict__ y,
+                 const double* __restrict__ thr, double* __restrict__ yo,
+                 int* __restrict__ hit_o, int* __restrict__ steps_o,
+                 double* __restrict__ cr_o, double* __restrict__ cp_o,
+                 double* __restrict__ ct_o, int* __restrict__ nc_o,
+                 double* __restrict__ rmin_o, double* __restrict__ jet_o,
+                 int n, int* __restrict__ pool,
+                 const MarchParamsT<double> mp,
+                 const JetParamsT<double> jp) {
+  march_body<MARCH, false>(P, y, thr, yo, hit_o, steps_o, cr_o, cp_o, ct_o,
+                           nc_o, rmin_o, jet_o, n, pool, mp, jp);
+}
+
+// Resident blocks per SM of each instantiation (variant x approx, then the
+// three double variants), and the SM count, per device (queried once).
+static int g_blocks[16][9];
 static int g_sms[16];
 
-typedef void (*MarchKernel)(const float*, const float*, const float*, float*,
-                            int*, int*, float*, float*, float*, int*, float*,
-                            float*, int, int*, const MarchParams,
-                            const JetParams);
+template <class R>
+using MarchKernelT = void (*)(const R*, const R*, const R*, R*, int*, int*,
+                              R*, R*, R*, int*, R*, R*, int, int*,
+                              const MarchParamsT<R>, const JetParamsT<R>);
+typedef MarchKernelT<float> MarchKernel;
 
 template <bool APPROX>
 static MarchKernel march_kernel_fn(int variant) {
@@ -228,16 +267,33 @@ static MarchKernel march_kernel_fn(int variant, bool approx) {
                 : march_kernel_fn<false>(variant);
 }
 
+static MarchKernelT<double> march_kernel_f64_fn(int variant) {
+  return variant == MARCH_JETS   ? march_kernel_f64<MARCH_JETS>
+         : variant == MARCH_AB3 ? march_kernel_f64<MARCH_AB3>
+                                : march_kernel_f64<MARCH_MIDPOINT>;
+}
+
+// The kernel of (variant, approx) for R = float, of variant for double
+// (approx is refused before: the double march is exact only).
+template <class R>
+static MarchKernelT<R> march_kernel_for(int variant, bool approx) {
+  if constexpr (sizeof(R) == 8)
+    return march_kernel_f64_fn(variant);
+  else
+    return march_kernel_fn(variant, approx);
+}
+
+template <class R>
 static int march_shape(int variant, bool approx, int* blocks, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 16) return (int)cudaErrorInvalidDevice;
-  const int k = variant * 2 + (approx ? 1 : 0);
+  const int k = sizeof(R) == 8 ? 6 + variant : variant * 2 + (approx ? 1 : 0);
   if (g_blocks[dev][k] == 0) {
     int b = 0, s = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, march_kernel_fn(variant, approx), THREADS, 0);
+        &b, march_kernel_for<R>(variant, approx), THREADS, 0);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
@@ -249,9 +305,37 @@ static int march_shape(int variant, bool approx, int* blocks, int* sms) {
   return 0;
 }
 
-static int march_variant(const MarchParams* mp, const JetParams* jp) {
+template <class R>
+static int march_variant(const MarchParamsT<R>* mp, const JetParamsT<R>* jp) {
   return jp != nullptr ? MARCH_JETS
          : mp->multistep ? MARCH_AB3 : MARCH_MIDPOINT;
+}
+
+// The launch of either scalar type (bh_march_launch, bh_march_launch64).
+template <class R>
+static int march_launch(const R* P, const R* y, const R* thr, R* yo, int* hit,
+                        int* steps, R* cr, R* cp, R* ct, int* nc, R* rmin,
+                        R* jet, int n, int* pool, const MarchParamsT<R>* mp,
+                        const JetParamsT<R>* jp, void* stream) {
+  const bool approx = mp->approx_recip != 0;
+  if (sizeof(R) == 8 && approx) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int variant = march_variant(mp, jp);
+    int blocks = 0, sms = 0;
+    const int err = march_shape<R>(variant, approx, &blocks, &sms);
+    if (err != 0) return err;
+    int grid = blocks * sms;
+    const int need = (n + THREADS - 1) / THREADS;
+    if (grid > need) grid = need;
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+    const JetParamsT<R> none = {};
+    const JetParamsT<R> jets = jp != nullptr ? *jp : none;
+    march_kernel_for<R>(variant, approx)<<<grid, THREADS, 0,
+                                           (cudaStream_t)stream>>>(
+        P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool, *mp,
+        jets);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -267,24 +351,21 @@ int bh_march_launch(const float* P, const float* y, const float* thr,
                     float* ct, int* nc, float* rmin, float* jet, int n,
                     int* pool, const MarchParams* mp, const JetParams* jp,
                     void* stream) {
-  if (n > 0) {
-    const int variant = march_variant(mp, jp);
-    const bool approx = mp->approx_recip != 0;
-    int blocks = 0, sms = 0;
-    const int err = march_shape(variant, approx, &blocks, &sms);
-    if (err != 0) return err;
-    int grid = blocks * sms;
-    const int need = (n + THREADS - 1) / THREADS;
-    if (grid > need) grid = need;
-    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
-    const JetParams none = {};
-    const JetParams jets = jp != nullptr ? *jp : none;
-    march_kernel_fn(variant, approx)<<<grid, THREADS, 0,
-                                       (cudaStream_t)stream>>>(
-        P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n, pool, *mp,
-        jets);
-  }
-  return (int)cudaGetLastError();
+  return march_launch(P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n,
+                      pool, mp, jp, stream);
+}
+
+// The float64 march: bh_march_launch's arguments in double (the hit, steps
+// and crossing counts int32), exact route only (approx_recip set returns
+// cudaErrorInvalidValue).
+int bh_march_launch64(const double* P, const double* y, const double* thr,
+                      double* yo, int* hit, int* steps, double* cr,
+                      double* cp, double* ct, int* nc, double* rmin,
+                      double* jet, int n, int* pool,
+                      const MarchParamsT<double>* mp,
+                      const JetParamsT<double>* jp, void* stream) {
+  return march_launch(P, y, thr, yo, hit, steps, cr, cp, ct, nc, rmin, jet, n,
+                      pool, mp, jp, stream);
 }
 
 // The launch shape of the instantiation that (mp, jp) selects: out =
@@ -292,8 +373,20 @@ int bh_march_launch(const float* P, const float* y, const float* thr,
 // code.
 int bh_march_shape(const MarchParams* mp, const JetParams* jp, int* out) {
   int blocks = 0, sms = 0;
-  const int err = march_shape(march_variant(mp, jp), mp->approx_recip != 0,
-                              &blocks, &sms);
+  const int err = march_shape<float>(march_variant(mp, jp),
+                                     mp->approx_recip != 0, &blocks, &sms);
+  out[0] = THREADS;
+  out[1] = blocks;
+  out[2] = sms;
+  return err;
+}
+
+// bh_march_shape of the float64 instantiation that (mp, jp) selects.
+int bh_march_shape64(const MarchParamsT<double>* mp,
+                     const JetParamsT<double>* jp, int* out) {
+  int blocks = 0, sms = 0;
+  const int err =
+      march_shape<double>(march_variant(mp, jp), false, &blocks, &sms);
   out[0] = THREADS;
   out[1] = blocks;
   out[2] = sms;
@@ -307,5 +400,9 @@ const char* bh_error_string(int err) {
 int bh_march_params_size() { return (int)sizeof(MarchParams); }
 
 int bh_jet_params_size() { return (int)sizeof(JetParams); }
+
+int bh_march_params64_size() { return (int)sizeof(MarchParamsT<double>); }
+
+int bh_jet_params64_size() { return (int)sizeof(JetParamsT<double>); }
 
 }  // extern "C"

@@ -37,12 +37,22 @@
 // expression here is written in their order, so the two round alike.
 //
 // The step math is templated on its scalar type: float for the forward
-// march, Dual<N> (a value and N forward-mode tangents) for the per-step
-// Jacobian of step_vjp_check.cu, the card's check of the gradient kernel's
-// hand-written reverse adjoint (march_adjoint.cuh). A Dual's value is
-// computed by the same float operations in the same order as the float
+// march, double for the float64 march (the JAX package's jnp march with
+// dtype=float64), Dual<N> (a value and N forward-mode tangents) for the
+// per-step Jacobian of step_vjp_check.cu, the card's check of the gradient
+// kernel's hand-written reverse adjoint (march_adjoint.cuh). A Dual's value
+// is computed by the same float operations in the same order as the float
 // instantiation, so a dual pass reproduces the forward's values bit for
-// bit.
+// bit. The march loops and the per-ray state above the step (record_step,
+// jets_advance, march_ray, MarchRay, ray_step and the rest) are templated
+// on float or double (R). Constants are rounded once from their double
+// literal to the scalar type (K<T>), so a float instantiation holds the
+// same float constants as before and a double one the double values, as
+// the plain versions' Python numbers take the tensors' dtype; the pole
+// guard's floor is the plain version's by dtype (w_floor: 1e-6 in float,
+// 1e-12 in double). The double instantiations take the exact route only:
+// the JAX package's float64 march divides exactly (its jnp march has no
+// approximate reciprocal).
 //
 // Two routes, chosen at compile time (APPROX, every kernel instantiated
 // for both and picked at launch from MarchConfig.approx_recip):
@@ -112,24 +122,30 @@
 #define UNROLL_SLOTS _Pragma("unroll")
 #endif
 
-// The static march configuration. Must match ops/pallas_march.py::
-// _CMarchParams field for field. multistep selects the AB3 march;
-// ab3_renorm_every and ab3_tail_renorm are its renormalization cadence
-// (ops/march.py::ab3_renorm_plan).
-struct MarchParams {
+// The static march configuration, its lengths in the scalar type S of the
+// march (float or double). Must match ops/pallas_march.py::_CMarchParams
+// (S float) and _CMarchParams64 (S double) field for field. multistep
+// selects the AB3 march; ab3_renorm_every and ab3_tail_renorm are its
+// renormalization cadence (ops/march.py::ab3_renorm_plan).
+template <class S>
+struct MarchParamsT {
   int max_steps, renormalize_every, max_crossings, midpoint_iters,
       approx_recip, far_cap_on, multistep, ab3_renorm_every, ab3_tail_renorm;
-  float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
+  S step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
       escape_radius, escape_sanity_r, record_r_min, record_r_max;
 };
+typedef MarchParamsT<float> MarchParams;
 
 // The jets' static configuration (shading.JetParams, each field rounded to
-// float32; gamma and one_minus_turb rounded from float64). Must match
-// ops/pallas_march.py::_CJetParams field for field.
-struct JetParams {
-  float core_radius, opening_slope, z_min, z_max, density, turbulence,
+// S; gamma and one_minus_turb rounded from float64). Must match
+// ops/pallas_march.py::_CJetParams (S float) and _CJetParams64 (S double)
+// field for field.
+template <class S>
+struct JetParamsT {
+  S core_radius, opening_slope, z_min, z_max, density, turbulence,
       one_minus_turb, gamma, beta, beaming_exponent;
 };
+typedef JetParamsT<float> JetParams;
 
 // ---------------------------------------------------------------------------
 // Forward-mode dual numbers
@@ -241,10 +257,42 @@ __device__ __forceinline__ Dual<N> operator/(float a, const Dual<N>& b) {
 }
 
 // ---------------------------------------------------------------------------
-// jnp semantics, for float and for Dual
+// The scalar type of a step type, and its constants
+// ---------------------------------------------------------------------------
+
+// The scalar a step type T computes in: double for double, float for float
+// and for the derivative types (Dual<N>, step_vjp_check.cu's Mag<N>).
+template <class T>
+struct Scalar {
+  typedef float type;
+};
+template <>
+struct Scalar<double> {
+  typedef double type;
+};
+template <class T>
+using scalar_t = typename Scalar<T>::type;
+
+// A constant of T's scalar type, rounded once from its double literal: on
+// float what F(x) gives, on double the literal's own value.
+template <class T>
+__host__ __device__ constexpr scalar_t<T> K(double x) {
+  return (scalar_t<T>)x;
+}
+
+// The pole guard's floor of w = 1 - u^2 (ops/ks_kernel.py::w_floor): 1e-6
+// in float, where 1/w^2 must not overflow inside a step, 1e-12 in double.
+template <class T>
+__host__ __device__ constexpr scalar_t<T> w_floor() {
+  return (scalar_t<T>)(sizeof(scalar_t<T>) == 8 ? 1e-12 : 1e-6);
+}
+
+// ---------------------------------------------------------------------------
+// jnp semantics, for float, double and Dual
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ double val(double x) { return x; }
 template <int N>
 __device__ __forceinline__ float val(const Dual<N>& x) { return x.v; }
 
@@ -273,6 +321,17 @@ __device__ __forceinline__ float jmin(float a, float b) {
 __device__ __forceinline__ float jclip(float x, float lo, float hi) {
   return jmin(jmax(x, lo), hi);
 }
+// On a double, compare and select (PTX has no max.NaN.f64): NaN in either
+// operand gives NaN, as jnp.maximum / jnp.minimum do.
+__device__ __forceinline__ double jmax(double a, double b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ double jmin(double a, double b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ double jclip(double x, double lo, double hi) {
+  return jmin(jmax(x, lo), hi);
+}
 // Ties split the tangent half and half (JAX's rule for max and min).
 template <int N>
 __device__ __forceinline__ Dual<N> jtie(const Dual<N>& a, const Dual<N>& b) {
@@ -298,6 +357,7 @@ __device__ __forceinline__ Dual<N> jclip(const Dual<N>& x, const Dual<N>& lo,
 }
 
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dabs(double x) { return fabs(x); }
 template <int N>
 __device__ __forceinline__ Dual<N> dabs(const Dual<N>& x) {
   // d|x| = sign(x) dx, with sign(0) = 0 (jnp.sign)
@@ -309,6 +369,7 @@ __device__ __forceinline__ Dual<N> dabs(const Dual<N>& x) {
 }
 
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 template <int N>
 __device__ __forceinline__ Dual<N> dsqrt(const Dual<N>& x) {
   Dual<N> o;
@@ -321,6 +382,24 @@ __device__ __forceinline__ float fmod_floor(float x, float y) {
   float md = fmodf(x, y);
   if (md != 0.0f && ((md < 0.0f) != (y < 0.0f))) md += y;
   return md;
+}
+__device__ __forceinline__ double fmod_floor(double x, double y) {
+  double md = fmod(x, y);
+  if (md != 0.0 && ((md < 0.0) != (y < 0.0))) md += y;
+  return md;
+}
+
+// exp and pow on the exact route: a float's through double, rounded once
+// (as the plain version computes them), a double's its own.
+__device__ __forceinline__ float exact_exp(float x) {
+  return (float)exp((double)x);
+}
+__device__ __forceinline__ double exact_exp(double x) { return exp(x); }
+__device__ __forceinline__ float exact_pow(float x, float p) {
+  return (float)pow((double)x, (double)p);
+}
+__device__ __forceinline__ double exact_pow(double x, double p) {
+  return pow(x, p);
 }
 
 __device__ __forceinline__ float rcp_approx(float x) {
@@ -399,7 +478,8 @@ __device__ float hash21(float x, float y) {
   return fract((px + py + 2.0f * d) * (pz + d));
 }
 
-__device__ __forceinline__ float smooth(float t) {
+template <class R>
+__device__ __forceinline__ R smooth(R t) {
   return t * t * (3.0f - 2.0f * t);
 }
 
@@ -412,6 +492,19 @@ __device__ float value_noise2(float x, float y) {
   float c11 = hash21(xf + 1.0f, yf + 1.0f);
   return c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty) +
          c01 * (1.0f - tx) * ty + c11 * tx * ty;
+}
+// In double (the JAX twin's value_noise2 on float64 rows): the lattice and
+// the blend in double, the hash of the lattice point rounded to float32, as
+// hash21 casts its inputs.
+__device__ double value_noise2(double x, double y) {
+  double xf = floor(x), yf = floor(y);
+  double tx = smooth(x - xf), ty = smooth(y - yf);
+  double c00 = hash21((float)xf, (float)yf);
+  double c10 = hash21((float)(xf + 1.0), (float)yf);
+  double c01 = hash21((float)xf, (float)(yf + 1.0));
+  double c11 = hash21((float)(xf + 1.0), (float)(yf + 1.0));
+  return c00 * (1.0 - tx) * (1.0 - ty) + c10 * tx * (1.0 - ty) +
+         c01 * (1.0 - tx) * ty + c11 * tx * ty;
 }
 
 // ---------------------------------------------------------------------------
@@ -427,7 +520,7 @@ __device__ __forceinline__ void ks_rhs(const T& m, const T& a, const T& r,
                                        const T& u, const T& pr, const T& pu,
                                        const T& pph, T d[6]) {
   const float pt = -1.0f;
-  T w = jmax(1.0f - u * u, T(F(1e-6)));
+  T w = jmax(1.0f - u * u, T(w_floor<T>()));
   T S = madd<APPROX>(r, r, a * a * u * u);
   T D = madd<APPROX>(a, a, madd<APPROX>(r, r, -(2.0f * m * r)));
   T inv_S = recip<APPROX>(S);
@@ -483,7 +576,7 @@ __device__ __forceinline__ T ks_renormalize_pr(const T& m, const T& a,
                                                const T& pr, const T& pu,
                                                const T& pph) {
   const float pt = -1.0f;
-  T w = jmax(1.0f - u * u, T(F(1e-6)));
+  T w = jmax(1.0f - u * u, T(w_floor<T>()));
   T S = r * r + a * a * u * u;
   T D = r * r - 2.0f * m * r + a * a;
   T inv_S = 1.0f / S;
@@ -492,13 +585,13 @@ __device__ __forceinline__ T ks_renormalize_pr(const T& m, const T& a,
   T B = 2.0f * (h * pt + a * inv_S * pph);
   T C = -(1.0f + h) * pt * pt + w * inv_S * pu * pu + pph * pph * inv_S / w;
   T disc = B * B - 4.0f * A * C;
-  bool valid = (val(disc) >= 0.0f) && (fabsf(val(A)) > F(1e-12));
-  T sqrt_d = dsqrt(valid ? jmax(disc, T(F(1e-30))) : T(1.0f));
+  bool valid = (val(disc) >= 0.0f) && (dabs(val(A)) > K<T>(1e-12));
+  T sqrt_d = dsqrt(valid ? jmax(disc, T(K<T>(1e-30))) : T(1.0f));
   T denom = valid ? 2.0f * A : T(1.0f);
   T sol1 = (-B + sqrt_d) / denom;
   T sol2 = (-B - sqrt_d) / denom;
-  T nearest = fabsf(val(sol1) - val(pr)) < fabsf(val(sol2) - val(pr)) ? sol1
-                                                                      : sol2;
+  T nearest = dabs(val(sol1) - val(pr)) < dabs(val(sol2) - val(pr)) ? sol1
+                                                                    : sol2;
   return valid ? nearest : pr;
 }
 
@@ -526,7 +619,7 @@ __device__ __forceinline__ bool renorm_due(int& rn, int every) {
 // the step.
 template <class T>
 __device__ __forceinline__ T inv_rph_of(const T& r_ph) {
-  return 1.0f / jmax(r_ph, T(F(1e-3)));
+  return 1.0f / jmax(r_ph, T(K<T>(1e-3)));
 }
 
 // max(r / fbr, 1): on a float, the divide only where it can exceed 1. A
@@ -536,6 +629,9 @@ __device__ __forceinline__ T inv_rph_of(const T& r_ph) {
 __device__ __forceinline__ float far_boost(float r, float fbr) {
   return !(r <= fbr) ? r / fbr : 1.0f;
 }
+__device__ __forceinline__ double far_boost(double r, double fbr) {
+  return !(r <= fbr) ? r / fbr : 1.0;
+}
 template <class T>
 __device__ __forceinline__ T far_boost(const T& r, float fbr) {
   return jmax(r / fbr, T(1.0f));
@@ -543,20 +639,21 @@ __device__ __forceinline__ T far_boost(const T& r, float fbr) {
 
 // The curvature-adaptive, pole-throttled step size (inv_rph: inv_rph_of).
 template <bool APPROX, class T>
-__device__ __forceinline__ T step_size(const MarchParams& mp, const T& a,
+__device__ __forceinline__ T step_size(const MarchParamsT<scalar_t<T>>& mp,
+                                       const T& a,
                                        const T& r_h, const T& r_ph,
                                        const T& inv_rph, const T& r,
                                        const T& u, const T& pu) {
   T base = (r - r_h) * mp.step_rate;
   T far = far_boost(r, mp.far_boost_radius);
-  T prox = jclip(dabs(r - r_ph) * inv_rph, T(F(0.25)), T(1.0f));
+  T prox = jclip(dabs(r - r_ph) * inv_rph, T(K<T>(0.25)), T(1.0f));
   T cap = mp.far_cap_on ? jmax(mp.far_step_cap_rate * r, T(mp.max_step))
                         : T(mp.max_step);
   T dlam = jclip(base * far * prox, T(mp.min_step), cap);
-  T w = jmax(1.0f - u * u, T(F(1e-6)));
+  T w = jmax(1.0f - u * u, T(w_floor<T>()));
   T sig = madd<APPROX>(r, r, a * a * u * u);
-  T du_rate = dabs(w * pu / sig) + F(1e-12);
-  T margin = 1.0f - dabs(u) + F(1e-6);
+  T du_rate = dabs(w * pu / sig) + K<T>(1e-12);
+  T margin = 1.0f - dabs(u) + K<T>(1e-6);
   return jmin(dlam, jmax(divr<APPROX>(0.5f * margin, du_rate),
                          T(mp.min_step)));
 }
@@ -579,7 +676,7 @@ __device__ __forceinline__ void advance_rows(const T& dlam, const T& t,
 // The implicit-midpoint step of size dlam, u clipped off the poles.
 template <bool APPROX, class T>
 __device__ __forceinline__ void midpoint_step(
-    const MarchParams& mp, const T& m, const T& a, const T& dlam, const T& t,
+    const MarchParamsT<scalar_t<T>>& mp, const T& m, const T& a, const T& dlam, const T& t,
     const T& r, const T& u, const T& ph, const T& pr, const T& pu,
     const T& pph, T y[6]) {
   T d[6];
@@ -590,7 +687,7 @@ __device__ __forceinline__ void midpoint_step(
                    0.5f * (pr + y[4]), 0.5f * (pu + y[5]), pph, d);
     advance_rows<APPROX>(dlam, t, r, u, ph, pr, pu, d, y);
   }
-  y[2] = jclip(y[2], T(F(-1.0 + 1e-7)), T(F(1.0 - 1e-7)));
+  y[2] = jclip(y[2], T(K<T>(-1.0 + 1e-7)), T(K<T>(1.0 - 1e-7)));
 }
 
 // The equator-crossing record interpolated between (t, r, u, ph) and the
@@ -602,7 +699,8 @@ __device__ __forceinline__ void crossing_record(const T& t, const T& r,
                                                 T& phi_c, T& t_c) {
   const T& nu = y[2];
   T frac = jclip(
-      divr<APPROX>(u, fabsf(val(u - nu)) < F(1e-12) ? T(F(1e-12)) : u - nu),
+      divr<APPROX>(u, dabs(val(u - nu)) < K<T>(1e-12) ? T(K<T>(1e-12))
+                                                       : u - nu),
       T(0.0f), T(1.0f));
   r_c = madd<APPROX>(frac, y[1] - r, r);
   phi_c = madd<APPROX>(frac, y[3] - ph, ph);
@@ -612,7 +710,7 @@ __device__ __forceinline__ void crossing_record(const T& t, const T& r,
 // The stepped state and the interpolated equator-crossing record.
 template <bool APPROX, class T>
 __device__ __forceinline__ void step_values(
-    const MarchParams& mp, const T& m, const T& a, const T& r_h,
+    const MarchParamsT<scalar_t<T>>& mp, const T& m, const T& a, const T& r_h,
     const T& r_ph, const T& inv_rph, const T& t, const T& r, const T& u,
     const T& ph, const T& pr, const T& pu, const T& pph, T y[6], T& r_c,
     T& phi_c, T& t_c) {
@@ -625,15 +723,15 @@ __device__ __forceinline__ void step_values(
 // crossing count nc, the sanity freeze, the advance of s to y and the
 // termination tests.
 template <class T>
-__device__ __forceinline__ void advance_step(const MarchParams& mp, float thr,
-                                             T s[6], const T y[6],
-                                             const T& r_c, int& hit, int nc,
-                                             bool& crossed, bool& advance) {
+__device__ __forceinline__ void advance_step(
+    const MarchParamsT<scalar_t<T>>& mp, scalar_t<T> thr, T s[6],
+    const T y[6], const T& r_c, int& hit, int nc, bool& crossed,
+    bool& advance) {
   crossed = ((val(s[2]) * val(y[2])) < 0.0f) && (nc < mp.max_crossings) &&
             (val(r_c) > mp.record_r_min) && (val(r_c) < mp.record_r_max);
   advance = isfinite(val(y[1])) && isfinite(val(y[3])) &&
             isfinite(val(y[4])) && isfinite(val(y[5])) &&
-            (fabsf(val(y[4])) < F(1e7)) && (fabsf(val(y[5])) < F(1e7)) &&
+            (dabs(val(y[4])) < K<T>(1e7)) && (dabs(val(y[5])) < K<T>(1e7)) &&
             (val(y[1]) < mp.escape_sanity_r);
   if (advance) {
 #pragma unroll
@@ -653,8 +751,9 @@ __device__ __forceinline__ void advance_step(const MarchParams& mp, float thr,
 // s = (t, r, u, ph, pr, pu) is updated in place.
 template <bool APPROX, class T>
 __device__ __forceinline__ void march_step(
-    const MarchParams& mp, const T& m, const T& a, const T& r_h,
-    const T& r_ph, const T& inv_rph, const T& pph, float thr, int& rn,
+    const MarchParamsT<scalar_t<T>>& mp, const T& m, const T& a,
+    const T& r_h, const T& r_ph, const T& inv_rph, const T& pph,
+    scalar_t<T> thr, int& rn,
     T s[6], int& hit, int nc, bool& crossed, bool& advance, T& r_c, T& phi_c,
     T& t_c) {
   T y[6];
@@ -676,14 +775,18 @@ __device__ __forceinline__ void march_step(
 // MarchRay the march kernel keeps across its refill loop), each slot is a
 // register written under a compile-time index: indexed slots there made
 // the march kernel slower. Above four slots (KMAX > 4, a build of its own)
-// both forms index them.
-template <bool LOCAL>
+// both forms index them. The double march's step form passes LOCAL for
+// its midpoint and jets variants (ray_step): there the slots in registers
+// cost occupancy (106 registers and 4 resident blocks per SM on the H100,
+// against 72 and 7 indexed, and a third of the time on the 1080p rays),
+// where its AB3 variant, whose histories already sit in local memory,
+// ran slower indexed (PERF.md). R: float or double.
+template <bool LOCAL, class R>
 __device__ __forceinline__ void record_step(bool crossed, bool advance,
-                                            float r_c, float phi_c, float t_c,
-                                            float r, float r_ph, int& nc,
-                                            float cr[KMAX], float cp[KMAX],
-                                            float ct[KMAX], int& steps,
-                                            float& rmin) {
+                                            R r_c, R phi_c, R t_c, R r,
+                                            R r_ph, int& nc, R cr[KMAX],
+                                            R cp[KMAX], R ct[KMAX],
+                                            int& steps, R& rmin) {
   if constexpr (LOCAL || KMAX > 4) {
     if (crossed) {
       cr[nc] = r_c;
@@ -703,7 +806,7 @@ __device__ __forceinline__ void record_step(bool crossed, bool advance,
   nc += crossed ? 1 : 0;
   if (advance) {
     ++steps;
-    rmin = jmin(rmin, fabsf(r - r_ph));
+    rmin = jmin(rmin, dabs(r - r_ph));
   }
 }
 
@@ -734,53 +837,55 @@ __device__ __forceinline__ void start_offset(const MarchParams& mp, float m,
 // jet_beaming the power and the three channels, which jets_advance runs
 // once the step's other values are dead (the double pow's slow path is a
 // subroutine, and every value live across its call is saved around it).
-template <bool APPROX>
-__device__ __forceinline__ void jet_emission(const JetParams& jp, float r,
-                                             float st, float ct, float ph,
-                                             float dr, float dth, float dph,
-                                             float dlam, bool& in_cone,
-                                             float& pre, float& delta) {
-  const float z = r * ct;
-  const float rho = fabsf(r * st);
-  const float az = fabsf(z);
-  const float cone_r = jp.core_radius + jp.opening_slope * az;
-  in_cone = (az > jp.z_min) && (az < jp.z_max) && (rho < F(2.5) * cone_r);
-  const float q = rho / jmax(cone_r, F(1e-3));
-  float profile;
+// In double both are double's own (exact_exp, exact_pow) and the noise the
+// double value_noise2, as the JAX twin computes them on float64 rows.
+template <bool APPROX, class R>
+__device__ __forceinline__ void jet_emission(const JetParamsT<R>& jp, R r,
+                                             R st, R ct, R ph, R dr, R dth,
+                                             R dph, R dlam, bool& in_cone,
+                                             R& pre, R& delta) {
+  const R z = r * ct;
+  const R rho = dabs(r * st);
+  const R az = dabs(z);
+  const R cone_r = jp.core_radius + jp.opening_slope * az;
+  in_cone = (az > jp.z_min) && (az < jp.z_max) && (rho < K<R>(2.5) * cone_r);
+  const R q = rho / jmax(cone_r, K<R>(1e-3));
+  R profile;
   if constexpr (APPROX)
     profile = expf(-(q * q));
   else
-    profile = (float)exp((double)(-(q * q)));
-  const float v_z = dr * ct - r * st * dth;
-  const float v_rho = dr * st + r * ct * dth;
-  const float v_ph = r * st * dph;
-  const float v_mag = sqrtf(v_z * v_z + v_rho * v_rho + v_ph * v_ph +
-                            F(1e-12));
-  const float sgn = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
-  const float cos_psi = -sgn * v_z / v_mag;
-  delta = 1.0f / (jp.gamma * (1.0f - jp.beta * jclip(cos_psi, -1.0f, 1.0f)));
-  const float noise = value_noise2(
-      az * F(0.8), fmod_floor(ph, F(6.283185307179586)) * 2.0f + az);
-  const float turb = jp.one_minus_turb + jp.turbulence * (0.5f + noise);
+    profile = exact_exp(-(q * q));
+  const R v_z = dr * ct - r * st * dth;
+  const R v_rho = dr * st + r * ct * dth;
+  const R v_ph = r * st * dph;
+  const R v_mag = dsqrt(v_z * v_z + v_rho * v_rho + v_ph * v_ph +
+                        K<R>(1e-12));
+  const R sgn = z > 0.0f ? R(1.0f) : (z < 0.0f ? R(-1.0f) : R(0.0f));
+  const R cos_psi = -sgn * v_z / v_mag;
+  delta = 1.0f /
+          (jp.gamma * (1.0f - jp.beta * jclip(cos_psi, R(-1.0f), R(1.0f))));
+  const R noise = value_noise2(
+      az * K<R>(0.8), fmod_floor(ph, K<R>(6.283185307179586)) * 2.0f + az);
+  const R turb = jp.one_minus_turb + jp.turbulence * (0.5f + noise);
   pre = jp.density * dlam * profile * turb;
 }
-template <bool APPROX>
-__device__ __forceinline__ void jet_beaming(const JetParams& jp, bool in_cone,
-                                            float pre, float delta,
-                                            float out[3]) {
+template <bool APPROX, class R>
+__device__ __forceinline__ void jet_beaming(const JetParamsT<R>& jp,
+                                            bool in_cone, R pre, R delta,
+                                            R out[3]) {
   // the power inside the cone only: off the path of most steps, the double
   // pow's call saves no registers around it there
-  float mag = 0.0f;
+  R mag = 0.0f;
   if (in_cone) {
-    float beam;
+    R beam;
     if constexpr (APPROX)
       beam = powf(delta, jp.beaming_exponent);
     else
-      beam = (float)pow((double)delta, (double)jp.beaming_exponent);
+      beam = exact_pow(delta, jp.beaming_exponent);
     mag = pre * beam;
   }
-  out[0] = F(0.62) * mag;
-  out[1] = F(0.74) * mag;
+  out[0] = K<R>(0.62) * mag;
+  out[1] = K<R>(0.74) * mag;
   out[2] = mag;
 }
 
@@ -790,23 +895,22 @@ __device__ __forceinline__ void jet_beaming(const JetParams& jp, bool in_cone,
 // step the sanity test then rejects), the advance, the renormalization
 // (countdown rn, as march_step's), the step's records (record_step, LOCAL
 // its), and last the emission's beaming, summed into jet.
-template <bool APPROX, bool LOCAL>
+template <bool APPROX, bool LOCAL, class R>
 __device__ __forceinline__ void jets_advance(
-    const MarchParams& mp, float m, float a, float r_h, float r_ph,
-    float inv_rph, float pph, float thr, int& rn, float s[6], int& hit,
-    int& nc, const JetParams& jp, float jet[3], float cr[KMAX],
-    float cp[KMAX], float ct[KMAX], int& steps, float& rmin) {
-  float y[6], c[3], r_c, phi_c, t_c;
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph, R pph,
+    R thr, int& rn, R s[6], int& hit, int& nc, const JetParamsT<R>& jp,
+    R jet[3], R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
+  R y[6], c[3], r_c, phi_c, t_c;
   bool crossed, advance;
-  const float dlam =
+  const R dlam =
       step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]);
   midpoint_step<APPROX>(mp, m, a, dlam, s[0], s[1], s[2], s[3], s[4], s[5],
                         pph, y);
   crossing_record<APPROX>(s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
-  const float inv = recip<APPROX>(dlam);
-  const float st = sqrtf(jmax(1.0f - s[2] * s[2], F(1e-6)));
+  const R inv = recip<APPROX>(dlam);
+  const R st = dsqrt(jmax(1.0f - s[2] * s[2], w_floor<R>()));
   bool in_cone;
-  float pre, delta;
+  R pre, delta;
   jet_emission<APPROX>(jp, s[1], st, s[2], s[3], (y[1] - s[1]) * inv,
                        -(y[2] - s[2]) * inv / st, (y[3] - s[3]) * inv, dlam,
                        in_cone, pre, delta);
@@ -827,22 +931,21 @@ __device__ __forceinline__ void jets_advance(
 // min |r - r_ph| over the marched path. With JETS, jet (3 values) receives
 // the jets' emission summed over the live steps (jp: their configuration;
 // jets_advance).
-template <bool JETS, bool APPROX>
-__device__ __forceinline__ void march_ray(const MarchParams& mp, float m,
-                                          float a, float r_h, float r_ph,
-                                          float pph, float thr, float s[6],
-                                          int& hit, int& steps, int& nc,
-                                          float cr[KMAX], float cp[KMAX],
-                                          float ct[KMAX], float& rmin,
-                                          const JetParams* jp, float jet[3]) {
+template <bool JETS, bool APPROX, class R>
+__device__ __forceinline__ void march_ray(const MarchParamsT<R>& mp, R m,
+                                          R a, R r_h, R r_ph, R pph, R thr,
+                                          R s[6], int& hit, int& steps,
+                                          int& nc, R cr[KMAX], R cp[KMAX],
+                                          R ct[KMAX], R& rmin,
+                                          const JetParamsT<R>* jp, R jet[3]) {
   hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
   nc = 0;
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) cr[k] = cp[k] = ct[k] = 0.0f;
-  rmin = fabsf(s[1] - r_ph);
+  rmin = dabs(s[1] - r_ph);
   steps = 0;
   if (JETS) jet[0] = jet[1] = jet[2] = 0.0f;
-  const float inv_rph = inv_rph_of(r_ph);
+  const R inv_rph = inv_rph_of(r_ph);
   int rn = mp.renormalize_every;
   for (int i = 0; i < mp.max_steps && hit == HIT_NONE; ++i) {
     if (JETS) {
@@ -850,7 +953,7 @@ __device__ __forceinline__ void march_ray(const MarchParams& mp, float m,
                                  hit, nc, *jp, jet, cr, cp, ct, steps, rmin);
     } else {
       bool crossed, advance;
-      float r_c, phi_c, t_c;
+      R r_c, phi_c, t_c;
       march_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, pph, thr, rn, s, hit,
                          nc, crossed, advance, r_c, phi_c, t_c);
       record_step<true>(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr,
@@ -865,13 +968,12 @@ __device__ __forceinline__ void march_ray(const MarchParams& mp, float m,
 // Pallas kernel shifts it only when the ray advances; a ray that does not
 // advance has ended (advance_step sets its hit), so no later step reads the
 // history and the shift needs no predicate. LOCAL: record_step's.
-template <bool APPROX, bool LOCAL>
+template <bool APPROX, bool LOCAL, class R>
 __device__ __forceinline__ void ab3_finish(
-    const MarchParams& mp, float r_ph, float thr, float s[6], const float y[6],
-    const float f0[6], float dlam, float f1[6], float f2[6], float& h1,
-    float& h2, int& hit, int& nc, float cr[KMAX], float cp[KMAX],
-    float ct[KMAX], int& steps, float& rmin) {
-  float r_c, phi_c, t_c;
+    const MarchParamsT<R>& mp, R r_ph, R thr, R s[6], const R y[6],
+    const R f0[6], R dlam, R f1[6], R f2[6], R& h1, R& h2, int& hit, int& nc,
+    R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
+  R r_c, phi_c, t_c;
   crossing_record<APPROX>(s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
   bool crossed, advance;
   advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
@@ -891,15 +993,14 @@ __device__ __forceinline__ void ab3_finish(
 // renormalization follows it (the cadence starts at step 2). Peeled out of
 // ab3_step, so that the loop's body holds one right-hand side and no
 // midpoint step.
-template <bool APPROX, bool LOCAL>
+template <bool APPROX, bool LOCAL, class R>
 __device__ __forceinline__ void ab3_boot_step(
-    const MarchParams& mp, float m, float a, float r_h, float r_ph,
-    float inv_rph, float pph, float thr, float s[6], float f1[6],
-    float f2[6], float& h1, float& h2, int& hit, int& nc, float cr[KMAX],
-    float cp[KMAX], float ct[KMAX], int& steps, float& rmin) {
-  float f0[6], y[6];
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph, R pph,
+    R thr, R s[6], R f1[6], R f2[6], R& h1, R& h2, int& hit, int& nc,
+    R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
+  R f0[6], y[6];
   ks_rhs<APPROX>(m, a, s[1], s[2], s[4], s[5], pph, f0);
-  const float dlam =
+  const R dlam =
       step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]);
   midpoint_step<APPROX>(mp, m, a, dlam, s[0], s[1], s[2], s[3], s[4], s[5],
                         pph, y);
@@ -921,35 +1022,34 @@ __device__ __forceinline__ int ab3_renorm_start(int every) {
 // (h = dlam, h1, h2), the step growth bounded by dlam <= 2 h1, and the
 // renormalization at the per-ray cadence mp.ab3_renorm_every (countdown
 // rn from ab3_renorm_start). LOCAL: record_step's.
-template <bool APPROX, bool LOCAL>
+template <bool APPROX, bool LOCAL, class R>
 __device__ __forceinline__ void ab3_step(
-    const MarchParams& mp, float m, float a, float r_h, float r_ph,
-    float inv_rph, float pph, float thr, int& rn, float s[6], float f1[6],
-    float f2[6], float& h1, float& h2, int& hit, int& nc, float cr[KMAX],
-    float cp[KMAX], float ct[KMAX], int& steps, float& rmin) {
-  const float third = F(1.0 / 3.0);
-  float f0[6], y[6];
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph, R pph,
+    R thr, int& rn, R s[6], R f1[6], R f2[6], R& h1, R& h2, int& hit,
+    int& nc, R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
+  const R third = K<R>(1.0 / 3.0);
+  R f0[6], y[6];
   ks_rhs<APPROX>(m, a, s[1], s[2], s[4], s[5], pph, f0);
-  const float dlam = jmin(
+  const R dlam = jmin(
       step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]),
       2.0f * h1);
-  const float h12 = h1 + h2;
-  const float hh2 = dlam * dlam;
-  const float hh3 = hh2 * dlam;
+  const R h12 = h1 + h2;
+  const R hh2 = dlam * dlam;
+  const R hh3 = hh2 * dlam;
   // The coefficients' shared terms; x * hh2 * 0.5 = x * (hh2 * 0.5) bit for
   // bit (halving is exact).
-  const float t3 = hh3 * third;
-  const float t2 = hh2 * 0.5f;
-  const float c0 = divr<APPROX>(
+  const R t3 = hh3 * third;
+  const R t2 = hh2 * 0.5f;
+  const R c0 = divr<APPROX>(
       madd<APPROX>(h1 * h12, dlam, madd<APPROX>(2.0f * h1 + h2, t2, t3)),
       h1 * h12);
-  const float c1 = -divr<APPROX>(madd<APPROX>(h12, t2, t3), h1 * h2);
-  const float c2 = divr<APPROX>(madd<APPROX>(h1, t2, t3), h2 * h12);
+  const R c1 = -divr<APPROX>(madd<APPROX>(h12, t2, t3), h1 * h2);
+  const R c2 = divr<APPROX>(madd<APPROX>(h1, t2, t3), h2 * h12);
 #pragma unroll
   for (int k = 0; k < 6; ++k)
     y[k] = madd<APPROX>(c2, f2[k],
                         madd<APPROX>(c1, f1[k], madd<APPROX>(c0, f0[k], s[k])));
-  y[2] = jclip(y[2], F(-1.0 + 1e-7), F(1.0 - 1e-7));
+  y[2] = jclip(y[2], K<R>(-1.0 + 1e-7), K<R>(1.0 - 1e-7));
   ab3_finish<APPROX, LOCAL>(mp, r_ph, thr, s, y, f0, dlam, f1, f2, h1, h2,
                             hit, nc, cr, cp, ct, steps, rmin);
   if (renorm_due(rn, mp.ab3_renorm_every) && hit == HIT_NONE)
@@ -963,24 +1063,24 @@ __device__ __forceinline__ void ab3_step(
 // shares its step counter across a tile, but every ray's steps depend on
 // that ray alone, so one thread per ray reproduces it; its renormalization
 // at tile-exit block boundaries becomes the per-ray cadence
-// mp.ab3_renorm_every / mp.ab3_tail_renorm. Float only: the AB3 march has
-// no gradient path.
-template <bool APPROX>
+// mp.ab3_renorm_every / mp.ab3_tail_renorm. No Dual: the AB3 march has no
+// gradient path.
+template <bool APPROX, class R>
 __device__ __forceinline__ void march_ray_ab3(
-    const MarchParams& mp, float m, float a, float r_h, float r_ph, float pph,
-    float thr, float s[6], int& hit, int& steps, int& nc, float cr[KMAX],
-    float cp[KMAX], float ct[KMAX], float& rmin) {
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R pph, R thr, R s[6],
+    int& hit, int& steps, int& nc, R cr[KMAX], R cp[KMAX], R ct[KMAX],
+    R& rmin) {
   hit = s[1] < thr ? HIT_HORIZON : HIT_NONE;
   nc = 0;
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) cr[k] = cp[k] = ct[k] = 0.0f;
-  rmin = fabsf(s[1] - r_ph);
+  rmin = dabs(s[1] - r_ph);
   steps = 0;
-  float f1[6], f2[6];
+  R f1[6], f2[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) f1[k] = f2[k] = 0.0f;
-  float h1 = mp.min_step, h2 = mp.min_step;
-  const float inv_rph = inv_rph_of(r_ph);
+  R h1 = mp.min_step, h2 = mp.min_step;
+  const R inv_rph = inv_rph_of(r_ph);
   int i = 0;
   // the bootstrap, unrolled: two copies of the midpoint step ahead of the
   // loop, none inside it
@@ -1021,22 +1121,22 @@ __device__ __forceinline__ void march_ray_ab3(
 // march kernel keeps one in registers per lane and marches it a step at a
 // time, so that a lane whose ray has ended takes the next ray while the
 // rest of its warp marches on; fields a variant does not use cost it no
-// register.
-template <int MARCH>
+// register. R: float or double.
+template <int MARCH, class R>
 struct MarchRay {
-  float s[6];
-  float pph, thr;
+  R s[6];
+  R pph, thr;
   int hit, steps, nc, i, rn;
-  float cr[KMAX], cp[KMAX], ct[KMAX], rmin;
-  float jet[3];
-  float f1[6], f2[6], h1, h2;
+  R cr[KMAX], cp[KMAX], ct[KMAX], rmin;
+  R jet[3];
+  R f1[6], f2[6], h1, h2;
 };
 
 // The end of the march on a ray still live after max_steps steps: AB3's
 // tail renormalization, then hit = HIT_HORIZON (march_ray's own rule).
-template <int MARCH>
-__device__ __forceinline__ void ray_close(const MarchParams& mp, float m,
-                                          float a, MarchRay<MARCH>& q) {
+template <int MARCH, class R>
+__device__ __forceinline__ void ray_close(const MarchParamsT<R>& mp, R m, R a,
+                                          MarchRay<MARCH, R>& q) {
   if (q.hit == HIT_NONE && q.i >= mp.max_steps) {
     if (MARCH == MARCH_AB3 && mp.ab3_tail_renorm)
       q.s[4] = ks_renormalize_pr(m, a, q.s[1], q.s[2], q.s[4], q.s[5], q.pph);
@@ -1046,15 +1146,14 @@ __device__ __forceinline__ void ray_close(const MarchParams& mp, float m,
 
 // Birth of the march: q.s, q.pph and q.thr set by the caller; march_ray's
 // prologue (a ray born inside its termination radius has ended).
-template <int MARCH>
-__device__ __forceinline__ void ray_begin(const MarchParams& mp, float m,
-                                          float a, float r_ph,
-                                          MarchRay<MARCH>& q) {
+template <int MARCH, class R>
+__device__ __forceinline__ void ray_begin(const MarchParamsT<R>& mp, R m, R a,
+                                          R r_ph, MarchRay<MARCH, R>& q) {
   q.hit = q.s[1] < q.thr ? HIT_HORIZON : HIT_NONE;
   q.nc = 0;
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) q.cr[k] = q.cp[k] = q.ct[k] = 0.0f;
-  q.rmin = fabsf(q.s[1] - r_ph);
+  q.rmin = dabs(q.s[1] - r_ph);
   q.steps = 0;
   q.i = 0;
   q.rn = MARCH == MARCH_AB3 ? ab3_renorm_start(mp.ab3_renorm_every)
@@ -1073,10 +1172,10 @@ __device__ __forceinline__ void ray_begin(const MarchParams& mp, float m,
 // The march kernel runs them where it births a ray, so that its step loop
 // (ray_step) holds one right-hand side and no midpoint step. Nothing for
 // the other variants.
-template <int MARCH, bool APPROX>
-__device__ __forceinline__ void ray_boot(const MarchParams& mp, float m,
-                                         float a, float r_h, float r_ph,
-                                         float inv_rph, MarchRay<MARCH>& q) {
+template <int MARCH, bool APPROX, class R>
+__device__ __forceinline__ void ray_boot(const MarchParamsT<R>& mp, R m, R a,
+                                         R r_h, R r_ph, R inv_rph,
+                                         MarchRay<MARCH, R>& q) {
   if (MARCH != MARCH_AB3) return;
   // unrolled, as march_ray_ab3's: no loop of its own beside the step loop
 #pragma unroll
@@ -1097,26 +1196,28 @@ __device__ __forceinline__ void ray_boot(const MarchParams& mp, float m,
 // steps depend on that ray alone, so marching it a step at a time, in any
 // lane and beside any other ray, gives the results of marching it in one
 // loop. inv_rph: inv_rph_of(r_ph).
-template <int MARCH, bool APPROX>
-__device__ __forceinline__ void ray_step(const MarchParams& mp, float m,
-                                         float a, float r_h, float r_ph,
-                                         float inv_rph, const JetParams& jp,
-                                         MarchRay<MARCH>& q) {
+template <int MARCH, bool APPROX, class R>
+__device__ __forceinline__ void ray_step(const MarchParamsT<R>& mp, R m, R a,
+                                         R r_h, R r_ph, R inv_rph,
+                                         const JetParamsT<R>& jp,
+                                         MarchRay<MARCH, R>& q) {
   if (MARCH == MARCH_AB3) {
     ab3_step<APPROX, false>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr, q.rn,
                             q.s, q.f1, q.f2, q.h1, q.h2, q.hit, q.nc, q.cr,
                             q.cp, q.ct, q.steps, q.rmin);
   } else if (MARCH == MARCH_JETS) {
-    jets_advance<APPROX, false>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr,
-                                q.rn, q.s, q.hit, q.nc, jp, q.jet, q.cr, q.cp,
-                                q.ct, q.steps, q.rmin);
+    jets_advance<APPROX, sizeof(R) == 8>(mp, m, a, r_h, r_ph, inv_rph, q.pph,
+                                         q.thr, q.rn, q.s, q.hit, q.nc, jp,
+                                         q.jet, q.cr, q.cp, q.ct, q.steps,
+                                         q.rmin);
   } else {
     bool crossed, advance;
-    float r_c, phi_c, t_c;
+    R r_c, phi_c, t_c;
     march_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr, q.rn, q.s,
                        q.hit, q.nc, crossed, advance, r_c, phi_c, t_c);
-    record_step<false>(crossed, advance, r_c, phi_c, t_c, q.s[1], r_ph, q.nc,
-                       q.cr, q.cp, q.ct, q.steps, q.rmin);
+    record_step<sizeof(R) == 8>(crossed, advance, r_c, phi_c, t_c, q.s[1],
+                                r_ph, q.nc, q.cr, q.cp, q.ct, q.steps,
+                                q.rmin);
   }
   ++q.i;
   ray_close(mp, m, a, q);

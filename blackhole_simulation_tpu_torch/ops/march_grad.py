@@ -35,6 +35,7 @@ from blackhole_simulation_tpu_torch.ops.march import march_step_rows
 from blackhole_simulation_tpu_torch.ops.pallas_march import (
     c_jet_params,
     c_march_params,
+    check_dtype,
     load_library,
     scalar_params,
 )
@@ -53,8 +54,8 @@ def _blocks(cfg) -> int:
 
 def scratch_words(cfg) -> int:
     """Scratch words per ray of the kernel: the block checkpoints, 7 words
-    each (6 state rows, crossing count); the re-forward stack lives in
-    shared memory."""
+    each (6 state rows, crossing count), of the rays' dtype (float32 or
+    float64); the re-forward stack lives in shared memory."""
     return _blocks(cfg) * 7
 
 
@@ -160,11 +161,13 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
 def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
                       ct_ct, ct_rmin, rmin_fin, ct_jet=None, jets=None,
                       replay=None):
-    """The march VJP, as ``march_grad``. CUDA tensors launch the gradient
-    kernel (``csrc/march_grad.cu``; its jets instantiation with ``jets``)
-    on the current stream, with a scratch
-    buffer of ``scratch_words(cfg)`` float32 words per ray (its size in bytes
-    is kept in ``march_grad_kernel.scratch_bytes``), and count the launch in
+    """The march VJP, as ``march_grad``, in the rays' dtype (float32, or
+    float64 on the exact route; any other raises). CUDA tensors launch the
+    gradient kernel (``csrc/march_grad.cu``; its jets instantiation with
+    ``jets``, its float64 one, ``march_grad_kernel_f64``, for float64 rays)
+    on the current stream, with a scratch buffer of ``scratch_words(cfg)``
+    words of the rays' dtype per ray (its size in bytes is kept in
+    ``march_grad_kernel.scratch_bytes``), and count the launch in
     ``march_grad_kernel.launches``; CPU tensors run ``march_grad``. While
     ``march_grad_kernel.record`` is a list, each call appends its arguments
     to it. ``replay``, a contiguous int32 (3, N) CUDA tensor, receives the
@@ -176,8 +179,9 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
             (yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
              ct_rmin, rmin_fin, ct_jet, jets))
     n = yt0.shape[1]
-    if yt0.dtype != torch.float32 or yt0.shape != (8, n):
-        raise ValueError("rays must be float32 (8, N)")
+    check_dtype(yt0, cfg)
+    if yt0.shape != (8, n):
+        raise ValueError("rays must be (8, N)")
     if cfg.max_crossings < 1:
         raise ValueError("max_crossings must be at least 1")
     if (jets is None) != (ct_jet is None):
@@ -198,32 +202,36 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
         raise ValueError(f"no gradient path for device {yt0.device}")
     lib = _grad_library()
     dev = yt0.device
-    rows7 = lambda x: torch.cat([x[:4], x[5:8]]).detach().float().contiguous()
-    flat = lambda x: x.detach().float().contiguous()
+    dtype = yt0.dtype
+    f64 = dtype == torch.float64
+    flat = lambda x: x.detach().to(dtype).contiguous()
+    rows7 = lambda x: flat(torch.cat([x[:4], x[5:8]]))
     y7 = rows7(yt0)
     ctf = rows7(ct_fin)
-    ctc = torch.cat([ct_cr, ct_cp, ct_ct]).detach().float().contiguous()
+    ctc = flat(torch.cat([ct_cr, ct_cp, ct_ct]))
     thr, ct_rmin, rmin_fin = flat(thr), flat(ct_rmin), flat(rmin_fin)
     ctj = None if jets is None else flat(ct_jet)
-    params = scalar_params(m, a, r_h, r_ph, dev)
-    cty0 = torch.empty((7, n), dtype=torch.float32, device=dev)
-    ctp = torch.empty((4, n), dtype=torch.float32, device=dev)
+    params = scalar_params(m, a, r_h, r_ph, dev, dtype)
+    cty0 = torch.empty((7, n), dtype=dtype, device=dev)
+    ctp = torch.empty((4, n), dtype=dtype, device=dev)
     words = lib.bh_march_grad_scratch(cfg.max_steps)
     if words != scratch_words(cfg):
         raise RuntimeError("scratch layout differs between csrc/march_grad.cu "
                            "and ops/march_grad.py")
-    scratch = torch.empty(words * n, dtype=torch.float32, device=dev)
-    c_mp = c_march_params(cfg)
-    c_jets = c_jet_params(jets)
+    scratch = torch.empty(words * n, dtype=dtype, device=dev)
+    c_mp = c_march_params(cfg, dtype)
+    c_jets = c_jet_params(jets, dtype)
+    launch = lib.bh_march_grad_launch64 if f64 else lib.bh_march_grad_launch
+    c_real = ctypes.c_double if f64 else ctypes.c_float
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bh_march_grad_launch(
+        err = launch(
             ptr(params), ptr(y7), ptr(thr), ptr(ctf), ptr(ctc), ptr(ct_rmin),
             ptr(rmin_fin), ptr(cty0), ptr(ctp), ptr(scratch),
             ctypes.c_void_p(0 if replay is None else replay.data_ptr()),
             ctypes.c_int(n), ctypes.byref(c_mp),
-            ctypes.c_float(cfg.cotangent_clip),
+            c_real(cfg.cotangent_clip),
             ctypes.c_void_p(0 if ctj is None else ctj.data_ptr()),
             None if jets is None else ctypes.byref(c_jets),
             ctypes.c_void_p(stream),
@@ -232,8 +240,8 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
         raise RuntimeError(
             f"gradient kernel launch failed: {lib.bh_error_string(err).decode()}")
     march_grad_kernel.launches += 1
-    march_grad_kernel.scratch_bytes = scratch.numel() * 4
-    zero = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    march_grad_kernel.scratch_bytes = scratch.numel() * scratch.element_size()
+    zero = torch.zeros((1, n), dtype=dtype, device=dev)
     ct_yt0 = torch.cat([cty0[:4], zero, cty0[4:]])
     return ct_yt0, ctp[0].sum(), ctp[1].sum(), ctp[2].sum(), ctp[3].sum()
 
@@ -243,16 +251,22 @@ march_grad_kernel.scratch_bytes = 0
 march_grad_kernel.record = None
 
 
-def grad_kernel_shape(approx: bool = True, jets: bool = False) -> dict:
+def grad_kernel_shape(approx: bool = True, jets: bool = False,
+                      dtype=torch.float32) -> dict:
     """The gradient kernel's launch shape, from the built library: threads
     per block, dynamic shared memory bytes per block, steps per checkpoint
     block, and resident blocks and warps per SM by
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (on the current
     device), of the instantiation for ``MarchConfig.approx_recip`` =
-    ``approx`` (the training step's route by default) and ``jets``."""
+    ``approx`` (the training step's route by default), ``jets`` and
+    ``dtype`` (float64: the exact route's, whatever ``approx``)."""
     out = (ctypes.c_int * 4)()
-    _grad_library().bh_march_grad_shape(ctypes.c_int(int(approx)),
-                                        ctypes.c_int(int(jets)), out)
+    lib = _grad_library()
+    if dtype == torch.float64:
+        lib.bh_march_grad_shape64(ctypes.c_int(int(jets)), out)
+    else:
+        lib.bh_march_grad_shape(ctypes.c_int(int(approx)),
+                                ctypes.c_int(int(jets)), out)
     threads, smem, ckpt, blocks = out
     return {"threads": threads, "smem_bytes": smem, "ckpt": ckpt,
             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
@@ -371,10 +385,14 @@ def _check_library() -> ctypes.CDLL:
 @functools.cache
 def _grad_library() -> ctypes.CDLL:
     lib = load_library("march_grad.cu", "bh_march_params_size")
-    lib.bh_march_grad_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_float] + [ctypes.c_void_p] * 3)
-    lib.bh_march_grad_launch.restype = ctypes.c_int
+    for launch, real in ((lib.bh_march_grad_launch, ctypes.c_float),
+                         (lib.bh_march_grad_launch64, ctypes.c_double)):
+        launch.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p, real]
+            + [ctypes.c_void_p] * 3)
+        launch.restype = ctypes.c_int
+    lib.bh_march_grad_shape64.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.bh_march_grad_shape64.restype = None
     lib.bh_march_grad_scratch.argtypes = [ctypes.c_int]
     lib.bh_march_grad_scratch.restype = ctypes.c_int
     lib.bh_march_grad_shape.argtypes = [ctypes.c_int, ctypes.c_int,

@@ -12,6 +12,11 @@ jets (render/march.py:555-569), which the port runs in the same kernel
 ``march_tile_ab3``. ``march_u`` launches the kernel for CUDA tensors and
 runs the plain version for CPU tensors; nothing else picks between them.
 
+The march runs in the rays' dtype: float32 rays launch the kernel's float
+instantiations, float64 rays its double ones (``march_kernel_f64``, the
+exact route only, as the JAX package marches float64 in jnp with exact
+divides), and any other dtype raises. The plain version runs in either.
+
 The CUDA kernel needs no tiles: a resident grid of persistent warps takes
 rays from a pool (``ray_pool``) until none is left, so nothing is padded
 in memory (the Pallas wrapper pads to whole tiles with rays born dead).
@@ -104,18 +109,35 @@ def lane_efficiency(steps: torch.Tensor) -> float:
     return int(steps.sum()) / lane_steps if lane_steps else 1.0
 
 
-class _CMarchParams(ctypes.Structure):
-    """``MarchParams`` as ``csrc/march_step.cuh`` declares it."""
+_MARCH_INTS = (
+    "max_steps", "renormalize_every", "max_crossings", "midpoint_iters",
+    "approx_recip", "far_cap_on", "multistep", "ab3_renorm_every",
+    "ab3_tail_renorm",
+)
+_MARCH_LENGTHS = (
+    "step_rate", "min_step", "max_step", "far_step_cap_rate",
+    "far_boost_radius", "escape_radius", "escape_sanity_r", "record_r_min",
+    "record_r_max",
+)
+_JET_FIELDS = (
+    "core_radius", "opening_slope", "z_min", "z_max", "density",
+    "turbulence", "one_minus_turb", "gamma", "beta", "beaming_exponent",
+)
 
-    _fields_ = [(name, ctypes.c_int) for name in (
-        "max_steps", "renormalize_every", "max_crossings", "midpoint_iters",
-        "approx_recip", "far_cap_on", "multistep", "ab3_renorm_every",
-        "ab3_tail_renorm",
-    )] + [(name, ctypes.c_float) for name in (
-        "step_rate", "min_step", "max_step", "far_step_cap_rate",
-        "far_boost_radius", "escape_radius", "escape_sanity_r",
-        "record_r_min", "record_r_max",
-    )]
+
+class _CMarchParams(ctypes.Structure):
+    """``MarchParams`` (``MarchParamsT<float>``) as ``csrc/march_step.cuh``
+    declares it."""
+
+    _fields_ = ([(name, ctypes.c_int) for name in _MARCH_INTS]
+                + [(name, ctypes.c_float) for name in _MARCH_LENGTHS])
+
+
+class _CMarchParams64(ctypes.Structure):
+    """``MarchParamsT<double>``, the float64 kernels' configuration."""
+
+    _fields_ = ([(name, ctypes.c_int) for name in _MARCH_INTS]
+                + [(name, ctypes.c_double) for name in _MARCH_LENGTHS])
 
 
 class _CJetParams(ctypes.Structure):
@@ -123,17 +145,27 @@ class _CJetParams(ctypes.Structure):
     static configuration, each field rounded to float32 (``gamma`` and
     ``one_minus_turb`` from float64, as the JAX twin rounds them)."""
 
-    _fields_ = [(name, ctypes.c_float) for name in (
-        "core_radius", "opening_slope", "z_min", "z_max", "density",
-        "turbulence", "one_minus_turb", "gamma", "beta", "beaming_exponent",
-    )]
+    _fields_ = [(name, ctypes.c_float) for name in _JET_FIELDS]
 
 
-def c_jet_params(jets) -> _CJetParams:
-    """The kernels' jet configuration from a JetParams (zeros for None)."""
+class _CJetParams64(ctypes.Structure):
+    """``JetParamsT<double>``: the jets' configuration in float64, as the
+    JAX twin's Python numbers meet float64 rows."""
+
+    _fields_ = [(name, ctypes.c_double) for name in _JET_FIELDS]
+
+
+def _f64(dtype) -> bool:
+    return dtype == torch.float64
+
+
+def c_jet_params(jets, dtype=torch.float32):
+    """The kernels' jet configuration from a JetParams (zeros for None), in
+    ``dtype`` (float32 or float64)."""
+    cls = _CJetParams64 if _f64(dtype) else _CJetParams
     if jets is None:
-        return _CJetParams()
-    return _CJetParams(
+        return cls()
+    return cls(
         core_radius=jets.core_radius, opening_slope=jets.opening_slope,
         z_min=jets.z_min, z_max=jets.z_max, density=jets.density,
         turbulence=jets.turbulence, one_minus_turb=1.0 - jets.turbulence,
@@ -142,10 +174,12 @@ def c_jet_params(jets) -> _CJetParams:
     )
 
 
-def c_march_params(cfg) -> _CMarchParams:
-    """The kernels' static march configuration from a MarchConfig."""
+def c_march_params(cfg, dtype=torch.float32):
+    """The kernels' static march configuration from a MarchConfig, its
+    lengths in ``dtype`` (float32 or float64)."""
     ab3_every, ab3_tail = ab3_renorm_plan(cfg)
-    return _CMarchParams(
+    cls = _CMarchParams64 if _f64(dtype) else _CMarchParams
+    return cls(
         max_steps=cfg.max_steps, renormalize_every=cfg.renormalize_every,
         max_crossings=cfg.max_crossings, midpoint_iters=cfg.midpoint_iters,
         approx_recip=int(cfg.approx_recip),
@@ -170,16 +204,29 @@ def normalize_pt(yt0: torch.Tensor) -> torch.Tensor:
                       yt0[5:8] * inv_e[None, :]], dim=0)
 
 
-def scalar_params(m, a, r_h, r_ph, device) -> torch.Tensor:
-    """The kernels' (4,) float32 [m, a, r_h, r_ph] on the device."""
-    return torch.stack([torch.as_tensor(x).detach().to(device, torch.float32)
+def scalar_params(m, a, r_h, r_ph, device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The kernels' (4,) [m, a, r_h, r_ph] in ``dtype`` on the device."""
+    return torch.stack([torch.as_tensor(x).detach().to(device, dtype)
                         for x in (m, a, r_h, r_ph)]).contiguous()
 
 
+def check_dtype(x: torch.Tensor, cfg, what: str = "rays"):
+    """The march's dtype rule: float32, or float64 on the exact route (the
+    JAX package's float64 march is its jnp march, which divides exactly;
+    the float64 kernels have no approx_recip instantiation). Raises
+    ValueError otherwise."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what} must be float32 or float64, got {x.dtype}")
+    if _f64(x.dtype) and cfg.approx_recip:
+        raise ValueError("the float64 march divides exactly: take "
+                         "approx_recip=False")
+
+
 def _check_rows(yt0, thr, cfg):
-    if yt0.dtype != torch.float32 or yt0.dim() != 2 or yt0.shape[0] != 8:
-        raise ValueError(f"rays must be float32 (8, N), got {yt0.dtype} "
-                         f"{tuple(yt0.shape)}")
+    check_dtype(yt0, cfg)
+    if yt0.dim() != 2 or yt0.shape[0] != 8:
+        raise ValueError(f"rays must be (8, N), got {tuple(yt0.shape)}")
     if thr.shape != (yt0.shape[1],) or thr.device != yt0.device:
         raise ValueError("thr must be (N,) on the rays' device")
     if cfg.max_crossings < 1:
@@ -212,10 +259,11 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
     cross_phi, cross_t (K, N), n_crossings, r_min_ph, jet (3, N)), as the
     JAX package's ``pallas_march_u`` plus the jet radiance of its jnp
     march (zeros without ``jets``, a ``JetParams``); the integer outputs
-    are int32. ``cfg.multistep`` selects the AB3 march, which has no jets:
-    with jets the march is the midpoint one.
+    are int32, the others in the rays' dtype. ``cfg.multistep`` selects the
+    AB3 march, which has no jets: with jets the march is the midpoint one.
 
-    CUDA tensors launch the march kernel (``csrc/march.cu``) on the current
+    CUDA tensors launch the march kernel (``csrc/march.cu``; float64 rays
+    its float64 instantiation, which takes no approx_recip) on the current
     stream and count the launch in ``march_u.launches``; CPU tensors run the
     plain version (``march_u_plain``). More than 4 crossings
     (``cfg.max_crossings``, up to ``ops/build.KMAX_LIMIT`` on the card) run
@@ -238,14 +286,15 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
         raise ValueError(f"no march path for device {yt0.device}")
     lib = _march_library(kmax_for(k_slots))
     dev = yt0.device
+    dtype = yt0.dtype
     y = yt0.detach().contiguous()
-    thr = thr.detach().to(torch.float32).contiguous()
-    params = scalar_params(m, a, r_h, r_ph, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
+    thr = thr.detach().to(dtype).contiguous()
+    params = scalar_params(m, a, r_h, r_ph, dev, dtype)
+    fl = dict(dtype=dtype, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     k = k_slots
     shapes = [(8, n), (n,), (n,), (k, n), (k, n), (k, n), (n,), (n,), (3, n)]
-    dtypes = [f32, i32, i32, f32, f32, f32, i32, f32, f32]
+    dtypes = [fl, i32, i32, fl, fl, fl, i32, fl, fl]
     if out is None:
         out = [torch.empty(sh, **dt) for sh, dt in zip(shapes, dtypes)]
     elif len(out) != 9 or any(
@@ -257,13 +306,14 @@ def march_u(yt0: torch.Tensor, thr: torch.Tensor, m, a, r_h, r_ph, cfg,
     yo, hit, steps, cr, cp, ct, nc, rmin, jet = out
     if jets is None:
         jet.zero_()
-    c_mp = c_march_params(cfg)
-    c_jets = c_jet_params(jets)
+    c_mp = c_march_params(cfg, dtype)
+    c_jets = c_jet_params(jets, dtype)
+    launch = lib.bh_march_launch64 if _f64(dtype) else lib.bh_march_launch
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
         pool = ray_pool(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bh_march_launch(
+        err = launch(
             ptr(params), ptr(y), ptr(thr), ptr(yo), ptr(hit), ptr(steps),
             ptr(cr), ptr(cp), ptr(ct), ptr(nc), ptr(rmin),
             ctypes.c_void_p(None if jets is None else jet.data_ptr()),
@@ -301,17 +351,18 @@ def ray_pool(device) -> torch.Tensor:
     return pool
 
 
-def march_kernel_shape(cfg, jets=None) -> dict:
-    """The launch shape of the march kernel's instantiation for ``cfg`` and
-    ``jets``, from the built library on the current device: threads per
-    block, resident blocks and warps per SM
+def march_kernel_shape(cfg, jets=None, dtype=torch.float32) -> dict:
+    """The launch shape of the march kernel's instantiation for ``cfg``,
+    ``jets`` and ``dtype``, from the built library on the current device:
+    threads per block, resident blocks and warps per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SM count;
     the resident grid is their product."""
     lib = _march_library(kmax_for(cfg.max_crossings))
     out = (ctypes.c_int * 3)()
-    c_mp, c_jets = c_march_params(cfg), c_jet_params(jets)
-    err = lib.bh_march_shape(ctypes.byref(c_mp), None if jets is None
-                             else ctypes.byref(c_jets), out)
+    c_mp, c_jets = c_march_params(cfg, dtype), c_jet_params(jets, dtype)
+    shape = lib.bh_march_shape64 if _f64(dtype) else lib.bh_march_shape
+    err = shape(ctypes.byref(c_mp), None if jets is None
+                else ctypes.byref(c_jets), out)
     if err != 0:
         raise RuntimeError("march kernel shape query failed: "
                            f"{lib.bh_error_string(err).decode()}")
@@ -323,22 +374,26 @@ def march_kernel_shape(cfg, jets=None) -> dict:
 def load_library(source: str, params_size_fn: str,
                  kmax: int = KMAX_DEFAULT) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<source>`` with ``kmax``
-    crossing slots; check that its MarchParams matches ``_CMarchParams``."""
+    crossing slots; check that its MarchParams (and, where it has them, its
+    JetParams and their float64 forms) match ``_CMarchParams`` and the
+    others."""
     from blackhole_simulation_tpu_torch.ops.build import build
 
     lib = ctypes.CDLL(str(build(source, kmax)))
     lib.bh_error_string.argtypes = [ctypes.c_int]
     lib.bh_error_string.restype = ctypes.c_char_p
-    size = getattr(lib, params_size_fn)
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(_CMarchParams):
-        raise RuntimeError(f"MarchParams differs between csrc/{source} and "
-                           "ops/pallas_march.py")
-    jet_size = getattr(lib, "bh_jet_params_size", None)
-    if jet_size is not None:
-        jet_size.restype = ctypes.c_int
-        if jet_size() != ctypes.sizeof(_CJetParams):
-            raise RuntimeError(f"JetParams differs between csrc/{source} and "
+    checks = [(params_size_fn, _CMarchParams, "MarchParams"),
+              ("bh_jet_params_size", _CJetParams, "JetParams"),
+              ("bh_march_params64_size", _CMarchParams64,
+               "MarchParamsT<double>"),
+              ("bh_jet_params64_size", _CJetParams64, "JetParamsT<double>")]
+    for fn, cls, name in checks:
+        size = getattr(lib, fn, None)
+        if size is None and fn != params_size_fn:
+            continue
+        size.restype = ctypes.c_int
+        if size() != ctypes.sizeof(cls):
+            raise RuntimeError(f"{name} differs between csrc/{source} and "
                                "ops/pallas_march.py")
     return lib
 
@@ -346,9 +401,11 @@ def load_library(source: str, params_size_fn: str,
 @functools.cache
 def _march_library(kmax: int = KMAX_DEFAULT) -> ctypes.CDLL:
     lib = load_library("march.cu", "bh_march_params_size", kmax)
-    lib.bh_march_launch.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
-    lib.bh_march_launch.restype = ctypes.c_int
-    lib.bh_march_shape.argtypes = [ctypes.c_void_p] * 3
-    lib.bh_march_shape.restype = ctypes.c_int
+    for launch in (lib.bh_march_launch, lib.bh_march_launch64):
+        launch.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+        launch.restype = ctypes.c_int
+    for shape in (lib.bh_march_shape, lib.bh_march_shape64):
+        shape.argtypes = [ctypes.c_void_p] * 3
+        shape.restype = ctypes.c_int
     return lib

@@ -121,26 +121,30 @@ _P_PAD = -(-_P_TOTAL // 128) * 128
 
 
 @functools.lru_cache(maxsize=64)
-def _row_camera(cam, m: float, a: float):
-    """The row's camera scalars (``camera_scalars`` of float32 mass and
-    spin) as tuples of floats, cached: a scene's row is built every
-    sample, and these scalar torch operations would cost the host more
-    than the rest of the row."""
+def _row_camera(cam, m: float, a: float, dtype=torch.float32):
+    """The row's camera scalars (``camera_scalars`` of ``dtype`` mass and
+    spin, in ``dtype``) as tuples of floats, cached: a scene's row is built
+    every sample, and these scalar torch operations would cost the host
+    more than the rest of the row."""
     from blackhole_simulation_tpu_torch.render.camera import camera_scalars
 
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    t = lambda v: torch.tensor(v, dtype=dtype)
     return tuple(tuple(x.double().reshape(-1).tolist())
-                 for x in camera_scalars(cam, f32(m), f32(a)))
+                 for x in camera_scalars(cam, t(m), t(a), dtype=dtype))
 
 
-def build_param_row(scene, jitter=None) -> np.ndarray:
+def build_param_row(scene, jitter=None, dtype=torch.float32) -> np.ndarray:
     """The kernel's (_P_PAD,) float32 parameter row for one sample.
 
-    Built in float64 and cast once. Mass and spin are first rounded to
-    float32, as the JAX package casts them before it builds its row, and
-    the radii and the camera tetrad (``camera_scalars``, the staged
-    path's) come from them in float32 arithmetic, as the JAX package's do;
-    the camera's own values stay float64 until the cast. Tensor leaves
+    Built in float64 and cast once. With ``dtype`` float32 (the default)
+    mass and spin are first rounded to float32, as the JAX package casts
+    them before it builds its row, and the radii and the camera tetrad
+    (``camera_scalars``, the staged path's) come from them in float32
+    arithmetic, as the JAX package's do; with float64 (the JAX package's
+    fused route at ``dtype=float64``) mass and spin stay unrounded and
+    the radii, the tetrad, the stop radius and the overlay's width are
+    float64 arithmetic, until the one cast. The camera's own values stay
+    float64 until the cast. Tensor leaves
     enter by value (the row is host data: the fused kernel has no
     gradient path, as the JAX package's has none).
     ``scene.march_cfg`` must already carry render_sample's precull
@@ -158,17 +162,19 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
 
     cam = scene.camera.host()
     cfg = scene.march_cfg
-    m = float(np.float32(host(scene.bh.mass)))
-    a = float(np.float32(host(scene.bh.spin)))
+    f64 = dtype == torch.float64
+    rnd = float if f64 else (lambda v: float(np.float32(v)))
+    m = rnd(host(scene.bh.mass))
+    a = rnd(host(scene.bh.spin))
     (c0, c_r, c_th, c_ph, (k1,), (k2,), (roll_c,),
-     (roll_s,)) = _row_camera(cam, m, a)
+     (roll_s,)) = _row_camera(cam, m, a, dtype)
     u0 = math.cos(cam.theta)
     s0 = math.sqrt(max(1.0 - math.cos(cam.theta) ** 2, 1e-12))
     jx, jy = (0.0, 0.0) if jitter is None else (float(jitter[0]), float(jitter[1]))
 
-    r_h, r_ph, isco, hor_thr = _radii32(m, a, cfg.horizon_factor)
+    r_h, r_ph, isco, hor_thr = _radii(m, a, cfg.horizon_factor, dtype)
     if cfg.precull_keep_disk:
-        stop_r = max(isco, float(np.float32(cfg.record_r_min)), hor_thr)
+        stop_r = max(isco, rnd(cfg.record_r_min), hor_thr)
     else:
         stop_r = 1e9
     flip = -1.0 if a < 0.0 else 1.0
@@ -209,9 +215,9 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
         )
 
         o_al, o_be, o_va = bardeen_shadow(m, a, cam.theta, n=_OVERLAY_N)
-        f32 = np.float32
-        pix_b = f32(cam.fov / cam.height * cam.r)
-        row[_P_OVW] = max(f32(0.06) * f32(m), f32(1.5) * pix_b)
+        fl = np.float64 if f64 else np.float32
+        pix_b = fl(cam.fov / cam.height * cam.r)
+        row[_P_OVW] = max(fl(0.06) * fl(m), fl(1.5) * pix_b)
         row[_P_OAL:_P_OBE] = o_al
         row[_P_OBE:_P_OVA] = o_be
         row[_P_OVA:_P_NRS_BMIN] = o_va
@@ -225,18 +231,19 @@ def build_param_row(scene, jitter=None) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _radii32(m: float, a: float, horizon_factor: float):
-    """(r+, r_ph, ISCO, horizon_factor * r+) in float32 arithmetic from
-    float32 mass and spin, as the JAX package forms them for its row and
-    the staged path's event_horizon_t / photon_sphere_t / isco_t do: the
-    float64 values differ in the last bit, which moves every step size."""
+def _radii(m: float, a: float, horizon_factor: float, dtype=torch.float32):
+    """(r+, r_ph, ISCO, horizon_factor * r+) in ``dtype`` arithmetic from
+    ``dtype`` mass and spin, as the JAX package forms them for its row and
+    the staged path's event_horizon_t / photon_sphere_t / isco_t do: in
+    float32 the float64 values differ in the last bit, which moves every
+    step size."""
     from blackhole_simulation_tpu_torch.geometry.metrics import (
         event_horizon_t,
         isco_t,
         photon_sphere_t,
     )
 
-    mt, at = torch.tensor(np.float32(m)), torch.tensor(np.float32(a))
+    mt, at = torch.tensor(m, dtype=dtype), torch.tensor(a, dtype=dtype)
     r_h = event_horizon_t(mt, at)
     return (float(r_h), float(photon_sphere_t(mt, at)), float(isco_t(mt, at)),
             float(horizon_factor * r_h))

@@ -26,6 +26,19 @@ copies: each call copies the tensor to the host, runs the collective there
 and copies the result back to the tensor's device. Every gloo call takes
 that path, whatever the device, so nothing chooses it at run time (on a
 CPU tensor the copies are the tensor itself and a clone).
+
+The collectives are differentiable (``torch.autograd.Function``s), under
+the convention of JAX's ``shard_map`` with replicated outputs: every rank
+computes the same thing from a collective's result, so each holds the
+whole cotangent of it. ``all_gather``'s backward gives a rank its own
+slice of that cotangent; ``all_reduce_sum``'s the cotangent itself (the
+sum's derivative in each rank's own term); ``replicate`` is the identity
+on replicated inputs (a scene's leaves), whose backward all-reduces the
+gradients that each rank's shard contributes, so that every rank holds
+the whole gradient, as ``shard_map`` psums the cotangent of a replicated
+input. A backward that all-reduces is a collective too: every rank must
+run the backward, and ``replicate`` makes one all-reduce for all its
+tensors, so the order is the same on every rank.
 """
 
 from __future__ import annotations
@@ -187,11 +200,7 @@ def initialize_multihost(coordinator: str | None = None,
     raise RuntimeError(f"multi-host init failed after retries: {last}")
 
 
-def all_gather(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (equal shapes) concatenated along dim 0 in rank
-    order, on ``x``'s device; ``x`` itself on a mesh without a group."""
-    if mesh.group is None:
-        return x
+def _gather(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     host = mesh.backend == "gloo"
     src = (x.detach().cpu() if host else x.detach()).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
@@ -199,12 +208,91 @@ def all_gather(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=0).to(x.device)
 
 
-def all_reduce_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """The sum of every rank's ``x`` (a new tensor on ``x``'s device);
-    ``x`` itself on a mesh without a group."""
-    if mesh.group is None:
-        return x
+def _reduce(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     host = mesh.backend == "gloo"
     buf = (x.detach().cpu() if host else x.detach()).clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     return buf.to(x.device)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh, ctx.rows = mesh, x.shape[0]
+        return _gather(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.rank * ctx.rows
+        return None, g[lo:lo + ctx.rows]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x):
+        return _reduce(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        ctx.shapes = [x.shape for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        like = next(g for g in gs if g is not None)
+        flat = torch.cat([
+            (g if g is not None else like.new_zeros(shape)).reshape(-1)
+            .to(like.dtype) for g, shape in zip(gs, ctx.shapes)])
+        total = _reduce(ctx.mesh, flat)
+        out, at = [], 0
+        for g, shape in zip(gs, ctx.shapes):
+            k = math.prod(shape)
+            part = total[at:at + k].reshape(shape)
+            out.append(part.to(g.dtype) if g is not None else part)
+            at += k
+        return (None, *out)
+
+
+def all_gather(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along dim 0 in rank
+    order, on ``x``'s device; ``x`` itself on a mesh without a group.
+    Differentiable: the backward gives this rank the rows of the cotangent
+    that its ``x`` filled."""
+    if mesh.group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(mesh, x)
+    return _gather(mesh, x)
+
+
+def all_reduce_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's ``x`` (a new tensor on ``x``'s device);
+    ``x`` itself on a mesh without a group. Differentiable: the backward
+    passes this rank's cotangent of the sum to its ``x``."""
+    if mesh.group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduceSum.apply(mesh, x)
+    return _reduce(mesh, x)
+
+
+def replicate(mesh: Mesh, xs):
+    """The tensors ``xs`` (replicated: the same on every rank) as they are,
+    for the forward; in the backward, every rank's gradients of them
+    summed over the mesh in one all-reduce (in the gradients' dtype), so
+    that each rank holds the whole gradient of what all the shards computed
+    from them. ``xs`` itself on a mesh without a group, or where none of
+    them requires grad. Every rank must pass the same tensors, and run the
+    backward."""
+    xs = list(xs)
+    if (mesh.group is None or not torch.is_grad_enabled()
+            or not any(x.requires_grad for x in xs)):
+        return xs
+    return list(_Replicate.apply(mesh, *xs))

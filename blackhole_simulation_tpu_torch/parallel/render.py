@@ -22,6 +22,20 @@ jets' emission (``march_rows`` is called without ``jets``) on row-major
 rays, with the precull off; with no jets in the call, the march keeps the
 scene's kernel route (``approx_recip`` under ``use_pallas``), as JAX's
 takes its Pallas kernel.
+
+The sharded render is differentiable, as JAX's ``shard_map`` under
+``jax.grad`` is: the scene's tensor leaves (mass, spin, the camera's r,
+theta, phi, fov and roll) enter through ``mesh.replicate``, each rank's
+shard is marched by ``march_rows`` (under autograd the march kernel
+forward, the gradient kernel backward), and the gathered image's
+cotangent reaches each rank's shard through ``all_gather``'s backward.
+``replicate``'s backward sums the shards' leaf gradients over the mesh in
+one all-reduce, so every rank's leaves get the whole gradient, the same
+on every rank. Every rank runs the backward. ``dtype`` float64 renders
+in float64 on the float64 march kernel; with ``use_pallas`` and no jets
+it raises TypeError, as the JAX package's Pallas march does, and under
+autograd with ``use_pallas`` NotImplementedError, as ``jax.grad``
+raises; both before any collective.
 """
 
 from __future__ import annotations
@@ -31,7 +45,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from blackhole_simulation_tpu_torch.parallel.mesh import Mesh, all_gather
+from blackhole_simulation_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    replicate,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +85,32 @@ def _pad_to(n: int, multiple: int) -> int:
     return (n + multiple - 1) // multiple * multiple
 
 
+def _replicated_scene(scene, mesh: Mesh):
+    """``scene`` with its tensor leaves (mass, spin and the camera's five)
+    passed through ``replicate``: the same values, whose gradients the
+    backward sums over the mesh."""
+    cam = scene.camera
+    fields = ("r", "theta", "phi", "fov", "roll")
+    leaves = [scene.bh.mass, scene.bh.spin] + [getattr(cam, k)
+                                               for k in fields]
+    at = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+    for i, x in zip(at, replicate(mesh, [leaves[i] for i in at])):
+        leaves[i] = x
+    bh = dataclasses.replace(scene.bh, mass=leaves[0], spin=leaves[1])
+    cam = dataclasses.replace(cam, **dict(zip(fields, leaves[2:])))
+    return dataclasses.replace(scene, bh=bh, camera=cam)
+
+
 def render_sharded(scene, mesh: Mesh, n_samples: int = 1,
                    dtype=torch.float32) -> torch.Tensor:
     """Render ``scene`` with its rays sharded over ``mesh``: the tone-mapped
-    (H, W, 3) image on every rank (on ``mesh.device``). ``n_samples``
-    Halton-jittered samples are accumulated in the JAX package's order
-    (from zeros, then divided). Every rank of the mesh must call it."""
+    (H, W, 3) image in ``dtype`` on every rank (on ``mesh.device``).
+    ``n_samples`` Halton-jittered samples (jitters in ``dtype``) are
+    accumulated in the JAX package's order (from zeros, then divided).
+    Differentiable in the scene's tensor leaves (see the module
+    docstring). Every rank of the mesh must call it, with the same scene,
+    and, under autograd, run the backward."""
+    from blackhole_simulation_tpu_torch._elementwise import grad_wanted
     from blackhole_simulation_tpu_torch.ops.pallas_march import (
         TILE,
         from_block_order,
@@ -81,6 +119,8 @@ def render_sharded(scene, mesh: Mesh, n_samples: int = 1,
     from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
     from blackhole_simulation_tpu_torch.render.march import march_rows
     from blackhole_simulation_tpu_torch.render.pipeline import (
+        _mass_spin,
+        check_render_dtype,
         conserved_lam,
         halton_jitters,
         scene_luts,
@@ -98,11 +138,25 @@ def render_sharded(scene, mesh: Mesh, n_samples: int = 1,
         cfg = dataclasses.replace(cfg, shadow_precull=not scene.features.jets,
                                   precull_keep_disk=scene.features.disk)
     use_pallas = cfg.use_pallas and not scene.features.jets
+    # Every refusal before the first collective, the same on every rank.
+    check_render_dtype(dtype)
+    if cfg.use_pallas and dtype == torch.float64:
+        raise TypeError(
+            "render_sharded: float64 rays on the Pallas march route, where "
+            "the JAX package's pallas_march_u fails to trace (TypeError: "
+            "while_loop body function carry input and carry output must "
+            "have equal types); take use_pallas=False")
+    if cfg.use_pallas and grad_wanted(*scene.leaves()):
+        raise NotImplementedError(
+            "render_sharded: use_pallas marches on the march kernel forward "
+            "only, as the JAX package's pallas_march_u has no VJP (jax.grad "
+            "raises); take use_pallas=False")
     pad_unit = n_dev * TILE if use_pallas else n_dev
     spec = shard_rays_spec(mesh)
-    m = torch.tensor(float(scene.bh.mass), dtype=dtype, device=device)
-    a = torch.tensor(float(scene.bh.spin), dtype=dtype, device=device)
-    luts = scene_luts(scene, device)
+    scene = _replicated_scene(scene, mesh)
+    cam = scene.camera
+    m, a = _mass_spin(scene, device, dtype)
+    luts = scene_luts(scene, device, dtype)
 
     def one_sample(jitter):
         rays = camera_rays_u(cam, m, a, jitter=jitter, dtype=dtype)
@@ -118,15 +172,15 @@ def render_sharded(scene, mesh: Mesh, n_samples: int = 1,
         rgb = all_gather(mesh, rgb)[:n]
         return from_block_order(rgb, h, w) if use_pallas else rgb
 
-    with torch.no_grad():
-        if n_samples == 1:
-            acc = one_sample(None)
-        else:
-            acc = torch.zeros((n_pix, 3), dtype=dtype, device=device)
-            for jit in halton_jitters(n_samples).astype(np.float32):
-                acc = acc + one_sample(jit)
-            acc = acc / n_samples
-        return tonemap(acc.reshape(h, w, 3), scene.post)
+    if n_samples == 1:
+        acc = one_sample(None)
+    else:
+        acc = torch.zeros((n_pix, 3), dtype=dtype, device=device)
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        for jit in halton_jitters(n_samples, np_dtype):
+            acc = acc + one_sample(jit)
+        acc = acc / n_samples
+    return tonemap(acc.reshape(h, w, 3), scene.post)
 
 
 def single_device_twin(scene):

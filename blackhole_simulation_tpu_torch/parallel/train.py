@@ -36,6 +36,17 @@ vector, with its gradient, and all-reduces what the JAX twin psums; Adam
 then runs the same on every rank, on ``mesh.device``. The mesh path uses
 row-major pixels even with ``use_pallas``, and divides by the frame's
 pixel count, as the JAX twin's does.
+
+Every entry takes ``dtype`` (``torch.float32`` by default, or
+``torch.float64``), as the JAX twin's: the forward renders in it (rays,
+march, shading; with float64 on the march and gradient kernels' float64
+instantiations), the parameters of ``InverseParams.init`` and the AD
+steps' Adam moments are of it, and on a mesh the losses and gradients are
+all-reduced in it. The central-difference state stays the JAX twin's
+float32 vector, which its float64 gradient promotes after the first step,
+as the JAX twin's does. With ``use_pallas`` the float64 forward raises
+TypeError, as the JAX twin's Pallas march (``march_rows_ad``) fails to
+trace on float64 rays.
 """
 
 from __future__ import annotations
@@ -43,7 +54,6 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import numpy as np
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import const, div_c, host
@@ -54,7 +64,8 @@ _FIELDS = ("spin", "theta_cam", "log_density", "log_t_peak")
 
 @dataclasses.dataclass(frozen=True)
 class InverseParams:
-    """The recoverable scene parameters: four 0-dim float32 tensors."""
+    """The recoverable scene parameters: four 0-dim tensors (float32, or
+    float64 for a float64 inverse)."""
 
     spin: torch.Tensor
     theta_cam: torch.Tensor
@@ -63,8 +74,8 @@ class InverseParams:
 
     @classmethod
     def init(cls, spin=0.5, theta_cam=1.3, density=0.7, t_peak=9000.0,
-             device="cpu"):
-        f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+             device="cpu", dtype=torch.float32):
+        f = lambda v: torch.tensor(v, dtype=dtype, device=device)
         return cls(spin=f(spin), theta_cam=f(theta_cam),
                    log_density=torch.log(f(density)),
                    log_t_peak=torch.log(f(t_peak)))
@@ -81,11 +92,12 @@ class InverseParams:
 
 
 def inverse_params_from_numpy(spin, theta_cam, log_density, log_t_peak,
-                              device="cpu") -> InverseParams:
+                              device="cpu",
+                              dtype=torch.float32) -> InverseParams:
     """InverseParams from plain numbers (a JAX InverseParams' leaves), so
-    both packages can step from the same state."""
+    both packages can step from the same state, as ``dtype`` tensors."""
     return InverseParams.from_leaves([
-        torch.tensor(np.float32(v), device=device)
+        torch.tensor(float(v), dtype=dtype, device=device)
         for v in (spin, theta_cam, log_density, log_t_peak)
     ])
 
@@ -98,12 +110,12 @@ def init_opt_state(params: InverseParams):
                                       device=params.spin.device))
 
 
-def _forward(params: InverseParams, scene, pix_ids):
-    """Radiance (len(pix_ids), 3) of the parameterized scene: rays for the
-    given row-major pixel ids, the differentiable march (``march_rows_ad``
-    with ``use_pallas``, ``march_rows`` without, the start offset
-    included), the composite with the density and peak-temperature
-    scales."""
+def _forward(params: InverseParams, scene, pix_ids, dtype=torch.float32):
+    """Radiance (len(pix_ids), 3) of the parameterized scene in ``dtype``:
+    rays for the given row-major pixel ids, the differentiable march
+    (``march_rows_ad`` with ``use_pallas``, ``march_rows`` without, the
+    start offset included), the composite with the density and
+    peak-temperature scales."""
     from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
     from blackhole_simulation_tpu_torch.render.march import (
         march_rows,
@@ -115,14 +127,16 @@ def _forward(params: InverseParams, scene, pix_ids):
     )
 
     dev = params.spin.device
-    m = torch.tensor(host(scene.bh.mass), dtype=torch.float32, device=dev)
-    a = params.spin
+    m = torch.tensor(host(scene.bh.mass), dtype=dtype, device=dev)
+    a = params.spin.to(dtype)
     # Density and peak temperature enter as multiplicative scales on the
     # static DiskParams.
-    dens_scale = div_c(torch.exp(params.log_density), scene.disk.density)
-    int_scale = torch.exp(params.log_t_peak - math.log(scene.disk.t_peak))
+    dens_scale = div_c(torch.exp(params.log_density).to(dtype),
+                       scene.disk.density)
+    int_scale = torch.exp(params.log_t_peak
+                          - math.log(scene.disk.t_peak)).to(dtype)
     rays = camera_rays_u(scene.camera, m, a, pix_ids=pix_ids,
-                         theta=params.theta_cam)
+                         theta=params.theta_cam, dtype=dtype)
     cfg = scene.march_cfg
     rows = (march_rows_ad if cfg.use_pallas else march_rows)(rays, m, a, cfg)
     rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
@@ -211,8 +225,10 @@ def _psum(mesh, loss, grads):
 
 
 def make_inverse_step(scene, mesh=None, lr=2e-2, b1=0.9, b2=0.999, eps=1e-8,
-                      total_steps: int | None = None, device=None):
-    """One Adam step on the per-pixel MSE at the scene's own march config:
+                      total_steps: int | None = None, device=None,
+                      dtype=torch.float32):
+    """One Adam step on the per-pixel MSE at the scene's own march config,
+    rendered in ``dtype``:
     ((params, opt_state), target) -> ((params', opt_state'), loss). Bare
     InverseParams start a fresh optimizer state. Without a mesh and with
     ``use_pallas`` the pixels are in block order (``to_block_order``): the
@@ -238,12 +254,12 @@ def make_inverse_step(scene, mesh=None, lr=2e-2, b1=0.9, b2=0.999, eps=1e-8,
     def step(state, target):
         params, opt_state = _unpack(state, device)
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
-        target_flat = target_flat.to(torch.float32)
+        target_flat = target_flat.to(dtype)
         target_flat = (spec.shard(target_flat, 0) if mesh is not None
                        else target_flat[pix_order])
 
         def loss_fn(p):
-            rgb = _forward(p, scene, pix_order)
+            rgb = _forward(p, scene, pix_order, dtype)
             return torch.sum((rgb - target_flat) ** 2)
 
         loss, grads = _value_and_grad(loss_fn, params)
@@ -260,7 +276,8 @@ def make_inverse_step(scene, mesh=None, lr=2e-2, b1=0.9, b2=0.999, eps=1e-8,
 # march returns gradients of random sign on near-critical rays (the JAX
 # twin's rationale, train.py:222-236), while the loss itself is a smooth
 # basin: central differences of the loss value at h ~ the basin scale
-# converge. The state vector and Adam moments are float32.
+# converge. The state vector and Adam moments are float32 (the moments
+# take a float64 gradient's dtype from the first step on).
 
 _FD_FIELDS = _FIELDS
 _FD_H = (0.008, 0.008, 0.05, 0.05)
@@ -290,10 +307,11 @@ def fd_state_params(state) -> InverseParams:
 
 def make_fd_inverse_step(scene, mesh=None, lr=3e-2, b1=0.9, b2=0.999,
                          eps=1e-8, total_steps: int | None = None, h=_FD_H,
-                         device=None):
+                         device=None, dtype=torch.float32):
     """One central-difference Adam step:
     ((vec, opt_state), target) -> ((vec', opt_state'), loss). The loss is
-    the per-pixel MSE over the row-major frame divided by the pixel count,
+    the per-pixel MSE over the row-major frame, rendered and summed in
+    ``dtype`` (its (9,) vector all-reduced in it), divided by the pixel count,
     at the centre and at +-h along each parameter (nine forward passes);
     the gradient is the central difference; Adam with the cosine lr
     schedule when ``total_steps`` is set, and spin clipped to +-0.998. With
@@ -320,12 +338,12 @@ def make_fd_inverse_step(scene, mesh=None, lr=3e-2, b1=0.9, b2=0.999,
 
         vec, (m_t, v_t, t) = state
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
-        target_flat = target_flat.to(torch.float32)
+        target_flat = target_flat.to(dtype)
         if mesh is not None:
             target_flat = spec.shard(target_flat, 0)
         with torch.no_grad():
             ls = torch.stack([
-                torch.sum((_forward(_vec_to_params(v), scene, pix_ids)
+                torch.sum((_forward(_vec_to_params(v), scene, pix_ids, dtype)
                            - target_flat) ** 2)
                 for v in vec[None, :] + offsets
             ])
@@ -352,14 +370,15 @@ def make_fd_inverse_step(scene, mesh=None, lr=3e-2, b1=0.9, b2=0.999,
 
 
 def fd_inverse_render(scene, target, n_steps=40, mesh=None, lr=3e-2,
-                      init: InverseParams | None = None, device=None):
+                      init: InverseParams | None = None, device=None,
+                      dtype=torch.float32):
     """Central-difference inverse rendering: ``n_steps`` of
-    ``make_fd_inverse_step`` with the cosine schedule over them. Returns
-    (params, loss_history)."""
+    ``make_fd_inverse_step`` with the cosine schedule over them, rendered
+    in ``dtype``. Returns (params, loss_history)."""
     device = _step_device(mesh, device)
-    params = (init or InverseParams.init()).to(device)
+    params = (init or InverseParams.init(dtype=dtype)).to(device)
     step = make_fd_inverse_step(scene, mesh, lr, total_steps=n_steps,
-                                device=device)
+                                device=device, dtype=dtype)
     state = fd_state_init(params)
     target = torch.as_tensor(target, device=device)
     losses = []
@@ -371,9 +390,11 @@ def fd_inverse_render(scene, target, n_steps=40, mesh=None, lr=3e-2,
 
 def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
                          march_steps: int = 64, clip: float = 0.03,
-                         total_steps: int | None = None, device=None):
+                         total_steps: int | None = None, device=None,
+                         dtype=torch.float32):
     """One curriculum stage's Adam step on the pooled pixel loss, marched
-    at ``march_steps`` with the per-step cotangent clip ``clip``:
+    at ``march_steps`` with the per-step cotangent clip ``clip``, rendered
+    in ``dtype``:
     ((params, opt_state), target) -> ((params', opt_state'), loss). With a
     mesh each rank renders and pools its own slab of height / n_dev rows;
     (height // pool) must divide the mesh size."""
@@ -406,13 +427,13 @@ def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
     def step(state, target):
         params, opt_state = _unpack(state, device)
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
-        target_flat = target_flat.to(torch.float32)
+        target_flat = target_flat.to(dtype)
         if mesh is not None:
             target_flat = spec.shard(target_flat, 0)
         target_p = pooled(target_flat)
 
         def loss_fn(p):
-            return torch.sum((pooled(_forward(p, stage_scene, pix))
+            return torch.sum((pooled(_forward(p, stage_scene, pix, dtype))
                               - target_p) ** 2)
 
         loss, grads = _value_and_grad(loss_fn, params)
@@ -427,12 +448,12 @@ def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
 
 def ad_inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
                       init: InverseParams | None = None, stages=_AD_STAGES,
-                      device=None):
+                      device=None, dtype=torch.float32):
     """The short-horizon pooled-gradient curriculum: ``n_steps`` split over
-    the (march steps, pool) stages, fresh Adam moments per stage. Returns
-    (params, loss_history)."""
+    the (march steps, pool) stages, fresh Adam moments per stage, rendered
+    in ``dtype``. Returns (params, loss_history)."""
     device = _step_device(mesh, device)
-    params = (init or InverseParams.init()).to(device)
+    params = (init or InverseParams.init(dtype=dtype)).to(device)
     target = torch.as_tensor(target, device=device)
     per = max(n_steps // len(stages), 1)
     lrs = [3e-2, 1.2e-2, 6e-3] if lr is None else [lr] * len(stages)
@@ -440,7 +461,8 @@ def ad_inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
     for (march_steps, pool), lr_s in zip(stages, lrs):
         step = make_ad_inverse_step(scene, mesh, lr_s, pool=pool,
                                     march_steps=march_steps,
-                                    total_steps=per, device=device)
+                                    total_steps=per, device=device,
+                                    dtype=dtype)
         state = (params, init_opt_state(params))
         for _ in range(per):
             state, loss = step(state, target)
@@ -451,25 +473,25 @@ def ad_inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
 
 def inverse_render(scene, target, n_steps=90, mesh=None, lr=None,
                    init: InverseParams | None = None, method: str = "ad",
-                   ad_stages=_AD_STAGES, device=None):
-    """Run the inverse optimization; returns (params, loss_history).
-    ``method``: "ad" (the curriculum, ad_inverse_render), "fd" (central
-    differences, fd_inverse_render, lr 3e-2 by default) or "ad-step" (the
-    raw step at the scene's own config). ``mesh`` shards each step over
-    the mesh."""
+                   ad_stages=_AD_STAGES, device=None, dtype=torch.float32):
+    """Run the inverse optimization in ``dtype``; returns (params,
+    loss_history). ``method``: "ad" (the curriculum, ad_inverse_render),
+    "fd" (central differences, fd_inverse_render, lr 3e-2 by default) or
+    "ad-step" (the raw step at the scene's own config). ``mesh`` shards
+    each step over the mesh."""
     if method == "fd":
         return fd_inverse_render(scene, target, n_steps, mesh,
                                  3e-2 if lr is None else lr, init,
-                                 device=device)
+                                 device=device, dtype=dtype)
     if method == "ad":
         return ad_inverse_render(scene, target, n_steps, mesh, lr, init,
-                                 stages=ad_stages, device=device)
+                                 stages=ad_stages, device=device, dtype=dtype)
     if method != "ad-step":
         raise ValueError(f"unknown method {method!r}")
     device = _step_device(mesh, device)
     step = make_inverse_step(scene, mesh, 2e-2 if lr is None else lr,
-                             total_steps=n_steps, device=device)
-    params = (init or InverseParams.init()).to(device)
+                             total_steps=n_steps, device=device, dtype=dtype)
+    params = (init or InverseParams.init(dtype=dtype)).to(device)
     state = (params, init_opt_state(params))
     target = torch.as_tensor(target, device=device)
     losses = []

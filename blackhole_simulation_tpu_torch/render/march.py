@@ -27,6 +27,14 @@ kernel, which has no VJP. ``march_rows_ad`` is the JAX package's twin: no
 jets, no start offset. ``approx_recip`` applies in the kernels when
 ``use_pallas`` is set, as the JAX package applies it in its Pallas kernels
 only.
+
+The march runs in the rays' dtype, float32 or float64 (mass, spin and the
+radii cast to it, no float32 rounding on the way): float64 rays take the
+kernels' float64 instantiations on the card. Where the JAX package would
+run its Pallas march on float64 rays (``use_pallas`` without jets, and
+``march_rows_ad``), its trace fails with a TypeError ("while_loop body
+function carry input and carry output must have equal types"); the port
+raises TypeError there too.
 """
 
 from __future__ import annotations
@@ -203,9 +211,10 @@ def _kernel_cfg(cfg: MarchConfig, jets=None) -> MarchConfig:
 
 
 def precull_threshold(yt0: torch.Tensor, m, a, cfg: MarchConfig):
-    """(N,) per-ray termination radius from the u-chart rows: the horizon
-    radius, or for pre-culled rays the ISCO (disk kept) or 1e9 (instant
-    death). ``m``, ``a``: 0-d float32 tensors. Not differentiable."""
+    """(N,) per-ray termination radius from the u-chart rows, in their
+    dtype: the horizon radius, or for pre-culled rays the ISCO (disk kept)
+    or 1e9 (instant death). ``m``, ``a``: 0-d tensors of the rows' dtype.
+    Not differentiable."""
     from blackhole_simulation_tpu_torch.geometry.metrics import (
         event_horizon_t,
         isco_t,
@@ -228,9 +237,22 @@ def precull_threshold(yt0: torch.Tensor, m, a, cfg: MarchConfig):
         return torch.where(dead, stop_r, horizon_r)
 
 
+def _refuse_pallas_f64(yt0, where: str) -> None:
+    """TypeError for float64 rays on the JAX package's Pallas march route,
+    whose trace fails there."""
+    if yt0.dtype == torch.float64:
+        raise TypeError(
+            f"{where}: float64 rays on the Pallas march route, where the JAX "
+            "package's pallas_march_u fails to trace (TypeError: while_loop "
+            "body function carry input and carry output must have equal "
+            "types); a float64 march takes use_pallas=False, or jets")
+
+
 def _march_inputs(yt0, mass, spin, cfg, thr):
     """Radii, termination radii and the normalized, null-renormalized rows
-    (their derivatives by autograd)."""
+    (their derivatives by autograd), in the rows' dtype: a number's mass
+    or spin rounded once to it."""
+    from blackhole_simulation_tpu_torch._elementwise import leaf
     from blackhole_simulation_tpu_torch.geometry.metrics import (
         event_horizon_t,
         photon_sphere_t,
@@ -239,8 +261,8 @@ def _march_inputs(yt0, mass, spin, cfg, thr):
     from blackhole_simulation_tpu_torch.ops.pallas_march import normalize_pt
 
     dtype = yt0.dtype
-    m = torch.as_tensor(mass, device=yt0.device).to(dtype)
-    a = torch.as_tensor(spin, device=yt0.device).to(dtype)
+    m = leaf(mass, dtype, yt0.device)
+    a = leaf(spin, dtype, yt0.device)
     r_h = event_horizon_t(m, a).to(dtype)
     r_ph = photon_sphere_t(m, a).to(dtype)
     if thr is None:
@@ -266,11 +288,14 @@ def march_rows(yt0: torch.Tensor, mass, spin, cfg: MarchConfig = MarchConfig(),
     ``thr`` is detached (it enters comparisons only). Raises
     NotImplementedError there for ``cfg.use_pallas`` without jets, where
     the JAX package marches on its Pallas kernel, which has no VJP
-    (``jax.grad`` raises)."""
+    (``jax.grad`` raises). Float64 rays with ``cfg.use_pallas`` and no jets
+    raise TypeError, as the JAX package's Pallas march does."""
     from blackhole_simulation_tpu_torch._elementwise import grad_wanted
     from blackhole_simulation_tpu_torch.ops.march import start_offset_rows
     from blackhole_simulation_tpu_torch.ops.pallas_march import march_u
 
+    if cfg.use_pallas and jets is None:
+        _refuse_pallas_f64(yt0, "march_rows")
     differentiable = grad_wanted(yt0, mass, spin)
     if differentiable and cfg.use_pallas and jets is None:
         raise NotImplementedError(
@@ -343,7 +368,10 @@ def march_rows_ad(yt0: torch.Tensor, mass, spin,
 
     The AB3 march (``multistep`` with ``use_pallas``) is refused: the
     gradient kernel replays the midpoint march, so its gradient would be of
-    another march than the forward's."""
+    another march than the forward's. Float64 rays raise TypeError: the
+    JAX twin marches them on its Pallas kernel, which fails to trace
+    there."""
+    _refuse_pallas_f64(yt0, "march_rows_ad")
     cfg = _kernel_cfg(cfg)
     if cfg.multistep:
         raise NotImplementedError(

@@ -18,7 +18,6 @@ only, as the JAX package does.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import (
@@ -52,7 +51,7 @@ def pixel_celestial_coords(y0: torch.Tensor, a, theta_obs):
     eta = q * inv_e * inv_e
 
     th0 = (theta_obs.to(y0.dtype) if isinstance(theta_obs, torch.Tensor)
-           else const(y0, float(np.float32(theta_obs))))
+           else const(y0, float(theta_obs)))
     s0 = sin(th0)
     c0 = cos(th0)
     s0 = torch.where(torch.abs(s0) < 1e-6, 1e-6, s0)
@@ -66,7 +65,7 @@ def pixel_celestial_coords(y0: torch.Tensor, a, theta_obs):
 
 def _polyline_distance_sq(px, py, deficit, cx, cy, valid):
     """Least squared distance from the points (px, py) to the closed
-    polyline (cx, cy) (K,) float32, skipping the segments with an invalid
+    polyline (cx, cy) (K,), skipping the segments with an invalid
     endpoint (``valid``: host bools), plus the beta^2 deficit."""
     k = cx.shape[0]
     dmin = torch.full_like(px, 1e30)
@@ -88,28 +87,27 @@ def _polyline_distance_sq(px, py, deficit, cx, cy, valid):
 def shadow_overlay(radiance: torch.Tensor, y0: torch.Tensor, m, a,
                    theta_obs, n_pts: int = 32, line_width=None,
                    color=(0.15, 1.0, 0.35), gain: float = 1.2) -> torch.Tensor:
-    """Add the analytic critical curve to (N, 3) linear radiance.
+    """Add the analytic critical curve to (N, 3) linear radiance, in the
+    rays' dtype (the JAX twin's ``dtype``: float32, or float64).
 
-    ``y0``: (N, 8) theta-form camera rays; ``m``, ``a``: 0-d float32
-    tensors; ``theta_obs``: a number or a 0-d tensor; ``line_width``: the
+    ``y0``: (N, 8) theta-form camera rays; ``m``, ``a``: 0-d tensors of
+    the rays' dtype; ``theta_obs``: a number or a 0-d tensor; ``line_width``: the
     Gaussian half-width in impact-parameter units (0.06 M when None; the
     pipeline passes ~1.5 pixels' worth). Differentiable in the rows, m, a,
     theta_obs and the width: the curve is ``bardeen_shadow_t``'s, float64
-    rounded to float32 as the JAX twin's."""
+    rounded to the rays' dtype as the JAX twin's."""
     from blackhole_simulation_tpu_torch.physics.shadow import bardeen_shadow_t
 
     m = torch.as_tensor(m, dtype=y0.dtype, device=y0.device)
     if line_width is None:
         line_width = 0.06 * m
     alpha_c, beta_c, valid = bardeen_shadow_t(m, a, theta_obs, n_pts)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),
-                                    device=y0.device)
     px, py, deficit = pixel_celestial_coords(y0, a, theta_obs)
     d_sq = _polyline_distance_sq(px, py, deficit,
-                                 alpha_c.to(y0.device, torch.float32),
-                                 beta_c.to(y0.device, torch.float32),
+                                 alpha_c.to(y0.device, y0.dtype),
+                                 beta_c.to(y0.device, y0.dtype),
                                  valid.tolist())
     w = torch.as_tensor(line_width, dtype=y0.dtype, device=y0.device)
     weight = gain * exp(-d_sq / maximum(w * w, 1e-12))
-    tint = f32(color)
+    tint = torch.tensor(color, dtype=y0.dtype, device=y0.device)
     return radiance + weight[:, None] * tint[None, :]

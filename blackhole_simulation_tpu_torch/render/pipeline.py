@@ -54,6 +54,21 @@ JAX package raises (a fused scene, or ``use_pallas`` without jets, whose
 Pallas kernels have no VJP) the port raises NotImplementedError. No cache
 is keyed by a tensor leaf: the host reads their values (``_elementwise.
 host``) for its static decisions and caches.
+
+Every entry takes ``dtype`` (``torch.float32`` by default, or
+``torch.float64``), as the JAX package's do, and follows its routes:
+
+* staged (``use_pallas=False``): the render in ``dtype`` end to end, mass
+  and spin unrounded in float64, the march on the march kernel's float64
+  instantiation (its plain version on the CPU) and, under autograd, its
+  gradient on the gradient kernel's;
+* fused: the render kernel in float32 on a parameter row built from the
+  float64 mass and spin, the camera tetrad and the radii in float64
+  (``ops/render.build_param_row``), so the image is float32, as the JAX
+  package's Pallas kernel returns it; ``render`` accumulates its samples
+  in ``dtype`` (from zeros) where there are several, as JAX's scan does;
+* staged with ``use_pallas`` and no jets: TypeError in float64, where the
+  JAX package's Pallas march fails to trace (``march_rows``).
 """
 
 from __future__ import annotations
@@ -210,11 +225,12 @@ def _halton(i: int, base: int) -> float:
     return r
 
 
-def halton_jitters(n: int) -> np.ndarray:
-    """n Halton(2, 3) sub-pixel offsets in [-0.5, 0.5]^2, float32 (n, 2)."""
+def halton_jitters(n: int, dtype=np.float32) -> np.ndarray:
+    """n Halton(2, 3) sub-pixel offsets in [-0.5, 0.5]^2, (n, 2), formed in
+    float64 and rounded once to ``dtype`` (float32 by default)."""
     return np.array(
         [[_halton(i + 1, 2) - 0.5, _halton(i + 1, 3) - 0.5] for i in range(n)],
-        np.float32,
+        dtype,
     ).reshape(n, 2)
 
 
@@ -253,9 +269,10 @@ def precull_config(scene: Scene, cfg: MarchConfig) -> MarchConfig:
                                precull_keep_disk=scene.features.disk)
 
 
-def kernel_inputs(scene: Scene, jitter, device):
+def kernel_inputs(scene: Scene, jitter, device, dtype=torch.float32):
     """The render kernel's inputs for one sample: the parameter row on
-    ``device`` and the static configuration."""
+    ``device`` (built in ``dtype``'s route, ``build_param_row``) and the
+    static configuration."""
     from blackhole_simulation_tpu_torch.ops.render import (
         RenderStatic,
         build_param_row,
@@ -264,7 +281,7 @@ def kernel_inputs(scene: Scene, jitter, device):
 
     cfg = precull_config(scene, scene.march_cfg)
     scene_f = dataclasses.replace(scene, march_cfg=cfg)
-    row = torch.from_numpy(build_param_row(scene_f, jitter)).to(device)
+    row = torch.from_numpy(build_param_row(scene_f, jitter, dtype)).to(device)
     feats = scene.features
     st = RenderStatic(
         cfg=cfg, disk_on=feats.disk, spectral=feats.spectral_lut,
@@ -332,9 +349,10 @@ def _composite(scene: Scene, m, a, hit, crossings, n_crossings, r_min_ph,
 
 
 def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
-                     intensity_scale=1.0, luts=None):
+                     intensity_scale=1.0, luts=None, dtype=None):
     """The staged composite (``_composite``) of MarchRows, as (r, g, b)
-    rows. ``m``, ``a``: 0-dim float32 tensors; ``lam``: the (N,) conserved
+    rows in ``dtype`` (the rows' own, float32 or float64, when None).
+    ``m``, ``a``: 0-dim tensors of that dtype; ``lam``: the (N,) conserved
     impact parameter L_z/E; ``luts``: the spectral disk's tables for this
     ``m`` and ``a`` (``scene_luts``), else looked up from them.
     Differentiable (autograd)."""
@@ -342,6 +360,8 @@ def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
         escape_direction_u_rows,
     )
 
+    if dtype is not None:
+        lam = lam.to(dtype)
     return _composite(
         scene, m, a, rows.hit, (rows.cross_r, rows.cross_phi, rows.cross_t),
         rows.n_crossings, rows.r_min_ph, lam, rows.state_u,
@@ -384,11 +404,11 @@ def conserved_lam(rays: torch.Tensor) -> torch.Tensor:
     return -rays[7] / torch.where(torch.abs(rays[4]) < 1e-12, -1.0, rays[4])
 
 
-def scene_luts(scene: Scene, device):
-    """The staged spectral composite's tables for the scene's own mass and
-    spin (as float32, the values ``_mass_spin`` marches) on ``device``:
-    cached, so a frame reads nothing back, or, where autograd wants a
-    derivative of mass or spin, built in the graph from them
+def scene_luts(scene: Scene, device, dtype=torch.float32):
+    """The staged spectral composite's tables in ``dtype`` for the scene's
+    own mass and spin (in ``dtype``, the values ``_mass_spin`` marches) on
+    ``device``: cached, so a frame reads nothing back, or, where autograd
+    wants a derivative of mass or spin, built in the graph from them
     (``shading.disk_luts_for``); None where the disk shades without
     them."""
     from blackhole_simulation_tpu_torch.render.shading import disk_luts_for
@@ -397,15 +417,24 @@ def scene_luts(scene: Scene, device):
     if (not feats.disk or not feats.spectral_lut
             or scene.spectral_coeffs is not None):
         return None
-    m, a = _mass_spin(scene, device)
-    return disk_luts_for(m, a, scene.disk, torch.device(device))
+    m, a = _mass_spin(scene, device, dtype)
+    return disk_luts_for(m, a, scene.disk, torch.device(device), dtype)
 
 
-def _mass_spin(scene: Scene, device):
-    """The scene's mass and spin as 0-dim float32 tensors on ``device``
-    (keeping a tensor leaf's graph)."""
-    return (leaf(scene.bh.mass, torch.float32, device),
-            leaf(scene.bh.spin, torch.float32, device))
+def _mass_spin(scene: Scene, device, dtype=torch.float32):
+    """The scene's mass and spin as 0-dim ``dtype`` tensors on ``device``
+    (keeping a tensor leaf's graph; a number is rounded once, so float64
+    keeps it unrounded, as JAX's ``bh.mass.astype(float64)``)."""
+    return (leaf(scene.bh.mass, dtype, device),
+            leaf(scene.bh.spin, dtype, device))
+
+
+def check_render_dtype(dtype) -> None:
+    """ValueError unless ``dtype`` is float32 or float64, the JAX
+    package's render dtypes."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, got "
+                         f"{dtype}")
 
 
 def _refuse_kernel_grad(scene: Scene, where: str):
@@ -469,15 +498,20 @@ def select_band(band: torch.Tensor, height: int, width: int, k: int,
 
 
 def refine_critical_band(scene: Scene, cfg: MarchConfig, jitter,
-                         rgb: torch.Tensor, band: torch.Tensor) -> torch.Tensor:
+                         rgb: torch.Tensor, band: torch.Tensor,
+                         dtype=torch.float32, pix_ids=None) -> torch.Tensor:
     """The critical-band refinement pass: the rays of the pixels that
     ``select_band`` picks are born again (``camera_rays_u`` at their ids,
-    with the sample's jitter), re-marched as one batch at
+    with the sample's jitter, in ``dtype``), re-marched as one batch at
     ``refinement_config(cfg)`` (on the march kernel for CUDA tensors),
-    shaded by ``shade_march_rows``, and written over their pixels.
+    shaded by ``shade_march_rows``, and written over their pixels (which
+    takes ``rgb``'s dtype: float32 planes of the fused kernel keep it).
 
-    ``rgb``: (3, N) row-major radiance; ``band``: (N,) row-major metric.
-    Returns the new (3, N). Every one of the k rays is marched; those not
+    ``rgb``: (3, N) radiance; ``band``: (N,) metric in the same pixel
+    order; ``pix_ids``: the row-major pixel id of each position, None for
+    row-major order (the render paths pass row-major planes). The
+    selection reads ``band`` as a row-major frame whatever its order, as
+    the JAX package's does. Returns the new (3, N). Every one of the k rays is marched; those not
     in the band (id n) are dropped by the scatter, as the JAX package's
     ``mode="drop"`` does. Nothing here waits on the device."""
     from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
@@ -490,21 +524,24 @@ def refine_critical_band(scene: Scene, cfg: MarchConfig, jitter,
     k = min(cfg.refine_budget, n)
     sel = select_band(band, scene.camera.height, scene.camera.width, k,
                       cfg.refine_band)
-    m, a = _mass_spin(scene, band.device)
-    rays = camera_rays_u(scene.camera, m, a, pix_ids=torch.clamp(sel, max=n - 1),
-                         jitter=jitter)
+    m, a = _mass_spin(scene, band.device, dtype)
+    ids = torch.clamp(sel, max=n - 1)
+    if pix_ids is not None:
+        ids = torch.as_tensor(pix_ids, device=band.device)[ids]
+    rays = camera_rays_u(scene.camera, m, a, pix_ids=ids, jitter=jitter,
+                         dtype=dtype)
     jets = scene.jet_params if scene.features.jets else None
     rows = march_rows(rays, m, a, refinement_config(cfg), jets=jets)
     rgb_f = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
-                             luts=scene_luts(scene, band.device))
+                             luts=scene_luts(scene, band.device, dtype))
     # Column n catches the out-of-band entries and is cut off.
     out = torch.cat([rgb, rgb.new_zeros((3, 1))], dim=1)
-    out[:, sel] = torch.stack(rgb_f)
+    out[:, sel] = torch.stack(rgb_f).to(out.dtype)
     return out[:, :n]
 
 
-def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
-    """The staged branch: (3, H, W) float32 radiance planes."""
+def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device, dtype):
+    """The staged branch: (3, H, W) ``dtype`` radiance planes."""
     from blackhole_simulation_tpu_torch.models.nrs import nrs_far_field_rows
     from blackhole_simulation_tpu_torch.ops.pallas_march import (
         from_block_order,
@@ -525,12 +562,13 @@ def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
     from blackhole_simulation_tpu_torch.render.shading import starfield_rows
 
     h, w = scene.camera.height, scene.camera.width
-    m, a = _mass_spin(scene, device)
+    m, a = _mass_spin(scene, device, dtype)
     jets = scene.jet_params if scene.features.jets else None
     block = cfg.use_pallas and jets is None
     ids = to_block_order(torch.arange(h * w, device=device), h, w) \
         if block else None
-    rays = camera_rays_u(scene.camera, m, a, pix_ids=ids, jitter=jitter)
+    rays = camera_rays_u(scene.camera, m, a, pix_ids=ids, jitter=jitter,
+                         dtype=dtype)
     # The NRS skip, without jets only (the fused kernel runs it with jets
     # too, pipeline.py:467-471 against pallas_render.py:595).
     nrs_on = nrs_active(scene) and jets is None
@@ -541,7 +579,7 @@ def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
         thr = torch.where(far, 1e9, precull_threshold(rays, m, a, cfg))
     rows = march_rows(rays, m, a, cfg, thr=thr, jets=jets)
     rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
-                           luts=scene_luts(scene, device))
+                           luts=scene_luts(scene, device, dtype))
     if nrs_on and scene.features.starfield:
         bg_far = starfield_rows(*far_dirs, params=scene.stars)
         rgb = tuple(torch.where(far, b_, c) for c, b_ in zip(rgb, bg_far))
@@ -555,98 +593,116 @@ def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device):
                                       cfg.refine_band, cfg.refine_pole_w)
         if block:
             band = from_block_order(band, h, w)
-        rgb = refine_critical_band(scene, cfg, jitter, rgb, band)
+        rgb = refine_critical_band(scene, cfg, jitter, rgb, band, dtype)
     return rgb.reshape(3, h, w)
 
 
-def render_sample(scene: Scene, jitter, device) -> torch.Tensor:
-    """One jittered sub-sample: (3, H, W) float32 linear radiance planes."""
+def render_sample(scene: Scene, jitter, device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """One jittered sub-sample: (3, H, W) linear radiance planes, in
+    ``dtype`` on the staged branch and float32 from the fused kernel (see
+    the module docstring's routes)."""
     from blackhole_simulation_tpu_torch.ops.render import render_planes_kernel
 
+    check_render_dtype(dtype)
     _refuse_kernel_grad(scene, "render_sample")
     if fused_path_active(scene):
-        row, st = kernel_inputs(scene, jitter, device)
+        row, st = kernel_inputs(scene, jitter, device, dtype)
         planes = render_planes_kernel(row, st)
         if st.cfg.refine_band <= 0.0:
             return planes
         h, w = st.height, st.width
         rgb = refine_critical_band(scene, st.cfg, jitter,
                                    planes[:3].reshape(3, h * w),
-                                   planes[3].reshape(h * w))
+                                   planes[3].reshape(h * w), dtype)
         return rgb.reshape(3, h, w)
     return _staged_sample(scene, precull_config(scene, scene.march_cfg),
-                          jitter, device)
+                          jitter, device, dtype)
 
 
-def render(scene: Scene, n_samples: int = 1, device=None) -> torch.Tensor:
-    """Render the scene to a tone-mapped (H, W, 3) float32 image: the mean
-    of ``n_samples`` Halton-jittered samples, the shadow overlay (on the
-    staged branch; the fused kernel draws it per sample), then
-    ``tonemap``."""
+def render(scene: Scene, n_samples: int = 1, device=None,
+           dtype=torch.float32) -> torch.Tensor:
+    """Render the scene to a tone-mapped (H, W, 3) image: the mean of
+    ``n_samples`` Halton-jittered samples (jitters in ``dtype``, summed
+    from zeros in ``dtype``), the shadow overlay (on the staged branch; the
+    fused kernel draws it per sample), then ``tonemap``. float64 on the
+    staged route with ``dtype=torch.float64``; see the module docstring
+    for the fused one."""
     device = resolve_device(device)
+    check_render_dtype(dtype)
     scene = ensure_spectral_coeffs(scene)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     if n_samples == 1:
-        acc = render_sample(scene, None, device)
+        acc = render_sample(scene, None, device, dtype)
     else:
-        acc = None
-        for jit in halton_jitters(n_samples):
-            s = render_sample(scene, jit, device)
-            acc = s if acc is None else acc + s
+        cam = scene.camera
+        acc = torch.zeros((3, cam.height, cam.width), dtype=dtype,
+                          device=device)
+        for jit in halton_jitters(n_samples, np_dtype):
+            acc = acc + render_sample(scene, jit, device, dtype)
         acc = acc / n_samples
     img = acc.permute(1, 2, 0)
     if scene.features.shadow_overlay and not fused_path_active(scene):
-        img = _staged_overlay(scene, img, device)
+        img = _staged_overlay(scene, img, device, dtype)
     return tonemap(img, scene.post)
 
 
-def _staged_overlay(scene: Scene, img: torch.Tensor, device) -> torch.Tensor:
+def _staged_overlay(scene: Scene, img: torch.Tensor, device,
+                    dtype=torch.float32) -> torch.Tensor:
     """The analytic critical curve over the (H, W, 3) radiance, from the
-    unjittered theta-form camera rays, with a line ~1.5 pixels of impact
-    parameter wide and at least 0.06 M (pipeline.py:557-575): a tensor in
-    the camera's fov and r, as JAX's traced width is."""
+    unjittered theta-form camera rays in ``dtype``, with a line ~1.5
+    pixels of impact parameter wide and at least 0.06 M (pipeline.py:
+    557-575): a tensor in the camera's fov and r, as JAX's traced width
+    is."""
     from blackhole_simulation_tpu_torch.render.camera import camera_rays
     from blackhole_simulation_tpu_torch.render.overlay import shadow_overlay
 
     cam = scene.camera
-    m, a = _mass_spin(scene, device)
+    m, a = _mass_spin(scene, device, dtype)
     f64 = lambda x: leaf(x, torch.float64, device)
-    pix_b = (f64(cam.fov) / cam.height * f64(cam.r)).to(torch.float32)
+    pix_b = (f64(cam.fov) / cam.height * f64(cam.r)).to(dtype)
     width = torch.maximum(0.06 * m, 1.5 * pix_b)
-    out = shadow_overlay(img.reshape(-1, 3), camera_rays(cam, m, a), m, a,
+    out = shadow_overlay(img.reshape(-1, 3),
+                         camera_rays(cam, m, a, dtype=dtype), m, a,
                          cam.theta, line_width=width)
     return out.reshape(img.shape)
 
 
-def render_radiance(scene: Scene, device=None) -> torch.Tensor:
-    """Un-tonemapped single-sample radiance, (H, W, 3) float32: the
-    differentiable target of inverse rendering and of the oracle gates
-    (see the module docstring for its gradients)."""
+def render_radiance(scene: Scene, device=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Un-tonemapped single-sample radiance, (H, W, 3), in ``dtype`` on the
+    staged route (float32 from the fused kernel): the differentiable
+    target of inverse rendering and of the oracle gates (see the module
+    docstring for its gradients and its routes)."""
     device = resolve_device(device)
-    planes = render_sample(ensure_spectral_coeffs(scene), None, device)
+    planes = render_sample(ensure_spectral_coeffs(scene), None, device, dtype)
     return planes.permute(1, 2, 0)
 
 
 def render_sample_scaled(scene: Scene, jitter=None, density_scale=1.0,
-                         intensity_scale=1.0, device=None) -> torch.Tensor:
-    """(H*W, 3) float32 radiance of the staged render with the disk's
+                         intensity_scale=1.0, device=None,
+                         dtype=torch.float32) -> torch.Tensor:
+    """(H*W, 3) ``dtype`` radiance of the staged render with the disk's
     density and intensity scaled by ``density_scale`` / ``intensity_scale``
     (numbers or 0-d tensors): the differentiable entry of the inverse path
     and the density-gradient gate (JAX pipeline.py:520). It marches through
     ``march_rows`` (the march kernel forward, the gradient kernel backward
     where autograd wants it, ``start_jitter`` included), so autograd
     reaches the scales and the scene's leaves; like JAX's, it refuses a
-    derivative of the march with ``use_pallas`` (``march_rows``)."""
+    derivative of the march with ``use_pallas`` (``march_rows``), and
+    float64 with ``use_pallas`` and no jets."""
     from blackhole_simulation_tpu_torch.render.camera import camera_rays_u
     from blackhole_simulation_tpu_torch.render.march import march_rows
 
     device = resolve_device(device)
-    m, a = _mass_spin(scene, device)
-    rays = camera_rays_u(scene.camera, m, a, jitter=jitter)
+    check_render_dtype(dtype)
+    m, a = _mass_spin(scene, device, dtype)
+    rays = camera_rays_u(scene.camera, m, a, jitter=jitter, dtype=dtype)
     rows = march_rows(rays, m, a, scene.march_cfg)
     rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays),
                            density_scale=density_scale,
                            intensity_scale=intensity_scale,
-                           luts=scene_luts(scene, device))
+                           luts=scene_luts(scene, device, dtype))
     return torch.stack(rgb, dim=-1)
 
 

@@ -547,7 +547,10 @@ def jet_emission_step(jets: JetParams, r, st, ct, ph, dr, dth, dph, dlam):
     v_ph = r * st * dph
     v_mag = sqrt(v_z * v_z + v_rho * v_rho + v_ph * v_ph + 1e-12)
     cos_psi = -torch.sign(z) * v_z / v_mag
-    gamma = float(np.float32(jets.gamma))
+    # the Lorentz factor meets the rows in their dtype: rounded to float32
+    # on float32 rows, as the JAX twin's weakly typed value is
+    gamma = (jets.gamma if r.dtype == torch.float64
+             else float(np.float32(jets.gamma)))
     delta = 1.0 / (gamma * (1.0 - jets.beta * clip(cos_psi, -1.0, 1.0)))
     beam = pow_(delta, jets.beaming_exponent)
 

@@ -6,8 +6,10 @@ oracle's gates, the central-difference inverse path, NRS training, the
 progressive tile renderer, temporal accumulation, the engine facade, the
 app in front of them (the CLI, the live loop, the cinematic director
 and the checkpointed inverse path), the multi-device layer (the
-sharded render and steps over ``torch.distributed``, ``cli sweep``), and
-the differentiable render (``render_radiance`` under autograd).
+sharded render and steps over ``torch.distributed``, ``cli sweep``), the
+differentiable render (``render_radiance`` under autograd), and the float64
+render (the march and gradient kernels' float64 instantiations) with the
+sharded render under autograd.
 
     python3 chip_smoke.py
 
@@ -348,6 +350,32 @@ printing a result line:
    offsets about its critical point) that record up to 6 crossings: the
    march and render bit-equal (exact route), the gradient at phase 7's
    bars.
+23. The float64 render (``dtype=torch.float64``), on the staged route the
+   JAX package runs in float64: (a) each float64 instantiation of the
+   march kernel (``march_kernel_f64``: midpoint and jets on the 1080p AD
+   frames' recorded rays, AB3 through ``march_u`` on the 1080p flagship
+   rays, the KMAX 8 build on phase 22(d)'s near-critical rays) against
+   its plain version: the integers equal, every float within 1e-12
+   (``F64_MARCH_BAR``); its ms, registers, spill and bound at the FP64
+   rate (``bound64``: 33.5 TFLOP/s, half the FP32 rate). (b) Each float64
+   gradient instantiation (``march_grad_kernel_f64``, without and with
+   the jets) against the plain VJP in float64 on the AD frame's rays, the
+   jets crop (phase 22(a)'s, in float64), the K = 8 sample and a seeded
+   65,536 of phase 7's recorded rays cast to float64: ray p95 and p99.9
+   rel below 1e-9 and 1e-7, the partials below 1e-8 (float32's: 1e-2,
+   2e-3, 1e-3); ms, registers, spill, shared memory per block. (c) The
+   1080p AD frames (flagship and jets) in float64 with the seven leaves as
+   float64 tensors: forward and forward + backward (median of 5), every
+   gradient finite, one march and one gradient launch a frame; the oracle
+   gradient gates through ``render_radiance(..., dtype=float64)``. (d) The
+   fused flagship frame (exact route, 160x90) in float64: float32 planes,
+   the render kernel against the CPU port's plain version on the same
+   float64-built row (p99 |d| < 1e-4), the row differing from float32's.
+   (e) ``render_sharded`` under autograd at 480x270 (the whole frame
+   bloomed, so no pixel is exactly black), worlds 1 (NCCL in-process), 2
+   and 3 (spawned gloo processes on the one card), float32 and float64:
+   every rank's leaf gradients identical and within ``F64_MD_REL`` of the
+   single-device twin's, the image bit-equal to the twin's ``render``.
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -1012,9 +1040,8 @@ def _camera(width, height):
                          width=width, height=height)
 
 
-def _cuda_scalar(v, grad=False):
-    return torch.tensor(v, dtype=torch.float32, device=DEV,
-                        requires_grad=grad)
+def _cuda_scalar(v, grad=False, dtype=torch.float32):
+    return torch.tensor(v, dtype=dtype, device=DEV, requires_grad=grad)
 
 
 def march_compare(k, p):
@@ -1408,6 +1435,7 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     m_args, g_args = march_u.record[0], march_grad_kernel.record[0]
     march_u.record = march_grad_kernel.record = None
     RECORDED["midpoint"] = m_args
+    RECORDED["training"] = (m_args, g_args)
     torch.cuda.synchronize()
 
     results = []
@@ -3904,11 +3932,11 @@ K8_CRIT = 0.490541473031044
 K8_CFG = MarchConfig(max_steps=512, step_rate=0.05, max_crossings=8)
 
 
-def leaf_scene(scene):
+def leaf_scene(scene, dtype=torch.float32):
     """``scene`` with its seven data leaves (mass, spin, the camera's r,
-    theta, phi, fov, roll) as float32 0-d tensors on the card that require
-    grad: (scene, leaves)."""
-    t = lambda v: torch.tensor(float(v), dtype=torch.float32, device=DEV,
+    theta, phi, fov, roll) as 0-d ``dtype`` tensors on the card that
+    require grad: (scene, leaves)."""
+    t = lambda v: torch.tensor(float(v), dtype=dtype, device=DEV,
                                requires_grad=True)
     cam = scene.camera
     names = ("r", "theta", "phi", "fov", "roll")
@@ -3977,13 +4005,15 @@ def grad_kernel_entry(path, launches, args, steps, jets, max_rel=None,
         share_of_bound=bound_ms / ms, **extra)
 
 
-def ad_frames(scene):
+def ad_frames(scene, dtype=torch.float32):
     """(b) for one scene at 1080p: the AD frame's times, launches,
-    gradients and the gradient kernel's recorded arguments."""
-    sc, leaves = leaf_scene(scene)
+    gradients and the gradient kernel's recorded arguments; rendered in
+    ``dtype`` (phase 23 asks for float64)."""
+    sc, leaves = leaf_scene(scene, dtype)
 
     def frame():
-        return torch.autograd.grad(render_radiance(sc).mean(), leaves)
+        return torch.autograd.grad(
+            render_radiance(sc, dtype=dtype).mean(), leaves)
 
     frame()                                  # builds the tables' graph once
     march_u.record, march_grad_kernel.record = [], []
@@ -3997,9 +4027,10 @@ def ad_frames(scene):
     launches = {"march": march_u.launches,
                 "march_grad": march_grad_kernel.launches,
                 "render": render_planes_kernel.launches}
-    fwd = timed(lambda: render_radiance(sc), AD_FRAMES)
+    fwd = timed(lambda: render_radiance(sc, dtype=dtype), AD_FRAMES)
     with torch.no_grad():
-        fwd_nograd = timed(lambda: render_radiance(sc), AD_FRAMES)
+        fwd_nograd = timed(lambda: render_radiance(sc, dtype=dtype),
+                           AD_FRAMES)
     grads = [float(g) for g in grads]
     if launches != {"march": AD_FRAMES, "march_grad": AD_FRAMES,
                     "render": 0}:
@@ -4013,15 +4044,15 @@ def ad_frames(scene):
                                "roll"), grads))}, m_args, g_args
 
 
-def jets_crop_args():
+def jets_crop_args(dtype=torch.float32):
     """(a)'s gradient-kernel arguments, recorded from a differentiable
     render of the 64x64 crop of phase 10's 1080p jets scene where most
     rays pass through the jets' cone (the whole frame's jets march picks
     it): the AD route's march (the exact midpoint march; jets turn the
     precull off) and the composite of the crop's rays, the mean radiance's
     gradient in mass and spin, so that the kernel gets a real loss's
-    cotangents, as phase 7's does. Returns (arguments, the crop's march
-    outputs)."""
+    cotangents, as phase 7's does; the crop's rays in ``dtype``. Returns
+    (arguments, the crop's march outputs)."""
     scene = scene_from_params(SimulationParams(enable_jets=True), 1920, 1080)
     cfg = dataclasses.replace(scene.march_cfg, shadow_precull=False)
     kcfg = _kernel_cfg(cfg, scene.jet_params)
@@ -4038,9 +4069,9 @@ def jets_crop_args():
     ys, xs = torch.meshgrid(torch.arange(AD_CROP), torch.arange(AD_CROP),
                             indexing="ij")
     ids = ((ys + y0) * 1920 + xs + x0).reshape(-1).to(DEV)
-    m, a = _cuda_scalar(float(scene.bh.mass), True), _cuda_scalar(
-        float(scene.bh.spin), True)
-    rays = camera_rays_u(scene.camera, m, a, pix_ids=ids)
+    m, a = (_cuda_scalar(float(scene.bh.mass), True, dtype),
+            _cuda_scalar(float(scene.bh.spin), True, dtype))
+    rays = camera_rays_u(scene.camera, m, a, pix_ids=ids, dtype=dtype)
     march_u.record, march_grad_kernel.record = [], []
     rows = march_rows(rays, m, a, cfg, jets=scene.jet_params)
     rgb = shade_march_rows(rows, m, a, scene, conserved_lam(rays))
@@ -4055,21 +4086,21 @@ def jets_crop_args():
     return g_args, outs
 
 
-def ad_gates(width=48, height=32):
+def ad_gates(width=48, height=32, dtype=torch.float32):
     """(c) the oracle gradient gates for spin and theta through
-    ``render_radiance`` (phase 14's frames and param_gate)."""
+    ``render_radiance`` in ``dtype`` (phase 14's frames and param_gate)."""
     base = gate_scene(0.999, width, height, turbulence=0.0)
 
     def ad_grad(field):
         def grad(p0, weights):
-            leaf = _cuda_scalar(p0, grad=True)
+            leaf = _cuda_scalar(p0, grad=True, dtype=dtype)
             if field == "spin":
                 sc = dataclasses.replace(base, bh=dataclasses.replace(
                     base.bh, spin=leaf))
             else:
                 sc = dataclasses.replace(base, camera=dataclasses.replace(
                     base.camera, theta=leaf))
-            rgb = render_radiance(fine(sc))
+            rgb = render_radiance(fine(sc), dtype=dtype)
             return float(torch.autograd.grad(torch.sum(rgb * weights),
                                              leaf)[0])
         return grad
@@ -4241,6 +4272,444 @@ def phase_ad_render():
     return out, entries
 
 
+# Phase 23: the float64 render. The published FP64 rate of the H100 SXM
+# outside the tensor cores (33.5 TFLOP/s, an FMA counted as two, half the
+# FP32 rate above), in lane FMAs: every float64 kernel's operation bound
+# divides its counted operations by it (one lane instruction each, as the
+# float bounds count them).
+FP64_PEAK = 33.5e12
+FP64_LANE_PEAK = FP64_PEAK / 2
+# The float64 march on phase 22's staged flagship route, exact divides
+# (the JAX package's float64 jnp march divides exactly).
+F64_CFG = dataclasses.replace(AD_CFG, approx_recip=False)
+# (a)'s bar: the hit, steps and crossing counts equal, and every float of
+# the kernel within 1e-12 of the plain version's (float32's bar is 1e-4).
+# The first run on the card was bit-equal in every variant but for 15 of
+# the jets' radiance values, an ulp of CUDA's exp or pow apart.
+F64_MARCH_BAR = 1e-12
+# (b)'s bars: the 95th percentile of the initial rows' relative difference
+# from the plain VJP, the 99.9th of each ray's worst row, and each summed
+# partial's relative difference (float32's: 1e-2, 2e-3 and 1e-3). The
+# kernel's hand-written adjoint and autograd's add the same terms in
+# another order, so the two part by the chaotic rays' growth of an ulp.
+F64_GRAD_P95_BAR = 1e-9
+F64_GRAD_P999_BAR = 1e-7
+F64_GRAD_PARTIALS_BAR = 1e-8
+# Phase 7's recorded rays, sampled for the float64 plain VJP (a seeded
+# subset: the plain version's cost is its per-step host work).
+F64_GRAD_RAYS = 65536
+# (d): the fused float64 frame, its row built in float64, against the CPU
+# port's plain version on the same row (exact route: bit-equal is the aim).
+F64_FUSED_SIZE = (160, 90)
+# (e): the sharded render under autograd. A frame whose tone map has no
+# exactly black pixel (x^(1/2.2) at 0 has an infinite derivative, NaN in
+# both packages): bloom over the whole frame (threshold 0, 12 passes,
+# exposure 3). The relative bar of each leaf's gradient against the
+# single-device twin's: the shards sum their rays' partials in another
+# order than one launch does.
+F64_MD_SIZE = (480, 270)
+F64_MD_POST = dict(exposure=3.0, bloom_threshold=0.0, bloom_passes=12)
+F64_MD_REL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def bound64(ops, nbytes):
+    """``bound`` at the card's published FP64 rate."""
+    ops_ms = ops / FP64_LANE_PEAK * 1e3
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def march_f64_compare(k, p):
+    """(a)'s comparison: the integers' disagreements and the floats'
+    largest |d| (state, records, r_min, jets)."""
+    ints = sum(int((k[i] != p[i]).sum()) for i in (1, 2, 6))
+    d = max(float((k[i] - p[i]).abs().max()) for i in (0, 3, 4, 5, 7, 8))
+    n_differ = sum(int((k[i] != p[i]).sum()) for i in (0, 3, 4, 5, 7, 8))
+    return {"int_differ": ints, "max_abs": d, "floats_differ": n_differ}
+
+
+def march_f64_entry(path, launches, args, variant, marker, kmax=4):
+    """A kernels-line entry for a float64 march instantiation on ``args``:
+    the kernel alone, its plain version once, (a)'s bar, the FP64 bound."""
+    with torch.no_grad():
+        ms, k = kernel_time(lambda: march_u(*args), 5)
+        t0 = time.perf_counter()
+        p = march_u_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    cmp = march_f64_compare(k, p)
+    if not (cmp["int_differ"] == 0 and cmp["max_abs"] <= F64_MARCH_BAR):
+        raise AssertionError(f"{path}: float64 march kernel vs plain: {cmp}")
+    cfg, jets = args[6], args[7] if len(args) > 7 else None
+    n_rays = int(k[0].shape[1])
+    steps = k[2].long()
+    k_slots = cfg.max_crossings
+    nbytes = 8 * n_rays * (9 + 8 + 3 * k_slots + 1 + 3) + 4 * 3 * n_rays
+    b_ms, b_by = bound64(step_ops(variant.split()[0], False)
+                         * int(steps.sum()), nbytes)
+    regs = next((r, sp) for e, r, sp in kbuild.ptxas_usage("march.cu", kmax)
+                if marker in e)
+    return cmp, dict(
+        name="march", route="cuda",
+        source="blackhole_simulation_tpu_torch/csrc/march.cu",
+        replaces="blackhole_simulation_tpu/ops/pallas_march.py:646",
+        path=path, variant=f"float64 {variant}", launches=launches,
+        max_abs_err=cmp["max_abs"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, rays=n_rays,
+        steps_sum=int(steps.sum()), steps_per_ray=float(steps.float().mean()),
+        registers_spill=list(regs), resident_warps_per_sm=march_kernel_shape(
+            cfg, jets, F64)["warps_per_sm"], share_of_bound=b_ms / ms)
+
+
+def grad_f64_entry(path, launches, args, steps, jets, **extra):
+    """A kernels-line entry for a float64 gradient instantiation on
+    ``args``: the kernel alone, the plain VJP once, (b)'s bars, the FP64
+    bound."""
+    ms, gk = kernel_time(lambda: march_grad_kernel(*args), 3)
+    t0 = time.perf_counter()
+    gp = march_grad(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    gs = grad_compare(gk, gp)
+    if not (gs["finite"] and gs["ray_p95_rel"] < F64_GRAD_P95_BAR
+            and gs["ray_p999_rel"] < F64_GRAD_P999_BAR
+            and max(gs["partials_rel"]) < F64_GRAD_PARTIALS_BAR):
+        raise AssertionError(f"{path}: float64 gradient kernel vs plain: "
+                             f"{gs}")
+    n_rays = int(args[0].shape[1])
+    k_slots = args[6].max_crossings
+    live_blocks = int(((steps.long() + CKPT) // CKPT).sum())
+    nbytes = 8 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4
+                            + (3 if jets else 0)) + 2 * 7 * live_blocks)
+    b_ms, b_by = bound64(grad_ops(int(steps.long().sum()), jets), nbytes)
+    marker = "f64ILb1E" if jets else "f64ILb0E"
+    shape = grad_kernel_shape(False, jets, F64)
+    return gs, dict(
+        name="march_grad", route="cuda",
+        source="blackhole_simulation_tpu_torch/csrc/march_grad.cu",
+        replaces="blackhole_simulation_tpu/ops/pallas_grad.py:149",
+        path=path, variant="float64 jets" if jets else "float64",
+        launches=launches, max_abs_err=gs["max_abs"], ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        rays=n_rays, steps_per_ray=float(steps.float().mean()),
+        ray_p95_rel=gs["ray_p95_rel"], ray_p999_rel=gs["ray_p999_rel"],
+        registers_spill=list(registers("march_grad.cu", marker)),
+        smem_bytes=shape["smem_bytes"],
+        resident_warps_per_sm=shape["warps_per_sm"],
+        share_of_bound=b_ms / ms, **extra)
+
+
+def f64_march_variants(entries):
+    """(a) the float64 AB3 march against its plain version on the 1080p
+    flagship staged rays, reached through ``march_u`` alone (no float64
+    render marches AB3: the JAX package raises there). The midpoint and
+    jets instantiations are held on (c)'s frames, the KMAX 8 build in
+    ``f64_k8``."""
+    out = {}
+    cam = _camera(1920, 1080)
+    m, a = _f64(1.0), _f64(0.999)
+    rays = camera_rays_u(cam, m, a, dtype=F64)
+    cfg = dataclasses.replace(F64_CFG, multistep=True)
+    args = _march_inputs(rays, m, a, cfg, None) + (cfg, None)
+    march_u.launches = 0
+    with torch.no_grad():
+        march_u(*args)
+    torch.cuda.synchronize()
+    cmp, e = march_f64_entry("march_u, float64 rays, AB3 1920x1080",
+                             march_u.launches, args, "ab3", "f64ILi1E")
+    out["ab3"] = cmp
+    entries.append(e)
+    return out
+
+
+def f64_k8(entries):
+    """(a) and (b) on the KMAX 8 build: the float64 staged sample of
+    phase 22(d)'s near-critical 64x64 frame under autograd (one march and
+    one gradient launch), each kernel against its plain version."""
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5, width=64,
+                        height=64)
+    base = Scene.create(mass=1.0, spin=0.9, camera=cam, march_cfg=K8_CFG)
+    jitter = np.asarray((K8_CRIT, 0.0), np.float64)
+    sc, leaves = leaf_scene(base, F64)
+    march_u.launches = march_grad_kernel.launches = 0
+    march_u.record, march_grad_kernel.record = [], []
+    rgb = render_sample(sc, jitter, DEV, F64)
+    grads = torch.autograd.grad(rgb.mean(), leaves)
+    torch.cuda.synchronize()
+    launches = {"march": march_u.launches,
+                "march_grad": march_grad_kernel.launches}
+    m_args, g_args = march_u.record[0], march_grad_kernel.record[0]
+    march_u.record = march_grad_kernel.record = None
+    if (launches != {"march": 1, "march_grad": 1} or rgb.dtype != F64
+            or not all(math.isfinite(float(g)) for g in grads)):
+        raise AssertionError(f"float64 K = 8: {launches}, {rgb.dtype}")
+    cmp, e = march_f64_entry("float64 K = 8 staged sample 64x64 "
+                             "(near-critical pixel)", 1, m_args,
+                             "midpoint KMAX 8", "f64ILi0E", kmax=8)
+    with torch.no_grad():
+        steps = march_u(*m_args)[2]
+    # (the gradient kernel has no crossing slots: K = 8 is its default
+    # build)
+    gs, ge = grad_f64_entry("float64 K = 8 staged sample 64x64 under "
+                            "autograd", 1, g_args, steps, False)
+    entries += [e, ge]
+    return {"launches": launches, "march_vs_plain": cmp,
+            "gradient_vs_plain": gs, "max_crossings": int(steps.max())}
+
+
+def f64_phase7_grad():
+    """(b) the float64 gradient instantiation on phase 7's recorded
+    inputs cast to float64 (a seeded sample of F64_GRAD_RAYS rays, exact
+    route), its forward's r_min from the float64 march."""
+    m_args, g_args = RECORDED["training"]
+    n = int(m_args[0].shape[1])
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    idx = torch.randperm(n, generator=gen)[:F64_GRAD_RAYS].to(DEV)
+    cfg = dataclasses.replace(g_args[6], approx_recip=False)
+    d = lambda x: x.detach().to(F64)
+    yt0, thr = d(g_args[0][:, idx]), d(g_args[1][idx])
+    scal = [d(torch.as_tensor(x)) for x in g_args[2:6]]
+    with torch.no_grad():
+        k = march_u(yt0, thr, *scal, cfg)
+    args = (yt0, thr, *scal, cfg, d(g_args[7][:, idx]),
+            *(d(x[:, idx]) for x in g_args[8:11]), d(g_args[11][idx]),
+            k[7], None, None)
+    gs, e = grad_f64_entry("phase 7's recorded training-step rays, cast to "
+                           f"float64 ({F64_GRAD_RAYS} of them)", 0, args,
+                           k[2], False)
+    gs.update(ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"])
+    print(f"float64 gradient kernel vs plain on phase 7's rays: {gs}")
+    return gs
+
+
+def f64_fused():
+    """(d) the fused float64 flagship frame: float32 planes from the
+    render kernel on the row built in float64 (mass and spin unrounded),
+    against the CPU port's plain version on the same row (exact route),
+    and that row against the float32 route's."""
+    w, h = F64_FUSED_SIZE
+    cfg = dataclasses.replace(FLAGSHIP_CFG, approx_recip=False)
+    scene = flagship_scene(w, h, cfg=cfg)
+    render_planes_kernel.launches = 0
+    img = render_radiance(scene, dtype=F64)
+    img32 = render_radiance(scene)
+    torch.cuda.synchronize()
+    launches = render_planes_kernel.launches
+    row, st = kernel_inputs(scene, None, DEV, F64)
+    row32, _ = kernel_inputs(scene, None, DEV)
+    k = render_planes_kernel(row, st)
+    p = render_planes(row.cpu(), st)
+    d = (k.cpu() - p).abs()
+    out = {"dtype": str(img.dtype), "launches": launches,
+           "kernel_vs_cpu_plain_max_abs": float(d.max()),
+           "kernel_vs_cpu_plain_p99_abs": float(torch.quantile(
+               d.flatten().double(), 0.99)),
+           "row_words_differ_from_float32": int((row != row32).sum()),
+           "image_vs_float32_route_max_abs": float(
+               (img - img32).abs().max())}
+    print(f"fused float64 {w}x{h}: {json.dumps(out)}")
+    if not (img.dtype == torch.float32 and launches == 2
+            and out["kernel_vs_cpu_plain_p99_abs"] < 1e-4
+            and out["row_words_differ_from_float32"] > 0
+            and bool(torch.equal(img, k.permute(1, 2, 0)))):
+        raise AssertionError(f"fused float64: {out}")
+    return out
+
+
+def md_ad_scene():
+    """(e)'s scene: the staged flagship physics at F64_MD_SIZE with the
+    whole frame bloomed (F64_MD_POST)."""
+    scene = flagship_scene(*F64_MD_SIZE, cfg=AD_CFG)
+    return dataclasses.replace(scene, post=dataclasses.replace(
+        scene.post, **F64_MD_POST))
+
+
+def md_ad_grads(mesh, dtype):
+    """The mean tone-mapped sharded image's gradient in the scene's seven
+    leaves (float64 tensors), and the image."""
+    sc, leaves = leaf_scene(md_ad_scene(), torch.float64)
+    img = render_sharded(sc, mesh, dtype=dtype)
+    grads = torch.autograd.grad(img.mean(), leaves)
+    return [float(g) for g in grads], img.detach()
+
+
+def _md_ad_worker(rank, world, directory, device):
+    """One rank of (e)'s spawned gloo worlds: the sharded render's
+    gradients in float32 and float64, to ``directory``."""
+    global DEV
+    DEV = device
+    torch.cuda.set_device(torch.device(device).index or 0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{directory}/init", rank=rank,
+        world_size=world)
+    try:
+        mesh = make_mesh(device=device)
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            grads, img = md_ad_grads(mesh, dtype)
+            out[str(dtype)] = grads
+            torch.save(img.cpu(), os.path.join(directory,
+                                               f"img_{rank}_{dtype}.pt"))
+        with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def f64_sharded_autograd():
+    """(e) the sharded render under autograd, worlds 1 (NCCL in this
+    process) and 2 and 3 (spawned gloo processes on the one card), float32
+    and float64: every rank's leaf gradients identical and within
+    F64_MD_REL of the single-device twin's; the forward image bit-equal to
+    the single-device ``render`` of the twin (world 1) and the same on
+    every rank."""
+    import torch.multiprocessing as mp
+
+    out = {}
+    twin = {}
+    twin_img = {}
+    for dtype in (torch.float32, torch.float64):
+        sc, leaves = leaf_scene(single_device_twin(md_ad_scene()),
+                                torch.float64)
+        img = render(sc, device=DEV, dtype=dtype)
+        twin[dtype] = [float(g) for g in torch.autograd.grad(img.mean(),
+                                                             leaves)]
+        twin_img[dtype] = img.detach().cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.distributed.init_process_group(
+            MD_BACKEND, init_method=f"file://{tmp}/init1", rank=0,
+            world_size=1)
+        try:
+            mesh = make_mesh(device=DEV)
+            ranks = {1: [{}]}
+            for dtype in (torch.float32, torch.float64):
+                t0 = time.perf_counter()
+                grads, img = md_ad_grads(mesh, dtype)
+                torch.cuda.synchronize()
+                ranks[1][0][str(dtype)] = grads
+                ranks[1][0][f"{dtype} seconds"] = time.perf_counter() - t0
+                if not torch.equal(img.cpu(), twin_img[dtype]):
+                    raise AssertionError(f"sharded AD world 1 {dtype}: the "
+                                         "image differs from the twin's")
+        finally:
+            torch.distributed.destroy_process_group()
+        dirs = {n: os.path.join(tmp, f"w{n}") for n in (2, 3)}
+        for d in dirs.values():
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        ctxs = [mp.start_processes(_md_ad_worker, args=(n, d, DEV), nprocs=n,
+                                   join=False, start_method="spawn")
+                for n, d in dirs.items()]
+        deadline = time.monotonic() + MD_TIMEOUT
+        for ctx in ctxs:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    for c in ctxs:
+                        for proc in c.processes:
+                            proc.kill()
+                    raise AssertionError("phase 23's worlds outlived "
+                                         f"{MD_TIMEOUT} s")
+        out["spawned_seconds"] = time.perf_counter() - t0
+        for n, d in dirs.items():
+            ranks[n] = []
+            for r in range(n):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    ranks[n].append(json.load(f))
+                for dtype in (torch.float32, torch.float64):
+                    im = torch.load(os.path.join(d, f"img_{r}_{dtype}.pt"))
+                    ref = twin_img[dtype]
+                    # row-major shards of one frame: the image is the same
+                    # as world 1's up to the shards' own rays, which are
+                    # the same rays; hold it equal
+                    if not torch.equal(im, ref):
+                        raise AssertionError(
+                            f"sharded AD world {n} rank {r} {dtype}: the "
+                            "image differs from the twin's")
+    for dtype in (torch.float32, torch.float64):
+        key, bar = str(dtype), F64_MD_REL[dtype]
+        res = {"twin": twin[dtype]}
+        for n, rk in ranks.items():
+            gs = [x[key] for x in rk]
+            same = all(g == gs[0] for g in gs)
+            rel = max(_rel(g, t) for g, t in zip(gs[0], twin[dtype]))
+            res[f"world{n}"] = {"identical_on_every_rank": same,
+                                "max_rel_vs_twin": rel, "grads": gs[0]}
+            if not (same and rel < bar
+                    and all(math.isfinite(g) for g in gs[0])):
+                raise AssertionError(f"sharded AD world {n} {dtype}: {res}")
+        out[key] = res
+    out["world1_seconds"] = {k: v for k, v in ranks[1][0].items()
+                             if k.endswith("seconds")}
+    print(f"sharded autograd {F64_MD_SIZE[0]}x{F64_MD_SIZE[1]}: "
+          f"{json.dumps(out)}")
+    return out
+
+
+def phase_float64():
+    """Phase 23: the float64 render (see the module docstring)."""
+    t0 = time.perf_counter()
+    out, entries = {}, []
+    regs = {e: (r, sp) for e, r, sp in kbuild.ptxas_usage("march.cu")
+            + kbuild.ptxas_usage("march_grad.cu") if "f64" in e}
+    out["registers_spill"] = {sass_census.label(e): list(v)
+                              for e, v in regs.items()}
+    print(f"float64 instantiations' registers/spill: "
+          f"{json.dumps(out['registers_spill'])}; gradient kernel "
+          f"{grad_kernel_shape(False, False, F64)}")
+    # (c) the 1080p float64 AD frames, with (a) and (b) on their own
+    # recorded arguments
+    for name, feats in (("flagship", Features(spectral_lut=True)),
+                        ("jets", Features(spectral_lut=True, jets=True))):
+        scene = flagship_scene(1920, 1080, cfg=F64_CFG, features=feats)
+        info, m_args, g_args = ad_frames(scene, F64)
+        jets = feats.jets
+        if (m_args[0].dtype != F64 or (g_args[14] is not None) != jets
+                or g_args[6].approx_recip):
+            raise AssertionError(f"float64 {name}: the AD frame took the "
+                                 "wrong instantiation")
+        cmp, me = march_f64_entry(
+            f"float64 AD {name} render_radiance 1920x1080", AD_FRAMES,
+            m_args, "jets" if jets else "midpoint",
+            "f64ILi2E" if jets else "f64ILi0E")
+        with torch.no_grad():
+            steps = march_u(*m_args)[2]
+        info["march_vs_plain"] = cmp
+        if jets:
+            gargs, gouts = jets_crop_args(F64)
+            gs, ge = grad_f64_entry(
+                "float64 jets gradient, 64x64 crop of the 1080p jets scene",
+                AD_FRAMES, gargs, gouts[2], True,
+                ms_1080p=kernel_time(lambda: march_grad_kernel(*g_args),
+                                     3)[0])
+        else:
+            gs, ge = grad_f64_entry(
+                f"float64 AD {name} render_radiance 1920x1080", AD_FRAMES,
+                g_args, steps, False)
+        info["grad_vs_plain"] = gs
+        print(f"float64 AD {name} render_radiance 1920x1080: forward + "
+              f"backward {info['fwd_bwd_ms']:.1f} ms (median of "
+              f"{AD_FRAMES}), forward {info['fwd_ms']:.1f} ms; march "
+              f"{me['ms']:.3f} ms (bound {me['bound_ms']:.3f}), gradient "
+              f"{ge['ms']:.3f} ms; march vs plain {cmp}; gradient vs plain "
+              f"{gs}; gradients {info['grads']}")
+        out[name] = info
+        entries += [me, ge]
+    out["gates"] = ad_gates(dtype=F64)
+    # (a) AB3 and (a) + (b) on KMAX 8
+    out["march"] = f64_march_variants(entries)
+    out["k8"] = f64_k8(entries)
+    # (b) on phase 7's recorded inputs
+    out["phase7_grad"] = f64_phase7_grad()
+    # (d) fused
+    out["fused"] = f64_fused()
+    # (e) the sharded render under autograd
+    out["sharded_autograd"] = f64_sharded_autograd()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 23 (float64 render): {out['seconds']:.1f} s")
+    return out, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4286,10 +4755,12 @@ def main() -> int:
     print(f"multi-device: {json.dumps(multi)}")
     ad, ad_kernels = phase_ad_render()
     print(f"differentiable render: {json.dumps(ad)}")
+    f64, f64_kernels = phase_float64()
+    print(f"float64 render: {json.dumps(f64)}")
     for e in nrs_kernels + tile_kernels + [live_kernel]:
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
     kernels_line += (nrs_kernels + tile_kernels + [live_kernel] + md_kernels
-                     + ad_kernels)
+                     + ad_kernels + f64_kernels)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -957,3 +957,96 @@ def test_kernels_take_eight_crossings(cuda):
     d = (render_planes_kernel(row, st) - render_planes(row, st)).abs()
     assert float(torch.quantile(d.flatten().double(), 0.99)) < 1e-4
     assert float(d.mean()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The float64 render (chip_smoke.py phase 23)
+# ---------------------------------------------------------------------------
+
+F64 = torch.float64
+
+
+@pytest.mark.parametrize("variant", ["midpoint", "ab3", "jets", "k8"])
+def test_float64_march_kernel_matches_plain_version(cuda, variant):
+    """Each float64 instantiation of the march kernel against its plain
+    version on the card, exact route: the integers equal, the floats
+    within 1e-12 (bit-equal on the card but for an ulp of CUDA's exp and
+    pow in the jets' radiance)."""
+    cfg = MarchConfig(max_steps=96, step_rate=0.2, far_step_cap_rate=0.4,
+                      far_boost_radius=20.0, midpoint_iters=1,
+                      multistep=variant == "ab3",
+                      max_crossings=8 if variant == "k8" else 4)
+    jets = JetParams() if variant == "jets" else None
+    m, a = (torch.tensor(1.0, dtype=F64, device=cuda),
+            torch.tensor(0.999, dtype=F64, device=cuda))
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5,
+                        width=250, height=141)
+    args = _march_inputs(camera_rays_u(cam, m, a, dtype=F64), m, a, cfg,
+                         None)
+    before = march_u.launches
+    k = march_u(*args, cfg, jets)
+    assert march_u.launches == before + 1
+    p = march_u_plain(*args, cfg, jets)
+    assert k[0].dtype == F64 and k[1].dtype == torch.int32
+    for i in (1, 2, 6):
+        assert torch.equal(k[i], p[i])
+    for i in (0, 3, 4, 5, 7, 8):
+        assert float((k[i] - p[i]).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("jets", [False, True])
+def test_float64_gradient_kernel_matches_plain_version(cuda, jets):
+    """The gradient kernel's float64 instantiations (without and with the
+    jets) against march_grad in float64, seeded positive cotangents:
+    every ray's worst row within rel 1e-9 and the summed partials within
+    1e-10 (float32's bars: 1e-2 and 1e-3)."""
+    cfg = MarchConfig(max_steps=64)
+    jp = JetParams() if jets else None
+    m, a = (torch.tensor(1.0, dtype=F64, device=cuda),
+            torch.tensor(0.9, dtype=F64, device=cuda))
+    yt0, thr, m, a, r_h, r_ph = _march_inputs(
+        camera_rays_u(JET_CAM, m, a, dtype=F64), m, a, cfg, None)
+    outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg, jp)
+    n, k = yt0.shape[1], cfg.max_crossings
+    g = torch.Generator(device="cpu").manual_seed(4)
+    f = lambda *s: (0.5 + torch.rand(*s, generator=g, dtype=F64)).to(cuda)
+    ct_fin = f(8, n)
+    ct_fin[4] = 0.0
+    args = (yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, f(k, n), f(k, n),
+            f(k, n), f(n), outs[7], f(3, n) if jets else None, jp)
+    before = march_grad_kernel.launches
+    got = march_grad_kernel(*args)
+    assert march_grad_kernel.launches == before + 1
+    want = march_grad(*args)
+    assert got[0].dtype == F64
+    rows = [0, 1, 2, 3, 5, 6, 7]
+    rel = ((got[0][rows] - want[0][rows]).abs()
+           / (want[0][rows].abs() + 1e-12)).amax(dim=0)
+    assert float(rel.max()) < 1e-9
+    for x, y in zip(got[1:], want[1:]):
+        assert float(x) == pytest.approx(float(y), rel=1e-10)
+
+
+def test_float64_render_runs_on_the_float64_kernels(cuda):
+    """render_radiance(dtype=float64) under autograd on the card: a float64
+    image, one march and one gradient launch, the gradient the CPU's; a
+    float64 approx_recip march refused."""
+    scene = _scene(24, 16, use_pallas=False, fused=False)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        a = torch.tensor(0.9, dtype=F64, device=dev, requires_grad=True)
+        sc = dc.replace(scene, bh=dc.replace(scene.bh, spin=a))
+        before = (march_u.launches, march_grad_kernel.launches)
+        img = render_radiance(sc, device=dev, dtype=F64)
+        (g,) = torch.autograd.grad(img.mean(), a)
+        after = (march_u.launches, march_grad_kernel.launches)
+        assert img.dtype == F64
+        assert after == ((before[0] + 1, before[1] + 1) if dev.type == "cuda"
+                         else before)
+        grads.append(float(g))
+    assert grads[0] == pytest.approx(grads[1], rel=1e-6)
+    m = torch.tensor(1.0, dtype=F64, device=cuda)
+    args = _march_inputs(camera_rays_u(JET_CAM, m, m * 0.9, dtype=F64), m,
+                         m * 0.9, CFG, None)
+    with pytest.raises(ValueError):
+        march_u(*args, dc.replace(CFG, approx_recip=True))

@@ -189,8 +189,10 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     assert march_grad_kernel.launches == before
     for x, y in zip(a_out, b_out):
         assert torch.equal(x, y)
+    # float32 and float64 rays take the kernel (or its plain version);
+    # any other dtype raises
     with pytest.raises(ValueError):
-        march_grad_kernel(yt0.double(), thr, m, a, r_h, r_ph, cfg, *cts, rmin)
+        march_grad_kernel(yt0.half(), thr, m, a, r_h, r_ph, cfg, *cts, rmin)
 
 
 def test_wrappers_record_their_arguments():

@@ -251,3 +251,24 @@ def test_certified_scene_runs_both_branches_on_the_cpu():
     assert render_planes(row, st).shape == (4, 16, 32)
     st3 = dc.replace(st, cfg=dc.replace(st.cfg, refine_band=0.0))
     assert render_planes(row, st3).shape == (3, 16, 32)
+
+
+def test_refinement_takes_pixel_ids():
+    """``pix_ids`` (the JAX twin's): the pass on planes in another pixel
+    order, with each position's row-major pixel id, is that order of the
+    pass on the row-major planes (a single top_k selection, no ties: the
+    same rays)."""
+    w, h = 24, 16
+    cfg = dict(refine_band=0.6, refine_budget=64, refine_max_steps=96)
+    scene = _scene(w, h, 0.97, **cfg)
+    m, a = _tms(0.97)
+    band = tpre.critical_band_metric_u(m, a, camera_rays_u(scene.camera, m,
+                                                           a))
+    g = torch.Generator().manual_seed(0)
+    rgb = torch.rand((3, w * h), generator=g)
+    ref = refine_critical_band(scene, scene.march_cfg, None, rgb, band)
+    ids = torch.randperm(w * h, generator=g)
+    got = refine_critical_band(scene, scene.march_cfg, None,
+                               rgb[:, ids], band[ids], pix_ids=ids)
+    assert not torch.equal(ref, rgb)
+    assert torch.equal(got, ref[:, ids])
