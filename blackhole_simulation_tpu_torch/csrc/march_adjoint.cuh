@@ -6,22 +6,24 @@
 // make_composite (:71), which the Pallas gradient kernel traces at build
 // time, and, for the jets' march, of jax.grad through the jets' term of
 // the jnp march's step (render/march.py:555-569, which the JAX package
-// differentiates by jnp AD; its gradient kernel has no jets). march_step_vjp takes the step's inputs x[11] (t, r, u, ph, pr, pu,
-// pph, m, a, r_h, r_ph) and returns J^T cto for the output cotangents
-// cto[10] (the six state rows, r_c, phi_c, t_c, dmin). It first recomputes
-// the step forward with march_step.cuh's own float functions, so the
-// forward's values, masks and crossing decisions are the replay's bit for
-// bit, keeping what the reverse reads (the stepped y, the unclipped u, the
-// last midpoint input, dlam); that recompute also gives crossed, advance
-// and dmin, from which the caller's inject() forms cto. Then it walks back
-// through the step: the renormalization, the advance/freeze select, the
-// crossing record, the midpoint rounds (each ks_rhs_vjp recomputes its own
-// forward: no tape) and the step size. On the approx_recip route the
-// forward recompute contracts the step's multiply-adds as the forward does
-// (march_step.cuh::madd, with its decisions the forward's); the reverse
-// stays uncontracted, its derivatives held at relative bars. The plain
-// PyTorch mirror, function for function, is ops/march_adjoint.py (the
-// exact route).
+// differentiates by jnp AD; its gradient kernel has no jets).
+// march_step_vjp takes the step's inputs x[11] (t, r, u, ph, pr, pu, pph,
+// m, a, r_h, r_ph) and returns J^T cto for the output cotangents cto[10]
+// (the six state rows, r_c, phi_c, t_c, dmin). It is two halves,
+// which the float64 gradient kernel calls apart: step_tape, the step's
+// forward with march_step.cuh's own functions, so the forward's values,
+// masks and crossing decisions are the replay's bit for bit, keeping in a
+// StepTape what the reverse reads (the stepped y, the unclipped u, the last
+// midpoint input, dlam, the decisions), from which the caller's inject()
+// forms cto; and march_step_vjp_tape, the walk back through the step from
+// the tape: the renormalization, the advance/freeze select, the crossing
+// record, the midpoint rounds (each ks_rhs_vjp recomputes its own right-
+// hand side; rounds before the last recompute their inputs) and the step
+// size. On the approx_recip route the forward contracts the step's
+// multiply-adds as the forward does (march_step.cuh::madd, with its
+// decisions the forward's); the reverse stays uncontracted, its
+// derivatives held at relative bars. The plain PyTorch mirror, function for
+// function, is ops/march_adjoint.py (the exact route).
 //
 // The derivative rules are the forward-mode Dual step's (march_step.cuh),
 // which JAX's rules fix: ties of jmax, jmin and jclip split the cotangent
@@ -677,69 +679,102 @@ __device__ __forceinline__ bool jet_emission_vjp(const JetParamsT<R>& jp,
   return true;
 }
 
-// J^T cto of one live march step (march_step at step i with the pre-step
-// crossing count nc) at x[NIN]. After the forward recompute,
-// inject(crossed, advance, dmin, cto) fills the output cotangents cto[NOUT],
-// as the gradient kernel injects its crossing and r_min cotangents there.
-// cin[NIN] receives the input cotangents. With JETS the step is the jets'
-// (jets_advance: the same state update, plus the emission from the
-// pre-step state, the stepped one and dlam, on every live step, also one
-// that the sanity test freezes): cj[3], the jet radiance's cotangent, adds
-// the emission's VJP (jet_emission_vjp, jp its configuration).
-template <bool APPROX, bool JETS = false, class Inject, class R>
-__device__ __forceinline__ void march_step_vjp(const MarchParamsT<R>& mp,
-                                               const R x[NIN], R thr,
-                                               int i, int nc, Inject inject,
-                                               R cin[NIN],
-                                               const JetParamsT<R>* jp = nullptr,
-                                               const R* cj = nullptr) {
+// What the reverse of one live march step reads of its forward (the
+// gradient kernel's tape): the step size, the last midpoint evaluation's
+// input, the stepped rows with u clipped, the unclipped u, and the step's
+// decisions (crossed, advance, and whether the renormalization of p_r is
+// due after it).
+template <class R>
+struct StepTape {
+  R dlam;
+  R mid[4];
+  R y[6];
+  R nu_raw;
+  bool crossed, advance, renorm;
+};
+
+// The forward of one live step at step index i from the state x[6] =
+// (t, r, u, ph, pr, pu) with the pre-step crossing count nc: march_step's
+// functions in march_step's order (step_size, the midpoint rounds, the
+// clip, crossing_record, advance_step), so its values and decisions are
+// the march's bit for bit. Fills the tape tp and returns the post-step
+// state s[6] (x advanced, or x where the step froze) and hit, before the
+// renormalization, which tp.renorm says is due: a caller that marches on
+// applies it (ks_renormalize_pr on s).
+template <bool APPROX, class R>
+__device__ __forceinline__ void step_tape(const MarchParamsT<R>& mp, R m,
+                                          R a, R r_h, R r_ph, R inv_rph,
+                                          R pph, R thr, int i,
+                                          const R x[6], int nc,
+                                          StepTape<R>& tp, R s[6],
+                                          int& hit) {
+  const R t = x[0], r = x[1], u = x[2], ph = x[3], pr = x[4], pu = x[5];
+  tp.dlam = step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, r, u, pu);
+  R d[6];
+  ks_rhs<APPROX>(m, a, r, u, pr, pu, pph, d);
+  advance_rows<APPROX>(tp.dlam, t, r, u, ph, pr, pu, d, tp.y);
+  tp.mid[0] = r;
+  tp.mid[1] = u;
+  tp.mid[2] = pr;
+  tp.mid[3] = pu;
+  for (int it = 0; it < mp.midpoint_iters; ++it) {
+    tp.mid[0] = 0.5f * (r + tp.y[1]);
+    tp.mid[1] = 0.5f * (u + tp.y[2]);
+    tp.mid[2] = 0.5f * (pr + tp.y[4]);
+    tp.mid[3] = 0.5f * (pu + tp.y[5]);
+    ks_rhs<APPROX>(m, a, tp.mid[0], tp.mid[1], tp.mid[2], tp.mid[3], pph, d);
+    advance_rows<APPROX>(tp.dlam, t, r, u, ph, pr, pu, d, tp.y);
+  }
+  tp.nu_raw = tp.y[2];
+  tp.y[2] = jclip(tp.nu_raw, K<R>(-1.0 + 1e-7), K<R>(1.0 - 1e-7));
+  R r_c, phi_c, t_c;
+  crossing_record<APPROX>(t, r, u, ph, tp.y, r_c, phi_c, t_c);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) s[k] = x[k];
+  hit = HIT_NONE;
+  advance_step(mp, thr, s, tp.y, r_c, hit, nc, tp.crossed, tp.advance);
+  tp.renorm = (i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE;
+}
+
+// The photon-ring proximity |r' - r_ph| after a step, r' the stepped
+// radius, or r where the step froze (the renormalization moves p_r only).
+template <class R>
+__device__ __forceinline__ R step_dmin(const StepTape<R>& tp, R r, R r_ph) {
+  return dabs((tp.advance ? tp.y[1] : r) - r_ph);
+}
+
+// J^T cto of one live march step from its tape (step_tape's, at the
+// step's inputs x[NIN] = (t, r, u, ph, pr, pu, pph, m, a, r_h, r_ph)),
+// with the output cotangents cto[NOUT]: the renormalization, the
+// advance/freeze select, the crossing record, the jets' emission (JETS:
+// jet_emission_vjp with cj[3], the jet radiance's cotangent, jp its
+// configuration) and the midpoint step and its size, walked back. Nothing
+// of the step's forward is recomputed: each ks_rhs_vjp recomputes its own
+// right-hand side, the midpoint rounds before the last their inputs. cin[NIN]
+// receives the input cotangents.
+template <bool APPROX, bool JETS = false, class R>
+__device__ __forceinline__ void march_step_vjp_tape(
+    const MarchParamsT<R>& mp, const R x[NIN], const StepTape<R>& tp,
+    const R cto[NOUT], R cin[NIN], const JetParamsT<R>* jp = nullptr,
+    const R* cj = nullptr) {
   const R t = x[0], r = x[1], u = x[2], ph = x[3], pr = x[4], pu = x[5];
   const R pph = x[6], m = x[7], a = x[8], r_h = x[9], r_ph = x[10];
-
-  // ---- forward, keeping what the reverse reads ----
-  const R dlam =
-      step_size<APPROX>(mp, a, r_h, r_ph, inv_rph_of(r_ph), r, u, pu);
-  R d[6], y[6];
-  ks_rhs<APPROX>(m, a, r, u, pr, pu, pph, d);
-  advance_rows<APPROX>(dlam, t, r, u, ph, pr, pu, d, y);
-  R mid[4] = {r, u, pr, pu};
-  for (int it = 0; it < mp.midpoint_iters; ++it) {
-    mid[0] = 0.5f * (r + y[1]);
-    mid[1] = 0.5f * (u + y[2]);
-    mid[2] = 0.5f * (pr + y[4]);
-    mid[3] = 0.5f * (pu + y[5]);
-    ks_rhs<APPROX>(m, a, mid[0], mid[1], mid[2], mid[3], pph, d);
-    advance_rows<APPROX>(dlam, t, r, u, ph, pr, pu, d, y);
-  }
-  const R nu_raw = y[2];
-  y[2] = jclip(nu_raw, K<R>(-1.0 + 1e-7), K<R>(1.0 - 1e-7));
-  R r_c, phi_c, t_c;
-  crossing_record<APPROX>(t, r, u, ph, y, r_c, phi_c, t_c);
-  R s[6] = {t, r, u, ph, pr, pu};
-  int hit = HIT_NONE;
-  bool crossed, advance;
-  advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
-  const bool renorm = (i + 1) % mp.renormalize_every == 0 && hit == HIT_NONE;
-  // (the renormalization changes p_r only: s[1], s[2], s[5] are final)
-  const R dmin = dabs(s[1] - r_ph);
-  R cto[NOUT];
-  inject(crossed, advance, dmin, cto);
-
-  // ---- reverse ----
+  const R* y = tp.y;
   R c[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) c[k] = cto[k];
   R g_pph = 0.0f, g_m = 0.0f, g_a = 0.0f, g_rh = 0.0f, g_rph = 0.0f;
   // dmin = |s'[1] - r_ph|
   if (cto[9] != 0.0f) {
-    const R sg = sgn(s[1] - r_ph);
+    const R sg = sgn((tp.advance ? y[1] : r) - r_ph);
     c[1] = c[1] + cto[9] * sg;
     g_rph = -cto[9] * sg;
   }
-  // the renormalization of p_r, after the advance
-  if (renorm && c[4] != 0.0f) {
+  // the renormalization of p_r, after the advance (renorm implies it: the
+  // post-step state is y)
+  if (tp.renorm && c[4] != 0.0f) {
     R gp[7];
-    renormalize_pr_vjp(m, a, s[1], s[2], y[4], s[5], pph, c[4], gp);
+    renormalize_pr_vjp(m, a, y[1], y[2], y[4], y[5], pph, c[4], gp);
     g_m = gp[0];
     g_a = gp[1];
     c[1] = c[1] + gp[2];
@@ -752,8 +787,8 @@ __device__ __forceinline__ void march_step_vjp(const MarchParamsT<R>& mp,
   R cy[6], cx[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    cy[k] = advance ? c[k] : 0.0f;
-    cx[k] = advance ? 0.0f : c[k];
+    cy[k] = tp.advance ? c[k] : 0.0f;
+    cx[k] = tp.advance ? 0.0f : c[k];
   }
   // the crossing record, where its cotangent is not 0
   const bool xc = cto[6] != 0.0f || cto[7] != 0.0f || cto[8] != 0.0f;
@@ -764,15 +799,15 @@ __device__ __forceinline__ void march_step_vjp(const MarchParamsT<R>& mp,
   bool jet_on = false;
   if constexpr (JETS) {
     const R x6[6] = {t, r, u, ph, pr, pu};
-    jet_on = jet_emission_vjp<APPROX>(*jp, x6, y, dlam, cj, cx, cy,
+    jet_on = jet_emission_vjp<APPROX>(*jp, x6, y, tp.dlam, cj, cx, cy,
                                       g_dlam_jet);
   }
   // the midpoint step and its size, where the step's values got any
-  if (advance || xc || jet_on) {
+  if (tp.advance || xc || jet_on) {
     const R x6[6] = {t, r, u, ph, pr, pu};
     R gx[6], g_dlam = JETS ? g_dlam_jet : 0.0f;
-    midpoint_step_vjp<APPROX>(mp, m, a, dlam, x6, pph, nu_raw, mid, cy, gx,
-                              g_dlam, g_m, g_a, g_pph);
+    midpoint_step_vjp<APPROX>(mp, m, a, tp.dlam, x6, pph, tp.nu_raw, tp.mid,
+                              cy, gx, g_dlam, g_m, g_a, g_pph);
     step_size_vjp<APPROX>(mp, a, r_h, r_ph, r, u, pu, g_dlam, g_a, g_rh,
                           g_rph, gx[1], gx[2], gx[5]);
 #pragma unroll
@@ -785,4 +820,32 @@ __device__ __forceinline__ void march_step_vjp(const MarchParamsT<R>& mp,
   cin[8] = g_a;
   cin[9] = g_rh;
   cin[10] = g_rph;
+}
+
+// J^T cto of one live march step (march_step at step i with the pre-step
+// crossing count nc) at x[NIN]: its forward (step_tape), then
+// inject(crossed, advance, dmin, cto), which fills the output cotangents
+// cto[NOUT] as the gradient kernel injects its crossing and r_min
+// cotangents there, then the reverse from the tape (march_step_vjp_tape).
+// cin[NIN] receives the input cotangents. With JETS the step is the jets'
+// (jets_advance: the same state update, plus the emission from the
+// pre-step state, the stepped one and dlam, on every live step, also one
+// that the sanity test freezes): cj[3], the jet radiance's cotangent, adds
+// the emission's VJP (jet_emission_vjp, jp its configuration).
+template <bool APPROX, bool JETS = false, class Inject, class R>
+__device__ __forceinline__ void march_step_vjp(const MarchParamsT<R>& mp,
+                                               const R x[NIN], R thr,
+                                               int i, int nc, Inject inject,
+                                               R cin[NIN],
+                                               const JetParamsT<R>* jp = nullptr,
+                                               const R* cj = nullptr) {
+  const R r = x[1], r_ph = x[10];
+  StepTape<R> tp;
+  R s[6];
+  int hit;
+  step_tape<APPROX>(mp, x[7], x[8], x[9], r_ph, inv_rph_of(r_ph), x[6], thr,
+                    i, x, nc, tp, s, hit);
+  R cto[NOUT];
+  inject(tp.crossed, tp.advance, step_dmin(tp, r, r_ph), cto);
+  march_step_vjp_tape<APPROX, JETS>(mp, x, tp, cto, cin, jp, cj);
 }

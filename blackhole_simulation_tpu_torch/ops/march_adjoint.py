@@ -12,7 +12,11 @@ card, ``march_step_vjp_at`` runs it on the states the per-step check
 (``csrc/step_vjp_check.cu``) recorded, to hold it against the header bit
 for bit, and the check holds the header against the forward-mode
 ``Dual<N>`` step. ``turning_point_states`` plants the renormalization
-states that check needs.
+states that check needs. The step's VJP is the header's two halves,
+``step_tape`` (the forward, keeping what the reverse reads) and
+``march_step_vjp_tape`` (the reverse from it); ``tape_rows`` and
+``tape_state`` are the words the float64 gradient kernel stores of a step
+and the next step's input it rebuilds from them.
 
 The derivative rules are the dual step's and JAX's: ties of max, min and
 clip split the cotangent half and half; d|x| uses sign(0) = 0; a branch
@@ -31,7 +35,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from blackhole_simulation_tpu_torch._elementwise import const, maximum, sqrt
+from blackhole_simulation_tpu_torch._elementwise import (
+    clip,
+    const,
+    maximum,
+    sqrt,
+)
 from blackhole_simulation_tpu_torch.ops.ks_kernel import (
     ks_renormalize_pr,
     ks_rhs_rows,
@@ -408,11 +417,18 @@ def clip_carry(c6, limit):
     return [c * scale for c in c6]
 
 
-def march_step_forward(cfg, x, thr, i, nc):
-    """The step's forward on live rays, keeping what the reverse reads:
-    the march step of ``march_step_rows`` written out, its values equal to
-    that function's. ``x`` = (t, r, u, ph, pr, pu, pph, m, a, r_h, r_ph)."""
-    t, r, u, ph, pr, pu, pph, m, a, r_h, r_ph = x
+def step_tape(cfg, x, thr, i, nc):
+    """The header's ``step_tape`` on live rays: the forward of one step at
+    ``x`` = (t, r, u, ph, pr, pu, ...) with the pre-step crossing count
+    ``nc`` at step index ``i``, in the march step's order (its values equal
+    ``march_step_rows``'). Returns the tape, a dict of what the reverse
+    reads: ``dlam``, ``mid`` (the last midpoint evaluation's input), ``y``
+    (the stepped rows, u clipped), ``nu_raw`` (the unclipped u),
+    ``crossed``, ``advance``, ``renorm`` (the renormalization due after the
+    step); beside it ``s``, the post-step state before the renormalization,
+    ``hit`` and the crossing record ``r_c``, ``phi_c``, ``t_c``."""
+    t, r, u, ph, pr, pu = x[:6]
+    pph, m, a, r_h, r_ph = x[6:11]
     pt = const(r, -1.0)
     dlam = step_size(a, r_h, r_ph, cfg, r, u, pu)
     d = ks_rhs_rows(m, a, r, u, pt, pr, pu, pph)
@@ -432,39 +448,62 @@ def march_step_forward(cfg, x, thr, i, nc):
     renorm = torch.zeros_like(advance)
     if (i + 1) % cfg.renormalize_every == 0:
         renorm = hit2 == HIT_NONE
-        s = s[:4] + (torch.where(renorm, ks_renormalize_pr(
-            m, a, s[1], s[2], pt, s[4], s[5], pph), s[4]), s[5])
-    return dict(dlam=dlam, y=y, nu_raw=n[2], mid_last=mid, s=s, r_c=r_c,
-                phi_c=phi_c, t_c=t_c, dmin=torch.abs(s[1] - r_ph),
-                crossed=crossed, advance=advance, renorm=renorm)
+    return dict(dlam=dlam, mid=mid, y=y, nu_raw=n[2], crossed=crossed,
+                advance=advance, renorm=renorm, s=s, hit=hit2, r_c=r_c,
+                phi_c=phi_c, t_c=t_c)
 
 
-def march_step_vjp(cfg, x, thr, i, nc, cotangents):
-    """J^T cto of one live march step (``march_step_rows`` at step ``i``
-    with crossing count ``nc``) at the inputs ``x`` = (t, r, u, ph, pr, pu,
-    pph, m, a, r_h, r_ph). ``cotangents`` is the 10 output cotangents (six
-    state rows, r_c, phi_c, t_c, dmin) or a function of (crossed, advance,
-    dmin) that returns them, as the kernel injects its crossing and r_min
-    cotangents. Returns (the 11 input cotangents, the forward's dict)."""
+def renormalized(tape, m, a, pph):
+    """The post-step state of a tape's step: ``s`` with p_r renormalized
+    where ``renorm`` is due (the state the next step starts from)."""
+    s = tape["s"]
+    pr = torch.where(tape["renorm"], ks_renormalize_pr(
+        m, a, s[1], s[2], const(s[1], -1.0), s[4], s[5], pph), s[4])
+    return s[:4] + (pr, s[5])
+
+
+def step_dmin(tape, r, r_ph):
+    """The header's ``step_dmin``: |r' - r_ph|, r' the stepped radius, or
+    r where the step froze."""
+    return torch.abs(torch.where(tape["advance"], tape["y"][1], r) - r_ph)
+
+
+def march_step_forward(cfg, x, thr, i, nc):
+    """The step's forward on live rays, keeping what the reverse reads:
+    ``step_tape``'s dict, with ``s`` renormalized where that is due,
+    ``mid_last`` (the tape's ``mid``) and ``dmin``. ``x`` = (t, r, u, ph,
+    pr, pu, pph, m, a, r_h, r_ph)."""
+    fw = step_tape(cfg, x, thr, i, nc)
+    fw["s"] = renormalized(fw, x[7], x[8], x[6])
+    fw["mid_last"] = fw["mid"]
+    fw["dmin"] = step_dmin(fw, x[1], x[10])
+    return fw
+
+
+def march_step_vjp_tape(cfg, x, tape, cto):
+    """The header's ``march_step_vjp_tape``: J^T cto of one live step from
+    its tape (``step_tape``'s keys ``dlam``, ``mid``, ``y``, ``nu_raw``,
+    ``advance``, ``renorm``) at the step's inputs ``x`` = (t, r, u, ph, pr,
+    pu, pph, m, a, r_h, r_ph), with the 10 output cotangents ``cto``.
+    Nothing of the step's forward is recomputed. Returns the 11 input
+    cotangents."""
     t, r, u, ph, pr, pu, pph, m, a, r_h, r_ph = x
-    fw = march_step_forward(cfg, x, thr, i, nc)
-    cto = (cotangents(fw["crossed"], fw["advance"], fw["dmin"])
-           if callable(cotangents) else cotangents)
     zero = torch.zeros_like(r)
-    s, y, adv = fw["s"], fw["y"], fw["advance"]
+    y, adv = tape["y"], tape["advance"]
     c = list(cto[:6])
     g = dict(pph=zero, m=zero, a=zero, rh=zero, rph=zero)
 
     # dmin = |s'[1] - r_ph|
     nz = cto[9] != 0
-    sg = torch.sign(s[1] - r_ph)
+    sg = torch.sign(torch.where(adv, y[1], r) - r_ph)
     c[1] = c[1] + torch.where(nz, cto[9] * sg, 0.0)
     g["rph"] = torch.where(nz, -cto[9] * sg, 0.0)
 
-    # the renormalization of p_r, after the advance
-    rn = fw["renorm"] & (c[4] != 0)
+    # the renormalization of p_r, after the advance (renorm implies it: the
+    # post-step state is y)
+    rn = tape["renorm"] & (c[4] != 0)
     gm, ga, gr, gu, gpr, gpu, gpph = renormalize_pr_vjp(
-        m, a, s[1], s[2], y[4], s[5], pph, c[4])
+        m, a, y[1], y[2], y[4], y[5], pph, c[4])
     c[1] = c[1] + torch.where(rn, gr, 0.0)
     c[2] = c[2] + torch.where(rn, gu, 0.0)
     c[5] = c[5] + torch.where(rn, gpu, 0.0)
@@ -489,8 +528,8 @@ def march_step_vjp(cfg, x, thr, i, nc, cotangents):
     rev = adv | xc
     x6 = (t, r, u, ph, pr, pu)
     gx6, g_dlam, gm, ga, gpph = midpoint_step_vjp(
-        m, a, fw["dlam"], x6, pph, cfg.midpoint_iters, fw["nu_raw"],
-        fw["mid_last"], cy, g["m"], g["a"], g["pph"])
+        m, a, tape["dlam"], x6, pph, cfg.midpoint_iters, tape["nu_raw"],
+        tape["mid"], cy, g["m"], g["a"], g["pph"])
     ga, grh, grph, gx6[1], gx6[2], gx6[5] = step_size_vjp(
         cfg, a, r_h, r_ph, r, u, pu, g_dlam, ga, zero, g["rph"], gx6[1],
         gx6[2], gx6[5])
@@ -501,7 +540,42 @@ def march_step_vjp(cfg, x, thr, i, nc, cotangents):
     g["pph"] = torch.where(rev, gpph, g["pph"])
     g["rh"] = torch.where(rev, grh, 0.0)
     g["rph"] = torch.where(rev, grph, g["rph"])
-    return cx + [g["pph"], g["m"], g["a"], g["rh"], g["rph"]], fw
+    return cx + [g["pph"], g["m"], g["a"], g["rh"], g["rph"]]
+
+
+def march_step_vjp(cfg, x, thr, i, nc, cotangents):
+    """J^T cto of one live march step (``march_step_rows`` at step ``i``
+    with crossing count ``nc``) at the inputs ``x`` = (t, r, u, ph, pr, pu,
+    pph, m, a, r_h, r_ph), as the header's: the forward (``step_tape``),
+    the output cotangents, then the reverse from the tape
+    (``march_step_vjp_tape``). ``cotangents`` is the 10 output cotangents
+    (six state rows, r_c, phi_c, t_c, dmin) or a function of (crossed,
+    advance, dmin) that returns them, as the kernel injects its crossing
+    and r_min cotangents. Returns (the 11 input cotangents, the forward's
+    dict, ``march_step_forward``'s)."""
+    fw = march_step_forward(cfg, x, thr, i, nc)
+    cto = (cotangents(fw["crossed"], fw["advance"], fw["dmin"])
+           if callable(cotangents) else cotangents)
+    return march_step_vjp_tape(cfg, x, fw, cto), fw
+
+
+def tape_rows(tape):
+    """The six words the float64 gradient kernel stores of a step's
+    stepped rows (``csrc/march_grad.cu``): ``y`` with the unclipped u in
+    place of the clipped one."""
+    y = tape["y"]
+    return (y[0], y[1], tape["nu_raw"], y[3], y[4], y[5])
+
+
+def tape_state(rows, renorm, m, a, pph):
+    """The step input the float64 gradient kernel rebuilds from the previous
+    step's stored ``rows`` (``tape_rows``): u clipped, and p_r renormalized
+    where the previous step's ``renorm`` was due."""
+    t, r, nu, ph, pr, pu = rows
+    u = clip(nu, *U_CLIP)
+    pr = torch.where(renorm, ks_renormalize_pr(
+        m, a, r, u, const(r, -1.0), pr, pu, pph), pr)
+    return (t, r, u, ph, pr, pu)
 
 
 def march_step_vjp_at(check, yt0, thr, m, a, r_h, r_ph, cfg, cts):

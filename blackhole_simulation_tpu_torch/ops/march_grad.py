@@ -18,8 +18,12 @@ radiance: the jet radiance's cotangent enters the VJP of every live step
 as ``jax.grad`` of the JAX package's jnp march differentiates
 ``jet_emission_step`` inside its loop (render/march.py:555-569). ``march_grad_kernel`` launches the kernel for CUDA
 tensors and runs ``march_grad`` for CPU tensors; nothing else picks between
-them. The blocks' length does not change the result: the replay is
-deterministic. ``step_vjp_check`` and ``renorm_vjp_check`` launch
+them. On float64 rays the kernel is two: the replay kernel, then the
+reverse kernel on persistent warps that take their rays from the ray pool
+and reverse each 4-step block (``CKPT_F64``) from a tape its re-forward
+wrote in shared memory (``march_adjoint.cuh::step_tape``,
+``march_step_vjp_tape``). The blocks' length does not change the result:
+the replay is deterministic. ``step_vjp_check`` and ``renorm_vjp_check`` launch
 ``csrc/step_vjp_check.cu``, the card's check of the adjoint against the
 forward-mode ``Dual<N>`` step and renormalization.
 """
@@ -37,6 +41,7 @@ from blackhole_simulation_tpu_torch.ops.pallas_march import (
     c_march_params,
     check_dtype,
     load_library,
+    ray_pool,
     scalar_params,
 )
 from blackhole_simulation_tpu_torch.render.march import (
@@ -46,30 +51,42 @@ from blackhole_simulation_tpu_torch.render.march import (
 )
 
 CKPT = 8  # steps per checkpoint block, as csrc/march_grad.cu's
+CKPT_F64 = 4  # the same of its float64 kernels (CKPT_F64)
 
 
-def _blocks(cfg) -> int:
-    return -(-cfg.max_steps // CKPT)
+def ckpt_of(dtype) -> int:
+    """The kernel's steps per checkpoint block for rays of ``dtype``."""
+    return CKPT_F64 if dtype == torch.float64 else CKPT
 
 
-def scratch_words(cfg) -> int:
-    """Scratch words per ray of the kernel: the block checkpoints, 7 words
-    each (6 state rows, crossing count), of the rays' dtype (float32 or
-    float64); the re-forward stack lives in shared memory."""
+def _blocks(cfg, ckpt: int = CKPT) -> int:
+    return -(-cfg.max_steps // ckpt)
+
+
+def scratch_words(cfg, dtype=torch.float32) -> int:
+    """Scratch words per ray of the kernel, of the rays' dtype: the block
+    checkpoints, 7 words each (6 state rows, crossing count), and in
+    float64 the count of the ray's live blocks, which the replay kernel
+    writes for the reverse kernel; the re-forward stack (float64: the tape)
+    lives in shared memory."""
+    if dtype == torch.float64:
+        return _blocks(cfg, CKPT_F64) * 7 + 1
     return _blocks(cfg) * 7
 
 
 def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
-               ct_rmin, rmin_fin, ct_jet=None, jets=None):
+               ct_rmin, rmin_fin, ct_jet=None, jets=None, ckpt=None):
     """Plain version of the march VJP (``pallas_march_grad``'s contract).
 
     ``yt0``: (8, N) rows normalized to p_t = -1 (the march's input);
     ``ct_fin``: (8, N) cotangent of the final rows (the p_t row is ignored);
     ``ct_cr/cp/ct``: (K, N) crossing cotangents; ``ct_rmin``, ``rmin_fin``:
     (N,); ``jets``: the jets' ``JetParams`` (the march with their emission)
-    with ``ct_jet`` (3, N), the jet radiance's cotangent, or None. Returns
-    (ct_yt0 (8, N) with a zero p_t row, ct_m, ct_a, ct_rh, ct_rph), the
-    scalars summed over rays. Always divides exactly.
+    with ``ct_jet`` (3, N), the jet radiance's cotangent, or None; ``ckpt``:
+    the steps per checkpoint block (by default the kernel's for the rays'
+    dtype, ``ckpt_of``), which does not change the result. Returns (ct_yt0
+    (8, N) with a zero p_t row, ct_m, ct_a, ct_rh, ct_rph), the scalars
+    summed over rays. Always divides exactly.
     """
     k_slots = cfg.max_crossings
     n = yt0.shape[1]
@@ -77,7 +94,8 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
     pph = y0[7]
     m, a, r_h, r_ph = (torch.as_tensor(x).detach() for x in (m, a, r_h, r_ph))
     thr = thr.detach()
-    n_blocks = _blocks(cfg)
+    ckpt = ckpt_of(y0.dtype) if ckpt is None else ckpt
+    n_blocks = _blocks(cfg, ckpt)
 
     # ---- phase 1: replay, checkpoint at the start of every block ----
     with torch.no_grad():
@@ -87,7 +105,7 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
         ckpts = []
         for b in range(n_blocks):
             ckpts.append((y6, hit, nc))
-            for i in range(b * CKPT, min((b + 1) * CKPT, cfg.max_steps)):
+            for i in range(b * ckpt, min((b + 1) * ckpt, cfg.max_steps)):
                 if not bool((hit == HIT_NONE).any()):
                     break
                 (y6, *_), (hit, nc, _, _) = march_step_rows(
@@ -108,7 +126,7 @@ def march_grad(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp, ct_ct,
             continue
         stack = []
         with torch.no_grad():
-            for i in range(b * CKPT, min((b + 1) * CKPT, cfg.max_steps)):
+            for i in range(b * ckpt, min((b + 1) * ckpt, cfg.max_steps)):
                 if not bool((hit == HIT_NONE).any()):
                     break
                 stack.append((i, y6, hit, nc))
@@ -200,6 +218,23 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
                           ct_cp, ct_ct, ct_rmin, rmin_fin, ct_jet, jets)
     if yt0.device.type != "cuda":
         raise ValueError(f"no gradient path for device {yt0.device}")
+    cty0, ctp = march_grad_rows(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin,
+                                ct_cr, ct_cp, ct_ct, ct_rmin, rmin_fin,
+                                ct_jet, jets, replay)
+    zero = torch.zeros((1, n), dtype=cty0.dtype, device=cty0.device)
+    ct_yt0 = torch.cat([cty0[:4], zero, cty0[4:]])
+    return ct_yt0, ctp[0].sum(), ctp[1].sum(), ctp[2].sum(), ctp[3].sum()
+
+
+def march_grad_rows(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
+                    ct_ct, ct_rmin, rmin_fin, ct_jet=None, jets=None,
+                    replay=None):
+    """One launch of the gradient kernel on CUDA tensors (the arguments
+    ``march_grad_kernel`` takes and checks): the kernel's own per-ray
+    outputs, cty0 (7, N), the cotangents of the initial rows (t, r, u, ph,
+    p_r, p_u, p_phi), and ctp (4, N), each ray's partials for (m, a, r_h,
+    r_ph). Counted in ``march_grad_kernel.launches``."""
+    n = yt0.shape[1]
     lib = _grad_library()
     dev = yt0.device
     dtype = yt0.dtype
@@ -214,23 +249,28 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
     params = scalar_params(m, a, r_h, r_ph, dev, dtype)
     cty0 = torch.empty((7, n), dtype=dtype, device=dev)
     ctp = torch.empty((4, n), dtype=dtype, device=dev)
-    words = lib.bh_march_grad_scratch(cfg.max_steps)
-    if words != scratch_words(cfg):
+    words = (lib.bh_march_grad_scratch64 if f64
+             else lib.bh_march_grad_scratch)(cfg.max_steps)
+    if words != scratch_words(cfg, dtype):
         raise RuntimeError("scratch layout differs between csrc/march_grad.cu "
                            "and ops/march_grad.py")
     scratch = torch.empty(words * n, dtype=dtype, device=dev)
     c_mp = c_march_params(cfg, dtype)
     c_jets = c_jet_params(jets, dtype)
-    launch = lib.bh_march_grad_launch64 if f64 else lib.bh_march_grad_launch
     c_real = ctypes.c_double if f64 else ctypes.c_float
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # float64: the replay and reverse kernels, the latter's rays from
+        # the ray pool of the stream (ops/pallas_march.py::ray_pool)
+        pool = (ptr(ray_pool(dev)),) if f64 else ()
+        launch = (lib.bh_march_grad_launch64 if f64
+                  else lib.bh_march_grad_launch)
         err = launch(
             ptr(params), ptr(y7), ptr(thr), ptr(ctf), ptr(ctc), ptr(ct_rmin),
             ptr(rmin_fin), ptr(cty0), ptr(ctp), ptr(scratch),
             ctypes.c_void_p(0 if replay is None else replay.data_ptr()),
-            ctypes.c_int(n), ctypes.byref(c_mp),
+            *pool, ctypes.c_int(n), ctypes.byref(c_mp),
             c_real(cfg.cotangent_clip),
             ctypes.c_void_p(0 if ctj is None else ctj.data_ptr()),
             None if jets is None else ctypes.byref(c_jets),
@@ -241,9 +281,9 @@ def march_grad_kernel(yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, ct_cr, ct_cp,
             f"gradient kernel launch failed: {lib.bh_error_string(err).decode()}")
     march_grad_kernel.launches += 1
     march_grad_kernel.scratch_bytes = scratch.numel() * scratch.element_size()
-    zero = torch.zeros((1, n), dtype=dtype, device=dev)
-    ct_yt0 = torch.cat([cty0[:4], zero, cty0[4:]])
-    return ct_yt0, ctp[0].sum(), ctp[1].sum(), ctp[2].sum(), ctp[3].sum()
+    return cty0, ctp
+
+
 
 
 march_grad_kernel.launches = 0
@@ -259,17 +299,23 @@ def grad_kernel_shape(approx: bool = True, jets: bool = False,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (on the current
     device), of the instantiation for ``MarchConfig.approx_recip`` =
     ``approx`` (the training step's route by default), ``jets`` and
-    ``dtype`` (float64: the exact route's, whatever ``approx``)."""
-    out = (ctypes.c_int * 4)()
+    ``dtype``. Float64 (the exact route's, whatever ``approx``): the
+    reverse kernel's, and under ``replay`` its replay kernel's threads per
+    block and resident blocks and warps per SM."""
+    out = (ctypes.c_int * 6)()
     lib = _grad_library()
     if dtype == torch.float64:
         lib.bh_march_grad_shape64(ctypes.c_int(int(jets)), out)
     else:
         lib.bh_march_grad_shape(ctypes.c_int(int(approx)),
                                 ctypes.c_int(int(jets)), out)
-    threads, smem, ckpt, blocks = out
-    return {"threads": threads, "smem_bytes": smem, "ckpt": ckpt,
-            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
+    threads, smem, ckpt, blocks, r_threads, r_blocks = out
+    shape = {"threads": threads, "smem_bytes": smem, "ckpt": ckpt,
+             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
+    if dtype == torch.float64:
+        shape["replay"] = {"threads": r_threads, "blocks_per_sm": r_blocks,
+                           "warps_per_sm": r_blocks * r_threads // 32}
+    return shape
 
 
 def step_vjp_check(yt0, thr, m, a, r_h, r_ph, cfg, cts, steps):
@@ -385,16 +431,19 @@ def _check_library() -> ctypes.CDLL:
 @functools.cache
 def _grad_library() -> ctypes.CDLL:
     lib = load_library("march_grad.cu", "bh_march_params_size")
-    for launch, real in ((lib.bh_march_grad_launch, ctypes.c_float),
-                         (lib.bh_march_grad_launch64, ctypes.c_double)):
+    # the float64 launch takes the ray pool after the replay pointer
+    for launch, real, ptrs in ((lib.bh_march_grad_launch, ctypes.c_float, 11),
+                               (lib.bh_march_grad_launch64, ctypes.c_double,
+                                12)):
         launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p, real]
+            [ctypes.c_void_p] * ptrs + [ctypes.c_int, ctypes.c_void_p, real]
             + [ctypes.c_void_p] * 3)
         launch.restype = ctypes.c_int
     lib.bh_march_grad_shape64.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.bh_march_grad_shape64.restype = None
-    lib.bh_march_grad_scratch.argtypes = [ctypes.c_int]
-    lib.bh_march_grad_scratch.restype = ctypes.c_int
+    for scratch in (lib.bh_march_grad_scratch, lib.bh_march_grad_scratch64):
+        scratch.argtypes = [ctypes.c_int]
+        scratch.restype = ctypes.c_int
     lib.bh_march_grad_shape.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
     lib.bh_march_grad_shape.restype = None

@@ -29,21 +29,27 @@ allowed) and lie in no other such loop, the march loop is the longest: in
 bootstrap steps unrolled ahead of it; the start offset's and the
 composite's loops are shorter), in ``march.cu`` the persistent warp's step
 loop (its outer loop refills lanes and stores). In a function that uses
-shared memory (``march_grad.cu``) it is the first: the replay's march, ahead
-of the re-forward that writes the stack to shared memory and the reverse
-that reads it. The count is static: every instruction of the loop counts once,
+shared memory (``march_grad.cu``'s float kernels) it is the first: the
+replay's march, ahead of the re-forward that writes the stack to shared
+memory and the reverse that reads it; the float64 replay is a kernel of its
+own (``march_replay_kernel_f64``), whose block of steps is its march loop.
+The gradient kernels' reverse loop (``reverse_loop``, ``--reverse``) is the
+outermost loop that reads shared memory (the stack, or in float64 the
+tape) and stores nothing: a reversed step. The count is static: every instruction of the loop counts once,
 including those of a block that a branch skips on most steps (the
 renormalization) and those of a nested loop (the
 midpoint iteration, once). The slow-path subroutines a ``CALL`` reaches are
 not in the count; each call site is.
 
     python -m blackhole_simulation_tpu_torch.tools.sass_census [--lib PATH ...]
-        [--sass FILE ...]
+        [--sass FILE ...] [--reverse]
 
 prints one JSON object, {label: {"loop": [first, last address], "counts":
-{class: n}, "total": n}}: by default of this checkout's three libraries
-(built first if need be, which needs ``nvcc``); ``--lib`` names other built
-libraries, ``--sass`` text files that ``cuobjdump -sass`` wrote.
+{class: n}, "total": n}}, of the march loops (``--reverse``: of the
+gradient kernels' reverse loops): by default of this checkout's three
+libraries (built first if need be, which needs ``nvcc``); ``--lib`` names
+other built libraries, ``--sass`` text files that ``cuobjdump -sass``
+wrote.
 """
 
 from __future__ import annotations
@@ -175,6 +181,24 @@ def march_loop(instrs: list[tuple[int, str]]) -> tuple[int, int] | None:
     return max(outer, key=lambda span: span[1] - span[0])
 
 
+def reverse_loop(instrs: list[tuple[int, str]]) -> tuple[int, int] | None:
+    """The gradient kernel's reverse loop: of the loops that read shared
+    memory (``LDS``, the re-forward's stack or tape) and hold no
+    shared-memory store, no global store and no atomic, and that lie in no
+    other such loop, the longest. None in a function without one."""
+    def reads_only(lo, hi):
+        ops = {opcode(t).split(".")[0] for _, t in instrs[lo:hi + 1]}
+        return "LDS" in ops and not ops & {"STS", "STG", "ST", "ATOM",
+                                           "ATOMG", "ATOMS", "RED"}
+    spans = [(lo, hi) for lo, hi in loops(instrs) if reads_only(lo, hi)]
+    outer = [(lo, hi) for lo, hi in spans
+             if not any(a <= lo and hi <= b and (a, b) != (lo, hi)
+                        for a, b in spans)]
+    if not outer:
+        return None
+    return max(outer, key=lambda span: span[1] - span[0])
+
+
 def count(instrs: list[tuple[int, str]]) -> dict[str, int]:
     """Instructions by class (NOPs left out)."""
     counts = dict.fromkeys(CLASSES, 0)
@@ -208,6 +232,25 @@ def census(text: str) -> dict[str, dict]:
     out = {}
     for name, instrs in parse(text).items():
         span = march_loop(instrs)
+        if span is None:
+            continue
+        lo, hi = span
+        counts = count(instrs[lo:hi + 1])
+        out[label(name)] = {
+            "loop": [instrs[lo][0], instrs[hi][0]],
+            "counts": counts,
+            "total": sum(counts.values()),
+        }
+    return out
+
+
+def reverse_census(text: str) -> dict[str, dict]:
+    """``census``'s record of the reverse loop (``reverse_loop``) of every
+    function in ``text`` that has one: the gradient kernel's
+    instantiations."""
+    out = {}
+    for name, instrs in parse(text).items():
+        span = reverse_loop(instrs)
         if span is None:
             continue
         lo, hi = span
@@ -260,13 +303,19 @@ def main(argv=None) -> None:
                     help="built libraries (default: this checkout's)")
     ap.add_argument("--sass", nargs="*", default=None,
                     help="files holding cuobjdump -sass output")
+    ap.add_argument("--reverse", action="store_true",
+                    help="the gradient kernel's reverse loop in place of "
+                         "the march loop")
     args = ap.parse_args(argv)
+    of = reverse_census if args.reverse else census
     if args.sass:
-        out = {}
-        for f in args.sass:
-            out.update(census(Path(f).read_text()))
+        texts = [Path(f).read_text() for f in args.sass]
     else:
-        out = run([Path(p) for p in args.lib] if args.lib else None)
+        texts = [sass(Path(p)) for p in args.lib] if args.lib else [
+            sass(lib) for lib in libraries()]
+    out = {}
+    for text in texts:
+        out.update(of(text))
     print(json.dumps(out))
 
 

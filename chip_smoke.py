@@ -22,7 +22,10 @@ printing a result line:
    instantiated for both routes, exact and approx_recip) and print the
    build seconds, ptxas's registers and spills of each kernel, and the
    gradient kernel's dynamic shared memory per block (its re-forward
-   stack). Then the FP32
+   stack; in float64 the reverse kernel's tape) and the float64 kernels'
+   warps per SM. A copy of ``march_grad.cu`` that counts the float64
+   reverse kernel's busy lanes (``tools/grad_census.py::count_lanes``,
+   built under ``build/grad_census/``) builds beside them. Then the FP32
    peak: the probe
    (``tools/vpu_peak.py``) at its measuring size, whose output is held
    against its plain version on the same starts (which rounds each step once
@@ -363,7 +366,14 @@ printing a result line:
    jets crop (phase 22(a)'s, in float64), the K = 8 sample and a seeded
    65,536 of phase 7's recorded rays cast to float64: ray p95 and p99.9
    rel below 1e-9 and 1e-7, the partials below 1e-8 (float32's: 1e-2,
-   2e-3, 1e-3); ms, registers, spill, shared memory per block. (c) The
+   2e-3, 1e-3); ms, registers, spill, shared memory per block, the reverse
+   and replay kernels' warps per SM, the lane efficiency of the reverse
+   kernel's warps (the lane-counting copy's busy lane-steps over 32 x its
+   warps' steps) beside one thread per ray's on the same rays, the SASS
+   census of its reverse loop, and the 1080p jets frame's time with its
+   bound. The float64 gradient on the AD frames, and the float32
+   gradient on phases 7 and 22, stay within 5% of ``PARENT_KERNEL_MS``
+   (``F64_GRAD_MS``, ``F64_JETS_GRAD_MS``: the redesigned kernel's). (c) The
    1080p AD frames (flagship and jets) in float64 with the seven leaves as
    float64 tensors: forward and forward + backward (median of 5), every
    gradient finite, one march and one gradient launch a frame; the oracle
@@ -454,6 +464,7 @@ from blackhole_simulation_tpu_torch.ops.march_adjoint import (  # noqa: E402
 )
 from blackhole_simulation_tpu_torch.ops.march_grad import (  # noqa: E402
     CKPT,
+    CKPT_F64,
     grad_kernel_shape,
     march_grad,
     march_grad_kernel,
@@ -547,6 +558,7 @@ from blackhole_simulation_tpu_torch.render.tiles import (  # noqa: E402
 from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
     critical_band_metric_u,
 )
+from blackhole_simulation_tpu_torch.tools import grad_census  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import sass_census  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import train_probe  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import vpu_peak  # noqa: E402
@@ -618,6 +630,11 @@ FLAGSHIP_MARKERS = {"render.cu": "ILi0ELb0ELb1E", "march.cu": "ILi0ELb1E"}
 FLAGSHIP_REGISTERS = {"render.cu": (48, 0), "march.cu": (64, 0)}
 FLAGSHIP_FRAME_SPREAD_MS = (6.131, 6.814)
 FLAGSHIP_KERNEL_SPREAD_MS = (1.349, 1.366)
+# The float64 gradient kernel's times on phase 23's 1080p AD frames after
+# its redesign (the replay kernel and the reverse kernel, ms per launch
+# through march_grad_kernel, H100 80GB HBM3 at 700 W, PERF.md).
+F64_GRAD_MS = 15.15
+F64_JETS_GRAD_MS = 22.00
 # The frame is ~80% host work and tonemap, which vary with the host the
 # card shares; the kernel alone does not. The frame may exceed PR 3's
 # spread by this factor, the kernel by 5%.
@@ -628,7 +645,16 @@ FRAME_SLACK = 1.25
 # PERF.md): a later slice stays within 5% of them.
 PARENT_KERNEL_MS = {"flagship render": 0.993, "certified render": 1.000,
                     "AB3 render": 0.999, "jets render": 2.105,
-                    "full-featured render": 2.198, "staged AB3 march": 1.033}
+                    "full-featured render": 2.198, "staged AB3 march": 1.033,
+                    # the gradient kernel (PERF.md's kernel table): phase 7's
+                    # and phase 22's float32 times before the float64
+                    # kernel's redesign, and the redesigned float64 kernel's
+                    # on phase 23's 1080p AD frames
+                    "training gradient": 7.684,
+                    "AD flagship gradient": 12.30,
+                    "AD jets gradient": 17.63,
+                    "float64 AD flagship gradient": F64_GRAD_MS,
+                    "float64 AD jets gradient": F64_JETS_GRAD_MS}
 PARENT_SLACK = 1.05
 # The gradient kernel's least work per live march step, in march steps: the
 # checkpointing replay, the block's re-forward, and one reverse-mode VJP of
@@ -707,13 +733,13 @@ def step_ops(variant, approx):
 
 def parent_gate(name, ms):
     """Fail when the kernel alone on ``name``'s path is more than 5% slower
-    than after the step's redesign (PARENT_KERNEL_MS)."""
+    than its reference time (PARENT_KERNEL_MS)."""
     ref = PARENT_KERNEL_MS[name]
-    print(f"{name}: kernel {ms:.4f} ms, after the step's redesign {ref} ms, "
-          f"ratio {ms / ref:.4f}")
+    print(f"{name}: kernel {ms:.4f} ms, reference (PARENT_KERNEL_MS) {ref} "
+          f"ms, ratio {ms / ref:.4f}")
     if not ms <= ref * PARENT_SLACK:
         raise AssertionError(f"{name} kernel {ms} ms is more than 5% above "
-                             f"its parent's {ref} ms")
+                             f"its reference {ref} ms")
 
 
 def bound(ops, nbytes):
@@ -765,12 +791,22 @@ def timed(fn, n):
     return float(np.median(times)), float(min(times)), float(max(times))
 
 
+# The float64 gradient kernel's lane-counting copy (tools/grad_census.py::
+# count_lanes), built in phase 1 beside the sources, read in phase 23.
+LANE_COUNT_LIB = None
+
+
 def phase_build():
+    global LANE_COUNT_LIB
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        count = pool.submit(grad_census.build_copy, grad_census.CSRC,
+                            "count", grad_census.count_lanes)
         libs = list(pool.map(kbuild.build, SOURCES))
+        LANE_COUNT_LIB = grad_census.GradLib(count.result()[0], pool=True)
     secs = time.perf_counter() - t0
-    print(f"build: {len(libs)} kernel source(s) in {secs:.1f} s")
+    print(f"build: {len(libs)} kernel source(s) and the float64 gradient "
+          f"kernel's lane-counting copy in {secs:.1f} s")
     for src in SOURCES:
         for entry, regs, spill in kbuild.ptxas_usage(src):
             print(f"ptxas {src}: {entry}: {regs} registers, {spill} bytes "
@@ -780,6 +816,11 @@ def phase_build():
     print(f"gradient kernel (march_grad.cu, approx_recip): {regs} registers, {spill} bytes "
           f"spilled, {shape['smem_bytes']} bytes of dynamic shared memory per "
           f"{shape['threads']}-thread block (a {shape['ckpt']}-step stack)")
+    shape = grad_kernel_shape(False, False, F64)
+    print(f"float64 gradient: reverse kernel {shape['smem_bytes']} bytes of "
+          f"dynamic shared memory per {shape['threads']}-thread block (a "
+          f"{shape['ckpt']}-step tape), {shape['warps_per_sm']} warps per SM; "
+          f"replay kernel {shape['replay']['warps_per_sm']} warps per SM")
     return secs
 
 
@@ -1476,6 +1517,7 @@ def phase_train(steps=5, warmup=2, width=1920, height=1080):
     gs, grad_e = grad_entry("training step", launches["march_grad"], m_args,
                             g_args)
     print(f"1080p gradient kernel vs plain (step inputs, exact divides): {gs}")
+    parent_gate("training gradient", grad_e["ms"])
 
     checks = step_check(g_args)
     checks["forward_replay"] = replay_check(m_args, g_args)
@@ -4237,6 +4279,7 @@ def phase_ad_render():
               f"grad); gradient kernel {g_ms:.3f} ms, bound {g_bound:.3f} "
               f"ms, registers/spill {info['grad_registers_spill']}; "
               f"gradients {info['grads']}")
+        parent_gate(f"AD {name} gradient", g_ms)
         if name == "flagship":
             gs, entry = grad_kernel_entry(
                 "AD flagship render_radiance 1920x1080",
@@ -4254,6 +4297,8 @@ def phase_ad_render():
         args, outs[2], True, variant="exact jets",
         registers_spill=jets_1080["grad_registers_spill"],
         ms_1080p=jets_1080["grad_kernel_ms"],
+        bound_ms_1080p=jets_1080["grad_bound_ms"],
+        bound_by_1080p=jets_1080["grad_bound_by"],
         jet_rays=int((outs[8].abs().sum(0) > 0).sum()))
     print(f"jets gradient kernel vs plain (64x64 crop, {entry['jet_rays']} "
           f"of its rays through the jets): {gs}")
@@ -4362,10 +4407,29 @@ def march_f64_entry(path, launches, args, variant, marker, kmax=4):
             cfg, jets, F64)["warps_per_sm"], share_of_bound=b_ms / ms)
 
 
+def grad_f64_bound(args, steps, jets):
+    """(bound_ms, bound_by) of the float64 gradient on ``args`` at the FP64
+    rate: the counted operations of this run's live steps, and the bytes:
+    the inputs and outputs, each live block's checkpoint (7 words) and each
+    ray's count of live blocks, written once and read once (the tape stays
+    in shared memory)."""
+    n_rays = int(args[0].shape[1])
+    k_slots = args[6].max_crossings
+    blocks = ((steps.long() + CKPT_F64 - 1) // CKPT_F64).clamp(min=1)
+    nbytes = 8 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4
+                            + (3 if jets else 0) + 2)
+                  + 2 * 7 * int(blocks.sum()))
+    return bound64(grad_ops(int(steps.long().sum()), jets), nbytes)
+
+
 def grad_f64_entry(path, launches, args, steps, jets, **extra):
     """A kernels-line entry for a float64 gradient instantiation on
     ``args``: the kernel alone, the plain VJP once, (b)'s bars, the FP64
-    bound."""
+    bound, the launch shape (the reverse kernel's and the replay kernel's
+    warps per SM), the lane efficiency of the reverse kernel's warps
+    (counted by ``tools/grad_census.py``'s lane-counting copy, built in
+    phase 1) beside one thread per ray's on the same rays, and the SASS
+    census of its reverse loop."""
     ms, gk = kernel_time(lambda: march_grad_kernel(*args), 3)
     t0 = time.perf_counter()
     gp = march_grad(*args)
@@ -4378,13 +4442,12 @@ def grad_f64_entry(path, launches, args, steps, jets, **extra):
         raise AssertionError(f"{path}: float64 gradient kernel vs plain: "
                              f"{gs}")
     n_rays = int(args[0].shape[1])
-    k_slots = args[6].max_crossings
-    live_blocks = int(((steps.long() + CKPT) // CKPT).sum())
-    nbytes = 8 * (n_rays * (7 + 1 + 7 + 3 * k_slots + 2 + 7 + 4
-                            + (3 if jets else 0)) + 2 * 7 * live_blocks)
-    b_ms, b_by = bound64(grad_ops(int(steps.long().sum()), jets), nbytes)
+    b_ms, b_by = grad_f64_bound(args, steps, jets)
     marker = "f64ILb1E" if jets else "f64ILb0E"
     shape = grad_kernel_shape(False, jets, F64)
+    label = f"march_grad_kernel_f64<{int(jets)}>"
+    reverse = sass_census.reverse_census(
+        sass_census.sass(kbuild.build("march_grad.cu")))[label]
     return gs, dict(
         name="march_grad", route="cuda",
         source="blackhole_simulation_tpu_torch/csrc/march_grad.cu",
@@ -4395,8 +4458,16 @@ def grad_f64_entry(path, launches, args, steps, jets, **extra):
         rays=n_rays, steps_per_ray=float(steps.float().mean()),
         ray_p95_rel=gs["ray_p95_rel"], ray_p999_rel=gs["ray_p999_rel"],
         registers_spill=list(registers("march_grad.cu", marker)),
-        smem_bytes=shape["smem_bytes"],
+        replay_registers_spill=list(registers("march_grad.cu",
+                                              "march_replay_kernel_f64")),
+        smem_bytes=shape["smem_bytes"], ckpt=shape["ckpt"],
         resident_warps_per_sm=shape["warps_per_sm"],
+        replay_warps_per_sm=shape["replay"]["warps_per_sm"],
+        lane_efficiency=grad_census.lane_efficiency(LANE_COUNT_LIB, args),
+        lane_efficiency_one_per_thread=grad_census.block_lane_efficiency(
+            steps, CKPT_F64),
+        reverse_loop_census={"total": reverse["total"],
+                             "counts": reverse["counts"]},
         share_of_bound=b_ms / ms, **extra)
 
 
@@ -4677,15 +4748,23 @@ def phase_float64():
         info["march_vs_plain"] = cmp
         if jets:
             gargs, gouts = jets_crop_args(F64)
+            ms_1080 = kernel_time(lambda: march_grad_kernel(*g_args), 3)[0]
+            b_1080, by_1080 = grad_f64_bound(g_args, steps, True)
             gs, ge = grad_f64_entry(
                 "float64 jets gradient, 64x64 crop of the 1080p jets scene",
-                AD_FRAMES, gargs, gouts[2], True,
-                ms_1080p=kernel_time(lambda: march_grad_kernel(*g_args),
-                                     3)[0])
+                AD_FRAMES, gargs, gouts[2], True, ms_1080p=ms_1080,
+                bound_ms_1080p=b_1080, bound_by_1080p=by_1080,
+                share_of_bound_1080p=b_1080 / ms_1080,
+                lane_efficiency_1080p=grad_census.lane_efficiency(
+                    LANE_COUNT_LIB, g_args),
+                lane_efficiency_one_per_thread_1080p=(
+                    grad_census.block_lane_efficiency(steps, CKPT_F64)))
+            parent_gate("float64 AD jets gradient", ms_1080)
         else:
             gs, ge = grad_f64_entry(
                 f"float64 AD {name} render_radiance 1920x1080", AD_FRAMES,
                 g_args, steps, False)
+            parent_gate("float64 AD flagship gradient", ge["ms"])
         info["grad_vs_plain"] = gs
         print(f"float64 AD {name} render_radiance 1920x1080: forward + "
               f"backward {info['fwd_bwd_ms']:.1f} ms (median of "

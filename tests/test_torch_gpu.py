@@ -1050,3 +1050,114 @@ def test_float64_render_runs_on_the_float64_kernels(cuda):
                          m * 0.9, CFG, None)
     with pytest.raises(ValueError):
         march_u(*args, dc.replace(CFG, approx_recip=True))
+
+
+# ---------------------------------------------------------------------------
+# The float64 gradient kernel's redesign: the replay kernel, the reverse
+# kernel's tape, persistent warps and lane refill
+# ---------------------------------------------------------------------------
+
+
+def _f64_grad_args(cuda, jets=False, max_steps=96, seed=4):
+    """Float64 gradient-kernel arguments on the flagship physics at a =
+    0.999 (250x141 rays), seeded cotangents of both signs."""
+    from blackhole_simulation_tpu_torch.render.shading import JetParams
+
+    cfg = MarchConfig(max_steps=max_steps, step_rate=0.2,
+                      far_step_cap_rate=0.4, far_boost_radius=20.0,
+                      midpoint_iters=1)
+    jp = JetParams() if jets else None
+    m = torch.tensor(1.0, dtype=F64, device=cuda)
+    a = torch.tensor(0.999, dtype=F64, device=cuda)
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5,
+                        width=250, height=141)
+    yt0, thr, m, a, r_h, r_ph = _march_inputs(
+        camera_rays_u(cam, m, a, dtype=F64), m, a, cfg, None)
+    outs = march_u(yt0, thr, m, a, r_h, r_ph, cfg, jp)
+    n, k = yt0.shape[1], cfg.max_crossings
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f = lambda *s: (torch.rand(*s, generator=g, dtype=F64) - 0.4).to(cuda)
+    ct_fin = f(8, n)
+    ct_fin[4] = 0.0
+    return (yt0, thr, m, a, r_h, r_ph, cfg, ct_fin, f(k, n), f(k, n),
+            f(k, n), f(n), outs[7], f(3, n) if jets else None, jp), outs
+
+
+def test_float64_grad_kernel_shape(cuda):
+    """The float64 reverse kernel reaches its design's resident warps per
+    SM (16 at 128 registers; the jets instantiation 12 at 168) with its
+    tape in shared memory: per thread the block's CKPT + 1 states (6
+    words), each step's dlam and midpoint input (5 words) and one int of
+    the step's crossing count and decisions; the replay kernel at least
+    16 warps."""
+    from blackhole_simulation_tpu_torch.ops.march_grad import CKPT_F64
+
+    for jets, warps in ((False, 16), (True, 12)):
+        s = grad_kernel_shape(False, jets, F64)
+        assert s["ckpt"] == CKPT_F64
+        assert s["warps_per_sm"] >= warps, s
+        words = 6 * (s["ckpt"] + 1) + 5 * s["ckpt"]
+        assert s["smem_bytes"] == (words * s["threads"] * 8
+                                   + s["ckpt"] * s["threads"] * 4), s
+        assert s["replay"]["warps_per_sm"] >= 16, s
+
+
+@pytest.mark.parametrize("jets", [False, True])
+def test_float64_replay_counts_equal_the_march(cuda, jets):
+    """The float64 replay kernel's hit, live steps and crossing counts are
+    the float64 march kernel's, ray for ray."""
+    args, outs = _f64_grad_args(cuda, jets=jets, max_steps=256)
+    n = args[0].shape[1]
+    replay = torch.full((3, n), -1, dtype=torch.int32, device=cuda)
+    march_grad_kernel(*args, replay=replay)
+    torch.cuda.synchronize()
+    for row, i in ((0, 1), (1, 2), (2, 6)):
+        assert torch.equal(replay[row], outs[i]), row
+    assert int(outs[6].sum()) > 0 and int(outs[2].max()) > 16
+
+
+@pytest.mark.parametrize("jets", [False, True])
+def test_float64_gradient_launches_are_bit_identical(cuda, jets):
+    """Two launches give the same bits, whichever lane ran which ray."""
+    from blackhole_simulation_tpu_torch.ops.march_grad import march_grad_rows
+
+    args, _ = _f64_grad_args(cuda, jets=jets)
+    a = march_grad_rows(*args)
+    b = march_grad_rows(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+
+
+@pytest.mark.parametrize("n", [1, 17, 32, 1000, 35250 - 7])
+def test_float64_gradient_lane_refill_edges(cuda, n):
+    """One ray, fewer than a warp, one warp, a ragged count and more rays
+    than the resident lanes take: every ray's outputs written and within
+    rel 1e-9 of march_grad in float64, the same bits as the same rays in
+    a launch of all 35,250, and the ray pool back at zero."""
+    from blackhole_simulation_tpu_torch.ops.march_grad import march_grad_rows
+
+    full_args, _ = _f64_grad_args(cuda)
+    cut = lambda x: None if x is None else x[..., :n].contiguous()
+    args = (*map(cut, full_args[:2]), *full_args[2:7],
+            *map(cut, full_args[7:14]), full_args[14])
+    before = march_grad_kernel.launches
+    got = march_grad_kernel(*args)
+    torch.cuda.synchronize()
+    assert march_grad_kernel.launches == before + 1
+    assert not bool(ray_pool(cuda).any())
+    cty0, ctp = march_grad_rows(*args)
+    f_cty0, f_ctp = march_grad_rows(*full_args)
+    torch.cuda.synchronize()
+    assert torch.equal(cty0.view(torch.int64),
+                       f_cty0[:, :n].view(torch.int64))
+    assert torch.equal(ctp.view(torch.int64), f_ctp[:, :n].view(torch.int64))
+    if n <= 1000:
+        want = march_grad(*args)
+        rows = [0, 1, 2, 3, 5, 6, 7]
+        rel = ((got[0][rows] - want[0][rows]).abs()
+               / (want[0][rows].abs() + 1e-12)).amax(dim=0)
+        assert bool(torch.isfinite(got[0]).all())
+        assert float(rel.max()) < 1e-9
+        for x, y in zip(got[1:], want[1:]):
+            assert float(x) == pytest.approx(float(y), rel=1e-9, abs=1e-12)
