@@ -54,10 +54,11 @@
 //   count after every step adds its ballot and a copy of the lane state to
 //   every step; 16 of 32 and every 16 steps did best on the training,
 //   AB3 and jets marches together.
-// * Per-ray state lives in registers (march_step.cuh's MarchRay); for AB3
-//   it carries the two right-hand-side histories and step sizes, which a
-//   birth resets. The midpoint instantiation carries none of AB3's or the
-//   jets' registers.
+// * Per-ray state lives in registers (march_step.cuh's MarchRay; in
+//   double, a stack frame but for AB3's, below); for AB3 it carries the
+//   two right-hand-side histories and step sizes, which a birth resets.
+//   The midpoint instantiation carries none of AB3's or the jets'
+//   registers.
 // * Layout: every input and output is row-major [row][ray]; a refill's rays
 //   are consecutive, so its loads and stores stay in few lines. The
 //   caller orders rays in 64 x 64 pixel blocks (ops/pallas_march.py::
@@ -77,6 +78,18 @@
 //   the hit, steps and crossing counts stay int32. The wrapper picks them
 //   by the rays' dtype. The H100 runs FP64 at half its FP32 rate, and a
 //   double ray holds twice the registers.
+// * The float64 AB3 march (march_kernel_f64<MARCH_AB3>) keeps its history
+//   of right-hand sides in a ring in shared memory (march_step.cuh's
+//   Ab3Ring, 18,432 bytes per block: a step reads two slots and writes the
+//   third, so nothing shifts) and its crossing slots in an indexed array of
+//   their own, so that its lane state (MarchRay<MARCH_AB3, double>) holds
+//   no array and stays in registers. The whole double MarchRay (328
+//   bytes), as the midpoint and jets variants still have it, sits in a
+//   stack frame whose fields the step loop stores every step: on the AB3
+//   march at 168 registers and 12 warps per SM, 11 LDL and 35 STL a step;
+//   the redesign runs at ptxas's own 80 registers, 24 warps per SM, and no
+//   local memory in its loop outside a crossing (PERF.md: 1.72 against
+//   2.17 ms on the 1080p flagship rays, bit-identical).
 // * Jets (a third instantiation, chosen when the caller passes JetParams):
 //   the midpoint march with the jets' emission summed per live step into
 //   three more registers and written as three more rows. The JAX package
@@ -137,7 +150,7 @@ __device__ __forceinline__ void march_finish(
       ct_o[k * N + j] = q.ct[k];
     }
   }
-  if (MARCH == MARCH_JETS) {
+  if constexpr (MARCH == MARCH_JETS) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) jet_o[c * N + j] = q.jet[c];
   }
@@ -155,6 +168,16 @@ __host__ __device__ constexpr int march_min_blocks(int march, bool approx) {
   return march == MARCH_AB3 ? (approx ? 7 : 6) : 0;
 }
 
+// The float64 AB3 march's ring of right-hand sides (march_step.cuh's
+// Ab3Ring: 3 slots x 6 rows x THREADS doubles, 18,432 bytes per block):
+// this thread's column of the block's shared array (march_body on double
+// with MARCH_AB3 only).
+template <class R>
+__device__ __forceinline__ Ab3Ring<R, THREADS> ab3_ring() {
+  __shared__ R ring[3 * 6 * THREADS];
+  return {ring + threadIdx.x};
+}
+
 // The kernel's body. MARCH: MARCH_MIDPOINT, MARCH_AB3 or MARCH_JETS;
 // APPROX: MarchConfig.approx_recip; R: float, or double on the exact
 // route. A resident grid of persistent warps; each lane marches one ray at
@@ -170,6 +193,8 @@ __device__ __forceinline__ void march_body(
     const MarchParamsT<R>& mp, const JetParamsT<R>& jp) {
   static_assert(sizeof(R) == 4 || !APPROX,
                 "the float64 march has the exact route only");
+  // the float64 AB3 march keeps its history in a ring in shared memory
+  constexpr bool RING = MARCH == MARCH_AB3 && sizeof(R) == 8;
   const size_t N = (size_t)n;
   const int lane = threadIdx.x & 31;
   const R m = __ldg(P + 0);
@@ -178,6 +203,15 @@ __device__ __forceinline__ void march_body(
   const R r_ph = __ldg(P + 3);
   const R inv_rph = inv_rph_of(r_ph);
   MarchRay<MARCH, R> q;
+  Ab3Ring<R, THREADS> ring{nullptr};
+  R slots[3][KMAX];    // with the ring, the crossing slots q.cr, q.cp, q.ct
+  int slot = 0;        // with the ring, the ray's step index mod 3
+  if constexpr (RING) {
+    ring = ab3_ring<R>();
+    q.cr = slots[0];
+    q.cp = slots[1];
+    q.ct = slots[2];
+  }
   int j = -1;          // the lane's ray, -1 for none
   bool live = false;   // the lane's ray is still marching
   bool empty = false;  // the pool has no ray left (the same in every lane)
@@ -198,7 +232,11 @@ __device__ __forceinline__ void march_body(
       if (!live && k < n) {
         j = k;
         march_birth(y, thr, N, j, mp, m, a, r_ph, q);
-        ray_boot<MARCH, APPROX>(mp, m, a, r_h, r_ph, inv_rph, q);
+        if constexpr (RING)
+          ray_boot_ring<APPROX>(mp, m, a, r_h, r_ph, inv_rph, q, ring,
+                                slot);
+        else
+          ray_boot<MARCH, APPROX>(mp, m, a, r_h, r_ph, inv_rph, q);
         live = q.hit == HIT_NONE;
       }
       empty = end >= n;
@@ -206,7 +244,10 @@ __device__ __forceinline__ void march_body(
     }
 #pragma unroll 1
     for (int rep = 0; rep < CHECK_STEPS && live; ++rep) {
-      ray_step<MARCH, APPROX>(mp, m, a, r_h, r_ph, inv_rph, jp, q);
+      if constexpr (RING)
+        ray_step_ring<APPROX>(mp, m, a, r_h, r_ph, inv_rph, q, ring, slot);
+      else
+        ray_step<MARCH, APPROX>(mp, m, a, r_h, r_ph, inv_rph, jp, q);
       live = q.hit == HIT_NONE;
     }
   }
@@ -245,8 +286,10 @@ march_kernel_f64(const double* __restrict__ P, const double* __restrict__ y,
 }
 
 // Resident blocks per SM of each instantiation (variant x approx, then the
-// three double variants), and the SM count, per device (queried once).
+// three double variants), its static shared memory per block, and the SM
+// count, per device (queried once).
 static int g_blocks[16][9];
+static int g_smem[16][9];
 static int g_sms[16];
 
 template <class R>
@@ -284,7 +327,8 @@ static MarchKernelT<R> march_kernel_for(int variant, bool approx) {
 }
 
 template <class R>
-static int march_shape(int variant, bool approx, int* blocks, int* sms) {
+static int march_shape(int variant, bool approx, int* blocks, int* sms,
+                       int* smem = nullptr) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -292,16 +336,21 @@ static int march_shape(int variant, bool approx, int* blocks, int* sms) {
   const int k = sizeof(R) == 8 ? 6 + variant : variant * 2 + (approx ? 1 : 0);
   if (g_blocks[dev][k] == 0) {
     int b = 0, s = 0;
+    cudaFuncAttributes attr;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &b, march_kernel_for<R>(variant, approx), THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncGetAttributes(&attr, march_kernel_for<R>(variant, approx));
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     g_blocks[dev][k] = b;
+    g_smem[dev][k] = (int)attr.sharedSizeBytes;
     g_sms[dev] = s;
   }
   *blocks = g_blocks[dev][k];
   *sms = g_sms[dev];
+  if (smem != nullptr) *smem = g_smem[dev][k];
   return 0;
 }
 
@@ -369,27 +418,30 @@ int bh_march_launch64(const double* P, const double* y, const double* thr,
 }
 
 // The launch shape of the instantiation that (mp, jp) selects: out =
-// {threads per block, resident blocks per SM, SMs}; returns a CUDA error
-// code.
+// {threads per block, resident blocks per SM, SMs, static shared memory
+// bytes per block}; returns a CUDA error code.
 int bh_march_shape(const MarchParams* mp, const JetParams* jp, int* out) {
-  int blocks = 0, sms = 0;
+  int blocks = 0, sms = 0, smem = 0;
   const int err = march_shape<float>(march_variant(mp, jp),
-                                     mp->approx_recip != 0, &blocks, &sms);
+                                     mp->approx_recip != 0, &blocks, &sms,
+                                     &smem);
   out[0] = THREADS;
   out[1] = blocks;
   out[2] = sms;
+  out[3] = smem;
   return err;
 }
 
 // bh_march_shape of the float64 instantiation that (mp, jp) selects.
 int bh_march_shape64(const MarchParamsT<double>* mp,
                      const JetParamsT<double>* jp, int* out) {
-  int blocks = 0, sms = 0;
-  const int err =
-      march_shape<double>(march_variant(mp, jp), false, &blocks, &sms);
+  int blocks = 0, sms = 0, smem = 0;
+  const int err = march_shape<double>(march_variant(mp, jp), false, &blocks,
+                                      &sms, &smem);
   out[0] = THREADS;
   out[1] = blocks;
   out[2] = sms;
+  out[3] = smem;
   return err;
 }
 

@@ -12,7 +12,10 @@
 // (march_step with record_step, jets_advance, ab3_boot_step and ab3_step)
 // in the same order; the step-level form carries what the loops keep in
 // locals, AB3's right-hand-side histories and step sizes and the
-// renormalization countdown among them, as per-lane state.
+// renormalization countdown among them, as per-lane state. The float64
+// AB3 march's step form keeps its history in a ring in shared memory
+// instead (Ab3Ring, ab3_ring_boot_step, ab3_ring_step: the same
+// expressions in the same order as ab3_boot_step and ab3_step).
 //
 // Why two forms: each writes its own prologue (the records cleared) and
 // end-of-march rule (AB3's tail renormalization, then hit = HIT_HORIZON),
@@ -778,9 +781,9 @@ __device__ __forceinline__ void march_step(
 // both forms index them. The double march's step form passes LOCAL for
 // its midpoint and jets variants (ray_step): there the slots in registers
 // cost occupancy (106 registers and 4 resident blocks per SM on the H100,
-// against 72 and 7 indexed, and a third of the time on the 1080p rays),
-// where its AB3 variant, whose histories already sit in local memory,
-// ran slower indexed (PERF.md). R: float or double.
+// against 72 and 7 indexed, and a third of the time on the 1080p rays).
+// Its AB3 variant indexes them too, in an array apart from its lane state
+// (MarchRay<MARCH_AB3, double>, ray_step_ring). R: float or double.
 template <bool LOCAL, class R>
 __device__ __forceinline__ void record_step(bool crossed, bool advance,
                                             R r_c, R phi_c, R t_c, R r,
@@ -963,22 +966,33 @@ __device__ __forceinline__ void march_ray(const MarchParamsT<R>& mp, R m,
   if (hit == HIT_NONE) hit = HIT_HORIZON;
 }
 
-// The end of an AB3 step (bootstrap or not): the crossing record, the
-// advance, the records, and the history (f1, f2, h1, h2) shifted. The
-// Pallas kernel shifts it only when the ray advances; a ray that does not
-// advance has ended (advance_step sets its hit), so no later step reads the
-// history and the shift needs no predicate. LOCAL: record_step's.
+// The records of an AB3 step (bootstrap or not) from the stepped values
+// y: the crossing record, the advance and the step's records. LOCAL:
+// record_step's.
 template <bool APPROX, bool LOCAL, class R>
-__device__ __forceinline__ void ab3_finish(
-    const MarchParamsT<R>& mp, R r_ph, R thr, R s[6], const R y[6],
-    const R f0[6], R dlam, R f1[6], R f2[6], R& h1, R& h2, int& hit, int& nc,
-    R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
+__device__ __forceinline__ void ab3_record(
+    const MarchParamsT<R>& mp, R r_ph, R thr, R s[6], const R y[6], int& hit,
+    int& nc, R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
   R r_c, phi_c, t_c;
   crossing_record<APPROX>(s[0], s[1], s[2], s[3], y, r_c, phi_c, t_c);
   bool crossed, advance;
   advance_step(mp, thr, s, y, r_c, hit, nc, crossed, advance);
   record_step<LOCAL>(crossed, advance, r_c, phi_c, t_c, s[1], r_ph, nc, cr,
                      cp, ct, steps, rmin);
+}
+
+// The end of an AB3 step (bootstrap or not): its records (ab3_record) and
+// the history (f1, f2, h1, h2) shifted. The Pallas kernel shifts it only
+// when the ray advances; a ray that does not advance has ended
+// (advance_step sets its hit), so no later step reads the history and the
+// shift needs no predicate. LOCAL: record_step's.
+template <bool APPROX, bool LOCAL, class R>
+__device__ __forceinline__ void ab3_finish(
+    const MarchParamsT<R>& mp, R r_ph, R thr, R s[6], const R y[6],
+    const R f0[6], R dlam, R f1[6], R f2[6], R& h1, R& h2, int& hit, int& nc,
+    R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
+  ab3_record<APPROX, LOCAL>(mp, r_ph, thr, s, y, hit, nc, cr, cp, ct, steps,
+                            rmin);
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     f2[k] = f1[k];
@@ -1015,6 +1029,26 @@ __device__ __forceinline__ int ab3_renorm_start(int every) {
   return every > 0 ? renorm_start(2, every) : 0x7fffffff;
 }
 
+// The AB3 step's variable-step Lagrange-integral coefficients (c0, c1, c2)
+// of the step dlam after the steps h1 and h2.
+template <bool APPROX, class R>
+__device__ __forceinline__ void ab3_coefficients(R dlam, R h1, R h2, R& c0,
+                                                 R& c1, R& c2) {
+  const R third = K<R>(1.0 / 3.0);
+  const R h12 = h1 + h2;
+  const R hh2 = dlam * dlam;
+  const R hh3 = hh2 * dlam;
+  // The coefficients' shared terms; x * hh2 * 0.5 = x * (hh2 * 0.5) bit for
+  // bit (halving is exact).
+  const R t3 = hh3 * third;
+  const R t2 = hh2 * 0.5f;
+  c0 = divr<APPROX>(
+      madd<APPROX>(h1 * h12, dlam, madd<APPROX>(2.0f * h1 + h2, t2, t3)),
+      h1 * h12);
+  c1 = -divr<APPROX>(madd<APPROX>(h12, t2, t3), h1 * h2);
+  c2 = divr<APPROX>(madd<APPROX>(h1, t2, t3), h2 * h12);
+}
+
 // One AB3 step of a live ray after the bootstrap (ops/march.py::
 // march_tile_ab3; the body of march_ray_ab3's loop). One right-hand side
 // per step: y_{n+1} = y_n + c0 f_n + c1 f_{n-1} + c2 f_{n-2} with the
@@ -1027,24 +1061,13 @@ __device__ __forceinline__ void ab3_step(
     const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph, R pph,
     R thr, int& rn, R s[6], R f1[6], R f2[6], R& h1, R& h2, int& hit,
     int& nc, R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps, R& rmin) {
-  const R third = K<R>(1.0 / 3.0);
   R f0[6], y[6];
   ks_rhs<APPROX>(m, a, s[1], s[2], s[4], s[5], pph, f0);
   const R dlam = jmin(
       step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]),
       2.0f * h1);
-  const R h12 = h1 + h2;
-  const R hh2 = dlam * dlam;
-  const R hh3 = hh2 * dlam;
-  // The coefficients' shared terms; x * hh2 * 0.5 = x * (hh2 * 0.5) bit for
-  // bit (halving is exact).
-  const R t3 = hh3 * third;
-  const R t2 = hh2 * 0.5f;
-  const R c0 = divr<APPROX>(
-      madd<APPROX>(h1 * h12, dlam, madd<APPROX>(2.0f * h1 + h2, t2, t3)),
-      h1 * h12);
-  const R c1 = -divr<APPROX>(madd<APPROX>(h12, t2, t3), h1 * h2);
-  const R c2 = divr<APPROX>(madd<APPROX>(h1, t2, t3), h2 * h12);
+  R c0, c1, c2;
+  ab3_coefficients<APPROX>(dlam, h1, h2, c0, c1, c2);
 #pragma unroll
   for (int k = 0; k < 6; ++k)
     y[k] = madd<APPROX>(c2, f2[k],
@@ -1052,6 +1075,81 @@ __device__ __forceinline__ void ab3_step(
   y[2] = jclip(y[2], K<R>(-1.0 + 1e-7), K<R>(1.0 - 1e-7));
   ab3_finish<APPROX, LOCAL>(mp, r_ph, thr, s, y, f0, dlam, f1, f2, h1, h2,
                             hit, nc, cr, cp, ct, steps, rmin);
+  if (renorm_due(rn, mp.ab3_renorm_every) && hit == HIT_NONE)
+    s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
+}
+
+// AB3's right-hand-side history as a ring in shared memory (the float64
+// march kernel's AB3 instantiation, march.cu): three slots of six rows in
+// the lane's own column of the block's array, slot q's row k at
+// col[(6 * q + k) * STRIDE] (STRIDE: the block's threads, so a warp's 32
+// lanes touch 32 consecutive words). Step i's right-hand side lives in slot
+// i mod 3: a step reads the slots of steps i - 1 and i - 2 and writes its
+// own over step i - 3's, so that no step shifts the history (ab3_finish's
+// twelve copies) and the history holds no register.
+template <class R, int STRIDE>
+struct Ab3Ring {
+  R* col;
+  __device__ __forceinline__ R& at(int slot, int k) const {
+    return col[(6 * slot + k) * STRIDE];
+  }
+  __device__ __forceinline__ void put(int slot, const R f[6]) const {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) at(slot, k) = f[k];
+  }
+};
+
+// ab3_boot_step with the history in the ring: the right-hand side goes to
+// slot ``slot`` (the step index, 0 or 1), the step sizes shift as there.
+// The crossing slots are indexed (record_step's LOCAL).
+template <bool APPROX, class R, int STRIDE>
+__device__ __forceinline__ void ab3_ring_boot_step(
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph, R pph,
+    R thr, R s[6], const Ab3Ring<R, STRIDE>& ring, int slot, R& h1, R& h2,
+    int& hit, int& nc, R cr[KMAX], R cp[KMAX], R ct[KMAX], int& steps,
+    R& rmin) {
+  R f0[6], y[6];
+  ks_rhs<APPROX>(m, a, s[1], s[2], s[4], s[5], pph, f0);
+  ring.put(slot, f0);
+  const R dlam =
+      step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]);
+  midpoint_step<APPROX>(mp, m, a, dlam, s[0], s[1], s[2], s[3], s[4], s[5],
+                        pph, y);
+  ab3_record<APPROX, true>(mp, r_ph, thr, s, y, hit, nc, cr, cp, ct, steps,
+                           rmin);
+  h2 = h1;
+  h1 = dlam;
+}
+
+// ab3_step with the history in the ring: the same expressions in the same
+// order, f1 and f2 read from the slots before ``slot`` (step i mod 3), f0
+// written to it. The crossing slots are indexed (record_step's LOCAL).
+template <bool APPROX, class R, int STRIDE>
+__device__ __forceinline__ void ab3_ring_step(
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph, R pph,
+    R thr, int& rn, R s[6], const Ab3Ring<R, STRIDE>& ring, int slot, R& h1,
+    R& h2, int& hit, int& nc, R cr[KMAX], R cp[KMAX], R ct[KMAX],
+    int& steps, R& rmin) {
+  R f0[6], y[6];
+  ks_rhs<APPROX>(m, a, s[1], s[2], s[4], s[5], pph, f0);
+  const R dlam = jmin(
+      step_size<APPROX>(mp, a, r_h, r_ph, inv_rph, s[1], s[2], s[5]),
+      2.0f * h1);
+  R c0, c1, c2;
+  ab3_coefficients<APPROX>(dlam, h1, h2, c0, c1, c2);
+  const int p1 = slot == 0 ? 2 : slot - 1;
+  const int p2 = p1 == 0 ? 2 : p1 - 1;
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    y[k] = madd<APPROX>(
+        c2, ring.at(p2, k),
+        madd<APPROX>(c1, ring.at(p1, k), madd<APPROX>(c0, f0[k], s[k])));
+  y[2] = jclip(y[2], K<R>(-1.0 + 1e-7), K<R>(1.0 - 1e-7));
+  ring.put(slot, f0);
+  ab3_record<APPROX, true>(mp, r_ph, thr, s, y, hit, nc, cr, cp, ct, steps,
+                           rmin);
+  h2 = h1;
+  h1 = dlam;
   if (renorm_due(rn, mp.ab3_renorm_every) && hit == HIT_NONE)
     s[4] = ks_renormalize_pr(m, a, s[1], s[2], s[4], s[5], pph);
 }
@@ -1132,6 +1230,40 @@ struct MarchRay {
   R f1[6], f2[6], h1, h2;
 };
 
+// The float64 AB3 march's lane state (march.cu's march_kernel_f64<
+// MARCH_AB3>), which holds no array but the state: its history of
+// right-hand sides lives in a ring in shared memory (Ab3Ring,
+// ray_boot_ring, ray_step_ring), its crossing slots in an array of the
+// kernel's own that cr, cp and ct point into (indexed by the crossing
+// count, written on a crossing and read once, in local memory). The whole
+// MarchRay in double (328 bytes) sat in a stack frame of that size, its
+// fields stored to local memory every step (tools/march_census.py,
+// PERF.md); this one stays in registers.
+template <>
+struct MarchRay<MARCH_AB3, double> {
+  double s[6];
+  double pph, thr;
+  int hit, steps, nc, i, rn;
+  double *cr, *cp, *ct;
+  double rmin;
+  double h1, h2;
+};
+
+// AB3's history at a ray's birth: no right-hand side yet (zeros, which no
+// step reads: the bootstrap writes both before the first AB3 step) and
+// both step sizes min_step. The ring's lane state has no f1, f2.
+template <int MARCH, class R>
+__device__ __forceinline__ void ab3_history_begin(const MarchParamsT<R>& mp,
+                                                  MarchRay<MARCH, R>& q) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) q.f1[k] = q.f2[k] = 0.0f;
+  q.h1 = q.h2 = mp.min_step;
+}
+__device__ __forceinline__ void ab3_history_begin(
+    const MarchParamsT<double>& mp, MarchRay<MARCH_AB3, double>& q) {
+  q.h1 = q.h2 = mp.min_step;
+}
+
 // The end of the march on a ray still live after max_steps steps: AB3's
 // tail renormalization, then hit = HIT_HORIZON (march_ray's own rule).
 template <int MARCH, class R>
@@ -1158,12 +1290,8 @@ __device__ __forceinline__ void ray_begin(const MarchParamsT<R>& mp, R m, R a,
   q.i = 0;
   q.rn = MARCH == MARCH_AB3 ? ab3_renorm_start(mp.ab3_renorm_every)
                             : mp.renormalize_every;
-  if (MARCH == MARCH_JETS) q.jet[0] = q.jet[1] = q.jet[2] = 0.0f;
-  if (MARCH == MARCH_AB3) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) q.f1[k] = q.f2[k] = 0.0f;
-    q.h1 = q.h2 = mp.min_step;
-  }
+  if constexpr (MARCH == MARCH_JETS) q.jet[0] = q.jet[1] = q.jet[2] = 0.0f;
+  if constexpr (MARCH == MARCH_AB3) ab3_history_begin(mp, q);
   ray_close(mp, m, a, q);
 }
 
@@ -1219,6 +1347,40 @@ __device__ __forceinline__ void ray_step(const MarchParamsT<R>& mp, R m, R a,
                                 r_ph, q.nc, q.cr, q.cp, q.ct, q.steps,
                                 q.rmin);
   }
+  ++q.i;
+  ray_close(mp, m, a, q);
+}
+
+// ray_boot and ray_step of an AB3 ray whose history lives in a ring
+// (Ab3Ring) and whose crossing slots are indexed (the float64 lane state
+// above): the bootstrap's right-hand sides go to ring slots 0 and 1, and
+// ``slot``, the lane's step index mod 3, counts on from there. A ray born
+// in a lane writes both bootstrap slots before its first AB3 step reads
+// them, so nothing of the lane's previous ray is read.
+template <bool APPROX, class R, int STRIDE>
+__device__ __forceinline__ void ray_boot_ring(
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph,
+    MarchRay<MARCH_AB3, R>& q, const Ab3Ring<R, STRIDE>& ring, int& slot) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    if (q.hit != HIT_NONE) break;
+    ab3_ring_boot_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, q.pph,
+                                      q.thr, q.s, ring, b, q.h1, q.h2, q.hit,
+                                      q.nc, q.cr, q.cp, q.ct, q.steps,
+                                      q.rmin);
+    ++q.i;
+    ray_close(mp, m, a, q);
+  }
+  slot = 2;
+}
+template <bool APPROX, class R, int STRIDE>
+__device__ __forceinline__ void ray_step_ring(
+    const MarchParamsT<R>& mp, R m, R a, R r_h, R r_ph, R inv_rph,
+    MarchRay<MARCH_AB3, R>& q, const Ab3Ring<R, STRIDE>& ring, int& slot) {
+  ab3_ring_step<APPROX>(mp, m, a, r_h, r_ph, inv_rph, q.pph, q.thr,
+                               q.rn, q.s, ring, slot, q.h1, q.h2, q.hit,
+                               q.nc, q.cr, q.cp, q.ct, q.steps, q.rmin);
+  slot = slot == 2 ? 0 : slot + 1;
   ++q.i;
   ray_close(mp, m, a, q);
 }

@@ -16,8 +16,8 @@ plain versions do. The approx_recip route contracts explicitly instead
 The library lands in ``build/kernels/`` at the repository root, named by a
 hash of the source, every header of ``csrc/`` and the flags, so an edited
 source or shared header never loads a stale build. ptxas's report
-(registers, spills) is kept beside it. The first call of a kernel's wrapper
-builds it; nothing is built at import time.
+(registers, spills, stack frame) is kept beside it. The first call of a
+kernel's wrapper builds it; nothing is built at import time.
 
 A march records ``MarchConfig.max_crossings`` equator crossings per ray,
 any number from 1, as the JAX kernels take any. The kernels carry
@@ -116,18 +116,32 @@ def ptxas_report(source: str, kmax: int = KMAX_DEFAULT) -> str:
     return _paths(source, kmax)[1].read_text()
 
 
+def parse_ptxas(report: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill bytes stored + loaded, stack frame bytes)
+    of each kernel entry in a ptxas -v report."""
+    usage, entry, spill, stack = [], None, 0, 0
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry, spill, stack = m.group(1), 0, 0
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            stack = int(m.group(1))
+            spill = int(m.group(2)) + int(m.group(3))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            usage.append((entry, int(m.group(1)), spill, stack))
+            entry = None
+    return usage
+
+
 def ptxas_usage(source: str, kmax: int = KMAX_DEFAULT
                 ) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill bytes stored + loaded) of each kernel
     entry in the current build of ``csrc/<source>``."""
-    usage, entry, spill = [], None, 0
-    for line in ptxas_report(source, kmax).splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            entry, spill = m.group(1), 0
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                            line):
-            spill = int(m.group(1)) + int(m.group(2))
-        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
-            usage.append((entry, int(m.group(1)), spill))
-            entry = None
-    return usage
+    return [u[:3] for u in parse_ptxas(ptxas_report(source, kmax))]
+
+
+def ptxas_stack(source: str, kmax: int = KMAX_DEFAULT) -> dict[str, int]:
+    """{kernel: stack frame bytes} of each kernel entry in the current
+    build of ``csrc/<source>`` (local memory per thread: indexed arrays and
+    spills)."""
+    return {u[0]: u[3] for u in parse_ptxas(ptxas_report(source, kmax))}

@@ -355,10 +355,11 @@ def march_kernel_shape(cfg, jets=None, dtype=torch.float32) -> dict:
     """The launch shape of the march kernel's instantiation for ``cfg``,
     ``jets`` and ``dtype``, from the built library on the current device:
     threads per block, resident blocks and warps per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SM count;
-    the resident grid is their product."""
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the SM count (the
+    resident grid is their product) and the static shared memory per
+    block."""
     lib = _march_library(kmax_for(cfg.max_crossings))
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     c_mp, c_jets = c_march_params(cfg, dtype), c_jet_params(jets, dtype)
     shape = lib.bh_march_shape64 if _f64(dtype) else lib.bh_march_shape
     err = shape(ctypes.byref(c_mp), None if jets is None
@@ -366,9 +367,10 @@ def march_kernel_shape(cfg, jets=None, dtype=torch.float32) -> dict:
     if err != 0:
         raise RuntimeError("march kernel shape query failed: "
                            f"{lib.bh_error_string(err).decode()}")
-    threads, blocks, sms = out
+    threads, blocks, sms, smem = out
     return {"threads": threads, "blocks_per_sm": blocks,
-            "warps_per_sm": blocks * threads // 32, "sms": sms}
+            "warps_per_sm": blocks * threads // 32, "sms": sms,
+            "smem_bytes": smem}
 
 
 def load_library(source: str, params_size_fn: str,

@@ -160,22 +160,24 @@ def block_lane_efficiency(steps: torch.Tensor, ckpt: int = CKPT) -> float:
     return int(blocks.sum()) / (32 * int(warps.amax(dim=1).sum()))
 
 
-def build_copy(csrc: Path, tag: str, edit=None) -> tuple[Path, str]:
-    """``march_grad.cu`` of a copy of ``csrc`` under ``build/grad_census/
-    <tag>``, its text first passed through ``edit`` (if any), built with
-    ``ops/build.py``'s flags: (library, ptxas report)."""
-    out = WORK / tag
+def build_copy(csrc: Path, tag: str, edit=None, source: str = "march_grad.cu",
+               work: Path = WORK, flags: tuple[str, ...] = ()
+               ) -> tuple[Path, str]:
+    """``source`` of a copy of ``csrc`` under ``work/<tag>``, its text
+    first passed through ``edit`` (if any), built with ``ops/build.py``'s
+    flags and ``flags``: (library, ptxas report)."""
+    out = work / tag
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out / "csrc")
-    src = out / "csrc" / "march_grad.cu"
+    src = out / "csrc" / source
     if edit is not None:
         text = src.read_text()
         new = edit(text)
         if new == text:
             raise RuntimeError(f"{tag}: the edit changed nothing")
         src.write_text(new)
-    lib = out / "libmarch_grad.so"
-    proc = subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o",
+    lib = out / f"lib{src.stem}.so"
+    proc = subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, *flags, "-o",
                            str(lib), str(src)], capture_output=True,
                           text=True, timeout=900)
     if proc.returncode != 0:
@@ -186,17 +188,8 @@ def build_copy(csrc: Path, tag: str, edit=None) -> tuple[Path, str]:
 
 def ptxas_entries(report: str) -> dict[str, list[int]]:
     """{kernel label: [registers, spill bytes]} of a ptxas -v report."""
-    out, entry, spill = {}, None, 0
-    for line in report.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            entry, spill = m.group(1), 0
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                            r"loads", line):
-            spill = int(m.group(1)) + int(m.group(2))
-        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
-            out[sass_census.label(entry)] = [int(m.group(1)), spill]
-            entry = None
-    return out
+    return {sass_census.label(e): [r, s]
+            for e, r, s, _ in kbuild.parse_ptxas(report)}
 
 
 REPLAY_ANCHOR = "  // ---- phase 2: reverse sweep over the live blocks ----"

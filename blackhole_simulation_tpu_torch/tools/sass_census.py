@@ -27,12 +27,16 @@ shared-memory access (local memory, where the crossing slots live, is
 allowed) and lie in no other such loop, the march loop is the longest: in
 ``render.cu`` the per-pixel march (the AB3 march's main loop, its
 bootstrap steps unrolled ahead of it; the start offset's and the
-composite's loops are shorter), in ``march.cu`` the persistent warp's step
-loop (its outer loop refills lanes and stores). In a function that uses
-shared memory (``march_grad.cu``'s float kernels) it is the first: the
-replay's march, ahead of the re-forward that writes the stack to shared
-memory and the reverse that reads it; the float64 replay is a kernel of its
-own (``march_replay_kernel_f64``), whose block of steps is its march loop.
+composite's loops are shorter). In ``march.cu``'s kernels
+(``march_kernel``, ``march_kernel_f64``) it is the persistent warp's step
+loop, the longest loop with no global store and no atomic (its outer loop
+refills lanes and stores): shared memory is allowed there, where the
+float64 AB3 march keeps its history of right-hand sides. In another
+function that uses shared memory (``march_grad.cu``'s float kernels) it
+is the first: the replay's march, ahead of the re-forward that writes the
+stack to shared memory and the reverse that reads it; the float64 replay
+is a kernel of its own (``march_replay_kernel_f64``), whose block of steps
+is its march loop.
 The gradient kernels' reverse loop (``reverse_loop``, ``--reverse``) is the
 outermost loop that reads shared memory (the stack, or in float64 the
 tape) and stores nothing: a reversed step. The count is static: every instruction of the loop counts once,
@@ -41,11 +45,16 @@ renormalization) and those of a nested loop (the
 midpoint iteration, once). The slow-path subroutines a ``CALL`` reaches are
 not in the count; each call site is.
 
+Beside the classes, each loop's local-memory instructions are counted on
+their own (``local``: ``LDL`` and ``STL``, which ``memory`` also counts):
+an array indexed at run time, or a spill, lives in local memory.
+
     python -m blackhole_simulation_tpu_torch.tools.sass_census [--lib PATH ...]
         [--sass FILE ...] [--reverse]
 
 prints one JSON object, {label: {"loop": [first, last address], "counts":
-{class: n}, "total": n}}, of the march loops (``--reverse``: of the
+{class: n}, "total": n, "local": {"LDL": n, "STL": n}}}, of the march
+loops (``--reverse``: of the
 gradient kernels' reverse loops): by default of this checkout's three
 libraries (built first if need be, which needs ``nvcc``); ``--lib`` names
 other built libraries, ``--sass`` text files that ``cuobjdump -sass``
@@ -85,6 +94,10 @@ _MEMORY = ("LDG", "STG", "LDS", "STS", "LDL", "STL", "LDC", "LD", "ST",
            "ATOM", "ATOMG", "ATOMS", "RED", "LDSM", "MEMBAR", "CCTL", "LDGSTS")
 _STORE_OR_SHARED = ("STG", "STS", "LDS", "ST", "ATOM", "ATOMG", "ATOMS",
                     "RED", "LDSM", "LDGSTS")
+_GLOBAL_STORE = ("STG", "ST", "ATOM", "ATOMG", "RED")
+_LOCAL = ("LDL", "STL")
+# The march kernels, whose step loop may use shared memory (march_loop).
+_MARCH_KERNELS = ("march_kernel", "march_kernel_f64")
 
 
 def opcode(text: str) -> str:
@@ -156,19 +169,23 @@ def loops(instrs: list[tuple[int, str]]) -> list[tuple[int, int]]:
     return out
 
 
-def _store_free(instrs, lo, hi) -> bool:
-    return not any(opcode(t).split(".")[0] in _STORE_OR_SHARED
+def _free_of(instrs, lo, hi, ops) -> bool:
+    return not any(opcode(t).split(".")[0] in ops
                    for _, t in instrs[lo:hi + 1])
 
 
-def march_loop(instrs: list[tuple[int, str]]) -> tuple[int, int] | None:
+def march_loop(instrs: list[tuple[int, str]], march_kernel: bool = False
+               ) -> tuple[int, int] | None:
     """The march loop: of the loops with no global store, atomic or
     shared-memory access that lie in no other such loop, the longest; in a
     function that uses shared memory (the gradient kernel), the first (its
     replay, ahead of the re-forward and the reverse that use the shared
-    stack)."""
+    stack). In a march kernel (``march_kernel``: march.cu's), the longest
+    of the outermost loops with no global store and no atomic, shared
+    memory allowed (the float64 AB3 march's ring)."""
+    banned = _GLOBAL_STORE if march_kernel else _STORE_OR_SHARED
     free = [(lo, hi) for lo, hi in loops(instrs)
-            if _store_free(instrs, lo, hi)]
+            if _free_of(instrs, lo, hi, banned)]
     outer = [(lo, hi) for lo, hi in free
              if not any(a <= lo and hi <= b and (a, b) != (lo, hi)
                         for a, b in free)]
@@ -176,7 +193,7 @@ def march_loop(instrs: list[tuple[int, str]]) -> tuple[int, int] | None:
         return None
     shared = any(opcode(t).split(".")[0] in ("LDS", "STS")
                  for _, t in instrs)
-    if shared:
+    if shared and not march_kernel:
         return min(outer)
     return max(outer, key=lambda span: span[1] - span[0])
 
@@ -197,6 +214,17 @@ def reverse_loop(instrs: list[tuple[int, str]]) -> tuple[int, int] | None:
     if not outer:
         return None
     return max(outer, key=lambda span: span[1] - span[0])
+
+
+def local_count(instrs: list[tuple[int, str]]) -> dict[str, int]:
+    """The local-memory loads and stores (``LDL``, ``STL``) among
+    ``instrs``."""
+    out = dict.fromkeys(_LOCAL, 0)
+    for _, text in instrs:
+        base = opcode(text).split(".")[0]
+        if base in out:
+            out[base] += 1
+    return out
 
 
 def count(instrs: list[tuple[int, str]]) -> dict[str, int]:
@@ -226,21 +254,27 @@ def label(mangled: str) -> str:
     return f"{name}<{','.join(vals)}>"
 
 
+def record(instrs: list[tuple[int, str]], span: tuple[int, int]) -> dict:
+    """The census record of the loop ``span`` (first and last instruction
+    indices) of ``instrs``: its addresses, its counts by class, their
+    total and its local-memory instructions."""
+    lo, hi = span
+    counts = count(instrs[lo:hi + 1])
+    return {"loop": [instrs[lo][0], instrs[hi][0]], "counts": counts,
+            "total": sum(counts.values()),
+            "local": local_count(instrs[lo:hi + 1])}
+
+
 def census(text: str) -> dict[str, dict]:
-    """{label: {"loop": [first, last address], "counts", "total"}} of the
-    march loop of every function in ``text`` that has one."""
+    """{label: {"loop": [first, last address], "counts", "total",
+    "local"}} of the march loop of every function in ``text`` that has
+    one."""
     out = {}
     for name, instrs in parse(text).items():
-        span = march_loop(instrs)
-        if span is None:
-            continue
-        lo, hi = span
-        counts = count(instrs[lo:hi + 1])
-        out[label(name)] = {
-            "loop": [instrs[lo][0], instrs[hi][0]],
-            "counts": counts,
-            "total": sum(counts.values()),
-        }
+        lab = label(name)
+        span = march_loop(instrs, lab.split("<")[0] in _MARCH_KERNELS)
+        if span is not None:
+            out[lab] = record(instrs, span)
     return out
 
 
@@ -251,15 +285,8 @@ def reverse_census(text: str) -> dict[str, dict]:
     out = {}
     for name, instrs in parse(text).items():
         span = reverse_loop(instrs)
-        if span is None:
-            continue
-        lo, hi = span
-        counts = count(instrs[lo:hi + 1])
-        out[label(name)] = {
-            "loop": [instrs[lo][0], instrs[hi][0]],
-            "counts": counts,
-            "total": sum(counts.values()),
-        }
+        if span is not None:
+            out[label(name)] = record(instrs, span)
     return out
 
 

@@ -25,7 +25,10 @@ printing a result line:
    stack; in float64 the reverse kernel's tape) and the float64 kernels'
    warps per SM. A copy of ``march_grad.cu`` that counts the float64
    reverse kernel's busy lanes (``tools/grad_census.py::count_lanes``,
-   built under ``build/grad_census/``) builds beside them. Then the FP32
+   built under ``build/grad_census/``) and a copy of ``march.cu`` that
+   counts the march kernel's step loop's busy lanes
+   (``tools/march_census.py::count_lanes``, under ``build/march_census/``)
+   build beside them. Then the FP32
    peak: the probe
    (``tools/vpu_peak.py``) at its measuring size, whose output is held
    against its plain version on the same starts (which rounds each step once
@@ -359,8 +362,15 @@ printing a result line:
    frames' recorded rays, AB3 through ``march_u`` on the 1080p flagship
    rays, the KMAX 8 build on phase 22(d)'s near-critical rays) against
    its plain version: the integers equal, every float within 1e-12
-   (``F64_MARCH_BAR``); its ms, registers, spill and bound at the FP64
-   rate (``bound64``: 33.5 TFLOP/s, half the FP32 rate). (b) Each float64
+   (``F64_MARCH_BAR``), the AB3 march's outputs bit-equal; its ms,
+   registers, spill and bound at the FP64 rate (``bound64``: 33.5
+   TFLOP/s, half the FP32 rate); for the AB3 march also its stack frame,
+   its shared memory per block (its history's ring), the lane efficiency
+   of its step loop (the lane-counting copy's busy lane-steps over 32 x its
+   warps' steps) and its step loop's SASS census with its local-memory
+   loads and stores. The three 1080p float64 marches stay within 5% of
+   ``PARENT_KERNEL_MS`` (the midpoint and jets marches' times before the
+   AB3 march's redesign, ``F64_AB3_MARCH_MS`` after it). (b) Each float64
    gradient instantiation (``march_grad_kernel_f64``, without and with
    the jets) against the plain VJP in float64 on the AD frame's rays, the
    jets crop (phase 22(a)'s, in float64), the K = 8 sample and a seeded
@@ -559,6 +569,7 @@ from blackhole_simulation_tpu_torch.render.precull import (  # noqa: E402
     critical_band_metric_u,
 )
 from blackhole_simulation_tpu_torch.tools import grad_census  # noqa: E402
+from blackhole_simulation_tpu_torch.tools import march_census  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import sass_census  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import train_probe  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import vpu_peak  # noqa: E402
@@ -635,6 +646,10 @@ FLAGSHIP_KERNEL_SPREAD_MS = (1.349, 1.366)
 # through march_grad_kernel, H100 80GB HBM3 at 700 W, PERF.md).
 F64_GRAD_MS = 15.15
 F64_JETS_GRAD_MS = 22.00
+# The float64 AB3 march kernel's time on phase 23's 1080p flagship rays
+# after its redesign, through march_u as phase 23 times it (ms per launch,
+# the slower of two runs, H100 80GB HBM3 at 700 W, PERF.md).
+F64_AB3_MARCH_MS = 2.017
 # The frame is ~80% host work and tonemap, which vary with the host the
 # card shares; the kernel alone does not. The frame may exceed PR 3's
 # spread by this factor, the kernel by 5%.
@@ -654,7 +669,13 @@ PARENT_KERNEL_MS = {"flagship render": 0.993, "certified render": 1.000,
                     "AD flagship gradient": 12.30,
                     "AD jets gradient": 17.63,
                     "float64 AD flagship gradient": F64_GRAD_MS,
-                    "float64 AD jets gradient": F64_JETS_GRAD_MS}
+                    "float64 AD jets gradient": F64_JETS_GRAD_MS,
+                    # the float64 march kernel on phase 23's 1080p rays:
+                    # the midpoint and jets instantiations before the AB3
+                    # one's redesign, the AB3 one after it
+                    "float64 AD flagship march": 2.155,
+                    "float64 AD jets march": 3.536,
+                    "float64 AB3 march": F64_AB3_MARCH_MS}
 PARENT_SLACK = 1.05
 # The gradient kernel's least work per live march step, in march steps: the
 # checkpointing replay, the block's re-forward, and one reverse-mode VJP of
@@ -792,21 +813,27 @@ def timed(fn, n):
 
 
 # The float64 gradient kernel's lane-counting copy (tools/grad_census.py::
-# count_lanes), built in phase 1 beside the sources, read in phase 23.
+# count_lanes) and the march kernel's (tools/march_census.py::count_lanes),
+# built in phase 1 beside the sources, read in phase 23.
 LANE_COUNT_LIB = None
+MARCH_COUNT_LIB = None
 
 
 def phase_build():
-    global LANE_COUNT_LIB
+    global LANE_COUNT_LIB, MARCH_COUNT_LIB
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 2) as pool:
         count = pool.submit(grad_census.build_copy, grad_census.CSRC,
                             "count", grad_census.count_lanes)
+        march_count = pool.submit(grad_census.build_copy, march_census.CSRC,
+                                  "count", march_census.count_lanes,
+                                  "march.cu", march_census.WORK)
         libs = list(pool.map(kbuild.build, SOURCES))
         LANE_COUNT_LIB = grad_census.GradLib(count.result()[0], pool=True)
+        MARCH_COUNT_LIB = march_census.MarchLib(march_count.result()[0])
     secs = time.perf_counter() - t0
     print(f"build: {len(libs)} kernel source(s) and the float64 gradient "
-          f"kernel's lane-counting copy in {secs:.1f} s")
+          f"and march kernels' lane-counting copies in {secs:.1f} s")
     for src in SOURCES:
         for entry, regs, spill in kbuild.ptxas_usage(src):
             print(f"ptxas {src}: {entry}: {regs} registers, {spill} bytes "
@@ -4374,9 +4401,11 @@ def march_f64_compare(k, p):
     return {"int_differ": ints, "max_abs": d, "floats_differ": n_differ}
 
 
-def march_f64_entry(path, launches, args, variant, marker, kmax=4):
+def march_f64_entry(path, launches, args, variant, marker, kmax=4,
+                    bit_equal=False):
     """A kernels-line entry for a float64 march instantiation on ``args``:
-    the kernel alone, its plain version once, (a)'s bar, the FP64 bound."""
+    the kernel alone, its plain version once, (a)'s bar (``bit_equal``:
+    every output the plain version's bits), the FP64 bound."""
     with torch.no_grad():
         ms, k = kernel_time(lambda: march_u(*args), 5)
         t0 = time.perf_counter()
@@ -4384,7 +4413,10 @@ def march_f64_entry(path, launches, args, variant, marker, kmax=4):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
     cmp = march_f64_compare(k, p)
-    if not (cmp["int_differ"] == 0 and cmp["max_abs"] <= F64_MARCH_BAR):
+    if bit_equal:
+        cmp["bit_identical"] = march_census.outputs_identical(k, p)
+    if not (cmp["int_differ"] == 0 and cmp["max_abs"] <= F64_MARCH_BAR
+            and cmp.get("bit_identical", True)):
         raise AssertionError(f"{path}: float64 march kernel vs plain: {cmp}")
     cfg, jets = args[6], args[7] if len(args) > 7 else None
     n_rays = int(k[0].shape[1])
@@ -4488,7 +4520,34 @@ def f64_march_variants(entries):
         march_u(*args)
     torch.cuda.synchronize()
     cmp, e = march_f64_entry("march_u, float64 rays, AB3 1920x1080",
-                             march_u.launches, args, "ab3", "f64ILi1E")
+                             march_u.launches, args, "ab3", "f64ILi1E",
+                             bit_equal=True)
+    loop = sass_census.census(sass_census.sass(kbuild.build("march.cu")))[
+        march_census.AB3_LABEL]
+    e.update(
+        stack_frame_bytes=next(v for k, v in kbuild.ptxas_stack(
+            "march.cu").items() if "f64ILi1E" in k),
+        smem_bytes=march_kernel_shape(cfg, None, F64)["smem_bytes"],
+        lane_efficiency=march_census.counted_lane_efficiency(
+            MARCH_COUNT_LIB, args),
+        lane_efficiency_one_per_thread=lane_efficiency(
+            march_u(*args)[2]),
+        step_loop_census={"total": loop["total"], "local": loop["local"],
+                          "counts": loop["counts"]})
+    # the launch alone, without march_u's prologue (normalize_pt's copy of
+    # the rows, the outputs' allocation, the jets rows' zeroing)
+    lib = march_census.MarchLib(kbuild.build("march.cu"))
+    t = lib.prepare(args)
+    e["kernel_ms"] = grad_census.event_ms(lambda: lib.launch(t), 5)
+    print(f"float64 AB3 march 1920x1080: {e['ms']:.3f} ms through march_u, "
+          f"{e['kernel_ms']:.3f} ms the launch alone (bound "
+          f"{e['bound_ms']:.3f}), registers/spill {e['registers_spill']}, "
+          f"stack frame {e['stack_frame_bytes']} B, "
+          f"{e['smem_bytes']} B shared per block, "
+          f"{e['resident_warps_per_sm']} warps per SM, lane efficiency "
+          f"{e['lane_efficiency']:.4f}, step loop {loop['total']} "
+          f"instructions, local {loop['local']}; vs plain {cmp}")
+    parent_gate("float64 AB3 march", e["ms"])
     out["ab3"] = cmp
     entries.append(e)
     return out
@@ -4746,6 +4805,7 @@ def phase_float64():
         with torch.no_grad():
             steps = march_u(*m_args)[2]
         info["march_vs_plain"] = cmp
+        parent_gate(f"float64 AD {name} march", me["ms"])
         if jets:
             gargs, gouts = jets_crop_args(F64)
             ms_1080 = kernel_time(lambda: march_grad_kernel(*g_args), 3)[0]

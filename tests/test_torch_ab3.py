@@ -5,9 +5,10 @@ package's, on the CPU.
 and ``csrc/render.cu``'s AB3 instantiation) is held against the JAX
 package's ``ops/pallas_march.py::march_tile_ab3`` called directly on (N,)
 rows (it is plain jnp outside the Pallas call), run op by op
-(``jax.disable_jit``), in four renormalization regimes: identical hit, steps
-and crossing counts, |d| < 1e-4 on states, records and r_min
-(tests/test_pallas.py:81-98's bar). Then the render paths: ``multistep``
+(``jax.disable_jit``), in four renormalization regimes at two spins, in
+float32 and in float64: identical hit, steps and crossing counts, and
+|d| < 1e-4 on states, records and r_min in float32 (tests/test_pallas.py:
+81-98's bar), 1e-12 in float64. Then the render paths: ``multistep``
 without ``use_pallas`` is the midpoint march (the JAX package's jnp march
 ignores the flag), the fused and staged AB3 renders agree, the AB3 render
 stays within tests/test_ab3.py:48-62's structural bars of the midpoint
@@ -73,30 +74,39 @@ def test_renorm_plans():
     assert plan(44, 16, 8) == (16, True)     # the last boundary, 48, due
 
 
-def _rows(spin, cfg, width=32, height=24):
+def _rows(spin, cfg, width=32, height=24, dtype=torch.float32):
     cam = Camera.create(r=30.0, theta=THETA, fov=0.5, width=width,
                         height=height)
-    m, a = torch.tensor(1.0), torch.tensor(np.float32(spin))
+    m = torch.tensor(1.0, dtype=dtype)
+    a = torch.tensor(np.float32(spin) if dtype == torch.float32 else spin,
+                     dtype=dtype)
     with torch.no_grad():
-        yt0, thr, m, a, r_h, r_ph = _march_inputs(camera_rays_u(cam, m, a),
-                                                  m, a, cfg, None)
+        yt0, thr, m, a, r_h, r_ph = _march_inputs(
+            camera_rays_u(cam, m, a, dtype=dtype), m, a, cfg, None)
     rows = tuple(yt0[i] for i in (0, 1, 2, 3, 5, 6, 7))
     return (m, a, r_h, r_ph, thr), rows
 
 
-CASES = {f"{name}-a{spin}": (spin, REGIMES[name])
-         for name in sorted(REGIMES) for spin in (0.9, 0.999)}
+# Each regime at both spins in float32 and in float64 (the march kernel's
+# float64 AB3 instantiation has this plain version as its reference).
+# Float64's bar: the same integers, and |d| <= 1e-12 on the rest (the two
+# agree to ~3e-13, 0 where no renormalization fires).
+CASES = {f"{name}-a{spin}{tag}": (spin, REGIMES[name], dtype)
+         for name in sorted(REGIMES) for spin in (0.9, 0.999)
+         for tag, dtype in (("", torch.float32), ("-f64", torch.float64))}
+# (atol, rtol): float32's is tests/test_pallas.py's (numpy's default rtol)
+TOL = {torch.float32: (1e-4, 1e-7), torch.float64: (1e-12, 0.0)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_march_tile_ab3_matches_jax(case):
-    spin, (steps, renorm, exit_every) = CASES[case]
+    spin, (steps, renorm, exit_every), dtype = CASES[case]
     kw = dict(max_steps=steps, renormalize_every=renorm,
               exit_check_every=exit_every, shadow_precull=True,
               far_step_cap_rate=0.4, far_boost_radius=20.0,
               midpoint_iters=1, step_rate=0.2, multistep=True)
     cfg = MarchConfig(**kw)
-    scal, rows = _rows(spin, cfg)
+    scal, rows = _rows(spin, cfg, dtype=dtype)
     with torch.no_grad():
         out = march_tile_ab3(*scal, rows, cfg)
     j = lambda x: jnp.asarray(x.numpy())
@@ -104,11 +114,14 @@ def test_march_tile_ab3_matches_jax(case):
         ref = jpm.march_tile_ab3(*(j(x) for x in scal),
                                  tuple(j(x) for x in rows),
                                  JMarchConfig(**kw))[:13]
+    assert all(np.asarray(ref[i]).dtype == out[i].numpy().dtype
+               for i in range(13))
     for i in (6, 7, 11):   # hit, steps, crossing count
         np.testing.assert_array_equal(out[i].numpy(), np.asarray(ref[i]), i)
+    atol, rtol = TOL[dtype]
     for i in (0, 1, 2, 3, 4, 5, 8, 9, 10, 12):
         np.testing.assert_allclose(out[i].numpy(), np.asarray(ref[i]),
-                                   atol=1e-4, err_msg=str(i))
+                                   atol=atol, rtol=rtol, err_msg=str(i))
     assert (out[11].numpy() > 0).any() and (out[6].numpy() == 2).any()
 
 

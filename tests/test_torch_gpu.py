@@ -964,6 +964,9 @@ def test_kernels_take_eight_crossings(cuda):
 # ---------------------------------------------------------------------------
 
 F64 = torch.float64
+# The float64 AB3 march's resident warps per SM: 6 blocks of 128 threads at
+# ptxas's own 80 registers (H100, PERF.md).
+F64_AB3_WARPS = 24
 
 
 @pytest.mark.parametrize("variant", ["midpoint", "ab3", "jets", "k8"])
@@ -971,7 +974,8 @@ def test_float64_march_kernel_matches_plain_version(cuda, variant):
     """Each float64 instantiation of the march kernel against its plain
     version on the card, exact route: the integers equal, the floats
     within 1e-12 (bit-equal on the card but for an ulp of CUDA's exp and
-    pow in the jets' radiance)."""
+    pow in the jets' radiance); the AB3 march, which has no exp or pow,
+    bit-equal."""
     cfg = MarchConfig(max_steps=96, step_rate=0.2, far_step_cap_rate=0.4,
                       far_boost_radius=20.0, midpoint_iters=1,
                       multistep=variant == "ab3",
@@ -992,6 +996,60 @@ def test_float64_march_kernel_matches_plain_version(cuda, variant):
         assert torch.equal(k[i], p[i])
     for i in (0, 3, 4, 5, 7, 8):
         assert float((k[i] - p[i]).abs().max()) <= 1e-12
+    if variant == "ab3":
+        for x, y in zip(k, p):
+            assert torch.equal(_bits64(x), _bits64(y))
+
+
+def _bits64(x):
+    return x.view(torch.int64) if x.dtype == F64 else x
+
+
+def test_float64_ab3_march_kernel_shape(cuda):
+    """The float64 AB3 march reaches its design's resident warps per SM
+    with its history's ring in shared memory: 3 slots x 6 rows x threads
+    doubles per block. The other float64 variants take no shared
+    memory."""
+    cfg = MarchConfig(multistep=True)
+    s = march_kernel_shape(cfg, None, F64)
+    assert s["warps_per_sm"] >= F64_AB3_WARPS, s
+    assert s["smem_bytes"] == 3 * 6 * s["threads"] * 8, s
+    for c, jets in ((MarchConfig(), None), (MarchConfig(), JetParams())):
+        assert march_kernel_shape(c, jets, F64)["smem_bytes"] == 0
+
+
+@pytest.mark.parametrize("n", POOL_RAYS)
+def test_float64_ab3_march_pool_edges(cuda, n):
+    """One ray, fewer than a warp, fewer than the resident lanes and a
+    ragged count of float64 AB3 rays: bit-equal to the plain version, every
+    output written by one launch (two launches into buffers filled with
+    different sentinels agree bit for bit), the ray pool back at zero."""
+    cfg = dc.replace(CFG, fused=False, shadow_precull=False, multistep=True,
+                     approx_recip=False)
+    m, a = (torch.tensor(1.0, dtype=F64, device=cuda),
+            torch.tensor(0.9, dtype=F64, device=cuda))
+    cam = Camera.create(r=30.0, theta=math.pi / 2 - 0.25, fov=0.5,
+                        width=250, height=141)
+    with torch.no_grad():
+        rays = _march_inputs(camera_rays_u(cam, m, a, dtype=F64), m, a, cfg,
+                             None)
+        args = (rays[0][:, :n].contiguous(), rays[1][:n].contiguous(),
+                *rays[2:6], cfg, None)
+        k = march_u(*args)
+        p = march_u_plain(*args)
+        for x, y in zip(k, p):
+            assert torch.equal(_bits64(x), _bits64(y))
+        outs = []
+        for fill, ifill in ((math.nan, -1), (7.0, 12345)):
+            out = tuple(torch.full_like(x, ifill if x.dtype == torch.int32
+                                        else fill) for x in k)
+            march_u(*args, out=out)
+            outs.append(out)
+            torch.cuda.synchronize()
+            assert not bool(ray_pool(cuda).any())
+    for x, y, z in zip(*outs, k):
+        assert torch.equal(_bits64(x), _bits64(y))
+        assert torch.equal(_bits64(x), _bits64(z))
 
 
 @pytest.mark.parametrize("jets", [False, True])
