@@ -133,8 +133,15 @@ def f64_args(*xs):
 
 
 def host(x) -> float:
-    """A number, or a 0-d tensor's detached value, as a Python float."""
+    """A number, or a 0-d tensor's detached value, as a Python float. A
+    CUDA tensor's read waits for its stream: in a frame that ``render``
+    records it counts one ``stream_syncs`` (``perf/spans.py``)."""
     if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            from blackhole_simulation_tpu_torch.perf import spans
+
+            if spans.on:
+                spans.count("stream_syncs")
         return float(x.detach())
     return float(x)
 

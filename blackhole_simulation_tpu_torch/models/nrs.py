@@ -35,6 +35,7 @@ from blackhole_simulation_tpu_torch._elementwise import (
     sqrt,
     tanh,
 )
+from blackhole_simulation_tpu_torch.perf import spans
 
 NRS_LAYERS = 4
 NRS_HIDDEN = 16
@@ -90,11 +91,15 @@ def nrs_apply(params, x: torch.Tensor) -> torch.Tensor:
 
 def nrs_flat_weights(params) -> np.ndarray:
     """The single float32 weight buffer: each layer's w (row-major), then
-    its b. The render kernel reads this layout from its parameter row."""
-    return np.concatenate([
-        np.asarray(torch.as_tensor(t).detach().cpu(), np.float32).ravel()
-        for w_b in params for t in w_b
-    ])
+    its b. The render kernel reads this layout from its parameter row.
+    Each CUDA tensor's copy to the host waits for its stream: in a frame
+    that ``render`` records each counts one ``stream_syncs``
+    (``perf/spans.py``)."""
+    tensors = [torch.as_tensor(t).detach() for w_b in params for t in w_b]
+    if spans.on:
+        spans.count("stream_syncs", sum(t.is_cuda for t in tensors))
+    return np.concatenate([np.asarray(t.cpu(), np.float32).ravel()
+                           for t in tensors])
 
 
 def nrs_from_flat(flat, device=None):

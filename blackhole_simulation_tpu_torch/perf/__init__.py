@@ -1,7 +1,8 @@
 """Performance and observability: the frame monitor, PID and hysteresis
-resolution control, the preset benchmark, the feature-cost validator,
-device timing and march telemetry (counterpart of
-``blackhole_simulation_tpu/perf``)."""
+resolution control, the preset benchmark, the feature-cost validator and
+march telemetry (counterpart of ``blackhole_simulation_tpu/perf``), and
+the frame path's spans and counters (``perf/spans.py``), recorded while a
+torch profiler session is active."""
 
 from blackhole_simulation_tpu_torch.perf.monitor import (
     FrameRingBuffer,
@@ -14,7 +15,6 @@ from blackhole_simulation_tpu_torch.perf.benchmark import (
 )
 from blackhole_simulation_tpu_torch.perf.validator import PerformanceValidator
 from blackhole_simulation_tpu_torch.perf.telemetry import march_telemetry
-from blackhole_simulation_tpu_torch.perf.timer import DeviceTimer
 
 __all__ = [
     "FrameRingBuffer",
@@ -24,5 +24,4 @@ __all__ = [
     "BenchmarkResult",
     "PerformanceValidator",
     "march_telemetry",
-    "DeviceTimer",
 ]

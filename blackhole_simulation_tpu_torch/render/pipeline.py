@@ -84,6 +84,7 @@ from blackhole_simulation_tpu_torch._elementwise import (
     leaf,
 )
 from blackhole_simulation_tpu_torch.geometry.metrics import Kerr
+from blackhole_simulation_tpu_torch.perf import spans
 from blackhole_simulation_tpu_torch.render.camera import Camera
 from blackhole_simulation_tpu_torch.render.march import MarchConfig
 from blackhole_simulation_tpu_torch.render.post import PostParams, tonemap
@@ -269,10 +270,13 @@ def precull_config(scene: Scene, cfg: MarchConfig) -> MarchConfig:
                                precull_keep_disk=scene.features.disk)
 
 
+@spans.span("host_row")
 def kernel_inputs(scene: Scene, jitter, device, dtype=torch.float32):
     """The render kernel's inputs for one sample: the parameter row on
-    ``device`` (built in ``dtype``'s route, ``build_param_row``) and the
-    static configuration."""
+    ``device`` (built in ``dtype``'s route, ``build_param_row``, and copied
+    by ``_upload_row``) and the static configuration. In a frame that
+    ``render`` records (while a profiler session is active,
+    ``perf/spans.py``) the call is the span ``host_row``."""
     from blackhole_simulation_tpu_torch.ops.render import (
         RenderStatic,
         build_param_row,
@@ -281,7 +285,7 @@ def kernel_inputs(scene: Scene, jitter, device, dtype=torch.float32):
 
     cfg = precull_config(scene, scene.march_cfg)
     scene_f = dataclasses.replace(scene, march_cfg=cfg)
-    row = torch.from_numpy(build_param_row(scene_f, jitter, dtype)).to(device)
+    row = _upload_row(build_param_row(scene_f, jitter, dtype), device)
     feats = scene.features
     st = RenderStatic(
         cfg=cfg, disk_on=feats.disk, spectral=feats.spectral_lut,
@@ -292,6 +296,17 @@ def kernel_inputs(scene: Scene, jitter, device, dtype=torch.float32):
         overlay=feats.shadow_overlay, nrs_on=nrs_active(scene),
     )
     return row, st
+
+
+@spans.span("row_upload")
+def _upload_row(row: np.ndarray, device) -> torch.Tensor:
+    """The host parameter row on ``device``: a blocking copy, which on a
+    CUDA device waits for the stream. In a recorded frame the call is the
+    span ``row_upload`` and a CUDA copy counts one ``stream_syncs``."""
+    out = torch.from_numpy(row).to(device)
+    if spans.on and out.is_cuda:
+        spans.count("stream_syncs")
+    return out
 
 
 _DUMMY_U = (0.0, 100.0, 0.0, 0.0, -1.0, -1.0, 0.0, 0.0)
@@ -597,11 +612,13 @@ def _staged_sample(scene: Scene, cfg: MarchConfig, jitter, device, dtype):
     return rgb.reshape(3, h, w)
 
 
+@spans.span("sample")
 def render_sample(scene: Scene, jitter, device,
                   dtype=torch.float32) -> torch.Tensor:
     """One jittered sub-sample: (3, H, W) linear radiance planes, in
     ``dtype`` on the staged branch and float32 from the fused kernel (see
-    the module docstring's routes)."""
+    the module docstring's routes). In a frame that ``render`` records the
+    call is the span ``sample``; called on its own it records nothing."""
     from blackhole_simulation_tpu_torch.ops.render import render_planes_kernel
 
     check_render_dtype(dtype)
@@ -620,6 +637,7 @@ def render_sample(scene: Scene, jitter, device,
                           jitter, device, dtype)
 
 
+@spans.frame
 def render(scene: Scene, n_samples: int = 1, device=None,
            dtype=torch.float32) -> torch.Tensor:
     """Render the scene to a tone-mapped (H, W, 3) image: the mean of
@@ -627,7 +645,12 @@ def render(scene: Scene, n_samples: int = 1, device=None,
     from zeros in ``dtype``), the shadow overlay (on the staged branch; the
     fused kernel draws it per sample), then ``tonemap``. float64 on the
     staged route with ``dtype=torch.float64``; see the module docstring
-    for the fused one."""
+    for the fused one.
+
+    While a torch profiler session is active in the calling thread the
+    call is recorded (``perf/spans.py``): the span ``frame``, the spans
+    ``sample``, ``host_row`` and ``row_upload`` inside it, and its
+    ``stream_syncs``; otherwise nothing is recorded."""
     device = resolve_device(device)
     check_render_dtype(dtype)
     scene = ensure_spectral_coeffs(scene)

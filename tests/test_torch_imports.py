@@ -81,8 +81,8 @@ MODULES = [
     "blackhole_simulation_tpu_torch.perf.adaptive_resolution",
     "blackhole_simulation_tpu_torch.perf.benchmark",
     "blackhole_simulation_tpu_torch.perf.monitor",
+    "blackhole_simulation_tpu_torch.perf.spans",
     "blackhole_simulation_tpu_torch.perf.telemetry",
-    "blackhole_simulation_tpu_torch.perf.timer",
     "blackhole_simulation_tpu_torch.perf.validator",
     "blackhole_simulation_tpu_torch.app",
     "blackhole_simulation_tpu_torch.app.animate",
@@ -160,6 +160,9 @@ TWINS = {
         "ops.render:render_planes_kernel",
 }
 
+_NO_TIMER = ("device time is read from the profiler trace and `perf.spans`; "
+             "nothing in the port used it")
+
 # JAX names with no port twin, and why.
 ABSENT = {
     ("ops/pallas_march.py", "recip_approx"):
@@ -169,6 +172,9 @@ ABSENT = {
     ("ops/pallas_march.py", "make_div_recip"):
         "picks (div, recip) for the Pallas kernel body; the CUDA kernels pick "
         "the route by template instantiation at launch",
+    ("perf/timer.py", "DeviceTimer"): _NO_TIMER,
+    ("perf/timer.py", "time_jitted"): _NO_TIMER,
+    ("perf/__init__.py", "DeviceTimer"): _NO_TIMER,
 }
 
 
