@@ -11,7 +11,12 @@ multiply-add wherever inlining lets it, so the render kernel's step, the
 march kernel's and the gradient kernel's replay would contract differently
 and part on chaotic rays, and the exact route would no longer round as the
 plain versions do. The approx_recip route contracts explicitly instead
-(``csrc/march_step.cuh::madd``), the same terms in every kernel.
+(``csrc/march_step.cuh::madd``), the same terms in every kernel. The
+sources of ``FMAD_SOURCES`` build with nvcc's default ``--fmad=true``
+instead: their own arithmetic is all explicit (``__fmul_rn`` and its kin,
+never contracted), so the flag moves only the CUDA math library's
+functions, which then round as PyTorch's own build of them does
+(``csrc/tonemap.cu``'s ``pow`` and ``rsqrt``).
 
 The library lands in ``build/kernels/`` at the repository root, named by a
 hash of the source, every header of ``csrc/`` and the flags, so an edited
@@ -75,9 +80,16 @@ def kmax_for(max_crossings: int) -> int:
     return k
 
 
-def _flags(kmax: int) -> tuple[str, ...]:
-    return NVCC_FLAGS if kmax == KMAX_DEFAULT else (*NVCC_FLAGS,
-                                                    f"-DKMAX={kmax}")
+FMAD_SOURCES = ("tonemap.cu",)
+
+
+def _flags(source: str, kmax: int = KMAX_DEFAULT) -> tuple[str, ...]:
+    """nvcc's flags for ``csrc/<source>`` with ``kmax`` crossing slots."""
+    flags = NVCC_FLAGS
+    if source in FMAD_SOURCES:
+        flags = tuple("--fmad=true" if f == "--fmad=false" else f
+                      for f in flags)
+    return flags if kmax == KMAX_DEFAULT else (*flags, f"-DKMAX={kmax}")
 
 
 def _paths(source: str, kmax: int = KMAX_DEFAULT) -> tuple[Path, Path]:
@@ -85,7 +97,7 @@ def _paths(source: str, kmax: int = KMAX_DEFAULT) -> tuple[Path, Path]:
     digest = hashlib.sha1(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(_flags(kmax)).encode())
+    digest.update(" ".join(_flags(source, kmax)).encode())
     tag = "" if kmax == KMAX_DEFAULT else f"-k{kmax}"
     stem = f"{src.stem}{tag}-{digest.hexdigest()[:12]}"
     return BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
@@ -101,7 +113,8 @@ def build(source: str, kmax: int = KMAX_DEFAULT) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
-        [_nvcc(), *_flags(kmax), "-o", str(tmp), str(CSRC / source)],
+        [_nvcc(), *_flags(source, kmax), "-o", str(tmp),
+         str(CSRC / source)],
         capture_output=True, text=True, timeout=900,
     )
     if proc.returncode != 0:

@@ -31,6 +31,10 @@ far field's row block). The staged, sharded and inverse paths record
 their ``frame`` and ``sample`` spans only, and their other waits are not
 counted.
 
+Counter ``tonemap_kernel``: each call of ``ops/tonemap.py::tonemap_kernel``
+in a recorded frame, counted once its launch succeeds (one a frame on the
+card; the CPU's plain path counts none).
+
 One frame is recorded at a time, in the thread that renders: the port
 renders from one thread.
 """

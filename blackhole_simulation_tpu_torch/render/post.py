@@ -1,10 +1,17 @@
 """Post-processing: bloom, ACES tone mapping, gamma.
 
 Counterpart of ``blackhole_simulation_tpu/render/post.py``: plain tensor
-operations on an (H, W, 3) float32 image, on whatever device the image is.
-The blur wraps around the frame edges (``torch.roll``), as the JAX twin's
-``jnp.roll`` does. Differentiable by autograd, with ``jnp.clip``'s
-derivative (``_elementwise.clip``, ``maximum``: half at a tie).
+operations on an (H, W, 3) image, on whatever device the image is
+(``tonemap_plain``). The blur wraps around the frame edges (``torch.roll``),
+as the JAX twin's ``jnp.roll`` does. Differentiable by autograd, with
+``jnp.clip``'s derivative (``_elementwise.clip``, ``maximum``: half at a
+tie).
+
+``tonemap`` launches the tone-map kernel (``ops/tonemap.py``,
+``csrc/tonemap.cu``: the whole chain in one tiled pass, bit for bit what
+``tonemap_plain`` computes on the card) for every CUDA image that autograd
+will not differentiate; the kernel raises on what it does not take. The
+CPU and autograd take ``tonemap_plain``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ _GAUSS9 = (0.0162162162, 0.0540540541, 0.1216216216, 0.1945945946,
            0.2270270270, 0.1945945946, 0.1216216216, 0.0540540541,
            0.0162162162)
 _LUMA = (0.2126, 0.7152, 0.0722)
+# ACES (Narkowicz fit): x (a x + b) / (x (c x + d) + e).
+_ACES = (2.51, 0.03, 2.43, 0.59, 0.14)
 
 
 def _blur_axis(img: torch.Tensor, axis: int) -> torch.Tensor:
@@ -57,12 +66,36 @@ def bloom(img: torch.Tensor, params: PostParams) -> torch.Tensor:
 
 def aces(x: torch.Tensor) -> torch.Tensor:
     """ACES filmic approximation (Narkowicz fit)."""
-    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+    a, b, c, d, e = _ACES
     return clip((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
 
 
+def _differentiated(img: torch.Tensor, params: PostParams) -> bool:
+    """Whether autograd will ask for a derivative through the tone map of
+    ``img`` with ``params``."""
+    if not torch.is_grad_enabled():
+        return False
+    numbers = (params.exposure, params.bloom_threshold,
+               params.bloom_strength, params.gamma)
+    return img.requires_grad or any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in numbers)
+
+
 def tonemap(img: torch.Tensor, params: PostParams = PostParams()) -> torch.Tensor:
-    """exposure -> bloom -> ACES -> gamma."""
+    """exposure -> bloom -> ACES -> gamma: the tone-map kernel
+    (``ops/tonemap.py::tonemap_kernel``) for a CUDA image that autograd
+    will not differentiate, else ``tonemap_plain``; the two give the same
+    bits on the card."""
+    if img.device.type == "cuda" and not _differentiated(img, params):
+        from blackhole_simulation_tpu_torch.ops.tonemap import tonemap_kernel
+
+        return tonemap_kernel(img, params)
+    return tonemap_plain(img, params)
+
+
+def tonemap_plain(img: torch.Tensor,
+                  params: PostParams = PostParams()) -> torch.Tensor:
+    """exposure -> bloom -> ACES -> gamma, in plain tensor operations."""
     img = img * params.exposure
     if params.bloom_enabled:
         img = bloom(img, params)

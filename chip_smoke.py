@@ -17,7 +17,8 @@ Phases, in order; any failure raises and the script exits non-zero without
 printing a result line:
 
 1. Build: compile every CUDA source (``render.cu``, ``march.cu``,
-   ``march_grad.cu``, ``vpu_peak.cu``, ``step_vjp_check.cu``) with nvcc
+   ``march_grad.cu``, ``vpu_peak.cu``, ``step_vjp_check.cu``,
+   ``tonemap.cu``) with nvcc
    (one process per source, started together; every march kernel is
    instantiated for both routes, exact and approx_recip) and print the
    build seconds, ptxas's registers and spills of each kernel, and the
@@ -58,6 +59,11 @@ printing a result line:
    after; CUDA-event median ms/frame over the timed frames and Mrays/s. The
    kernel alone and one frame of the plain version are timed on the same
    inputs, and the kernel is held against the plain version there too.
+   Every frame launches the tone-map kernel once (``tonemap_kernel``
+   counts them). On the frame's radiance the tone-map kernel alone, on
+   the render's planar view and on a contiguous copy, in float32 and
+   float64, each bit-equal to ``tonemap_plain``, beside the plain path's
+   time, its bound, registers, spill, shared memory and warps per SM.
 5. The march kernel (``csrc/march.cu``) against its plain version
    (``ops/pallas_march.py::march_u_plain``) on camera rays at 250x141
    (not a multiple of a warp), 48 steps, exact divides, a = 0.9: identical
@@ -495,6 +501,10 @@ from blackhole_simulation_tpu_torch.ops.render import (  # noqa: E402
     render_planes,
     render_planes_kernel,
 )
+from blackhole_simulation_tpu_torch.ops.tonemap import (  # noqa: E402
+    tonemap_kernel,
+    tonemap_kernel_shape,
+)
 from blackhole_simulation_tpu_torch.geodesic import (  # noqa: E402
     oracle as oracle_module,
 )
@@ -554,7 +564,10 @@ from blackhole_simulation_tpu_torch.render.pipeline import (  # noqa: E402
     shade_march_rows,
     shade_sample,
 )
-from blackhole_simulation_tpu_torch.render.post import tonemap  # noqa: E402
+from blackhole_simulation_tpu_torch.render.post import (  # noqa: E402
+    tonemap,
+    tonemap_plain,
+)
 from blackhole_simulation_tpu_torch.render.shading import (  # noqa: E402
     JetParams,
     StarfieldParams,
@@ -575,7 +588,7 @@ from blackhole_simulation_tpu_torch.tools import train_probe  # noqa: E402
 from blackhole_simulation_tpu_torch.tools import vpu_peak  # noqa: E402
 
 SOURCES = ("render.cu", "march.cu", "march_grad.cu", "vpu_peak.cu",
-           "step_vjp_check.cu")
+           "step_vjp_check.cu", "tonemap.cu")
 # Published float32 peak of one H100 SXM outside the tensor cores (FLOP/s,
 # an FMA counted as two), the same in lane FMA instructions per second, and
 # the memory rate (bytes/s).
@@ -631,6 +644,16 @@ OPS_PER_PIXEL_JITTER = 365
 OPS_PER_PIXEL_OVERLAY = 1365
 OPS_PER_PIXEL_NRS = 8
 OPS_PER_FAR_PIXEL = 1500
+# The tone map's operations per pixel, each add, multiply, divide, compare
+# and pow as one, counted from csrc/tonemap.cu without the halo's
+# recomputation: the exposure (3), the bright pass (luma 5, threshold and
+# its clamp 2, 3 products), four 9-tap passes on three channels, each
+# output 5 products (its symmetric weights share one product between two
+# taps) and 8 adds (4 x 3 x 13), the combine (6), ACES (3 x 10 with its
+# clamp, after which the clip is no operation) and the pow (3); and its
+# bytes: three float32 values read and three written.
+TONEMAP_OPS_PER_PIXEL = 3 + 10 + 4 * 3 * 13 + 6 + 30 + 3
+TONEMAP_BYTES_PER_PIXEL = 24
 # The flagship instantiations' registers and spills (render.cu midpoint
 # on the approx_recip route, render_kernel<0, false, true>, and march.cu's
 # midpoint on it, march_kernel<0, true>, the training step's; both 56 / 0
@@ -1011,14 +1034,16 @@ def render_frames(scene, frames=30, warmup=3):
     torch.cuda.synchronize()
     render_planes_kernel.launches = 0
     march_u.launches = 0
+    tonemap_kernel.launches = 0
     times = timed(lambda: render(scene), frames)
     launches = {"render": render_planes_kernel.launches,
-                "march": march_u.launches}
+                "march": march_u.launches,
+                "tonemap": tonemap_kernel.launches}
     img = render(scene)
     torch.cuda.synchronize()
-    if launches["render"] < frames:
-        raise AssertionError(f"render kernel launches in {frames} frames: "
-                             f"{launches}")
+    if launches["render"] < frames or launches["tonemap"] != frames:
+        raise AssertionError(f"render and tone-map kernel launches in "
+                             f"{frames} frames: {launches}")
     shape = (scene.camera.height, scene.camera.width, 3)
     if img.shape != shape or not bool(torch.isfinite(img).all()):
         raise AssertionError("render() output is not a finite (H, W, 3) image")
@@ -1086,7 +1111,7 @@ def phase_main_path(frames=30):
         kernel_inputs(scene, None, DEV)
     torch.cuda.synchronize()
     row_ms = (time.perf_counter() - t0) * 1e2
-    planes = k.permute(1, 2, 0)
+    planes = k[:3].permute(1, 2, 0)
     tonemap_ms, _, _ = timed(lambda: tonemap(planes, scene.post), 10)
     print(f"main path: render() 1920x1080 flagship: {frame_ms:.3f} ms/frame "
           f"median of {frames}, {n_pix / frame_ms / 1e3:.1f} Mrays/s; kernel "
@@ -1096,7 +1121,61 @@ def phase_main_path(frames=30):
     entry.update(frame_ms=frame_ms, frame_ms_min_max=[frame_min, frame_max],
                  mrays_per_s=n_pix / frame_ms / 1e3, host_row_ms=row_ms,
                  tonemap_ms=tonemap_ms, frames=frames)
-    return entry
+    return entry, tonemap_entry(planes, scene.post, launches["tonemap"],
+                                frames)
+
+
+def _bit_equal(a, b):
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+def tonemap_entry(planes, post, launches, frames):
+    """Phase 4's tone map on the 1080p frame's radiance: the kernel alone
+    on the render's planar view and on a contiguous copy, each bit-equal to
+    the plain path (``tonemap_plain``), beside the plain path's time, the
+    bound, ptxas's registers and spill, the launch shape (tile, shared bytes,
+    warps per SM), and the float64 instantiation on the same frame. The
+    kernels-line entry."""
+    h, w, _ = planes.shape
+    n_pix = h * w
+    contiguous = planes.contiguous()
+    want = tonemap_plain(planes, post)
+    for name, img in (("planar", planes), ("contiguous", contiguous)):
+        if not _bit_equal(tonemap_kernel(img, post), want):
+            raise AssertionError(f"tone-map kernel ({name} 1080p) differs "
+                                 "from tonemap_plain")
+    ms, _ = kernel_time(lambda: tonemap_kernel(planes, post), 100)
+    ms_contiguous, _ = kernel_time(lambda: tonemap_kernel(contiguous, post),
+                                   100)
+    plain_ms, _, _ = timed(lambda: tonemap_plain(planes, post), 10)
+    f64 = planes.double()
+    if not _bit_equal(tonemap_kernel(f64, post), tonemap_plain(f64, post)):
+        raise AssertionError("float64 tone-map kernel (1080p) differs from "
+                             "tonemap_plain")
+    f64_ms, _ = kernel_time(lambda: tonemap_kernel(f64, post), 50)
+    bound_ms, bound_by = bound(TONEMAP_OPS_PER_PIXEL * n_pix,
+                               TONEMAP_BYTES_PER_PIXEL * n_pix)
+    bytes_ms = TONEMAP_BYTES_PER_PIXEL * n_pix / HBM_RATE * 1e3
+    # tonemap_kernel<float, 2, BRIGHT, true, true>: two passes and ACES
+    regs, spill = registers("tonemap.cu", "IfLi2EL4Load1ELb1ELb1E")
+    shape = tonemap_kernel_shape(post)
+    print(f"tone-map kernel (1080p, flagship post): {ms:.4f} ms alone on "
+          f"the planar view, {ms_contiguous:.4f} on a contiguous image, "
+          f"bit-equal to the plain path ({plain_ms:.3f} ms); bound "
+          f"{bound_ms:.4f} ms by {bound_by} (bytes alone {bytes_ms:.4f}); "
+          f"{regs} registers, {spill} bytes spilled, {shape}; float64 "
+          f"{f64_ms:.4f} ms; {launches} launches in {frames} frames")
+    return {
+        "name": "tonemap", "route": "cuda",
+        "source": "blackhole_simulation_tpu_torch/csrc/tonemap.cu",
+        "replaces": None, "launches": launches, "frames": frames,
+        "ms": ms, "ms_contiguous": ms_contiguous, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": bytes_ms,
+        "library_ms": None, "bit_equal": True, "f64_ms": f64_ms,
+        "registers": regs, "spill": spill, **shape,
+        "resident_warps_per_sm": shape["warps_per_sm"],
+    }
 
 
 def _rel(x, ref):
@@ -2086,7 +2165,7 @@ def phase_certified():
     n_pix = width * height
     scene = flagship_scene(width, height, cfg=CERTIFIED_CFG)
     (frame_ms, frame_min, frame_max), launches = render_frames(scene)
-    if launches != {"render": 30, "march": 30}:
+    if launches != {"render": 30, "march": 30, "tonemap": 30}:
         raise AssertionError(f"certified frames' launches: {launches}")
 
     # The kernel with its band plane, alone and against its plain version.
@@ -4861,7 +4940,7 @@ def main() -> int:
     peak = phase_peak()
     phase_short_parity()
     print(f"approx route: {json.dumps(phase_flagship_parity())}")
-    kernel = phase_main_path()
+    kernel, tonemap_line = phase_main_path()
     phase_march_parity()
     phase_grad_parity()
     train, kernels = phase_train()
@@ -4875,8 +4954,8 @@ def main() -> int:
     print(f"features: {json.dumps({'parity': features, **full})}")
     edges = phase_edges()
     print(f"edges: {json.dumps(edges)}")
-    kernels_line = [kernel, *kernels, *certified_kernels, *ab3_kernels,
-                    *full_kernels, peak]
+    kernels_line = [kernel, tonemap_line, *kernels, *certified_kernels,
+                    *ab3_kernels, *full_kernels, peak]
     probes = phase_probes(kernels_line)
     print(f"probes: {json.dumps(probes)}")
     phase_census(kernels_line)
