@@ -134,8 +134,8 @@ def f64_args(*xs):
 
 def host(x) -> float:
     """A number, or a 0-d tensor's detached value, as a Python float. A
-    CUDA tensor's read waits for its stream: in a frame that ``render``
-    records it counts one ``stream_syncs`` (``perf/spans.py``)."""
+    CUDA tensor's read waits for its stream: in a request that
+    ``perf/spans.py`` records it counts one ``stream_syncs``."""
     if isinstance(x, torch.Tensor):
         if x.is_cuda:
             from blackhole_simulation_tpu_torch.perf import spans

@@ -47,6 +47,11 @@ float32 vector, which its float64 gradient promotes after the first step,
 as the JAX twin's does. With ``use_pallas`` the float64 forward raises
 TypeError, as the JAX twin's Pallas march (``march_rows_ad``) fails to
 trace on float64 rays.
+
+Under a profiler session each call of an AD step (``make_inverse_step``,
+``make_ad_inverse_step``) is recorded as the span ``inverse_step`` with
+``inverse_forward``, ``inverse_backward`` and ``adam`` inside it, and its
+host waits as ``stream_syncs`` (``perf/spans.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import math
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import const, div_c, host
+from blackhole_simulation_tpu_torch.perf import spans
 
 _AD_STAGES = ((64, 8), (96, 4), (128, 2))  # (march steps, pool k) per stage
 _FIELDS = ("spin", "theta_cam", "log_density", "log_t_peak")
@@ -128,6 +134,8 @@ def _forward(params: InverseParams, scene, pix_ids, dtype=torch.float32):
 
     dev = params.spin.device
     m = torch.tensor(host(scene.bh.mass), dtype=dtype, device=dev)
+    if spans.on and m.is_cuda:
+        spans.count("stream_syncs")          # the mass's blocking upload
     a = params.spin.to(dtype)
     # Density and peak temperature enter as multiplicative scales on the
     # static DiskParams.
@@ -145,6 +153,7 @@ def _forward(params: InverseParams, scene, pix_ids, dtype=torch.float32):
     return torch.stack(rgb, dim=-1)
 
 
+@spans.span("adam")
 def _adam_update(params: InverseParams, opt_state, grads, n_norm, lr,
                  total_steps, b1=0.9, b2=0.999, eps=1e-8):
     """Adam with a global-norm clip of 10 and the spin clamp to
@@ -180,10 +189,23 @@ def _unpack(state, device):
     return state
 
 
+@spans.span("inverse_forward")
+def _loss_of(loss_fn, leaves):
+    return loss_fn(InverseParams.from_leaves(leaves))
+
+
+@spans.span("inverse_backward")
+def _grads_of(loss, leaves):
+    return torch.autograd.grad(loss, leaves)
+
+
 def _value_and_grad(loss_fn, params: InverseParams):
+    """The loss at ``params`` and its gradient in the four leaves; in a
+    recorded step (``perf/spans.py``) the spans ``inverse_forward`` and
+    ``inverse_backward``."""
     leaves = [v.detach().clone().requires_grad_() for v in params.leaves()]
-    loss = loss_fn(InverseParams.from_leaves(leaves))
-    grads = torch.autograd.grad(loss, leaves)
+    loss = _loss_of(loss_fn, leaves)
+    grads = _grads_of(loss, leaves)
     return loss.detach(), grads
 
 
@@ -251,6 +273,7 @@ def make_inverse_step(scene, mesh=None, lr=2e-2, b1=0.9, b2=0.999, eps=1e-8,
                      else ids)
         n_eff = int(pix_order.shape[0])
 
+    @spans.root("inverse_step")
     def step(state, target):
         params, opt_state = _unpack(state, device)
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)
@@ -424,6 +447,7 @@ def make_ad_inverse_step(scene, mesh=None, lr=2e-2, pool: int = 4,
         return x.reshape(rows // pool, pool, w // pool, pool, 3).mean(
             dim=(1, 3))
 
+    @spans.root("inverse_step")
     def step(state, target):
         params, opt_state = _unpack(state, device)
         target_flat = torch.as_tensor(target, device=device).reshape(-1, 3)

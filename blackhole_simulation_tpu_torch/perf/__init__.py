@@ -1,8 +1,8 @@
 """Performance and observability: the frame monitor, PID and hysteresis
 resolution control, the preset benchmark, the feature-cost validator and
 march telemetry (counterpart of ``blackhole_simulation_tpu/perf``), and
-the frame path's spans and counters (``perf/spans.py``), recorded while a
-torch profiler session is active."""
+the spans and counters of the frame path and the inverse step
+(``perf/spans.py``), recorded while a torch profiler session is active."""
 
 from blackhole_simulation_tpu_torch.perf.monitor import (
     FrameRingBuffer,

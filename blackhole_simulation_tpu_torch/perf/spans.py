@@ -1,42 +1,61 @@
-"""Spans and counters of the fused frame path, recorded while a torch
-profiler session is active.
+"""Spans and counters of the port's requests, recorded while a torch
+profiler session is active: the fused frame path and the inverse step.
 
-``render`` asks once per call whether a profiler session is active in its
-thread (``torch.autograd._profiler_enabled``: true under
+A request's entry (``render``, an inverse step) asks once per call whether
+a profiler session is active in its thread
+(``torch.autograd._profiler_enabled``: true under
 ``torch.profiler.profile`` and under any session started through
-``torch.autograd._enable_profiler``) and records that whole frame or none
-of it. No setting turns recording on, and nothing is written out: the
-spans and counters stay in memory until ``reset()``. A frame that is not
-recorded costs each site one test of the flag ``on``.
+``torch.autograd._enable_profiler``) and records that whole request or
+none of it. No setting turns recording on, and nothing is written out:
+the spans and counters stay in memory until ``reset()``. A request that is
+not recorded costs each site one test of the flag ``on``.
 
 A span is its name, its start and end on the Unix clock in nanoseconds
 (``time.time_ns``, the clock on which Kineto stamps host events, so spans
-line up with a device trace without conversion), the number of its frame
-(the request id: 0, 1, ... since the last ``reset``) and the index in
-``recorded()`` of the span it opened in (None for a frame). Spans of the
-fused path, each the whole call of a function of ``render/pipeline.py``:
+line up with a device trace without conversion), the number of its
+request (the field ``frame``: 0, 1, ... since the last ``reset``) and the
+index in ``recorded()`` of the span it opened in (None for a request's
+root). Spans of the fused frame path, each the whole call of a function
+of ``render/pipeline.py``:
 
-* ``frame``: ``render`` (no parent);
+* ``frame``: ``render`` (a root);
 * ``sample``: ``render_sample``, in ``frame``;
 * ``host_row``: ``kernel_inputs``, the parameter row and ``RenderStatic``,
   in ``sample``;
 * ``row_upload``: ``_upload_row``, the row's blocking copy to the device
   with the stream wait it makes, in ``host_row``.
 
-Counter ``stream_syncs``: each point of a recorded frame where the host
-waits on the device, counted where the wait happens: the row upload on a
-CUDA device, ``_elementwise.host`` of a CUDA tensor (a scene leaf held on
-the card) and ``models/nrs.nrs_flat_weights`` of CUDA weights (the NRS
-far field's row block). The staged, sharded and inverse paths record
-their ``frame`` and ``sample`` spans only, and their other waits are not
-counted.
+Spans of an inverse step, the step of ``parallel/train.py``'s
+``make_ad_inverse_step`` or ``make_inverse_step``:
+
+* ``inverse_step``: the step's call (a root);
+* ``inverse_forward``: the loss of the parameters (ray birth, precull,
+  the march kernel, the composite, the loss), in ``inverse_step``;
+* ``inverse_backward``: ``torch.autograd.grad`` of the loss (the gradient
+  kernel, the composite's and the birth's backward, which autograd runs
+  on its own thread while the step's thread waits in this span), in
+  ``inverse_step``;
+* ``adam``: ``_adam_update``, in ``inverse_step``.
+
+Counter ``stream_syncs``: each point of a recorded request where the host
+waits on the device, counted where the wait happens. In a frame: the row
+upload on a CUDA device, ``_elementwise.host`` of a CUDA tensor (a scene
+leaf held on the card) and ``models/nrs.nrs_flat_weights`` of CUDA
+weights (the NRS far field's row block). In an inverse step, each blocking
+copy between the host and the card: the mass's upload
+(``parallel/train.py::_forward``), the camera's numbers
+(``render/camera.py::camera_scalars``) and the precull's critical-curve fit
+(``render/precull.py``: mass and spin read back, the fit's five tensors
+copied up). The staged and sharded paths record their ``frame`` and
+``sample`` spans only, and their other waits are not counted.
 
 Counter ``tonemap_kernel``: each call of ``ops/tonemap.py::tonemap_kernel``
 in a recorded frame, counted once its launch succeeds (one a frame on the
 card; the CPU's plain path counts none).
 
-One frame is recorded at a time, in the thread that renders: the port
-renders from one thread.
+One request is recorded at a time, in the thread that calls its entry;
+the spans and counters of the autograd thread that a recorded step waits
+for belong to that step.
 """
 
 from __future__ import annotations
@@ -56,7 +75,7 @@ class Span(NamedTuple):
     parent: int | None   # index in recorded() of the enclosing span
 
 
-on = False               # a frame is being recorded
+on = False               # a request is being recorded
 _spans: list = []
 _counts: dict = {}
 _open: list = []         # indices of the open spans, innermost last
@@ -74,29 +93,35 @@ def _end() -> None:
     _spans[i] = _spans[i]._replace(end_ns=time.time_ns())
 
 
-def frame(fn):
-    """Decorate the frame's entry: the call is the span ``frame``, and
-    records the spans and counters inside it, when a profiler session is
-    active in the calling thread and no frame is being recorded."""
-    @functools.wraps(fn)
-    def call(*args, **kwargs):
-        global on, _frames
-        if on or not torch.autograd._profiler_enabled():
-            return fn(*args, **kwargs)
-        on = True
-        _frames += 1
-        _begin("frame")
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            _end()
-            on = False
-    return call
+def root(name: str):
+    """Decorate a request's entry: the call is the span ``name`` with no
+    parent, and records the spans and counters inside it, when a profiler
+    session is active in the calling thread and no request is being
+    recorded."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            global on, _frames
+            if on or not torch.autograd._profiler_enabled():
+                return fn(*args, **kwargs)
+            on = True
+            _frames += 1
+            _begin(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _end()
+                on = False
+        return call
+    return wrap
+
+
+frame = root("frame")
 
 
 def span(name: str):
-    """Decorate a function called inside a frame: in a recorded frame the
-    call is the span ``name``, opened in the innermost open span."""
+    """Decorate a function called inside a request: in a recorded request
+    the call is the span ``name``, opened in the innermost open span."""
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
@@ -113,7 +138,7 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``. Callers count only while ``on``,
-    so an unrecorded frame pays one flag test."""
+    so an unrecorded request pays one flag test."""
     _counts[name] = _counts.get(name, 0) + n
 
 
@@ -129,7 +154,7 @@ def counters() -> dict:
 
 
 def reset() -> None:
-    """Drop the spans and counters, and number frames from 0 again."""
+    """Drop the spans and counters, and number requests from 0 again."""
     global _frames
     _spans.clear()
     _counts.clear()

@@ -49,6 +49,7 @@ from blackhole_simulation_tpu_torch._elementwise import (
     sin,
     sqrt,
 )
+from blackhole_simulation_tpu_torch.perf import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +183,14 @@ def camera_scalars(camera: Camera, mass, spin, theta=None,
     half = _field_fn(camera.fov, lambda v: math.tan(v / 2.0),
                      lambda v: torch.tan(v / 2.0), dtype, dev)
     k1 = half * rounded(camera.width / camera.height)
+    if spans.on and dev.type == "cuda":
+        # Each number made a tensor on the card is a blocking copy: the
+        # numbers among mass, spin, theta and r, the fov's and roll's
+        # three host values and the aspect ratio.
+        numbers = (mass, spin, camera.theta if theta is None else theta,
+                   camera.r)
+        spans.count("stream_syncs",
+                    4 + sum(not torch.is_tensor(x) for x in numbers))
     return (*coeffs, k1, half,
             _field_fn(camera.roll, math.cos, torch.cos, dtype, dev),
             _field_fn(camera.roll, math.sin, torch.sin, dtype, dev))

@@ -32,6 +32,7 @@ from blackhole_simulation_tpu_torch._elementwise import (
     sin,
     sqrt,
 )
+from blackhole_simulation_tpu_torch.perf import spans
 
 # Chebyshev fit of the critical curve eta_c(lam): terms, and the bound on
 # |fit - exact| over a in [0.1, 0.999] that the cull subtracts so it can only
@@ -133,6 +134,20 @@ def _eta_crit_cheb_coeffs_f32(m: torch.Tensor, a: torch.Tensor):
     coeffs = (2.0 / _CHEB_K) * (eta_k[None, :] * dct).sum(dim=1)
     coeffs[0] = coeffs[0] * 0.5
     return coeffs, mid, half, lam_lo, lam_hi
+
+
+def _fit_on(m: torch.Tensor, a: torch.Tensor, device):
+    """``_eta_crit_cheb_coeffs_f32`` of ``m`` and ``a``, its five tensors on
+    ``device``. With CUDA tensors each copy (mass and spin read back, the
+    five tensors copied up) waits for the stream: in a request that
+    ``perf/spans.py`` records, each counts one ``stream_syncs``."""
+    fit = tuple(x.to(device) for x in _eta_crit_cheb_coeffs_f32(m, a))
+    if spans.on:
+        n = (int(m.is_cuda) + int(a.is_cuda)
+             + len(fit) * (torch.device(device).type == "cuda"))
+        if n:
+            spans.count("stream_syncs", n)
+    return fit
 
 
 def _cheb_eval(coeffs, mid, half, lam):
@@ -245,8 +260,7 @@ def critical_band_metric_u(m, a, yt_u: torch.Tensor, refine_band: float = 0.0,
     c2 = u * u
     q = pu * pu * w + c2 * (pph * pph / s2 - a_signed * a_signed * pt * pt)
     eta = q * inv_e * inv_e
-    coeffs, c_mid, c_half, lam_lo, lam_hi = (
-        x.to(yt_u.device) for x in _eta_crit_cheb_coeffs_f32(m, a_c))
+    coeffs, c_mid, c_half, lam_lo, lam_hi = _fit_on(m, a_c, yt_u.device)
     eta_crit_raw = _cheb_eval(coeffs, c_mid, c_half, lam)
     d = band_metric_values(m, eta, eta_crit_raw, lam, lam_lo, lam_hi)
     if refine_pole_w > 0.0:
@@ -259,9 +273,7 @@ def _capture_core(m, a, a_signed, r0, s2, c2, pt, pr, pth2, pph, lam, inv_e,
                   margin):
     q = pth2 + c2 * (pph * pph / s2 - a_signed * a_signed * pt * pt)
     eta = q * inv_e * inv_e
-    dev = r0.device
-    coeffs, c_mid, c_half, lam_lo, lam_hi = (
-        x.to(dev) for x in _eta_crit_cheb_coeffs_f32(m, a))
+    coeffs, c_mid, c_half, lam_lo, lam_hi = _fit_on(m, a, r0.device)
     in_range = (lam > lam_lo) & (lam < lam_hi)
     eta_crit = _cheb_eval(coeffs, c_mid, c_half, lam) - _CHEB_ERR * m * m
     inside = eta < eta_crit * (1.0 - margin) - margin * m * m
