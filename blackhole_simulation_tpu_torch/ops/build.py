@@ -30,7 +30,10 @@ any number from 1, as the JAX kernels take any. The kernels carry
 build has 4; more crossings take a build of their own with ``-DKMAX``
 the next power of two from 8 up to ``KMAX_LIMIT`` (``kmax_for``), whose
 library name carries it, so the default build and its instantiations are
-the same whatever else is built.
+the same whatever else is built. A source whose templates take their
+arguments from the preprocessor (``csrc/composite.cu``) builds one library
+for each set of ``defines`` it is asked for (``-DNAME=value`` flags, in
+the library's name by a hash), at first use.
 """
 
 from __future__ import annotations
@@ -80,40 +83,47 @@ def kmax_for(max_crossings: int) -> int:
     return k
 
 
-FMAD_SOURCES = ("tonemap.cu",)
+FMAD_SOURCES = ("tonemap.cu", "composite.cu")
 
 
-def _flags(source: str, kmax: int = KMAX_DEFAULT) -> tuple[str, ...]:
-    """nvcc's flags for ``csrc/<source>`` with ``kmax`` crossing slots."""
+def _flags(source: str, kmax: int = KMAX_DEFAULT,
+           defines: tuple[str, ...] = ()) -> tuple[str, ...]:
+    """nvcc's flags for ``csrc/<source>`` with ``kmax`` crossing slots and
+    the ``defines``."""
     flags = NVCC_FLAGS
     if source in FMAD_SOURCES:
         flags = tuple("--fmad=true" if f == "--fmad=false" else f
                       for f in flags)
-    return flags if kmax == KMAX_DEFAULT else (*flags, f"-DKMAX={kmax}")
+    if kmax != KMAX_DEFAULT:
+        flags = (*flags, f"-DKMAX={kmax}")
+    return (*flags, *defines)
 
 
-def _paths(source: str, kmax: int = KMAX_DEFAULT) -> tuple[Path, Path]:
+def _paths(source: str, kmax: int = KMAX_DEFAULT,
+           defines: tuple[str, ...] = ()) -> tuple[Path, Path]:
     src = CSRC / source
     digest = hashlib.sha1(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(_flags(source, kmax)).encode())
+    digest.update(" ".join(_flags(source, kmax, defines)).encode())
     tag = "" if kmax == KMAX_DEFAULT else f"-k{kmax}"
     stem = f"{src.stem}{tag}-{digest.hexdigest()[:12]}"
     return BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
 
 
-def build(source: str, kmax: int = KMAX_DEFAULT) -> Path:
-    """Compile ``csrc/<source>`` with ``kmax`` crossing slots unless an
-    identical build exists; return the shared library's path. Raises
-    RuntimeError with nvcc's output if the compile fails."""
-    lib, report = _paths(source, kmax)
+def build(source: str, kmax: int = KMAX_DEFAULT,
+          defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<source>`` with ``kmax`` crossing slots and the
+    ``defines`` unless an identical build exists; return the shared
+    library's path. Raises RuntimeError with nvcc's output if the compile
+    fails."""
+    lib, report = _paths(source, kmax, defines)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
-        [_nvcc(), *_flags(source, kmax), "-o", str(tmp),
+        [_nvcc(), *_flags(source, kmax, defines), "-o", str(tmp),
          str(CSRC / source)],
         capture_output=True, text=True, timeout=900,
     )
@@ -124,9 +134,10 @@ def build(source: str, kmax: int = KMAX_DEFAULT) -> Path:
     return lib
 
 
-def ptxas_report(source: str, kmax: int = KMAX_DEFAULT) -> str:
+def ptxas_report(source: str, kmax: int = KMAX_DEFAULT,
+                 defines: tuple[str, ...] = ()) -> str:
     """ptxas's -v report of the current build of ``csrc/<source>``."""
-    return _paths(source, kmax)[1].read_text()
+    return _paths(source, kmax, defines)[1].read_text()
 
 
 def parse_ptxas(report: str) -> list[tuple[str, int, int, int]]:
@@ -146,11 +157,11 @@ def parse_ptxas(report: str) -> list[tuple[str, int, int, int]]:
     return usage
 
 
-def ptxas_usage(source: str, kmax: int = KMAX_DEFAULT
-                ) -> list[tuple[str, int, int]]:
+def ptxas_usage(source: str, kmax: int = KMAX_DEFAULT,
+                defines: tuple[str, ...] = ()) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill bytes stored + loaded) of each kernel
     entry in the current build of ``csrc/<source>``."""
-    return [u[:3] for u in parse_ptxas(ptxas_report(source, kmax))]
+    return [u[:3] for u in parse_ptxas(ptxas_report(source, kmax, defines))]
 
 
 def ptxas_stack(source: str, kmax: int = KMAX_DEFAULT) -> dict[str, int]:

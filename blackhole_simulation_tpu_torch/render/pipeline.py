@@ -370,13 +370,35 @@ def shade_march_rows(rows, m, a, scene: Scene, lam, density_scale=1.0,
     ``m``, ``a``: 0-dim tensors of that dtype; ``lam``: the (N,) conserved
     impact parameter L_z/E; ``luts``: the spectral disk's tables for this
     ``m`` and ``a`` (``scene_luts``), else looked up from them.
-    Differentiable (autograd)."""
+    Differentiable.
+
+    CUDA rows take the composite kernel and its VJP kernel
+    (``ops/composite.py::composite_rows``), bit for bit the plain
+    composite's values, which raise where they refuse an input; the CPU
+    takes ``_composite`` under autograd. So does the spectral disk's LUT
+    branch on either device (a spectral scene without Chebyshev tables,
+    ``shade_crossings_rows``' rule), whose tables' cotangent the kernel
+    does not take."""
     from blackhole_simulation_tpu_torch.render.shading import (
         escape_direction_u_rows,
     )
 
     if dtype is not None:
         lam = lam.to(dtype)
+    feats = scene.features
+    lut_branch = (feats.disk and feats.spectral_lut
+                  and scene.spectral_coeffs is None)
+    if lam.is_cuda and not lut_branch:
+        from blackhole_simulation_tpu_torch.ops.composite import (
+            CompositeStatic,
+            composite_rows,
+        )
+
+        return composite_rows(
+            CompositeStatic.of(scene), m, a, rows.hit, rows.cross_r,
+            rows.cross_phi, rows.cross_t, rows.n_crossings, rows.r_min_ph,
+            lam, rows.state_u, rows.jet_radiance, density_scale,
+            intensity_scale)
     return _composite(
         scene, m, a, rows.hit, (rows.cross_r, rows.cross_phi, rows.cross_t),
         rows.n_crossings, rows.r_min_ph, lam, rows.state_u,

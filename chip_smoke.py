@@ -402,6 +402,28 @@ printing a result line:
    and 3 (spawned gloo processes on the one card), float32 and float64:
    every rank's leaf gradients identical and within ``F64_MD_REL`` of the
    single-device twin's, the image bit-equal to the twin's ``render``.
+24. The composite kernel and its VJP kernel (``csrc/composite.cu``) on the
+   inputs of one step of the inverse cell (``benchmark/configs/
+   inverse_1080p.json``, stage 1: 2,073,600 rays, K = 4, analytic disk,
+   starfield, glow), recorded from ``make_ad_inverse_step``: each kernel
+   alone (20 launches) beside its bound (each input byte the rays need
+   read once, each output written once; the operations counted by the
+   plain twin's arithmetic ops on one ray of each kind, ``composite_ops``),
+   the plain composite's forward and its autograd forward + backward on
+   the same inputs (their peak memory beside the kernels'), the forward
+   bit-equal to the plain composite's, the VJP within 1e-5 of the plain
+   twin's (``composite_vjp_plain``), two backward calls bit-equal, and
+   ptxas's registers and spills of the instantiation.
+25. The deterministic inverse fit re-read: one whole fit of the inverse
+   cell (60 steps: 20 of each stage), every step held against the
+   benchmark's reference (``benchmark/reference/inverse.py``) from its
+   entering state: each step's ``loss_rel``, ``grad_rel`` and
+   ``update_rel`` and their largest, which stay below the cell's limits
+   (``benchmark/limits/inverse_1080p.ad_curriculum.json``). About 14
+   minutes of the H100 (the reference takes ~13 s a step).
+
+``python3 chip_smoke.py composite inverse_fit`` runs phases 24 and 25
+alone (each kernel built at its first use).
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -790,7 +812,7 @@ def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the counted operations over the
     lane rate (the larger of the measured and the published one) and the
     bytes over the memory rate."""
-    ops_ms = ops / max(LANE_RATE, LANE_PEAK) * 1e3
+    ops_ms = ops / max(LANE_RATE or 0.0, LANE_PEAK) * 1e3
     bytes_ms = nbytes / HBM_RATE * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -4928,6 +4950,297 @@ def phase_float64():
     return out, entries
 
 
+# Phase 24: the composite kernels against the plain composite on the card.
+COMPOSITE_VJP_BAR = 1e-5
+# The arithmetic ATen ops that ``composite_ops`` counts, each output value
+# one operation (copies, casts to other shapes and allocations are not).
+_COUNTED_OPS = {
+    "add", "sub", "mul", "div", "neg", "reciprocal", "sqrt", "exp", "log",
+    "pow", "sin", "cos", "floor", "remainder", "abs", "sign", "maximum",
+    "minimum", "clamp", "where", "lt", "gt", "le", "ge", "eq", "ne",
+    "bitwise_and", "logical_and", "_to_copy"}
+
+
+def _count_ops(fn) -> int:
+    """The output values of the counted ATen ops that ``fn()`` runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in _COUNTED_OPS:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                Count.n += sum(o.numel() for o in outs
+                               if isinstance(o, torch.Tensor))
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def composite_ops(c, x):
+    """(operations a ray of each kind needs, forward total, VJP total),
+    counted on the plain twin's arithmetic on one ray (``ops/composite.py``,
+    the kernels' line for line) and summed over the rays ``x`` holds. The
+    forward shades each filled crossing (3 octaves the first, 1 the
+    others) and, for each escaped ray, the escape direction, the starfield
+    and the glow. The VJP shades the filled crossings again, then each
+    compositing (filled and valid) crossing along 9 directions, and for each
+    escaped ray the escape direction, the starfield along 3 directions, the
+    escape direction along 9 and the glow along 2."""
+    from blackhole_simulation_tpu_torch.ops import composite as comp
+
+    cpu = lambda t: t.detach().to("cpu")
+    one = lambda t: cpu(t).reshape(-1)[:1]
+    m, a, r_in, r_ph = (cpu(x[k]) for k in ("m", "a", "r_in", "r_ph"))
+    ds, is_ = cpu(x["ds"]), cpu(x["is"])
+    r, phi, t, lam = (one(x[k]) for k in ("cross_r", "cross_phi", "cross_t",
+                                          "lam"))
+    rmin = one(x["r_min_ph"])
+    srows = tuple(cpu(x["state_u"])[i, :1] for i in range(1, 8))
+    seed = comp._seed
+    yes = torch.ones(1, dtype=torch.bool)
+    per = {}
+    for octaves in (3, 1):
+        per[f"slot{octaves}"] = _count_ops(lambda: comp._slot(
+            c, m, a, r_in, r, phi, t, lam, octaves, c.disk.density * ds,
+            is_))
+        per[f"slot{octaves}_d9"] = _count_ops(lambda: comp._slot(
+            c, seed(m, 4, 9), seed(a, 5, 9), seed(r_in, 6, 9),
+            seed(r, 0, 9), seed(phi, 1, 9), seed(t, 2, 9), seed(lam, 3, 9),
+            octaves, c.disk.density * seed(ds, 7, 9), seed(is_, 8, 9)))
+    dirs = comp._escape_direction_u(srows, m, a)
+    per["escape"] = _count_ops(lambda: comp._escape_direction_u(srows, m, a))
+    per["escape_d9"] = _count_ops(lambda: comp._escape_direction_u(
+        tuple(seed(v, i, 9) for i, v in enumerate(srows)), seed(m, 7, 9),
+        seed(a, 8, 9)))
+    per["starfield"] = _count_ops(lambda: comp._starfield(*dirs, c))
+    per["starfield_d3"] = _count_ops(lambda: comp._starfield(
+        *(seed(v.v, i, 3) for i, v in enumerate(dirs)), c))
+    per["glow"] = _count_ops(lambda: comp._glow(rmin, r_ph, yes))
+    per["glow_d2"] = _count_ops(lambda: comp._glow(
+        seed(rmin, 0, 2), seed(r_ph, 1, 2), yes))
+    k = x["cross_r"].shape[0]
+    nc = torch.clamp(x["n_crossings"].long(), 0, k)
+    filled = torch.arange(k, device=nc.device)[:, None] < nc[None, :]
+    cr = x["cross_r"]
+    valid = filled & (cr > x["r_in"]) & (cr < c.disk.outer_radius)
+    escaped = int((x["hit"] == 2).sum())
+    first, rest = int(filled[0].sum()), int(filled[1:].sum())
+    on_first, on_rest = int(valid[0].sum()), int(valid[1:].sum())
+    slots = first * per["slot3"] + rest * per["slot1"]
+    fwd = slots + escaped * (per["escape"] + per["starfield"] + per["glow"])
+    vjp = (slots + on_first * per["slot3_d9"] + on_rest * per["slot1_d9"]
+           + escaped * (per["escape"] + per["starfield_d3"]
+                        + per["escape_d9"] + per["glow_d2"]))
+    return per, fwd, vjp
+
+
+def _recorded_composite(step, state, target):
+    """The composite's inputs of one call of ``step``, as the kernel path
+    gets them, detached."""
+    from blackhole_simulation_tpu_torch.ops import composite as comp
+
+    got, orig = [], comp.composite_rows
+
+    def record(*args):
+        got.append(args)
+        return orig(*args)
+
+    comp.composite_rows = record
+    try:
+        step(state, target)
+    finally:
+        comp.composite_rows = orig
+    d = lambda v: v.detach() if isinstance(v, torch.Tensor) else v
+    return tuple(d(v) for v in got[0])
+
+
+def phase_composite():
+    """Phase 24 (module docstring)."""
+    from benchmark.drivers.fits import port_scene
+    from blackhole_simulation_tpu_torch.geometry import metrics
+    from blackhole_simulation_tpu_torch.ops import composite as comp
+    from blackhole_simulation_tpu_torch.parallel.train import (
+        init_opt_state,
+        make_ad_inverse_step,
+    )
+    from blackhole_simulation_tpu_torch.render.pipeline import (
+        _DUMMY_U,
+        _composite,
+    )
+
+    t0 = time.perf_counter()
+    config = json.loads(Path("benchmark/configs/inverse_1080p.json")
+                        .read_text())
+    scene = port_scene(config, DEV)
+    target = render_radiance(scene, device=DEV)
+    step = make_ad_inverse_step(scene, None, 3e-2, pool=8, march_steps=64,
+                                clip=0.03, total_steps=20, device=DEV)
+    init = InverseParams.init(**config["init"], device=DEV)
+    state = (init, init_opt_state(init))
+    step(state, target)
+    (c, m, a, hit, cr, cphi, ct, nc, rmin, lam, st, jets, ds,
+     is_) = _recorded_composite(step, state, target)
+    torch.cuda.synchronize()
+    r_in, r_ph = metrics.isco_t(m, a), metrics.photon_sphere_t(m, a)
+    x = dict(m=m, a=a, r_in=r_in, r_ph=r_ph, hit=hit, cross_r=cr,
+             cross_phi=cphi, cross_t=ct, n_crossings=nc, r_min_ph=rmin,
+             lam=lam, state_u=st, jet_rows=jets, ds=ds, **{"is": is_})
+    n, k = lam.shape[0], cr.shape[0]
+    args = (c, m, a, r_in, r_ph, hit, cr, cphi, ct, nc, rmin, lam, st, jets)
+    fwd_ms, out = kernel_time(
+        lambda: comp.composite_kernel(*args, ds, is_), 20)
+    g = torch.rand((3, n), device=DEV, generator=torch.Generator(
+        DEV).manual_seed(24)) * 2.0 - 1.0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vjp_ms, grads = kernel_time(
+        lambda: comp.composite_vjp_kernel(*args, g, ds, is_), 20)
+    kernel_peak = torch.cuda.max_memory_allocated() - base
+    again = comp.composite_vjp_kernel(*args, g, ds, is_)
+    reproducible = all(torch.equal(v, again[key]) for key, v in grads.items())
+
+    def plain(leaves=None):
+        y = {**x, **(leaves or {})}
+        saved = metrics.isco_t, metrics.photon_sphere_t
+        metrics.isco_t = lambda m_, a_: y["r_in"]
+        metrics.photon_sphere_t = lambda m_, a_: y["r_ph"]
+        try:
+            return _composite(scene, y["m"], y["a"], hit,
+                              (y["cross_r"], y["cross_phi"], y["cross_t"]),
+                              nc, y["r_min_ph"], y["lam"], y["state_u"],
+                              escape_direction_u_rows, _DUMMY_U,
+                              y["jet_rows"], y["ds"], y["is"],
+                              scene.spectral_coeffs, None)
+        finally:
+            metrics.isco_t, metrics.photon_sphere_t = saved
+
+    with torch.no_grad():
+        want = torch.stack(plain())
+        plain_fwd_ms = timed(plain, 3)[0]
+    differ = int((~((out == want) | (out.isnan() & want.isnan()))).sum())
+    names = ("cross_r", "cross_phi", "cross_t", "state_u", "r_min_ph", "lam",
+             "a", "r_in", "r_ph", "ds", "is")
+
+    def plain_fwd_bwd():
+        leaves = {key: x[key].clone().requires_grad_(True) for key in names}
+        rgb = plain(leaves)
+        return torch.autograd.grad(
+            sum((o * gg).sum() for o, gg in zip(rgb, g)),
+            [leaves[key] for key in names], allow_unused=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plain_fb_ms = timed(plain_fwd_bwd, 3)[0]
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    twin = comp.composite_vjp_plain(*args, g, ds, is_)
+    rel = {}
+    for key in (*names, "m"):
+        w = twin[key]
+        dd = (grads[key] - w).abs()
+        if w.dim() == 2:
+            rel[key] = float((dd.amax(-1) / w.abs().amax(-1).clamp(
+                min=1e-30)).max())
+        else:
+            rel[key] = float(dd.max() / w.abs().max().clamp(min=1e-30))
+    per, fwd_ops, vjp_ops = composite_ops(c, x)
+    escaped = int((hit == 2).sum())
+    filled = int(torch.clamp(nc.long(), 0, k).sum())
+    # bytes the rays need: hit, n_crossings, lam, each filled crossing's
+    # three values, an escaped ray's seven state values and r_min_ph, the
+    # scalars; out: (3, N)
+    fwd_bytes = 4 * (3 * n + 3 * filled + 8 * escaped) + 4 * 3 * n
+    vjp_bytes = (fwd_bytes + 4 * 3 * n          # the cotangent in
+                 + 4 * (3 * k * n + 8 * n + 2 * n))   # the rows' out
+    fwd_bound, fwd_by = bound(fwd_ops, fwd_bytes)
+    vjp_bound, vjp_by = bound(vjp_ops, vjp_bytes)
+    variant = comp.variant(c, lam.dtype)
+    usage = kbuild.ptxas_usage("composite.cu", kbuild.kmax_for(k), variant)
+    info = {
+        "rays": n, "slots": k, "filled_crossings": filled,
+        "escaped": escaped, "forward_ms": fwd_ms, "vjp_ms": vjp_ms,
+        "forward_bound_ms": fwd_bound, "forward_bound_by": fwd_by,
+        "vjp_bound_ms": vjp_bound, "vjp_bound_by": vjp_by,
+        "forward_ops": fwd_ops, "vjp_ops": vjp_ops, "ops_per_ray_kind": per,
+        "forward_bytes": fwd_bytes, "vjp_bytes": vjp_bytes,
+        "plain_forward_ms": plain_fwd_ms,
+        "plain_forward_backward_ms": plain_fb_ms,
+        "kernel_vjp_peak_bytes": kernel_peak,
+        "plain_autograd_peak_bytes": plain_peak,
+        "forward_values_differing": differ, "vjp_rel_vs_plain": rel,
+        "vjp_reproducible": reproducible,
+        "registers_spill": {e: [r_, s_] for e, r_, s_ in usage},
+        "variant": list(variant),
+    }
+    info["seconds"] = time.perf_counter() - t0
+    print(f"phase 24 (composite): {json.dumps(info)}")
+    if differ or not reproducible or max(rel.values()) > COMPOSITE_VJP_BAR:
+        raise AssertionError(f"composite kernels against the plain: {info}")
+    return info
+
+
+def phase_inverse_fit():
+    """Phase 25 (module docstring): every step of one fit against the
+    reference."""
+    import types
+
+    from benchmark.drivers import fits as fits_driver
+    from blackhole_simulation_tpu_torch.parallel.train import init_opt_state
+
+    class KeepAll(fits_driver.Fits):
+        """A fit that keeps every step for the check."""
+
+        def fit(self, keep: bool):
+            params, losses = self.init(), []
+            for s, fn in enumerate(self.steps):
+                state = (params, init_opt_state(params))
+                for _ in range(self.per):
+                    entering = state
+                    state, loss = self._step(fn, state)
+                    losses.append(float(loss))
+                    p, (m_, v_, t_) = entering
+                    self.kept.append(fits_driver.Kept(
+                        s, int(t_), fits_driver._values(p),
+                        fits_driver._values(m_), fits_driver._values(v_),
+                        losses[-1], fits_driver._values(state[0]),
+                        fits_driver._values(state[1][0])))
+                params = state[0]
+            return losses, params
+
+    t0 = time.perf_counter()
+    read = lambda f: json.loads(Path(f).read_text())
+    spec = types.SimpleNamespace(
+        config=read("benchmark/configs/inverse_1080p.json"),
+        traffic=read("benchmark/traffic/ad_curriculum.json"),
+        device=torch.device(DEV), seed=0)
+    limits = read("benchmark/limits/inverse_1080p.ad_curriculum.json")
+    fits = KeepAll(spec)
+    fits.setup()
+    fits.kept = []
+    losses, _ = fits.fit(keep=True)
+    fits.release()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    steps = []
+    for kept in fits.kept:
+        ref = fits.reference(kept)
+        steps.append(fits.numbers([(fits.port_result(kept),
+                                    fits.ref_result(ref, kept))]))
+        torch.cuda.empty_cache()
+    largest = {key: max(s_[key] for s_ in steps) for key in steps[0]}
+    out = {"steps": steps, "largest": largest,
+           "limits": {key: limits[key] for key in largest},
+           "losses": losses, "seconds": time.perf_counter() - t0}
+    print(f"phase 25 (inverse fit): {json.dumps(out)}")
+    if any(largest[key] >= limits[key] for key in largest):
+        raise AssertionError(f"a step of the fit past a limit: {largest}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4936,6 +5249,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
     t_start = time.perf_counter()
+    only = sys.argv[1:]
+    if only:
+        named = {"composite": phase_composite,
+                 "inverse_fit": phase_inverse_fit}
+        for name in only:
+            named[name]()
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s total")
+        return 0
     phase_build()
     peak = phase_peak()
     phase_short_parity()
@@ -4975,6 +5296,8 @@ def main() -> int:
     print(f"differentiable render: {json.dumps(ad)}")
     f64, f64_kernels = phase_float64()
     print(f"float64 render: {json.dumps(f64)}")
+    phase_composite()
+    phase_inverse_fit()
     for e in nrs_kernels + tile_kernels + [live_kernel]:
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
     kernels_line += (nrs_kernels + tile_kernels + [live_kernel] + md_kernels
