@@ -49,6 +49,8 @@
 
 #include "shade.cuh"
 
+using namespace shade;
+
 #ifndef KMAX
 #define KMAX 4
 #endif
@@ -78,8 +80,9 @@ struct CompositeArgs {
   int ds_tensor;    // the density scale is a 0-d tensor (else in disk.dens)
   int is_tensor;    // the intensity scale is a 0-d tensor (else int_scale)
   double int_scale;
-  DiskArgs disk;
-  StarArgs stars;
+  DiskArgsT<double> disk;
+  StarArgsT<double> stars;
+  float t_coeffs[CHEB_K], rgb_coeffs[3 * CHEB_K], inv_logr;   // DISK 2
 };
 
 // The device pointers of a launch.
@@ -94,40 +97,6 @@ template <typename T> struct Grads {
   T *cross_r, *cross_phi, *cross_t, *state, *r_min_ph, *lam;   // or null
   double* partials;                            // (blocks, N_SCALARS)
 };
-
-template <typename T, int DISK, int D>
-BH_D Slot<T, D> slot(const DiskArgs& k, const Dual<T, D>& m,
-                     const Dual<T, D>& a, const Dual<T, D>& r_in,
-                     const Dual<T, D>& r_c, const Dual<T, D>& phi_c,
-                     const Dual<T, D>& t_c, const Dual<T, D>& lam, int octaves,
-                     const Dual<T, D>& dens_ds, const Dual<T, D>& int_scale) {
-  if constexpr (DISK == 2)
-    return slot_cheb(k, m, a, r_in, r_c, phi_c, t_c, lam, octaves, dens_ds,
-                     int_scale);
-  else
-    return slot_analytic(k, m, a, r_in, r_c, phi_c, t_c, lam, octaves,
-                         dens_ds, int_scale);
-}
-
-// The glow's colour weight of channel c: warm + order (cool - warm), the
-// difference formed in double as the Python numbers' is.
-template <typename T>
-BH_D T glow_weight(int c, T order) {
-  const double warm = c == 0 ? 1.0 : (c == 1 ? 0.82 : 0.55);
-  const double cool = c == 0 ? 0.82 : (c == 1 ? 0.88 : 1.0);
-  return op_add(op_mul(order, T(cool - warm)), T(warm));
-}
-
-template <typename T, int D>
-BH_D Dual<T, D> glow_of(const Dual<T, D>& r_min_ph, const Dual<T, D>& r_ph) {
-  const Dual<T, D> near = exp_(-14.0 * r_min_ph / maximum(r_ph, 1e-3));
-  return 0.6 * near;
-}
-
-template <typename T> BH_D T glow_order(int n_cross) {
-  const int c = n_cross < 0 ? 0 : (n_cross > 3 ? 3 : n_cross);
-  return op_div(T(c), T(3));
-}
 
 template <typename T> BH_D void state_rows(const Rows<T>& R, long long i,
                                            long long n, T (&out)[7]) {
@@ -148,7 +117,8 @@ composite_forward(CompositeArgs A, Rows<T> R, T* out) {
   N0 rgb[3] = {val(T(0)), val(T(0)), val(T(0))};
   N0 trans = val(op_add(T(0), T(1)));
   if constexpr (DISK != 0) {
-    const DiskArgs& k = A.disk;
+    const DiskArgsT<double>& k = A.disk;
+    const ChebTables tab = {A.t_coeffs, A.rgb_coeffs, &A.inv_logr};
     const N0 r_in = val(R.r_in[0]);
     const N0 dens = A.ds_tensor ? k.dens * val(R.ds[0]) : K<T>(k.dens);
     const N0 isc = A.is_tensor ? val(R.is[0]) : K<T>(A.int_scale);
@@ -156,8 +126,8 @@ composite_forward(CompositeArgs A, Rows<T> R, T* out) {
 #pragma unroll
     for (int s = 0; s < KMAX; ++s) {
       if (s >= A.k || s >= nc) break;
-      const Slot<T, 0> sl = slot<T, DISK, 0>(
-          k, m, a, r_in, val(R.cross_r[s * n + i]),
+      const Slot<T, 0> sl = disk_slot(
+          DISK == 2, k, tab, m, a, r_in, val(R.cross_r[s * n + i]),
           val(R.cross_phi[s * n + i]), val(R.cross_t[s * n + i]), lam,
           s == 0 ? 3 : 1, dens, isc);
       if (!sl.valid) continue;
@@ -241,7 +211,8 @@ composite_vjp(CompositeArgs A, Rows<T> R, Grads<T> G) {
     T alpha[KMAX], trans_k[KMAX];
     bool on[KMAX];
     T trans = op_add(T(0), T(1));
-    const DiskArgs& k = A.disk;
+    const DiskArgsT<double>& k = A.disk;
+    const ChebTables tab = {A.t_coeffs, A.rgb_coeffs, &A.inv_logr};
     if constexpr (DISK != 0) {
       const N0 r_in = val(R.r_in[0]);
       const N0 dens = A.ds_tensor ? k.dens * val(R.ds[0]) : K<T>(k.dens);
@@ -251,10 +222,11 @@ composite_vjp(CompositeArgs A, Rows<T> R, Grads<T> G) {
         on[s] = false;
         trans_k[s] = trans;
         if (s >= filled) continue;
-        const Slot<T, 0> sl = slot<T, DISK, 0>(
-            k, val(m0), val(a0), r_in, val(R.cross_r[s * n + i]),
-            val(R.cross_phi[s * n + i]), val(R.cross_t[s * n + i]),
-            val(R.lam[i]), s == 0 ? 3 : 1, dens, isc);
+        const Slot<T, 0> sl = disk_slot(
+            DISK == 2, k, tab, val(m0), val(a0), r_in,
+            val(R.cross_r[s * n + i]), val(R.cross_phi[s * n + i]),
+            val(R.cross_t[s * n + i]), val(R.lam[i]), s == 0 ? 3 : 1, dens,
+            isc);
         if (!sl.valid) continue;
         on[s] = true;
         alpha[s] = sl.alpha.v;
@@ -326,8 +298,9 @@ composite_vjp(CompositeArgs A, Rows<T> R, Grads<T> G) {
         T d[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
         if (on[s]) {
           const T tr = trans_k[s], al = alpha[s];
-          const Slot<T, 9> sl = slot<T, DISK, 9>(
-              k, m9, a9, r_in9, seed<T, 9>(R.cross_r[s * n + i], 0),
+          const Slot<T, 9> sl = disk_slot(
+              DISK == 2, k, tab, m9, a9, r_in9,
+              seed<T, 9>(R.cross_r[s * n + i], 0),
               seed<T, 9>(R.cross_phi[s * n + i], 1),
               seed<T, 9>(R.cross_t[s * n + i], 2), lam9, s == 0 ? 3 : 1,
               dens9, is9);

@@ -593,15 +593,17 @@ __device__ __forceinline__ bool jet_emission_vjp(const JetParamsT<R>& jp,
       jp.gamma * (1.0f - jp.beta * jclip(cos_psi, R(-1.0f), R(1.0f)));
   const R delta = 1.0f / den;
   const R nx = az * K<R>(0.8);
-  const R ny = fmod_floor(ph, K<R>(6.283185307179586)) * 2.0f + az;
+  const R ny =
+      shade::remainder_(shade::val(ph), 6.283185307179586).v * 2.0f + az;
   const R xf = dfloor(nx), yf = dfloor(ny);
   const R fx = nx - xf, fy = ny - yf;
-  const R tx = smooth(fx), ty = smooth(fy);
-  // the lattice hash of float32 inputs (value_noise2's)
-  const R c00 = hash21((float)xf, (float)yf);
-  const R c10 = hash21((float)(xf + 1.0f), (float)yf);
-  const R c01 = hash21((float)xf, (float)(yf + 1.0f));
-  const R c11 = hash21((float)(xf + 1.0f), (float)(yf + 1.0f));
+  const R tx = shade::smooth_(shade::val(fx)).v;
+  const R ty = shade::smooth_(shade::val(fy)).v;
+  // the lattice hash of float32 inputs (shade::value_noise2's)
+  const R c00 = shade::hash21((float)xf, (float)yf);
+  const R c10 = shade::hash21((float)(xf + 1.0f), (float)yf);
+  const R c01 = shade::hash21((float)xf, (float)(yf + 1.0f));
+  const R c11 = shade::hash21((float)(xf + 1.0f), (float)(yf + 1.0f));
   const R noise = c00 * (1.0f - tx) * (1.0f - ty) +
                       c10 * tx * (1.0f - ty) + c01 * (1.0f - tx) * ty +
                       c11 * tx * ty;

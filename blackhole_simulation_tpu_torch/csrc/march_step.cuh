@@ -35,7 +35,8 @@
 // ks_symplectic_step_rows, ks_renormalize_pr), ops/pallas_march.py
 // (diff_step_values, start_offset_rows, march_tile with its jets,
 // march_tile_ab3), ops/pallas_grad.py (make_composite) and
-// render/shading.py (hash21, value_noise2, jet_emission_step).
+// render/shading.py (jet_emission_step, whose lattice hash and value noise
+// are csrc/shade.cuh's).
 // The plain PyTorch versions are ops/ks_kernel.py and ops/march.py; every
 // expression here is written in their order, so the two round alike.
 //
@@ -103,6 +104,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "shade.cuh"
+
 // Constants are written as (float)(double literal): rounded to float32 from
 // the double value, as PyTorch and JAX round a Python float.
 #define F(x) ((float)(x))
@@ -113,16 +116,9 @@
 // The crossing slots a ray carries: 4 (MarchConfig.max_crossings 1 to 4) in
 // the default build; ops/build.py builds a separate library with -DKMAX=8,
 // 16, ... for more (ops/build.py::kmax_for), whose slots past the fourth
-// are indexed (record_step), and whose composite loops do not unroll.
+// are indexed (record_step).
 #ifndef KMAX
 #define KMAX 4
-#endif
-// #pragma unroll where KMAX is 4, none above: a KMAX-long unrolled body
-// (a disk slot's shading each) only makes the larger builds long.
-#if KMAX > 4
-#define UNROLL_SLOTS _Pragma("unroll 1")
-#else
-#define UNROLL_SLOTS _Pragma("unroll")
 #endif
 
 // The static march configuration, its lengths in the scalar type S of the
@@ -381,17 +377,6 @@ __device__ __forceinline__ Dual<N> dsqrt(const Dual<N>& x) {
   return o;
 }
 
-__device__ __forceinline__ float fmod_floor(float x, float y) {
-  float md = fmodf(x, y);
-  if (md != 0.0f && ((md < 0.0f) != (y < 0.0f))) md += y;
-  return md;
-}
-__device__ __forceinline__ double fmod_floor(double x, double y) {
-  double md = fmod(x, y);
-  if (md != 0.0 && ((md < 0.0) != (y < 0.0))) md += y;
-  return md;
-}
-
 // exp and pow on the exact route: a float's through double, rounded once
 // (as the plain version computes them), a double's its own.
 __device__ __forceinline__ float exact_exp(float x) {
@@ -462,52 +447,6 @@ __device__ __forceinline__ auto madd(const A& a, const B& b, const C& c) {
     return fmadd(R(a), R(b), R(c));
   else
     return a * b + c;
-}
-
-// ---------------------------------------------------------------------------
-// Lattice hash noise (render/shading.py): the starfield, the disk's
-// turbulence, the jets' noise and the start offset's hash
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float fract(float x) { return x - floorf(x); }
-
-__device__ float hash21(float x, float y) {
-  x = x + 0.5f;
-  y = y + 0.5f;
-  float px = fract(x * F(0.1031));
-  float py = fract(y * F(0.1030));
-  float pz = fract((x + y) * F(0.0973));
-  float d = px * (py + F(33.33)) + py * (pz + F(33.33)) + pz * (px + F(33.33));
-  return fract((px + py + 2.0f * d) * (pz + d));
-}
-
-template <class R>
-__device__ __forceinline__ R smooth(R t) {
-  return t * t * (3.0f - 2.0f * t);
-}
-
-__device__ float value_noise2(float x, float y) {
-  float xf = floorf(x), yf = floorf(y);
-  float tx = smooth(x - xf), ty = smooth(y - yf);
-  float c00 = hash21(xf, yf);
-  float c10 = hash21(xf + 1.0f, yf);
-  float c01 = hash21(xf, yf + 1.0f);
-  float c11 = hash21(xf + 1.0f, yf + 1.0f);
-  return c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty) +
-         c01 * (1.0f - tx) * ty + c11 * tx * ty;
-}
-// In double (the JAX twin's value_noise2 on float64 rows): the lattice and
-// the blend in double, the hash of the lattice point rounded to float32, as
-// hash21 casts its inputs.
-__device__ double value_noise2(double x, double y) {
-  double xf = floor(x), yf = floor(y);
-  double tx = smooth(x - xf), ty = smooth(y - yf);
-  double c00 = hash21((float)xf, (float)yf);
-  double c10 = hash21((float)(xf + 1.0), (float)yf);
-  double c01 = hash21((float)xf, (float)(yf + 1.0));
-  double c11 = hash21((float)(xf + 1.0), (float)(yf + 1.0));
-  return c00 * (1.0 - tx) * (1.0 - ty) + c10 * tx * (1.0 - ty) +
-         c01 * (1.0 - tx) * ty + c11 * tx * ty;
 }
 
 // ---------------------------------------------------------------------------
@@ -821,7 +760,7 @@ __device__ __forceinline__ void start_offset(const MarchParams& mp, float m,
                                              float a, float r_h, float r_ph,
                                              float jitter, float pph,
                                              float s[6]) {
-  const float xi = hash21(pph * F(977.0), s[4] * F(991.0)) * jitter;
+  const float xi = shade::hash21(pph * F(977.0), s[4] * F(991.0)) * jitter;
   const float dlam = step_size<APPROX>(mp, a, r_h, r_ph, inv_rph_of(r_ph),
                                        s[1], s[2], s[5]);
   float y[6];
@@ -867,8 +806,11 @@ __device__ __forceinline__ void jet_emission(const JetParamsT<R>& jp, R r,
   const R cos_psi = -sgn * v_z / v_mag;
   delta = 1.0f /
           (jp.gamma * (1.0f - jp.beta * jclip(cos_psi, R(-1.0f), R(1.0f))));
-  const R noise = value_noise2(
-      az * K<R>(0.8), fmod_floor(ph, K<R>(6.283185307179586)) * 2.0f + az);
+  // the lattice noise of csrc/shade.cuh, at phi mod 2 pi
+  const R ph_mod = shade::remainder_(shade::val(ph), 6.283185307179586).v;
+  const R noise =
+      shade::value_noise2(shade::val(az * K<R>(0.8)),
+                          shade::val(ph_mod * 2.0f + az)).v;
   const R turb = jp.one_minus_turb + jp.turbulence * (0.5f + noise);
   pre = jp.density * dlam * profile * turb;
 }

@@ -6,7 +6,10 @@
 // (the Pallas TPU megakernel, with the march loop of
 // ops/pallas_march.py::march_tile). The plain PyTorch version of the same
 // function is ops/render.py::render_planes; every expression below is
-// written in its order, so the two round alike. Built by ops/build.py with
+// written in its order, so the two round alike. The composite's shading
+// (the disk's crossings, the starfield, the glow) is csrc/shade.cuh's, the
+// staged composite kernel's own (csrc/composite.cu), at D = 0, with the
+// numbers of ops/shade.py::shade_args. Built by ops/build.py with
 // nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false (no
 // --use_fast_math: divides, sqrtf, expf and logf stay IEEE/full precision;
 // the compiler contracts nothing, so each operation rounds as the plain
@@ -96,6 +99,9 @@
 
 #include "march_step.cuh"
 
+// A plain float in csrc/shade.cuh's number type.
+using N0 = shade::Dual<float, 0>;
+
 // Parameter-row layout (ops/render.py, pallas_render.py:62-110).
 #define P_M 0
 #define P_A 1
@@ -125,12 +131,11 @@
 #define P_FLIP 37
 #define P_INV_LOGR 39
 #define P_ETA 40
-#define CHEB_K 32
-#define P_TSHAPE (P_ETA + CHEB_K)
-#define SPEC_K 16
-#define P_RGB (P_TSHAPE + SPEC_K)
+#define ETA_K 32
+#define P_TSHAPE (P_ETA + ETA_K)
+#define P_RGB (P_TSHAPE + shade::CHEB_K)
 #define OVERLAY_N 32
-#define P_OVW (P_RGB + 3 * SPEC_K)
+#define P_OVW (P_RGB + 3 * shade::CHEB_K)
 #define P_OAL (P_OVW + 1)
 #define P_OBE (P_OAL + 2 * OVERLAY_N)
 #define P_OVA (P_OBE + 2 * OVERLAY_N)
@@ -150,243 +155,15 @@
 struct RenderStatic {
   int width, height, max_steps, renormalize_every, max_crossings,
       midpoint_iters, approx_recip, precull, disk_on, spectral, starfield,
-      glow, artistic, far_cap_on, beam_k, beam_n, beam_neg, outer_k,
-      outer_n, outer_neg, multistep, ab3_renorm_every, ab3_tail_renorm,
-      jets, nrs_on, overlay;
+      glow, far_cap_on, multistep, ab3_renorm_every, ab3_tail_renorm, jets,
+      nrs_on, overlay;
   float step_rate, min_step, max_step, far_step_cap_rate, far_boost_radius,
       escape_radius, escape_sanity_r, record_r_min, record_r_max,
-      disk_outer_radius, disk_density, disk_t_peak, disk_beaming, disk_turb,
-      disk_one_minus_turb, disk_softness, disk_outer_pow, disk_edge_width,
-      nt_peak, art_r, art_g, art_b, star_brightness, star_nebula, star_freq0,
-      star_freq1, star_thr0, star_thr1, refine_band, refine_pole_w,
-      pole_scale, start_jitter;
+      refine_band, refine_pole_w, pole_scale, start_jitter;
   JetParams jet;
+  shade::DiskArgsT<float> disk;   // ops/shade.py::shade_args
+  shade::StarArgsT<float> stars;
 };
-
-// ---------------------------------------------------------------------------
-// Shading (render/shading.py)
-// ---------------------------------------------------------------------------
-
-__device__ float fbm2(float x, float y, int octaves) {
-  float total = 0.0f, amp = 0.5f, freq = 1.0f;
-  for (int o = 0; o < octaves; ++o) {
-    total = total + amp * value_noise2(x * freq, y * freq);
-    amp *= 0.5f;
-    freq *= 2.0f;
-  }
-  return total;
-}
-
-__device__ float atan2_approx(float y, float x) {
-  float ax = fabsf(x), ay = fabsf(y);
-  float hi = jmax(ax, ay), lo = jmin(ax, ay);
-  float z = lo / jmax(hi, F(1e-30));
-  float z2 = z * z;
-  float p = F(-0.0117212) * z2 + F(0.0526477);
-  p = p * z2 + F(-0.1172626);
-  p = p * z2 + F(0.1936999);
-  p = p * z2 + F(-0.3326231);
-  p = p * z2 + F(0.9999798);
-  float t = p * z;
-  t = ay > ax ? F(1.5707963267948966) - t : t;
-  t = x < 0.0f ? F(3.141592653589793) - t : t;
-  return y < 0.0f ? -t : t;
-}
-
-// x**p by the host's plan (shading._powi_plan): k square roots, then
-// ^n by binary powers, reciprocal if negative; k < 0 means a plain powf.
-__device__ float powi_plan(float x, int k, int n, int neg, float p) {
-  if (k < 0) return powf(x, p);
-  float base = x;
-  for (int i = 0; i < k; ++i) base = sqrtf(base);
-  float acc = 1.0f, bit = base;
-  bool have = false;
-  while (n) {
-    if (n & 1) {
-      acc = have ? acc * bit : bit;
-      have = true;
-    }
-    bit = bit * bit;
-    n >>= 1;
-  }
-  return neg ? 1.0f / acc : acc;
-}
-
-__device__ __forceinline__ float pow4(float x) {
-  float x2 = x * x;
-  return x2 * x2;
-}
-
-__device__ void blackbody_ramp(float t_kelvin, float c[3]) {
-  float t = jclip(t_kelvin, 1000.0f, 40000.0f) / 100.0f;
-  float red = t <= 66.0f
-                  ? 255.0f
-                  : F(329.698727446) * powf(jmax(t - 60.0f, F(1e-6)),
-                                            F(-0.1332047592));
-  float g_lo = F(99.4708025861) * logf(jmax(t, F(1e-6))) - F(161.1195681661);
-  float g_hi = F(288.1221695283) * powf(jmax(t - 60.0f, F(1e-6)),
-                                        F(-0.0755148492));
-  float green = t <= 66.0f ? g_lo : g_hi;
-  float b_lo = F(138.5177312231) * logf(jmax(t - 10.0f, F(1e-6))) -
-               F(305.0447927307);
-  float blue = t >= 66.0f ? 255.0f : (t <= 19.0f ? 0.0f : b_lo);
-  float ch[3] = {red, green, blue};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float v = jclip(ch[i] / 255.0f, 0.0f, 1.0f);
-    c[i] = v * v;
-  }
-}
-
-__device__ float equatorial_g_factor(float m, float a, float r, float lam) {
-  r = jmax(r, F(1.05));
-  float two_mr = 2.0f * m * r;
-  float sig = r * r;
-  float g_tt = -(1.0f - two_mr / sig);
-  float g_tph = -two_mr * a / sig;
-  float g_phph = r * r + a * a + two_mr * a * a / sig;
-  float sqrt_m = sqrtf(m);
-  float omega = sqrt_m / (r * sqrtf(r) + a * sqrt_m);
-  float ut_inv_sq = -(g_tt + 2.0f * omega * g_tph + omega * omega * g_phph);
-  float u_t = 1.0f / sqrtf(jmax(ut_inv_sq, F(1e-6)));
-  float doppler = 1.0f - lam * omega;
-  doppler = fabsf(doppler) < F(1e-4) ? F(1e-4) : doppler;
-  return 1.0f / (u_t * doppler);
-}
-
-__device__ float clenshaw(const float* __restrict__ c, int K, float t) {
-  float b1 = 0.0f, b2 = 0.0f;
-  for (int j = K - 1; j > 0; --j) {
-    float nb1 = 2.0f * t * b1 - b2 + __ldg(c + j);
-    b2 = b1;
-    b1 = nb1;
-  }
-  return t * b1 - b2 + __ldg(c);
-}
-
-// One recorded disk crossing: colour * intensity into rgb, alpha, valid.
-__device__ void disk_slot(const RenderStatic& st, const float* __restrict__ P,
-                          float m, float a, float r_in, float r_c,
-                          float phi_c, float t_c, float lam, int octaves,
-                          float rgb[3], float* alpha, bool* valid_out) {
-  bool valid = (r_c > r_in) && (r_c < st.disk_outer_radius);
-  r_c = valid ? r_c : r_in * 2.0f;
-  phi_c = valid ? phi_c : 0.0f;
-  t_c = valid ? t_c : 0.0f;
-  float g = equatorial_g_factor(m, a, jmax(r_c, r_in), lam);
-  g = jclip(g, F(0.05), 5.0f);
-  float rk = jmax(r_c, r_in);
-  float omega_k = sqrtf(m) / (rk * sqrtf(rk) + a * sqrtf(m));
-  float phase = phi_c - omega_k * t_c;
-  phase = fmod_floor(phase, F(6.283185307179586));
-  float noise = fbm2(r_c * F(1.7), phase * 3.0f, octaves);
-  float turb = st.disk_one_minus_turb + st.disk_turb * (F(0.4) + F(1.2) * noise);
-  float inner = jclip((r_c - r_in) / (st.disk_softness * r_in + F(1e-6)),
-                      0.0f, 1.0f);
-  float edge = smooth(inner) *
-               jclip((st.disk_outer_radius - r_c) / st.disk_edge_width, 0.0f,
-                     1.0f);
-  float color[3];
-  float intensity;
-  if (st.spectral) {
-    float x01 = logf(jmax(r_c / r_in, F(1e-6))) * __ldg(P + P_INV_LOGR);
-    float xs = sqrtf(jclip(x01, 0.0f, 1.0f));
-    float tx = jclip(2.0f * xs - 1.0f, -1.0f, 1.0f);
-    float t_shape = jclip(clenshaw(P + P_TSHAPE, SPEC_K, tx), 0.0f, 1.0f);
-    float t_obs = jclip(g * t_shape * st.disk_t_peak, 900.0f, 40000.0f);
-    float y01 = powf((t_obs - 900.0f) / 39100.0f, F(0.4));
-    float ty = jclip(2.0f * y01 - 1.0f, -1.0f, 1.0f);
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      color[c] = jmax(clenshaw(P + P_RGB + c * SPEC_K, SPEC_K, ty), 0.0f);
-    intensity = pow4(g) * pow4(t_shape);
-  } else {
-    // nt_temperature_profile: _powi(q, 0.25) * _powi(x, -0.75) / peak
-    float x = jmax(jmax(r_c, r_in * F(1 + 1e-4)) / r_in, F(1.0 + 1e-6));
-    float q = 1.0f - sqrtf(1.0f / x);
-    float bq = sqrtf(sqrtf(q));
-    float bx = sqrtf(sqrtf(x));
-    float t_shape = bq * (1.0f / (bx * (bx * bx))) / st.nt_peak;
-    if (st.artistic) {
-      color[0] = st.art_r;
-      color[1] = st.art_g;
-      color[2] = st.art_b;
-    } else {
-      blackbody_ramp(jclip(g * t_shape * st.disk_t_peak, 1000.0f, 40000.0f),
-                     color);
-    }
-    float outer = powi_plan(jmax(r_in, r_c) / r_in, st.outer_k, st.outer_n,
-                            st.outer_neg, st.disk_outer_pow);
-    intensity = powi_plan(g, st.beam_k, st.beam_n, st.beam_neg,
-                          st.disk_beaming) *
-                pow4(t_shape) * outer;
-  }
-  float al = jclip(st.disk_density * edge * turb, 0.0f, 1.0f);
-  *alpha = valid ? al : 0.0f;
-  float masked = valid ? intensity : 0.0f;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) rgb[c] = color[c] * masked;
-  *valid_out = valid;
-}
-
-__device__ void escape_direction(float m, float a, float r, float u, float ph,
-                                 float pr, float pu, float pph, float dir[3]) {
-  const float pt = -1.0f;
-  u = jclip(u, -1.0f, 1.0f);
-  float w = jmax(1.0f - u * u, F(1e-12));
-  float s = sqrtf(w);
-  float sig = r * r + a * a * u * u;
-  float delta = r * r - 2.0f * m * r + a * a;
-  float inv_sig = 1.0f / sig;
-  float h = 2.0f * m * r * inv_sig;
-  float v_r = h * pt + delta * inv_sig * pr + a * inv_sig * pph;
-  float v_th = -r * pu * s * inv_sig;
-  float v_ph = r * s * (a * inv_sig * pr + pph * inv_sig / w);
-  float st = s, ct = u;
-  // sin/cos by way of double, rounded once, as the plain version.
-  float sp = (float)sin((double)ph), cp = (float)cos((double)ph);
-  float dx = v_r * st * cp + v_th * ct * cp - v_ph * sp;
-  float dy = v_r * st * sp + v_th * ct * sp + v_ph * cp;
-  float dz = v_r * ct - v_th * st;
-  float inv_n = 1.0f / sqrtf(jmax(dx * dx + dy * dy + dz * dz, F(1e-30)));
-  dir[0] = dx * inv_n;
-  dir[1] = dy * inv_n;
-  dir[2] = dz * inv_n;
-}
-
-__device__ void starfield(const RenderStatic& st, float dx, float dy, float dz,
-                          float out[3]) {
-  float u = atan2_approx(dy, dx);
-  float v = jclip(dz, -1.0f, 1.0f);
-  out[0] = out[1] = out[2] = 0.0f;
-  const float freqs[2] = {st.star_freq0, st.star_freq1};
-  const float thrs[2] = {st.star_thr0, st.star_thr1};
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    float freq = freqs[s];
-    float cu = floorf(u * freq);
-    float cv = floorf(v * freq);
-    float hh = hash21(cu, cv);
-    float star = hh < thrs[s] ? 1.0f : 0.0f;
-    float fu = u * freq - cu - 0.5f;
-    float fv = v * freq - cv - 0.5f;
-    float spot = expf(-(fu * fu + fv * fv) * 40.0f);
-    float temp = 3000.0f + 12000.0f * hash21(cu + 7.0f, cv + 13.0f);
-    float color[3];
-    blackbody_ramp(temp, color);
-    float h_mag = hash21(cu + 31.0f, cv + 5.0f);
-    float w = star * spot * (h_mag * h_mag * h_mag);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out[c] = out[c] + w * color[c];
-  }
-  float nebula = fbm2(u * 3.0f, v * 3.0f, 4);
-  float neb2 = nebula * nebula;
-  float neb[3] = {F(0.35) * neb2, F(0.2) * neb2,
-                  0.5f * nebula * sqrtf(nebula)};
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    out[c] = st.star_brightness * out[c] + st.star_nebula * neb[c];
-}
 
 // ---------------------------------------------------------------------------
 // The kernel
@@ -530,7 +307,7 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
     float eta = pu * pu * w0 + c2 * (pph * pph / s2 - a * a);
     float t_dom = jclip((lam - __ldg(P + P_CHEB_MID)) / __ldg(P + P_CHEB_HALF),
                         -1.0f, 1.0f);
-    float cheb_raw = clenshaw(P + P_ETA, CHEB_K, t_dom);
+    float cheb_raw = shade::clenshaw<ETA_K>(P + P_ETA, N0{t_dom}).v;
     const float lam_lo = __ldg(P + P_LAM_LO), lam_hi = __ldg(P + P_LAM_HI);
     if (band_on) {
       // precull.band_metric_values, fold_pole_metric, pole_w_min_values
@@ -580,51 +357,52 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
                                   steps, nc, cr, cp, ct, rmin, &jp, jet);
   }
 
-  // --- composite ---
+  // --- composite (csrc/shade.cuh, the staged composite's own) ---
   const bool escaped = hit == HIT_ESCAPE;
   float rgb[3] = {0.0f, 0.0f, 0.0f};
   float trans = 1.0f;
   if (st.disk_on) {
-    UNROLL_SLOTS
+    const shade::ChebTables tab = {P + P_TSHAPE, P + P_RGB, P + P_INV_LOGR};
+    // Not unrolled: four inlined copies of a slot's shading left the
+    // capped instantiations short of registers (ptxas spilled).
+#pragma unroll 1
     for (int k = 0; k < KMAX; ++k) {
       // Slots past the crossing count add nothing (the plain version
       // evaluates and masks them).
       if (k < K && k < nc) {
-        float c_rgb[3], c_alpha;
-        bool valid;
-        disk_slot(st, P, m, a, r_in, cr[k], cp[k], ct[k], pph, k == 0 ? 3 : 1,
-                  c_rgb, &c_alpha, &valid);
-        bool on = valid;
-        float wgt = on ? trans * c_alpha : 0.0f;
+        const shade::Slot<float, 0> sl = shade::disk_slot(
+            st.spectral, st.disk, tab, N0{m}, N0{a}, N0{r_in}, N0{cr[k]},
+            N0{cp[k]}, N0{ct[k]}, N0{pph}, k == 0 ? 3 : 1,
+            shade::K<float>(st.disk.dens), shade::K<float>(1.0));
+        float wgt = sl.valid ? trans * sl.alpha.v : 0.0f;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + wgt * c_rgb[c];
-        trans = on ? trans * (1.0f - c_alpha) : trans;
+        for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + wgt * sl.c[c].v;
+        trans = sl.valid ? trans * (1.0f - sl.alpha.v) : trans;
       }
     }
   }
   // The plain version adds 0 * (the starfield of a fixed finite dummy state)
   // to captured rays; skipping them here gives the same values.
   if (st.starfield && escaped) {
-    float dir[3];
-    escape_direction(m, a, s[1], s[2], s[3], s[4], s[5], pph, dir);
-    float bg[3];
-    starfield(st, dir[0], dir[1], dir[2], bg);
+    const N0 rows[7] = {{s[1]}, {s[2]}, {s[3]}, {-1.0f}, {s[4]}, {s[5]},
+                        {pph}};
+    N0 dir[3];
+    shade::escape_direction_u(rows, N0{m}, N0{a}, dir);
+    const shade::Rgb<float, 0> bg =
+        shade::starfield(dir[0], dir[1], dir[2], st.stars);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + trans * bg[c];
+    for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + trans * bg.c[c].v;
   }
   if (MARCH == 2) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + jet[c];
   }
   if (st.glow) {
-    float near = expf(-14.0f * rmin / jmax(r_ph, F(1e-3)));
-    float glow = escaped ? F(0.6) * near : 0.0f;
-    float order = (float)min(max(nc, 0), 3) / 3.0f;
-    const float warm[3] = {1.0f, F(0.82), F(0.55)};
-    const float dwk[3] = {F(0.82 - 1.0), F(0.88 - 0.82), F(1.0 - 0.55)};
+    const float glow = escaped ? shade::glow_of(N0{rmin}, N0{r_ph}).v : 0.0f;
+    const float order = shade::glow_order<float>(nc);
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      rgb[c] = rgb[c] + glow * (warm[c] + order * dwk[c]);
+      rgb[c] = rgb[c] + glow * shade::glow_weight(c, order);
   }
   // The NRS background of the far rays: the surrogate's deflection of the
   // birth direction (born from the possibly offset u and phi but the
@@ -634,8 +412,10 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
   if (EXTRAS && st.nrs_on && st.starfield && far) {
     const float r0 = __ldg(P + P_R0), s0 = __ldg(P + P_S0),
                 u0 = __ldg(P + P_U0);
-    float v[3];
-    escape_direction(m, a, r0, u, ph, pr, pu, pph, v);
+    const N0 rows[7] = {{r0}, {u}, {ph}, {-1.0f}, {pr}, {pu}, {pph}};
+    N0 dir[3];
+    shade::escape_direction_u(rows, N0{m}, N0{a}, dir);
+    const float v[3] = {dir[0].v, dir[1].v, dir[2].v};
     const float sph = (float)sin((double)ph), cph = (float)cos((double)ph);
     const float px = r0 * s0 * cph;
     const float py = r0 * s0 * sph;
@@ -655,8 +435,11 @@ render_kernel(const float* __restrict__ P, float* __restrict__ out,
     const float cxr = nyr * v[2] - nzr * v[1];
     const float cyr = nzr * v[0] - nxr * v[2];
     const float czr = nxr * v[1] - nyr * v[0];
-    starfield(st, v[0] * ca + cxr * sa, v[1] * ca + cyr * sa,
-              v[2] * ca + czr * sa, rgb);
+    const shade::Rgb<float, 0> bg = shade::starfield(
+        N0{v[0] * ca + cxr * sa}, N0{v[1] * ca + cyr * sa},
+        N0{v[2] * ca + czr * sa}, st.stars);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[c] = bg.c[c].v;
   }
   // The Bardeen critical-curve overlay: the birth ray's conserved
   // (lambda, eta) as celestial (alpha, beta), the squared distance to the

@@ -1,13 +1,21 @@
-// The staged composite's leaf math for csrc/composite.cu: the lattice hash,
-// value noise and fbm, the polynomial atan2, the blackbody ramp, the
-// Cunningham g-factor, the Novikov-Thorne profile and its _powi plans, the
-// disk's two slot branches (analytic, Chebyshev spectral), the u-chart
-// escape direction and the starfield. Each is written once, generic over
-// the number type Dual<T, D>: D = 0 is a plain value (the forward kernel),
-// D > 0 carries D tangents (the VJP kernel differentiates a stage forward
-// along its inputs). ops/composite.py holds the same functions in plain
-// PyTorch, line for line, and render/shading.py the plain versions whose
-// values they reproduce.
+// The shading of a march's rays, written once for every kernel that shades
+// them: the lattice hash, value noise and fbm, the polynomial atan2, the
+// blackbody ramp, the Cunningham g-factor, the Novikov-Thorne profile and
+// its _powi plans, the disk's two slot branches (analytic, Chebyshev
+// spectral), the u-chart escape direction, the starfield and the
+// photon-ring glow. The render kernel (csrc/render.cu) shades its pixels
+// with them, the composite kernels (csrc/composite.cu) the staged rows, and
+// the jets of the march and gradient kernels take the lattice hash and the
+// value noise (csrc/march_step.cuh, csrc/march_adjoint.cuh). Each is
+// generic over the number type Dual<T, D>: D = 0 is a plain value (the
+// render kernel, the composite's forward), D > 0 carries D tangents (the
+// composite's VJP differentiates a stage forward along its inputs).
+// ops/composite.py holds the same functions in plain PyTorch, line for
+// line, and render/shading.py the plain versions whose values they
+// reproduce; ops/shade.py forms their numbers (DiskArgsT, StarArgsT) for
+// every kernel.
+// Everything here is in the namespace shade: march_step.cuh has a Dual and
+// a K of its own.
 //
 // Rounding: every sum, difference, product and quotient is one explicit
 // IEEE operation (op_add and its kin: __fadd_rn and the like, never
@@ -15,12 +23,17 @@
 // places. A Python number meets a row rounded to the row's dtype; a
 // tensor times a number is x * T(c), a number over a tensor is
 // reciprocal(x) * T(c), as PyTorch computes them on the card. sqrt (see
-// sqrt_), sin and cos round as _elementwise's by way of double; exp, log and pow are
-// the dtype's library functions, as torch.exp, torch.log and torch.pow
-// call them. The file that includes this builds with nvcc's default
-// --fmad=true (ops/build.py::FMAD_SOURCES): the explicit operations do not
-// move, and the library functions contract as PyTorch's build of them
-// does. The hashes make this mandatory: a last-bit difference moves a star.
+// sqrt_), sin and cos round as _elementwise's by way of double; exp, log
+// and pow are the dtype's library functions, as torch.exp, torch.log and
+// torch.pow call them. The includers build with different flags
+// (ops/build.py): render.cu, march.cu and march_grad.cu with --fmad=false,
+// which their march steps need; composite.cu with nvcc's default
+// --fmad=true (FMAD_SOURCES), under which the library functions contract
+// as PyTorch's build of them does. The explicit operations round alike
+// under either flag, so each includer gets from these functions the bits
+// it got from a copy of its own, and the library functions round in each
+// as its flag has them. The hashes make this mandatory: a last-bit
+// difference moves a star.
 //
 // The tangents follow autograd's local derivatives and its conventions:
 // maximum and minimum (so clip) split a tie evenly, where routes, floor
@@ -29,15 +42,14 @@
 // infinite (mulz), as autograd's routed zeros never meet it. A quotient's
 // tangents multiply by one reciprocal, and sqrt's by 0.5 / sqrt(x): within
 // an ulp of autograd's own quotients.
-//
-// The render kernel (csrc/render.cu) computes the same functions its own
-// way; the two are not shared yet (ROADMAP queue 4).
 
 #pragma once
 
 #ifndef BH_D
 #define BH_D __device__ __forceinline__
 #endif
+
+namespace shade {
 
 // ---------------------------------------------------------------------------
 // Explicit IEEE operations and the library functions PyTorch calls
@@ -75,7 +87,9 @@ template <typename T> BH_D T vmin(T a, T b) {
 }
 
 // torch.pow(v, p)'s routes for a Python number p (ops/tonemap.py::pow_route;
-// the wrapper chooses one where an exponent comes from the scene).
+// the wrapper chooses one where an exponent comes from the scene). PyTorch
+// forms INV_SQUARE's quotient in double, which rounded to float is float's
+// own quotient (53 >= 2 x 24 + 2 bits: the double rounding is innocuous).
 enum PowRoute { POW, FILL_ONE, COPY, SQRT, RSQRT, RECIPROCAL, SQUARE, CUBE,
                 INV_SQUARE };
 
@@ -84,7 +98,7 @@ template <typename T> BH_D T pow_by(T v, double p, int route) {
     case RECIPROCAL: return op_div(T(1), v);
     case SQUARE: return op_mul(v, v);
     case CUBE: return op_mul(op_mul(v, v), v);
-    case INV_SQUARE: return T(__ddiv_rn(1.0, double(op_mul(v, v))));
+    case INV_SQUARE: return op_div(T(1), op_mul(v, v));
     default: return lib_pow(v, T(p));
   }
 }
@@ -411,11 +425,11 @@ BH_D Dual<T, D> value_noise2(const Dual<T, D>& x, const Dual<T, D>& y) {
 template <typename T, int D>
 BH_D Dual<T, D> fbm2(const Dual<T, D>& x, const Dual<T, D>& y, int octaves) {
   Dual<T, D> total = lift<T, D>(T(0));
-  double amp = 0.5, freq = 1.0;
+  T amp = T(0.5), freq = T(1);   // powers of two: exact in either type
   for (int o = 0; o < octaves; ++o) {
-    total = total + amp * value_noise2(x * freq, y * freq);
-    amp *= 0.5;
-    freq *= 2.0;
+    total = total + val(amp) * value_noise2(x * val(freq), y * val(freq));
+    amp = op_mul(amp, T(0.5));
+    freq = op_mul(freq, T(2));
   }
   return total;
 }
@@ -486,18 +500,29 @@ BH_D Dual<T, D> g_factor(const Dual<T, D>& m, const Dual<T, D>& a,
 
 constexpr int CHEB_K = 16;   // render/shading.py::SPECTRAL_CHEB_K
 
-// The disk's numbers (ops/composite.py::_DiskArgs): Python floats, rounded
-// to the rows' dtype where they meet a row; the _powi plans {k, n,
-// negative} (k < 0: a plain pow) and torch.pow's routes of p and p - 1;
-// the Chebyshev tables (float32).
-struct DiskArgs {
-  double dens;   // density x the density scale where that is a number
-  double outer_radius, t_peak, beam_p, outer_p, turbulence, softness;
-  double nt_peak;   // render/shading.py::NT_PEAK
-  double artistic_rgb[3];
+// The disk's numbers (ops/shade.py::shade_args): Python floats held in S,
+// rounded to the rows' dtype where they meet a row. The composite holds
+// doubles; the render kernel, whose rows are float, holds them rounded to
+// float on the host as the card would round them, which its instructions
+// read in place (doubles took a conversion and a register each). Then the
+// _powi plans {k, n, negative} (k < 0: torch.pow) and torch.pow's routes
+// of p and p - 1.
+template <typename S> struct DiskArgsT {
+  S dens;   // density x the density scale where that is a number
+  S outer_radius, t_peak, beam_p, outer_p, turbulence, softness;
+  S one_minus_turb, edge_width;   // 1 - turbulence, 0.15 outer_radius
+  S nt_peak;   // render/shading.py::NT_PEAK
+  S artistic_rgb[3];
   int artistic;
   int beam_plan[3], outer_plan[3], beam_route[2], outer_route[2];
-  float t_coeffs[CHEB_K], rgb_coeffs[3 * CHEB_K], inv_logr;
+};
+
+// The Chebyshev spectral disk's float32 tables
+// (render/shading.py::spectral_kernel_tables), where each kernel keeps
+// them: the temperature shape's CHEB_K coefficients, the three colour
+// channels' 3 x CHEB_K, and 1 / log(r_out / r_in).
+struct ChebTables {
+  const float *t, *rgb, *inv_logr;
 };
 
 // shading._powi by its plan {k square roots, n by binary powers, negative},
@@ -533,8 +558,8 @@ template <typename T, int D> struct Geometry {
 };
 
 // shading._disk_geometry.
-template <typename T, int D>
-BH_D Geometry<T, D> disk_geometry(const DiskArgs& k, const Dual<T, D>& m,
+template <typename T, int D, typename S>
+BH_D Geometry<T, D> disk_geometry(const DiskArgsT<S>& k, const Dual<T, D>& m,
                                   const Dual<T, D>& a, const Dual<T, D>& r_in,
                                   Dual<T, D> r_c, Dual<T, D> phi_c,
                                   Dual<T, D> t_c, const Dual<T, D>& lam,
@@ -551,11 +576,11 @@ BH_D Geometry<T, D> disk_geometry(const DiskArgs& k, const Dual<T, D>& m,
   Dual<T, D> phase = phi_c - omega_k * t_c;
   phase = remainder_(phase, 6.283185307179586);
   const Dual<T, D> noise = fbm2(r_c * 1.7, phase * 3.0, octaves);
-  o.turb = (1.0 - k.turbulence) + k.turbulence * (0.4 + 1.2 * noise);
+  o.turb = k.one_minus_turb + k.turbulence * (0.4 + 1.2 * noise);
   const Dual<T, D> inner =
       clip((r_c - r_in) / (k.softness * r_in + 1e-6), 0.0, 1.0);
   o.edge = smooth_(inner)
-           * clip(div_c(k.outer_radius - r_c, 0.15 * k.outer_radius), 0.0, 1.0);
+           * clip(div_c(k.outer_radius - r_c, k.edge_width), 0.0, 1.0);
   o.r_c = r_c;
   return o;
 }
@@ -577,44 +602,11 @@ BH_D Dual<T, D> nt_profile(const Dual<T, D>& r, const Dual<T, D>& r_in,
   return div_c(shape, nt_peak);
 }
 
-// shading.disk_emission_rows: one crossing, analytic branch.
-template <typename T, int D>
-BH_D Slot<T, D> slot_analytic(const DiskArgs& k, const Dual<T, D>& m,
-                              const Dual<T, D>& a, const Dual<T, D>& r_in,
-                              const Dual<T, D>& r_c, const Dual<T, D>& phi_c,
-                              const Dual<T, D>& t_c, const Dual<T, D>& lam,
-                              int octaves, const Dual<T, D>& dens_ds,
-                              const Dual<T, D>& int_scale) {
-  const Geometry<T, D> geo =
-      disk_geometry(k, m, a, r_in, r_c, phi_c, t_c, lam, octaves);
-  const Dual<T, D> t_shape =
-      nt_profile(maximum(geo.r_c, r_in * (1 + 1e-4)), r_in, k.nt_peak);
-  Slot<T, D> s;
-  Rgb<T, D> color;
-  if (k.artistic) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) color.c[c] = lift<T, D>(T(k.artistic_rgb[c]));
-  } else {
-    color = blackbody_ramp(clip(geo.g * t_shape * k.t_peak, 1000.0, 40000.0));
-  }
-  const Dual<T, D> outer =
-      powi(maximum(r_in, geo.r_c) / r_in, k.outer_p, k.outer_plan, k.outer_route);
-  s.alpha = where(geo.valid, clip(dens_ds * geo.edge * geo.turb, 0.0, 1.0), 0.0);
-  const Dual<T, D> intensity =
-      powi(geo.g, k.beam_p, k.beam_plan, k.beam_route) * pow4(t_shape) * outer
-      * int_scale;
-  const Dual<T, D> masked = where(geo.valid, intensity, 0.0);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) s.c[c] = color.c[c] * masked;
-  s.valid = geo.valid;
-  return s;
-}
-
-// shading.cheb_clenshaw of float32 coefficients.
-template <typename T, int D>
+// shading.cheb_clenshaw of N float32 coefficients.
+template <int N, typename T, int D>
 BH_D Dual<T, D> clenshaw(const float* coeffs, const Dual<T, D>& t) {
   Dual<T, D> b1 = lift<T, D>(T(0)), b2 = lift<T, D>(T(0));
-  for (int j = CHEB_K - 1; j > 0; --j) {
+  for (int j = N - 1; j > 0; --j) {
     const Dual<T, D> nb = 2.0 * t * b1 - b2 + val(T(coeffs[j]));
     b2 = b1;
     b1 = nb;
@@ -622,10 +614,12 @@ BH_D Dual<T, D> clenshaw(const float* coeffs, const Dual<T, D>& t) {
   return t * b1 - b2 + val(T(coeffs[0]));
 }
 
-// shading.spectral_slot_core: one crossing, Chebyshev spectral branch
-// (SPECTRAL_T_LO 900, SPECTRAL_T_HI 4e4).
-template <typename T, int D>
-BH_D Slot<T, D> slot_cheb(const DiskArgs& k, const Dual<T, D>& m,
+// One crossing of the disk: shading.spectral_slot_core, the Chebyshev
+// spectral branch, where ``spectral`` (SPECTRAL_T_LO 900, SPECTRAL_T_HI
+// 4e4), else shading.disk_emission_rows, the analytic one.
+template <typename T, int D, typename S>
+BH_D Slot<T, D> disk_slot(bool spectral, const DiskArgsT<S>& k,
+                          const ChebTables& tab, const Dual<T, D>& m,
                           const Dual<T, D>& a, const Dual<T, D>& r_in,
                           const Dual<T, D>& r_c, const Dual<T, D>& phi_c,
                           const Dual<T, D>& t_c, const Dual<T, D>& lam,
@@ -633,21 +627,45 @@ BH_D Slot<T, D> slot_cheb(const DiskArgs& k, const Dual<T, D>& m,
                           const Dual<T, D>& int_scale) {
   const Geometry<T, D> geo =
       disk_geometry(k, m, a, r_in, r_c, phi_c, t_c, lam, octaves);
-  const Dual<T, D> x01 = log_(maximum(geo.r_c / r_in, 1e-6)) * val(T(k.inv_logr));
-  const Dual<T, D> xs = sqrt_(clip(x01, 0.0, 1.0));
-  const Dual<T, D> tx = clip(2.0 * xs - 1.0, -1.0, 1.0);
-  const Dual<T, D> t_shape = clip(clenshaw(k.t_coeffs, tx), 0.0, 1.0);
-  const Dual<T, D> t_obs = clip(geo.g * t_shape * k.t_peak, 900.0, 4e4);
-  const Dual<T, D> y01 = pow_(div_c(t_obs - 900.0, 4e4 - 900.0), 0.4);
-  const Dual<T, D> ty = clip(2.0 * y01 - 1.0, -1.0, 1.0);
   Slot<T, D> s;
-  s.alpha = where(geo.valid, clip(dens_ds * geo.edge * geo.turb, 0.0, 1.0), 0.0);
-  const Dual<T, D> masked =
-      where(geo.valid, pow4(geo.g) * pow4(t_shape) * int_scale, 0.0);
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    s.c[c] = maximum(clenshaw(k.rgb_coeffs + c * CHEB_K, ty), 0.0) * masked;
   s.valid = geo.valid;
+  s.alpha = where(geo.valid, clip(dens_ds * geo.edge * geo.turb, 0.0, 1.0), 0.0);
+  if (spectral) {
+    const Dual<T, D> x01 =
+        log_(maximum(geo.r_c / r_in, 1e-6)) * val(T(*tab.inv_logr));
+    const Dual<T, D> xs = sqrt_(clip(x01, 0.0, 1.0));
+    const Dual<T, D> tx = clip(2.0 * xs - 1.0, -1.0, 1.0);
+    const Dual<T, D> t_shape = clip(clenshaw<CHEB_K>(tab.t, tx), 0.0, 1.0);
+    const Dual<T, D> t_obs = clip(geo.g * t_shape * k.t_peak, 900.0, 4e4);
+    const Dual<T, D> y01 = pow_(div_c(t_obs - 900.0, 4e4 - 900.0), 0.4);
+    const Dual<T, D> ty = clip(2.0 * y01 - 1.0, -1.0, 1.0);
+    const Dual<T, D> masked =
+        where(geo.valid, pow4(geo.g) * pow4(t_shape) * int_scale, 0.0);
+    // Each channel scaled as it is formed: one live at a time, not three.
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      s.c[c] = maximum(clenshaw<CHEB_K>(tab.rgb + c * CHEB_K, ty), 0.0)
+               * masked;
+  } else {
+    const Dual<T, D> t_shape =
+        nt_profile(maximum(geo.r_c, r_in * (1 + 1e-4)), r_in, k.nt_peak);
+    Rgb<T, D> color;
+    if (k.artistic) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        color.c[c] = lift<T, D>(T(k.artistic_rgb[c]));
+    } else {
+      color =
+          blackbody_ramp(clip(geo.g * t_shape * k.t_peak, 1000.0, 40000.0));
+    }
+    const Dual<T, D> outer = powi(maximum(r_in, geo.r_c) / r_in, k.outer_p,
+                                  k.outer_plan, k.outer_route);
+    const Dual<T, D> masked =
+        where(geo.valid, powi(geo.g, k.beam_p, k.beam_plan, k.beam_route)
+                             * pow4(t_shape) * outer * int_scale, 0.0);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s.c[c] = color.c[c] * masked;
+  }
   return s;
 }
 
@@ -686,16 +704,17 @@ BH_D void escape_direction_u(const Dual<T, D> (&rows)[7], const Dual<T, D>& m,
   out[2] = dz * inv_n;
 }
 
-// The starfield's numbers (ops/composite.py::_StarArgs): the two lattice
-// frequencies and star thresholds (Python floats), brightness, nebula.
-struct StarArgs {
-  double cells[2], thr[2], brightness, nebula;
+// The starfield's numbers (ops/shade.py::shade_args), held in S as
+// DiskArgsT's: the two lattice frequencies and star thresholds,
+// brightness, nebula.
+template <typename S> struct StarArgsT {
+  S cells[2], thr[2], brightness, nebula;
 };
 
 // shading.starfield_rows of a direction.
-template <typename T, int D>
+template <typename T, int D, typename S>
 BH_D Rgb<T, D> starfield(const Dual<T, D>& dx, const Dual<T, D>& dy,
-                         const Dual<T, D>& dz, const StarArgs& k) {
+                         const Dual<T, D>& dz, const StarArgsT<S>& k) {
   const Dual<T, D> u = atan2_approx(dy, dx);
   const Dual<T, D> v = clip(dz, -1.0, 1.0);
   Rgb<T, D> acc;
@@ -729,3 +748,31 @@ BH_D Rgb<T, D> starfield(const Dual<T, D>& dx, const Dual<T, D>& dy,
     out.c[c] = k.brightness * acc.c[c] + k.nebula * nc[c];
   return out;
 }
+
+// ---------------------------------------------------------------------------
+// The photon-ring glow of an escaped ray
+// ---------------------------------------------------------------------------
+
+// shading's glow: 0.6 exp(-14 r_min_ph / max(r_ph, 1e-3)).
+template <typename T, int D>
+BH_D Dual<T, D> glow_of(const Dual<T, D>& r_min_ph, const Dual<T, D>& r_ph) {
+  const Dual<T, D> near = exp_(-14.0 * r_min_ph / maximum(r_ph, 1e-3));
+  return 0.6 * near;
+}
+
+// The glow's order: min(max(n_crossings, 0), 3) / 3.
+template <typename T> BH_D T glow_order(int n_cross) {
+  const int c = n_cross < 0 ? 0 : (n_cross > 3 ? 3 : n_cross);
+  return op_div(T(c), T(3));
+}
+
+// The glow's colour weight of channel c: warm + order (cool - warm), the
+// difference formed in double as the Python numbers' is.
+template <typename T>
+BH_D T glow_weight(int c, T order) {
+  const double warm = c == 0 ? 1.0 : (c == 1 ? 0.82 : 0.55);
+  const double cool = c == 0 ? 0.82 : (c == 1 ? 0.88 : 1.0);
+  return op_add(op_mul(order, T(cool - warm)), T(warm));
+}
+
+}  // namespace shade

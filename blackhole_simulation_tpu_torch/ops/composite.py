@@ -47,7 +47,11 @@ import numpy as np
 import torch
 
 from blackhole_simulation_tpu_torch._elementwise import const
-from blackhole_simulation_tpu_torch.perf import spans
+from blackhole_simulation_tpu_torch.ops.shade import (
+    DiskArgs,
+    StarArgs,
+    shade_args,
+)
 from blackhole_simulation_tpu_torch.render.march import HIT_ESCAPE
 from blackhole_simulation_tpu_torch.render.pipeline import _DUMMY_U
 from blackhole_simulation_tpu_torch.render.shading import (
@@ -408,29 +412,6 @@ def _nt_profile(r, r_in):
     return div_c(shape, NT_PEAK)
 
 
-def _slot_analytic(c, m, a, r_in, r_c, phi_c, t_c, lam, octaves, dens_ds,
-                   int_scale):
-    disk = c.disk
-    valid, r_c, g, turb, edge = _disk_geometry(disk, m, a, r_in, r_c, phi_c,
-                                               t_c, lam, octaves)
-    t_shape = _nt_profile(maximum(r_c, r_in * (1 + 1e-4)), r_in)
-    if disk.artistic_rgb is not None:
-        color = tuple(Dual(torch.full_like(_val(r_c), v))
-                      for v in disk.artistic_rgb)
-    else:
-        t_obs = clip(g * t_shape * disk.t_peak, 1000.0, 40000.0)
-        color = _blackbody_ramp(t_obs)
-    p_out = -disk.outer_falloff * 0.5
-    outer = _powi(maximum(r_in, r_c) / r_in, p_out, _powi_plan(p_out))
-    alpha = clip(dens_ds * edge * turb, 0.0, 1.0)
-    alpha = where(valid, alpha, 0.0)
-    intensity = (_powi(g, disk.beaming_exponent,
-                       _powi_plan(disk.beaming_exponent))
-                 * _pow4(t_shape) * outer * int_scale)
-    masked = where(valid, intensity, 0.0)
-    return tuple(col * masked for col in color), alpha, valid
-
-
 def _clenshaw(coeffs, t):
     b1 = Dual(torch.zeros_like(_val(t)))
     b2 = Dual(torch.zeros_like(_val(t)))
@@ -439,30 +420,44 @@ def _clenshaw(coeffs, t):
     return t * b1 - b2 + coeffs[0]
 
 
-def _slot_cheb(c, m, a, r_in, r_c, phi_c, t_c, lam, octaves, dens_ds,
-               int_scale):
+def _slot(c, m, a, r_in, r_c, phi_c, t_c, lam, octaves, dens_ds, int_scale):
+    """One crossing: the Chebyshev spectral branch where ``c.cheb`` is set,
+    else the analytic one (``csrc/shade.cuh::disk_slot``)."""
     disk = c.disk
     valid, r_c, g, turb, edge = _disk_geometry(disk, m, a, r_in, r_c, phi_c,
                                                t_c, lam, octaves)
-    dev = _val(r_c).device
-    tc, rc_tab, il = (torch.as_tensor(np.asarray(x, np.float32), device=dev)
-                      for x in c.cheb)
-    t_coeffs = [tc[j] for j in range(SPECTRAL_CHEB_K)]
-    rgb_coeffs = [[rc_tab[ch, j] for j in range(SPECTRAL_CHEB_K)]
-                  for ch in range(3)]
-    x01 = log(maximum(r_c / r_in, 1e-6)) * il
-    xs = sqrt(clip(x01, 0.0, 1.0))
-    tx = clip(2.0 * xs - 1.0, -1.0, 1.0)
-    t_shape = clip(_clenshaw(t_coeffs, tx), 0.0, 1.0)
-    t_obs = clip(g * t_shape * disk.t_peak, SPECTRAL_T_LO, SPECTRAL_T_HI)
-    y01 = pow_(div_c(t_obs - SPECTRAL_T_LO, SPECTRAL_T_HI - SPECTRAL_T_LO),
-               0.4)
-    ty = clip(2.0 * y01 - 1.0, -1.0, 1.0)
-    color = tuple(maximum(_clenshaw(rgb_coeffs[ch], ty), 0.0)
-                  for ch in range(3))
-    alpha = clip(dens_ds * edge * turb, 0.0, 1.0)
-    alpha = where(valid, alpha, 0.0)
-    intensity = _pow4(g) * _pow4(t_shape) * int_scale
+    if c.cheb is not None:
+        dev = _val(r_c).device
+        tc, rc_tab, il = (torch.as_tensor(np.asarray(x, np.float32),
+                                          device=dev) for x in c.cheb)
+        t_coeffs = [tc[j] for j in range(SPECTRAL_CHEB_K)]
+        rgb_coeffs = [[rc_tab[ch, j] for j in range(SPECTRAL_CHEB_K)]
+                      for ch in range(3)]
+        x01 = log(maximum(r_c / r_in, 1e-6)) * il
+        xs = sqrt(clip(x01, 0.0, 1.0))
+        tx = clip(2.0 * xs - 1.0, -1.0, 1.0)
+        t_shape = clip(_clenshaw(t_coeffs, tx), 0.0, 1.0)
+        t_obs = clip(g * t_shape * disk.t_peak, SPECTRAL_T_LO, SPECTRAL_T_HI)
+        y01 = pow_(div_c(t_obs - SPECTRAL_T_LO,
+                         SPECTRAL_T_HI - SPECTRAL_T_LO), 0.4)
+        ty = clip(2.0 * y01 - 1.0, -1.0, 1.0)
+        color = tuple(maximum(_clenshaw(rgb_coeffs[ch], ty), 0.0)
+                      for ch in range(3))
+        intensity = _pow4(g) * _pow4(t_shape) * int_scale
+    else:
+        t_shape = _nt_profile(maximum(r_c, r_in * (1 + 1e-4)), r_in)
+        if disk.artistic_rgb is not None:
+            color = tuple(Dual(torch.full_like(_val(r_c), v))
+                          for v in disk.artistic_rgb)
+        else:
+            t_obs = clip(g * t_shape * disk.t_peak, 1000.0, 40000.0)
+            color = _blackbody_ramp(t_obs)
+        p_out = -disk.outer_falloff * 0.5
+        outer = _powi(maximum(r_in, r_c) / r_in, p_out, _powi_plan(p_out))
+        intensity = (_powi(g, disk.beaming_exponent,
+                           _powi_plan(disk.beaming_exponent))
+                     * _pow4(t_shape) * outer * int_scale)
+    alpha = where(valid, clip(dens_ds * edge * turb, 0.0, 1.0), 0.0)
     masked = where(valid, intensity, 0.0)
     return tuple(col * masked for col in color), alpha, valid
 
@@ -560,10 +555,6 @@ class CompositeStatic:
         return cls(disk=scene.disk if feats.disk else None, cheb=cheb,
                    stars=scene.stars if feats.starfield else None,
                    glow=bool(feats.photon_ring_glow), jets=bool(feats.jets))
-
-
-def _slot(c, *args):
-    return (_slot_cheb if c.cheb is not None else _slot_analytic)(c, *args)
 
 
 def _seed(x, i: int, dirs: int):
@@ -736,102 +727,36 @@ def composite_vjp_plain(c: CompositeStatic, m, a, r_in, r_ph, hit, cross_r,
 # The kernels' wrapper
 # ---------------------------------------------------------------------------
 
-# csrc/composite.cu::PowRoute, as ops/tonemap.py::pow_route names them
-from blackhole_simulation_tpu_torch.ops.tonemap import (  # noqa: E402
-    CUBE,
-    INV_SQUARE,
-    POW,
-    RECIPROCAL,
-    SQUARE,
-    pow_route,
-)
-
-_ROUTES = (POW, RECIPROCAL, SQUARE, CUBE, INV_SQUARE)
-
-
-class _DiskArgs(ctypes.Structure):
-    """``csrc/shade.cuh::DiskArgs``."""
+class _CArgs(ctypes.Structure):
+    """``csrc/composite.cu::CompositeArgs``."""
     _fields_ = [
-        ("dens", ctypes.c_double), ("outer_radius", ctypes.c_double),
-        ("t_peak", ctypes.c_double), ("beam_p", ctypes.c_double),
-        ("outer_p", ctypes.c_double), ("turbulence", ctypes.c_double),
-        ("softness", ctypes.c_double), ("nt_peak", ctypes.c_double),
-        ("artistic_rgb", ctypes.c_double * 3), ("artistic", ctypes.c_int),
-        ("beam_plan", ctypes.c_int * 3), ("outer_plan", ctypes.c_int * 3),
-        ("beam_route", ctypes.c_int * 2), ("outer_route", ctypes.c_int * 2),
+        ("n", ctypes.c_longlong), ("k", ctypes.c_int), ("jets", ctypes.c_int),
+        ("ds_tensor", ctypes.c_int), ("is_tensor", ctypes.c_int),
+        ("int_scale", ctypes.c_double), ("disk", DiskArgs),
+        ("stars", StarArgs),
         ("t_coeffs", ctypes.c_float * SPECTRAL_CHEB_K),
         ("rgb_coeffs", ctypes.c_float * (3 * SPECTRAL_CHEB_K)),
         ("inv_logr", ctypes.c_float),
     ]
 
 
-class _StarArgs(ctypes.Structure):
-    """``csrc/shade.cuh::StarArgs``."""
-    _fields_ = [
-        ("cells", ctypes.c_double * 2), ("thr", ctypes.c_double * 2),
-        ("brightness", ctypes.c_double), ("nebula", ctypes.c_double),
-    ]
-
-
-class _CArgs(ctypes.Structure):
-    """``csrc/composite.cu::CompositeArgs``."""
-    _fields_ = [
-        ("n", ctypes.c_longlong), ("k", ctypes.c_int), ("jets", ctypes.c_int),
-        ("ds_tensor", ctypes.c_int), ("is_tensor", ctypes.c_int),
-        ("int_scale", ctypes.c_double), ("disk", _DiskArgs),
-        ("stars", _StarArgs),
-    ]
-
-
-def _plan_fields(p: float, dtype):
-    """(plan (k, n, negative) or (-1, 0, 0), routes of p and p - 1) of an
-    exponent that ``_powi`` raises to: a plan, or a plain pow whose routes
-    the kernel takes."""
-    plan = _powi_plan(p)
-    if plan is not None:
-        return (plan[0], plan[1], int(plan[2])), (POW, POW)
-    routes = (pow_route(p, dtype), pow_route(p - 1.0, dtype))
-    if any(r not in _ROUTES for r in routes):
-        raise ValueError(f"composite kernel: no route for the exponent {p}")
-    return (-1, 0, 0), routes
-
-
 def _c_args(c: CompositeStatic, n: int, k: int, dtype, density_scale,
             intensity_scale) -> _CArgs:
-    """The kernels' numbers for one launch: the Python floats as the plain
-    composite forms them (the density times a number scale in float64)."""
+    """The kernels' numbers for one launch: the disk's and the stars'
+    (``ops/shade.py::shade_args``, the density times a number scale), the
+    intensity scale where it is a number, the Chebyshev tables."""
     args = _CArgs()
     args.n, args.k, args.jets = n, k, int(c.jets)
     args.ds_tensor = int(isinstance(density_scale, torch.Tensor))
     args.is_tensor = int(isinstance(intensity_scale, torch.Tensor))
     args.int_scale = 1.0 if args.is_tensor else float(intensity_scale)
-    disk, kd = c.disk, args.disk
-    if disk is not None:
-        kd.dens = float(disk.density * (1.0 if args.ds_tensor
-                                        else density_scale))
-        kd.outer_radius, kd.t_peak = disk.outer_radius, disk.t_peak
-        kd.turbulence = disk.turbulence
-        kd.softness = disk.inner_edge_softness
-        kd.nt_peak = NT_PEAK
-        kd.beam_p = disk.beaming_exponent
-        kd.outer_p = -disk.outer_falloff * 0.5
-        for name, p in (("beam", kd.beam_p), ("outer", kd.outer_p)):
-            plan, routes = _plan_fields(p, dtype)
-            getattr(kd, f"{name}_plan")[:] = plan
-            getattr(kd, f"{name}_route")[:] = routes
-        kd.artistic = int(disk.artistic_rgb is not None)
-        if kd.artistic:
-            kd.artistic_rgb[:] = [float(v) for v in disk.artistic_rgb]
-        if c.cheb is not None:
-            tc, rc, il = c.cheb
-            kd.t_coeffs[:] = tc
-            kd.rgb_coeffs[:] = [v for row in rc for v in row]
-            kd.inv_logr = il
-    if c.stars is not None:
-        s, ks = c.stars, args.stars
-        ks.cells[:] = [s.cells, s.cells * 0.35]
-        ks.thr[:] = [s.density * 1.0 * 300.0, s.density * 2.2 * 300.0]
-        ks.brightness, ks.nebula = s.brightness, s.nebula
+    args.disk, args.stars = shade_args(
+        c.disk, c.stars, dtype, 1.0 if args.ds_tensor else density_scale)
+    if c.cheb is not None:
+        tc, rc, il = c.cheb
+        args.t_coeffs[:] = tc
+        args.rgb_coeffs[:] = [v for row in rc for v in row]
+        args.inv_logr = il
     return args
 
 
@@ -937,8 +862,7 @@ def composite_kernel(c: CompositeStatic, m, a, r_in, r_ph, hit, cross_r,
     rows' dtype, on the current stream, with no synchronisation. One
     launch; none for no rays. Raises ValueError where ``refusal`` finds a
     reason, RuntimeError if the launch fails. Counts each launch in
-    ``composite_kernel.launches`` and, in a recorded frame or step
-    (``perf/spans.py``), in ``composite_kernel``."""
+    ``composite_kernel.launches``."""
     from blackhole_simulation_tpu_torch.ops.build import kmax_for
 
     reason = refusal(c, m, a, r_in, r_ph, hit, cross_r, cross_phi, cross_t,
@@ -966,8 +890,6 @@ def composite_kernel(c: CompositeStatic, m, a, r_in, r_ph, hit, cross_r,
             ctypes.c_void_p(stream))
     _check(err, lib, "forward")
     composite_kernel.launches += 1
-    if spans.on:
-        spans.count("composite_kernel")
     return out
 
 
@@ -982,8 +904,7 @@ def composite_vjp_kernel(c: CompositeStatic, m, a, r_in, r_ph, hit, cross_r,
     current stream: a dict of the same cotangents, those of ``wanted``
     (every one when None); the 0-d ones are 0-d tensors of the rows'
     dtype. Two launches; none for no rays. Counts each call that launches
-    in ``composite_vjp_kernel.launches`` and, in a recorded frame or step,
-    in ``composite_vjp_kernel``."""
+    in ``composite_vjp_kernel.launches``."""
     from blackhole_simulation_tpu_torch.ops.build import kmax_for
 
     reason = refusal(c, m, a, r_in, r_ph, hit, cross_r, cross_phi, cross_t,
@@ -1028,8 +949,6 @@ def composite_vjp_kernel(c: CompositeStatic, m, a, r_in, r_ph, hit, cross_r,
                 _ptr(partials), _ptr(scalars), ctypes.c_void_p(stream))
         _check(err, lib, "VJP")
         composite_vjp_kernel.launches += 1
-        if spans.on:
-            spans.count("composite_vjp_kernel")
     for i, s in enumerate(SCALARS):
         out[s] = scalars[i]
     return out

@@ -49,6 +49,11 @@ from blackhole_simulation_tpu_torch.ops.pallas_march import (
     _CJetParams,
     c_jet_params,
 )
+from blackhole_simulation_tpu_torch.ops.shade import (
+    DiskArgs32,
+    StarArgs32,
+    shade_args,
+)
 from blackhole_simulation_tpu_torch.render.march import HIT_ESCAPE, MarchConfig
 from blackhole_simulation_tpu_torch.render.precull import (
     _CHEB_ERR,
@@ -58,12 +63,10 @@ from blackhole_simulation_tpu_torch.render.precull import (
     pole_w_min_values,
 )
 from blackhole_simulation_tpu_torch.render.shading import (
-    NT_PEAK,
     SPECTRAL_CHEB_K,
     DiskParams,
     JetParams,
     StarfieldParams,
-    _powi_plan,
     cheb_clenshaw,
     disk_emission_rows,
     escape_direction_u_rows,
@@ -546,39 +549,29 @@ def _overlay_weight(row, u_row, pu, pph, a):
 
 
 class _CRenderStatic(ctypes.Structure):
-    """``RenderStatic`` as ``csrc/render.cu`` declares it (all 4-byte
-    fields; constants already rounded to float32 the way the JAX package
-    rounds them)."""
+    """``RenderStatic`` as ``csrc/render.cu`` declares it: 4-byte fields,
+    constants already rounded to float32 the way the JAX package rounds
+    them (the jets', and the disk's and the stars' of
+    ``ops/shade.py::shade_args``)."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "width", "height", "max_steps", "renormalize_every", "max_crossings",
         "midpoint_iters", "approx_recip", "precull", "disk_on", "spectral",
-        "starfield", "glow", "artistic", "far_cap_on",
-        "beam_k", "beam_n", "beam_neg", "outer_k", "outer_n", "outer_neg",
-        "multistep", "ab3_renorm_every", "ab3_tail_renorm", "jets",
-        "nrs_on", "overlay",
+        "starfield", "glow", "far_cap_on", "multistep", "ab3_renorm_every",
+        "ab3_tail_renorm", "jets", "nrs_on", "overlay",
     )] + [(name, ctypes.c_float) for name in (
         "step_rate", "min_step", "max_step", "far_step_cap_rate",
         "far_boost_radius", "escape_radius", "escape_sanity_r",
-        "record_r_min", "record_r_max",
-        "disk_outer_radius", "disk_density", "disk_t_peak", "disk_beaming",
-        "disk_turb", "disk_one_minus_turb", "disk_softness",
-        "disk_outer_pow", "disk_edge_width", "nt_peak",
-        "art_r", "art_g", "art_b",
-        "star_brightness", "star_nebula", "star_freq0", "star_freq1",
-        "star_thr0", "star_thr1", "refine_band", "refine_pole_w",
+        "record_r_min", "record_r_max", "refine_band", "refine_pole_w",
         "pole_scale", "start_jitter",
-    )] + [("jet", _CJetParams)]
+    )] + [("jet", _CJetParams), ("disk", DiskArgs32), ("stars", StarArgs32)]
 
 
 def _c_static(st: RenderStatic) -> _CRenderStatic:
-    cfg, disk, stars = st.cfg, st.disk, st.stars
-    art = disk.artistic_rgb or (0.0, 0.0, 0.0)
-    outer_pow = -disk.outer_falloff * 0.5
-    # A plan of k = -1 means a plain powf.
-    beam_k, beam_n, beam_neg = _powi_plan(disk.beaming_exponent) or (-1, 0, 0)
-    outer_k, outer_n, outer_neg = _powi_plan(outer_pow) or (-1, 0, 0)
+    cfg = st.cfg
     ab3_every, ab3_tail = ab3_renorm_plan(cfg)
+    disk, stars = shade_args(st.disk, st.stars, torch.float32,
+                             types=(DiskArgs32, StarArgs32))
     return _CRenderStatic(
         width=st.width, height=st.height, max_steps=cfg.max_steps,
         renormalize_every=cfg.renormalize_every,
@@ -586,10 +579,7 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
         approx_recip=int(cfg.approx_recip), precull=int(cfg.shadow_precull),
         disk_on=int(st.disk_on), spectral=int(st.spectral),
         starfield=int(st.starfield), glow=int(st.glow),
-        artistic=int(disk.artistic_rgb is not None),
         far_cap_on=int(cfg.far_step_cap_rate > 0.0),
-        beam_k=beam_k, beam_n=beam_n, beam_neg=int(beam_neg),
-        outer_k=outer_k, outer_n=outer_n, outer_neg=int(outer_neg),
         multistep=int(cfg.multistep), ab3_renorm_every=ab3_every,
         ab3_tail_renorm=int(ab3_tail), jets=int(st.jets),
         nrs_on=int(st.nrs_on), overlay=int(st.overlay),
@@ -607,17 +597,7 @@ def _c_static(st: RenderStatic) -> _CRenderStatic:
         escape_radius=cfg.escape_radius,
         escape_sanity_r=8.0 * cfg.escape_radius,
         record_r_min=cfg.record_r_min, record_r_max=cfg.record_r_max,
-        disk_outer_radius=disk.outer_radius, disk_density=disk.density,
-        disk_t_peak=disk.t_peak, disk_beaming=disk.beaming_exponent,
-        disk_turb=disk.turbulence, disk_one_minus_turb=1.0 - disk.turbulence,
-        disk_softness=disk.inner_edge_softness,
-        disk_outer_pow=outer_pow,
-        disk_edge_width=0.15 * disk.outer_radius, nt_peak=NT_PEAK,
-        art_r=art[0], art_g=art[1], art_b=art[2],
-        star_brightness=stars.brightness, star_nebula=stars.nebula,
-        star_freq0=stars.cells, star_freq1=stars.cells * 0.35,
-        star_thr0=stars.density * 1.0 * 300.0,
-        star_thr1=stars.density * 2.2 * 300.0,
+        disk=disk, stars=stars,
     )
 
 

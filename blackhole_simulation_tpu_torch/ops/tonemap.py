@@ -16,7 +16,6 @@ import functools
 
 import torch
 
-from blackhole_simulation_tpu_torch.perf import spans
 from blackhole_simulation_tpu_torch.render.post import (
     _ACES,
     _GAUSS9,
@@ -112,8 +111,7 @@ def tonemap_kernel(img: torch.Tensor,
     image. ``img`` is read through its strides (the render's planar ``(3,
     H, W).permute(1, 2, 0)`` view as it is). Raises ValueError where
     ``refusal`` finds a reason, and RuntimeError if a launch fails. Counts
-    each call that launches in ``tonemap_kernel.launches`` and, in a frame
-    that ``render`` records (``perf/spans.py``), in ``tonemap_kernel``."""
+    each call that launches in ``tonemap_kernel.launches``."""
     reason = refusal(img, params)
     if reason is not None:
         raise ValueError(f"tone-map kernel: {reason}")
@@ -137,8 +135,6 @@ def tonemap_kernel(img: torch.Tensor,
         raise RuntimeError("tone-map kernel launch failed: "
                            f"{lib.bh_error_string(err).decode()}")
     tonemap_kernel.launches += 1
-    if spans.on:
-        spans.count("tonemap_kernel")
     return out
 
 

@@ -49,10 +49,6 @@ copy between the host and the card: the mass's upload
 copied up). The staged and sharded paths record their ``frame`` and
 ``sample`` spans only, and their other waits are not counted.
 
-Counter ``tonemap_kernel``: each call of ``ops/tonemap.py::tonemap_kernel``
-in a recorded frame, counted once its launch succeeds (one a frame on the
-card; the CPU's plain path counts none).
-
 One request is recorded at a time, in the thread that calls its entry;
 the spans and counters of the autograd thread that a recorded step waits
 for belong to that step.

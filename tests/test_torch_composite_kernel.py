@@ -230,8 +230,6 @@ def test_a_step_launches_each_kernel_once(cuda, make):
             activities=[torch.profiler.ProfilerActivity.CPU]):
         step(state, target)
         torch.cuda.synchronize()
-    assert spans.counters().get("composite_kernel") == 1
-    assert spans.counters().get("composite_vjp_kernel") == 1
     assert (C.composite_kernel.launches - before[0],
             C.composite_vjp_kernel.launches - before[1]) == (1, 1)
 

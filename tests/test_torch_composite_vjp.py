@@ -38,6 +38,7 @@ from blackhole_simulation_tpu.render.pipeline import (
 from blackhole_simulation_tpu.render.shading import DiskParams as JDisk
 from blackhole_simulation_tpu_torch.geometry import metrics
 from blackhole_simulation_tpu_torch.ops import composite as C
+from blackhole_simulation_tpu_torch.ops import shade
 from blackhole_simulation_tpu_torch.render.camera import Camera
 from blackhole_simulation_tpu_torch.render.march import MarchRows
 from blackhole_simulation_tpu_torch.render.pipeline import (
@@ -343,10 +344,39 @@ def test_refusals():
 def test_exponent_routes():
     """_powi's plans go to the kernel as they are; a plain pow takes
     torch.pow's route of p and of p - 1."""
-    assert C._plan_fields(4.0, torch.float32) == ((0, 4, 0), (C.POW, C.POW))
-    assert C._plan_fields(-2.0, torch.float32) == ((0, 2, 1), (C.POW, C.POW))
-    assert C._plan_fields(3.3, torch.float32) == ((-1, 0, 0),
-                                                  (C.POW, C.POW))
+    pow2 = (shade.POW, shade.POW)
+    assert shade.plan_fields(4.0, torch.float32) == ((0, 4, 0), pow2)
+    assert shade.plan_fields(-2.0, torch.float32) == ((0, 2, 1), pow2)
+    assert shade.plan_fields(3.3, torch.float32) == ((-1, 0, 0), pow2)
     # 3.0000001 is not a plan; rounded to float32 it is 3: torch.pow cubes
-    plan, routes = C._plan_fields(3.0000001, torch.float32)
-    assert plan == (-1, 0, 0) and routes == (C.CUBE, C.SQUARE)
+    plan, routes = shade.plan_fields(3.0000001, torch.float32)
+    assert plan == (-1, 0, 0) and routes == (shade.CUBE, shade.SQUARE)
+
+
+@pytest.mark.parametrize("disk", [{}, dict(artistic_rgb=(1.0, 0.6, 0.3),
+                                           beaming_exponent=2.7)],
+                         ids=["default", "artistic_pow"])
+def test_render_and_composite_take_one_set_of_numbers(disk):
+    """The render kernel's static configuration and the composite's
+    arguments carry the disk's and the stars' numbers of one builder
+    (``ops/shade.py::shade_args``): the composite's in float64, the render
+    kernel's the same numbers rounded to float32."""
+    from blackhole_simulation_tpu_torch.ops.render import _c_static
+    from blackhole_simulation_tpu_torch.render.pipeline import kernel_inputs
+
+    scene = Scene.create(mass=1.0, spin=SPIN, features=Features())
+    scene = dataclasses.replace(
+        scene, disk=dataclasses.replace(scene.disk, **disk))
+    _, st = kernel_inputs(scene, None, "cpu")
+    st = _c_static(st)
+    args = C._c_args(C.CompositeStatic.of(scene), 1, 4, torch.float32, 1.0,
+                     1.0)
+    for ours, theirs in ((st.disk, args.disk), (st.stars, args.stars)):
+        for name, _ in theirs._fields_:
+            want = np.asarray(getattr(theirs, name))
+            got = np.asarray(getattr(ours, name))
+            if want.dtype == np.float64:
+                want = want.astype(np.float32)
+            assert np.array_equal(got, want), name
+    assert args.disk.one_minus_turb == 1.0 - scene.disk.turbulence
+    assert list(st.disk.beam_plan) == ([-1, 0, 0] if disk else [0, 4, 0])

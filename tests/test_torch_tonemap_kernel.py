@@ -2,7 +2,7 @@
 by which ``render/post.py::tonemap`` takes it.
 
 On the CPU: that the CPU and autograd take the plain path, whatever the
-parameters; that the ``tonemap_kernel`` counter stays 0 there; the route
+parameters, with no launch of ``tonemap_kernel``; the route
 ``torch.pow`` takes for each exponent (``pow_route``); and that the
 wrapper refuses what the kernel does not take (``refusal``). On the card
 (marked ``gpu``): the kernel against the plain path, bit for bit, in
@@ -129,13 +129,14 @@ def test_cpu_image_takes_the_plain_path():
 
 
 def test_recorded_cpu_frame_counts_no_kernel():
-    """A frame recorded on the CPU counts its syncs and spans as before and
-    ``tonemap_kernel`` not at all."""
+    """A frame recorded on the CPU records its spans as before and launches
+    no ``tonemap_kernel``."""
+    before = tonemap_kernel.launches
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         render(_scene(), n_samples=2, device="cpu")
     assert [s.name for s in spans.recorded()].count("frame") == 1
-    assert spans.counters().get("tonemap_kernel", 0) == 0
+    assert tonemap_kernel.launches == before
 
 
 @pytest.mark.parametrize("make, params, word", [
@@ -167,17 +168,12 @@ def test_plain_path_and_its_reason(make, params, word):
     img = make()
     assert word in refusal(img, params)
     before = tonemap_kernel.launches
-    spans.on = True
-    try:
-        if (img.dtype in (torch.float32, torch.float64) and img.dim() == 3
-                and img.shape[2] == 3):
-            got, want = tonemap(img, params), tonemap_plain(img, params)
-            assert torch.equal(torch.isnan(got), torch.isnan(want))
-            assert torch.equal(got.nan_to_num(), want.nan_to_num())
-    finally:
-        spans.on = False
+    if (img.dtype in (torch.float32, torch.float64) and img.dim() == 3
+            and img.shape[2] == 3):
+        got, want = tonemap(img, params), tonemap_plain(img, params)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
     assert tonemap_kernel.launches == before
-    assert spans.counters().get("tonemap_kernel", 0) == 0
 
 
 def test_bloom_passes_do_not_matter_without_bloom():
@@ -387,17 +383,17 @@ def test_kernel_leaves_its_input_and_sees_late_writes(cuda):
 
 @pytest.mark.gpu
 def test_render_frame_launches_the_kernel_once(cuda):
-    """A recorded fused frame counts one ``tonemap_kernel`` and its one
-    sync, and its image is the plain tone map of its radiance."""
+    """A recorded fused frame launches ``tonemap_kernel`` once and counts
+    its one sync, and its image is the plain tone map of its radiance."""
     scene = _scene(FLAGSHIP_POST, width=64, height=48)
     render(scene, n_samples=1, device=cuda)
     torch.cuda.synchronize()
+    before = tonemap_kernel.launches
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]):
         img = render(scene, n_samples=1, device=cuda)
-    counts = spans.counters()
-    assert counts.get("tonemap_kernel") == 1
-    assert counts.get("stream_syncs") == 1
+    assert tonemap_kernel.launches == before + 1
+    assert spans.counters().get("stream_syncs") == 1
     planes = render_sample(scene, None, cuda)
     _assert_bit_equal(img, tonemap_plain(planes.permute(1, 2, 0), scene.post))
 
