@@ -16,7 +16,8 @@ sources of ``FMAD_SOURCES`` build with nvcc's default ``--fmad=true``
 instead: their own arithmetic is all explicit (``__fmul_rn`` and its kin,
 never contracted), so the flag moves only the CUDA math library's
 functions, which then round as PyTorch's own build of them does
-(``csrc/tonemap.cu``'s ``pow`` and ``rsqrt``).
+(``csrc/tonemap.cu``'s ``pow`` and ``rsqrt``, the double ``sin`` and
+``cos`` of ``csrc/composite.cu`` and ``csrc/birth.cu``).
 
 The library lands in ``build/kernels/`` at the repository root, named by a
 hash of the source, every header of ``csrc/`` and the flags, so an edited
@@ -83,7 +84,7 @@ def kmax_for(max_crossings: int) -> int:
     return k
 
 
-FMAD_SOURCES = ("tonemap.cu", "composite.cu")
+FMAD_SOURCES = ("tonemap.cu", "composite.cu", "birth.cu")
 
 
 def _flags(source: str, kmax: int = KMAX_DEFAULT,

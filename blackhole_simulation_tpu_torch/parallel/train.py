@@ -15,8 +15,9 @@ The forward renders the parameterized scene through ``march_rows_ad`` with
 ``use_pallas`` and ``march_rows`` without, as the JAX twin's takes its
 Pallas kernels or its jnp march: in both the march kernel
 (``csrc/march.cu``) forward and the gradient kernel
-(``csrc/march_grad.cu``) backward, with camera ray birth, the null
-renormalization and the shading differentiated by autograd around them;
+(``csrc/march_grad.cu``) backward, with camera ray birth (on the card
+``csrc/birth.cu``'s kernel and its VJP), the null renormalization and the
+shading (on the card ``csrc/composite.cu``'s) differentiated around them;
 a spectral disk's tables are built in the graph from the spin being
 optimized (``render/shading.py::build_disk_luts_t``), as the JAX twin
 builds them in its.

@@ -43,8 +43,10 @@ upload on a CUDA device, ``_elementwise.host`` of a CUDA tensor (a scene
 leaf held on the card) and ``models/nrs.nrs_flat_weights`` of CUDA
 weights (the NRS far field's row block). In an inverse step, each blocking
 copy between the host and the card: the mass's upload
-(``parallel/train.py::_forward``), the camera's numbers
-(``render/camera.py::camera_scalars``) and the precull's critical-curve fit
+(``parallel/train.py::_forward``), the camera's numbers where
+``render/camera.py::camera_scalars`` makes them card tensors (not in a
+step: the birth kernel takes them as launch arguments) and the precull's
+critical-curve fit
 (``render/precull.py``: mass and spin read back, the fit's five tensors
 copied up). The staged and sharded paths record their ``frame`` and
 ``sample`` spans only, and their other waits are not counted.

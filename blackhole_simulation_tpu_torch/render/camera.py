@@ -4,7 +4,8 @@ Counterpart of ``blackhole_simulation_tpu/render/camera.py``: ``Camera``
 (:41), ``zamo_tetrad`` (:64) and ``bl_to_ks_momentum`` (:89) on tensors of
 any shape (the camera's prologue takes them on 0-d tensors as
 ``_zamo_tetrad_t`` and ``_lower_to_ks``), ``pixel_grid`` (:100),
-``camera_rays_indexed`` (:117), ``camera_rays_u`` (:134), ``camera_rays``
+``camera_rays_indexed`` (:117), ``camera_rays_u`` (:134; on the card by
+``ops/birth.py``'s kernels, ``camera_rays_u_plain`` elsewhere), ``camera_rays``
 (:181, the theta-form (N, 8) rows the staged shadow overlay and the oracle
 read), ``camera_scalars`` (:193), and
 ``_momenta_from_ndc`` (:215). The camera sits at one point, so its tetrad
@@ -279,7 +280,24 @@ def camera_rays_u(camera: Camera, mass, spin, pix_ids=None, jitter=None,
     normalized to p_t = -1, in ``dtype`` on ``mass``'s device: the whole
     frame in row-major order, or the flat row-major pixel ids ``pix_ids``.
     Differentiable in ``mass``, ``spin``, the camera's tensor fields and
-    ``theta`` (which overrides ``camera.theta``)."""
+    ``theta`` (which overrides ``camera.theta``). For a CUDA ``mass`` the
+    birth kernel (``ops/birth.py::birth_rows``: the same rows bit for bit,
+    with its VJP kernel under autograd; ValueError for what it does not
+    take), elsewhere ``camera_rays_u_plain``."""
+    if torch.is_tensor(mass) and mass.is_cuda:
+        from blackhole_simulation_tpu_torch.ops.birth import birth_rows
+
+        return birth_rows(camera, mass, spin, pix_ids, jitter, theta, dtype)
+    return camera_rays_u_plain(camera, mass, spin, pix_ids, jitter, theta,
+                               dtype)
+
+
+def camera_rays_u_plain(camera: Camera, mass, spin, pix_ids=None,
+                        jitter=None, theta=None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """``camera_rays_u`` in plain PyTorch, differentiable by autograd: the
+    CPU's path, and the reference the birth kernel is held to on the
+    card."""
     dev = torch.as_tensor(mass).device
     scalars = camera_scalars(camera, mass, spin, theta, dtype)
     nx, ny = _ndc(camera, pix_ids, jitter, dtype, dev)

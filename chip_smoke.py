@@ -422,8 +422,20 @@ printing a result line:
    (``benchmark/limits/inverse_1080p.ad_curriculum.json``). About 14
    minutes of the H100 (the reference takes ~13 s a step).
 
-``python3 chip_smoke.py composite inverse_fit`` runs phases 24 and 25
-alone (each kernel built at its first use).
+26. The birth kernel and its VJP kernels (``csrc/birth.cu``) at the
+   inverse cell's first step (1920x1080, the step's row-major ids, the
+   fit's initial spin and theta): each alone (20 launches) beside its
+   bound (each id read once, each row written once; the VJP reads the six
+   cotangent rows that depend on the inputs), the plain chain's forward
+   and its autograd forward + backward, the forward bit-equal to the plain
+   chain's, and the VJP for two cotangents (the step's own, recorded from
+   ``make_ad_inverse_step``, and a seeded uniform one) against autograd of
+   the plain chain in float32 and in float64 (the float32 chain's inputs
+   and cotangent cast) and against the plain twin; two backward calls
+   bit-equal, and ptxas's registers and spills.
+
+``python3 chip_smoke.py composite inverse_fit birth`` runs phases 24, 25
+and 26 alone (each kernel built at its first use).
 
 A kernel "alone" is timed over a run of back-to-back launches between two
 CUDA events (ms per launch); frames, steps and the refinement pass are
@@ -4952,6 +4964,7 @@ def phase_float64():
 
 # Phase 24: the composite kernels against the plain composite on the card.
 COMPOSITE_VJP_BAR = 1e-5
+BIRTH_VJP_BAR = 1e-5
 # The arithmetic ATen ops that ``composite_ops`` counts, each output value
 # one operation (copies, casts to other shapes and allocations are not).
 _COUNTED_OPS = {
@@ -5241,6 +5254,117 @@ def phase_inverse_fit():
     return out
 
 
+def _recorded_ray_cotangent(step, state, target):
+    """The cotangent of the rays that one call of ``step`` gives its
+    birth."""
+    from blackhole_simulation_tpu_torch.render import camera
+
+    got, orig = [], camera.camera_rays_u
+
+    def record(*args, **kw):
+        rays = orig(*args, **kw)
+        rays.register_hook(got.append)
+        return rays
+
+    camera.camera_rays_u = record
+    try:
+        step(state, target)
+    finally:
+        camera.camera_rays_u = orig
+    return got[0]
+
+
+def phase_birth():
+    """Phase 26 (module docstring)."""
+    from benchmark.drivers.fits import port_scene
+    from blackhole_simulation_tpu_torch.ops import birth as bk
+    from blackhole_simulation_tpu_torch.parallel.train import (
+        init_opt_state,
+        make_ad_inverse_step,
+    )
+    from blackhole_simulation_tpu_torch.render.camera import (
+        camera_rays_u_plain,
+    )
+
+    t0 = time.perf_counter()
+    config = json.loads(Path("benchmark/configs/inverse_1080p.json")
+                        .read_text())
+    scene = port_scene(config, DEV)
+    cam = scene.camera
+    target = render_radiance(scene, device=DEV)
+    init = InverseParams.init(**config["init"], device=DEV)
+    step = make_ad_inverse_step(scene, None, 3e-2, pool=8, march_steps=64,
+                                clip=0.03, total_steps=20, device=DEV)
+    state = (init, init_opt_state(init))
+    step(state, target)
+    g_step = _recorded_ray_cotangent(step, state, target)
+    m = torch.tensor(1.0, device=DEV)
+    ids = torch.arange(cam.width * cam.height, device=DEV)
+    a, th = init.spin, init.theta_cam
+    plan, inputs = bk.plan_of(cam, m, a, ids, None, th)
+    n = plan.n
+    fwd_ms, out = kernel_time(lambda: bk.birth_kernel(plan, inputs), 20)
+    plain = lambda *xs, dtype=torch.float32: camera_rays_u_plain(
+        cam, xs[0], xs[1], pix_ids=ids, theta=xs[2], dtype=dtype)
+    with torch.no_grad():
+        want = plain(m, a, th)
+        plain_fwd_ms = timed(lambda: plain(m, a, th), 5)[0]
+    differ = int((~((out == want) | (out.isnan() & want.isnan()))).sum())
+    g_uniform = torch.rand((8, n), device=DEV, generator=torch.Generator(
+        DEV).manual_seed(26)) * 2.0 - 1.0
+    wanted = (True, True, True) + (False,) * 5
+    vjp_ms, grads = kernel_time(
+        lambda: bk.birth_vjp_kernel(plan, inputs, g_step, wanted), 20)
+    again = bk.birth_vjp_kernel(plan, inputs, g_step, wanted)
+    reproducible = all(torch.equal(x, y) for x, y in zip(grads[:3],
+                                                         again[:3]))
+
+    def auto(g, dtype):
+        leaves = [x.detach().to(dtype).requires_grad_(True)
+                  for x in (m, a, th)]
+        rows = plain(*leaves, dtype=dtype)
+        return torch.autograd.grad((rows * g.to(dtype)).sum(), leaves)
+
+    plain_fb_ms = timed(lambda: auto(g_step, torch.float32), 3)[0]
+    rel = {}
+    for name, g in (("step", g_step), ("uniform", g_uniform)):
+        kernel = bk.birth_vjp_kernel(plan, inputs, g, wanted)[:3]
+        twin = bk.birth_vjp_plain(plan, inputs, g)
+        twin = [twin[k] for k in ("m", "a", "theta")]
+        a32, a64 = auto(g, torch.float32), auto(g, torch.float64)
+        r = lambda x, y: [float(abs(float(u) - float(v)) / abs(float(v)))
+                          for u, v in zip(x, y)]
+        rel[name] = {"kernel_vs_autograd32": r(kernel, a32),
+                     "kernel_vs_autograd64": r(kernel, a64),
+                     "autograd32_vs_autograd64": r(a32, a64),
+                     "kernel_vs_twin": r(kernel, twin),
+                     "kernel": [float(x) for x in kernel],
+                     "autograd32": [float(x) for x in a32]}
+    fwd_bytes = n * (8 + 8 * 4)
+    vjp_bytes = n * (8 + 6 * 4)
+    # the operations a ray: ~40 forward, ~110 in the VJP (its forward
+    # again and the sweep): far below the bytes' bound either way
+    fwd_bound, fwd_by = bound(40 * n, fwd_bytes)
+    vjp_bound, vjp_by = bound(150 * n, vjp_bytes)
+    info = {
+        "rays": n, "forward_ms": fwd_ms, "vjp_ms": vjp_ms,
+        "forward_bound_ms": fwd_bound, "forward_bound_by": fwd_by,
+        "vjp_bound_ms": vjp_bound, "vjp_bound_by": vjp_by,
+        "plain_forward_ms": plain_fwd_ms,
+        "plain_forward_backward_ms": plain_fb_ms,
+        "forward_values_differing": differ, "vjp_rel": rel,
+        "vjp_reproducible": reproducible,
+        "registers_spill": {e: [r_, s_] for e, r_, s_ in
+                            kbuild.ptxas_usage("birth.cu")},
+        "seconds": time.perf_counter() - t0,
+    }
+    print(f"phase 26 (birth): {json.dumps(info)}")
+    if differ or not reproducible or max(
+            rel["step"]["kernel_vs_autograd32"]) > BIRTH_VJP_BAR:
+        raise AssertionError(f"birth kernels against the plain: {info}")
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5252,7 +5376,7 @@ def main() -> int:
     only = sys.argv[1:]
     if only:
         named = {"composite": phase_composite,
-                 "inverse_fit": phase_inverse_fit}
+                 "inverse_fit": phase_inverse_fit, "birth": phase_birth}
         for name in only:
             named[name]()
         print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s total")
@@ -5298,6 +5422,7 @@ def main() -> int:
     print(f"float64 render: {json.dumps(f64)}")
     phase_composite()
     phase_inverse_fit()
+    phase_birth()
     for e in nrs_kernels + tile_kernels + [live_kernel]:
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
     kernels_line += (nrs_kernels + tile_kernels + [live_kernel] + md_kernels

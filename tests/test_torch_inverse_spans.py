@@ -172,9 +172,9 @@ def test_stream_syncs_match_the_sync_debug_mode(cuda):
                      "operation" in str(w.message)]
             assert grew[-1] == len(syncs), [str(w.message) for w in caught]
         torch.cuda.synchronize()
-    # the mass, the camera's five numbers, the fit's two reads and five
-    # copies
-    assert grew == [13, 13, 13]
+    # the mass, the fit's two reads and five copies (the birth kernel takes
+    # the camera's numbers as launch arguments)
+    assert grew == [8, 8, 8]
 
 
 @pytest.mark.gpu
